@@ -3,37 +3,52 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line of numbers (any failure exits non-zero):
+It drives two serving paths: the dense GQA family (Yi-6B, slice 1: K1 and
+K2) and GLM-5's MLA + MoE path (slice 2: K3 and K4).  Phases, each printing
+lines of numbers (any failure exits non-zero):
 
   build    compile the hand-written CUDA kernels from ``src/repro_torch/csrc``
-           with nvcc for sm_90a into ``build/`` (cached by source hash);
+           with nvcc for sm_90a into ``build/`` (cached by source hash), one
+           nvcc per source, all started together;
   kernels  K1 (paged decode) and K2 (span prefill) against their plain
            PyTorch versions at Yi-6B shapes (KVH 4, G 8, d 128) and a
            gemma2-like shape (KVH 4, G 2, d 256, window 64, softcap 50),
            block sizes 16 and 8, fp32 (atol 1e-4) and bf16 (atol 2e-2, one
            bf16 ulp at unit scale plus summation order), on ragged rows:
            a trash row of length 0, length 1, block boundaries, a span
-           starting mid-block, shuffled tables;
-  timing   each kernel, its plain version and one PyTorch library call
+           starting mid-block, shuffled tables; then K3 (absorbed-MLA
+           decode) and K4 (MLA span prefill) the same way at GLM-5 shapes
+           (H 64, kv_lora 512, rope 64) and at H 16, with fp32 q_lat and
+           the pools and q_rope in fp32 or bf16;
+  timing   K3/K4's registers, spills, shared memory and CTAs resident on
+           an SM, as the CUDA runtime reports them; then
+           each kernel, its plain version and one PyTorch library call
            (scaled_dot_product_attention over the KV gathered and its heads
            repeated once, before the timed loop; timed here only, the port
            never calls it) at the serve phase's shapes, with the least time
            the card could take (bytes over 3.35 TB/s or flops over 989
            TFLOP/s, whichever is larger); at these shapes each kernel is
            also held against its plain version, in bf16 and in fp32, with
-           the tolerances above scaled by min(1, max|plain|);
+           the tolerances above scaled by min(1, max|plain|); K3 and K4
+           at GLM-5's serve shapes (the library call there is SDPA over
+           q = [q_lat | q_rope], k = [c | kr] and v = c, the latent
+           gathered and expanded to the 64 heads before the timed loop);
   parity   Yi-6B at full width with 2 layers in fp32: the port's
            ContinuousEngine (mid-flight admission, a shared prefix with a
            radix hit and a COW fork, chunked prefill) gives the same greedy
            tokens as the ServingEngine oracle, wherever the top-2 logit
-           margin is at least 1e-3 (prompts without one are skipped);
+           margin is at least 1e-3 (prompts without one are skipped); then
+           the same for GLM-5 at full width with 2 layers (1 dense-MLP MLA
+           layer + 1 MLA + MoE layer with all 256 experts) in fp32, ~49 GB;
   serve    Yi-6B at full width and depth (32 layers, dsa=None) in bf16 on a
            2 GiB pool: 8 requests of 32..1024 prompt tokens, half sharing a
-           system prefix, prefill_chunk 256.  The kernels' launch counters
-           are set to 0 just before and read just after this run.
-
-  profile  8 decode-only steps of the full model at 8 rows, timed and then
-           traced with torch.profiler: device busy share, top kernels.
+           system prefix, prefill_chunk 256; then GLM-5 at full width with
+           4 layers (3 dense-MLP MLA layers + 1 MLA + MoE layer, dsa=None,
+           mtp=None; ~25.8 GB of bf16 weights) on the same request mix.
+           Each path's kernels' launch counters are set to 0 just before
+           and read just after its run;
+  profile  8 decode-only steps of each served model at 8 rows, timed and
+           then traced with torch.profiler: device busy share, top kernels.
 
 Then it prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a GPU, or
@@ -59,6 +74,24 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 def _log(phase: str, **nums) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in nums.items()),
           flush=True)
+
+
+def path_kernels(cfg):
+    """The (decode, prefill) kernel wrappers a config's serving path runs:
+    K3/K4 for MLA attention, K1/K2 for GQA."""
+    from repro_torch.kernels.paged_attention import kernel as KD
+    from repro_torch.kernels.paged_attention import prefill as KP
+    if cfg.attention_type == "mla":
+        return KD.paged_decode_mla, KP.paged_prefill_mla
+    return KD.paged_decode_gqa, KP.paged_prefill_gqa
+
+
+def _free() -> None:
+    """Release what the last phase left on the card before the next one."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -165,6 +198,84 @@ def check_kernels(device="cuda") -> dict:
                 _log("kernels", shape=name, block_size=bs,
                      dtype=str(dtype).split(".")[1], k1_max_abs_err=err,
                      k2_max_abs_err=err2, tol=tol)
+    return worst
+
+
+def _latent_pool(gen, nb, bs, lora, rope, dtype, device, layers=1):
+    import torch
+    c = torch.randn((layers * nb, bs, lora), generator=gen,
+                    device=device).to(dtype)
+    kr = torch.randn((layers * nb, bs, rope), generator=gen,
+                     device=device).to(dtype)
+    return c, kr
+
+
+def _mla_queries(gen, B, rows, lora, rope, dtype, device):
+    """q_lat in fp32 (the absorbed query is built in fp32), q_rope in the
+    pools' dtype."""
+    import torch
+    q_lat = torch.randn((B, rows, lora), generator=gen, device=device)
+    q_rope = torch.randn((B, rows, rope), generator=gen,
+                         device=device).to(dtype)
+    return q_lat, q_rope
+
+
+def check_mla_kernels(device="cuda") -> dict:
+    """K3/K4 vs plain on ragged rows at GLM-5 shapes (H 64) and H 16;
+    returns the max error per kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_attention import kernel as K3
+    from repro_torch.kernels.paged_attention import prefill as K4
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    worst = {"paged_decode_mla": 0.0, "paged_prefill_mla": 0.0}
+    L, R, scale = 512, 64, 192 ** -0.5
+    for H in (64, 16):
+        for bs in (16, 8):
+            mb = 12
+            for dtype in (torch.float32, torch.bfloat16):
+                # decode: trash row (len 0), 1 token, block edges, deep row
+                lens = [0, 1, bs - 1, bs, 2 * bs + 3, mb * bs - 1]
+                B = len(lens)
+                live = [0] + [l // bs + 1 for l in lens[1:]]
+                trash = sum(live)
+                c, kr = _latent_pool(gen, trash + 1, bs, L, R, dtype, device)
+                tables = torch.from_numpy(
+                    _tables(rng, B, mb, trash, live)).to(device)
+                sl = torch.tensor(lens, dtype=torch.int32, device=device)
+                ql, qr = _mla_queries(gen, B, H, L, R, dtype, device)
+                err = _hold(f"K3 H={H} bs={bs}",
+                            K3.paged_decode_mla(ql, qr, c, kr, tables, sl,
+                                                scale=scale),
+                            K3.paged_decode_mla_plain(ql, qr, c, kr, tables,
+                                                      sl, scale=scale),
+                            dtype)
+                worst["paged_decode_mla"] = max(worst["paged_decode_mla"],
+                                                err)
+                # span prefill: start 0, mid-block, at a block edge, last
+                S = 37
+                starts = [0, bs + bs // 2, 2 * bs, mb * bs - S]
+                B = len(starts)
+                live = [(s + S - 1) // bs + 1 for s in starts]
+                trash = sum(live)
+                c, kr = _latent_pool(gen, trash + 1, bs, L, R, dtype, device)
+                tables = torch.from_numpy(
+                    _tables(rng, B, mb, trash, live)).to(device)
+                st = torch.tensor(starts, dtype=torch.int32, device=device)
+                ql, qr = _mla_queries(gen, B, S * H, L, R, dtype, device)
+                err2 = _hold(f"K4 H={H} bs={bs}",
+                             K4.paged_prefill_mla(ql, qr, c, kr, tables, st,
+                                                  heads=H, scale=scale),
+                             K4.paged_prefill_mla_plain(ql, qr, c, kr,
+                                                        tables, st, heads=H,
+                                                        scale=scale),
+                             dtype)
+                worst["paged_prefill_mla"] = max(worst["paged_prefill_mla"],
+                                                 err2)
+                _log("kernels", shape=f"mla_h{H}", block_size=bs,
+                     dtype=str(dtype).split(".")[1], k3_max_abs_err=err,
+                     k4_max_abs_err=err2, tol=TOL[str(dtype).split(".")[1]])
     return worst
 
 
@@ -300,6 +411,13 @@ def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
         max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
         shape=f"B=1 S={S} start={start}")
     del kp, vp
+    _bounds(out)
+    return out
+
+
+def _bounds(out: dict) -> None:
+    """Each kernel's least time on the card (bytes over 3.35 TB/s or flops
+    over 989 TFLOP/s, whichever is larger), logged with its times."""
     for name, r in out.items():
         t_bytes = r["bytes"] / H100_BYTES_PER_S * 1e3
         t_ops = r["flops"] / H100_FLOPS["bfloat16"] * 1e3
@@ -310,7 +428,157 @@ def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
              bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              max_abs_err=r["max_abs_err"],
              max_abs_err_fp32=r["max_abs_err_fp32"], dtype="bfloat16")
+
+
+def _latent_views(c, kr, tables, T, heads):
+    """The library call's inputs: the latent of ``tables``' rows gathered
+    once, k = [c | kr] and v = c, expanded to ``heads`` and made
+    contiguous (B, heads, T, ·), outside the timed loop."""
+    from repro_torch.core.paging import paged_view
+    import torch
+    cv = paged_view(c, tables)[:, :T]
+    k = torch.cat([cv, paged_view(kr, tables)[:, :T]], dim=-1)
+    B = k.shape[0]
+    return (k[:, None].expand(B, heads, *k.shape[1:]).contiguous(),
+            cv[:, None].expand(B, heads, *cv.shape[1:]).contiguous())
+
+
+def time_mla_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
+                     device="cuda", reps=64, layers=16) -> dict:
+    """K3 and K4 at the GLM-5 serve phase's shapes, each launch on another
+    layer of a ``layers``-deep layer-major latent pool (604 MB at 16
+    layers of 2049 blocks: larger than the 50 MB L2 cache, as a deeper
+    model's pool would be), so the latent comes from device memory."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import kernel as K3
+    from repro_torch.kernels.paged_attention import prefill as K4
+    dtype = torch.bfloat16
+    m = cfg.mla
+    H, Lr, R = cfg.num_heads, m.kv_lora_dim, m.qk_rope_dim
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    item = 2
+    stride = num_blocks + 1
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    c, kr = _latent_pool(gen, stride, bs, Lr, R, dtype, device, layers=layers)
+    mb = (max(max(serve_lens), max_prompt) + chunk) // bs + 1
+    it = iter(range(10 ** 9))
+    out = {}
+
+    # K3: one decode step's batch
+    lens = np.asarray(serve_lens, np.int32)
+    B = len(lens)
+    live = [int(l) // bs + 1 for l in lens]
+    tables = torch.from_numpy(_tables(rng, B, mb, num_blocks, live)).to(device)
+    per_layer = [tables + g * stride for g in range(layers)]
+    sl = torch.from_numpy(lens).to(device)
+    ql, qr = _mla_queries(gen, B, H, Lr, R, dtype, device)
+    ms = cuda_ms(lambda: K3.paged_decode_mla(
+        ql, qr, c, kr, per_layer[next(it) % layers], sl, scale=scale), reps)
+    plain_ms = cuda_ms(lambda: K3.paged_decode_mla_plain(
+        ql, qr, c, kr, per_layer[next(it) % layers], sl, scale=scale),
+        max(4, reps // 8))
+    T = int(lens.max()) + 1
+    views = [_latent_views(c, kr, t, T, H) for t in per_layer[:2]]
+    mask = (torch.arange(T, device=device)[None, :]
+            <= sl[:, None].long())[:, None, None, :]
+    qs = torch.cat([ql.to(dtype), qr], dim=-1)[:, :, None]   # (B, H, 1, ·)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, *views[next(it) % 2], attn_mask=mask, scale=scale), reps)
+    del views
+    _free()
+    # held against the plain version at these shapes, in bf16 and in fp32
+    # (layer 0's blocks: the tables without a layer offset)
+    err = _hold("K3 serve-shape",
+                K3.paged_decode_mla(ql, qr, c, kr, tables, sl, scale=scale),
+                K3.paged_decode_mla_plain(ql, qr, c, kr, tables, sl,
+                                          scale=scale), dtype)
+    c32, kr32, qr32 = c[:stride].float(), kr[:stride].float(), qr.float()
+    err32 = _hold("K3 serve-shape",
+                  K3.paged_decode_mla(ql, qr32, c32, kr32, tables, sl,
+                                      scale=scale),
+                  K3.paged_decode_mla_plain(ql, qr32, c32, kr32, tables, sl,
+                                            scale=scale), torch.float32)
+    toks = int((lens + 1).sum())
+    nbytes = toks * (Lr + R) * item + ql.numel() * 4 + qr.numel() * item \
+        + B * H * Lr * 4 + tables.numel() * 4 + B * 4
+    flops = H * toks * (2 * (Lr + R) + 2 * Lr)
+    out["paged_decode_mla"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+        max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
+        shape=f"B={B} H={H} lens={lens.tolist()}")
+
+    # K4: the last prefill chunk of the longest prompt
+    start = ((max_prompt - 1) // chunk) * chunk
+    S = max_prompt - start
+    live = [(start + S - 1) // bs + 1]
+    tables = torch.from_numpy(_tables(rng, 1, mb, num_blocks, live)).to(device)
+    per_layer = [tables + g * stride for g in range(layers)]
+    st = torch.tensor([start], dtype=torch.int32, device=device)
+    ql, qr = _mla_queries(gen, 1, S * H, Lr, R, dtype, device)
+    ms = cuda_ms(lambda: K4.paged_prefill_mla(
+        ql, qr, c, kr, per_layer[next(it) % layers], st, heads=H,
+        scale=scale), reps // 4)
+    plain_ms = cuda_ms(lambda: K4.paged_prefill_mla_plain(
+        ql, qr, c, kr, per_layer[next(it) % layers], st, heads=H,
+        scale=scale), 4)
+    T = start + S
+    views = [_latent_views(c, kr, t, T, H) for t in per_layer[:2]]
+    qpos = start + torch.arange(S, device=device)
+    mask = torch.arange(T, device=device)[None, :] <= qpos[:, None]
+    qs = torch.cat([ql.to(dtype), qr], dim=-1).reshape(1, S, H, Lr + R) \
+        .transpose(1, 2)                                      # (1, H, S, ·)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, *views[next(it) % 2], attn_mask=mask, scale=scale), reps // 4)
+    del views, qs
+    _free()
+    err = _hold("K4 serve-shape",
+                K4.paged_prefill_mla(ql, qr, c, kr, tables, st, heads=H,
+                                     scale=scale),
+                K4.paged_prefill_mla_plain(ql, qr, c, kr, tables, st,
+                                           heads=H, scale=scale), dtype)
+    qr32 = qr.float()
+    err32 = _hold("K4 serve-shape",
+                  K4.paged_prefill_mla(ql, qr32, c32, kr32, tables, st,
+                                       heads=H, scale=scale),
+                  K4.paged_prefill_mla_plain(ql, qr32, c32, kr32, tables,
+                                             st, heads=H, scale=scale),
+                  torch.float32)
+    keys = sum(start + i + 1 for i in range(S))
+    nbytes = T * (Lr + R) * item + ql.numel() * 4 + qr.numel() * item \
+        + S * H * Lr * 4 + tables.numel() * 4 + 4
+    flops = H * keys * (2 * (Lr + R) + 2 * Lr)
+    out["paged_prefill_mla"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+        max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
+        shape=f"B=1 H={H} S={S} start={start}")
+    del c, kr, c32, kr32
+    _bounds(out)
     return out
+
+
+def mla_resources(cfg, batch) -> None:
+    """K3/K4's registers, spills, shared memory and CTAs resident on one SM,
+    as the CUDA runtime reports them for each dtype, beside the CTAs K3
+    launches for one decode step of ``batch`` rows and the card's SMs."""
+    import ctypes
+    import torch
+    from repro_torch.kernels.paged_attention.kernel import (_DTYPE_CODE,
+                                                            cuda_entry)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        r = (ctypes.c_int * 5)()
+        err = cuda_entry("paged_mla_resources")(
+            _DTYPE_CODE[dtype], cfg.mla.kv_lora_dim, cfg.mla.qk_rope_dim, r)
+        if err != 0:
+            raise RuntimeError(f"paged_mla_resources failed: cudaError {err}")
+        regs, spill, smem, ctas, rows = list(r)
+        _log("resources", kernel="paged_mla", dtype=str(dtype).split(".")[1],
+             registers=regs, spill_bytes=spill, smem_bytes=smem,
+             ctas_per_sm=ctas, rows_per_cta=rows,
+             decode_ctas=batch * -(-cfg.num_heads // rows), sms=sms)
 
 
 # ---------------------------------------------------------------------------
@@ -334,8 +602,6 @@ def _margins_ok(model, prompt, out, device, min_margin=1e-3) -> bool:
 def parity(cfg, device="cuda", block_size=16, chunk=64) -> dict:
     import numpy as np
     import torch
-    from repro_torch.kernels.paged_attention import kernel as K1
-    from repro_torch.kernels.paged_attention import prefill as K2
     from repro_torch.models import transformer as T
     from repro_torch.serving import ContinuousEngine, Request, ServingEngine
     model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
@@ -349,7 +615,8 @@ def parity(cfg, device="cuda", block_size=16, chunk=64) -> dict:
     prompts.append(rng.integers(3, V, size=90))
     prompts = [p.astype(np.int32) for p in prompts]
     max_new = [6, 9, 4, 8, 5, 7]
-    k1, k2 = K1.paged_decode_gqa.launches, K2.paged_prefill_gqa.launches
+    k_dec, k_pre = path_kernels(cfg)
+    n_dec, n_pre = k_dec.launches, k_pre.launches
     eng = ContinuousEngine(cfg, model, max_batch=3, block_size=block_size,
                            num_blocks=128, max_len=256, prefill_chunk=chunk,
                            device=device)
@@ -375,15 +642,16 @@ def parity(cfg, device="cuda", block_size=16, chunk=64) -> dict:
             or not any(s > 0 for s in st["admit_steps"]):
         raise AssertionError(f"parity: workload missed radix/COW/mid-flight "
                              f"admission: {dict(st)}")
-    if K1.paged_decode_gqa.launches == k1 and device != "cpu":
-        raise AssertionError("parity: K1 never launched")
-    if K2.paged_prefill_gqa.launches == k2 and device != "cpu":
-        raise AssertionError("parity: K2 never launched")
+    if device != "cpu" and (k_dec.launches == n_dec
+                            or k_pre.launches == n_pre):
+        raise AssertionError(f"parity: {k_dec.__name__} or "
+                             f"{k_pre.__name__} never launched")
     res = dict(compared=compared, skipped=skipped,
                cached_tokens=st["cached_tokens"], cow_forks=st["cow_forks"],
                chunk_steps=st["chunk_steps"])
-    _log("parity", layers=cfg.num_layers, d_model=cfg.d_model,
-         dtype="float32", **res)
+    _log("parity", model=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, experts=cfg.num_experts, dtype="float32",
+         **res)
     del eng, oracle, model
     return res
 
@@ -396,8 +664,6 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
           chunk=256, max_new=32, shared=200) -> dict:
     import numpy as np
     import torch
-    from repro_torch.kernels.paged_attention import kernel as K1
-    from repro_torch.kernels.paged_attention import prefill as K2
     from repro_torch.models import transformer as T
     from repro_torch.serving import ContinuousEngine, Request
     t0 = time.perf_counter()
@@ -427,8 +693,9 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
     eng.stats = {}
     eng.registry.reset_histograms("engine")
     reqs = [Request(prompt=p, max_new=max_new) for p in prompts]
-    K1.paged_decode_gqa.launches = 0           # counts of the main path
-    K2.paged_prefill_gqa.launches = 0
+    k_dec, k_pre = path_kernels(cfg)
+    k_dec.launches = 0                         # counts of the main path
+    k_pre.launches = 0
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
@@ -443,8 +710,8 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
             decode_s += dt         # a step with no prefill work
             decode_toks += eng.stats["decode_tokens"] - before[2]
     wall = time.perf_counter() - t0
-    launches = {"paged_decode_gqa": K1.paged_decode_gqa.launches,
-                "paged_prefill_gqa": K2.paged_prefill_gqa.launches}
+    launches = {k_dec.__name__: k_dec.launches,
+                k_pre.__name__: k_pre.launches}
     for r in reqs:
         if r.status != "ok" or r.out is None or len(r.out) != max_new:
             raise AssertionError(f"serve: request {r.rid} ended "
@@ -455,8 +722,7 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
         for x in lv.values():
             if not torch.isfinite(x).all():
                 raise AssertionError("serve: non-finite value in the pool")
-    if device != "cpu" and (launches["paged_decode_gqa"] == 0
-                            or launches["paged_prefill_gqa"] == 0):
+    if device != "cpu" and 0 in launches.values():
         raise AssertionError(f"serve: a kernel never launched: {launches}")
     st = eng.stats
     lat = eng.latency_summary()
@@ -469,13 +735,13 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
         decode_tok_s=decode_toks / decode_s if decode_s else 0.0,
         decode_only_steps_s=decode_s,
         ttft_p50_ms=lat["ttft_ms"]["p50"], tpot_p50_ms=lat["tpot_ms"]["p50"],
-        k1_launches=launches["paged_decode_gqa"],
-        k2_launches=launches["paged_prefill_gqa"],
-        k1_per_step=launches["paged_decode_gqa"] / max(st["decode_steps"], 1),
-        k2_per_span=launches["paged_prefill_gqa"] / max(
-            st["chunk_steps"], 1))
-    _log("serve", layers=cfg.num_layers, d_model=cfg.d_model,
-         dtype="bfloat16", **res)
+        decode_kernel=k_dec.__name__, decode_launches=k_dec.launches,
+        prefill_kernel=k_pre.__name__, prefill_launches=k_pre.launches,
+        decode_launches_per_step=k_dec.launches / max(st["decode_steps"], 1),
+        prefill_launches_per_span=k_pre.launches / max(st["chunk_steps"], 1))
+    _log("serve", model=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, experts=cfg.num_experts, dtype="bfloat16",
+         **res)
     res["launches"] = launches
     return res
 
@@ -530,7 +796,7 @@ def profile_decode(cfg, device="cuda", steps=8, block_size=16,
                device_busy_ms_per_step=busy_us / steps / 1e3,
                device_busy_share=busy_us / 1e6 / wall,
                kernel_launches_per_step=sum(e.count for e in kernels) / steps)
-    _log("profile", **res)
+    _log("profile", model=cfg.name, layers=cfg.num_layers, **res)
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         _log("profile.kernel", name=repr(e.key[:60]),
              device_ms_per_step=dev_us(e) / steps / 1e3,
@@ -558,38 +824,60 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention.kernel import LIBRARIES
 
     _log("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=repr(torch.cuda.get_device_name(0)),
          count=torch.cuda.device_count())
     t0 = time.perf_counter()
-    lib = build.build("paged_attention")
-    build.load("paged_attention")
-    _log("build", seconds=time.perf_counter() - t0, library=lib.name)
+    libs = build.build_all(LIBRARIES)     # one nvcc per source, in parallel
+    for name in LIBRARIES:
+        build.load(name)
+    _log("build", seconds=time.perf_counter() - t0,
+         libraries=",".join(p.name for p in libs))
 
     worst = check_kernels()
-    yi = get_config("yi_6b").replace(dsa=None)
+    worst.update(check_mla_kernels())
     prompt_lens = [1024, 32, 777, 150, 512, 64, 900, 300]
-    timing = time_kernels(yi, [n + 16 for n in prompt_lens],
-                          max(prompt_lens), bs=16, num_blocks=2048, chunk=256)
-    torch.cuda.empty_cache()
+    serve_lens = [n + 16 for n in prompt_lens]
+    yi = get_config("yi_6b").replace(dsa=None)
+    # GLM-5 at full width, depth cut 78 -> 4 (3 dense-MLP + 1 MoE layer)
+    glm5 = get_config("glm5_744b").replace(dsa=None, mtp=None, num_layers=4)
+    mla_resources(glm5, len(prompt_lens))
+    timing = time_kernels(yi, serve_lens, max(prompt_lens), bs=16,
+                          num_blocks=2048, chunk=256)
+    _free()
+    timing.update(time_mla_kernels(glm5, serve_lens, max(prompt_lens),
+                                   bs=16, num_blocks=2048, chunk=256))
+    _free()
     parity(yi.replace(num_layers=2))
-    torch.cuda.empty_cache()
-    res = serve(yi, prompt_lens)
-    torch.cuda.empty_cache()
+    _free()
+    parity(glm5.replace(num_layers=2, first_k_dense=1))   # ~49 GB in fp32
+    _free()
+    launches = serve(yi, prompt_lens)["launches"]
+    _free()
+    launches.update(serve(glm5, prompt_lens)["launches"])
+    _free()
     profile_decode(yi)
+    _free()
+    profile_decode(glm5)
 
-    source = "src/repro_torch/csrc/paged_attention.cu"
+    sources = {"gqa": "src/repro_torch/csrc/paged_attention.cu",
+               "mla": "src/repro_torch/csrc/paged_mla.cu"}
     replaces = {"paged_decode_gqa":
                 "src/repro/kernels/paged_attention/kernel.py:109",
                 "paged_prefill_gqa":
-                "src/repro/kernels/paged_attention/prefill.py:112"}
+                "src/repro/kernels/paged_attention/prefill.py:112",
+                "paged_decode_mla":
+                "src/repro/kernels/paged_attention/kernel.py:198",
+                "paged_prefill_mla":
+                "src/repro/kernels/paged_attention/prefill.py:203"}
     kernels = []
-    for name in ("paged_decode_gqa", "paged_prefill_gqa"):
+    for name, where in replaces.items():
         t = timing[name]
         kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces[name],
-            launches=res["launches"][name],
+            name=name, route="cuda", source=sources[name[-3:]],
+            replaces=where, launches=launches[name],
             max_abs_err=max(t["max_abs_err"], worst[name]),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))

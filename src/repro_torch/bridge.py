@@ -6,9 +6,11 @@ of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)`` of
 ``Transformer`` holding the same weights.  The reference stacks every
 pattern slot ``slotJ`` on a leading ``n_groups`` axis for its layer scan;
 layer ``first_k_dense + g*P + j`` of the port takes index ``g`` of
-``slotJ``.  Both packages keep matrices as (in, out) and compute
-``x @ W``, so no weight is transposed.  This module never imports JAX: it
-only reads numpy arrays.
+``slotJ`` (an MoE slot's expert tensors are ``(n_groups, E, in, out)``, so
+index ``g`` leaves the port's ``(E, in, out)``).  MLA and MoE leaves keep
+the reference's names.  Both packages keep matrices as (in, out) and
+compute ``x @ W``, so no weight is transposed.  This module never imports
+JAX: it only reads numpy arrays.
 """
 from __future__ import annotations
 

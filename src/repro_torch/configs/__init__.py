@@ -1,10 +1,11 @@
 """Architecture config registry, trimmed to what the port serves.
 
 ``get_config(arch_id)`` returns the full published config,
-``get_smoke_config(arch_id)`` the reduced same-family variant.  Both
-registered models carry the reference's DSA retrofit; the port serves them
-with ``.replace(dsa=None)`` (the DSA slice is not ported yet, and the
-model constructors reject a config that sets it).
+``get_smoke_config(arch_id)`` the reduced same-family variant.  Every
+registered model carries the reference's DSA retrofit (and GLM-5 its MTP
+head); the port serves them with ``.replace(dsa=None)`` (and
+``mtp=None``): the DSA and MTP slices are not ported yet, and the model
+constructors reject a config that sets either.
 """
 from __future__ import annotations
 
@@ -13,9 +14,10 @@ import importlib
 from repro_torch.configs.base import (DSAConfig, MLAConfig, MTPConfig,
                                       ModelConfig)
 
-ARCH_IDS = ["gemma2_2b", "yi_6b"]
+ARCH_IDS = ["gemma2_2b", "glm5_744b", "yi_6b"]
 
-_ALIASES = {"gemma2-2b": "gemma2_2b", "yi-6b": "yi_6b"}
+_ALIASES = {"gemma2-2b": "gemma2_2b", "glm-5-744b": "glm5_744b",
+            "yi-6b": "yi_6b"}
 
 
 def canonical(arch_id: str) -> str:

@@ -2,13 +2,14 @@
 
 ``ModelConfig`` keeps the reference's fields that the port reads, with the
 same names and defaults, plus the few that mark a part of a later slice
-(``dsa``, ``mla``, ``mtp``, ``attention_type``, ``num_experts``,
-``family``): the model constructors reject a config that sets one.  The
-reference's MoE details, SSM / hybrid / encoder / frontend fields and its
-implementation switches (``attn_impl``, ``scan_layers``, ``remat``, ...)
-are left out, so a setting the port cannot honour fails when the config
-is built instead of being ignored.  The training and workload dataclasses
-are not needed by the serving slice.
+(``dsa``, ``mtp``, ``family``): the model constructors reject a config
+that sets one.  The reference's expert-parallel switches
+(``moe_impl``, ``capacity_factor``: the mesh slice), SSM / hybrid /
+encoder / frontend fields and its implementation switches (``attn_impl``,
+``scan_layers``, ``remat``, ...) are left out, so a setting the port
+cannot honour fails when the config is built instead of being ignored.
+The training and workload dataclasses are not needed by the serving
+slice.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ class DSAConfig:
 
 @dataclass(frozen=True)
 class MLAConfig:
-    """Multi-latent attention dims (GLM-5 Table 10); MLA slice."""
+    """Multi-latent attention dims (GLM-5 Table 10)."""
     q_lora_dim: int = 2048
     kv_lora_dim: int = 512
     qk_rope_dim: int = 64
@@ -79,8 +80,13 @@ class ModelConfig:
     dsa: Optional[DSAConfig] = None
     mtp: Optional[MTPConfig] = None
 
-    num_experts: int = 0           # MoE is a later slice; rejected when set
-    first_k_dense: int = 0         # leading layers outside the pattern
+    # MoE (single device: routed top-k + shared experts)
+    num_experts: int = 0
+    experts_per_token: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0
+    first_k_dense: int = 0         # leading dense-MLP layers
+    router_aux_coef: float = 0.001
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:

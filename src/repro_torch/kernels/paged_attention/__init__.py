@@ -1,2 +1,3 @@
-"""Paged GQA attention: K1 decode (``kernel.py``), K2 span prefill
-(``prefill.py``), the gather oracle (``ref.py``) and dispatch (``ops.py``)."""
+"""Paged attention: K1/K3 decode (``kernel.py``: GQA, absorbed MLA), K2/K4
+span prefill (``prefill.py``), the gather oracles (``ref.py``) and
+dispatch (``ops.py``)."""

@@ -1,11 +1,14 @@
-"""K1: paged GQA flash-decode, hand-written for Hopper, and its plain version.
+"""K1 and K3: paged flash-decode, hand-written for Hopper, and their plain
+versions.
 
-Port of ``repro.kernels.paged_attention.kernel.paged_decode_gqa`` (the
-Pallas TPU kernel).  The CUDA kernel is in ``csrc/paged_attention.cu``
-(built by ``repro_torch.kernels.build``); ``paged_decode_gqa_plain`` is the
-same function in plain PyTorch — the counterpart of the reference's XLA
-twin ``ops._blocked_gqa``: a loop over live blocks with the same masks and
-the same fp32 online softmax.
+K1 ``paged_decode_gqa`` ports ``repro.kernels.paged_attention.kernel.
+paged_decode_gqa`` (GQA); K3 ``paged_decode_mla`` ports ``paged_decode_mla``
+(absorbed MLA over the latent pools).  The CUDA kernels are in
+``csrc/paged_attention.cu`` (K1, K2) and ``csrc/paged_mla.cu`` (K3, K4),
+built by ``repro_torch.kernels.build``; ``*_plain`` is the same function in
+plain PyTorch — the counterpart of the reference's XLA twins
+``ops._blocked_gqa`` / ``ops._blocked_mla``: a loop over live blocks with
+the same masks and the same fp32 online softmax.
 
 Addressing contract (as the reference): position ``p`` of row ``b`` lives
 at ``(tables[b, p // bs], p % bs)``; ``seq_lens[b]`` is the query's
@@ -13,9 +16,9 @@ position (its K/V were scattered before the call) and attention covers
 positions ``<= seq_lens[b]``; idle slots point at the trash block with
 length 0 and still get a finite output.
 
-``paged_decode_gqa`` chooses by the tensors' device: on the CPU it runs the
-plain version, on a CUDA device it launches the kernel or raises.  There
-is no fallback.  ``paged_decode_gqa.launches`` counts kernel launches.
+Each wrapper chooses by the tensors' device: on the CPU it runs the plain
+version, on a CUDA device it launches the kernel or raises.  There is no
+fallback.  ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -28,24 +31,41 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
+MLA_DIMS = ((512, 64),)          # (kv_lora, rope) the MLA kernels take
 BLOCK_SIZES = (8, 16, 32)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-_ARGTYPES = {
-    "paged_decode_gqa": [_I] * 3 + [_P] * 6 + [_I] * 5 + [_F, _F, _P],
-    "paged_prefill_gqa": [_I] * 3 + [_P] * 6 + [_I] * 6 + [_F, _F, _P],
+# entry point -> (csrc library, argument types)
+_ENTRIES = {
+    "paged_decode_gqa": ("paged_attention",
+                         [_I] * 3 + [_P] * 6 + [_I] * 5 + [_F, _F, _P]),
+    "paged_prefill_gqa": ("paged_attention",
+                          [_I] * 3 + [_P] * 6 + [_I] * 6 + [_F, _F, _P]),
+    "paged_decode_mla": ("paged_mla",
+                         [_I] * 4 + [_P] * 7 + [_I] * 3 + [_F, _P]),
+    "paged_prefill_mla": ("paged_mla",
+                          [_I] * 4 + [_P] * 7 + [_I] * 4 + [_F, _P]),
+    # registers, spill bytes, shared memory, CTAs an SM, rows a CTA
+    "paged_mla_resources": ("paged_mla", [_I] * 3 + [_P]),
 }
+LIBRARIES = sorted({lib for lib, _ in _ENTRIES.values()})
 
 
 @functools.lru_cache(maxsize=None)
 def cuda_entry(name: str):
-    """The C entry point ``name`` of the paged-attention library, with its
-    argument types declared (built at first use)."""
-    fn = getattr(build.load("paged_attention"), name)
-    fn.argtypes = _ARGTYPES[name]
+    """The C entry point ``name`` of its kernel library, with its argument
+    types declared (built at first use)."""
+    lib, argtypes = _ENTRIES[name]
+    fn = getattr(build.load(lib), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def check_cuda_args(q, k_pool, v_pool, block_tables, positions) -> None:
@@ -142,10 +162,138 @@ def paged_decode_gqa(q: torch.Tensor, k_pool: torch.Tensor,
         seq_lens.data_ptr(), out.data_ptr(), B, KVH, G,
         block_tables.shape[1], window, softcap, d ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"paged_decode_gqa launch failed: cudaError {err}")
+    _check_launch("paged_decode_gqa", err)
     paged_decode_gqa.launches += 1
     return out
 
 
 paged_decode_gqa.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: absorbed MLA decode over the latent pools
+# ---------------------------------------------------------------------------
+
+def check_cuda_mla_args(q_lat, q_rope, c_pool, kr_pool, block_tables,
+                        positions) -> None:
+    """Raise on anything the CUDA MLA kernels (K3, K4) do not take.  q_lat
+    (B, R, lora) fp32; q_rope (B, R, rope) in the pools' dtype; pools
+    (nb, bs, ·)."""
+    tensors = (q_lat, q_rope, c_pool, kr_pool, block_tables, positions)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"paged MLA kernel runs on CUDA tensors, got "
+                         f"{q_lat.device}")
+    if any(t.device != q_lat.device for t in tensors):
+        raise ValueError("paged MLA: all tensors must be on one device")
+    if q_lat.dtype != torch.float32:
+        raise TypeError(f"paged MLA: q_lat must be float32 (the absorbed "
+                        f"query is built in fp32), got {q_lat.dtype}")
+    if c_pool.dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged MLA kernel takes float32 or bfloat16 pools, "
+                        f"got {c_pool.dtype}")
+    if q_rope.dtype != c_pool.dtype or kr_pool.dtype != c_pool.dtype:
+        raise TypeError("paged MLA: q_rope and the pools must share a dtype")
+    if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
+        raise TypeError("paged MLA: tables and positions must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged MLA kernel needs contiguous tensors")
+    if any(t.data_ptr() % 16 for t in tensors[:4]):
+        raise ValueError("paged MLA kernel needs 16-byte aligned tensors")
+    L, R = q_lat.shape[-1], q_rope.shape[-1]
+    if (L, R) not in MLA_DIMS:
+        raise ValueError(f"paged MLA kernel: (kv_lora, rope) {(L, R)} not "
+                         f"in {MLA_DIMS}")
+    if c_pool.shape[1] not in BLOCK_SIZES:
+        raise ValueError(f"paged MLA kernel: block size {c_pool.shape[1]} "
+                         f"not in {BLOCK_SIZES}")
+    if c_pool.shape[:2] != kr_pool.shape[:2] or c_pool.shape[-1] != L \
+            or kr_pool.shape[-1] != R or q_rope.shape[:2] != q_lat.shape[:2]:
+        raise ValueError(f"paged MLA: pools {tuple(c_pool.shape)}, "
+                         f"{tuple(kr_pool.shape)} do not match q "
+                         f"{tuple(q_lat.shape)}, {tuple(q_rope.shape)}")
+    if block_tables.shape[0] != q_lat.shape[0] \
+            or positions.shape != (q_lat.shape[0],):
+        raise ValueError("paged MLA: tables/positions batch mismatch")
+
+
+def mla_fold_blocks(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                    c_pool: torch.Tensor, kr_pool: torch.Tensor,
+                    block_tables: torch.Tensor, q_pos: torch.Tensor,
+                    n_live: int, scale: float) -> torch.Tensor:
+    """The plain MLA fold shared by K3 and K4: q_lat (B, R, lora), q_rope
+    (B, R, rope), q_pos (B, R) each row's position; the first ``n_live``
+    blocks of every row folded with an fp32 online softmax -> (B, R, lora)
+    fp32, ``probs · c``."""
+    B, Rn, L = q_lat.shape
+    bs = c_pool.shape[1]
+    ql, qr = q_lat.float(), q_rope.float()
+    m = torch.full((B, Rn), NEG_INF, dtype=torch.float32,
+                   device=q_lat.device)
+    l = torch.zeros((B, Rn), dtype=torch.float32, device=q_lat.device)
+    acc = torch.zeros((B, Rn, L), dtype=torch.float32, device=q_lat.device)
+    offs = torch.arange(bs, device=q_lat.device)
+    for j in range(n_live):
+        blk = block_tables[:, j].long()
+        cb = c_pool[blk].float()                       # (B, bs, lora)
+        krb = kr_pool[blk].float()
+        s = (torch.einsum("brl,btl->brt", ql, cb)
+             + torch.einsum("brk,btk->brt", qr, krb)) * scale
+        k_pos = j * bs + offs
+        mask = k_pos[None, None, :] <= q_pos[:, :, None]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("brt,btl->brl", p, cb)
+        m = m_new
+    return acc / l.clamp_min(1e-20)[..., None]
+
+
+def paged_decode_mla_plain(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                           c_pool: torch.Tensor, kr_pool: torch.Tensor,
+                           block_tables: torch.Tensor,
+                           seq_lens: torch.Tensor, *,
+                           scale: float) -> torch.Tensor:
+    """Plain PyTorch K3 (counterpart of the reference's ``ops._blocked_mla``):
+    q_lat (B, H, lora); q_rope (B, H, rope); pools (nb, bs, ·) -> (B, H,
+    lora) fp32, folding blocks up to the batch's longest row."""
+    lens = seq_lens.long()
+    n_live = int(lens.max()) // c_pool.shape[1] + 1
+    q_pos = lens[:, None].expand(q_lat.shape[:2])
+    return mla_fold_blocks(q_lat, q_rope, c_pool, kr_pool, block_tables,
+                           q_pos, n_live, scale)
+
+
+def paged_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                     c_pool: torch.Tensor, kr_pool: torch.Tensor,
+                     block_tables: torch.Tensor, seq_lens: torch.Tensor, *,
+                     scale: float) -> torch.Tensor:
+    """K3: q_lat (B, H, lora) fp32 = q_nope·W^UK; q_rope (B, H, rope);
+    c_pool (nb, bs, lora); kr_pool (nb, bs, rope); tables (B, mb) int32;
+    seq_lens (B,) int32 -> out_lat (B, H, lora) fp32 (``probs · c``; the
+    caller applies W^UV and W^O).  ``scale`` is (qk_nope + qk_rope)^-1/2.
+
+    CPU tensors run ``paged_decode_mla_plain``; CUDA tensors launch the
+    Hopper kernel on the current stream (one CTA per 16-head tile and
+    row)."""
+    if q_lat.device.type == "cpu":
+        return paged_decode_mla_plain(q_lat, q_rope, c_pool, kr_pool,
+                                      block_tables, seq_lens, scale=scale)
+    check_cuda_mla_args(q_lat, q_rope, c_pool, kr_pool, block_tables,
+                        seq_lens)
+    B, H, L = q_lat.shape
+    out = torch.empty_like(q_lat)
+    err = cuda_entry("paged_decode_mla")(
+        _DTYPE_CODE[c_pool.dtype], L, q_rope.shape[-1], c_pool.shape[1],
+        q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
+        kr_pool.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
+        out.data_ptr(), B, H, block_tables.shape[1], scale,
+        torch.cuda.current_stream(q_lat.device).cuda_stream)
+    _check_launch("paged_decode_mla", err)
+    paged_decode_mla.launches += 1
+    return out
+
+
+paged_decode_mla.launches = 0

@@ -1,15 +1,16 @@
-"""Dispatch for paged GQA attention: in-place block reads vs gather.
+"""Dispatch for paged attention: in-place block reads vs gather.
 
-Port of the reference's ``kernels/paged_attention/ops.py`` (GQA part).  The
-model calls these with its own layout, q (B, S, H, d) with head
-``h = kvh*G + g``, and they pack the queries the way the kernels take them.
+Port of the reference's ``kernels/paged_attention/ops.py`` (GQA and MLA
+parts).  The model calls these with its own layout, q (B, S, H, ·) — GQA
+head ``h = kvh*G + g`` — and they pack the queries the way the kernels
+take them.
 
 ``impl`` takes two values:
 
-* ``"kernel"`` (default) — read KV blocks in place: K1 for a decode step,
-  K2 for a span.  The tensor's device decides how: a CUDA tensor launches
-  the hand-written kernel (or raises), a CPU tensor runs the kernel's plain
-  PyTorch version.  No switch puts the plain version on the card.
+* ``"kernel"`` (default) — read KV blocks in place: K1 (GQA) / K3 (MLA)
+  for a decode step, K2 / K4 for a span.  The tensor's device decides
+  how: a CUDA tensor launches the hand-written kernel (or raises), a CPU
+  tensor runs the kernel's plain PyTorch version.  No switch puts the plain version on the card.
 * ``"ref"`` — the ``paged_view`` gather oracle (``ref.py``), explicitly.
 """
 from __future__ import annotations
@@ -75,3 +76,43 @@ def paged_gqa_prefill(q: torch.Tensor, k_pool: torch.Tensor,
                                window=window, softcap=softcap)
     return out.reshape(B, KVH, S, G, d).permute(0, 2, 1, 3, 4) \
         .reshape(B, S, H, d)
+
+
+def paged_mla_attend(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                     c_pool: torch.Tensor, kr_pool: torch.Tensor,
+                     block_tables: torch.Tensor, seq_lens: torch.Tensor, *,
+                     scale: float, impl: str = "kernel") -> torch.Tensor:
+    """Absorbed MLA decode ``probs · c`` over the paged latent cache.
+
+    q_lat/q_rope (B, 1, H, ·) -> out_lat (B, 1, H, lora) fp32; the caller
+    applies W^UV / W^O (see ``repro_torch.core.mla.mla_decode_paged``)."""
+    if check_impl(impl) == "ref":
+        return _ref.paged_mla_reference(q_lat, q_rope, c_pool, kr_pool,
+                                        block_tables, seq_lens, scale=scale)
+    out = _k.paged_decode_mla(q_lat[:, 0].contiguous(),
+                              q_rope[:, 0].contiguous(), c_pool, kr_pool,
+                              block_tables,
+                              seq_lens.to(torch.int32).contiguous(),
+                              scale=scale)
+    return out[:, None]
+
+
+def paged_mla_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                      c_pool: torch.Tensor, kr_pool: torch.Tensor,
+                      block_tables: torch.Tensor, starts: torch.Tensor, *,
+                      scale: float, impl: str = "kernel") -> torch.Tensor:
+    """Absorbed MLA span prefill ``probs · c`` over the paged latent cache.
+
+    q_lat/q_rope (B, S, H, ·) -> out_lat (B, S, H, lora) fp32; packed rows
+    ``i*H + h`` as the reference packs them."""
+    if check_impl(impl) == "ref":
+        return _ref.paged_mla_prefill_reference(
+            q_lat, q_rope, c_pool, kr_pool, block_tables, starts,
+            scale=scale)
+    B, S, H, L = q_lat.shape
+    out = _p.paged_prefill_mla(
+        q_lat.reshape(B, S * H, L).contiguous(),
+        q_rope.reshape(B, S * H, q_rope.shape[-1]).contiguous(),
+        c_pool, kr_pool, block_tables, starts.to(torch.int32).contiguous(),
+        heads=H, scale=scale)
+    return out.reshape(B, S, H, L)

@@ -1,29 +1,33 @@
-"""K2: paged GQA span prefill, hand-written for Hopper, and its plain version.
+"""K2 and K4: paged span prefill, hand-written for Hopper, and their plain
+versions.
 
-Port of ``repro.kernels.paged_attention.prefill.paged_prefill_gqa`` (the
-Pallas TPU kernel).  A span is S consecutive tokens of one sequence; query
-``i`` of row ``b`` sits at absolute position ``starts[b] + i`` and its K/V
-were scattered through the table before the call.  Attention is causal by
-absolute position: full attention to the cached prefix, causal within the
-span, optionally windowed and soft-capped.
+K2 ``paged_prefill_gqa`` ports ``repro.kernels.paged_attention.prefill.
+paged_prefill_gqa`` (GQA); K4 ``paged_prefill_mla`` ports
+``paged_prefill_mla`` (absorbed MLA over the latent pools).  A span is S
+consecutive tokens of one sequence; query ``i`` of row ``b`` sits at
+absolute position ``starts[b] + i`` and its K/V were scattered through the
+table before the call.  Attention is causal by absolute position: full
+attention to the cached prefix, causal within the span (K2 optionally
+windowed and soft-capped).
 
-Queries come packed as in the reference: (B, KVH, S*G, d), row ``i*G + g``
-is group query ``g`` of span token ``i``.  The CUDA kernel
-(``csrc/paged_attention.cu``) tiles those rows — the Pallas kernel keeps the
-whole span resident in VMEM, which no Hopper shared memory holds — and each
-tile stops at the block of its own last query position.
+Queries come packed as in the reference: K2 takes (B, KVH, S*G, d), row
+``i*G + g`` is group query ``g`` of span token ``i``; K4 takes (B, S*H, ·),
+row ``i*H + h`` is head ``h`` of span token ``i``.  The CUDA kernels
+(``csrc/paged_attention.cu``, ``csrc/paged_mla.cu``) tile those rows — the
+Pallas kernels keep the whole span resident in VMEM, which no Hopper shared
+memory holds — and each tile stops at the block of its own last query
+position.
 
-``paged_prefill_gqa`` runs the plain version on CPU tensors and launches the
-kernel on CUDA tensors, or raises; ``paged_prefill_gqa.launches`` counts
-kernel launches.
+Each wrapper runs the plain version on CPU tensors and launches the kernel
+on CUDA tensors, or raises; ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.paged_attention.kernel import (NEG_INF, _DTYPE_CODE,
-                                                        check_cuda_args,
-                                                        cuda_entry)
+from repro_torch.kernels.paged_attention.kernel import (
+    NEG_INF, _DTYPE_CODE, _check_launch, check_cuda_args, check_cuda_mla_args,
+    cuda_entry, mla_fold_blocks)
 
 
 def paged_prefill_gqa_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -95,10 +99,66 @@ def paged_prefill_gqa(q: torch.Tensor, k_pool: torch.Tensor,
         starts.data_ptr(), out.data_ptr(), B, KVH, SG, groups,
         block_tables.shape[1], window, softcap, d ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"paged_prefill_gqa launch failed: cudaError {err}")
+    _check_launch("paged_prefill_gqa", err)
     paged_prefill_gqa.launches += 1
     return out
 
 
 paged_prefill_gqa.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: absorbed MLA span prefill over the latent pools
+# ---------------------------------------------------------------------------
+
+def _span_rows(q_lat: torch.Tensor, heads: int) -> int:
+    SH = q_lat.shape[1]
+    if SH % heads:
+        raise ValueError(f"packed rows {SH} not a multiple of heads {heads}")
+    return SH // heads
+
+
+def paged_prefill_mla_plain(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                            c_pool: torch.Tensor, kr_pool: torch.Tensor,
+                            block_tables: torch.Tensor, starts: torch.Tensor,
+                            *, heads: int, scale: float) -> torch.Tensor:
+    """Plain PyTorch K4 (counterpart of the reference's
+    ``ops._blocked_mla_prefill``): q_lat (B, S*H, lora) packed -> (B, S*H,
+    lora) fp32, folding blocks up to the batch's last span position."""
+    S = _span_rows(q_lat, heads)
+    st = starts.long()
+    q_pos = st[:, None] + torch.arange(q_lat.shape[1],
+                                       device=q_lat.device)[None] // heads
+    n_live = (int(st.max()) + S - 1) // c_pool.shape[1] + 1
+    return mla_fold_blocks(q_lat, q_rope, c_pool, kr_pool, block_tables,
+                           q_pos, n_live, scale)
+
+
+def paged_prefill_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                      c_pool: torch.Tensor, kr_pool: torch.Tensor,
+                      block_tables: torch.Tensor, starts: torch.Tensor, *,
+                      heads: int, scale: float) -> torch.Tensor:
+    """K4: q_lat (B, S*H, lora) fp32 packed (row i*H + h = head h of span
+    token i); q_rope (B, S*H, rope); c/kr pools (nb, bs, ·); tables (B, mb)
+    int32; starts (B,) int32 -> out_lat (B, S*H, lora) fp32 (``probs · c``;
+    the caller applies W^UV and W^O)."""
+    if q_lat.device.type == "cpu":
+        return paged_prefill_mla_plain(q_lat, q_rope, c_pool, kr_pool,
+                                       block_tables, starts, heads=heads,
+                                       scale=scale)
+    check_cuda_mla_args(q_lat, q_rope, c_pool, kr_pool, block_tables, starts)
+    _span_rows(q_lat, heads)
+    B, SH, L = q_lat.shape
+    out = torch.empty_like(q_lat)
+    err = cuda_entry("paged_prefill_mla")(
+        _DTYPE_CODE[c_pool.dtype], L, q_rope.shape[-1], c_pool.shape[1],
+        q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
+        kr_pool.data_ptr(), block_tables.data_ptr(), starts.data_ptr(),
+        out.data_ptr(), B, SH, heads, block_tables.shape[1], scale,
+        torch.cuda.current_stream(q_lat.device).cuda_stream)
+    _check_launch("paged_prefill_mla", err)
+    paged_prefill_mla.launches += 1
+    return out
+
+
+paged_prefill_mla.launches = 0

@@ -1,17 +1,17 @@
-"""Gather-path oracle for the paged GQA kernels (port of the reference's
-``kernels/paged_attention/ref.py``, GQA part).
+"""Gather-path oracles for the paged GQA and MLA kernels (port of the
+reference's ``kernels/paged_attention/ref.py``, GQA and MLA parts).
 
 Materialize the padded per-sequence view with ``paged_view``, then run the
-dense attention math over it; view index == absolute position, so the plain
-causal mask by position is exact.  ``impl="ref"`` selects this path
-explicitly, on any device.
+dense / absorbed attention math over it; view index == absolute position,
+so the plain causal mask by position is exact.  ``impl="ref"`` selects
+this path explicitly, on any device.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.paging import paged_view
-from repro_torch.layers.attention import dense_attention
+from repro_torch.layers.attention import NEG_INF, dense_attention
 
 
 def paged_gqa_reference(q: torch.Tensor, k_pool: torch.Tensor,
@@ -44,3 +44,54 @@ def paged_gqa_prefill_reference(q: torch.Tensor, k_pool: torch.Tensor,
     q_positions = starts.long()[:, None] + torch.arange(S, device=q.device)
     return dense_attention(q, k_full, v_full, q_positions, kv_positions,
                            causal=True, window=window, softcap=softcap)
+
+
+def absorbed_probs_c(q_lat, q_rope, c_view, kr_view, mask, scale):
+    """The absorbed-MLA attention term shared with ``core/mla.py``:
+    softmax((q_lat·c + q_rope·kr)·scale, masked) · c, all in fp32:
+    q (B, S, H, ·), views (B, T, ·), mask (B, S, T) -> (B, S, H, lora)."""
+    cf = c_view.float()
+    scores = (torch.einsum("bshl,btl->bsht", q_lat.float(), cf)
+              + torch.einsum("bshr,btr->bsht", q_rope.float(),
+                             kr_view.float())) * scale
+    scores = torch.where(mask[:, :, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bsht,btl->bshl", probs, cf)
+
+
+def paged_mla_reference(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                        c_pool: torch.Tensor, kr_pool: torch.Tensor,
+                        block_tables: torch.Tensor, seq_lens: torch.Tensor,
+                        *, scale: float) -> torch.Tensor:
+    """Absorbed MQA scores/PV over the gathered latent view.
+
+    q_lat (B, 1, H, lora); q_rope (B, 1, H, rope) -> out_lat
+    (B, 1, H, lora) fp32 — the ``probs · c`` term of
+    ``repro_torch.core.mla._absorbed_attend``."""
+    c_view = paged_view(c_pool, block_tables)            # (B, T, lora)
+    kr_view = paged_view(kr_pool, block_tables)
+    T = c_view.shape[1]
+    kv_pos = torch.arange(T, device=q_lat.device)
+    mask = kv_pos[None, None, :] <= seq_lens.long()[:, None, None]
+    return absorbed_probs_c(q_lat, q_rope, c_view, kr_view, mask, scale)
+
+
+def paged_mla_prefill_reference(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                                c_pool: torch.Tensor, kr_pool: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                starts: torch.Tensor, *,
+                                scale: float) -> torch.Tensor:
+    """Absorbed MQA span scores/PV over the gathered latent view.
+
+    q_lat (B, S, H, lora); q_rope (B, S, H, rope); starts (B,) -> out_lat
+    (B, S, H, lora) fp32, under the span's causal mask (query i of row b
+    sits at position ``starts[b] + i``)."""
+    S = q_lat.shape[1]
+    c_view = paged_view(c_pool, block_tables)
+    kr_view = paged_view(kr_pool, block_tables)
+    T = c_view.shape[1]
+    kv_pos = torch.arange(T, device=q_lat.device)
+    q_pos = starts.long()[:, None] + torch.arange(S, device=q_lat.device)
+    mask = kv_pos[None, None, :] <= q_pos[:, :, None]   # (B, S, T)
+    return absorbed_probs_c(q_lat, q_rope, c_view, kr_view, mask, scale)

@@ -7,7 +7,7 @@ from types import ModuleType
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "moe": transformer}
 
 
 def get_model(cfg: ModelConfig) -> ModuleType:

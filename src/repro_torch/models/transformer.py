@@ -1,23 +1,26 @@
-"""Decoder-only GQA transformer: the dense family of the reference.
+"""Decoder-only transformer: the dense and MoE families of the reference.
 
 Port of ``repro.models.transformer`` for configurations the port serves
-exactly as the reference does: GQA attention, dense MLP (swiglu / relu2 /
-gelu), ``first_k_dense`` layers, the ``attention_pattern`` layer groups
+exactly as the reference does: GQA or MLA attention, dense MLP (swiglu /
+relu2 / gelu) or routed MoE FFN (the pattern layers, after
+``first_k_dense`` dense-MLP layers), the ``attention_pattern`` layer groups
 (local sliding-window / global), attention and final logit softcaps, tied
 (gemma-scaled) embeddings and ``qk_norm``.  A config that needs a part not
-ported yet — DSA, MLA, MoE, MTP, another family — raises
-``NotImplementedError`` instead of quietly running dense attention.
+ported yet — DSA, MTP, another family — raises ``NotImplementedError``
+instead of quietly running without it.
 
 Layout differences from the reference:
 
 * parameters live in one ``Block`` module per layer (the reference stacks
   each pattern slot on a leading ``n_groups`` axis for ``lax.scan``; the
   weight bridge unstacks), and the layer loop is a Python loop;
-* caches keep the reference's layout exactly: ``init_cache`` stacks each
-  slot as ``(n_groups, B, T, KVH, d)``, ``init_paged_cache`` builds the
-  LAYER-MAJOR flat pools ``(n_groups*num_blocks, bs, KVH, d)`` that group
-  ``g`` addresses with ``block_tables + g*num_blocks``, so pools and block
-  tables compare one to one with the reference's;
+* caches keep the reference's layout exactly: GQA layers hold ``k``/``v``
+  leaves, MLA layers the latent ``c`` (kv_lora) and ``kr`` (rope) leaves;
+  ``init_cache`` stacks each slot as ``(n_groups, B, T, *f)``,
+  ``init_paged_cache`` builds the LAYER-MAJOR flat pools
+  ``(n_groups*num_blocks, bs, *f)`` that group ``g`` addresses with
+  ``block_tables + g*num_blocks``, so pools and block tables compare one to
+  one with the reference's;
 * caches are updated IN PLACE (the reference donates them to its jits);
   ``prefill`` / ``decode_step`` return the same cache object they were
   given.
@@ -30,6 +33,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import mla as mla_mod
 from repro_torch.core.paging import paged_update
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import (paged_gqa_attend,
@@ -37,28 +41,37 @@ from repro_torch.kernels.paged_attention.ops import (paged_gqa_attend,
 from repro_torch.layers.attention import GQA, dense_attention, gqa_qkv
 from repro_torch.layers.common import (MLP, Embedding, _empty, embed,
                                        logits_from_hidden, rmsnorm)
+from repro_torch.layers.moe import ROUTER_SCALE, MoE, apply_moe
 
-NORMS = ("attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm")
+NORMS = ("attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm",
+         "q_a_norm", "kv_a_norm")
+FAMILIES = ("dense", "moe")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every config this slice cannot serve as the reference does."""
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (the port serves the "
-            f"dense GQA family)")
+            f"family {cfg.family!r} is not ported yet (the port serves "
+            f"{FAMILIES})")
     if cfg.dsa is not None:
         raise NotImplementedError(
             "DSA sparse attention is the DSA slice, not ported yet; serve "
             "cfg.replace(dsa=None) for the dense architecture")
-    if cfg.attention_type == "mla":
-        raise NotImplementedError("MLA attention is the MLA slice, not "
-                                  "ported yet")
-    if cfg.num_experts > 0:
-        raise NotImplementedError("MoE FFNs are not ported yet")
     if cfg.mtp is not None:
         raise NotImplementedError("the MTP head is the MTP slice, not "
-                                  "ported yet")
+                                  "ported yet; serve cfg.replace(mtp=None)")
+    if cfg.attention_type not in ("gqa", "mla"):
+        raise NotImplementedError(
+            f"attention_type {cfg.attention_type!r} is not ported")
+    if cfg.attention_type == "mla" and cfg.mla is None:
+        raise ValueError("attention_type='mla' needs cfg.mla")
+    if cfg.num_experts > 0 and not (
+            0 < cfg.experts_per_token <= cfg.num_experts
+            and cfg.moe_d_ff > 0):
+        raise ValueError(f"MoE config: top-{cfg.experts_per_token} of "
+                         f"{cfg.num_experts} experts, moe_d_ff "
+                         f"{cfg.moe_d_ff}")
     P = len(cfg.attention_pattern)
     if (cfg.num_layers - cfg.first_k_dense) % P:
         raise ValueError(f"{cfg.num_layers - cfg.first_k_dense} pattern "
@@ -77,17 +90,22 @@ def n_groups(cfg: ModelConfig) -> int:
 
 
 class Block(nn.Module):
-    """One decoder layer: pre-norm attention + pre-norm MLP."""
+    """One decoder layer: pre-norm attention (GQA or MLA) + pre-norm FFN
+    (MLP, or MoE in the pattern layers of an MoE config)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, *, device=None,
-                 dtype=None):
+    def __init__(self, cfg: ModelConfig, kind: str, moe: bool, *,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.kind = kind
         self.attn_norm = _empty(cfg.d_model, **kw)
-        self.attn = GQA(cfg, **kw)
+        self.attn = mla_mod.MLA(cfg, **kw) if cfg.attention_type == "mla" \
+            else GQA(cfg, **kw)
         self.mlp_norm = _empty(cfg.d_model, **kw)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation, **kw)
+        if moe:
+            self.moe = MoE(cfg, **kw)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation, **kw)
 
 
 class Transformer(nn.Module):
@@ -101,7 +119,8 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embed = Embedding(cfg, **kw)
         self.layers = nn.ModuleList(
-            Block(cfg, layer_kind(cfg, i), **kw)
+            Block(cfg, layer_kind(cfg, i),
+                  cfg.num_experts > 0 and i >= cfg.first_k_dense, **kw)
             for i in range(cfg.num_layers))
         self.final_norm = _empty(cfg.d_model, **kw)
 
@@ -116,11 +135,16 @@ class Transformer(nn.Module):
 def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
          device=None, dtype=torch.float32) -> Transformer:
     """Random model with the reference's scales (``sharding/rules.py``):
-    matrices normal * fan_in^-1/2 with fan_in the input dim, the embedding
-    normal * 1.0, norms at 1.  ``generator`` must live on ``device``; by
-    default one seeded with 0 is made there.  The numbers differ from the
-    reference's (a ``jax.random`` key is not a torch generator): carry JAX
-    weights over with ``repro_torch.bridge.from_jax_params``."""
+    tensors normal * shape[0]^-1/2 (the input dim of a matrix; the expert
+    count of a stacked (E, in, out) expert tensor, as the reference's
+    builder computes it), the embedding normal * 1.0, the MoE router
+    normal * 0.02 (its explicit ``scale=``), norms at 1.  Expert tensors
+    are drawn one expert at a time, so no fp32 temporary the size of a
+    whole (E, D, F) tensor is made.  ``generator`` must live on
+    ``device``; by default one seeded with 0 is made there.  The numbers
+    differ from the reference's (a ``jax.random`` key is not a torch
+    generator): carry JAX weights over with
+    ``repro_torch.bridge.from_jax_params``."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev, dtype=dtype)
     if generator is None:
@@ -131,9 +155,12 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             if leaf in NORMS:
                 p.fill_(1.0)
                 continue
-            scale = 1.0 if leaf == "embedding" else p.shape[0] ** -0.5
-            p.copy_(torch.randn(p.shape, generator=generator, device=dev,
-                                dtype=torch.float32) * scale)
+            scale = {"embedding": 1.0, "router": ROUTER_SCALE}.get(
+                leaf, p.shape[0] ** -0.5)
+            for part in (p.unbind(0) if p.ndim == 3 else (p,)):
+                part.copy_(torch.randn(part.shape, generator=generator,
+                                       device=dev, dtype=torch.float32)
+                           * scale)
     return model
 
 
@@ -141,17 +168,43 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # forward
 # ---------------------------------------------------------------------------
 
-def _attend(attn: GQA, h: torch.Tensor, cfg: ModelConfig,
+def _attend_mla(attn: mla_mod.MLA, h: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, layer_cache, cache_index,
+                block_tables: Optional[torch.Tensor],
+                paged_impl: str) -> torch.Tensor:
+    """The MLA branch of the reference's ``_attend``: MHA-style without a
+    cache, absorbed over the latent cache with one (paged: K3 for a step,
+    K4 for a span).  The indexer keys of an MLA+DSA layer are the DSA
+    slice's."""
+    if layer_cache is None:
+        return mla_mod.apply_mla(attn, h, cfg, positions=positions)
+    if block_tables is not None:
+        out, _, _ = mla_mod.mla_decode_paged(
+            attn, h, cfg, c_pool=layer_cache["c"], kr_pool=layer_cache["kr"],
+            block_tables=block_tables, positions=positions, impl=paged_impl)
+    else:
+        out, _, _ = mla_mod.mla_decode_absorbed(
+            attn, h, cfg, c_cache=layer_cache["c"],
+            kr_cache=layer_cache["kr"], cache_index=cache_index,
+            positions=positions)
+    return out
+
+
+def _attend(attn, h: torch.Tensor, cfg: ModelConfig,
             positions: torch.Tensor, kind: str, layer_cache,
             cache_index, block_tables: Optional[torch.Tensor],
             paged_impl: str) -> torch.Tensor:
     """Attention sub-layer on normed hidden h.
 
-    ``layer_cache`` is None (no cache), a contiguous ``(k, v)`` pair of
-    (B, T, KVH, d) views, or, with ``block_tables`` (this layer's table,
-    already offset into the layer-major pool), the flat ``(k_pool,
-    v_pool)``.  Paged single-token steps read KV in place through K1, spans
-    through K2 (``paged_impl='ref'``: the gather oracle)."""
+    ``layer_cache`` is None (no cache), this layer's dict of contiguous
+    (B, T, *f) leaves, or, with ``block_tables`` (this layer's table,
+    already offset into the layer-major pool), the dict of flat pools.
+    Paged single-token steps read the cache in place through K1 (GQA) / K3
+    (MLA), spans through K2 / K4 (``paged_impl='ref'``: the gather
+    oracle)."""
+    if cfg.attention_type == "mla":
+        return _attend_mla(attn, h, cfg, positions, layer_cache, cache_index,
+                           block_tables, paged_impl)
     B, S, _ = h.shape
     window = cfg.sliding_window if kind == "local" else 0
     softcap = cfg.attn_logit_softcap
@@ -160,14 +213,14 @@ def _attend(attn: GQA, h: torch.Tensor, cfg: ModelConfig,
         out = dense_attention(q, k, v, positions, positions, causal=True,
                               window=window, softcap=softcap)
     elif block_tables is not None:
-        k_pool, v_pool = layer_cache
+        k_pool, v_pool = layer_cache["k"], layer_cache["v"]
         paged_update(k_pool, k, block_tables, positions)
         paged_update(v_pool, v, block_tables, positions)
         attend = paged_gqa_attend if S == 1 else paged_gqa_prefill
         out = attend(q, k_pool, v_pool, block_tables, positions[:, 0],
                      window=window, softcap=softcap, impl=paged_impl)
     else:
-        k_cache, v_cache = layer_cache
+        k_cache, v_cache = layer_cache["k"], layer_cache["v"]
         k_cache[:, cache_index:cache_index + S] = k.to(k_cache.dtype)
         v_cache[:, cache_index:cache_index + S] = v.to(v_cache.dtype)
         T = k_cache.shape[1]
@@ -186,26 +239,31 @@ def apply_block(block: Block, h: torch.Tensor, cfg: ModelConfig,
     h = h + _attend(block.attn, a_in, cfg, positions, block.kind,
                     layer_cache, cache_index, block_tables, paged_impl)
     m_in = rmsnorm(h, block.mlp_norm, cfg.norm_eps)
-    return h + block.mlp(m_in)
+    if hasattr(block, "moe"):
+        m_out, _ = apply_moe(block.moe, m_in, cfg)   # aux: training only
+    else:
+        m_out = block.mlp(m_in)
+    return h + m_out
 
 
 def _layer_caches(cfg: ModelConfig, cache: dict, block_tables):
-    """Per layer: (cache pair, block table) in layer order.  Paged slot
-    pools are layer-major: group g reads rows ``g*stride + table``."""
+    """Per layer: (dict of cache leaves, block table) in layer order, for
+    any leaf names (``k``/``v`` or ``c``/``kr``).  Contiguous slot leaves
+    are indexed at the layer's group; paged slot pools are layer-major:
+    group g reads rows ``g*stride + table``."""
     P = len(cfg.attention_pattern)
     ng = n_groups(cfg)
     for i in range(cfg.num_layers):
         if i < cfg.first_k_dense:
-            c = cache[f"dense_{i}"]
-            yield (c["k"], c["v"]), block_tables
+            yield cache[f"dense_{i}"], block_tables
             continue
         g, j = divmod(i - cfg.first_k_dense, P)
         c = cache[f"slot{j}"]
         if block_tables is None:
-            yield (c["k"][g], c["v"][g]), None
+            yield {name: leaf[g] for name, leaf in c.items()}, None
         else:
-            stride = c["k"].shape[0] // ng
-            yield (c["k"], c["v"]), block_tables + g * stride
+            stride = next(iter(c.values())).shape[0] // ng
+            yield c, block_tables + g * stride
 
 
 def hidden(model: Transformer, tokens: torch.Tensor, *,
@@ -247,36 +305,46 @@ def logits(model: Transformer, tokens: torch.Tensor, **kw) -> torch.Tensor:
 # KV caches
 # ---------------------------------------------------------------------------
 
-def _kv(shape, dtype, device) -> Dict[str, torch.Tensor]:
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+def _layer_leaves(cfg: ModelConfig, lead: tuple, dtype,
+                  device) -> Dict[str, torch.Tensor]:
+    """One layer's cache leaves with leading dims ``lead``: the latent
+    ``c`` (kv_lora) and ``kr`` (rope) for MLA, ``k``/``v`` (KVH, d) for
+    GQA."""
+    if cfg.attention_type == "mla":
+        m = cfg.mla
+        feats = {"c": (m.kv_lora_dim,), "kr": (m.qk_rope_dim,)}
+    else:
+        f = (cfg.num_kv_heads, cfg.head_dim)
+        feats = {"k": f, "v": f}
+    return {name: torch.zeros(lead + f, dtype=dtype, device=device)
+            for name, f in feats.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device=None) -> dict:
-    """Contiguous cache: ``dense_i`` (B, T, KVH, d) leaves and stacked
-    ``slotJ`` (n_groups, B, T, KVH, d) leaves, as the reference."""
+    """Contiguous cache: ``dense_i`` (B, T, *f) leaves and stacked
+    ``slotJ`` (n_groups, B, T, *f) leaves, as the reference."""
     dev = resolve_device(device)
-    f = (cfg.num_kv_heads, cfg.head_dim)
-    cache = {f"dense_{i}": _kv((batch, max_len) + f, dtype, dev)
+    cache = {f"dense_{i}": _layer_leaves(cfg, (batch, max_len), dtype, dev)
              for i in range(cfg.first_k_dense)}
     for j in range(len(cfg.attention_pattern)):
-        cache[f"slot{j}"] = _kv((n_groups(cfg), batch, max_len) + f, dtype,
-                                dev)
+        cache[f"slot{j}"] = _layer_leaves(
+            cfg, (n_groups(cfg), batch, max_len), dtype, dev)
     return cache
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      dtype=torch.float32, device=None) -> dict:
-    """Block-pool KV cache: ``dense_i`` flat pools (num_blocks, bs, KVH, d)
-    and LAYER-MAJOR ``slotJ`` pools (n_groups*num_blocks, bs, KVH, d);
-    callers pass per-layer block ids in [0, num_blocks)."""
+    """Block-pool cache: ``dense_i`` flat pools (num_blocks, bs, *f) and
+    LAYER-MAJOR ``slotJ`` pools (n_groups*num_blocks, bs, *f); callers
+    pass per-layer block ids in [0, num_blocks)."""
     dev = resolve_device(device)
-    f = (block_size, cfg.num_kv_heads, cfg.head_dim)
-    cache = {f"dense_{i}": _kv((num_blocks,) + f, dtype, dev)
+    cache = {f"dense_{i}": _layer_leaves(cfg, (num_blocks, block_size),
+                                         dtype, dev)
              for i in range(cfg.first_k_dense)}
     for j in range(len(cfg.attention_pattern)):
-        cache[f"slot{j}"] = _kv((n_groups(cfg) * num_blocks,) + f, dtype, dev)
+        cache[f"slot{j}"] = _layer_leaves(
+            cfg, (n_groups(cfg) * num_blocks, block_size), dtype, dev)
     return cache
 
 

@@ -4,10 +4,15 @@ Configs: the JAX serving tests' ``_tiny_gqa`` (Yi-6B family, 2 layers), the
 gemma2 smoke config with ``dsa=None`` and ``sliding_window=16`` (local /
 global layers whose window really masks at these lengths, attention and
 final softcaps, tied gemma-scaled embeddings, gelu), and a variant with
-``qk_norm``, ``first_k_dense=1``, G=2 and relu2.  Logits agree with rtol
-1e-4 in fp32 on contiguous and on paged caches (shuffled tables, a second
-span at ``starts > 0`` starting mid-block), and the paged pools hold the
-same values as the reference's, in the same layer-major layout.
+``qk_norm``, ``first_k_dense=1``, G=2 and relu2; the GLM-5 smoke MLA
+geometry without experts (``mla``: latent ``c``/``kr`` caches, absorbed
+decode through K3/K4's plain versions), and the GLM-5 smoke MLA + MoE config
+(``glm5_moe``: one dense-MLP MLA layer, then an MLA layer with 4 routed
+experts top-2 plus a shared expert), both with ``dsa=None, mtp=None``.
+Logits agree with rtol 1e-4 in fp32 on contiguous and on paged caches
+(shuffled tables, a second span at ``starts > 0`` starting mid-block), and
+the paged pools hold the same values as the reference's, in the same
+layer-major layout.
 """
 import dataclasses
 import functools
@@ -30,6 +35,11 @@ RTOL, ATOL = 1e-4, 1e-5
 
 
 def _cfg(name):
+    if name in ("mla", "glm5_moe"):
+        glm5 = get_smoke_config("glm5_744b").replace(dsa=None, mtp=None,
+                                                     moe_impl="dense")
+        return glm5 if name == "glm5_moe" else glm5.replace(
+            num_experts=0, num_shared_experts=0)
     if name == "gemma2":
         return get_smoke_config("gemma2_2b").replace(dsa=None,
                                                      sliding_window=16)
@@ -47,7 +57,8 @@ def port_cfg(jcfg):
                          for f in dataclasses.fields(PortConfig)})
 
 
-@pytest.fixture(scope="module", params=["tiny_gqa", "gemma2", "qknorm_fk"])
+@pytest.fixture(scope="module",
+                params=["tiny_gqa", "gemma2", "qknorm_fk", "mla", "glm5_moe"])
 def pair(request):
     jcfg = _cfg(request.param)
     params, _ = get_model(jcfg).init(jax.random.key(0), jcfg)
@@ -77,10 +88,13 @@ def test_bridge_round_trip(pair):
             g, j = divmod(i - jcfg.first_k_dense, P)
             src = params_np[f"slot{j}"]
         pick = (lambda a: a) if g is None else (lambda a: a[g])
-        np.testing.assert_array_equal(blk.attn.wq.numpy(),
-                                      pick(src["attn"]["wq"]))
-        np.testing.assert_array_equal(blk.mlp.w_down.numpy(),
-                                      pick(src["mlp"]["w_down"]))
+        wq = "wq_a" if jcfg.attention_type == "mla" else "wq"
+        ffn = "moe" if hasattr(blk, "moe") else "mlp"
+        assert ffn in src                 # MoE exactly where the reference
+        np.testing.assert_array_equal(getattr(blk.attn, wq).numpy(),
+                                      pick(src["attn"][wq]))
+        np.testing.assert_array_equal(getattr(blk, ffn).w_down.numpy(),
+                                      pick(src[ffn]["w_down"]))
         np.testing.assert_array_equal(blk.attn_norm.numpy(),
                                       pick(src["attn_norm"]))
     np.testing.assert_array_equal(model.embed.embedding.numpy(),
@@ -174,14 +188,27 @@ def test_paged_spans_and_decode_match_jax(pair, impl):
 def test_models_reject_configs_they_cannot_serve():
     base = port_cfg(_cfg("tiny_gqa"))
     from repro_torch.configs.base import DSAConfig, MLAConfig, MTPConfig
+    mla = base.replace(attention_type="mla",
+                       mla=MLAConfig(q_lora_dim=32, kv_lora_dim=16,
+                                     qk_rope_dim=8, qk_nope_dim=16,
+                                     v_head_dim=16))
+    moe = base.replace(family="moe", num_experts=4, experts_per_token=2,
+                       moe_d_ff=32, num_shared_experts=1, first_k_dense=1)
+    # served now: MLA attention, MoE FFNs, and both together
+    for cfg in (mla, moe, mla.replace(family="moe", num_experts=4,
+                                      experts_per_token=2, moe_d_ff=32)):
+        T.init(cfg, device="cpu")
     bad = [base.replace(dsa=DSAConfig()),
-           base.replace(attention_type="mla", mla=MLAConfig()),
-           base.replace(num_experts=4),
+           mla.replace(dsa=DSAConfig()),
+           moe.replace(dsa=DSAConfig()),
            base.replace(mtp=MTPConfig()),
-           base.replace(family="moe")]
+           moe.replace(mtp=MTPConfig()),
+           base.replace(family="hybrid")]
     for cfg in bad:
         with pytest.raises(NotImplementedError):
             T.init(cfg, device="cpu")
+    with pytest.raises(ValueError):               # a router with no top-k
+        T.init(base.replace(num_experts=4), device="cpu")
     from repro_torch.models import get_model as port_get_model
     with pytest.raises(NotImplementedError):
         port_get_model(base.replace(family="ssm"))

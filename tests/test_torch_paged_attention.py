@@ -1,4 +1,6 @@
-"""PyTorch port, kernels K1/K2: plain versions vs the JAX Pallas kernels.
+"""PyTorch port, kernels K1/K2: plain versions vs the JAX Pallas kernels
+(K3/K4's are in ``test_torch_mla.py``); the CUDA kernels K1-K4 vs their
+plain versions on the card.
 
 The port's plain PyTorch K1 (``paged_decode_gqa_plain``) and K2
 (``paged_prefill_gqa_plain``) — what the kernel wrappers run on CPU
@@ -6,7 +8,7 @@ tensors — are held against the reference's Pallas kernels in interpret
 mode and against both packages' gather oracles, on the same numpy-seeded
 inputs in fp32: ragged lengths (0 = trash row, 1, bs-1, bs, deep), shuffled
 tables, spans starting mid-block, window and softcap.  Tolerance atol 1e-5
-(fp32, different summation order).  The ``cuda`` case holds the CUDA
+(fp32, different summation order).  The ``cuda`` cases hold the CUDA
 kernels against the plain versions on the card; the JAX package is
 imported only by the cases that need it, so this file also runs where JAX
 is not installed (the GPU machine:
@@ -18,8 +20,10 @@ import pytest
 import torch
 
 from repro_torch.kernels.paged_attention import kernel as K1
+from repro_torch.kernels.paged_attention import kernel as K3
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention import prefill as K2
+from repro_torch.kernels.paged_attention import prefill as K4
 from repro_torch.kernels.paged_attention import ref as tref
 
 ATOL = 1e-5
@@ -153,3 +157,39 @@ def test_cuda_kernels_match_plain(dtype, tol):
         want = K2.paged_prefill_gqa_plain(q, kp, vp, tables, st, groups=G,
                                           window=window, softcap=softcap)
         assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bs", [8, 16])
+def test_cuda_mla_kernels_match_plain(dtype, tol, bs):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    # the MLA kernels take (kv_lora, rope) = (512, 64); H = 20 leaves a
+    # ragged last 16-row tile
+    H, L, R, S, mb = 20, 512, 64, 5, 4
+    rng = np.random.default_rng(6)
+    nb = B * mb + 1
+    c = torch.from_numpy(rng.standard_normal((nb, bs, L), np.float32))
+    kr = torch.from_numpy(rng.standard_normal((nb, bs, R), np.float32))
+    tables = rng.permutation(nb - 1)[:B * mb].reshape(B, mb).astype(np.int32)
+    tables[0] = nb - 1                                   # trash row
+    lens = np.asarray([0, 1, bs - 1, bs, mb * bs - 1], np.int32)
+    starts = np.asarray([0, bs - 1, bs + 3, 2, mb * bs - S], np.int32)
+    c, kr = c.cuda().to(dtype), kr.cuda().to(dtype)
+    tables = torch.from_numpy(tables).cuda()
+    scale = 192 ** -0.5
+    for rows, pos, k_fn, p_fn, kw in (
+            (H, lens, K3.paged_decode_mla, K3.paged_decode_mla_plain, {}),
+            (S * H, starts, K4.paged_prefill_mla, K4.paged_prefill_mla_plain,
+             {"heads": H})):
+        q_lat = torch.from_numpy(
+            rng.standard_normal((B, rows, L), np.float32)).cuda()
+        q_rope = torch.from_numpy(
+            rng.standard_normal((B, rows, R), np.float32)).cuda().to(dtype)
+        p = torch.from_numpy(pos).cuda()
+        got = k_fn(q_lat, q_rope, c, kr, tables, p, scale=scale, **kw)
+        want = p_fn(q_lat, q_rope, c, kr, tables, p, scale=scale, **kw)
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= tol

@@ -10,6 +10,10 @@
   lengths with mid-flight admission, a radix hit with a COW fork, whole
   and chunked prefill.  Token equality across frameworks is claimed only
   where the top-2 logit margin (teacher-forced) is at least 1e-4.
+* The same for the MLA family (the JAX serving tests' ``_family_cfg("mla")``
+  — GLM-5 smoke MLA geometry, one dense-MLP layer first — with
+  ``dsa=None``) and for its variant with 4 routed experts top-2 plus a
+  shared expert: latent ``c``/``kr`` pools, COW forks that copy both.
 * Inside the port, ``attn_impl="kernel"`` and ``"ref"`` give identical
   tokens; the configurations of later slices raise.
 """
@@ -121,6 +125,64 @@ def test_engine_matches_jax_engine_and_oracle(setup, jax_outputs, chunk):
         compared += 1
         np.testing.assert_array_equal(got, jax_outputs["oracle"][i])
         np.testing.assert_array_equal(got, jax_outputs[chunk][i])
+    assert compared >= 4
+
+
+def _mla_cfg(experts):
+    """``tests/test_paged_attention.py``'s ``_family_cfg("mla")`` with
+    ``dsa=None`` (the DSA slice is not ported), optionally with experts."""
+    return get_smoke_config("glm5_744b").replace(
+        d_model=128, num_heads=2, num_kv_heads=2, d_ff=256, vocab_size=256,
+        num_experts=experts, num_shared_experts=1 if experts else 0,
+        mtp=None, first_k_dense=1, dsa=None, moe_impl="dense")
+
+
+@pytest.fixture(scope="module", params=[0, 4], ids=["mla", "mla_moe4"])
+def mla_setup(request):
+    jcfg = _mla_cfg(request.param)
+    params, _ = get_model(jcfg).init(jax.random.key(0), jcfg)
+    model = from_jax_params(jax.tree.map(np.asarray, params),
+                            port_cfg(jcfg), device="cpu")
+    return jcfg, params, model
+
+
+@pytest.mark.parametrize("chunk", [None, 8])
+def test_mla_engine_matches_jax_engine_and_oracle(mla_setup, chunk):
+    jcfg, params, model = mla_setup
+    prompts, max_new = _workload(jcfg.vocab_size, seed=8)
+    oracle = [JaxRequest(prompt=p, max_new=m)
+              for p, m in zip(prompts, max_new)]
+    JaxOracle(jcfg, params, max_batch=1, max_len=64).serve(oracle)
+    jreqs = [JaxRequest(prompt=p, max_new=m)
+             for p, m in zip(prompts, max_new)]
+    JaxEngine(jcfg, params, max_batch=2, block_size=8, num_blocks=32,
+              max_len=64, prefill_chunk=chunk).serve(jreqs)
+    outs = {}
+    for impl in ("kernel", "ref"):
+        eng = ContinuousEngine(model.cfg, model, max_batch=2, block_size=8,
+                               num_blocks=32, max_len=64,
+                               prefill_chunk=chunk, attn_impl=impl,
+                               device="cpu")
+        assert set(eng.pool["slot0"]) == {"c", "kr"}
+        reqs = [Request(prompt=p, max_new=m)
+                for p, m in zip(prompts, max_new)]
+        eng.serve(reqs)
+        outs[impl] = [r.out for r in reqs]
+        assert eng.stats["cached_tokens"] > 0
+        assert eng.stats["cow_forks"] > 0
+        assert any(s > 0 for s in eng.stats["admit_steps"])
+        assert eng.kv.free_blocks + eng.cached_blocks == eng.kv.num_blocks
+        if impl == "kernel":
+            assert eng.stats["gather_bytes_saved"] > 0
+    for a, b in zip(outs["kernel"], outs["ref"]):      # exact, in the port
+        np.testing.assert_array_equal(a, b)
+    compared = 0
+    for p, got, o, j in zip(prompts, outs["kernel"], oracle, jreqs):
+        if not _margin_ok(model, p, o.out):
+            continue
+        compared += 1
+        np.testing.assert_array_equal(got, o.out)
+        np.testing.assert_array_equal(got, j.out)
     assert compared >= 4
 
 
