@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-It drives two serving paths: the dense GQA family (Yi-6B, slice 1: K1 and
-K2) and GLM-5's MLA + MoE path (slice 2: K3 and K4).  Phases, each printing
-lines of numbers (any failure exits non-zero):
+It drives three serving paths: the dense GQA family (Yi-6B, slice 1: K1
+and K2), GLM-5's MLA + MoE path (slice 2: K3 and K4; with DSA on, its MLA
+layers write the indexer keys and read none) and DSA sparse attention on
+GQA (Yi-6B with its own DSAConfig, slice 3: K5 and K6).  Phases, each
+printing lines of numbers (any failure exits non-zero):
 
   build    compile the hand-written CUDA kernels from ``src/repro_torch/csrc``
            with nvcc for sm_90a into ``build/`` (cached by source hash), one
@@ -19,9 +21,12 @@ lines of numbers (any failure exits non-zero):
            starting mid-block, shuffled tables; then K3 (absorbed-MLA
            decode) and K4 (MLA span prefill) the same way at GLM-5 shapes
            (H 64, kv_lora 512, rope 64) and at H 16, with fp32 q_lat and
-           the pools and q_rope in fp32 or bf16;
-  timing   K3/K4's registers, spills, shared memory and CTAs resident on
-           an SM, as the CUDA runtime reports them; then
+           the pools and q_rope in fp32 or bf16; then K5 (indexer decode
+           scores) and K6 (span scores) at Yi-6B's (Hi 16, Di 64) and
+           GLM-5's (Hi 32, Di 128) indexer shapes, where the dead blocks
+           (NEG_INF) must also match;
+  timing   K3/K4's and K5/K6's registers, spills, shared memory and CTAs
+           resident on an SM, as the CUDA runtime reports them; then
            each kernel, its plain version and one PyTorch library call
            (scaled_dot_product_attention over the KV gathered and its heads
            repeated once, before the timed loop; timed here only, the port
@@ -33,22 +38,34 @@ lines of numbers (any failure exits non-zero):
            at GLM-5's serve shapes (the library call there is SDPA over
            q = [q_lat | q_rope], k = [c | kr] and v = c, the latent
            gathered and expanded to the 64 heads before the timed loop);
+           K5 at a decode step and K6 at a 256-token span ending at 6143
+           of the DSA serve phase, on a 32-layer k_idx pool (no single
+           library call computes their ReLU between product and head sum,
+           so no library time), with the top-2048 sets chosen from the
+           kernel's and from the plain scores compared (they may differ
+           only at near-ties of the 2048th score; their count is printed);
   parity   Yi-6B at full width with 2 layers in fp32: the port's
            ContinuousEngine (mid-flight admission, a shared prefix with a
            radix hit and a COW fork, chunked prefill) gives the same greedy
            tokens as the ServingEngine oracle, wherever the top-2 logit
            margin is at least 1e-3 (prompts without one are skipped); then
-           the same for GLM-5 at full width with 2 layers (1 dense-MLP MLA
-           layer + 1 MLA + MoE layer with all 256 experts) in fp32, ~49 GB;
+           the same for Yi-6B with DSA, with prompts of 2600 and 3000
+           tokens (top-2048 discards keys) beside short ones; then GLM-5
+           (DSA on) at full width with 2 layers (1 dense-MLP MLA layer + 1
+           MLA + MoE layer with all 256 experts) in fp32, ~49 GB;
   serve    Yi-6B at full width and depth (32 layers, dsa=None) in bf16 on a
            2 GiB pool: 8 requests of 32..1024 prompt tokens, half sharing a
-           system prefix, prefill_chunk 256; then GLM-5 at full width with
-           4 layers (3 dense-MLP MLA layers + 1 MLA + MoE layer, dsa=None,
-           mtp=None; ~25.8 GB of bf16 weights) on the same request mix.
-           Each path's kernels' launch counters are set to 0 just before
-           and read just after its run;
+           system prefix, prefill_chunk 256; then Yi-6B with DSA (32
+           layers; K5 and K6 in every layer) on 8 requests of 32..6144
+           prompt tokens (four past top-k) with a 2.1 GiB pool; then GLM-5
+           at full width with 4 layers (3 dense-MLP MLA layers + 1 MLA +
+           MoE layer, DSA on, mtp=None; ~26 GB of bf16 weights) on the
+           first request mix.  Each path's kernels' launch counters are set
+           to 0 just before and read just after its run;
   profile  8 decode-only steps of each served model at 8 rows, timed and
-           then traced with torch.profiler: device busy share, top kernels.
+           then traced with torch.profiler: device busy share, top kernels
+           and the port's own kernels' device time a call (Yi-6B with DSA
+           at ~2300 live tokens a row, past top-k).
 
 Then it prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a GPU, or
@@ -78,12 +95,23 @@ def _log(phase: str, **nums) -> None:
 
 def path_kernels(cfg):
     """The (decode, prefill) kernel wrappers a config's serving path runs:
-    K3/K4 for MLA attention, K1/K2 for GQA."""
+    K3/K4 for MLA attention (its DSA layers write k_idx and read none),
+    K5/K6 for GQA layers with DSA (the global ones), K1/K2 for GQA layers
+    without."""
     from repro_torch.kernels.paged_attention import kernel as KD
     from repro_torch.kernels.paged_attention import prefill as KP
     if cfg.attention_type == "mla":
-        return KD.paged_decode_mla, KP.paged_prefill_mla
-    return KD.paged_decode_gqa, KP.paged_prefill_gqa
+        return [KD.paged_decode_mla], [KP.paged_prefill_mla]
+    kinds = set(cfg.attention_pattern) | ({"global"} if cfg.first_k_dense
+                                          else set())
+    dec, pre = [], []
+    if cfg.dsa is None or kinds != {"global"}:
+        dec.append(KD.paged_decode_gqa)
+        pre.append(KP.paged_prefill_gqa)
+    if cfg.dsa is not None and "global" in kinds:
+        dec.append(KD.paged_indexer_scores_kernel)
+        pre.append(KP.paged_prefill_indexer)
+    return dec, pre
 
 
 def _free() -> None:
@@ -582,6 +610,244 @@ def mla_resources(cfg, batch) -> None:
 
 
 # ---------------------------------------------------------------------------
+# K5/K6: the DSA indexer kernels
+# ---------------------------------------------------------------------------
+
+INDEXER_SHAPES = (("yi6b", 16, 64), ("glm5", 32, 128))   # (Hi, Di)
+
+
+def _indexer_pool(gen, nb, bs, Di, dtype, device, layers=1):
+    import torch
+    return torch.randn((layers * nb, bs, Di), generator=gen,
+                       device=device).to(dtype)
+
+
+def _indexer_queries(gen, B, rows, heads, Di, dtype, device):
+    """q_idx (B, rows, Di) in the pool's dtype, softmaxed head weights
+    (B, rows) in fp32, rows packed ``i*heads + h``."""
+    import torch
+    q = torch.randn((B, rows, Di), generator=gen, device=device).to(dtype)
+    w = torch.softmax(torch.randn((B, rows // heads, heads), generator=gen,
+                                  device=device), dim=-1)
+    return q, w.reshape(B, rows)
+
+
+def _hold_scores(what, got, want, dtype) -> float:
+    """``_hold`` for indexer scores: the dead blocks (<= -1e29) must be the
+    same in both, and the live scores within the tolerance."""
+    dead = want <= -1e29
+    if not bool((got <= -1e29).eq(dead).all()):
+        raise AssertionError(f"{what}: dead blocks differ")
+    return _hold(what, got.masked_fill(dead, 0.0), want.masked_fill(dead, 0.0),
+                 dtype)
+
+
+def check_indexer_kernels(device="cuda") -> dict:
+    """K5/K6 vs plain on ragged rows at Yi-6B's (Hi 16, Di 64) and GLM-5's
+    (Hi 32, Di 128) indexer shapes; returns the max error per kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_attention import kernel as K5
+    from repro_torch.kernels.paged_attention import prefill as K6
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    worst = {"paged_indexer_scores_kernel": 0.0,
+             "paged_prefill_indexer": 0.0}
+    for name, Hi, Di in INDEXER_SHAPES:
+        for bs in (16, 8):
+            mb = 20                       # 160 or 320 positions: 2-3 tiles
+            for dtype in (torch.float32, torch.bfloat16):
+                # decode: trash row (len 0), 1 token, block edges, deep rows
+                lens = [0, 1, bs - 1, bs, 2 * bs + 3, 130, mb * bs - 1]
+                B = len(lens)
+                live = [0] + [l // bs + 1 for l in lens[1:]]
+                trash = sum(live)
+                kp = _indexer_pool(gen, trash + 1, bs, Di, dtype, device)
+                tables = torch.from_numpy(
+                    _tables(rng, B, mb, trash, live)).to(device)
+                sl = torch.tensor(lens, dtype=torch.int32, device=device)
+                q, w = _indexer_queries(gen, B, Hi, Hi, Di, dtype, device)
+                err = _hold_scores(
+                    f"K5 {name} bs={bs}",
+                    K5.paged_indexer_scores_kernel(q, w, kp, tables, sl),
+                    K5.paged_indexer_scores_plain(q, w, kp, tables, sl),
+                    dtype)
+                worst["paged_indexer_scores_kernel"] = max(
+                    worst["paged_indexer_scores_kernel"], err)
+                # span: start 0, mid-block, at a block edge, deep, last
+                S = 37
+                starts = [0, bs + bs // 2, 2 * bs, 100, mb * bs - S]
+                B = len(starts)
+                live = [(s + S - 1) // bs + 1 for s in starts]
+                trash = sum(live)
+                kp = _indexer_pool(gen, trash + 1, bs, Di, dtype, device)
+                tables = torch.from_numpy(
+                    _tables(rng, B, mb, trash, live)).to(device)
+                st = torch.tensor(starts, dtype=torch.int32, device=device)
+                q, w = _indexer_queries(gen, B, S * Hi, Hi, Di, dtype,
+                                        device)
+                err2 = _hold_scores(
+                    f"K6 {name} bs={bs}",
+                    K6.paged_prefill_indexer(q, w, kp, tables, st, heads=Hi),
+                    K6.paged_prefill_indexer_plain(q, w, kp, tables, st,
+                                                   heads=Hi), dtype)
+                worst["paged_prefill_indexer"] = max(
+                    worst["paged_prefill_indexer"], err2)
+                _log("kernels", shape=f"indexer_{name}", block_size=bs,
+                     dtype=str(dtype).split(".")[1], k5_max_abs_err=err,
+                     k6_max_abs_err=err2, tol=TOL[str(dtype).split(".")[1]])
+    return worst
+
+
+def _topk_boundary(what, got, want, qpos, k, tol) -> int:
+    """Score rows (R, T) and each row's query position: the top-k sets that
+    ``select_topk`` (causal mask, stable sort) chooses from the kernel's
+    and from the plain version's scores may differ only at indices whose
+    plain score lies within ``tol`` of the k-th plain score (a near-tie
+    the summation order can flip).  Raises on any other difference;
+    returns the count of such near-tie indices."""
+    import torch
+    from repro_torch.core.dsa import select_topk
+    R, T = want.shape
+    mask = torch.arange(T, device=want.device)[None, :] <= qpos[:, None]
+
+    def chosen(scores):
+        idx, valid = select_topk(scores[:, None], mask[:, None], k)
+        sel = torch.zeros((R, T), dtype=torch.bool, device=want.device)
+        return sel.scatter_(1, idx[:, 0], valid[:, 0])
+    diff = chosen(got) ^ chosen(want)
+    masked = torch.where(mask, want, float("-inf"))
+    kth = masked.topk(min(k, T), dim=-1).values[:, -1:]
+    far = diff & ((want - kth).abs() > tol)
+    if bool(far.any()):
+        raise AssertionError(f"{what}: top-{k} sets differ at "
+                             f"{int(far.sum())} indices away from the k-th "
+                             f"score")
+    return int(diff.sum())
+
+
+def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
+                         num_blocks, mb, device="cuda", reps=64) -> dict:
+    """K5 at one decode step of the DSA serve phase (B = 8 rows at its
+    lengths) and K6 at one 256-token span whose last position lies past
+    2048, each launch on another layer of a full-depth layer-major k_idx
+    pool; each held against its plain version (bf16 and fp32) with its
+    top-k sets compared.  No single PyTorch call computes ReLU between the
+    product and the head sum, so there is no library time."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_attention import kernel as K5
+    from repro_torch.kernels.paged_attention import prefill as K6
+    dtype = torch.bfloat16
+    Hi, Di, top_k = cfg.dsa.index_heads, cfg.dsa.index_head_dim, \
+        cfg.dsa.top_k
+    L, item = cfg.num_layers, 2
+    stride = num_blocks + 1
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    kp = _indexer_pool(gen, stride, bs, Di, dtype, device, layers=L)
+    it = iter(range(10 ** 9))
+    out = {}
+
+    # K5: one decode step's batch
+    lens = np.asarray(serve_lens, np.int32)
+    B = len(lens)
+    live = [int(l) // bs + 1 for l in lens]
+    tables = torch.from_numpy(_tables(rng, B, mb, num_blocks, live)).to(device)
+    per_layer = [tables + g * stride for g in range(L)]
+    sl = torch.from_numpy(lens).to(device)
+    q, w = _indexer_queries(gen, B, Hi, Hi, Di, dtype, device)
+    ms = cuda_ms(lambda: K5.paged_indexer_scores_kernel(
+        q, w, kp, per_layer[next(it) % L], sl), reps)
+    plain_ms = cuda_ms(lambda: K5.paged_indexer_scores_plain(
+        q, w, kp, per_layer[next(it) % L], sl), max(4, reps // 8))
+    got = K5.paged_indexer_scores_kernel(q, w, kp, tables, sl)
+    want = K5.paged_indexer_scores_plain(q, w, kp, tables, sl)
+    err = _hold_scores("K5 serve-shape", got, want, dtype)
+    tol = TOL["bfloat16"] * min(1.0, want.abs().max().item())
+    near = _topk_boundary("K5 serve-shape", got, want, sl.long(), top_k, tol)
+    q32, k32 = q.float(), kp[:stride].float()
+    err32 = _hold_scores("K5 serve-shape",
+                         K5.paged_indexer_scores_kernel(q32, w, k32, tables,
+                                                        sl),
+                         K5.paged_indexer_scores_plain(q32, w, k32, tables,
+                                                       sl), torch.float32)
+    toks = sum(live) * bs                 # whole live blocks are scored
+    nbytes = toks * Di * item + q.numel() * item + w.numel() * 4 \
+        + B * mb * bs * 4 + tables.numel() * 4 + B * 4
+    out["paged_indexer_scores_kernel"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
+        max_abs_err_fp32=err32, bytes=nbytes,
+        flops=toks * Hi * (2 * Di + 2), topk_near_ties=near,
+        shape=f"B={B} Hi={Hi} Di={Di} lens={lens.tolist()}")
+
+    # K6: one prefill span of the longest prompt
+    S, start = span_len, span_start
+    n_live = (start + S - 1) // bs + 1
+    tables = torch.from_numpy(
+        _tables(rng, 1, mb, num_blocks, [n_live])).to(device)
+    per_layer = [tables + g * stride for g in range(L)]
+    st = torch.tensor([start], dtype=torch.int32, device=device)
+    q, w = _indexer_queries(gen, 1, S * Hi, Hi, Di, dtype, device)
+    ms = cuda_ms(lambda: K6.paged_prefill_indexer(
+        q, w, kp, per_layer[next(it) % L], st, heads=Hi), reps // 4)
+    plain_ms = cuda_ms(lambda: K6.paged_prefill_indexer_plain(
+        q, w, kp, per_layer[next(it) % L], st, heads=Hi), 4)
+    got = K6.paged_prefill_indexer(q, w, kp, tables, st, heads=Hi)
+    want = K6.paged_prefill_indexer_plain(q, w, kp, tables, st, heads=Hi)
+    err = _hold_scores("K6 serve-shape", got, want, dtype)
+    tol = TOL["bfloat16"] * min(1.0, want.abs().max().item())
+    qpos = start + torch.arange(S, device=device)
+    near = _topk_boundary("K6 serve-shape", got[0], want[0], qpos, top_k, tol)
+    q32 = q.float()
+    err32 = _hold_scores("K6 serve-shape",
+                         K6.paged_prefill_indexer(q32, w, k32, tables, st,
+                                                  heads=Hi),
+                         K6.paged_prefill_indexer_plain(q32, w, k32, tables,
+                                                        st, heads=Hi),
+                         torch.float32)
+    del kp, k32
+    toks = n_live * bs
+    nbytes = toks * Di * item + q.numel() * item + w.numel() * 4 \
+        + S * mb * bs * 4 + tables.numel() * 4 + 4
+    out["paged_prefill_indexer"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
+        max_abs_err_fp32=err32, bytes=nbytes,
+        flops=S * toks * Hi * (2 * Di + 2), topk_near_ties=near,
+        shape=f"B=1 Hi={Hi} Di={Di} S={S} start={start}")
+    for name, r in out.items():
+        _log("topk", kernel=name, k=top_k,
+             near_tie_indices_differing=r["topk_near_ties"])
+    _bounds(out)
+    return out
+
+
+def indexer_resources(cfg, batch, max_len, bs) -> None:
+    """K5/K6's registers, spills, shared memory and CTAs resident on one SM,
+    as the CUDA runtime reports them for each dtype at the config's indexer
+    shape, beside the CTAs K5 launches for one decode step."""
+    import ctypes
+    import torch
+    from repro_torch.kernels.paged_attention.kernel import (_DTYPE_CODE,
+                                                            cuda_entry)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    Hi, Di = cfg.dsa.index_heads, cfg.dsa.index_head_dim
+    for dtype in (torch.float32, torch.bfloat16):
+        r = (ctypes.c_int * 5)()
+        err = cuda_entry("paged_indexer_resources")(_DTYPE_CODE[dtype], Di,
+                                                   Hi, r)
+        if err != 0:
+            raise RuntimeError(f"paged_indexer_resources failed: cudaError "
+                               f"{err}")
+        regs, spill, smem, ctas, toks = list(r)
+        _log("resources", kernel="paged_indexer", heads=Hi, index_dim=Di,
+             dtype=str(dtype).split(".")[1], registers=regs,
+             spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
+             tokens_per_cta=toks,
+             decode_ctas=batch * -(-(max_len // bs * bs) // 128), sms=sms)
+
+
+# ---------------------------------------------------------------------------
 # engine parity in fp32 (full width, 2 layers)
 # ---------------------------------------------------------------------------
 
@@ -599,7 +865,42 @@ def _margins_ok(model, prompt, out, device, min_margin=1e-3) -> bool:
     return bool(((top2[:, 0] - top2[:, 1]) >= min_margin).all())
 
 
-def parity(cfg, device="cuda", block_size=16, chunk=64) -> dict:
+def _short_prompts(rng, V, block_size):
+    """Mixed short prompts: a shared prefix ending mid-block (radix hit and
+    COW fork), an exact duplicate, an unrelated prompt."""
+    import numpy as np
+    sys_p = rng.integers(3, V, size=block_size * 2 + 5)
+    prompts = [np.concatenate([sys_p, rng.integers(3, V, size=n)])
+               for n in (7, 30, 3, 61)]
+    prompts.append(prompts[1].copy())                     # exact duplicate
+    prompts.append(rng.integers(3, V, size=90))
+    return [p.astype(np.int32) for p in prompts], [6, 9, 4, 8, 5, 7]
+
+
+def _long_prompts(rng, V, shared=200):
+    """DSA parity prompts: two short ones and then 2600 and 3000 tokens, all
+    four on a 200-token system prompt that ends mid-block (served two at a
+    time, each long prompt is admitted when a short one has finished and
+    left the prefix in the radix cache: a hit and a COW fork), so top-2048
+    really discards keys; then two unrelated short prompts."""
+    import numpy as np
+    sys_p = rng.integers(3, V, size=shared)
+    prompts = [np.concatenate([sys_p, rng.integers(3, V, size=n)])
+               for n in (7, 30)]
+    prompts += [np.concatenate([sys_p, rng.integers(3, V, size=n - shared)])
+                for n in (2600, 3000)]
+    prompts += [rng.integers(3, V, size=n) for n in (3, 90)]
+    return [p.astype(np.int32) for p in prompts], [6, 9, 8, 5, 4, 7]
+
+
+def _all_launched(kernels, before) -> bool:
+    return all(k.launches > n for k, n in zip(kernels, before))
+
+
+def parity(cfg, device="cuda", block_size=16, chunk=64, long=False) -> dict:
+    """fp32 greedy tokens of the port's ContinuousEngine against its
+    ServingEngine oracle, on the short prompt mix or (``long``) the DSA mix
+    with prompts past top-k."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as T
@@ -607,22 +908,21 @@ def parity(cfg, device="cuda", block_size=16, chunk=64) -> dict:
     model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
                    device=device, dtype=torch.float32)
     rng = np.random.default_rng(SEED + 1)
-    V = cfg.vocab_size
-    sys_p = rng.integers(3, V, size=block_size * 2 + 5)  # ends mid-block
-    prompts = [np.concatenate([sys_p, rng.integers(3, V, size=n)])
-               for n in (7, 30, 3, 61)]
-    prompts.append(prompts[1].copy())                     # exact duplicate
-    prompts.append(rng.integers(3, V, size=90))
-    prompts = [p.astype(np.int32) for p in prompts]
-    max_new = [6, 9, 4, 8, 5, 7]
-    k_dec, k_pre = path_kernels(cfg)
-    n_dec, n_pre = k_dec.launches, k_pre.launches
-    eng = ContinuousEngine(cfg, model, max_batch=3, block_size=block_size,
-                           num_blocks=128, max_len=256, prefill_chunk=chunk,
-                           device=device)
+    if long:
+        prompts, max_new = _long_prompts(rng, cfg.vocab_size)
+    else:
+        prompts, max_new = _short_prompts(rng, cfg.vocab_size, block_size)
+    max_len = max(len(p) for p in prompts) + max(max_new) + chunk
+    max_len = -(-max_len // block_size) * block_size
+    kernels = [k for ks in path_kernels(cfg) for k in ks]
+    before = [k.launches for k in kernels]
+    eng = ContinuousEngine(cfg, model, max_batch=2 if long else 3,
+                           block_size=block_size,
+                           num_blocks=512 if long else 128, max_len=max_len,
+                           prefill_chunk=chunk, device=device)
     reqs = [Request(prompt=p, max_new=m) for p, m in zip(prompts, max_new)]
     eng.serve(reqs)
-    oracle = ServingEngine(cfg, model, max_batch=1, max_len=256,
+    oracle = ServingEngine(cfg, model, max_batch=1, max_len=max_len,
                            device=device)
     oreqs = [Request(prompt=p, max_new=m) for p, m in zip(prompts, max_new)]
     oracle.serve(oreqs)
@@ -642,16 +942,16 @@ def parity(cfg, device="cuda", block_size=16, chunk=64) -> dict:
             or not any(s > 0 for s in st["admit_steps"]):
         raise AssertionError(f"parity: workload missed radix/COW/mid-flight "
                              f"admission: {dict(st)}")
-    if device != "cpu" and (k_dec.launches == n_dec
-                            or k_pre.launches == n_pre):
-        raise AssertionError(f"parity: {k_dec.__name__} or "
-                             f"{k_pre.__name__} never launched")
+    if device != "cpu" and not _all_launched(kernels, before):
+        raise AssertionError(f"parity: one of {[k.__name__ for k in kernels]}"
+                             f" never launched")
     res = dict(compared=compared, skipped=skipped,
+               longest_prompt=max(len(p) for p in prompts),
                cached_tokens=st["cached_tokens"], cow_forks=st["cow_forks"],
                chunk_steps=st["chunk_steps"])
     _log("parity", model=cfg.name, layers=cfg.num_layers,
-         d_model=cfg.d_model, experts=cfg.num_experts, dtype="float32",
-         **res)
+         d_model=cfg.d_model, experts=cfg.num_experts,
+         dsa=cfg.dsa is not None, dtype="float32", **res)
     del eng, oracle, model
     return res
 
@@ -694,8 +994,8 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
     eng.registry.reset_histograms("engine")
     reqs = [Request(prompt=p, max_new=max_new) for p in prompts]
     k_dec, k_pre = path_kernels(cfg)
-    k_dec.launches = 0                         # counts of the main path
-    k_pre.launches = 0
+    for k in k_dec + k_pre:
+        k.launches = 0                         # counts of the main path
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
@@ -710,8 +1010,7 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
             decode_s += dt         # a step with no prefill work
             decode_toks += eng.stats["decode_tokens"] - before[2]
     wall = time.perf_counter() - t0
-    launches = {k_dec.__name__: k_dec.launches,
-                k_pre.__name__: k_pre.launches}
+    launches = {k.__name__: k.launches for k in k_dec + k_pre}
     for r in reqs:
         if r.status != "ok" or r.out is None or len(r.out) != max_new:
             raise AssertionError(f"serve: request {r.rid} ended "
@@ -731,27 +1030,31 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
         prompt_tokens=int(sum(prompt_lens)),
         cached_tokens=st["cached_tokens"],
         decode_tokens=st["decode_tokens"], decode_steps=st["decode_steps"],
-        wall_s=wall, setup_s=setup_s,
+        chunk_steps=st["chunk_steps"], wall_s=wall, setup_s=setup_s,
         decode_tok_s=decode_toks / decode_s if decode_s else 0.0,
         decode_only_steps_s=decode_s,
-        ttft_p50_ms=lat["ttft_ms"]["p50"], tpot_p50_ms=lat["tpot_ms"]["p50"],
-        decode_kernel=k_dec.__name__, decode_launches=k_dec.launches,
-        prefill_kernel=k_pre.__name__, prefill_launches=k_pre.launches,
-        decode_launches_per_step=k_dec.launches / max(st["decode_steps"], 1),
-        prefill_launches_per_span=k_pre.launches / max(st["chunk_steps"], 1))
+        ttft_p50_ms=lat["ttft_ms"]["p50"], tpot_p50_ms=lat["tpot_ms"]["p50"])
+    for k in k_dec:
+        res[f"{k.__name__}_launches"] = k.launches
+        res[f"{k.__name__}_per_decode_step"] = \
+            k.launches / max(st["decode_steps"], 1)
+    for k in k_pre:
+        res[f"{k.__name__}_launches"] = k.launches
+        res[f"{k.__name__}_per_prefill_span"] = \
+            k.launches / max(st["chunk_steps"], 1)
     _log("serve", model=cfg.name, layers=cfg.num_layers,
-         d_model=cfg.d_model, experts=cfg.num_experts, dtype="bfloat16",
-         **res)
+         d_model=cfg.d_model, experts=cfg.num_experts,
+         dsa=cfg.dsa is not None, dtype="bfloat16", **res)
     res["launches"] = launches
     return res
 
 
 def profile_decode(cfg, device="cuda", steps=8, block_size=16,
-                   num_blocks=2048) -> dict:
-    """``steps`` decode-only steps of 8 rows at ~530 live tokens each,
-    timed without and then with torch.profiler; the device busy share
-    (kernel time over the profiled window's wall time) and the top kernels
-    by device time."""
+                   num_blocks=2048, prompt_len=512) -> dict:
+    """``steps`` decode-only steps of 8 rows at ~``prompt_len`` + 18 live
+    tokens each, timed without and then with torch.profiler; the device
+    busy share (kernel time over the profiled window's wall time) and the
+    top kernels by device time."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -760,11 +1063,12 @@ def profile_decode(cfg, device="cuda", steps=8, block_size=16,
     model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
                    device=device, dtype=torch.bfloat16)
     eng = ContinuousEngine(cfg, model, max_batch=8, block_size=block_size,
-                           num_blocks=num_blocks, max_len=1024,
+                           num_blocks=num_blocks, max_len=prompt_len + 512,
                            prefill_chunk=256, device=device)
     rng = np.random.default_rng(SEED + 3)
     for _ in range(8):
-        eng.submit(Request(prompt=rng.integers(3, cfg.vocab_size, size=512)
+        eng.submit(Request(prompt=rng.integers(3, cfg.vocab_size,
+                                               size=prompt_len)
                            .astype(np.int32), max_new=2 * steps + 12))
     while any(s is None or s.pending is None for s in eng.slots):
         eng.step()                          # admit + prefill everything
@@ -796,11 +1100,18 @@ def profile_decode(cfg, device="cuda", steps=8, block_size=16,
                device_busy_ms_per_step=busy_us / steps / 1e3,
                device_busy_share=busy_us / 1e6 / wall,
                kernel_launches_per_step=sum(e.count for e in kernels) / steps)
-    _log("profile", model=cfg.name, layers=cfg.num_layers, **res)
-    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+    _log("profile", model=cfg.name, layers=cfg.num_layers,
+         dsa=cfg.dsa is not None, prompt_len=prompt_len, **res)
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    # and the port's own kernels wherever they rank: their device time a
+    # call, which CUDA events around back-to-back wrapper calls (the timing
+    # phase) overstate when a launch is shorter than the wrapper's host work
+    ours = [e for e in kernels if "paged_" in e.key and e not in top]
+    for e in top + ours:
         _log("profile.kernel", name=repr(e.key[:60]),
              device_ms_per_step=dev_us(e) / steps / 1e3,
-             calls_per_step=e.count / steps)
+             calls_per_step=e.count / steps,
+             device_ms_per_call=dev_us(e) / max(e.count, 1) / 1e3)
     return res
 
 
@@ -838,45 +1149,70 @@ def main() -> int:
 
     worst = check_kernels()
     worst.update(check_mla_kernels())
+    worst.update(check_indexer_kernels())
     prompt_lens = [1024, 32, 777, 150, 512, 64, 900, 300]
     serve_lens = [n + 16 for n in prompt_lens]
-    yi = get_config("yi_6b").replace(dsa=None)
+    # the DSA mix: two prompts past 3 x top-k, four past top-k
+    dsa_lens = [6144, 32, 3000, 150, 4096, 64, 2500, 300]
+    yi_dsa = get_config("yi_6b")          # its own DSAConfig: 16 x 64, 2048
+    yi = yi_dsa.replace(dsa=None)
     # GLM-5 at full width, depth cut 78 -> 4 (3 dense-MLP + 1 MoE layer)
-    glm5 = get_config("glm5_744b").replace(dsa=None, mtp=None, num_layers=4)
+    glm5 = get_config("glm5_744b").replace(mtp=None, num_layers=4)
     mla_resources(glm5, len(prompt_lens))
+    chunk, new_tokens = 256, 32
+    dsa_max_len = max(dsa_lens) + new_tokens + chunk
+    indexer_resources(yi_dsa, len(dsa_lens), dsa_max_len, 16)
     timing = time_kernels(yi, serve_lens, max(prompt_lens), bs=16,
-                          num_blocks=2048, chunk=256)
+                          num_blocks=2048, chunk=chunk)
     _free()
     timing.update(time_mla_kernels(glm5, serve_lens, max(prompt_lens),
-                                   bs=16, num_blocks=2048, chunk=256))
+                                   bs=16, num_blocks=2048, chunk=chunk))
+    _free()
+    span_start = (max(dsa_lens) - 1) // chunk * chunk
+    timing.update(time_indexer_kernels(
+        yi_dsa, [n + 16 for n in dsa_lens], span_start,
+        max(dsa_lens) - span_start, bs=16, num_blocks=2048,
+        mb=dsa_max_len // 16))
     _free()
     parity(yi.replace(num_layers=2))
+    _free()
+    parity(yi_dsa.replace(num_layers=2), long=True)
     _free()
     parity(glm5.replace(num_layers=2, first_k_dense=1))   # ~49 GB in fp32
     _free()
     launches = serve(yi, prompt_lens)["launches"]
     _free()
+    launches.update(serve(yi_dsa, dsa_lens, max_new=new_tokens)["launches"])
+    _free()
     launches.update(serve(glm5, prompt_lens)["launches"])
     _free()
     profile_decode(yi)
     _free()
+    profile_decode(yi_dsa, prompt_len=2304)
+    _free()
     profile_decode(glm5)
 
     sources = {"gqa": "src/repro_torch/csrc/paged_attention.cu",
-               "mla": "src/repro_torch/csrc/paged_mla.cu"}
+               "mla": "src/repro_torch/csrc/paged_mla.cu",
+               "indexer": "src/repro_torch/csrc/paged_indexer.cu"}
     replaces = {"paged_decode_gqa":
-                "src/repro/kernels/paged_attention/kernel.py:109",
+                ("gqa", "src/repro/kernels/paged_attention/kernel.py:109"),
                 "paged_prefill_gqa":
-                "src/repro/kernels/paged_attention/prefill.py:112",
+                ("gqa", "src/repro/kernels/paged_attention/prefill.py:112"),
                 "paged_decode_mla":
-                "src/repro/kernels/paged_attention/kernel.py:198",
+                ("mla", "src/repro/kernels/paged_attention/kernel.py:198"),
                 "paged_prefill_mla":
-                "src/repro/kernels/paged_attention/prefill.py:203"}
+                ("mla", "src/repro/kernels/paged_attention/prefill.py:203"),
+                "paged_indexer_scores_kernel":
+                ("indexer", "src/repro/kernels/paged_attention/kernel.py:271"),
+                "paged_prefill_indexer":
+                ("indexer",
+                 "src/repro/kernels/paged_attention/prefill.py:277")}
     kernels = []
-    for name, where in replaces.items():
+    for name, (src, where) in replaces.items():
         t = timing[name]
         kernels.append(dict(
-            name=name, route="cuda", source=sources[name[-3:]],
+            name=name, route="cuda", source=sources[src],
             replaces=where, launches=launches[name],
             max_abs_err=max(t["max_abs_err"], worst[name]),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

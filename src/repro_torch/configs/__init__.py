@@ -2,10 +2,10 @@
 
 ``get_config(arch_id)`` returns the full published config,
 ``get_smoke_config(arch_id)`` the reduced same-family variant.  Every
-registered model carries the reference's DSA retrofit (and GLM-5 its MTP
-head); the port serves them with ``.replace(dsa=None)`` (and
-``mtp=None``): the DSA and MTP slices are not ported yet, and the model
-constructors reject a config that sets either.
+registered model carries the reference's DSA retrofit, which the port
+serves; GLM-5 also carries its MTP head, which the port serves with
+``.replace(mtp=None)``: the MTP slice is not ported yet, and the model
+constructors reject a config that sets it.
 """
 from __future__ import annotations
 

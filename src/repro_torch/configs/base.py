@@ -1,9 +1,10 @@
 """Model configuration dataclasses (the port's copy of ``repro.configs.base``).
 
 ``ModelConfig`` keeps the reference's fields that the port reads, with the
-same names and defaults, plus the few that mark a part of a later slice
-(``dsa``, ``mtp``, ``family``): the model constructors reject a config
-that sets one.  The reference's expert-parallel switches
+same names and defaults.  ``dsa`` is served with the token selector and
+deterministic top-k; ``mtp`` and the other ``family`` values mark parts of
+later slices, and the model constructors reject a config that sets one.
+The reference's expert-parallel switches
 (``moe_impl``, ``capacity_factor``: the mesh slice), SSM / hybrid /
 encoder / frontend fields and its implementation switches (``attn_impl``,
 ``scan_layers``, ``remat``, ...) are left out, so a setting the port
@@ -20,8 +21,12 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class DSAConfig:
-    """DeepSeek Sparse Attention (GLM-5 §2.1.1).  The port does not serve
-    it yet (the DSA slice); a config that sets it is rejected."""
+    """DeepSeek Sparse Attention (GLM-5 §2.1.1): a lightning indexer
+    scores every cached token, the top ``top_k`` are attended.  The port
+    serves ``selector="token"`` with ``deterministic_topk=True``; the
+    block selector (with the block-sparse kernel) and the randomized
+    tie-breaking of the RL-determinism study are rejected by the model
+    constructors."""
     index_heads: int = 32
     index_head_dim: int = 128
     top_k: int = 2048

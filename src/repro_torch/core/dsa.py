@@ -1,0 +1,261 @@
+"""DSA — DeepSeek Sparse Attention, as adopted by GLM-5 (§2.1.1, §3.2).
+
+Port of ``repro.core.dsa`` for serving (the token selector, deterministic
+top-k, the inference form).  Three parts:
+
+1. **Lightning indexer** — for query token t and key token s,
+   ``I[t,s] = Σ_h w_h(x_t) · ReLU(q_h(x_t) · k(x_s)) · Di^-1/2``: the key
+   projection is shared across indexer heads, the head weights ``w_h`` are
+   query-dependent (a softmax).  Over the paged ``k_idx`` pool the scores
+   come from K5 (a decode step) and K6 (a span), in place.
+2. **Top-k token selection** (k = 2048).  The reference uses
+   ``jax.lax.top_k``, which puts the lower index first on ties;
+   ``torch.topk`` promises no order.  Ties are common here (a key scores
+   exactly 0 when every head's dot product is <= 0, and every masked
+   position is exactly ``NEG_INF``), so ``select_topk`` sorts with a stable
+   sort: equal scores keep index order, and the selection is the
+   reference's element for element (GLM-5 §3.2: deterministic top-k was
+   necessary for RL stability).
+3. **Sparse attention** over the selected tokens, gathered one by one
+   (``paged_take`` straight from the block pool on the paged paths).
+
+Not here (the model constructors reject configs that need them): the
+block-granular selector (``select_topk_blocks``, ``sparse_block_attention``;
+it comes with the block-sparse kernel), the randomized tie-breaking of the
+RL-determinism study (``deterministic_topk=False``), and the indexer
+distillation loss (``with_indexer_loss``, the training slice).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import DSAConfig, ModelConfig
+from repro_torch.core.paging import paged_take
+from repro_torch.kernels.paged_attention.ops import (paged_indexer_prefill,
+                                                     paged_indexer_scores)
+from repro_torch.layers.attention import NEG_INF, attention_mask
+from repro_torch.layers.common import _empty
+
+W_HEAD_SCALE = 0.02     # the reference's init scale of ``w_head``
+Q_CHUNK = 256           # query rows per gather (see ``_by_query_chunks``)
+
+
+# ---------------------------------------------------------------------------
+# indexer
+# ---------------------------------------------------------------------------
+
+class Indexer(nn.Module):
+    """Lightning-indexer weights of one layer, (in, out) layout, under the
+    reference's names (``build_indexer``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        d, D = cfg.dsa, cfg.d_model
+        kw = dict(device=device, dtype=dtype)
+        self.wq_idx = _empty(D, d.index_heads * d.index_head_dim, **kw)
+        self.wk_idx = _empty(D, d.index_head_dim, **kw)
+        self.w_head = _empty(D, d.index_heads, **kw)
+
+
+def indexer_keys(idx: Indexer, x_kv: torch.Tensor) -> torch.Tensor:
+    """x_kv (B, T, D) -> k_idx (B, T, Di); cached for decode."""
+    return x_kv @ idx.wk_idx
+
+
+def indexer_queries(idx: Indexer, x_q: torch.Tensor, dsa: DSAConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x_q (B, S, D) -> (q_idx (B, S, Hi, Di) in the model's dtype, head
+    weights (B, S, Hi) fp32, softmaxed)."""
+    B, S, _ = x_q.shape
+    q = (x_q @ idx.wq_idx).reshape(B, S, dsa.index_heads, dsa.index_head_dim)
+    w = torch.softmax((x_q @ idx.w_head).float(), dim=-1)
+    return q, w
+
+
+def indexer_scores(idx: Indexer, x_q: torch.Tensor, k_idx: torch.Tensor,
+                   dsa: DSAConfig) -> torch.Tensor:
+    """x_q (B, S, D), k_idx (B, T, Di) -> scores (B, S, T) fp32."""
+    q, w = indexer_queries(idx, x_q, dsa)
+    dots = torch.einsum("bshd,btd->bsht", q.float(), k_idx.float())
+    dots = torch.relu(dots) * (dsa.index_head_dim ** -0.5)
+    return torch.einsum("bsht,bsh->bst", dots, w)
+
+
+# ---------------------------------------------------------------------------
+# top-k selection
+# ---------------------------------------------------------------------------
+
+def select_topk(scores: torch.Tensor, mask: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """scores (B, S, T) + validity mask -> (idx (B, S, k) int64, valid
+    (B, S, k)).  A stable descending sort keeps equal scores in index
+    order, so ties break by the lower index as ``jax.lax.top_k`` does."""
+    k = min(k, scores.shape[-1])
+    masked = torch.where(mask, scores, NEG_INF)
+    vals, idx = torch.sort(masked, dim=-1, descending=True, stable=True)
+    return idx[..., :k], vals[..., :k] > NEG_INF / 2
+
+
+# ---------------------------------------------------------------------------
+# sparse attention cores
+# ---------------------------------------------------------------------------
+
+def _gather_tokens(kv: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """kv (B, T, KVH, d), idx (B, S, K) -> (B, S, K, KVH, d)."""
+    B, T = kv.shape[:2]
+    flat = kv.reshape(B, T, -1)
+    rows = torch.arange(B, device=kv.device)[:, None]
+    sel = flat[rows, idx.reshape(B, -1).long()]           # (B, S*K, KVH*d)
+    return sel.reshape(idx.shape + tuple(kv.shape[2:]))
+
+
+def _attend_selected(q: torch.Tensor, k_sel: torch.Tensor,
+                     v_sel: torch.Tensor, ok: torch.Tensor, *,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """Attention over an already-gathered token selection: q (B, S, H, dh);
+    k_sel/v_sel (B, S, K, KVH, d*); ok (B, S, K) -> (B, S, H, dv).  fp32
+    scores and softmax; the probabilities meet V in V's dtype, as in the
+    reference."""
+    B, S, H, dh = q.shape
+    KVH = k_sel.shape[3]
+    qg = q.reshape(B, S, KVH, H // KVH, dh)
+    scores = torch.einsum("bsjgd,bskjd->bsjgk", qg.float(),
+                          k_sel.float()) * (dh ** -0.5)
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = torch.where(ok[:, :, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bsjgk,bskjd->bsjgd", probs.to(v_sel.dtype), v_sel)
+    return out.reshape(B, S, H, -1)
+
+
+def sparse_token_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           idx: torch.Tensor, valid: torch.Tensor,
+                           q_positions: torch.Tensor,
+                           kv_positions: torch.Tensor, *,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """Per-token gathered attention: q (B, S, H, dh); k/v (B, T, KVH, d*);
+    idx/valid (B, S, K).  The selected positions are checked against
+    causality again (the guard keeps the op safe under padding)."""
+    B = q.shape[0]
+    k_sel = _gather_tokens(k, idx)
+    v_sel = _gather_tokens(v, idx)
+    sel_pos = torch.gather(kv_positions.long(), 1,
+                           idx.reshape(B, -1).long()).reshape(idx.shape)
+    ok = valid & (sel_pos <= q_positions[..., None])
+    return _attend_selected(q, k_sel, v_sel, ok, softcap=softcap)
+
+
+def _by_query_chunks(fn: Callable[[int, int], torch.Tensor], S: int,
+                     chunk: int) -> torch.Tensor:
+    """``fn(lo, hi)`` over query rows [lo, hi) in chunks of ``chunk``,
+    concatenated along the query axis.  Each query row's selection and
+    attention depend on that row alone, so chunking changes no result; it
+    bounds the gathered (rows, k, KVH, d) K/V, which at Yi-6B width and
+    k = 2048 is ~1 GB in fp32 for 256 rows."""
+    if S <= chunk:
+        return fn(0, S)
+    return torch.cat([fn(lo, min(lo + chunk, S)) for lo in range(0, S, chunk)],
+                     dim=1)
+
+
+def dsa_decode_paged(idx: Indexer, q: torch.Tensor, k_pool: torch.Tensor,
+                     v_pool: torch.Tensor, x_q: torch.Tensor,
+                     ki_pool: torch.Tensor, block_tables: torch.Tensor,
+                     seq_lens: torch.Tensor, q_positions: torch.Tensor,
+                     cfg: ModelConfig, *, softcap: float = 0.0,
+                     impl: str = "kernel") -> torch.Tensor:
+    """One-token DSA decode straight off the block pool (no gathered view).
+
+    The indexer scores the ``k_idx`` pool in place (K5; ``impl="ref"``: the
+    gather oracle); the top-k indices come back in view coordinates (==
+    absolute positions) and go through the block table (``paged_take``),
+    so only k tokens are gathered.  q (B, 1, H, dh); pools (nb, bs, ·);
+    x_q (B, 1, D) the pre-projection hiddens; seq_lens (B,) the query
+    positions; q_positions (B, 1)."""
+    dsa = cfg.dsa
+    B = q.shape[0]
+    q_idx, w = indexer_queries(idx, x_q, dsa)
+    scores = paged_indexer_scores(q_idx[:, 0], w[:, 0], ki_pool,
+                                  block_tables, seq_lens, impl=impl)
+    T = scores.shape[1]
+    kv_positions = torch.arange(T, device=q.device).expand(B, T)
+    mask = attention_mask(q_positions, kv_positions, causal=True)
+    sel, valid = select_topk(scores[:, None], mask, dsa.top_k)  # (B, 1, K)
+    k_sel = paged_take(k_pool, block_tables, sel[:, 0])[:, None]
+    v_sel = paged_take(v_pool, block_tables, sel[:, 0])[:, None]
+    # view index == absolute position: the selected indices ARE positions
+    ok = valid & (sel <= q_positions[..., None])
+    return _attend_selected(q, k_sel, v_sel, ok, softcap=softcap)
+
+
+def dsa_prefill_paged(idx: Indexer, q: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, x_q: torch.Tensor,
+                      ki_pool: torch.Tensor, block_tables: torch.Tensor,
+                      positions: torch.Tensor, cfg: ModelConfig, *,
+                      window: int = 0, softcap: float = 0.0,
+                      impl: str = "kernel",
+                      q_chunk: int = Q_CHUNK) -> torch.Tensor:
+    """Span DSA prefill straight off the block pool: the span twin of
+    ``dsa_decode_paged``.  The indexer scores the whole span against the
+    ``k_idx`` pool in place (K6, once), then each chunk of ``q_chunk``
+    queries selects its top-k and gathers only those tokens.
+
+    q (B, S, H, dh); x_q (B, S, D); positions (B, S) absolute, ascending
+    from a per-row start."""
+    dsa = cfg.dsa
+    B, S = q.shape[:2]
+    q_idx, w = indexer_queries(idx, x_q, dsa)
+    scores = paged_indexer_prefill(q_idx, w, ki_pool, block_tables,
+                                   positions[:, 0], impl=impl)  # (B, S, T)
+    T = scores.shape[-1]
+    kv_positions = torch.arange(T, device=q.device).expand(B, T)
+
+    def chunk(lo: int, hi: int) -> torch.Tensor:
+        pos = positions[:, lo:hi]
+        mask = attention_mask(pos, kv_positions, causal=True, window=window)
+        sel, valid = select_topk(scores[:, lo:hi], mask, dsa.top_k)
+        K = sel.shape[-1]
+        k_sel = paged_take(k_pool, block_tables, sel.reshape(B, -1))
+        v_sel = paged_take(v_pool, block_tables, sel.reshape(B, -1))
+        k_sel = k_sel.reshape((B, hi - lo, K) + tuple(k_sel.shape[2:]))
+        v_sel = v_sel.reshape((B, hi - lo, K) + tuple(v_sel.shape[2:]))
+        # view index == absolute position: the selected indices ARE positions
+        ok = valid & (sel <= pos[..., None])
+        if window > 0:
+            ok &= (pos[..., None] - sel) < window
+        return _attend_selected(q[:, lo:hi], k_sel, v_sel, ok,
+                                softcap=softcap)
+
+    return _by_query_chunks(chunk, S, q_chunk)
+
+
+def dsa_attention(idx: Indexer, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, x_q: torch.Tensor, k_idx: torch.Tensor,
+                  q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                  cfg: ModelConfig, *, kv_len: Optional[int] = None,
+                  window: int = 0, softcap: float = 0.0,
+                  q_chunk: int = Q_CHUNK) -> torch.Tensor:
+    """End-to-end sparse attention over dense K/V (no cache, the contiguous
+    cache of the static oracle, the gathered view of ``impl="ref"``):
+    indexer scores -> top-k -> gathered attention, ``q_chunk`` query rows
+    at a time (the last chunk ragged).  The reference chunks only when
+    ``S % q_chunk == 0``; the result is the same either way.
+
+    q (B, S, H, dh); k/v (B, T, KVH, d*); x_q (B, S, D) the pre-projection
+    hiddens; k_idx (B, T, Di)."""
+    dsa = cfg.dsa
+
+    def chunk(lo: int, hi: int) -> torch.Tensor:
+        pos = q_positions[:, lo:hi]
+        scores = indexer_scores(idx, x_q[:, lo:hi], k_idx, dsa)
+        mask = attention_mask(pos, kv_positions, causal=True, window=window,
+                              kv_len=kv_len)
+        sel, valid = select_topk(scores, mask, dsa.top_k)
+        return sparse_token_attention(q[:, lo:hi], k, v, sel, valid, pos,
+                                      kv_positions, softcap=softcap)
+
+    return _by_query_chunks(chunk, q.shape[1], q_chunk)

@@ -64,6 +64,21 @@ def paged_view(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
     return v.reshape((B, mb * bs) + tuple(pool.shape[2:]))
 
 
+def paged_take(pool: torch.Tensor, block_tables: torch.Tensor,
+               idx: torch.Tensor) -> torch.Tensor:
+    """Gather single tokens by per-sequence VIEW positions (== absolute
+    positions): pool (nb, bs, *f); idx (B, K) -> (B, K, *f).  Composes the
+    position -> block indirection through the table
+    (``table[b, p // bs] * bs + p % bs``), so only the K selected tokens
+    move: the DSA paths apply their top-k with it, without a gathered
+    view."""
+    nb, bs = pool.shape[:2]
+    idx = idx.long()
+    blk = torch.gather(block_tables.long(), 1, idx // bs)
+    flat = blk * bs + idx % bs                            # (B, K)
+    return pool.view((nb * bs,) + tuple(pool.shape[2:]))[flat]
+
+
 def copy_block(leaf: torch.Tensor, src: int, dst: int, *,
                axis: int = 0) -> torch.Tensor:
     """Copy ONE block ``src`` -> ``dst`` along a pool leaf's block axis, in

@@ -1,0 +1,303 @@
+// DSA lightning-indexer scores for Hopper (sm_90a): K5 decode and K6 span,
+// both reading the paged k_idx pool IN PLACE through the block table.
+//
+// Replaces the TPU kernels of the JAX package:
+//   K5  src/repro/kernels/paged_attention/kernel.py   paged_indexer_scores_kernel
+//   K6  src/repro/kernels/paged_attention/prefill.py  paged_prefill_indexer
+//
+// Contract (the same as the Pallas kernels): token position p of row b lives
+// at (tables[b, p / bs], p % bs) of k_pool (nb, bs, Di).  Packed query row r
+// of batch row b is indexer head h = r % Hi of span token i = r / Hi (decode:
+// S = 1 and starts = seq_lens).  For every view position p < mb*bs
+//   out[b, i, p] = sum_h w[b, i*Hi + h] * (ReLU(q[b, i*Hi + h] . k[p]) * scale)
+// (scale = Di^-1/2, passed in) when p's block starts at or before the span's
+// last query position starts[b] + S - 1 -- the WHOLE block, past each query's
+// own position too (the selector's causal mask drops those) -- and
+// NEG_INF = -1e30 otherwise, without a read of the pool.  A row of length 0
+// (an idle slot on the trash block) still gets finite scores in block 0.  q
+// and the pool are in the model's dtype (float32 or bfloat16), w and the
+// output float32; the products accumulate in fp32.
+//
+// What bounds it on this card.  No sum runs across keys: each key's score is
+// independent, so unlike the attention kernels there is no online softmax
+// and no combine pass.
+//   K5 (decode, S = 1): bytes.  A live key costs Hi*(2*Di + 2) flops (2080 at
+//     Yi-6B's 16 x 64) against its Di*2 = 128 bytes of bf16: ~16 flops a
+//     byte, far below the card's ~295 flop/byte ridge.  The live keys are
+//     read once and the whole (B, mb*bs) fp32 view is written.
+//   K6 (span): at a full 256-token span, its S x live x Hi x (2*Di + 2) flops
+//     (each key's bytes serve S*Hi query rows); at short spans the
+//     (B, S, mb*bs) fp32 output it writes.
+//
+// What the design does:
+//   * the Pallas grid is (B, mb), one block of keys a step; here it is
+//     (key tile, token tile, row): a CTA of 128 threads owns 128 consecutive
+//     view positions (one a thread) and up to kMaxTok span tokens, so a
+//     decode step at B = 8 and a span both spread over all 132 SMs; a tile
+//     wholly past the live range writes NEG_INF and reads nothing;
+//   * each CTA reads its own table entries (the counterpart of scalar
+//     prefetch) and stages its tokens' queries and weights in shared memory
+//     as fp32 (Hi x Di x 4 = 4 KB a token at 16 x 64), read as broadcasts;
+//   * a thread holds its key's Di values in registers as fp32 (16-byte
+//     vector loads) and reuses them for every query row of the tile;
+//   * a token's output row is written by consecutive threads at consecutive
+//     positions: coalesced.
+// Not done yet (later work): tensor cores (the span form is an (S*Hi) x Di
+// by Di x keys product, an mma tile), staging the keys through shared memory
+// with coalesced loads, TMA.
+//
+// Interface: plain C, loaded with ctypes.  Each entry point returns the
+// cudaError_t of its launch (0 on success); it launches on the given stream,
+// does not synchronise and allocates nothing.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kThreads = 128;      // view positions per CTA, one a thread
+constexpr int kMaxTok = 8;         // span tokens per CTA
+constexpr int kQFloats = 8192;     // staged fp32 queries a CTA (32 KB)
+constexpr float kNegInf = -1e30f;  // the reference kernels' NEG_INF
+
+// 16-byte vectors: N elements of T, loaded raw and converted to fp32
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void convert(const uint4& v, float* o) {
+    const float* f = reinterpret_cast<const float*>(&v);
+    o[0] = f[0]; o[1] = f[1]; o[2] = f[2]; o[3] = f[3];
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void convert(const uint4& v, float* o) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __bfloat1622float2(h[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+};
+
+__device__ inline uint4 ld16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// span tokens a CTA takes: as many as kQFloats of staged queries hold, at
+// most kMaxTok (decode: the one token)
+int tokens_per_cta(int S, int heads, int D) {
+  int n = kQFloats / (heads * D);
+  n = n < 1 ? 1 : (n > kMaxTok ? kMaxTok : n);
+  return n < S ? n : S;
+}
+
+size_t smem_bytes(int n_tok, int heads, int D) {
+  return ((size_t)n_tok * heads * D + (size_t)n_tok * heads) * sizeof(float);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_indexer_kernel(const T* __restrict__ q, const float* __restrict__ w,
+                     const T* __restrict__ k_pool,
+                     const int* __restrict__ tables,
+                     const int* __restrict__ starts, float* __restrict__ out,
+                     int S, int Hi, int mb, int bs, int n_tok, float scale) {
+  constexpr int VN = Vec<T>::N;
+  static_assert(D % VN == 0 && D % 4 == 0, "vector width");
+
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);    // n_tok x Hi x D
+  float* Ws = Qs + (size_t)n_tok * Hi * D;        // n_tok x Hi
+
+  const int tid = threadIdx.x;
+  const int T_len = mb * bs;                      // view positions of a row
+  const int p0 = blockIdx.x * kThreads;
+  const int p = p0 + tid;
+  const int i0 = blockIdx.y * n_tok;
+  const int b = blockIdx.z;
+  const int toks = min(n_tok, S - i0);
+  const int last = starts[b] + S - 1;             // the span's last position
+  float* o = out + ((size_t)b * S + i0) * T_len + p;
+
+  // the tile's first block starts past the live range: all of it is dead
+  if ((p0 / bs) * bs > last) {
+    if (p < T_len)
+      for (int i = 0; i < toks; ++i) o[(size_t)i * T_len] = kNegInf;
+    return;
+  }
+
+  // stage the tile's queries and head weights as fp32
+  const int RD = Hi * D;                          // query values of a token
+  const size_t row0 = ((size_t)b * S + i0) * Hi;  // first packed query row
+  const T* qsrc = q + row0 * D;
+  for (int e = tid * VN; e < toks * RD; e += kThreads * VN) {
+    float tmp[VN];
+    Vec<T>::convert(ld16(qsrc + e), tmp);
+#pragma unroll
+    for (int u = 0; u < VN; ++u) Qs[e + u] = tmp[u];
+  }
+  for (int e = tid; e < toks * Hi; e += kThreads) Ws[e] = w[row0 + e];
+  __syncthreads();
+
+  if (p >= T_len) return;
+  if ((p / bs) * bs > last) {                     // a dead block of the tile
+    for (int i = 0; i < toks; ++i) o[(size_t)i * T_len] = kNegInf;
+    return;
+  }
+  // this thread's key, in registers as fp32
+  const size_t slot = (size_t)tables[(size_t)b * mb + p / bs] * bs + p % bs;
+  const T* ksrc = k_pool + slot * D;
+  float k[D];
+#pragma unroll
+  for (int v = 0; v < D / VN; ++v)
+    Vec<T>::convert(ld16(ksrc + v * VN), k + v * VN);
+
+  for (int i = 0; i < toks; ++i) {
+    const float* qi = Qs + (size_t)i * RD;
+    const float* wi = Ws + i * Hi;
+    float acc = 0.f;
+    for (int h = 0; h < Hi; ++h) {
+      const float4* qh = reinterpret_cast<const float4*>(qi + h * D);
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < D / 4; ++e) {
+        const float4 x = qh[e];
+        dot = fmaf(x.x, k[4 * e], dot);
+        dot = fmaf(x.y, k[4 * e + 1], dot);
+        dot = fmaf(x.z, k[4 * e + 2], dot);
+        dot = fmaf(x.w, k[4 * e + 3], dot);
+      }
+      acc = fmaf(wi[h], fmaxf(dot, 0.f) * scale, acc);
+    }
+    o[(size_t)i * T_len] = acc;
+  }
+}
+
+struct Args {
+  const void* q;
+  const float* w;
+  const void* k_pool;
+  const int* tables;
+  const int* starts;
+  float* out;
+  int B, S, Hi, mb, bs;
+  float scale;
+};
+
+template <typename T, int D>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int n_tok = tokens_per_cta(a.S, a.Hi, D);
+  dim3 grid((a.mb * a.bs + kThreads - 1) / kThreads,
+            (a.S + n_tok - 1) / n_tok, a.B);
+  paged_indexer_kernel<T, D><<<grid, kThreads, smem_bytes(n_tok, a.Hi, D),
+                               stream>>>(
+      static_cast<const T*>(a.q), a.w, static_cast<const T*>(a.k_pool),
+      a.tables, a.starts, a.out, a.S, a.Hi, a.mb, a.bs, n_tok, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dim(int D, const Args& a, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch<T, 16>(a, s);
+    case 32: return launch<T, 32>(a, s);
+    case 64: return launch<T, 64>(a, s);
+    case 128: return launch<T, 128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int run(int dtype, int index_dim, const Args& a, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.B <= 0 || a.S <= 0 || a.mb <= 0 || a.bs <= 0 || a.Hi <= 0
+      || a.Hi * index_dim > kQFloats)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)launch_dim<float>(index_dim, a, s);
+  if (dtype == 1) return (int)launch_dim<__nv_bfloat16>(index_dim, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// out = {registers a thread, local (spill) bytes a thread, dynamic shared
+// memory bytes a CTA, CTAs resident on one SM (as the runtime reports them),
+// span tokens a CTA} for a span of kMaxTok tokens or more
+template <typename T, int D>
+cudaError_t query(int heads, int* out) {
+  const int n_tok = tokens_per_cta(kMaxTok, heads, D);
+  const size_t smem = smem_bytes(n_tok, heads, D);
+  auto kern = paged_indexer_kernel<T, D>;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+  if (e != cudaSuccess) return e;
+  int ctas = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kern, kThreads,
+                                                    smem);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = ctas;
+  out[4] = n_tok;
+  return e;
+}
+
+template <typename T>
+cudaError_t query_dim(int D, int heads, int* out) {
+  switch (D) {
+    case 16: return query<T, 16>(heads, out);
+    case 32: return query<T, 32>(heads, out);
+    case 64: return query<T, 64>(heads, out);
+    case 128: return query<T, 128>(heads, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// K5.  q (B, Hi, Di); w (B, Hi) float32 (softmaxed head weights); k_pool
+// (nb, bs, Di); tables (B, mb) int32; seq_lens (B,) int32 (the query's
+// position); out (B, mb*bs) float32 in view coordinates.
+// dtype of q and the pool: 0 = float32, 1 = bfloat16.
+int paged_indexer_scores(int dtype, int index_dim, int block_size,
+                         const void* q, const float* w, const void* k_pool,
+                         const int* tables, const int* seq_lens, float* out,
+                         int B, int heads, int mb, float scale, void* stream) {
+  Args a{q, w, k_pool, tables, seq_lens, out, B, 1, heads, mb, block_size,
+         scale};
+  return run(dtype, index_dim, a, stream);
+}
+
+// K6.  q (B, S*Hi, Di) packed rows i*Hi + h; w (B, S*Hi) float32; starts (B,)
+// int32 (position of span token 0); out (B, S, mb*bs) float32.
+int paged_prefill_indexer(int dtype, int index_dim, int block_size,
+                          const void* q, const float* w, const void* k_pool,
+                          const int* tables, const int* starts, float* out,
+                          int B, int SH, int heads, int mb, float scale,
+                          void* stream) {
+  if (heads <= 0 || SH % heads) return (int)cudaErrorInvalidValue;
+  Args a{q, w, k_pool, tables, starts, out, B, SH / heads, heads, mb,
+         block_size, scale};
+  return run(dtype, index_dim, a, stream);
+}
+
+// Resources of the K5/K6 kernel for `dtype`, `index_dim` and `heads`
+// (launches nothing): out[5] = registers a thread, spill bytes a thread,
+// shared memory bytes a CTA, CTAs resident on one SM, span tokens a CTA.
+int paged_indexer_resources(int dtype, int index_dim, int heads, int* out) {
+  if (heads <= 0 || heads * index_dim > kQFloats)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)query_dim<float>(index_dim, heads, out);
+  if (dtype == 1) return (int)query_dim<__nv_bfloat16>(index_dim, heads, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -1,14 +1,17 @@
-"""K1 and K3: paged flash-decode, hand-written for Hopper, and their plain
-versions.
+"""K1, K3 and K5: paged decode kernels, hand-written for Hopper, and their
+plain versions.
 
 K1 ``paged_decode_gqa`` ports ``repro.kernels.paged_attention.kernel.
 paged_decode_gqa`` (GQA); K3 ``paged_decode_mla`` ports ``paged_decode_mla``
-(absorbed MLA over the latent pools).  The CUDA kernels are in
-``csrc/paged_attention.cu`` (K1, K2) and ``csrc/paged_mla.cu`` (K3, K4),
+(absorbed MLA over the latent pools); K5 ``paged_indexer_scores_kernel``
+ports ``paged_indexer_scores_kernel`` (DSA lightning-indexer scores over the
+``k_idx`` pool).  The CUDA kernels are in ``csrc/paged_attention.cu`` (K1,
+K2), ``csrc/paged_mla.cu`` (K3, K4) and ``csrc/paged_indexer.cu`` (K5, K6),
 built by ``repro_torch.kernels.build``; ``*_plain`` is the same function in
 plain PyTorch — the counterpart of the reference's XLA twins
-``ops._blocked_gqa`` / ``ops._blocked_mla``: a loop over live blocks with
-the same masks and the same fp32 online softmax.
+``ops._blocked_gqa`` / ``_blocked_mla`` / ``_blocked_indexer``: a loop over
+live blocks with the same masks and arithmetic (the attention kernels'
+fp32 online softmax).
 
 Addressing contract (as the reference): position ``p`` of row ``b`` lives
 at ``(tables[b, p // bs], p % bs)``; ``seq_lens[b]`` is the query's
@@ -32,6 +35,8 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 MLA_DIMS = ((512, 64),)          # (kv_lora, rope) the MLA kernels take
+INDEX_DIMS = (16, 32, 64, 128)   # indexer head dims the K5/K6 kernels take
+INDEX_WIDTH = 8192               # max Hi*Di: a token's fp32 queries, 32 KB
 BLOCK_SIZES = (8, 16, 32)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,6 +53,12 @@ _ENTRIES = {
                           [_I] * 4 + [_P] * 7 + [_I] * 4 + [_F, _P]),
     # registers, spill bytes, shared memory, CTAs an SM, rows a CTA
     "paged_mla_resources": ("paged_mla", [_I] * 3 + [_P]),
+    "paged_indexer_scores": ("paged_indexer",
+                             [_I] * 3 + [_P] * 6 + [_I] * 3 + [_F, _P]),
+    "paged_prefill_indexer": ("paged_indexer",
+                              [_I] * 3 + [_P] * 6 + [_I] * 4 + [_F, _P]),
+    # registers, spill bytes, shared memory, CTAs an SM, tokens a CTA
+    "paged_indexer_resources": ("paged_indexer", [_I] * 3 + [_P]),
 }
 LIBRARIES = sorted({lib for lib, _ in _ENTRIES.values()})
 
@@ -297,3 +308,121 @@ def paged_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
 
 
 paged_decode_mla.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: DSA lightning-indexer decode scores over the k_idx pool
+# ---------------------------------------------------------------------------
+
+def check_cuda_indexer_args(q_idx, w_head, k_pool, block_tables,
+                            positions, heads: int) -> None:
+    """Raise on anything the CUDA indexer kernels (K5, K6) do not take.
+    q_idx (B, R, Di) in the pool's dtype, R a multiple of ``heads``;
+    w_head (B, R) fp32; k_pool (nb, bs, Di)."""
+    tensors = (q_idx, w_head, k_pool, block_tables, positions)
+    if q_idx.device.type != "cuda":
+        raise ValueError(f"paged indexer kernel runs on CUDA tensors, got "
+                         f"{q_idx.device}")
+    if any(t.device != q_idx.device for t in tensors):
+        raise ValueError("paged indexer: all tensors must be on one device")
+    if q_idx.dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged indexer kernel takes float32 or bfloat16, "
+                        f"got {q_idx.dtype}")
+    if k_pool.dtype != q_idx.dtype:
+        raise TypeError("paged indexer: q_idx and the pool must share a "
+                        "dtype")
+    if w_head.dtype != torch.float32:
+        raise TypeError(f"paged indexer: head weights must be float32, got "
+                        f"{w_head.dtype}")
+    if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
+        raise TypeError("paged indexer: tables and positions must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged indexer kernel needs contiguous tensors")
+    if q_idx.data_ptr() % 16 or k_pool.data_ptr() % 16:
+        raise ValueError("paged indexer kernel needs 16-byte aligned q_idx "
+                         "and pool")
+    Di = q_idx.shape[-1]
+    if Di not in INDEX_DIMS:
+        raise ValueError(f"paged indexer kernel: index_head_dim {Di} not in "
+                         f"{INDEX_DIMS}")
+    if q_idx.shape[1] % heads or heads * Di > INDEX_WIDTH:
+        raise ValueError(f"paged indexer kernel: {q_idx.shape[1]} rows of "
+                         f"{heads} heads x {Di} (at most {INDEX_WIDTH})")
+    if k_pool.ndim != 3 or k_pool.shape[-1] != Di:
+        raise ValueError(f"paged indexer: pool {tuple(k_pool.shape)} does "
+                         f"not match q_idx {tuple(q_idx.shape)}")
+    if w_head.shape != q_idx.shape[:2]:
+        raise ValueError(f"paged indexer: weights {tuple(w_head.shape)} do "
+                         f"not match q_idx {tuple(q_idx.shape)}")
+    if block_tables.shape[0] != q_idx.shape[0] \
+            or positions.shape != (q_idx.shape[0],):
+        raise ValueError("paged indexer: tables/positions batch mismatch")
+
+
+def indexer_fold_blocks(q_idx: torch.Tensor, w_head: torch.Tensor,
+                        k_pool: torch.Tensor, block_tables: torch.Tensor,
+                        last: torch.Tensor) -> torch.Tensor:
+    """The plain indexer loop shared by K5 and K6: q_idx (B, S, Hi, Di),
+    w_head (B, S, Hi), ``last`` (B,) each row's last query position ->
+    scores (B, S, mb*bs) fp32 in view coordinates: relu(q·k)·Di^-1/2
+    summed over heads with the weights, for every position of a block that
+    starts at or before ``last[b]`` (the whole block, as the Pallas kernels
+    give it); NEG_INF in every other block."""
+    B, S, Hi, Di = q_idx.shape
+    bs, mb = k_pool.shape[1], block_tables.shape[1]
+    scale = Di ** -0.5
+    qf, wf = q_idx.float(), w_head.float()
+    last = last.long()
+    out = torch.full((B, S, mb * bs), NEG_INF, dtype=torch.float32,
+                     device=q_idx.device)
+    for j in range(min(int(last.max()) // bs + 1, mb)):
+        kb = k_pool[block_tables[:, j].long()].float()     # (B, bs, Di)
+        dots = torch.relu(torch.einsum("bshd,btd->bsht", qf, kb)) * scale
+        s = torch.einsum("bsht,bsh->bst", dots, wf)
+        dead = (j * bs > last)[:, None, None]
+        out[:, :, j * bs:(j + 1) * bs] = s.masked_fill(dead, NEG_INF)
+    return out
+
+
+def paged_indexer_scores_plain(q_idx: torch.Tensor, w_head: torch.Tensor,
+                               k_pool: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               seq_lens: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K5 (counterpart of the reference's
+    ``ops._blocked_indexer``, with the kernel's per-row dead blocks): q_idx
+    (B, Hi, Di); w_head (B, Hi) -> (B, mb*bs) fp32."""
+    return indexer_fold_blocks(q_idx[:, None], w_head[:, None], k_pool,
+                               block_tables, seq_lens)[:, 0]
+
+
+def paged_indexer_scores_kernel(q_idx: torch.Tensor, w_head: torch.Tensor,
+                                k_pool: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                seq_lens: torch.Tensor) -> torch.Tensor:
+    """K5: q_idx (B, Hi, Di) in the pool's dtype; w_head (B, Hi) fp32
+    softmaxed head weights; k_pool (nb, bs, Di); tables (B, mb) int32;
+    seq_lens (B,) int32 (the query's position) -> scores (B, mb*bs) fp32 in
+    view coordinates (index == absolute position); blocks past
+    ``seq_lens[b]``'s are NEG_INF.
+
+    CPU tensors run ``paged_indexer_scores_plain``; CUDA tensors launch the
+    Hopper kernel on the current stream (one CTA per 128 view positions and
+    row)."""
+    if q_idx.device.type == "cpu":
+        return paged_indexer_scores_plain(q_idx, w_head, k_pool,
+                                          block_tables, seq_lens)
+    B, Hi, Di = q_idx.shape
+    check_cuda_indexer_args(q_idx, w_head, k_pool, block_tables, seq_lens, Hi)
+    bs, mb = k_pool.shape[1], block_tables.shape[1]
+    out = torch.empty((B, mb * bs), dtype=torch.float32, device=q_idx.device)
+    err = cuda_entry("paged_indexer_scores")(
+        _DTYPE_CODE[q_idx.dtype], Di, bs, q_idx.data_ptr(), w_head.data_ptr(),
+        k_pool.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
+        out.data_ptr(), B, Hi, mb, Di ** -0.5,
+        torch.cuda.current_stream(q_idx.device).cuda_stream)
+    _check_launch("paged_indexer_scores", err)
+    paged_indexer_scores_kernel.launches += 1
+    return out
+
+
+paged_indexer_scores_kernel.launches = 0

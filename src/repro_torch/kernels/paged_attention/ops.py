@@ -1,16 +1,18 @@
 """Dispatch for paged attention: in-place block reads vs gather.
 
-Port of the reference's ``kernels/paged_attention/ops.py`` (GQA and MLA
-parts).  The model calls these with its own layout, q (B, S, H, ·) — GQA
-head ``h = kvh*G + g`` — and they pack the queries the way the kernels
-take them.
+Port of the reference's ``kernels/paged_attention/ops.py`` (GQA, MLA and
+DSA-indexer parts).  The model calls these with its own layout, q
+(B, S, H, ·) — GQA head ``h = kvh*G + g`` — and they pack the queries the
+way the kernels take them.
 
 ``impl`` takes two values:
 
 * ``"kernel"`` (default) — read KV blocks in place: K1 (GQA) / K3 (MLA)
-  for a decode step, K2 / K4 for a span.  The tensor's device decides
-  how: a CUDA tensor launches the hand-written kernel (or raises), a CPU
-  tensor runs the kernel's plain PyTorch version.  No switch puts the plain version on the card.
+  for a decode step, K2 / K4 for a span; the DSA indexer scores through K5
+  (a step) / K6 (a span).  The tensor's device decides how: a CUDA tensor
+  launches the hand-written kernel (or raises), a CPU tensor runs the
+  kernel's plain PyTorch version.  No switch puts the plain version on the
+  card.
 * ``"ref"`` — the ``paged_view`` gather oracle (``ref.py``), explicitly.
 """
 from __future__ import annotations
@@ -116,3 +118,39 @@ def paged_mla_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor,
         c_pool, kr_pool, block_tables, starts.to(torch.int32).contiguous(),
         heads=H, scale=scale)
     return out.reshape(B, S, H, L)
+
+
+def paged_indexer_scores(q_idx: torch.Tensor, w_head: torch.Tensor,
+                         k_pool: torch.Tensor, block_tables: torch.Tensor,
+                         seq_lens: torch.Tensor, *,
+                         impl: str = "kernel") -> torch.Tensor:
+    """DSA decode indexer scores in view coordinates (B, mb*bs) fp32.
+
+    q_idx (B, Hi, Di); w_head (B, Hi) softmaxed; k_pool (nb, bs, Di).
+    Blocks past each row's query score NEG_INF in place (K5) and stale
+    values under ``ref``: the selector's causal mask excludes both, so the
+    top-k is the same."""
+    if check_impl(impl) == "ref":
+        return _ref.paged_indexer_reference(q_idx, w_head, k_pool,
+                                            block_tables, seq_lens)
+    return _k.paged_indexer_scores_kernel(
+        q_idx.contiguous(), w_head.float().contiguous(), k_pool,
+        block_tables, seq_lens.to(torch.int32).contiguous())
+
+
+def paged_indexer_prefill(q_idx: torch.Tensor, w_head: torch.Tensor,
+                          k_pool: torch.Tensor, block_tables: torch.Tensor,
+                          starts: torch.Tensor, *,
+                          impl: str = "kernel") -> torch.Tensor:
+    """DSA span indexer scores in view coordinates (B, S, mb*bs) fp32.
+
+    q_idx (B, S, Hi, Di); w_head (B, S, Hi) softmaxed; packed rows
+    ``i*Hi + h`` for K6 as the reference packs them."""
+    if check_impl(impl) == "ref":
+        return _ref.paged_indexer_prefill_reference(q_idx, w_head, k_pool,
+                                                    block_tables, starts)
+    B, S, Hi, Di = q_idx.shape
+    return _p.paged_prefill_indexer(
+        q_idx.reshape(B, S * Hi, Di).contiguous(),
+        w_head.reshape(B, S * Hi).float().contiguous(), k_pool, block_tables,
+        starts.to(torch.int32).contiguous(), heads=Hi)

@@ -1,9 +1,11 @@
-"""K2 and K4: paged span prefill, hand-written for Hopper, and their plain
-versions.
+"""K2, K4 and K6: paged span kernels, hand-written for Hopper, and their
+plain versions.
 
 K2 ``paged_prefill_gqa`` ports ``repro.kernels.paged_attention.prefill.
 paged_prefill_gqa`` (GQA); K4 ``paged_prefill_mla`` ports
-``paged_prefill_mla`` (absorbed MLA over the latent pools).  A span is S
+``paged_prefill_mla`` (absorbed MLA over the latent pools); K6
+``paged_prefill_indexer`` ports ``paged_prefill_indexer`` (DSA
+lightning-indexer span scores over the ``k_idx`` pool).  A span is S
 consecutive tokens of one sequence; query ``i`` of row ``b`` sits at
 absolute position ``starts[b] + i`` and its K/V were scattered through the
 table before the call.  Attention is causal by absolute position: full
@@ -11,12 +13,13 @@ attention to the cached prefix, causal within the span (K2 optionally
 windowed and soft-capped).
 
 Queries come packed as in the reference: K2 takes (B, KVH, S*G, d), row
-``i*G + g`` is group query ``g`` of span token ``i``; K4 takes (B, S*H, ·),
-row ``i*H + h`` is head ``h`` of span token ``i``.  The CUDA kernels
-(``csrc/paged_attention.cu``, ``csrc/paged_mla.cu``) tile those rows — the
-Pallas kernels keep the whole span resident in VMEM, which no Hopper shared
-memory holds — and each tile stops at the block of its own last query
-position.
+``i*G + g`` is group query ``g`` of span token ``i``; K4 takes (B, S*H, ·)
+and K6 (B, S*Hi, Di), row ``i*H + h`` is head ``h`` of span token ``i``.
+The CUDA kernels (``csrc/paged_attention.cu``, ``csrc/paged_mla.cu``,
+``csrc/paged_indexer.cu``) tile those rows — the Pallas kernels keep the
+whole span resident in VMEM, which no Hopper shared memory holds — and each
+attention tile stops at the block of its own last query position; K6 scores
+every block up to the span's last position.
 
 Each wrapper runs the plain version on CPU tensors and launches the kernel
 on CUDA tensors, or raises; ``<wrapper>.launches`` counts kernel launches.
@@ -26,8 +29,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.paged_attention.kernel import (
-    NEG_INF, _DTYPE_CODE, _check_launch, check_cuda_args, check_cuda_mla_args,
-    cuda_entry, mla_fold_blocks)
+    NEG_INF, _DTYPE_CODE, _check_launch, check_cuda_args,
+    check_cuda_indexer_args, check_cuda_mla_args, cuda_entry,
+    indexer_fold_blocks, mla_fold_blocks)
 
 
 def paged_prefill_gqa_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -162,3 +166,54 @@ def paged_prefill_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
 
 
 paged_prefill_mla.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: DSA lightning-indexer span scores over the k_idx pool
+# ---------------------------------------------------------------------------
+
+def paged_prefill_indexer_plain(q_idx: torch.Tensor, w_head: torch.Tensor,
+                                k_pool: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                starts: torch.Tensor, *,
+                                heads: int) -> torch.Tensor:
+    """Plain PyTorch K6 (counterpart of the reference's
+    ``ops._blocked_indexer_prefill``, with the kernel's per-row dead
+    blocks): q_idx (B, S*Hi, Di) packed; w_head (B, S*Hi) -> (B, S, mb*bs)
+    fp32."""
+    S = _span_rows(q_idx, heads)
+    B, _, Di = q_idx.shape
+    return indexer_fold_blocks(q_idx.reshape(B, S, heads, Di),
+                               w_head.reshape(B, S, heads), k_pool,
+                               block_tables, starts.long() + S - 1)
+
+
+def paged_prefill_indexer(q_idx: torch.Tensor, w_head: torch.Tensor,
+                          k_pool: torch.Tensor, block_tables: torch.Tensor,
+                          starts: torch.Tensor, *, heads: int) -> torch.Tensor:
+    """K6: q_idx (B, S*Hi, Di) packed (row i*Hi + h = indexer head h of span
+    token i) in the pool's dtype; w_head (B, S*Hi) fp32; k_pool
+    (nb, bs, Di); tables (B, mb) int32; starts (B,) int32 -> scores
+    (B, S, mb*bs) fp32 in view coordinates; blocks past the span's last
+    position are NEG_INF."""
+    if q_idx.device.type == "cpu":
+        return paged_prefill_indexer_plain(q_idx, w_head, k_pool,
+                                           block_tables, starts, heads=heads)
+    check_cuda_indexer_args(q_idx, w_head, k_pool, block_tables, starts,
+                            heads)
+    S = _span_rows(q_idx, heads)
+    B, SH, Di = q_idx.shape
+    bs, mb = k_pool.shape[1], block_tables.shape[1]
+    out = torch.empty((B, S, mb * bs), dtype=torch.float32,
+                      device=q_idx.device)
+    err = cuda_entry("paged_prefill_indexer")(
+        _DTYPE_CODE[q_idx.dtype], Di, bs, q_idx.data_ptr(), w_head.data_ptr(),
+        k_pool.data_ptr(), block_tables.data_ptr(), starts.data_ptr(),
+        out.data_ptr(), B, SH, heads, mb, Di ** -0.5,
+        torch.cuda.current_stream(q_idx.device).cuda_stream)
+    _check_launch("paged_prefill_indexer", err)
+    paged_prefill_indexer.launches += 1
+    return out
+
+
+paged_prefill_indexer.launches = 0

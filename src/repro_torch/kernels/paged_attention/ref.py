@@ -1,10 +1,10 @@
-"""Gather-path oracles for the paged GQA and MLA kernels (port of the
-reference's ``kernels/paged_attention/ref.py``, GQA and MLA parts).
+"""Gather-path oracles for the paged GQA, MLA and DSA-indexer kernels (port
+of the reference's ``kernels/paged_attention/ref.py``).
 
 Materialize the padded per-sequence view with ``paged_view``, then run the
-dense / absorbed attention math over it; view index == absolute position,
-so the plain causal mask by position is exact.  ``impl="ref"`` selects
-this path explicitly, on any device.
+dense / absorbed attention or indexer math over it; view index == absolute
+position, so the plain causal mask by position is exact.  ``impl="ref"``
+selects this path explicitly, on any device.
 """
 from __future__ import annotations
 
@@ -75,6 +75,36 @@ def paged_mla_reference(q_lat: torch.Tensor, q_rope: torch.Tensor,
     kv_pos = torch.arange(T, device=q_lat.device)
     mask = kv_pos[None, None, :] <= seq_lens.long()[:, None, None]
     return absorbed_probs_c(q_lat, q_rope, c_view, kr_view, mask, scale)
+
+
+def paged_indexer_reference(q_idx: torch.Tensor, w_head: torch.Tensor,
+                            k_pool: torch.Tensor, block_tables: torch.Tensor,
+                            seq_lens: torch.Tensor) -> torch.Tensor:
+    """DSA indexer scores over the gathered k_idx view: q_idx (B, Hi, Di),
+    w_head (B, Hi), k_pool (nb, bs, Di) -> (B, mb*bs) fp32, relu(q·k)·Di^-½
+    summed over heads with the weights.  ``seq_lens`` is unused (the
+    selector masks every position past the query) but kept for signature
+    parity with the in-place path."""
+    del seq_lens
+    k_view = paged_view(k_pool, block_tables).float()   # (B, T, Di)
+    dots = torch.einsum("bhd,btd->bht", q_idx.float(), k_view)
+    dots = torch.relu(dots) * (q_idx.shape[-1] ** -0.5)
+    return torch.einsum("bht,bh->bt", dots, w_head.float())
+
+
+def paged_indexer_prefill_reference(q_idx: torch.Tensor,
+                                    w_head: torch.Tensor,
+                                    k_pool: torch.Tensor,
+                                    block_tables: torch.Tensor,
+                                    starts: torch.Tensor) -> torch.Tensor:
+    """Span indexer scores over the gathered k_idx view: q_idx (B, S, Hi,
+    Di), w_head (B, S, Hi) -> (B, S, mb*bs) fp32.  ``starts`` is unused,
+    as ``seq_lens`` above."""
+    del starts
+    k_view = paged_view(k_pool, block_tables).float()
+    dots = torch.einsum("bshd,btd->bsht", q_idx.float(), k_view)
+    dots = torch.relu(dots) * (q_idx.shape[-1] ** -0.5)
+    return torch.einsum("bsht,bsh->bst", dots, w_head.float())
 
 
 def paged_mla_prefill_reference(q_lat: torch.Tensor, q_rope: torch.Tensor,

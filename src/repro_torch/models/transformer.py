@@ -1,13 +1,15 @@
 """Decoder-only transformer: the dense and MoE families of the reference.
 
 Port of ``repro.models.transformer`` for configurations the port serves
-exactly as the reference does: GQA or MLA attention, dense MLP (swiglu /
-relu2 / gelu) or routed MoE FFN (the pattern layers, after
-``first_k_dense`` dense-MLP layers), the ``attention_pattern`` layer groups
-(local sliding-window / global), attention and final logit softcaps, tied
-(gemma-scaled) embeddings and ``qk_norm``.  A config that needs a part not
-ported yet — DSA, MTP, another family — raises ``NotImplementedError``
-instead of quietly running without it.
+exactly as the reference does: GQA or MLA attention, DSA sparse attention
+on the ``global`` layers (the lightning indexer, deterministic top-k and
+the token selector), dense MLP (swiglu / relu2 / gelu) or routed MoE FFN
+(the pattern layers, after ``first_k_dense`` dense-MLP layers), the
+``attention_pattern`` layer groups (local sliding-window / global),
+attention and final logit softcaps, tied (gemma-scaled) embeddings and
+``qk_norm``.  A config that needs a part not ported yet — MTP, the DSA
+block selector or its randomized top-k, another family — raises
+``NotImplementedError`` instead of quietly running without it.
 
 Layout differences from the reference:
 
@@ -15,7 +17,8 @@ Layout differences from the reference:
   each pattern slot on a leading ``n_groups`` axis for ``lax.scan``; the
   weight bridge unstacks), and the layer loop is a Python loop;
 * caches keep the reference's layout exactly: GQA layers hold ``k``/``v``
-  leaves, MLA layers the latent ``c`` (kv_lora) and ``kr`` (rope) leaves;
+  leaves, MLA layers the latent ``c`` (kv_lora) and ``kr`` (rope) leaves,
+  and a DSA layer also the indexer keys ``k_idx``;
   ``init_cache`` stacks each slot as ``(n_groups, B, T, *f)``,
   ``init_paged_cache`` builds the LAYER-MAJOR flat pools
   ``(n_groups*num_blocks, bs, *f)`` that group ``g`` addresses with
@@ -33,8 +36,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import dsa as dsa_mod
 from repro_torch.core import mla as mla_mod
-from repro_torch.core.paging import paged_update
+from repro_torch.core.paging import paged_update, paged_view
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import (paged_gqa_attend,
                                                      paged_gqa_prefill)
@@ -54,10 +58,14 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (the port serves "
             f"{FAMILIES})")
-    if cfg.dsa is not None:
+    if cfg.dsa is not None and cfg.dsa.selector != "token":
         raise NotImplementedError(
-            "DSA sparse attention is the DSA slice, not ported yet; serve "
-            "cfg.replace(dsa=None) for the dense architecture")
+            f"DSA selector {cfg.dsa.selector!r} is not ported (it comes "
+            f"with the block-sparse kernel); the port serves 'token'")
+    if cfg.dsa is not None and not cfg.dsa.deterministic_topk:
+        raise NotImplementedError(
+            "DSA with deterministic_topk=False (randomized tie-breaking, "
+            "the RL-determinism study) is not ported")
     if cfg.mtp is not None:
         raise NotImplementedError("the MTP head is the MTP slice, not "
                                   "ported yet; serve cfg.replace(mtp=None)")
@@ -90,7 +98,8 @@ def n_groups(cfg: ModelConfig) -> int:
 
 
 class Block(nn.Module):
-    """One decoder layer: pre-norm attention (GQA or MLA) + pre-norm FFN
+    """One decoder layer: pre-norm attention (GQA or MLA, with a DSA
+    indexer ``idx`` on the global layers of a DSA config) + pre-norm FFN
     (MLP, or MoE in the pattern layers of an MoE config)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, moe: bool, *,
@@ -101,6 +110,8 @@ class Block(nn.Module):
         self.attn_norm = _empty(cfg.d_model, **kw)
         self.attn = mla_mod.MLA(cfg, **kw) if cfg.attention_type == "mla" \
             else GQA(cfg, **kw)
+        if cfg.dsa is not None and kind == "global":
+            self.idx = dsa_mod.Indexer(cfg, **kw)
         self.mlp_norm = _empty(cfg.d_model, **kw)
         if moe:
             self.moe = MoE(cfg, **kw)
@@ -137,10 +148,11 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Random model with the reference's scales (``sharding/rules.py``):
     tensors normal * shape[0]^-1/2 (the input dim of a matrix; the expert
     count of a stacked (E, in, out) expert tensor, as the reference's
-    builder computes it), the embedding normal * 1.0, the MoE router
-    normal * 0.02 (its explicit ``scale=``), norms at 1.  Expert tensors
-    are drawn one expert at a time, so no fp32 temporary the size of a
-    whole (E, D, F) tensor is made.  ``generator`` must live on
+    builder computes it), the embedding normal * 1.0, the MoE router and
+    the DSA head weights ``w_head`` normal * 0.02 (their explicit
+    ``scale=``), norms at 1.  Expert tensors are drawn one expert at a
+    time, so no fp32 temporary the size of a whole (E, D, F) tensor is
+    made.  ``generator`` must live on
     ``device``; by default one seeded with 0 is made there.  The numbers
     differ from the reference's (a ``jax.random`` key is not a torch
     generator): carry JAX weights over with
@@ -155,7 +167,8 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             if leaf in NORMS:
                 p.fill_(1.0)
                 continue
-            scale = {"embedding": 1.0, "router": ROUTER_SCALE}.get(
+            scale = {"embedding": 1.0, "router": ROUTER_SCALE,
+                     "w_head": dsa_mod.W_HEAD_SCALE}.get(
                 leaf, p.shape[0] ** -0.5)
             for part in (p.unbind(0) if p.ndim == 3 else (p,)):
                 part.copy_(torch.randn(part.shape, generator=generator,
@@ -168,16 +181,39 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # forward
 # ---------------------------------------------------------------------------
 
-def _attend_mla(attn: mla_mod.MLA, h: torch.Tensor, cfg: ModelConfig,
+def _cache_index_keys(idx: dsa_mod.Indexer, h: torch.Tensor, layer_cache,
+                      cache_index, block_tables: Optional[torch.Tensor],
+                      positions: torch.Tensor) -> torch.Tensor:
+    """Write this layer's indexer keys into its ``k_idx`` leaf (paged:
+    through the table at ``positions``; contiguous: at ``cache_index``),
+    in place; returns the leaf."""
+    ki = dsa_mod.indexer_keys(idx, h)
+    leaf = layer_cache["k_idx"]
+    if block_tables is not None:
+        return paged_update(leaf, ki, block_tables, positions)
+    leaf[:, cache_index:cache_index + ki.shape[1]] = ki.to(leaf.dtype)
+    return leaf
+
+
+def _attend_mla(block: Block, h: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, layer_cache, cache_index,
                 block_tables: Optional[torch.Tensor],
                 paged_impl: str) -> torch.Tensor:
     """The MLA branch of the reference's ``_attend``: MHA-style without a
-    cache, absorbed over the latent cache with one (paged: K3 for a step,
-    K4 for a span).  The indexer keys of an MLA+DSA layer are the DSA
-    slice's."""
+    cache (sparse over the indexer's top-k on a DSA layer), absorbed over
+    the latent cache with one (paged: K3 for a step, K4 for a span).  With
+    a cache a DSA layer writes its indexer keys and reads none, as the
+    reference does: its attention stays dense."""
+    attn, idx = block.attn, getattr(block, "idx", None)
+    B, S, _ = h.shape
     if layer_cache is None:
-        return mla_mod.apply_mla(attn, h, cfg, positions=positions)
+        if idx is None:
+            return mla_mod.apply_mla(attn, h, cfg, positions=positions)
+        q, k, v, _, _ = mla_mod.mla_qkv(attn, h, cfg, positions)
+        out = dsa_mod.dsa_attention(idx, q, k, v, h,
+                                    dsa_mod.indexer_keys(idx, h), positions,
+                                    positions, cfg)
+        return out.reshape(B, S, -1) @ attn.wo
     if block_tables is not None:
         out, _, _ = mla_mod.mla_decode_paged(
             attn, h, cfg, c_pool=layer_cache["c"], kr_pool=layer_cache["kr"],
@@ -187,12 +223,15 @@ def _attend_mla(attn: mla_mod.MLA, h: torch.Tensor, cfg: ModelConfig,
             attn, h, cfg, c_cache=layer_cache["c"],
             kr_cache=layer_cache["kr"], cache_index=cache_index,
             positions=positions)
+    if idx is not None:
+        _cache_index_keys(idx, h, layer_cache, cache_index, block_tables,
+                          positions)
     return out
 
 
-def _attend(attn, h: torch.Tensor, cfg: ModelConfig,
-            positions: torch.Tensor, kind: str, layer_cache,
-            cache_index, block_tables: Optional[torch.Tensor],
+def _attend(block: Block, h: torch.Tensor, cfg: ModelConfig,
+            positions: torch.Tensor, layer_cache, cache_index,
+            block_tables: Optional[torch.Tensor],
             paged_impl: str) -> torch.Tensor:
     """Attention sub-layer on normed hidden h.
 
@@ -200,34 +239,74 @@ def _attend(attn, h: torch.Tensor, cfg: ModelConfig,
     (B, T, *f) leaves, or, with ``block_tables`` (this layer's table,
     already offset into the layer-major pool), the dict of flat pools.
     Paged single-token steps read the cache in place through K1 (GQA) / K3
-    (MLA), spans through K2 / K4 (``paged_impl='ref'``: the gather
-    oracle)."""
+    (MLA), spans through K2 / K4; a GQA layer with DSA scores its indexer
+    keys in place through K5 (a step) / K6 (a span) and attends the top-k
+    tokens it gathers through the table.  ``paged_impl='ref'`` is the
+    gather oracle: a span gathers the padded view (DSA: then
+    ``dsa_attention`` over it), a DSA step keeps ``dsa_decode_paged`` with
+    the gathered indexer scores, as in the reference."""
     if cfg.attention_type == "mla":
-        return _attend_mla(attn, h, cfg, positions, layer_cache, cache_index,
+        return _attend_mla(block, h, cfg, positions, layer_cache, cache_index,
                            block_tables, paged_impl)
+    attn, idx = block.attn, getattr(block, "idx", None)
     B, S, _ = h.shape
-    window = cfg.sliding_window if kind == "local" else 0
+    window = cfg.sliding_window if block.kind == "local" else 0
     softcap = cfg.attn_logit_softcap
     q, k, v = gqa_qkv(attn, h, cfg, positions)
     if layer_cache is None:
-        out = dense_attention(q, k, v, positions, positions, causal=True,
-                              window=window, softcap=softcap)
+        if idx is None:
+            out = dense_attention(q, k, v, positions, positions, causal=True,
+                                  window=window, softcap=softcap)
+        else:
+            out = dsa_mod.dsa_attention(
+                idx, q, k, v, h, dsa_mod.indexer_keys(idx, h), positions,
+                positions, cfg, window=window, softcap=softcap)
     elif block_tables is not None:
         k_pool, v_pool = layer_cache["k"], layer_cache["v"]
         paged_update(k_pool, k, block_tables, positions)
         paged_update(v_pool, v, block_tables, positions)
-        attend = paged_gqa_attend if S == 1 else paged_gqa_prefill
-        out = attend(q, k_pool, v_pool, block_tables, positions[:, 0],
-                     window=window, softcap=softcap, impl=paged_impl)
+        if idx is None:
+            attend = paged_gqa_attend if S == 1 else paged_gqa_prefill
+            out = attend(q, k_pool, v_pool, block_tables, positions[:, 0],
+                         window=window, softcap=softcap, impl=paged_impl)
+        else:
+            ki_pool = _cache_index_keys(idx, h, layer_cache, cache_index,
+                                        block_tables, positions)
+            if S == 1:
+                out = dsa_mod.dsa_decode_paged(
+                    idx, q, k_pool, v_pool, h, ki_pool, block_tables,
+                    positions[:, 0], positions, cfg, softcap=softcap,
+                    impl=paged_impl)
+            elif paged_impl != "ref":
+                out = dsa_mod.dsa_prefill_paged(
+                    idx, q, k_pool, v_pool, h, ki_pool, block_tables,
+                    positions, cfg, window=window, softcap=softcap,
+                    impl=paged_impl)
+            else:      # the gathered view: index == position, no kv_len
+                k_full = paged_view(k_pool, block_tables)
+                T = k_full.shape[1]
+                out = dsa_mod.dsa_attention(
+                    idx, q, k_full, paged_view(v_pool, block_tables), h,
+                    paged_view(ki_pool, block_tables), positions,
+                    torch.arange(T, device=h.device).expand(B, T), cfg,
+                    window=window, softcap=softcap)
     else:
         k_cache, v_cache = layer_cache["k"], layer_cache["v"]
         k_cache[:, cache_index:cache_index + S] = k.to(k_cache.dtype)
         v_cache[:, cache_index:cache_index + S] = v.to(v_cache.dtype)
         T = k_cache.shape[1]
         kv_positions = torch.arange(T, device=h.device).expand(B, T)
-        out = dense_attention(q, k_cache, v_cache, positions, kv_positions,
-                              causal=True, window=window, softcap=softcap,
-                              kv_len=cache_index + S)
+        if idx is None:
+            out = dense_attention(q, k_cache, v_cache, positions,
+                                  kv_positions, causal=True, window=window,
+                                  softcap=softcap, kv_len=cache_index + S)
+        else:
+            ki_cache = _cache_index_keys(idx, h, layer_cache, cache_index,
+                                         None, positions)
+            out = dsa_mod.dsa_attention(
+                idx, q, k_cache, v_cache, h, ki_cache, positions,
+                kv_positions, cfg, kv_len=cache_index + S, window=window,
+                softcap=softcap)
     return out.reshape(B, S, -1) @ attn.wo
 
 
@@ -236,8 +315,8 @@ def apply_block(block: Block, h: torch.Tensor, cfg: ModelConfig,
                 cache_index=None, block_tables=None,
                 paged_impl: str = "kernel") -> torch.Tensor:
     a_in = rmsnorm(h, block.attn_norm, cfg.norm_eps)
-    h = h + _attend(block.attn, a_in, cfg, positions, block.kind,
-                    layer_cache, cache_index, block_tables, paged_impl)
+    h = h + _attend(block, a_in, cfg, positions, layer_cache, cache_index,
+                    block_tables, paged_impl)
     m_in = rmsnorm(h, block.mlp_norm, cfg.norm_eps)
     if hasattr(block, "moe"):
         m_out, _ = apply_moe(block.moe, m_in, cfg)   # aux: training only
@@ -248,9 +327,9 @@ def apply_block(block: Block, h: torch.Tensor, cfg: ModelConfig,
 
 def _layer_caches(cfg: ModelConfig, cache: dict, block_tables):
     """Per layer: (dict of cache leaves, block table) in layer order, for
-    any leaf names (``k``/``v`` or ``c``/``kr``).  Contiguous slot leaves
-    are indexed at the layer's group; paged slot pools are layer-major:
-    group g reads rows ``g*stride + table``."""
+    any leaf names (``k``/``v`` or ``c``/``kr``, and ``k_idx``).  Contiguous
+    slot leaves are indexed at the layer's group; paged slot pools are
+    layer-major: group g reads rows ``g*stride + table``."""
     P = len(cfg.attention_pattern)
     ng = n_groups(cfg)
     for i in range(cfg.num_layers):
@@ -305,17 +384,20 @@ def logits(model: Transformer, tokens: torch.Tensor, **kw) -> torch.Tensor:
 # KV caches
 # ---------------------------------------------------------------------------
 
-def _layer_leaves(cfg: ModelConfig, lead: tuple, dtype,
+def _layer_leaves(cfg: ModelConfig, lead: tuple, kind: str, dtype,
                   device) -> Dict[str, torch.Tensor]:
     """One layer's cache leaves with leading dims ``lead``: the latent
     ``c`` (kv_lora) and ``kr`` (rope) for MLA, ``k``/``v`` (KVH, d) for
-    GQA."""
+    GQA, plus the indexer keys ``k_idx`` (index_head_dim) on a global layer
+    of a DSA config."""
     if cfg.attention_type == "mla":
         m = cfg.mla
         feats = {"c": (m.kv_lora_dim,), "kr": (m.qk_rope_dim,)}
     else:
         f = (cfg.num_kv_heads, cfg.head_dim)
         feats = {"k": f, "v": f}
+    if cfg.dsa is not None and kind == "global":
+        feats["k_idx"] = (cfg.dsa.index_head_dim,)
     return {name: torch.zeros(lead + f, dtype=dtype, device=device)
             for name, f in feats.items()}
 
@@ -325,11 +407,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Contiguous cache: ``dense_i`` (B, T, *f) leaves and stacked
     ``slotJ`` (n_groups, B, T, *f) leaves, as the reference."""
     dev = resolve_device(device)
-    cache = {f"dense_{i}": _layer_leaves(cfg, (batch, max_len), dtype, dev)
+    cache = {f"dense_{i}": _layer_leaves(cfg, (batch, max_len), "global",
+                                         dtype, dev)
              for i in range(cfg.first_k_dense)}
-    for j in range(len(cfg.attention_pattern)):
+    for j, kind in enumerate(cfg.attention_pattern):
         cache[f"slot{j}"] = _layer_leaves(
-            cfg, (n_groups(cfg), batch, max_len), dtype, dev)
+            cfg, (n_groups(cfg), batch, max_len), kind, dtype, dev)
     return cache
 
 
@@ -340,11 +423,11 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     pass per-layer block ids in [0, num_blocks)."""
     dev = resolve_device(device)
     cache = {f"dense_{i}": _layer_leaves(cfg, (num_blocks, block_size),
-                                         dtype, dev)
+                                         "global", dtype, dev)
              for i in range(cfg.first_k_dense)}
-    for j in range(len(cfg.attention_pattern)):
+    for j, kind in enumerate(cfg.attention_pattern):
         cache[f"slot{j}"] = _layer_leaves(
-            cfg, (n_groups(cfg) * num_blocks, block_size), dtype, dev)
+            cfg, (n_groups(cfg) * num_blocks, block_size), kind, dtype, dev)
     return cache
 
 

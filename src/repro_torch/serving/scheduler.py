@@ -1,8 +1,8 @@
 """Continuous-batching scheduler over the paged KV cache (GLM-5 §3.6).
 
 Port of ``repro.serving.scheduler.ContinuousEngine`` for the dense and MoE
-families (GQA or MLA attention).  Iteration-level scheduling: the engine
-keeps ``max_batch`` decode slots and, every step,
+families (GQA or MLA attention, with or without DSA).  Iteration-level
+scheduling: the engine keeps ``max_batch`` decode slots and, every step,
 
   1. retires sequences that produced their ``max_new`` tokens, handing
      their KV blocks to the radix prefix cache (or back to the free list
@@ -17,11 +17,15 @@ keeps ``max_batch`` decode slots and, every step,
 
 Both phases read the cache blocks in place: decode steps through K1
 (``paged_decode_gqa``) or, for MLA, K3 (``paged_decode_mla``), prefill
-spans through K2 (``paged_prefill_gqa``) or K4 (``paged_prefill_mla``);
-``attn_impl="ref"`` switches both to the ``paged_view`` gather oracle.  The
-pool's leaves are whatever the model's ``init_paged_cache`` builds
-(``k``/``v`` for GQA, the latent ``c``/``kr`` for MLA): the COW fork, the
-per-token byte count and the gather-bytes stats walk every leaf.
+spans through K2 (``paged_prefill_gqa``) or K4 (``paged_prefill_mla``); a
+GQA layer with DSA scores its indexer keys through K5
+(``paged_indexer_scores_kernel``) / K6 (``paged_prefill_indexer``) and
+attends the top-k tokens it gathers through the table;
+``attn_impl="ref"`` switches both phases to the ``paged_view`` gather
+oracle.  The pool's leaves are whatever the model's ``init_paged_cache``
+builds (``k``/``v`` for GQA, the latent ``c``/``kr`` for MLA, ``k_idx`` on
+a DSA layer): the COW fork, the per-token byte count and the gather-bytes
+stats walk every leaf.
 
 Differences from the reference, all deliberate:
 

@@ -194,13 +194,16 @@ def test_models_reject_configs_they_cannot_serve():
                                      v_head_dim=16))
     moe = base.replace(family="moe", num_experts=4, experts_per_token=2,
                        moe_d_ff=32, num_shared_experts=1, first_k_dense=1)
-    # served now: MLA attention, MoE FFNs, and both together
+    # served now: MLA attention, MoE FFNs, both together, and DSA (the
+    # token selector with deterministic top-k) on any of them
     for cfg in (mla, moe, mla.replace(family="moe", num_experts=4,
-                                      experts_per_token=2, moe_d_ff=32)):
+                                      experts_per_token=2, moe_d_ff=32),
+                base.replace(dsa=DSAConfig()), mla.replace(dsa=DSAConfig()),
+                moe.replace(dsa=DSAConfig())):
         T.init(cfg, device="cpu")
-    bad = [base.replace(dsa=DSAConfig()),
-           mla.replace(dsa=DSAConfig()),
-           moe.replace(dsa=DSAConfig()),
+    bad = [base.replace(dsa=DSAConfig(selector="block")),
+           mla.replace(dsa=DSAConfig(deterministic_topk=False)),
+           moe.replace(dsa=DSAConfig(selector="block")),
            base.replace(mtp=MTPConfig()),
            moe.replace(mtp=MTPConfig()),
            base.replace(family="hybrid")]

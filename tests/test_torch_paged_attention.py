@@ -1,6 +1,6 @@
 """PyTorch port, kernels K1/K2: plain versions vs the JAX Pallas kernels
-(K3/K4's are in ``test_torch_mla.py``); the CUDA kernels K1-K4 vs their
-plain versions on the card.
+(K3/K4's are in ``test_torch_mla.py``, K5/K6's in ``test_torch_dsa.py``);
+the CUDA kernels K1-K6 vs their plain versions on the card.
 
 The port's plain PyTorch K1 (``paged_decode_gqa_plain``) and K2
 (``paged_prefill_gqa_plain``) — what the kernel wrappers run on CPU
@@ -21,9 +21,11 @@ import torch
 
 from repro_torch.kernels.paged_attention import kernel as K1
 from repro_torch.kernels.paged_attention import kernel as K3
+from repro_torch.kernels.paged_attention import kernel as K5
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention import prefill as K2
 from repro_torch.kernels.paged_attention import prefill as K4
+from repro_torch.kernels.paged_attention import prefill as K6
 from repro_torch.kernels.paged_attention import ref as tref
 
 ATOL = 1e-5
@@ -192,4 +194,40 @@ def test_cuda_mla_kernels_match_plain(dtype, tol, bs):
         got = k_fn(q_lat, q_rope, c, kr, tables, p, scale=scale, **kw)
         want = p_fn(q_lat, q_rope, c, kr, tables, p, scale=scale, **kw)
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Hi,Di,bs", [(16, 64, 16), (32, 128, 8), (3, 16, 8)])
+def test_cuda_indexer_kernels_match_plain(dtype, tol, Hi, Di, bs):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    # K5 (a decode step) and K6 (a span of S = 11, more than a CTA's tokens)
+    # at Yi-6B's and GLM-5's indexer shapes and an odd head count; scores
+    # compared on every position (dead blocks are NEG_INF in both)
+    S, mb = 11, 40          # 40 * bs positions: several 128-position tiles
+    rng = np.random.default_rng(7)
+    nb = B * mb + 1
+    kp = torch.from_numpy(rng.standard_normal((nb, bs, Di), np.float32))
+    tables = rng.permutation(nb - 1)[:B * mb].reshape(B, mb).astype(np.int32)
+    tables[0] = nb - 1                                   # trash row
+    lens = np.asarray([0, 1, bs - 1, 7 * bs + 3, mb * bs - 1], np.int32)
+    starts = np.asarray([0, bs - 1, bs + 3, 130, mb * bs - S], np.int32)
+    kp, tables = kp.cuda().to(dtype), torch.from_numpy(tables).cuda()
+    for rows, pos, k_fn, p_fn, kw in (
+            (Hi, lens, K5.paged_indexer_scores_kernel,
+             K5.paged_indexer_scores_plain, {}),
+            (S * Hi, starts, K6.paged_prefill_indexer,
+             K6.paged_prefill_indexer_plain, {"heads": Hi})):
+        q = torch.from_numpy(rng.standard_normal((B, rows, Di), np.float32))
+        w = torch.softmax(torch.from_numpy(
+            rng.standard_normal((B, rows // Hi, Hi), np.float32)), -1)
+        q, w = q.cuda().to(dtype), w.reshape(B, rows).cuda()
+        p = torch.from_numpy(pos).cuda()
+        got = k_fn(q, w, kp, tables, p, **kw)
+        want = p_fn(q, w, kp, tables, p, **kw)
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        assert torch.equal(got <= -1e29, want <= -1e29)
         assert (got - want).abs().max().item() <= tol
