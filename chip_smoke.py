@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
 It drives three serving paths: the dense GQA family (Yi-6B, slice 1: K1
 and K2), GLM-5's MLA + MoE path (slice 2: K3 and K4; with DSA on, its MLA
 layers write the indexer keys and read none) and DSA sparse attention on
-GQA (Yi-6B with its own DSAConfig, slice 3: K5 and K6).  Phases, each
-printing lines of numbers (any failure exits non-zero):
+GQA (Yi-6B with its own DSAConfig, slice 3: K5 and K6); and the training
+path (slice 4: the Muon Split trainer on Yi-6B and Yi-6B + DSA at full
+width, 8 layers; K9 flash attention, K10 chunked cross-entropy, K7
+lightning indexer).  Phases, each printing lines of numbers (any failure
+exits non-zero):
 
   build    compile the hand-written CUDA kernels from ``src/repro_torch/csrc``
            with nvcc for sm_90a into ``build/`` (cached by source hash), one
@@ -24,7 +28,12 @@ printing lines of numbers (any failure exits non-zero):
            the pools and q_rope in fp32 or bf16; then K5 (indexer decode
            scores) and K6 (span scores) at Yi-6B's (Hi 16, Di 64) and
            GLM-5's (Hi 32, Di 128) indexer shapes, where the dead blocks
-           (NEG_INF) must also match;
+           (NEG_INF) must also match; then K9 (d 64/128/256; causal,
+           window + softcap, q_offset, non-causal; S*G and Sk ragged), K7
+           (Hi x Di 16x64, 32x128, 2x16; S and T ragged) and K10 (Tk and V
+           ragged, softcap 0 and 30, a partial mask; its two sums held to
+           1e-5 relative), and the gradients through their autograd
+           Functions on the kernel and the plain routes (equal);
   timing   K3/K4's and K5/K6's registers, spills, shared memory and CTAs
            resident on an SM, as the CUDA runtime reports them; then
            each kernel, its plain version and one PyTorch library call
@@ -44,11 +53,18 @@ printing lines of numbers (any failure exits non-zero):
            so no library time), with the top-2048 sets chosen from the
            kernel's and from the plain scores compared (they may differ
            only at near-ties of the 2048th score; their count is printed);
+           K9, K10 and K7 at the training runs' shapes in fp32 (bound by
+           67 TFLOP/s, fp32 on the CUDA cores: TF32 is off), K9 beside
+           scaled_dot_product_attention(is_causal=True); K10 there on
+           unit-scale logits, as the model's, so that the part of its sum
+           that depends on h.W is far above the 1e-5 relative tolerance;
   parity   Yi-6B at full width with 2 layers in fp32: the port's
            ContinuousEngine (mid-flight admission, a shared prefix with a
            radix hit and a COW fork, chunked prefill) gives the same greedy
            tokens as the ServingEngine oracle, wherever the top-2 logit
-           margin is at least 1e-3 (prompts without one are skipped); then
+           margin is at least 1e-3 (prompts without one are skipped; the
+           oracle and the margins run on the plain route, so their DSA
+           scores do not come from K7, whose tile body K5/K6 share); then
            the same for Yi-6B with DSA, with prompts of 2600 and 3000
            tokens (top-2048 discards keys) beside short ones; then GLM-5
            (DSA on) at full width with 2 layers (1 dense-MLP MLA layer + 1
@@ -62,7 +78,21 @@ printing lines of numbers (any failure exits non-zero):
            MoE layer, DSA on, mtp=None; ~26 GB of bf16 weights) on the
            first request mix.  Each path's kernels' launch counters are set
            to 0 just before and read just after its run;
-  profile  8 decode-only steps of each served model at 8 rows, timed and
+  train    one Muon step on the kernel route and one on the plain route
+           (the three wrappers pointed at their plain versions) from the
+           same fp32 weights and batch, Yi-6B width at 2 layers, dense (seq
+           1024) and with DSA (seq 2560): loss, every gradient and every
+           parameter after the step within the tolerances of
+           ``train_parity``; then the trainer (``launch.train.train``) for 5
+           steps of Yi-6B (8 layers, dense, batch 2 x 2048) and of Yi-6B +
+           DSA (8 layers, batch 1 x 4096): losses finite and falling, step
+           ms, tokens/s, peak memory, and the launches of K7/K9/K10, which
+           must equal the count expected from the depth and the chunks;
+  profile  one training step of each training run cut into its layers
+           (forward, loss, backward, Muon; synchronised between them) and
+           one traced with torch.profiler (busy share, top kernels, K7/K9/
+           K10 device time); then 8 decode-only steps of each served model
+           at 8 rows, timed and
            then traced with torch.profiler: device busy share, top kernels
            and the port's own kernels' device time a call (Yi-6B with DSA
            at ~2300 live tokens a row, past top-k).
@@ -74,6 +104,7 @@ without the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -593,8 +624,8 @@ def mla_resources(cfg, batch) -> None:
     launches for one decode step of ``batch`` rows and the card's SMs."""
     import ctypes
     import torch
-    from repro_torch.kernels.paged_attention.kernel import (_DTYPE_CODE,
-                                                            cuda_entry)
+    from repro_torch.kernels.build import DTYPE_CODE as _DTYPE_CODE
+    from repro_torch.kernels.build import cuda_entry
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         r = (ctypes.c_int * 5)()
@@ -828,8 +859,8 @@ def indexer_resources(cfg, batch, max_len, bs) -> None:
     shape, beside the CTAs K5 launches for one decode step."""
     import ctypes
     import torch
-    from repro_torch.kernels.paged_attention.kernel import (_DTYPE_CODE,
-                                                            cuda_entry)
+    from repro_torch.kernels.build import DTYPE_CODE as _DTYPE_CODE
+    from repro_torch.kernels.build import cuda_entry
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     Hi, Di = cfg.dsa.index_heads, cfg.dsa.index_head_dim
     for dtype in (torch.float32, torch.bfloat16):
@@ -900,7 +931,10 @@ def _all_launched(kernels, before) -> bool:
 def parity(cfg, device="cuda", block_size=16, chunk=64, long=False) -> dict:
     """fp32 greedy tokens of the port's ContinuousEngine against its
     ServingEngine oracle, on the short prompt mix or (``long``) the DSA mix
-    with prompts past top-k."""
+    with prompts past top-k.  The oracle and the margin check run on the
+    plain route: their contiguous DSA scores would otherwise reach K7,
+    whose tile body K5/K6 share, so the engine's kernels are held against
+    plain indexer scores."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as T
@@ -925,10 +959,13 @@ def parity(cfg, device="cuda", block_size=16, chunk=64, long=False) -> dict:
     oracle = ServingEngine(cfg, model, max_batch=1, max_len=max_len,
                            device=device)
     oreqs = [Request(prompt=p, max_new=m) for p, m in zip(prompts, max_new)]
-    oracle.serve(oreqs)
     compared = skipped = 0
-    for r, o in zip(reqs, oreqs):
-        if not _margins_ok(model, r.prompt, o.out, device):
+    with plain_route():
+        oracle.serve(oreqs)
+        margins = [_margins_ok(model, r.prompt, o.out, device)
+                   for r, o in zip(reqs, oreqs)]
+    for r, o, ok in zip(reqs, oreqs, margins):
+        if not ok:
             skipped += 1
             continue
         compared += 1
@@ -1117,6 +1154,473 @@ def profile_decode(cfg, device="cuda", steps=8, block_size=16,
 
 # ---------------------------------------------------------------------------
 
+
+# ---------------------------------------------------------------------------
+# the training path: K7, K9, K10, the train step and the trainer
+# ---------------------------------------------------------------------------
+
+TRAIN_KERNELS = ("lightning_indexer", "flash_attention", "chunked_ce")
+
+
+def train_kernel_wrappers() -> dict:
+    """name -> (module, wrapper, plain version) of the training kernels."""
+    from repro_torch.kernels.chunked_ce import kernel as K10
+    from repro_torch.kernels.flash_attention import kernel as K9
+    from repro_torch.kernels.lightning_indexer import kernel as K7
+    return {"lightning_indexer": (K7, K7.lightning_indexer, K7.reference),
+            "flash_attention": (K9, K9.flash_attention, K9.reference),
+            "chunked_ce": (K10, K10.chunked_ce, K10.reference)}
+
+
+class plain_route:
+    """Inside ``with plain_route():`` the model reaches the plain versions of
+    K7, K9 and K10 on CUDA tensors (each wrapper's module attribute is
+    pointed at its plain version, which takes the same arguments); the
+    kernels are restored on exit.  Only this script's parity phase does
+    this: the port itself has no switch to the plain versions on the card."""
+
+    def __enter__(self):
+        self._saved = train_kernel_wrappers()
+        for name, (mod, _, plain) in self._saved.items():
+            setattr(mod, name, plain)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, wrapper, _) in self._saved.items():
+            setattr(mod, name, wrapper)
+        return False
+
+
+def _hold_rel(what, got, want, tol) -> float:
+    """|got - want| <= tol * max(1, |want|) for a scalar; returns the abs
+    error."""
+    err = abs(float(got) - float(want))
+    if not err <= tol * max(1.0, abs(float(want))):
+        raise AssertionError(f"{what}: {float(got)} vs {float(want)}, abs err "
+                             f"{err} > {tol} x max(1, |plain|)")
+    return err
+
+
+def _grads_of(fn, inputs):
+    """fn(*inputs) reduced against a fixed random cotangent; returns the
+    gradients of the inputs."""
+    import torch
+    xs = [x.detach().requires_grad_() for x in inputs]
+    out = fn(*xs)
+    out = out[0] if isinstance(out, tuple) else out
+    g = torch.randn(out.shape, generator=torch.Generator(
+        device=out.device).manual_seed(SEED + 7), device=out.device)
+    return torch.autograd.grad(out, xs, g.to(out.dtype))
+
+
+def _same_grads(what, fn, inputs) -> None:
+    """The gradients through an autograd Function are equal on the kernel
+    route and on the plain route: its backward is plain PyTorch and
+    recomputes what it needs from the inputs, never from the forward's
+    output."""
+    import torch
+    got = _grads_of(fn, inputs)
+    with plain_route():
+        want = _grads_of(fn, inputs)
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = (a.float() - b.float()).abs().max().item()
+        if not torch.isfinite(a).all() or err > 0.0:
+            raise AssertionError(f"{what}: gradient {i} differs between the "
+                                 f"kernel and plain routes by {err}")
+
+
+def check_train_kernels(device="cuda") -> dict:
+    """K7, K9 and K10 against their plain versions at ragged shapes, fp32
+    (atol 1e-4) and bf16 (2e-2), scaled by min(1, max|plain|) as K1-K6;
+    K10's two sums are held relatively (1e-5 of max(1, |plain|): they sum
+    ~1000 token NLLs in another order).  Then the gradients through each
+    autograd Function on both routes.  Returns the max error per kernel."""
+    import torch
+    from repro_torch.kernels.chunked_ce import kernel as K10
+    from repro_torch.kernels.flash_attention import kernel as K9
+    from repro_torch.kernels.lightning_indexer import kernel as K7
+    from repro_torch.kernels.lightning_indexer import ops as li_ops
+    from repro_torch.layers.attention import flash_attend
+    from repro_torch.models.losses import chunked_softmax_xent
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    worst = dict.fromkeys(TRAIN_KERNELS, 0.0)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        # K9: S*G not a multiple of the row tile, Sk ragged, d 64/128/256,
+        # causal / window + softcap / q_offset with Sq < Sk / non-causal
+        cases = [(64, 197, 197, 8, 2, dict()),
+                 (128, 200, 200, 32, 4, dict(window=64, softcap=50.0)),
+                 (256, 131, 131, 8, 4, dict(window=40, softcap=30.0)),
+                 (128, 100, 333, 8, 2, dict(q_offset=233)),
+                 (64, 70, 333, 4, 4, dict(causal=False))]
+        for d, Sq, Sk, H, KVH, kw in cases:
+            q, k, v = rnd(2, Sq, H, d, dtype=dtype), \
+                rnd(2, Sk, KVH, d, dtype=dtype), rnd(2, Sk, KVH, d, dtype=dtype)
+            err = _hold(f"K9 d={d} {kw}", K9.flash_attention(q, k, v, **kw),
+                        K9.reference(q, k, v, **kw), dtype)
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            _log("kernels", kernel="flash_attention", d=d, Sq=Sq, Sk=Sk, H=H,
+                 KVH=KVH, opts=repr(kw), dtype=dn, max_abs_err=err)
+        # K7: S not a multiple of the 8-query tile, T of the 128-key tile
+        for Hi, Di in ((16, 64), (32, 128), (2, 16)):
+            q, w, k = rnd(2, 150, Hi * Di, dtype=dtype), \
+                torch.softmax(rnd(2, 150, Hi), -1), rnd(2, 333, Di, dtype=dtype)
+            err = _hold(f"K7 {Hi}x{Di}",
+                        K7.lightning_indexer(q, w, k, heads=Hi, head_dim=Di),
+                        K7.reference(q, w, k, heads=Hi, head_dim=Di), dtype)
+            worst["lightning_indexer"] = max(worst["lightning_indexer"], err)
+            _log("kernels", kernel="lightning_indexer", heads=Hi,
+                 index_dim=Di, S=150, T=333, dtype=dn, max_abs_err=err)
+        # K10: Tk and V not multiples of the 128 tiles, a partial mask
+        for softcap in (0.0, 30.0):
+            h, w = rnd(1000, 256, dtype=dtype), rnd(256, 1000, dtype=dtype)
+            t = torch.randint(0, 1000, (1000,), generator=gen, device=device,
+                              dtype=torch.int32)
+            m = (torch.rand(1000, generator=gen, device=device) > 0.3).float()
+            got = K10.chunked_ce(h, w, t, m, softcap=softcap)
+            want = K10.reference(h, w, t, m, softcap=softcap)
+            err = max(_hold_rel(f"K10 loss softcap={softcap} {dn}", got[0],
+                                want[0], 1e-5),
+                      _hold_rel(f"K10 count {dn}", got[1], want[1], 1e-5))
+            worst["chunked_ce"] = max(worst["chunked_ce"], err)
+            _log("kernels", kernel="chunked_ce", Tk=1000, D=256, V=1000,
+                 softcap=softcap, dtype=dn, max_abs_err=err)
+    # gradients through the autograd Functions, fp32, kernel vs plain route
+    q, k, v = rnd(2, 300, 8, 128), rnd(2, 300, 2, 128), rnd(2, 300, 2, 128)
+    _same_grads("flash_attend", lambda a, b, c: flash_attend(
+        a, b, c, window=100, softcap=50.0, q_chunk=128), (q, k, v))
+    qi, wi, ki = rnd(2, 150, 16, 64), torch.softmax(rnd(2, 150, 16), -1), \
+        rnd(2, 333, 64)
+    _same_grads("indexer_scores", li_ops.indexer_scores, (qi, wi, ki))
+    h, W = rnd(2, 500, 256), rnd(256, 1000)
+    t = torch.randint(0, 1000, (2, 500), generator=gen, device=device)
+    m = torch.ones((2, 500), device=device)
+    _same_grads("chunked_softmax_xent", lambda a, b: chunked_softmax_xent(
+        a, b, t, m, chunk=128, softcap=30.0), (h, W))
+    _log("kernels", autograd="flash_attend,indexer_scores,"
+         "chunked_softmax_xent", grads="equal on both routes")
+    return worst
+
+
+def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
+                       device="cuda", reps=10) -> dict:
+    """Each training kernel at the training runs' shapes in fp32 (TF32 off,
+    as the trainer runs): K9 over one dense layer's (B, S, H, d) q and
+    (B, S, KVH, d) k/v, causal; K10 over one step's tokens against the
+    unembedding; K7 over one 256-query chunk of the DSA run against its
+    keys.  Bound: bytes (inputs read once, the output written once) over
+    3.35 TB/s or flops over 67 TFLOP/s (fp32 on the CUDA cores), the larger.
+    Library: one scaled_dot_product_attention(is_causal=True) over the same
+    q and the KV heads repeated once before the timed loop (for K9 only: no
+    single PyTorch call computes K7 or K10)."""
+    import torch
+    import torch.nn.functional as F
+    wrappers = train_kernel_wrappers()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    f32 = torch.float32
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    out = {}
+    B, S = batch, seq
+    H, KVH, d = dense_cfg.num_heads, dense_cfg.num_kv_heads, dense_cfg.head_dim
+    q, k, v = rnd(B, S, H, d), rnd(B, S, KVH, d), rnd(B, S, KVH, d)
+    _, K9, K9p = wrappers["flash_attention"]
+    qs = q.transpose(1, 2).contiguous()
+    ks = k.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+    vs = v.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+    out["flash_attention"] = dict(
+        ms=cuda_ms(lambda: K9(q, k, v), reps),
+        plain_ms=cuda_ms(lambda: K9p(q, k, v), 2),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), reps),
+        max_abs_err=_hold("K9 train-shape", K9(q, k, v), K9p(q, k, v), f32),
+        flops=4 * B * H * S * S * d / 2,
+        bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
+        shape=f"B={B} S={S} H={H} KVH={KVH} d={d} causal")
+    del q, k, v, qs, ks, vs
+    # unit-scale logits, as the model's (its first loss is ~log V + 0.5):
+    # the part of the sum that depends on h.W, sum - count * log V, is then
+    # ~Tk / 2, far above the tolerance, so a kernel that drops or corrupts
+    # the product fails
+    Tk, D, V = B * S, dense_cfg.d_model, dense_cfg.vocab_size
+    h, w = rnd(Tk, D), rnd(D, V) * D ** -0.5
+    t = torch.randint(0, V, (Tk,), generator=gen, device=device,
+                      dtype=torch.int32)
+    m = torch.ones(Tk, device=device)
+    _, K10, K10p = wrappers["chunked_ce"]
+    got, want = K10(h, w, t, m), K10p(h, w, t, m)
+    err = _hold_rel("K10 train-shape", got[0], want[0], 1e-5)
+    product_part = float(want[0]) - float(want[1]) * math.log(V)
+    if not abs(product_part) > 100 * 1e-5 * abs(float(want[0])):
+        raise AssertionError(f"K10 train-shape: the h.W part of the sum, "
+                             f"{product_part}, is not far above the "
+                             f"tolerance")
+    _log("kernels", kernel="chunked_ce", Tk=Tk, D=D, V=V, dtype="float32",
+         loss_sum=float(want[0]), product_part=product_part, max_abs_err=err)
+    out["chunked_ce"] = dict(
+        ms=cuda_ms(lambda: K10(h, w, t, m), 3),
+        plain_ms=cuda_ms(lambda: K10p(h, w, t, m), 2), library_ms=None,
+        max_abs_err=err,
+        flops=2 * Tk * D * V, bytes=4 * (h.numel() + w.numel() + 2 * Tk),
+        shape=f"Tk={Tk} D={D} V={V}")
+    del h, w
+    dsa = dsa_cfg.dsa
+    Hi, Di, rows = dsa.index_heads, dsa.index_head_dim, 256
+    qi, wi, ki = rnd(1, rows, Hi * Di), torch.softmax(rnd(1, rows, Hi), -1), \
+        rnd(1, dsa_seq, Di)
+    _, K7, K7p = wrappers["lightning_indexer"]
+    kw = dict(heads=Hi, head_dim=Di)
+    out["lightning_indexer"] = dict(
+        ms=cuda_ms(lambda: K7(qi, wi, ki, **kw), 50),
+        plain_ms=cuda_ms(lambda: K7p(qi, wi, ki, **kw), 10), library_ms=None,
+        max_abs_err=_hold("K7 train-shape", K7(qi, wi, ki, **kw),
+                          K7p(qi, wi, ki, **kw), f32),
+        flops=rows * dsa_seq * Hi * (2 * Di + 2),
+        bytes=4 * (qi.numel() + wi.numel() + ki.numel() + rows * dsa_seq),
+        shape=f"S={rows} T={dsa_seq} Hi={Hi} Di={Di}")
+    for name, r in out.items():
+        t_bytes = r["bytes"] / H100_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / H100_FLOPS["float32"] * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        _log("timing", kernel=name, shape=repr(r["shape"]), ms=r["ms"],
+             plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+             max_abs_err=r["max_abs_err"], dtype="float32")
+    return out
+
+
+def _train_batch(cfg, batch, seq, device):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 3)
+    toks = rng.integers(0, cfg.vocab_size, (batch, seq + 1))
+    t = torch.from_numpy(toks.astype(np.int32)).to(device)
+    return {"tokens": t[:, :-1], "targets": t[:, 1:]}
+
+
+def train_parity(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
+    """One train step (loss, gradients, clipping, Muon) on the kernel route
+    and one on the plain route, from the same fp32 weights and batch.
+    Tolerances: the loss within 1e-5 relative; every gradient within 1e-4
+    of its leaf's max |plain gradient|; after the step every Muon
+    parameter within 1e-3 * lr of the plain route's.  An AdamW parameter
+    at count 1 steps by lr * g / (|g| + eps), eps = 1e-8: a function of g
+    bounded by 1 and (1/eps)-Lipschitz, so where the routes' gradients
+    differ by dg an element may differ by lr * min(2, |dg| / eps) (a
+    gradient within rounding of 0 steps either way); each AdamW element is
+    held to that plus 1e-3 * lr."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import muon
+    model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                   device=device)
+    axes = T.param_axes(model)
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
+    data = _train_batch(cfg, batch, seq, device)
+    tc = TrainConfig(batch_size=batch, seq_len=seq)
+
+    def one_step():
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(start[k])
+        step = make_train_step(model, train_cfg=tc, lr=lr)
+        opt = muon.init(dict(model.named_parameters()), axes)
+        _, metrics = step(opt, data)
+        grads = {k: p.grad.detach().clone()
+                 for k, p in model.named_parameters()}
+        after = {k: p.detach().clone() for k, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return float(metrics["loss"]), grads, after
+
+    loss_k, grads_k, after_k = one_step()
+    with plain_route():
+        loss_p, grads_p, after_p = one_step()
+    _hold_rel("train parity loss", loss_k, loss_p, 1e-5)
+    g_err = p_err = 0.0
+    failures = []
+    for k in grads_p:
+        scale = grads_p[k].abs().max().item()
+        dg = (grads_k[k] - grads_p[k]).abs()
+        e = dg.max().item()
+        if not e <= 1e-4 * scale:
+            failures.append(f"grad {k} differs by {e} (max |g| {scale})")
+        g_err = max(g_err, e / max(scale, 1e-30))
+        diff = (after_k[k] - after_p[k]).abs()
+        allowed = torch.full_like(diff, 1e-3 * lr)
+        if not muon._is_muon_param(axes[k], tuple(diff.shape)):
+            allowed += lr * torch.clamp(dg / 1e-8, max=2.0)
+        if bool((diff > allowed).any()):
+            failures.append(f"param {k} after the step: "
+                            f"{int((diff > allowed).sum())} elements past "
+                            f"their bound, max {diff.max().item()}")
+        p_err = max(p_err, diff.max().item())
+    if failures:
+        raise AssertionError("train parity: " + "; ".join(failures))
+    res = dict(loss_kernel=loss_k, loss_plain=loss_p,
+               max_rel_grad_err=g_err, max_param_err=p_err)
+    _log("train.parity", model=cfg.name, layers=cfg.num_layers,
+         dsa=cfg.dsa is not None, batch=batch, seq=seq, **res)
+    del model, start, grads_k, grads_p, after_k, after_p
+    return res
+
+
+def expected_launches(cfg, seq, steps) -> dict:
+    """Kernel launches the trainer makes in ``steps`` steps: K10 once a
+    step (its backward is plain); K9 once a layer without DSA (forward
+    only: the backward recomputes plainly); K7 twice a DSA layer's query
+    chunk (the forward, and the checkpoint's recompute in the backward)."""
+    dsa_layers = cfg.num_layers if cfg.dsa is not None else 0
+    chunks = -(-seq // min(cfg.q_chunk, 256))
+    return {"chunked_ce": steps,
+            "flash_attention": (cfg.num_layers - dsa_layers) * steps,
+            "lightning_indexer": 2 * dsa_layers * chunks * steps}
+
+
+def train_run(cfg, batch, seq, steps, device="cuda", lr=2e-3) -> dict:
+    """The trainer itself (``launch.train.train``) for ``steps`` steps at
+    full width: losses finite and falling, step ms, tokens/s, peak memory,
+    and each training kernel's launches against ``expected_launches``."""
+    import math
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import train
+    wrappers = train_kernel_wrappers()
+    tc = TrainConfig(batch_size=batch, seq_len=seq, learning_rate=lr,
+                     warmup_steps=0, total_steps=steps, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    for _, fn, _ in wrappers.values():
+        fn.launches = 0                          # counts of the main path
+    t0 = time.perf_counter()
+    hist = train(cfg, tc, device=device, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, (_, fn, _) in wrappers.items()}
+    want = expected_launches(cfg, seq, steps)
+    losses = [h["loss"] for h in hist]
+    # the trainer logs tokens/s since its start: per-step wall times follow
+    done = [batch * seq * (h["step"] + 1) / h["tok_per_s"] for h in hist]
+    step_ms = [1e3 * (b - a) for a, b in zip([0.0] + done, done)]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"train {cfg.name}: losses {losses} not finite "
+                             f"and falling")
+    if launches != want:
+        raise AssertionError(f"train {cfg.name}: launches {launches} != "
+                             f"expected {want}")
+    if not all(launches[n] > 0 for n, c in want.items() if c):
+        raise AssertionError(f"train {cfg.name}: a kernel of the path never "
+                             f"launched: {launches}")
+    res = dict(losses=[round(x, 5) for x in losses],
+               step_ms=[round(x, 1) for x in step_ms],
+               tok_per_s=hist[-1]["tok_per_s"],
+               steady_tok_per_s=batch * seq * (len(step_ms) - 1)
+               / (sum(step_ms[1:]) / 1e3),
+               max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches_per_step={n: c / steps for n, c in launches.items()},
+               wall_s=wall)
+    _log("train", model=cfg.name, layers=cfg.num_layers,
+         dsa=cfg.dsa is not None, batch=batch, seq=seq, steps=steps,
+         **{k: repr(v) if isinstance(v, (list, dict)) else v
+            for k, v in res.items()})
+    res["launches"] = launches
+    return res
+
+
+
+def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
+    """Where a training step's time goes: one warm step, then one step cut
+    into its layers with a synchronise between them (forward through the
+    layers, the loss (K10), the backward, clipping + Muon), then one step
+    under torch.profiler: the device's busy share of the step and the
+    device time of the top kernels and of K7/K9/K10."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.layers.common import unembed_matrix
+    from repro_torch.models import transformer as T
+    from repro_torch.models.losses import chunked_softmax_xent
+    from repro_torch.optim import muon
+    model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                   device=device)
+    tc = TrainConfig(batch_size=batch, seq_len=seq)
+    step = make_train_step(model, train_cfg=tc, lr=lr)
+    params = dict(model.named_parameters())
+    axes = T.param_axes(model)
+    opt = muon.init(params, axes)
+    data = _train_batch(cfg, batch, seq, device)
+    opt, _ = step(opt, data)                             # warm-up
+    torch.cuda.synchronize()
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    for p in params.values():
+        p.grad = None
+    h, aux, _ = T.hidden(model, data["tokens"])
+    mark()
+    ce_sum, count = chunked_softmax_xent(
+        h, unembed_matrix(model.embed, cfg), data["targets"],
+        torch.ones(data["targets"].shape, device=device),
+        chunk=cfg.loss_chunk, softcap=cfg.final_logit_softcap)
+    total = ce_sum / count + aux
+    mark()
+    total.backward()
+    mark()
+    grads, _ = muon.global_norm_clip({k: p.grad for k, p in params.items()},
+                                     tc.grad_clip)
+    opt = muon.update(params, grads, axes, opt, lr=lr, cfg=cfg,
+                      weight_decay=tc.weight_decay, split=tc.muon_split)
+    mark()
+    phases = dict(zip(("forward_ms", "loss_ms", "backward_ms", "muon_ms"),
+                      (1e3 * (b - a) for a, b in zip(marks, marks[1:]))))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt, _ = step(opt, data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0.0)
+    busy_us = sum(dev_us(e) for e in kernels)
+    # a kernel's instantiations by name: K9 is the attention tile on the
+    # dense layout, K7 the indexer tile on dense keys, K10 two kernels
+    ours = {name: sum(dev_us(e) for e in kernels
+                      if any(all(k in e.key for k in keys) for keys in alts))
+            / 1e3 for name, alts in (
+                ("flash_attention", [("gqa_tile_kernel", "DenseKV")]),
+                ("chunked_ce", [("ce_tile_kernel",), ("ce_combine_kernel",)]),
+                ("lightning_indexer", [("indexer_tile_kernel", "DenseKeys")]))}
+    res = dict(phases, step_ms=sum(phases.values()),
+               profiled_step_ms=wall * 1e3,
+               device_busy_ms=busy_us / 1e3,
+               device_busy_share=busy_us / 1e6 / wall,
+               kernel_launches=sum(e.count for e in kernels),
+               **{f"{k}_device_ms": v for k, v in ours.items()})
+    _log("train.profile", model=cfg.name, layers=cfg.num_layers,
+         dsa=cfg.dsa is not None, batch=batch, seq=seq, **res)
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        _log("train.profile.kernel", name=repr(e.key[:60]), calls=e.count,
+             device_ms=dev_us(e) / 1e3)
+    del model, opt, params, grads
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1135,14 +1639,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.paged_attention.kernel import LIBRARIES
 
     _log("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=repr(torch.cuda.get_device_name(0)),
          count=torch.cuda.device_count())
     t0 = time.perf_counter()
-    libs = build.build_all(LIBRARIES)     # one nvcc per source, in parallel
-    for name in LIBRARIES:
+    libs = build.build_all(build.LIBRARIES)   # one nvcc a source, in parallel
+    for name in build.LIBRARIES:
         build.load(name)
     _log("build", seconds=time.perf_counter() - t0,
          libraries=",".join(p.name for p in libs))
@@ -1150,6 +1653,7 @@ def main() -> int:
     worst = check_kernels()
     worst.update(check_mla_kernels())
     worst.update(check_indexer_kernels())
+    worst.update(check_train_kernels())
     prompt_lens = [1024, 32, 777, 150, 512, 64, 900, 300]
     serve_lens = [n + 16 for n in prompt_lens]
     # the DSA mix: two prompts past 3 x top-k, four past top-k
@@ -1174,6 +1678,13 @@ def main() -> int:
         max(dsa_lens) - span_start, bs=16, num_blocks=2048,
         mb=dsa_max_len // 16))
     _free()
+    # the training path: Yi-6B at full width, depth cut to 8 layers so that
+    # fp32 weights, gradients and Muon state fit beside the activations
+    yi_train, yi_dsa_train = yi.replace(num_layers=8), \
+        yi_dsa.replace(num_layers=8)
+    train_shapes = dict(batch=2, seq=2048, dsa_seq=4096)
+    timing.update(time_train_kernels(yi_train, yi_dsa_train, **train_shapes))
+    _free()
     parity(yi.replace(num_layers=2))
     _free()
     parity(yi_dsa.replace(num_layers=2), long=True)
@@ -1186,6 +1697,21 @@ def main() -> int:
     _free()
     launches.update(serve(glm5, prompt_lens)["launches"])
     _free()
+    train_parity(yi.replace(num_layers=2), batch=1, seq=1024)
+    _free()
+    train_parity(yi_dsa.replace(num_layers=2), batch=1, seq=2560)
+    _free()
+    dense_run = train_run(yi_train, batch=2, seq=2048, steps=5)
+    _free()
+    dsa_run = train_run(yi_dsa_train, batch=1, seq=4096, steps=5)
+    _free()
+    for name in TRAIN_KERNELS:
+        launches[name] = dense_run["launches"][name] \
+            + dsa_run["launches"][name]
+    profile_train_step(yi_train, batch=2, seq=2048)
+    _free()
+    profile_train_step(yi_dsa_train, batch=1, seq=4096)
+    _free()
     profile_decode(yi)
     _free()
     profile_decode(yi_dsa, prompt_len=2304)
@@ -1194,7 +1720,10 @@ def main() -> int:
 
     sources = {"gqa": "src/repro_torch/csrc/paged_attention.cu",
                "mla": "src/repro_torch/csrc/paged_mla.cu",
-               "indexer": "src/repro_torch/csrc/paged_indexer.cu"}
+               "indexer": "src/repro_torch/csrc/paged_indexer.cu",
+               "lightning_indexer": "src/repro_torch/csrc/lightning_indexer.cu",
+               "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+               "chunked_ce": "src/repro_torch/csrc/chunked_ce.cu"}
     replaces = {"paged_decode_gqa":
                 ("gqa", "src/repro/kernels/paged_attention/kernel.py:109"),
                 "paged_prefill_gqa":
@@ -1207,7 +1736,15 @@ def main() -> int:
                 ("indexer", "src/repro/kernels/paged_attention/kernel.py:271"),
                 "paged_prefill_indexer":
                 ("indexer",
-                 "src/repro/kernels/paged_attention/prefill.py:277")}
+                 "src/repro/kernels/paged_attention/prefill.py:277"),
+                "lightning_indexer":
+                ("lightning_indexer",
+                 "src/repro/kernels/lightning_indexer/kernel.py:37"),
+                "flash_attention":
+                ("flash_attention",
+                 "src/repro/kernels/flash_attention/kernel.py:81"),
+                "chunked_ce":
+                ("chunked_ce", "src/repro/kernels/chunked_ce/kernel.py:70")}
     kernels = []
     for name, (src, where) in replaces.items():
         t = timing[name]

@@ -16,7 +16,8 @@ from repro_torch.configs.base import (DSAConfig, MLAConfig, MTPConfig,
 
 ARCH_IDS = ["gemma2_2b", "glm5_744b", "yi_6b"]
 
-_ALIASES = {"gemma2-2b": "gemma2_2b", "glm-5-744b": "glm5_744b",
+_ALIASES = {"gemma2-2b": "gemma2_2b", "glm-5": "glm5_744b",
+            "glm-5-744b": "glm5_744b",
             "yi-6b": "yi_6b"}
 
 

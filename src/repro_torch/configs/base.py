@@ -9,8 +9,12 @@ The reference's expert-parallel switches
 encoder / frontend fields and its implementation switches (``attn_impl``,
 ``scan_layers``, ``remat``, ...) are left out, so a setting the port
 cannot honour fails when the config is built instead of being ignored.
-The training and workload dataclasses are not needed by the serving
-slice.
+``q_chunk`` and ``loss_chunk`` bound the training path's transient memory
+(attention's backward and DSA chunks; the cross-entropy's backward) and
+change no value.  ``TrainConfig`` is the reference's less ``optimizer``
+and ``min_lr``, which its trainer never reads: the trainer always steps
+Muon (Split unless ``muon_split`` is off) and floors the cosine at a
+tenth of the peak.  The workload dataclasses are not needed yet.
 """
 from __future__ import annotations
 
@@ -93,9 +97,26 @@ class ModelConfig:
     first_k_dense: int = 0         # leading dense-MLP layers
     router_aux_coef: float = 0.001
 
+    # memory / compute layout of the training path
+    q_chunk: int = 1024            # query rows a chunk (attention, DSA)
+    loss_chunk: int = 512          # tokens a chunk of the CE backward
+
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 8
+    seq_len: int = 512
+    learning_rate: float = 2e-4
+    warmup_steps: int = 20
+    total_steps: int = 200
+    muon_split: bool = True        # per-head orthogonalization (GLM-5 §2.1)
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    seed: int = 0

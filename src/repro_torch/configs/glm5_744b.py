@@ -47,6 +47,7 @@ def smoke_config() -> ModelConfig:
                       qk_nope_dim=32, v_head_dim=64),
         num_experts=4, experts_per_token=2, first_k_dense=1,
         dsa=DSAConfig(index_heads=2, index_head_dim=16, top_k=64, block_size=16),
+        q_chunk=128, loss_chunk=128,
         mtp=MTPConfig(num_predict=3, share_params=True),
     )
 

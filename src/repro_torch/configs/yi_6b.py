@@ -27,4 +27,5 @@ def smoke_config() -> ModelConfig:
         num_layers=2, d_model=256, num_heads=4, num_kv_heads=2, head_dim=64,
         d_ff=512, vocab_size=512, max_seq_len=1024,
         dsa=DSAConfig(index_heads=2, index_head_dim=16, top_k=64, block_size=16),
+        q_chunk=128, loss_chunk=128,
     )

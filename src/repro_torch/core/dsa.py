@@ -1,13 +1,15 @@
 """DSA — DeepSeek Sparse Attention, as adopted by GLM-5 (§2.1.1, §3.2).
 
-Port of ``repro.core.dsa`` for serving (the token selector, deterministic
-top-k, the inference form).  Three parts:
+Port of ``repro.core.dsa`` with the token selector and deterministic
+top-k, for serving and training.  Three parts:
 
 1. **Lightning indexer** — for query token t and key token s,
    ``I[t,s] = Σ_h w_h(x_t) · ReLU(q_h(x_t) · k(x_s)) · Di^-1/2``: the key
    projection is shared across indexer heads, the head weights ``w_h`` are
    query-dependent (a softmax).  Over the paged ``k_idx`` pool the scores
-   come from K5 (a decode step) and K6 (a span), in place.
+   come from K5 (a decode step) and K6 (a span), in place; over contiguous
+   keys (no cache, the contiguous cache, the gathered view) from K7,
+   differentiable through a plain backward.
 2. **Top-k token selection** (k = 2048).  The reference uses
    ``jax.lax.top_k``, which puts the lower index first on ties;
    ``torch.topk`` promises no order.  Ties are common here (a key scores
@@ -19,11 +21,15 @@ top-k, the inference form).  Three parts:
 3. **Sparse attention** over the selected tokens, gathered one by one
    (``paged_take`` straight from the block pool on the paged paths).
 
+Training (``dsa_attention(with_indexer_loss=True)``) adds the indexer's KL
+to the head-mean sparse attention over the selected support: the top-k
+indices carry no gradient, so this term is the only gradient path into the
+indexer (GLM-5 §2.1.1).
+
 Not here (the model constructors reject configs that need them): the
 block-granular selector (``select_topk_blocks``, ``sparse_block_attention``;
-it comes with the block-sparse kernel), the randomized tie-breaking of the
-RL-determinism study (``deterministic_topk=False``), and the indexer
-distillation loss (``with_indexer_loss``, the training slice).
+it comes with the block-sparse kernel) and the randomized tie-breaking of
+the RL-determinism study (``deterministic_topk=False``).
 """
 from __future__ import annotations
 
@@ -31,9 +37,11 @@ from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import DSAConfig, ModelConfig
 from repro_torch.core.paging import paged_take
+from repro_torch.kernels.lightning_indexer import ops as li_ops
 from repro_torch.kernels.paged_attention.ops import (paged_indexer_prefill,
                                                      paged_indexer_scores)
 from repro_torch.layers.attention import NEG_INF, attention_mask
@@ -50,6 +58,9 @@ Q_CHUNK = 256           # query rows per gather (see ``_by_query_chunks``)
 class Indexer(nn.Module):
     """Lightning-indexer weights of one layer, (in, out) layout, under the
     reference's names (``build_indexer``)."""
+
+    AXES = {"wq_idx": ("embed_fsdp", "index_heads"),
+            "wk_idx": ("embed_fsdp", None), "w_head": ("embed", None)}
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
@@ -77,11 +88,23 @@ def indexer_queries(idx: Indexer, x_q: torch.Tensor, dsa: DSAConfig
 
 def indexer_scores(idx: Indexer, x_q: torch.Tensor, k_idx: torch.Tensor,
                    dsa: DSAConfig) -> torch.Tensor:
-    """x_q (B, S, D), k_idx (B, T, Di) -> scores (B, S, T) fp32."""
+    """x_q (B, S, D), k_idx (B, T, Di) -> scores (B, S, T) fp32: K7 on CUDA
+    tensors, its plain version on CPU ones; differentiable."""
     q, w = indexer_queries(idx, x_q, dsa)
-    dots = torch.einsum("bshd,btd->bsht", q.float(), k_idx.float())
-    dots = torch.relu(dots) * (dsa.index_head_dim ** -0.5)
-    return torch.einsum("bsht,bsh->bst", dots, w)
+    return li_ops.indexer_scores(q, w, k_idx)
+
+
+def indexer_distill_loss(scores: torch.Tensor, attn_probs: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Warm-up loss: KL(attn || softmax(scores)) per query, averaged over
+    the queries with any valid key.  ``attn_probs`` (B, S, T) is the
+    head-mean dense attention of the frozen base model; ``mask`` (B, S, T)
+    the causal validity mask."""
+    logp = torch.log_softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+    p = torch.where(mask, attn_probs, 0.0)
+    kl = (p * (torch.log(p.clamp_min(1e-20)) - logp)).sum(-1)
+    rows = mask.any(-1)
+    return torch.where(rows, kl, 0.0).sum() / rows.sum().clamp_min(1)
 
 
 # ---------------------------------------------------------------------------
@@ -114,9 +137,10 @@ def _gather_tokens(kv: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _attend_selected(q: torch.Tensor, k_sel: torch.Tensor,
                      v_sel: torch.Tensor, ok: torch.Tensor, *,
-                     softcap: float = 0.0) -> torch.Tensor:
+                     softcap: float = 0.0, return_probs: bool = False):
     """Attention over an already-gathered token selection: q (B, S, H, dh);
-    k_sel/v_sel (B, S, K, KVH, d*); ok (B, S, K) -> (B, S, H, dv).  fp32
+    k_sel/v_sel (B, S, K, KVH, d*); ok (B, S, K) -> (B, S, H, dv), and with
+    ``return_probs`` also the head-mean probabilities (B, S, K).  fp32
     scores and softmax; the probabilities meet V in V's dtype, as in the
     reference."""
     B, S, H, dh = q.shape
@@ -129,6 +153,8 @@ def _attend_selected(q: torch.Tensor, k_sel: torch.Tensor,
     scores = torch.where(ok[:, :, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bsjgk,bskjd->bsjgd", probs.to(v_sel.dtype), v_sel)
+    if return_probs:
+        return out.reshape(B, S, H, -1), probs.mean(dim=(2, 3))
     return out.reshape(B, S, H, -1)
 
 
@@ -136,17 +162,19 @@ def sparse_token_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            idx: torch.Tensor, valid: torch.Tensor,
                            q_positions: torch.Tensor,
                            kv_positions: torch.Tensor, *,
-                           softcap: float = 0.0) -> torch.Tensor:
+                           softcap: float = 0.0, return_probs: bool = False):
     """Per-token gathered attention: q (B, S, H, dh); k/v (B, T, KVH, d*);
     idx/valid (B, S, K).  The selected positions are checked against
-    causality again (the guard keeps the op safe under padding)."""
+    causality again (the guard keeps the op safe under padding).  With
+    ``return_probs`` also the head-mean probabilities (B, S, K)."""
     B = q.shape[0]
     k_sel = _gather_tokens(k, idx)
     v_sel = _gather_tokens(v, idx)
     sel_pos = torch.gather(kv_positions.long(), 1,
                            idx.reshape(B, -1).long()).reshape(idx.shape)
     ok = valid & (sel_pos <= q_positions[..., None])
-    return _attend_selected(q, k_sel, v_sel, ok, softcap=softcap)
+    return _attend_selected(q, k_sel, v_sel, ok, softcap=softcap,
+                            return_probs=return_probs)
 
 
 def _by_query_chunks(fn: Callable[[int, int], torch.Tensor], S: int,
@@ -238,24 +266,55 @@ def dsa_attention(idx: Indexer, q: torch.Tensor, k: torch.Tensor,
                   q_positions: torch.Tensor, kv_positions: torch.Tensor,
                   cfg: ModelConfig, *, kv_len: Optional[int] = None,
                   window: int = 0, softcap: float = 0.0,
-                  q_chunk: int = Q_CHUNK) -> torch.Tensor:
+                  q_chunk: int = Q_CHUNK, with_indexer_loss: bool = False):
     """End-to-end sparse attention over dense K/V (no cache, the contiguous
     cache of the static oracle, the gathered view of ``impl="ref"``):
     indexer scores -> top-k -> gathered attention, ``q_chunk`` query rows
-    at a time (the last chunk ragged).  The reference chunks only when
-    ``S % q_chunk == 0``; the result is the same either way.
+    at a time (the last chunk ragged; the reference chunks only when
+    ``S % q_chunk == 0``, which gives the same result).
 
     q (B, S, H, dh); k/v (B, T, KVH, d*); x_q (B, S, D) the pre-projection
-    hiddens; k_idx (B, T, Di)."""
+    hiddens; k_idx (B, T, Di).
+
+    With ``with_indexer_loss=True`` (the model without a cache, as in the
+    reference) it also returns the indexer KL over the selected support,
+    KL(head-mean sparse attention, detached || softmax(indexer
+    scores[selected])), averaged over the B·S queries.  The reference
+    averages each chunk's queries, then the chunks (equal in size), or
+    takes one block when ``S % q_chunk``: the same mean.  Each chunk is
+    recomputed in the backward (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``), so one chunk's gathered K/V is live at
+    a time; the recompute runs the indexer scores again."""
     dsa = cfg.dsa
 
-    def chunk(lo: int, hi: int) -> torch.Tensor:
-        pos = q_positions[:, lo:hi]
-        scores = indexer_scores(idx, x_q[:, lo:hi], k_idx, dsa)
+    def chunk(q_c, xq_c, pos):
+        scores = indexer_scores(idx, xq_c, k_idx, dsa)
         mask = attention_mask(pos, kv_positions, causal=True, window=window,
                               kv_len=kv_len)
-        sel, valid = select_topk(scores, mask, dsa.top_k)
-        return sparse_token_attention(q[:, lo:hi], k, v, sel, valid, pos,
-                                      kv_positions, softcap=softcap)
+        sel, valid = select_topk(scores.detach(), mask, dsa.top_k)
+        if not with_indexer_loss:
+            return sparse_token_attention(q_c, k, v, sel, valid, pos,
+                                          kv_positions, softcap=softcap)
+        out, tprobs = sparse_token_attention(
+            q_c, k, v, sel, valid, pos, kv_positions, softcap=softcap,
+            return_probs=True)
+        ind_logp = torch.log_softmax(
+            torch.where(valid, torch.gather(scores, -1, sel), NEG_INF), -1)
+        t = torch.where(valid, tprobs, 0.0).detach()
+        kl = (t * (torch.log(t.clamp_min(1e-20)) - ind_logp)).sum(-1)
+        return out, kl.sum()
 
-    return _by_query_chunks(chunk, q.shape[1], q_chunk)
+    if not with_indexer_loss:
+        return _by_query_chunks(
+            lambda lo, hi: chunk(q[:, lo:hi], x_q[:, lo:hi],
+                                 q_positions[:, lo:hi]), q.shape[1], q_chunk)
+    B, S = q.shape[:2]
+    step = q_chunk if q_chunk > 0 else S
+    outs, kl_sum = [], 0.0
+    for lo in range(0, S, step):
+        sl = slice(lo, lo + step)
+        out, kl = checkpoint(chunk, q[:, sl], x_q[:, sl], q_positions[:, sl],
+                             use_reentrant=False)
+        outs.append(out)
+        kl_sum = kl_sum + kl
+    return torch.cat(outs, dim=1), kl_sum / (B * S)

@@ -30,6 +30,11 @@ from repro_torch.layers.common import _empty, apply_rope, rmsnorm
 class MLA(nn.Module):
     """Projection weights of one MLA layer (the reference's ``build_mla``)."""
 
+    AXES = {"wq_a": ("embed_fsdp", "lora"), "q_a_norm": ("embed",),
+            "wq_b": ("lora", "heads"), "wkv_a": ("embed_fsdp", None),
+            "kv_a_norm": ("embed",), "wkv_b": ("lora", "heads"),
+            "wo": ("heads", "embed_fsdp")}
+
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
         m = cfg.mla

@@ -1,0 +1,133 @@
+// Dense flash attention for Hopper (sm_90a): K9, the training path's
+// attention over contiguous Q/K/V (no cache).
+//
+// Replaces the TPU kernel of the JAX package:
+//   K9  src/repro/kernels/flash_attention/kernel.py  flash_attention
+//
+// Contract (the Pallas kernel's, with the GQA expansion of its ops.attend
+// folded in): q and out (B, Sq, H, d), k and v (B, Sk, KVH, d), all in the
+// model's layout; query head h reads KV head h / G (G = H / KVH) instead of
+// K/V copied G times.  Query i sits at position q_offset + i, key j at j;
+// a query attends every key j < Sk with j <= its position when causal, and
+// with a window only position - j < window.  Scores are scaled by the given
+// scale (d^-1/2), soft-capped c*tanh(s/c) before masking, masked entries
+// count as NEG_INF = -1e30 in the running max and contribute p = 0, and the
+// final division clamps the normaliser at 1e-20, as in the Pallas kernel
+// (kernel.py:22,77): a query with no visible key gets 0.  Keys past the
+// live range of a tile are never read; a short round stages zeros, so a
+// masked p = 0 never meets stale shared memory (the Pallas kernel zeroes
+// its padded key rows for the same reason: 0 x NaN).  fp32 accumulation;
+// q/k/v/out in float32 or bfloat16.
+//
+// What bounds it on this card: arithmetic.  At the Yi-6B training shape
+// (B 2, S 2048, H 32 / KVH 4, d 128, causal) the half of 4*B*H*S^2*d that
+// the causal mask keeps is 69 GFLOP against 0.2 GB of q/k/v/out; with
+// TF32 off, fp32 runs on the CUDA cores at 67 TFLOP/s, so the bound is
+// ~1 ms a layer.
+//
+// What the design does about it:
+//   * the Pallas grid is (BH, n_q_blocks, n_k_blocks) with the key axis
+//     sequential in VMEM scratch; here one CTA per (query-row tile, KV head,
+//     batch row) loops over key tiles itself, starting at the first key of
+//     its tile's window and stopping at the key of its last query (tiles
+//     wholly above the causal diagonal or before the window are skipped;
+//     the Pallas kernel visits and masks them, with the same result);
+//   * a tile packs the G query heads of one KV head for consecutive
+//     tokens (row r = token r / G, head r % G, as K2 packs a span), so each
+//     staged K/V position serves every query row of the tile, and K/V are
+//     read once per tile, not once per query head;
+//   * 64 key positions of K and V a round are staged in shared memory as
+//     fp32 (above 48 KB: the dynamic-shared-memory attribute, up to 174 KB
+//     at d = 256); all of a round's loads are issued before any is used,
+//     and where registers allow (bf16, d <= 128) the next round's are in
+//     flight during this round's arithmetic;
+//   * the accumulator (64 rows, 32 at d = 256) lives in registers, each
+//     thread owning fixed columns; the online softmax is a warp per row.
+// The tile body is gqa_tile.cuh's, shared with K1/K2; this file gives it the
+// contiguous layout (DenseKV below).  Not done yet (later work): tensor
+// cores (mma/wgmma: with TF32 off, bf16 inputs only), TMA, a split over
+// keys for short sequences.
+//
+// Interface: plain C, loaded with ctypes.  The entry point returns the
+// cudaError_t of its launch (0 on success); it launches on the given stream,
+// does not synchronise and allocates nothing.
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+#include "gqa_tile.cuh"
+
+namespace {
+
+// K9's layout: q and out (B, Sq, H, D), k and v (B, Sk, KVH, D); packed row
+// r of (b, kv head) is head kvh * G + r % G of token r / G; a tile reads
+// from the first key in its window to its last query's key, or every key
+// when not causal.
+struct DenseKV {
+  int Sq, Sk, H, KVH, G, causal_, q_offset;
+  __device__ int start(int) const { return q_offset; }
+  __device__ bool causal() const { return causal_ != 0; }
+  __device__ size_t q_row(int b, int kvh, int r) const {
+    return ((size_t)b * Sq + r / G) * H + (size_t)kvh * G + r % G;
+  }
+  __device__ size_t kv_row(int b, int kvh, int pos) const {
+    return ((size_t)b * Sk + pos) * KVH + kvh;
+  }
+  __device__ void range(int q_first, int q_last, int window, int& lo,
+                        int& hi) const {
+    lo = window > 0 ? max(q_first - window + 1, 0) : 0;
+    hi = causal_ ? min(q_last, Sk - 1) : Sk - 1;
+  }
+};
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  int B, Sq, Sk, H, KVH, causal, window, q_offset;
+  float softcap, scale;
+};
+
+template <typename T, int D, int ROWS>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int G = a.H / a.KVH;
+  const DenseKV layout{a.Sq, a.Sk, a.H, a.KVH, G, a.causal, a.q_offset};
+  return launch_gqa_tiles<T, D, ROWS>(a.q, a.k, a.v, a.out, layout, a.B,
+                                      a.KVH, a.Sq * G, G, a.window,
+                                      a.softcap, a.scale, stream);
+}
+
+// tiles: 64 rows at d <= 128, 32 at d = 256 (register budget of the
+// per-thread accumulator, shared memory of the staged tiles)
+template <typename T>
+cudaError_t dispatch(int d, const Args& a, cudaStream_t s) {
+  switch (d) {
+    case 64: return launch<T, 64, 64>(a, s);
+    case 128: return launch<T, 128, 64>(a, s);
+    case 256: return launch<T, 256, 32>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// K9.  q/out (B, Sq, H, d); k/v (B, Sk, KVH, d), H a multiple of KVH;
+// dtype: 0 = float32, 1 = bfloat16; causal 0/1; window 0 = none.
+int flash_attention(int dtype, int head_dim, const void* q, const void* k,
+                    const void* v, void* out, int B, int Sq, int Sk, int H,
+                    int KVH, int causal, int window, int q_offset,
+                    float softcap, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KVH <= 0 || H % KVH)
+    return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, softcap,
+         scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dispatch<float>(head_dim, a, s);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(head_dim, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

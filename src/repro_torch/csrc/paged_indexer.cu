@@ -42,6 +42,8 @@
 //     vector loads) and reuses them for every query row of the tile;
 //   * a token's output row is written by consecutive threads at consecutive
 //     positions: coalesced.
+// The tile body is indexer_tile.cuh's, shared with K7; this file gives it the
+// paged keys (PagedKeys below).
 // Not done yet (later work): tensor cores (the span form is an (S*Hi) x Di
 // by Di x keys product, an mma tile), staging the keys through shared memory
 // with coalesced loads, TMA.
@@ -50,137 +52,28 @@
 // cudaError_t of its launch (0 on success); it launches on the given stream,
 // does not synchronise and allocates nothing.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "indexer_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;      // view positions per CTA, one a thread
-constexpr int kMaxTok = 8;         // span tokens per CTA
-constexpr int kQFloats = 8192;     // staged fp32 queries a CTA (32 KB)
-constexpr float kNegInf = -1e30f;  // the reference kernels' NEG_INF
-
-// 16-byte vectors: N elements of T, loaded raw and converted to fp32
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void convert(const uint4& v, float* o) {
-    const float* f = reinterpret_cast<const float*>(&v);
-    o[0] = f[0]; o[1] = f[1]; o[2] = f[2]; o[3] = f[3];
+// K5/K6's keys: position p of row b lives at (tables[b, p / bs], p % bs)
+// of the pool; a block that starts after the span's last position
+// (starts[b] + S - 1) is dead.
+struct PagedKeys {
+  const int* tables;
+  const int* starts;
+  int mb, bs, S;
+  __host__ __device__ int len() const { return mb * bs; }
+  __device__ bool dead(int b, int p) const {
+    return (p / bs) * bs > starts[b] + S - 1;
+  }
+  __device__ size_t slot(int b, int p) const {
+    return (size_t)tables[(size_t)b * mb + p / bs] * bs + p % bs;
   }
 };
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void convert(const uint4& v, float* o) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-};
-
-__device__ inline uint4 ld16(const void* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-// span tokens a CTA takes: as many as kQFloats of staged queries hold, at
-// most kMaxTok (decode: the one token)
-int tokens_per_cta(int S, int heads, int D) {
-  int n = kQFloats / (heads * D);
-  n = n < 1 ? 1 : (n > kMaxTok ? kMaxTok : n);
-  return n < S ? n : S;
-}
-
-size_t smem_bytes(int n_tok, int heads, int D) {
-  return ((size_t)n_tok * heads * D + (size_t)n_tok * heads) * sizeof(float);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_indexer_kernel(const T* __restrict__ q, const float* __restrict__ w,
-                     const T* __restrict__ k_pool,
-                     const int* __restrict__ tables,
-                     const int* __restrict__ starts, float* __restrict__ out,
-                     int S, int Hi, int mb, int bs, int n_tok, float scale) {
-  constexpr int VN = Vec<T>::N;
-  static_assert(D % VN == 0 && D % 4 == 0, "vector width");
-
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);    // n_tok x Hi x D
-  float* Ws = Qs + (size_t)n_tok * Hi * D;        // n_tok x Hi
-
-  const int tid = threadIdx.x;
-  const int T_len = mb * bs;                      // view positions of a row
-  const int p0 = blockIdx.x * kThreads;
-  const int p = p0 + tid;
-  const int i0 = blockIdx.y * n_tok;
-  const int b = blockIdx.z;
-  const int toks = min(n_tok, S - i0);
-  const int last = starts[b] + S - 1;             // the span's last position
-  float* o = out + ((size_t)b * S + i0) * T_len + p;
-
-  // the tile's first block starts past the live range: all of it is dead
-  if ((p0 / bs) * bs > last) {
-    if (p < T_len)
-      for (int i = 0; i < toks; ++i) o[(size_t)i * T_len] = kNegInf;
-    return;
-  }
-
-  // stage the tile's queries and head weights as fp32
-  const int RD = Hi * D;                          // query values of a token
-  const size_t row0 = ((size_t)b * S + i0) * Hi;  // first packed query row
-  const T* qsrc = q + row0 * D;
-  for (int e = tid * VN; e < toks * RD; e += kThreads * VN) {
-    float tmp[VN];
-    Vec<T>::convert(ld16(qsrc + e), tmp);
-#pragma unroll
-    for (int u = 0; u < VN; ++u) Qs[e + u] = tmp[u];
-  }
-  for (int e = tid; e < toks * Hi; e += kThreads) Ws[e] = w[row0 + e];
-  __syncthreads();
-
-  if (p >= T_len) return;
-  if ((p / bs) * bs > last) {                     // a dead block of the tile
-    for (int i = 0; i < toks; ++i) o[(size_t)i * T_len] = kNegInf;
-    return;
-  }
-  // this thread's key, in registers as fp32
-  const size_t slot = (size_t)tables[(size_t)b * mb + p / bs] * bs + p % bs;
-  const T* ksrc = k_pool + slot * D;
-  float k[D];
-#pragma unroll
-  for (int v = 0; v < D / VN; ++v)
-    Vec<T>::convert(ld16(ksrc + v * VN), k + v * VN);
-
-  for (int i = 0; i < toks; ++i) {
-    const float* qi = Qs + (size_t)i * RD;
-    const float* wi = Ws + i * Hi;
-    float acc = 0.f;
-    for (int h = 0; h < Hi; ++h) {
-      const float4* qh = reinterpret_cast<const float4*>(qi + h * D);
-      float dot = 0.f;
-#pragma unroll
-      for (int e = 0; e < D / 4; ++e) {
-        const float4 x = qh[e];
-        dot = fmaf(x.x, k[4 * e], dot);
-        dot = fmaf(x.y, k[4 * e + 1], dot);
-        dot = fmaf(x.z, k[4 * e + 2], dot);
-        dot = fmaf(x.w, k[4 * e + 3], dot);
-      }
-      acc = fmaf(wi[h], fmaxf(dot, 0.f) * scale, acc);
-    }
-    o[(size_t)i * T_len] = acc;
-  }
-}
 
 struct Args {
   const void* q;
@@ -195,14 +88,9 @@ struct Args {
 
 template <typename T, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int n_tok = tokens_per_cta(a.S, a.Hi, D);
-  dim3 grid((a.mb * a.bs + kThreads - 1) / kThreads,
-            (a.S + n_tok - 1) / n_tok, a.B);
-  paged_indexer_kernel<T, D><<<grid, kThreads, smem_bytes(n_tok, a.Hi, D),
-                               stream>>>(
-      static_cast<const T*>(a.q), a.w, static_cast<const T*>(a.k_pool),
-      a.tables, a.starts, a.out, a.S, a.Hi, a.mb, a.bs, n_tok, a.scale);
-  return cudaGetLastError();
+  const PagedKeys keys{a.tables, a.starts, a.mb, a.bs, a.S};
+  return launch_indexer_tiles<T, D>(a.q, a.w, a.k_pool, a.out, keys, a.B,
+                                    a.S, a.Hi, a.scale, stream);
 }
 
 template <typename T>
@@ -233,7 +121,7 @@ template <typename T, int D>
 cudaError_t query(int heads, int* out) {
   const int n_tok = tokens_per_cta(kMaxTok, heads, D);
   const size_t smem = smem_bytes(n_tok, heads, D);
-  auto kern = paged_indexer_kernel<T, D>;
+  auto kern = indexer_tile_kernel<T, D, PagedKeys>;
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kern);
   if (e != cudaSuccess) return e;

@@ -1,16 +1,22 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each source under ``repro_torch/csrc`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface and loaded with
+Each ``.cu`` source under ``repro_torch/csrc`` (with the ``.cuh`` headers
+the sources share) is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface and loaded with
 ``ctypes``.  The build happens at first use, from the repository's sources
 only, into ``build/`` at the repository root; the library's file name
 carries a hash of the source and the flags, so a second run (or a second
 process) loads the cached build instead of compiling again.  Nothing here
 runs at import time: the CPU tests import every module without a compiler.
+
+``ENTRIES`` lists every C entry point of every library with its argument
+types; ``cuda_entry(name)`` is the loaded function and ``LIBRARIES`` the
+sources ``build_all`` compiles.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -21,6 +27,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -28,6 +36,40 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype arg
+
+_I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+# entry point -> (csrc library, argument types)
+ENTRIES = {
+    "paged_decode_gqa": ("paged_attention",
+                         [_I] * 3 + [_P] * 6 + [_I] * 5 + [_F, _F, _P]),
+    "paged_prefill_gqa": ("paged_attention",
+                          [_I] * 3 + [_P] * 6 + [_I] * 6 + [_F, _F, _P]),
+    "paged_decode_mla": ("paged_mla",
+                         [_I] * 4 + [_P] * 7 + [_I] * 3 + [_F, _P]),
+    "paged_prefill_mla": ("paged_mla",
+                          [_I] * 4 + [_P] * 7 + [_I] * 4 + [_F, _P]),
+    # registers, spill bytes, shared memory, CTAs an SM, rows a CTA
+    "paged_mla_resources": ("paged_mla", [_I] * 3 + [_P]),
+    "paged_indexer_scores": ("paged_indexer",
+                             [_I] * 3 + [_P] * 6 + [_I] * 3 + [_F, _P]),
+    "paged_prefill_indexer": ("paged_indexer",
+                              [_I] * 3 + [_P] * 6 + [_I] * 4 + [_F, _P]),
+    # registers, spill bytes, shared memory, CTAs an SM, tokens a CTA
+    "paged_indexer_resources": ("paged_indexer", [_I] * 3 + [_P]),
+    # K7: dtype, Di, q, w, k, out, B, S, T, Hi, scale, stream
+    "lightning_indexer": ("lightning_indexer",
+                          [_I] * 2 + [_P] * 4 + [_I] * 4 + [_F, _P]),
+    # K9: dtype, d, q, k, v, out, B, Sq, Sk, H, KVH, causal, window,
+    # q_offset, softcap, scale, stream
+    "flash_attention": ("flash_attention",
+                        [_I] * 2 + [_P] * 4 + [_I] * 8 + [_F, _F, _P]),
+    # K10: dtype, h, w, targets, mask, partials, loss, count, Tk, D, V,
+    # softcap, stream
+    "chunked_ce": ("chunked_ce", [_I] + [_P] * 7 + [_I] * 3 + [_F, _P]),
+}
+LIBRARIES = sorted({lib for lib, _ in ENTRIES.values()})
 
 
 def nvcc() -> str:
@@ -44,10 +86,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives (hash of source+flags)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where the build of ``csrc/<name>.cu`` lives (hash of the source, the
+    shared headers ``csrc/*.cuh`` it may include, and the flags)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -86,3 +131,20 @@ def build_all(names: Sequence[str]) -> List[Path]:
     started together; returns their library paths in order."""
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         return list(pool.map(build, names))
+
+
+@functools.lru_cache(maxsize=None)
+def cuda_entry(name: str):
+    """The C entry point ``name`` of its kernel library, with its argument
+    types declared (built at first use)."""
+    lib, argtypes = ENTRIES[name]
+    fn = getattr(load(lib), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise on the cudaError a kernel's C entry point returned."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")

@@ -1,0 +1,87 @@
+"""K7: lightning-indexer scores over contiguous keys, hand-written for
+Hopper.
+
+Ports ``repro.kernels.lightning_indexer.kernel.lightning_indexer``: the
+DSA indexer scores of every query against every key, with score, ReLU and
+the head-weighted sum fused.  The CUDA kernel is in
+``csrc/lightning_indexer.cu`` (K6's body with contiguous key addressing),
+built by ``repro_torch.kernels.build``; ``ref.reference`` is the same
+function in plain PyTorch.  The kernel takes K6's index head dims and
+width (Di 16/32/64/128, Hi·Di <= 8192).
+
+The wrapper chooses by the tensors' device: on the CPU it runs the plain
+version, on a CUDA device it launches the kernel or raises.  There is no
+fallback.  ``lightning_indexer.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.build import DTYPE_CODE, check_launch, cuda_entry
+from repro_torch.kernels.lightning_indexer.ref import reference
+
+INDEX_DIMS = (16, 32, 64, 128)
+INDEX_WIDTH = 8192               # max Hi*Di: a token's fp32 queries, 32 KB
+
+
+def check_cuda_args(q_idx, w_head, k_idx, heads: int, head_dim: int) -> None:
+    """Raise on anything the CUDA kernel does not take."""
+    tensors = (q_idx, w_head, k_idx)
+    if q_idx.device.type != "cuda":
+        raise ValueError(f"lightning indexer kernel runs on CUDA tensors, got "
+                         f"{q_idx.device}")
+    if any(t.device != q_idx.device for t in tensors):
+        raise ValueError("lightning indexer: all tensors must be on one "
+                         "device")
+    if q_idx.dtype not in DTYPE_CODE or k_idx.dtype != q_idx.dtype:
+        raise TypeError(f"lightning indexer kernel takes float32 or bfloat16 "
+                        f"q_idx and k_idx of one dtype, got {q_idx.dtype}, "
+                        f"{k_idx.dtype}")
+    if w_head.dtype != torch.float32:
+        raise TypeError(f"lightning indexer: head weights must be float32, "
+                        f"got {w_head.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("lightning indexer kernel needs contiguous tensors")
+    if q_idx.data_ptr() % 16 or k_idx.data_ptr() % 16:
+        raise ValueError("lightning indexer kernel needs 16-byte aligned "
+                         "q_idx and k_idx")
+    if head_dim not in INDEX_DIMS or heads * head_dim > INDEX_WIDTH:
+        raise ValueError(f"lightning indexer kernel: {heads} heads x "
+                         f"{head_dim} (head dims {INDEX_DIMS}, at most "
+                         f"{INDEX_WIDTH} wide)")
+    B, S, width = q_idx.shape
+    if width != heads * head_dim or w_head.shape != (B, S, heads) \
+            or k_idx.ndim != 3 or k_idx.shape[0] != B \
+            or k_idx.shape[2] != head_dim:
+        raise ValueError(f"lightning indexer: q_idx {tuple(q_idx.shape)}, "
+                         f"w_head {tuple(w_head.shape)}, k_idx "
+                         f"{tuple(k_idx.shape)} do not match {heads} heads "
+                         f"x {head_dim}")
+
+
+def lightning_indexer(q_idx: torch.Tensor, w_head: torch.Tensor,
+                      k_idx: torch.Tensor, *, heads: int,
+                      head_dim: int) -> torch.Tensor:
+    """K7: q_idx (B, S, Hi*Di), w_head (B, S, Hi) fp32 (softmaxed), k_idx
+    (B, T, Di) -> scores (B, S, T) fp32.
+
+    CPU tensors run ``ref.reference``; CUDA tensors launch the Hopper
+    kernel on the current stream (a CTA per 128 keys, up to 8 queries and
+    batch row)."""
+    if q_idx.device.type == "cpu":
+        return reference(q_idx, w_head, k_idx, heads=heads,
+                         head_dim=head_dim)
+    check_cuda_args(q_idx, w_head, k_idx, heads, head_dim)
+    B, S, _ = q_idx.shape
+    T = k_idx.shape[1]
+    out = torch.empty((B, S, T), dtype=torch.float32, device=q_idx.device)
+    err = cuda_entry("lightning_indexer")(
+        DTYPE_CODE[q_idx.dtype], head_dim, q_idx.data_ptr(),
+        w_head.data_ptr(), k_idx.data_ptr(), out.data_ptr(), B, S, T, heads,
+        head_dim ** -0.5, torch.cuda.current_stream(q_idx.device).cuda_stream)
+    check_launch("lightning_indexer", err)
+    lightning_indexer.launches += 1
+    return out
+
+
+lightning_indexer.launches = 0

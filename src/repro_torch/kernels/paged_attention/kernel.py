@@ -25,12 +25,11 @@ fallback.  ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels.build import DTYPE_CODE as _DTYPE_CODE
+from repro_torch.kernels.build import check_launch as _check_launch
+from repro_torch.kernels.build import cuda_entry
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -38,45 +37,6 @@ MLA_DIMS = ((512, 64),)          # (kv_lora, rope) the MLA kernels take
 INDEX_DIMS = (16, 32, 64, 128)   # indexer head dims the K5/K6 kernels take
 INDEX_WIDTH = 8192               # max Hi*Di: a token's fp32 queries, 32 KB
 BLOCK_SIZES = (8, 16, 32)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-_I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-# entry point -> (csrc library, argument types)
-_ENTRIES = {
-    "paged_decode_gqa": ("paged_attention",
-                         [_I] * 3 + [_P] * 6 + [_I] * 5 + [_F, _F, _P]),
-    "paged_prefill_gqa": ("paged_attention",
-                          [_I] * 3 + [_P] * 6 + [_I] * 6 + [_F, _F, _P]),
-    "paged_decode_mla": ("paged_mla",
-                         [_I] * 4 + [_P] * 7 + [_I] * 3 + [_F, _P]),
-    "paged_prefill_mla": ("paged_mla",
-                          [_I] * 4 + [_P] * 7 + [_I] * 4 + [_F, _P]),
-    # registers, spill bytes, shared memory, CTAs an SM, rows a CTA
-    "paged_mla_resources": ("paged_mla", [_I] * 3 + [_P]),
-    "paged_indexer_scores": ("paged_indexer",
-                             [_I] * 3 + [_P] * 6 + [_I] * 3 + [_F, _P]),
-    "paged_prefill_indexer": ("paged_indexer",
-                              [_I] * 3 + [_P] * 6 + [_I] * 4 + [_F, _P]),
-    # registers, spill bytes, shared memory, CTAs an SM, tokens a CTA
-    "paged_indexer_resources": ("paged_indexer", [_I] * 3 + [_P]),
-}
-LIBRARIES = sorted({lib for lib, _ in _ENTRIES.values()})
-
-
-@functools.lru_cache(maxsize=None)
-def cuda_entry(name: str):
-    """The C entry point ``name`` of its kernel library, with its argument
-    types declared (built at first use)."""
-    lib, argtypes = _ENTRIES[name]
-    fn = getattr(build.load(lib), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_launch(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def check_cuda_args(q, k_pool, v_pool, block_tables, positions) -> None:

@@ -1,0 +1,46 @@
+"""The training step (port of ``repro.launch.steps.make_train_step``).
+
+One step: the loss and its gradients (``models.transformer.loss``:
+forward through K9 / K7, the cross-entropy through K10, and their plain
+backwards), global-norm clipping, then the Muon(+Split) update, in place on
+the model's parameters.  ``make_prefill_step`` / ``make_serve_step`` of the
+reference are the serving engine's job in the port.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.models import transformer as T
+from repro_torch.optim import muon
+
+
+def make_train_step(model: T.Transformer, *,
+                    train_cfg: Optional[TrainConfig] = None,
+                    lr: float = 2e-4) -> Callable:
+    """Returns ``train_step(opt_state, batch, lr=lr) -> (opt_state,
+    metrics)``; the model's parameters are trained in place (this turns
+    their gradients on)."""
+    tc = train_cfg or TrainConfig()
+    cfg = model.cfg
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    axes = T.param_axes(model)
+
+    def train_step(opt_state: muon.MuonState, batch: Dict[str, torch.Tensor],
+                   lr: float = lr) -> Tuple[muon.MuonState, dict]:
+        for p in params.values():
+            p.grad = None
+        total, metrics = T.loss(model, batch)
+        total.backward()
+        grads, gnorm = muon.global_norm_clip(
+            {k: p.grad for k, p in params.items()}, tc.grad_clip)
+        opt_state = muon.update(params, grads, axes, opt_state, lr=lr,
+                                cfg=cfg, weight_decay=tc.weight_decay,
+                                split=tc.muon_split)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return opt_state, dict(metrics, grad_norm=gnorm)
+
+    return train_step

@@ -2,7 +2,11 @@
 
 Port of ``repro.layers.attention``.  ``dense_attention`` is the exact
 reference math (fp32 scores and softmax); the contiguous-cache oracle and
-the ``ref`` paged gather path both run it.
+the ``ref`` paged gather path both run it.  Without a cache (training, and
+full-sequence logits) the GQA layer runs ``flash_attend``: K9
+(``kernels.flash_attention``) forward, and a plain backward that
+recomputes ``dense_attention`` a query chunk at a time — the reference
+runs ``dense_attention`` there, query-chunked under ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.layers.common import _empty, apply_rope, rmsnorm
 
 NEG_INF = -2.0e38
@@ -62,12 +67,61 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, dv)
 
 
+class _FlashAttend(torch.autograd.Function):
+    """K9 forward; the backward recomputes ``dense_attention`` over
+    ``q_chunk`` query rows at a time and differentiates it (the gradient of
+    the function the reference computes with XLA)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, softcap, q_chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.softcap, ctx.q_chunk = window, softcap, q_chunk
+        return flash_ops.attend(q, k, v, causal=True, window=window,
+                                softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        B, S = q.shape[:2]
+        pos = torch.arange(S, device=q.device).expand(B, S)
+        dq = torch.empty_like(q)
+        dk = torch.zeros_like(k)
+        dv = torch.zeros_like(v)
+        step = ctx.q_chunk if ctx.q_chunk > 0 else S
+        kd, vd = k.detach().requires_grad_(), v.detach().requires_grad_()
+        for lo in range(0, S, step):
+            hi = min(lo + step, S)
+            with torch.enable_grad():
+                qc = q[:, lo:hi].detach().requires_grad_()
+                out = dense_attention(qc, kd, vd, pos[:, lo:hi], pos,
+                                      causal=True, window=ctx.window,
+                                      softcap=ctx.softcap)
+                gq, gk, gv = torch.autograd.grad(out, (qc, kd, vd),
+                                                 g[:, lo:hi])
+            dq[:, lo:hi] = gq
+            dk += gk
+            dv += gv
+        return dq, dk, dv, None, None, None
+
+
+def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 window: int = 0, softcap: float = 0.0,
+                 q_chunk: int = 1024) -> torch.Tensor:
+    """Causal self-attention over positions 0..S-1 (no cache): q (B, S, H,
+    dh), k/v (B, S, KVH, dh) -> (B, S, H, dh), differentiable."""
+    return _FlashAttend.apply(q, k, v, window, softcap, q_chunk)
+
+
 # ---------------------------------------------------------------------------
 # GQA layer
 # ---------------------------------------------------------------------------
 
 class GQA(nn.Module):
     """Projection weights of one GQA attention layer, (in, out) layout."""
+
+    AXES = {"wq": ("embed_fsdp", "heads"), "wk": ("embed_fsdp", "kv_heads"),
+            "wv": ("embed_fsdp", "kv_heads"), "wo": ("heads", "embed_fsdp"),
+            "q_norm": ("embed",), "k_norm": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()

@@ -59,6 +59,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
+    AXES = {"w_gate": ("embed_fsdp", "mlp"), "w_up": ("embed_fsdp", "mlp"),
+            "w_down": ("mlp", "embed_fsdp")}
+
     def __init__(self, d_model: int, d_ff: int, activation: str, *,
                  device=None, dtype=None):
         super().__init__()
@@ -90,6 +93,8 @@ def mlp(params: MLP, x: torch.Tensor, activation: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class Embedding(nn.Module):
+    AXES = {"embedding": ("vocab", "embed"), "unembed": ("embed_fsdp", "vocab")}
+
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
         self.embedding = _empty(cfg.vocab_size, cfg.d_model, device=device,

@@ -35,6 +35,13 @@ ROUTER_SCALE = 0.02     # the reference's explicit init scale for ``router``
 class MoE(nn.Module):
     """Router, stacked expert weights (E, in, out) and the shared expert."""
 
+    AXES = {"router": ("embed", None),
+            "w_gate": ("experts", "embed_fsdp", "moe_mlp"),
+            "w_up": ("experts", "embed_fsdp", "moe_mlp"),
+            "w_down": ("experts", "moe_mlp", "embed_fsdp"),
+            "ws_gate": ("embed_fsdp", "mlp"), "ws_up": ("embed_fsdp", "mlp"),
+            "ws_down": ("mlp", "embed_fsdp")}
+
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
         D, E, Fe = cfg.d_model, cfg.num_experts, cfg.moe_d_ff

@@ -11,6 +11,14 @@ attention and final logit softcaps, tied (gemma-scaled) embeddings and
 block selector or its randomized top-k, another family — raises
 ``NotImplementedError`` instead of quietly running without it.
 
+Training: ``loss(model, batch)`` is the reference's ``loss`` without the
+MTP branch: the chunked cross-entropy (K10) plus the auxiliary losses that
+``hidden`` sums over the layers (the MoE router's load-balance loss and
+0.01 × the DSA indexer KL).  Without a cache a GQA layer attends through
+K9 (``layers.attention.flash_attend``) and a DSA layer scores through K7;
+``param_axes`` gives every parameter the logical axes its reference
+``b.param`` call declares, which Muon reads.
+
 Layout differences from the reference:
 
 * parameters live in one ``Block`` module per layer (the reference stacks
@@ -42,10 +50,13 @@ from repro_torch.core.paging import paged_update, paged_view
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import (paged_gqa_attend,
                                                      paged_gqa_prefill)
-from repro_torch.layers.attention import GQA, dense_attention, gqa_qkv
+from repro_torch.layers.attention import (GQA, dense_attention,
+                                          flash_attend, gqa_qkv)
 from repro_torch.layers.common import (MLP, Embedding, _empty, embed,
-                                       logits_from_hidden, rmsnorm)
+                                       logits_from_hidden, rmsnorm,
+                                       unembed_matrix)
 from repro_torch.layers.moe import ROUTER_SCALE, MoE, apply_moe
+from repro_torch.models.losses import chunked_softmax_xent
 
 NORMS = ("attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm",
          "q_a_norm", "kv_a_norm")
@@ -102,6 +113,8 @@ class Block(nn.Module):
     indexer ``idx`` on the global layers of a DSA config) + pre-norm FFN
     (MLP, or MoE in the pattern layers of an MoE config)."""
 
+    AXES = {"attn_norm": ("embed",), "mlp_norm": ("embed",)}
+
     def __init__(self, cfg: ModelConfig, kind: str, moe: bool, *,
                  device=None, dtype=None):
         super().__init__()
@@ -121,6 +134,8 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """Parameters of the whole decoder; ``forward(tokens)`` gives logits."""
+
+    AXES = {"final_norm": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
@@ -198,22 +213,25 @@ def _cache_index_keys(idx: dsa_mod.Indexer, h: torch.Tensor, layer_cache,
 def _attend_mla(block: Block, h: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, layer_cache, cache_index,
                 block_tables: Optional[torch.Tensor],
-                paged_impl: str) -> torch.Tensor:
+                paged_impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MLA branch of the reference's ``_attend``: MHA-style without a
-    cache (sparse over the indexer's top-k on a DSA layer), absorbed over
-    the latent cache with one (paged: K3 for a step, K4 for a span).  With
-    a cache a DSA layer writes its indexer keys and reads none, as the
-    reference does: its attention stays dense."""
+    cache (sparse over the indexer's top-k on a DSA layer, with the
+    indexer KL), absorbed over the latent cache with one (paged: K3 for a
+    step, K4 for a span).  With a cache a DSA layer writes its indexer keys
+    and reads none, as the reference does: its attention stays dense.
+    Returns (out, indexer KL or 0)."""
     attn, idx = block.attn, getattr(block, "idx", None)
     B, S, _ = h.shape
+    zero = h.new_zeros((), dtype=torch.float32)
     if layer_cache is None:
         if idx is None:
-            return mla_mod.apply_mla(attn, h, cfg, positions=positions)
+            return mla_mod.apply_mla(attn, h, cfg, positions=positions), zero
         q, k, v, _, _ = mla_mod.mla_qkv(attn, h, cfg, positions)
-        out = dsa_mod.dsa_attention(idx, q, k, v, h,
-                                    dsa_mod.indexer_keys(idx, h), positions,
-                                    positions, cfg)
-        return out.reshape(B, S, -1) @ attn.wo
+        out, kl = dsa_mod.dsa_attention(
+            idx, q, k, v, h, dsa_mod.indexer_keys(idx, h), positions,
+            positions, cfg, q_chunk=min(cfg.q_chunk, 256),
+            with_indexer_loss=True)
+        return out.reshape(B, S, -1) @ attn.wo, kl
     if block_tables is not None:
         out, _, _ = mla_mod.mla_decode_paged(
             attn, h, cfg, c_pool=layer_cache["c"], kr_pool=layer_cache["kr"],
@@ -226,14 +244,15 @@ def _attend_mla(block: Block, h: torch.Tensor, cfg: ModelConfig,
     if idx is not None:
         _cache_index_keys(idx, h, layer_cache, cache_index, block_tables,
                           positions)
-    return out
+    return out, zero
 
 
 def _attend(block: Block, h: torch.Tensor, cfg: ModelConfig,
             positions: torch.Tensor, layer_cache, cache_index,
             block_tables: Optional[torch.Tensor],
-            paged_impl: str) -> torch.Tensor:
-    """Attention sub-layer on normed hidden h.
+            paged_impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention sub-layer on normed hidden h; returns (out, indexer KL):
+    the KL of a DSA layer without a cache, 0 otherwise.
 
     ``layer_cache`` is None (no cache), this layer's dict of contiguous
     (B, T, *f) leaves, or, with ``block_tables`` (this layer's table,
@@ -244,7 +263,10 @@ def _attend(block: Block, h: torch.Tensor, cfg: ModelConfig,
     tokens it gathers through the table.  ``paged_impl='ref'`` is the
     gather oracle: a span gathers the padded view (DSA: then
     ``dsa_attention`` over it), a DSA step keeps ``dsa_decode_paged`` with
-    the gathered indexer scores, as in the reference."""
+    the gathered indexer scores, as in the reference.  Without a cache the
+    positions are 0..S-1 (``hidden`` makes them so): a layer without DSA
+    runs K9, one with DSA the training form of ``dsa_attention`` (K7, the
+    indexer KL)."""
     if cfg.attention_type == "mla":
         return _attend_mla(block, h, cfg, positions, layer_cache, cache_index,
                            block_tables, paged_impl)
@@ -253,14 +275,16 @@ def _attend(block: Block, h: torch.Tensor, cfg: ModelConfig,
     window = cfg.sliding_window if block.kind == "local" else 0
     softcap = cfg.attn_logit_softcap
     q, k, v = gqa_qkv(attn, h, cfg, positions)
+    kl = h.new_zeros((), dtype=torch.float32)
     if layer_cache is None:
         if idx is None:
-            out = dense_attention(q, k, v, positions, positions, causal=True,
-                                  window=window, softcap=softcap)
+            out = flash_attend(q, k, v, window=window, softcap=softcap,
+                               q_chunk=cfg.q_chunk)
         else:
-            out = dsa_mod.dsa_attention(
+            out, kl = dsa_mod.dsa_attention(
                 idx, q, k, v, h, dsa_mod.indexer_keys(idx, h), positions,
-                positions, cfg, window=window, softcap=softcap)
+                positions, cfg, window=window, softcap=softcap,
+                q_chunk=min(cfg.q_chunk, 256), with_indexer_loss=True)
     elif block_tables is not None:
         k_pool, v_pool = layer_cache["k"], layer_cache["v"]
         paged_update(k_pool, k, block_tables, positions)
@@ -307,22 +331,27 @@ def _attend(block: Block, h: torch.Tensor, cfg: ModelConfig,
                 idx, q, k_cache, v_cache, h, ki_cache, positions,
                 kv_positions, cfg, kv_len=cache_index + S, window=window,
                 softcap=softcap)
-    return out.reshape(B, S, -1) @ attn.wo
+    return out.reshape(B, S, -1) @ attn.wo, kl
 
 
 def apply_block(block: Block, h: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, *, layer_cache=None,
                 cache_index=None, block_tables=None,
-                paged_impl: str = "kernel") -> torch.Tensor:
+                paged_impl: str = "kernel"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (h, aux loss): the MoE router's load-balance loss plus 0.01 ×
+    the indexer KL (the reference's coefficients)."""
     a_in = rmsnorm(h, block.attn_norm, cfg.norm_eps)
-    h = h + _attend(block, a_in, cfg, positions, layer_cache, cache_index,
-                    block_tables, paged_impl)
+    a_out, ind_kl = _attend(block, a_in, cfg, positions, layer_cache,
+                            cache_index, block_tables, paged_impl)
+    h = h + a_out
     m_in = rmsnorm(h, block.mlp_norm, cfg.norm_eps)
     if hasattr(block, "moe"):
-        m_out, _ = apply_moe(block.moe, m_in, cfg)   # aux: training only
+        m_out, aux = apply_moe(block.moe, m_in, cfg)
     else:
-        m_out = block.mlp(m_in)
-    return h + m_out
+        m_out, aux = block.mlp(m_in), 0.0
+    # indexer KL coefficient 0.01 (small; it only trains the indexer)
+    return h + m_out, aux + 0.01 * ind_kl
 
 
 def _layer_caches(cfg: ModelConfig, cache: dict, block_tables):
@@ -346,38 +375,74 @@ def _layer_caches(cfg: ModelConfig, cache: dict, block_tables):
 
 
 def hidden(model: Transformer, tokens: torch.Tensor, *,
-           positions: Optional[torch.Tensor] = None,
            cache: Optional[dict] = None, cache_index=None,
            block_tables: Optional[torch.Tensor] = None,
-           paged_impl: str = "kernel") -> Tuple[torch.Tensor, Optional[dict]]:
-    """Returns (final-normed hidden (B, S, D), cache).
+           paged_impl: str = "kernel"
+           ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
+    """Returns (final-normed hidden (B, S, D), aux loss, cache).
 
-    With ``block_tables`` the cache is the paged block pool and
-    ``cache_index`` the per-sequence start vector (B,); with a contiguous
-    cache ``cache_index`` is the int offset of token 0."""
+    Positions start at ``cache_index``: with ``block_tables`` the cache is
+    the paged block pool and ``cache_index`` the per-sequence start vector
+    (B,); with a contiguous cache ``cache_index`` is the int offset of
+    token 0; without a cache they are 0..S-1."""
     cfg = model.cfg
     B, S = tokens.shape
     dev = tokens.device
     h = embed(model.embed, tokens, cfg)
-    if positions is None:
-        span = torch.arange(S, dtype=torch.int32, device=dev)
-        if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
-            positions = cache_index.to(torch.int32)[:, None] + span[None]
-        else:
-            positions = (span + int(cache_index or 0)).expand(B, S)
+    span = torch.arange(S, dtype=torch.int32, device=dev)
+    if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
+        positions = cache_index.to(torch.int32)[:, None] + span[None]
+    else:
+        positions = (span + int(cache_index or 0)).expand(B, S)
     layers = _layer_caches(cfg, cache, block_tables) if cache is not None \
         else ((None, None) for _ in model.layers)
+    aux = h.new_zeros((), dtype=torch.float32)
     for block, (layer_cache, tables) in zip(model.layers, layers):
-        h = apply_block(block, h, cfg, positions, layer_cache=layer_cache,
-                        cache_index=cache_index, block_tables=tables,
-                        paged_impl=paged_impl)
-    return rmsnorm(h, model.final_norm, cfg.norm_eps), cache
+        h, a = apply_block(block, h, cfg, positions, layer_cache=layer_cache,
+                           cache_index=cache_index, block_tables=tables,
+                           paged_impl=paged_impl)
+        aux = aux + a
+    return rmsnorm(h, model.final_norm, cfg.norm_eps), aux, cache
 
 
 def logits(model: Transformer, tokens: torch.Tensor, **kw) -> torch.Tensor:
     """Full-vocab logits for every position (no cache unless given)."""
-    h, _ = hidden(model, tokens, **kw)
+    h, _, _ = hidden(model, tokens, **kw)
     return logits_from_hidden(model.embed, h, model.cfg)
+
+
+def loss(model: Transformer, batch: Dict[str, torch.Tensor]
+         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``loss`` without MTP: ``batch`` holds ``tokens`` and
+    ``targets`` (B, S) and optionally ``loss_mask`` (default ones).
+    Returns (total, {"ce", "aux", "loss"}): the masked mean token NLL
+    (K10) plus the layers' auxiliary losses."""
+    cfg = model.cfg
+    targets = batch["targets"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    h, aux, _ = hidden(model, batch["tokens"])
+    ce_sum, count = chunked_softmax_xent(
+        h, unembed_matrix(model.embed, cfg), targets, mask,
+        chunk=cfg.loss_chunk, softcap=cfg.final_logit_softcap)
+    ce = ce_sum / count.clamp_min(1.0)
+    total = ce + aux
+    return total, {"ce": ce, "aux": aux, "loss": total}
+
+
+def param_axes(model: nn.Module) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Every parameter's logical axes, by its name in
+    ``model.named_parameters()``: the axes of its reference ``b.param``
+    call (the port's counterpart of the Builder specs), without the leading
+    ``layers`` axis of the reference's scanned groups (one ``Block`` per
+    layer here; Muon treats leading axes as groups, so nothing changes)."""
+    axes = {}
+    for prefix, module in model.named_modules():
+        for name, _ in module.named_parameters(recurse=False):
+            axes[f"{prefix}.{name}" if prefix else name] = module.AXES[name]
+    return axes
 
 
 # ---------------------------------------------------------------------------
@@ -440,9 +505,9 @@ def prefill(model: Transformer, tokens: torch.Tensor, cache: dict, *,
     Paged mode (``block_tables`` set) returns ALL-position logits (B, S, V)
     — the caller picks its own last real position per sequence; contiguous
     mode returns the last position's (B, 1, V)."""
-    h, cache = hidden(model, tokens, cache=cache,
-                      cache_index=0 if cache_index is None else cache_index,
-                      block_tables=block_tables, paged_impl=paged_impl)
+    h, _, cache = hidden(model, tokens, cache=cache,
+                         cache_index=0 if cache_index is None else cache_index,
+                         block_tables=block_tables, paged_impl=paged_impl)
     if block_tables is None:
         h = h[:, -1:]
     return logits_from_hidden(model.embed, h, model.cfg), cache
@@ -454,6 +519,6 @@ def decode_step(model: Transformer, token: torch.Tensor, cache: dict,
                 paged_impl: str = "kernel") -> Tuple[torch.Tensor, dict]:
     """token (B, 1) -> (logits (B, 1, V), cache).  With ``block_tables``
     ``cache_index`` is the per-sequence length vector (B,)."""
-    h, cache = hidden(model, token, cache=cache, cache_index=cache_index,
-                      block_tables=block_tables, paged_impl=paged_impl)
+    h, _, cache = hidden(model, token, cache=cache, cache_index=cache_index,
+                         block_tables=block_tables, paged_impl=paged_impl)
     return logits_from_hidden(model.embed, h, model.cfg), cache

@@ -72,5 +72,9 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
         T.init(cfg)
     with pytest.raises(RuntimeError):
         T.init_paged_cache(cfg, 4, 8)
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import train
+    with pytest.raises(RuntimeError):
+        train(cfg, TrainConfig(total_steps=1))
     # asked for, the CPU is used
     ContinuousEngine(cfg, model, num_blocks=4, block_size=8, device="cpu")

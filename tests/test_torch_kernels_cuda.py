@@ -1,0 +1,79 @@
+"""PyTorch port, the training path's CUDA kernels (K7, K9, K10) against
+their plain versions on the card.
+
+Every case is ``cuda``-marked and skips itself without a GPU.  This file
+imports no JAX, so it runs on the machine with the card, where JAX is not
+installed (``PYTHONPATH=src python -m pytest --noconftest -m cuda
+tests/test_torch_kernels_cuda.py``).  Inputs are numpy-seeded; tolerances
+are those of K1-K6 (fp32 1e-4, bf16 2e-2; both versions widen bf16 inputs
+to fp32 and differ only in the order of their sums), and K10's loss sum is
+held to 1e-5 relative (it adds 1000 token NLLs in another order).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.chunked_ce import kernel as K10
+from repro_torch.kernels.flash_attention import kernel as K9
+from repro_torch.kernels.lightning_indexer import kernel as K7
+
+DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+
+
+def _cuda(rng, *shape, dtype=torch.float32):
+    return torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).cuda().to(dtype)
+
+
+def _need_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_flash_attention_matches_plain(dtype, tol):
+    _need_gpu()
+    rng = np.random.default_rng(0)
+    for d, (Sq, Sk, kw) in zip((64, 128, 256), [
+            (197, 197, dict()), (100, 333, dict(q_offset=233)),
+            (131, 131, dict(window=40, softcap=30.0))]):
+        q = _cuda(rng, 2, Sq, 8, d, dtype=dtype)
+        k, v = (_cuda(rng, 2, Sk, 2, d, dtype=dtype) for _ in range(2))
+        got = K9.flash_attention(q, k, v, **kw).float()
+        want = K9.reference(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_lightning_indexer_matches_plain(dtype, tol):
+    _need_gpu()
+    rng = np.random.default_rng(1)
+    for Hi, Di in ((16, 64), (32, 128)):
+        q, k = _cuda(rng, 2, 150, Hi * Di, dtype=dtype), \
+            _cuda(rng, 2, 333, Di, dtype=dtype)
+        w = torch.softmax(_cuda(rng, 2, 150, Hi), -1)
+        got = K7.lightning_indexer(q, w, k, heads=Hi, head_dim=Di)
+        want = K7.reference(q, w, k, heads=Hi, head_dim=Di)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_ce_matches_plain(dtype):
+    _need_gpu()
+    rng = np.random.default_rng(2)
+    for softcap in (0.0, 30.0):
+        h = _cuda(rng, 1000, 256, dtype=dtype)
+        w = (_cuda(rng, 256, 1000) / 16).to(dtype)
+        t = torch.from_numpy(rng.integers(0, 1000, 1000).astype(np.int32))
+        m = torch.from_numpy((rng.random(1000) > 0.3).astype(np.float32))
+        t, m = t.cuda(), m.cuda()
+        got = K10.chunked_ce(h, w, t, m, softcap=softcap)
+        want = K10.reference(h, w, t, m, softcap=softcap)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-5)
+        assert float(got[1]) == float(want[1])
