@@ -4,14 +4,17 @@ and check them.
 
     python3 chip_smoke.py
 
-It drives three serving paths: the dense GQA family (Yi-6B, slice 1: K1
+It drives the serving paths of the dense GQA family (Yi-6B, slice 1: K1
 and K2), GLM-5's MLA + MoE path (slice 2: K3 and K4; with DSA on, its MLA
-layers write the indexer keys and read none) and DSA sparse attention on
-GQA (Yi-6B with its own DSAConfig, slice 3: K5 and K6); and the training
-path (slice 4: the Muon Split trainer on Yi-6B and Yi-6B + DSA at full
-width, 8 layers; K9 flash attention, K10 chunked cross-entropy, K7
-lightning indexer).  Phases, each printing lines of numbers (any failure
-exits non-zero):
+layers write the indexer keys and read none), DSA sparse attention on GQA
+(Yi-6B with its own DSAConfig, slice 3: K5 and K6), the DSA block
+selector (slice 5: Yi-6B + DSA(block), K5 for a decode step, K7 + K8 for
+a span) and GLM-5's MTP speculative decode (slice 5: spans through K4);
+and the training path (slice 4: the Muon Split trainer on Yi-6B, Yi-6B +
+DSA and, slice 5, Yi-6B + DSA(block) at full width, 8 layers; K9 flash
+attention, K10 chunked cross-entropy, K7 lightning indexer, K8
+block-sparse attention).  Phases, each printing lines of numbers (any
+failure exits non-zero):
 
   build    compile the hand-written CUDA kernels from ``src/repro_torch/csrc``
            with nvcc for sm_90a into ``build/`` (cached by source hash), one
@@ -33,7 +36,12 @@ exits non-zero):
            (Hi x Di 16x64, 32x128, 2x16; S and T ragged) and K10 (Tk and V
            ragged, softcap 0 and 30, a partial mask; its two sums held to
            1e-5 relative), and the gradients through their autograd
-           Functions on the kernel and the plain routes (equal);
+           Functions on the kernel and the plain routes (equal); then K8
+           at Yi-6B's shape (H 32 / KVH 4, d 128, 16 blocks of 128),
+           GLM-5's MLA shape (H 64, dqk 192, dv 256) and the smoke shape
+           (4 blocks of 16), queries from mid-sequence, skipped ids,
+           softcap 0 and 50, fp32 and bf16, and its gradients on both
+           routes;
   timing   K3/K4's and K5/K6's registers, spills, shared memory and CTAs
            resident on an SM, as the CUDA runtime reports them; then
            each kernel, its plain version and one PyTorch library call
@@ -58,6 +66,10 @@ exits non-zero):
            scaled_dot_product_attention(is_causal=True); K10 there on
            unit-scale logits, as the model's, so that the part of its sum
            that depends on h.W is far above the 1e-5 relative tolerance;
+           K8 at a 256-token span ending at 6144 of the block-selector
+           serve (bf16) and at the block training run's last 256-query
+           chunk against 4096 keys (fp32), beside SDPA over each query
+           block's selected K/V gathered before the timed loop;
   parity   Yi-6B at full width with 2 layers in fp32: the port's
            ContinuousEngine (mid-flight admission, a shared prefix with a
            radix hit and a COW fork, chunked prefill) gives the same greedy
@@ -68,30 +80,43 @@ exits non-zero):
            the same for Yi-6B with DSA, with prompts of 2600 and 3000
            tokens (top-2048 discards keys) beside short ones; then GLM-5
            (DSA on) at full width with 2 layers (1 dense-MLP MLA layer + 1
-           MLA + MoE layer with all 256 experts) in fp32, ~49 GB;
+           MLA + MoE layer with all 256 experts) in fp32, ~49 GB; then
+           Yi-6B + DSA(block) at 2 layers on the long mix with spans of
+           256, the kernel route against the same engine on the plain
+           route (the static oracle prefills other spans, and the block
+           selector depends on them), K8 launched on the first only; then
+           GLM-5 + DSA + MTP at 2 layers: spec_steps=3 against
+           spec_steps=0, and a run with the drafts pointed at the spec-off
+           tokens (every draft accepts), tokens equal;
   serve    Yi-6B at full width and depth (32 layers, dsa=None) in bf16 on a
            2 GiB pool: 8 requests of 32..1024 prompt tokens, half sharing a
            system prefix, prefill_chunk 256; then Yi-6B with DSA (32
            layers; K5 and K6 in every layer) on 8 requests of 32..6144
-           prompt tokens (four past top-k) with a 2.1 GiB pool; then GLM-5
-           at full width with 4 layers (3 dense-MLP MLA layers + 1 MLA +
-           MoE layer, DSA on, mtp=None; ~26 GB of bf16 weights) on the
-           first request mix.  Each path's kernels' launch counters are set
-           to 0 just before and read just after its run;
+           prompt tokens (four past top-k) with a 2.1 GiB pool; then
+           Yi-6B + DSA(block) on the same mix (the view a whole number of
+           128-blocks; K8's launches checked against the spans that reach
+           it); then GLM-5 at full width with 4 layers (3 dense-MLP MLA
+           layers + 1 MLA + MoE layer, DSA on) and its MTP layer (~27 GB
+           of bf16 weights) on the first request mix, spec_steps=0 and
+           then spec_steps=3 (accept length, rounds, TPOT / TTFT / decode
+           tok/s beside spec off).  Each path's kernels' launch counters
+           are set to 0 just before and read just after its run;
   train    one Muon step on the kernel route and one on the plain route
            (the three wrappers pointed at their plain versions) from the
            same fp32 weights and batch, Yi-6B width at 2 layers, dense (seq
-           1024) and with DSA (seq 2560): loss, every gradient and every
-           parameter after the step within the tolerances of
-           ``train_parity``; then the trainer (``launch.train.train``) for 5
-           steps of Yi-6B (8 layers, dense, batch 2 x 2048) and of Yi-6B +
-           DSA (8 layers, batch 1 x 4096): losses finite and falling, step
-           ms, tokens/s, peak memory, and the launches of K7/K9/K10, which
+           1024), with DSA and with DSA(block) (seq 2560): loss, every
+           gradient and every parameter after the step within the
+           tolerances of ``train_parity``; then the trainer
+           (``launch.train.train``) for 5 steps of Yi-6B (8 layers, dense,
+           batch 2 x 2048), of Yi-6B + DSA and of Yi-6B + DSA(block) (8
+           layers, batch 1 x 4096): losses finite and falling, step ms,
+           tokens/s, peak memory, and the launches of K7/K8/K9/K10, which
            must equal the count expected from the depth and the chunks;
   profile  one training step of each training run cut into its layers
            (forward, loss, backward, Muon; synchronised between them) and
-           one traced with torch.profiler (busy share, top kernels, K7/K9/
-           K10 device time); then 8 decode-only steps of each served model
+           one traced with torch.profiler (busy share, top kernels, K7/K8/
+           K9/K10 device time; the block-selector run too); then 8
+           decode-only steps of each served model
            at 8 rows, timed and
            then traced with torch.profiler: device busy share, top kernels
            and the port's own kernels' device time a call (Yi-6B with DSA
@@ -103,6 +128,8 @@ without the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import math
 import subprocess
@@ -124,15 +151,21 @@ def _log(phase: str, **nums) -> None:
           flush=True)
 
 
-def path_kernels(cfg):
+def path_kernels(cfg, spec_steps=0):
     """The (decode, prefill) kernel wrappers a config's serving path runs:
     K3/K4 for MLA attention (its DSA layers write k_idx and read none),
-    K5/K6 for GQA layers with DSA (the global ones), K1/K2 for GQA layers
-    without."""
+    K5/K6 for GQA layers with DSA (the global ones) and the token
+    selector, K5 and K7 + K8 with the block selector (its spans gather the
+    view: K7 scores it, K8 attends where the span is a multiple of the DSA
+    block), K1/K2 for GQA layers without.  With speculation every step is
+    a verify span: no decode kernel runs."""
+    from repro_torch.kernels.lightning_indexer import kernel as K7
     from repro_torch.kernels.paged_attention import kernel as KD
     from repro_torch.kernels.paged_attention import prefill as KP
+    from repro_torch.kernels.sparse_attention import kernel as K8
     if cfg.attention_type == "mla":
-        return [KD.paged_decode_mla], [KP.paged_prefill_mla]
+        dec, pre = [KD.paged_decode_mla], [KP.paged_prefill_mla]
+        return ([] if spec_steps else dec), pre
     kinds = set(cfg.attention_pattern) | ({"global"} if cfg.first_k_dense
                                           else set())
     dec, pre = [], []
@@ -141,8 +174,11 @@ def path_kernels(cfg):
         pre.append(KP.paged_prefill_gqa)
     if cfg.dsa is not None and "global" in kinds:
         dec.append(KD.paged_indexer_scores_kernel)
-        pre.append(KP.paged_prefill_indexer)
-    return dec, pre
+        if cfg.dsa.selector == "block":
+            pre += [K7.lightning_indexer, K8.block_sparse_attention]
+        else:
+            pre.append(KP.paged_prefill_indexer)
+    return ([] if spec_steps else dec), pre
 
 
 def _free() -> None:
@@ -879,6 +915,168 @@ def indexer_resources(cfg, batch, max_len, bs) -> None:
 
 
 # ---------------------------------------------------------------------------
+# K8: block-sparse attention (the DSA block selector)
+# ---------------------------------------------------------------------------
+
+# (name, B, S, H, KVH, dqk, dv, block size, blocks a query block, T)
+K8_SHAPES = (("yi6b", 1, 256, 32, 4, 128, 128, 128, 16, 6144),
+             ("glm5_mla", 1, 256, 64, 64, 192, 256, 128, 16, 4096),
+             ("smoke", 2, 64, 4, 2, 64, 64, 16, 4, 256))
+
+
+def _k8_inputs(gen, rng, shape, dtype, device, skipped=0.3):
+    """q/k/v of a K8 shape; per (row, query block) distinct key blocks, a
+    ``skipped`` share of them negative (skipped, standing for block -id-1),
+    every id of row 0's first query block skipped (its queries see no key);
+    row b's queries from T - S - 7b (mid-sequence)."""
+    import numpy as np
+    import torch
+    _, B, S, H, KVH, dqk, dv, bs, nb, T = shape
+    q = torch.randn((B, S, H, dqk), generator=gen, device=device).to(dtype)
+    k = torch.randn((B, T, KVH, dqk), generator=gen, device=device).to(dtype)
+    v = torch.randn((B, T, KVH, dv), generator=gen, device=device).to(dtype)
+    ids = np.stack([[rng.permutation(T // bs)[:nb] for _ in range(S // bs)]
+                    for _ in range(B)])
+    ids = np.where(rng.random(ids.shape) < skipped, -ids - 1, ids)
+    ids[0, 0] = -np.abs(ids[0, 0]) - 1
+    ids = torch.from_numpy(ids.astype(np.int32)).to(device)
+    start = torch.tensor([T - S - 7 * b for b in range(B)],
+                         dtype=torch.int32, device=device)
+    return q, k, v, ids, start
+
+
+def check_sparse_kernels(device="cuda") -> dict:
+    """K8 against its plain version at Yi-6B's shape (H 32 / KVH 4, d 128,
+    blocks of 128, 16 a query block), GLM-5's MLA shape (H 64, dqk 192, dv
+    256) and the smoke shape (blocks of 16, 4 a query block): queries from
+    mid-sequence, skipped ids, softcap 0 and 50, both rules for a query
+    that sees no key, fp32 (atol 1e-4) and bf16 (2e-2), scaled by
+    min(1, max|plain|); then the gradients through ``sparse_block_
+    attention``'s autograd Function on the kernel and plain routes."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dsa as dsa_mod
+    from repro_torch.kernels.sparse_attention import kernel as K8
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    worst = 0.0
+    for shape in K8_SHAPES:
+        bs = shape[7]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, ids, start = _k8_inputs(gen, rng, shape, dtype, device)
+            errs = []
+            for softcap in (0.0, 50.0):
+                for empty_mean in (True, False):
+                    kw = dict(block_size=bs, softcap=softcap,
+                              empty_mean=empty_mean)
+                    errs.append(_hold(
+                        f"K8 {shape[0]} softcap={softcap} "
+                        f"empty_mean={empty_mean}",
+                        K8.block_sparse_attention(q, k, v, ids, start, **kw),
+                        K8.block_sparse_attention_plain(q, k, v, ids, start,
+                                                        **kw), dtype))
+            worst = max(worst, *errs)
+            _log("kernels", kernel="block_sparse_attention", shape=shape[0],
+                 H=shape[3], KVH=shape[4], dqk=shape[5], dv=shape[6],
+                 block_size=bs, nb=shape[8], S=shape[2], T=shape[9],
+                 dtype=str(dtype).split(".")[1], max_abs_err=max(errs))
+    for shape in (K8_SHAPES[2], ("yi6b_short",) + K8_SHAPES[0][1:9] + (2048,),
+                  ("glm5_mla_short",) + K8_SHAPES[1][1:9] + (2048,)):
+        q, k, v, ids, start = _k8_inputs(gen, rng, shape, torch.float32,
+                                         device)
+        pos = start[:, None] + torch.arange(shape[2], device=device)
+        _same_grads(f"sparse_block_attention {shape[0]}",
+                    lambda a, b, c: dsa_mod.sparse_block_attention(
+                        a, b, c, torch.where(ids >= 0, ids, -ids - 1),
+                        ids >= 0, pos, shape[7],
+                        softcap=50.0), (q, k, v))
+    _log("kernels", autograd="sparse_block_attention",
+         grads="equal on both routes")
+    return {"block_sparse_attention": worst}
+
+
+def time_sparse_kernels(cfg, span_end, view_len, train_seq, device="cuda",
+                        reps=20) -> dict:
+    """K8 at the serve phase's shape, a 256-query span ending at
+    ``span_end`` over a gathered view of ``view_len`` keys (Yi-6B + DSA(block),
+    bf16), and at the training run's, the last 256-query chunk against
+    ``train_seq`` keys (fp32); the top_k // 128 blocks of each query block
+    all lie before it, so every query attends all nb * 128 of its keys.
+    Beside each: the plain version, and scaled_dot_product_attention over
+    each query block's selected K/V gathered (and the KV heads repeated)
+    once before the timed loop, with a boolean causal mask (timed here
+    only).  Bound: flops 4*S*H*nb*bs*d over the dtype's peak, or the bytes
+    of q, out, the ids and the distinct selected blocks' K/V over 3.35
+    TB/s, the larger."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.sparse_attention import kernel as K8
+    rng = np.random.default_rng(SEED + 5)
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    H, KVH, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G, bs = H // KVH, cfg.dsa.block_size
+    nb, S = cfg.dsa.top_k // bs, 256
+    out = {}
+    for name, end, T, dtype in (
+            ("block_sparse_attention", span_end, view_len, torch.bfloat16),
+            ("block_sparse_attention_train", train_seq, train_seq,
+             torch.float32)):
+        start = end - S
+        q = torch.randn((1, S, H, d), generator=gen, device=device).to(dtype)
+        k = torch.randn((1, T, KVH, d), generator=gen, device=device) \
+            .to(dtype)
+        v = torch.randn((1, T, KVH, d), generator=gen, device=device) \
+            .to(dtype)
+        before = start // bs                     # blocks wholly before
+        sel = np.stack([rng.permutation(before)[:nb]
+                        for _ in range(S // bs)])
+        ids = torch.from_numpy(sel[None].astype(np.int32)).to(device)
+        qs = torch.tensor([start], dtype=torch.int32, device=device)
+        kw = dict(block_size=bs, empty_mean=True)
+        ms = cuda_ms(lambda: K8.block_sparse_attention(q, k, v, ids, qs,
+                                                       **kw), reps)
+        plain_ms = cuda_ms(lambda: K8.block_sparse_attention_plain(
+            q, k, v, ids, qs, **kw), 3)
+        tok = (ids.long()[..., None] * bs
+               + torch.arange(bs, device=device)).reshape(S // bs, nb * bs)
+        kg = k[0][tok].permute(0, 2, 1, 3).repeat_interleave(G, 1) \
+            .contiguous()                         # (nqb, H, nb*bs, d)
+        vg = v[0][tok].permute(0, 2, 1, 3).repeat_interleave(G, 1) \
+            .contiguous()
+        qb = q[0].reshape(S // bs, bs, H, d).transpose(1, 2).contiguous()
+        qpos = start + torch.arange(S, device=device).reshape(S // bs, bs)
+        mask = (tok[:, None, :] <= qpos[..., None])[:, None]
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qb, kg, vg, attn_mask=mask), reps)
+        err = _hold(f"K8 {name}", K8.block_sparse_attention(q, k, v, ids, qs,
+                                                            **kw),
+                    K8.block_sparse_attention_plain(q, k, v, ids, qs, **kw),
+                    dtype)
+        item = q.element_size()
+        blocks = int(torch.unique(ids).numel())
+        nbytes = 2 * q.numel() * item + ids.numel() * 4 \
+            + blocks * bs * KVH * d * 2 * item
+        flops = 4 * S * H * nb * bs * d
+        dn = str(dtype).split(".")[1]
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_FLOPS[dn] * 1e3
+        r = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 max_abs_err=err, bytes=nbytes, flops=flops,
+                 bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 shape=f"S={S} start={start} T={T} H={H} KVH={KVH} d={d} "
+                       f"bs={bs} nb={nb}")
+        out[name] = r
+        _log("timing", kernel=name, shape=repr(r["shape"]), ms=ms,
+             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=r["bound_ms"],
+             bound_by=r["bound_by"], max_abs_err=err, dtype=dn,
+             tflops=flops / ms / 1e9)
+        del q, k, v, kg, vg, qb
+    return out
+
+
+# ---------------------------------------------------------------------------
 # engine parity in fp32 (full width, 2 layers)
 # ---------------------------------------------------------------------------
 
@@ -993,24 +1191,201 @@ def parity(cfg, device="cuda", block_size=16, chunk=64, long=False) -> dict:
     return res
 
 
+def _round_up(n, m):
+    return -(-n // m) * m
+
+
+def _k8_expected(eng, model) -> tuple:
+    """(spans, spans that reach K8, K8 launches they imply) from the
+    engine's trace: K8 runs in every DSA layer of a span whose length is a
+    whole number of DSA blocks (the view is one: ``max_len`` rounded)."""
+    spans = [e["args"]["span"] for e in eng.tracer.export()["traceEvents"]
+             if e["name"] == "req.prefill"]
+    whole = sum(1 for n in spans if n % model.cfg.dsa.block_size == 0)
+    return len(spans), whole, whole * sum(1 for b in model.layers
+                                          if hasattr(b, "idx"))
+
+
+def parity_block(cfg, device="cuda", block_size=16, chunk=256) -> dict:
+    """fp32 greedy tokens of the engine with the DSA block selector on the
+    kernel route against the same engine, same scheduling, on the plain
+    route (``attn_impl="ref"`` and the plain versions of K7/K8): the long
+    DSA mix (prompts of 2600 and 3000 tokens, so selection discards keys),
+    spans of 256 (K8 in every layer of every whole span).  The static
+    oracle cannot serve here: the block selector pools query blocks that
+    start at a span's start, and a query block that sees no key takes the
+    mean of its listed blocks' V, which past the sequence is whatever the
+    view holds (ROADMAP queue 3), so the result depends on the span
+    boundaries and the pool as the engine schedules them."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.sparse_attention import kernel as K8
+    from repro_torch.models import transformer as T
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serving import ContinuousEngine, Request
+    model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                   device=device, dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 1)
+    prompts, max_new = _long_prompts(rng, cfg.vocab_size)
+    max_len = _round_up(max(len(p) for p in prompts) + max(max_new) + chunk,
+                        cfg.dsa.block_size)
+    outs, launches = {}, {}
+    for route in ("kernel", "plain"):
+        K8.block_sparse_attention.launches = 0
+        eng = ContinuousEngine(cfg, model, max_batch=2,
+                               block_size=block_size, num_blocks=512,
+                               max_len=max_len, prefill_chunk=chunk,
+                               attn_impl="kernel" if route == "kernel"
+                               else "ref", tracer=Tracer(enabled=True),
+                               device=device)
+        reqs = [Request(prompt=p, max_new=m)
+                for p, m in zip(prompts, max_new)]
+        if route == "kernel":
+            eng.serve(reqs)
+        else:
+            with plain_route():
+                eng.serve(reqs)
+        outs[route] = [r.out for r in reqs]
+        launches[route] = K8.block_sparse_attention.launches
+        st = eng.stats
+        n_spans, k8_spans, want = _k8_expected(eng, model)
+    for a, b in zip(outs["kernel"], outs["plain"]):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"parity (block selector): kernel route "
+                                 f"{a.tolist()} != plain {b.tolist()}")
+    if device != "cpu" and (launches["kernel"] != want or want <= 0
+                            or launches["plain"] != 0):
+        raise AssertionError(f"parity (block selector): K8 launches "
+                             f"{launches}, the spans imply {want}")
+    if st["cached_tokens"] <= 0 or st["cow_forks"] <= 0:
+        raise AssertionError(f"parity (block selector): no radix hit / COW "
+                             f"fork: {dict(st)}")
+    res = dict(compared=len(prompts), longest_prompt=max(map(len, prompts)),
+               max_len=max_len, spans=n_spans, k8_spans=k8_spans,
+               k8_launches=launches["kernel"],
+               cached_tokens=st["cached_tokens"], cow_forks=st["cow_forks"])
+    _log("parity", model=cfg.name, layers=cfg.num_layers,
+         selector="block", dtype="float32", oracle="plain route", **res)
+    del model
+    return res
+
+
+def parity_mtp(cfg, device="cuda", block_size=16, chunk=64, n=3) -> dict:
+    """fp32 greedy tokens with MTP speculation (``spec_steps=n``) against
+    ``spec_steps=0`` on the short mix, wherever the top-2 margin is >= 1e-3;
+    then a forced-acceptance run: the script points
+    ``speculative.mtp_draft`` at the spec-off run's own continuation, so
+    every draft accepts, the rounds emit n + 1 tokens (fewer only at a
+    request's budget cap), and the tokens must still be equal."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ContinuousEngine, Request
+    from repro_torch.serving import speculative
+    model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                   device=device, dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 1)
+    prompts, max_new = _short_prompts(rng, cfg.vocab_size, block_size)
+    max_len = _round_up(max(len(p) for p in prompts) + max(max_new) + chunk,
+                        block_size)
+
+    def run(spec, draft=None):
+        eng = ContinuousEngine(cfg, model, max_batch=3, block_size=block_size,
+                               num_blocks=128, max_len=max_len,
+                               prefill_chunk=chunk, spec_steps=spec,
+                               device=device)
+        reqs = [Request(prompt=p, max_new=m)
+                for p, m in zip(prompts, max_new)]
+        saved = speculative.mtp_draft
+        if draft is not None:     # request -> its spec-off tokens
+            want = {id(r): o for r, o in zip(reqs, base)}
+            speculative.mtp_draft = lambda *a: draft(eng, want, *a)
+        try:
+            eng.serve(reqs)
+        finally:
+            speculative.mtp_draft = saved
+        return [r.out for r in reqs], eng
+
+    base, _ = run(0)
+    spec_out, spec_eng = run(n)
+
+    def forced(eng, want, model_, h, tok, pos, depth):
+        drafts = torch.zeros((tok.shape[0], depth), dtype=torch.long,
+                             device=tok.device)
+        for i, s in enumerate(eng.slots):
+            if s is not None and s.pending is not None:
+                nxt = want[id(s.req)][len(s.out) + 1:len(s.out) + 1 + depth]
+                drafts[i, :len(nxt)] = torch.from_numpy(nxt.astype(np.int64))
+        return drafts
+
+    forced_out, forced_eng = run(n, forced)
+    with plain_route():
+        margins = [_margins_ok(model, p, o, device)
+                   for p, o in zip(prompts, base)]
+    compared = 0
+    for ok, a, b, c in zip(margins, base, spec_out, forced_out):
+        if not np.array_equal(a, c):
+            raise AssertionError(f"parity (MTP forced): {c.tolist()} != "
+                                 f"{a.tolist()}")
+        if ok:
+            compared += 1
+            if not np.array_equal(a, b):
+                raise AssertionError(f"parity (MTP): spec {b.tolist()} != "
+                                     f"{a.tolist()}")
+    fs = forced_eng.stats
+    if compared == 0 or fs["accepted_tokens"] != \
+            fs["draft_tokens"] + fs["spec_rounds"] \
+            or fs["draft_tokens"] <= fs["spec_rounds"]:
+        raise AssertionError(f"parity (MTP): compared {compared}, forced "
+                             f"stats {dict(fs)}")
+    ss = spec_eng.stats
+    res = dict(compared=compared, skipped=len(prompts) - compared,
+               spec_rounds=ss["spec_rounds"],
+               accept_length=spec_eng.rolling_accept_length,
+               forced_rounds=fs["spec_rounds"],
+               forced_accept_length=forced_eng.rolling_accept_length,
+               forced_accepted=fs["accepted_tokens"],
+               forced_drafted=fs["draft_tokens"])
+    _log("parity", model=cfg.name, layers=cfg.num_layers,
+         experts=cfg.num_experts, mtp=n, dtype="float32",
+         oracle="spec_steps=0", **res)
+    del model
+    return res
+
+
 # ---------------------------------------------------------------------------
 # serve at full width and depth in bf16
 # ---------------------------------------------------------------------------
 
 def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
-          chunk=256, max_new=32, shared=200) -> dict:
+          chunk=256, max_new=32, shared=200, spec_steps=0,
+          model=None) -> dict:
+    """The engine at full width in bf16 on a request mix (half of the
+    prompts on a shared system prompt), after a warm-up: decode tok/s,
+    TTFT / TPOT p50, the path's kernel launches (and, with the DSA block
+    selector, K8's against the spans that reach it: every layer of every
+    span a whole number of DSA blocks long; with speculation the accept
+    length and the rounds).  ``model`` (bf16) may be handed in to serve
+    it again; the result carries it under ``"model"``."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as T
+    from repro_torch.obs.trace import Tracer
     from repro_torch.serving import ContinuousEngine, Request
     t0 = time.perf_counter()
-    model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
-                   device=device, dtype=torch.bfloat16)
+    if model is None:
+        model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                       device=device, dtype=torch.bfloat16)
     n_params = sum(p.numel() for p in model.parameters())
+    block_sel = cfg.dsa is not None and cfg.dsa.selector == "block" \
+        and cfg.attention_type != "mla"
+    max_len = max(prompt_lens) + max_new + chunk
+    if block_sel:     # the gathered view: a whole number of DSA blocks
+        max_len = _round_up(max_len, cfg.dsa.block_size)
     eng = ContinuousEngine(cfg, model, max_batch=8, block_size=block_size,
-                           num_blocks=num_blocks,
-                           max_len=max(prompt_lens) + max_new + chunk,
-                           prefill_chunk=chunk, device=device)
+                           num_blocks=num_blocks, max_len=max_len,
+                           prefill_chunk=chunk, spec_steps=spec_steps,
+                           tracer=Tracer(enabled=block_sel), device=device)
     pool_gib = sum(x.numel() * x.element_size() for lv in eng.pool.values()
                    for x in lv.values()) / 2 ** 30
     rng = np.random.default_rng(SEED + 2)
@@ -1029,8 +1404,9 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
     setup_s = time.perf_counter() - t0
     eng.stats = {}
     eng.registry.reset_histograms("engine")
+    eng.tracer.clear()
     reqs = [Request(prompt=p, max_new=max_new) for p in prompts]
-    k_dec, k_pre = path_kernels(cfg)
+    k_dec, k_pre = path_kernels(cfg, spec_steps)
     for k in k_dec + k_pre:
         k.launches = 0                         # counts of the main path
     t0 = time.perf_counter()
@@ -1061,6 +1437,20 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
     if device != "cpu" and 0 in launches.values():
         raise AssertionError(f"serve: a kernel never launched: {launches}")
     st = eng.stats
+    extra = {}
+    if block_sel:
+        n_spans, whole, want = _k8_expected(eng, model)
+        got = launches["block_sparse_attention"]
+        if got != want:
+            raise AssertionError(f"serve: K8 launched {got} times, the "
+                                 f"spans imply {want}")
+        extra = dict(spans=n_spans, k8_spans=whole,
+                     k8_launches_per_k8_span=got / max(whole, 1))
+    if spec_steps:
+        extra.update(spec_steps=spec_steps, spec_rounds=st["spec_rounds"],
+                     accept_length=eng.rolling_accept_length,
+                     draft_tokens=st["draft_tokens"],
+                     accepted_tokens=st["accepted_tokens"])
     lat = eng.latency_summary()
     res = dict(
         params_b=n_params / 1e9, pool_gib=pool_gib, requests=len(reqs),
@@ -1070,7 +1460,8 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
         chunk_steps=st["chunk_steps"], wall_s=wall, setup_s=setup_s,
         decode_tok_s=decode_toks / decode_s if decode_s else 0.0,
         decode_only_steps_s=decode_s,
-        ttft_p50_ms=lat["ttft_ms"]["p50"], tpot_p50_ms=lat["tpot_ms"]["p50"])
+        ttft_p50_ms=lat["ttft_ms"]["p50"], tpot_p50_ms=lat["tpot_ms"]["p50"],
+        **extra)
     for k in k_dec:
         res[f"{k.__name__}_launches"] = k.launches
         res[f"{k.__name__}_per_decode_step"] = \
@@ -1081,8 +1472,12 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
             k.launches / max(st["chunk_steps"], 1)
     _log("serve", model=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, experts=cfg.num_experts,
-         dsa=cfg.dsa is not None, dtype="bfloat16", **res)
+         dsa=cfg.dsa is not None,
+         selector=cfg.dsa.selector if cfg.dsa is not None else None,
+         mtp=cfg.mtp is not None, dtype="bfloat16", **res)
     res["launches"] = launches
+    res["model"] = model
+    del eng
     return res
 
 
@@ -1159,24 +1554,29 @@ def profile_decode(cfg, device="cuda", steps=8, block_size=16,
 # the training path: K7, K9, K10, the train step and the trainer
 # ---------------------------------------------------------------------------
 
-TRAIN_KERNELS = ("lightning_indexer", "flash_attention", "chunked_ce")
+TRAIN_KERNELS = ("lightning_indexer", "flash_attention", "chunked_ce",
+                 "block_sparse_attention")
 
 
 def train_kernel_wrappers() -> dict:
-    """name -> (module, wrapper, plain version) of the training kernels."""
+    """name -> (module, wrapper, plain version) of the training kernels
+    (K8 with them: the block selector's DSA chunks)."""
     from repro_torch.kernels.chunked_ce import kernel as K10
     from repro_torch.kernels.flash_attention import kernel as K9
     from repro_torch.kernels.lightning_indexer import kernel as K7
+    from repro_torch.kernels.sparse_attention import kernel as K8
     return {"lightning_indexer": (K7, K7.lightning_indexer, K7.reference),
             "flash_attention": (K9, K9.flash_attention, K9.reference),
-            "chunked_ce": (K10, K10.chunked_ce, K10.reference)}
+            "chunked_ce": (K10, K10.chunked_ce, K10.reference),
+            "block_sparse_attention": (K8, K8.block_sparse_attention,
+                                       K8.block_sparse_attention_plain)}
 
 
 class plain_route:
     """Inside ``with plain_route():`` the model reaches the plain versions of
-    K7, K9 and K10 on CUDA tensors (each wrapper's module attribute is
+    K7, K8, K9 and K10 on CUDA tensors (each wrapper's module attribute is
     pointed at its plain version, which takes the same arguments); the
-    kernels are restored on exit.  Only this script's parity phase does
+    kernels are restored on exit.  Only this script's parity phases do
     this: the port itself has no switch to the plain versions on the card."""
 
     def __enter__(self):
@@ -1405,11 +1805,18 @@ def _train_batch(cfg, batch, seq, device):
     return {"tokens": t[:, :-1], "targets": t[:, 1:]}
 
 
-def train_parity(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
+def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
+                 idx_tol=1e-4) -> dict:
     """One train step (loss, gradients, clipping, Muon) on the kernel route
     and one on the plain route, from the same fp32 weights and batch.
     Tolerances: the loss within 1e-5 relative; every gradient within 1e-4
-    of its leaf's max |plain gradient|; after the step every Muon
+    of its leaf's max |plain gradient| (a DSA indexer's within ``idx_tol``:
+    with the block selector its only gradient is the mean of
+    log_softmax over ~5e6 selected scores, terms near 1/n that almost
+    cancel, so the leaf's max is ~1e-7 and a layer whose input moved by
+    K8's rounding, ~4e-7 relative, moves it by ~6e-4 of that max; the CPU
+    tests hold indexer leaves to 5e-3 for the same reason); after the step
+    every Muon
     parameter within 1e-3 * lr of the plain route's.  An AdamW parameter
     at count 1 steps by lr * g / (|g| + eps), eps = 1e-8: a function of g
     bounded by 1 and (1/eps)-Lipschitz, so where the routes' gradients
@@ -1448,13 +1855,18 @@ def train_parity(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
     _hold_rel("train parity loss", loss_k, loss_p, 1e-5)
     g_err = p_err = 0.0
     failures = []
+    idx_err = 0.0
     for k in grads_p:
         scale = grads_p[k].abs().max().item()
         dg = (grads_k[k] - grads_p[k]).abs()
         e = dg.max().item()
-        if not e <= 1e-4 * scale:
+        tol = idx_tol if ".idx." in k else 1e-4
+        if not e <= tol * scale:
             failures.append(f"grad {k} differs by {e} (max |g| {scale})")
-        g_err = max(g_err, e / max(scale, 1e-30))
+        if ".idx." in k:
+            idx_err = max(idx_err, e / max(scale, 1e-30))
+        else:
+            g_err = max(g_err, e / max(scale, 1e-30))
         diff = (after_k[k] - after_p[k]).abs()
         allowed = torch.full_like(diff, 1e-3 * lr)
         if not muon._is_muon_param(axes[k], tuple(diff.shape)):
@@ -1467,9 +1879,12 @@ def train_parity(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
     if failures:
         raise AssertionError("train parity: " + "; ".join(failures))
     res = dict(loss_kernel=loss_k, loss_plain=loss_p,
-               max_rel_grad_err=g_err, max_param_err=p_err)
+               max_rel_grad_err=g_err, max_rel_indexer_grad_err=idx_err,
+               max_param_err=p_err)
     _log("train.parity", model=cfg.name, layers=cfg.num_layers,
-         dsa=cfg.dsa is not None, batch=batch, seq=seq, **res)
+         dsa=cfg.dsa is not None,
+         selector=cfg.dsa.selector if cfg.dsa is not None else None,
+         batch=batch, seq=seq, **res)
     del model, start, grads_k, grads_p, after_k, after_p
     return res
 
@@ -1478,12 +1893,24 @@ def expected_launches(cfg, seq, steps) -> dict:
     """Kernel launches the trainer makes in ``steps`` steps: K10 once a
     step (its backward is plain); K9 once a layer without DSA (forward
     only: the backward recomputes plainly); K7 twice a DSA layer's query
-    chunk (the forward, and the checkpoint's recompute in the backward)."""
+    chunk (the forward, and the checkpoint's recompute in the backward);
+    with the block selector K8 twice a chunk too, where the reference's
+    rule takes the block branch (chunks of 256 when seq is a multiple of
+    256, else one; the chunk and seq multiples of the DSA block)."""
     dsa_layers = cfg.num_layers if cfg.dsa is not None else 0
-    chunks = -(-seq // min(cfg.q_chunk, 256))
+    q_chunk = min(cfg.q_chunk, 256)
+    chunks = -(-seq // q_chunk)
+    k8 = 0
+    if cfg.dsa is not None and cfg.dsa.selector == "block":
+        step = q_chunk if q_chunk < seq and seq % q_chunk == 0 else seq
+        chunks = seq // step
+        bs = cfg.dsa.block_size
+        if seq >= bs and seq % bs == 0 and step % bs == 0:
+            k8 = 2 * dsa_layers * chunks * steps
     return {"chunked_ce": steps,
             "flash_attention": (cfg.num_layers - dsa_layers) * steps,
-            "lightning_indexer": 2 * dsa_layers * chunks * steps}
+            "lightning_indexer": 2 * dsa_layers * chunks * steps,
+            "block_sparse_attention": k8}
 
 
 def train_run(cfg, batch, seq, steps, device="cuda", lr=2e-3) -> dict:
@@ -1528,7 +1955,9 @@ def train_run(cfg, batch, seq, steps, device="cuda", lr=2e-3) -> dict:
                launches_per_step={n: c / steps for n, c in launches.items()},
                wall_s=wall)
     _log("train", model=cfg.name, layers=cfg.num_layers,
-         dsa=cfg.dsa is not None, batch=batch, seq=seq, steps=steps,
+         dsa=cfg.dsa is not None,
+         selector=cfg.dsa.selector if cfg.dsa is not None else None,
+         batch=batch, seq=seq, steps=steps,
          **{k: repr(v) if isinstance(v, (list, dict)) else v
             for k, v in res.items()})
     res["launches"] = launches
@@ -1541,7 +1970,7 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
     into its layers with a synchronise between them (forward through the
     layers, the loss (K10), the backward, clipping + Muon), then one step
     under torch.profiler: the device's busy share of the step and the
-    device time of the top kernels and of K7/K9/K10."""
+    device time of the top kernels and of K7/K8/K9/K10."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import TrainConfig
@@ -1605,7 +2034,8 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
             / 1e3 for name, alts in (
                 ("flash_attention", [("gqa_tile_kernel", "DenseKV")]),
                 ("chunked_ce", [("ce_tile_kernel",), ("ce_combine_kernel",)]),
-                ("lightning_indexer", [("indexer_tile_kernel", "DenseKeys")]))}
+                ("lightning_indexer", [("indexer_tile_kernel", "DenseKeys")]),
+                ("block_sparse_attention", [("block_sparse_kernel",)]))}
     res = dict(phases, step_ms=sum(phases.values()),
                profiled_step_ms=wall * 1e3,
                device_busy_ms=busy_us / 1e3,
@@ -1613,7 +2043,9 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
                kernel_launches=sum(e.count for e in kernels),
                **{f"{k}_device_ms": v for k, v in ours.items()})
     _log("train.profile", model=cfg.name, layers=cfg.num_layers,
-         dsa=cfg.dsa is not None, batch=batch, seq=seq, **res)
+         dsa=cfg.dsa is not None,
+         selector=cfg.dsa.selector if cfg.dsa is not None else None,
+         batch=batch, seq=seq, **res)
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         _log("train.profile.kernel", name=repr(e.key[:60]), calls=e.count,
              device_ms=dev_us(e) / 1e3)
@@ -1654,14 +2086,20 @@ def main() -> int:
     worst.update(check_mla_kernels())
     worst.update(check_indexer_kernels())
     worst.update(check_train_kernels())
+    worst.update(check_sparse_kernels())
     prompt_lens = [1024, 32, 777, 150, 512, 64, 900, 300]
     serve_lens = [n + 16 for n in prompt_lens]
     # the DSA mix: two prompts past 3 x top-k, four past top-k
     dsa_lens = [6144, 32, 3000, 150, 4096, 64, 2500, 300]
     yi_dsa = get_config("yi_6b")          # its own DSAConfig: 16 x 64, 2048
     yi = yi_dsa.replace(dsa=None)
-    # GLM-5 at full width, depth cut 78 -> 4 (3 dense-MLP + 1 MoE layer)
-    glm5 = get_config("glm5_744b").replace(mtp=None, num_layers=4)
+    # the DSA block selector: the same indexer, top 16 blocks of 128
+    yi_block = yi_dsa.replace(dsa=dataclasses.replace(yi_dsa.dsa,
+                                                      selector="block"))
+    # GLM-5 at full width, depth cut 78 -> 4 (3 dense-MLP + 1 MoE layer),
+    # and its MTP layer (one dense-MLP MLA block, shared by 3 steps)
+    glm5_mtp = get_config("glm5_744b").replace(num_layers=4)
+    glm5 = glm5_mtp.replace(mtp=None)
     mla_resources(glm5, len(prompt_lens))
     chunk, new_tokens = 256, 32
     dsa_max_len = max(dsa_lens) + new_tokens + chunk
@@ -1685,32 +2123,65 @@ def main() -> int:
     train_shapes = dict(batch=2, seq=2048, dsa_seq=4096)
     timing.update(time_train_kernels(yi_train, yi_dsa_train, **train_shapes))
     _free()
+    # K8: a 256-token span ending at 6144 over the block serve's view, and
+    # the training run's last chunk
+    block_view = _round_up(dsa_max_len, yi_block.dsa.block_size)
+    timing.update(time_sparse_kernels(yi_block, max(dsa_lens), block_view,
+                                      train_shapes["dsa_seq"]))
+    _free()
     parity(yi.replace(num_layers=2))
     _free()
     parity(yi_dsa.replace(num_layers=2), long=True)
     _free()
     parity(glm5.replace(num_layers=2, first_k_dense=1))   # ~49 GB in fp32
     _free()
-    launches = serve(yi, prompt_lens)["launches"]
+    parity_block(yi_block.replace(num_layers=2))
+    _free()
+    parity_mtp(glm5_mtp.replace(num_layers=2, first_k_dense=1))   # ~51 GB
+    _free()
+    # the main paths' launches: every serve and train run below, summed
+    launches = collections.Counter()
+    launches.update(serve(yi, prompt_lens)["launches"])
     _free()
     launches.update(serve(yi_dsa, dsa_lens, max_new=new_tokens)["launches"])
     _free()
-    launches.update(serve(glm5, prompt_lens)["launches"])
+    launches.update(serve(yi_block, dsa_lens,
+                          max_new=new_tokens)["launches"])
+    _free()
+    glm5_off = serve(glm5_mtp, prompt_lens)
+    launches.update(glm5_off["launches"])
+    _free()
+    glm5_on = serve(glm5_mtp, prompt_lens, spec_steps=3,
+                    model=glm5_off.pop("model"))
+    launches.update(glm5_on["launches"])
+    _log("serve.mtp", model=glm5_mtp.name, spec_steps=3,
+         tpot_p50_ms=glm5_on["tpot_p50_ms"],
+         tpot_p50_ms_spec_off=glm5_off["tpot_p50_ms"],
+         ttft_p50_ms=glm5_on["ttft_p50_ms"],
+         ttft_p50_ms_spec_off=glm5_off["ttft_p50_ms"],
+         decode_tok_s=glm5_on["decode_tok_s"],
+         decode_tok_s_spec_off=glm5_off["decode_tok_s"],
+         accept_length=glm5_on["accept_length"],
+         spec_rounds=glm5_on["spec_rounds"])
+    del glm5_on, glm5_off
     _free()
     train_parity(yi.replace(num_layers=2), batch=1, seq=1024)
     _free()
     train_parity(yi_dsa.replace(num_layers=2), batch=1, seq=2560)
     _free()
-    dense_run = train_run(yi_train, batch=2, seq=2048, steps=5)
+    train_parity(yi_block.replace(num_layers=2), batch=1, seq=2560,
+                 idx_tol=5e-3)
     _free()
-    dsa_run = train_run(yi_dsa_train, batch=1, seq=4096, steps=5)
-    _free()
-    for name in TRAIN_KERNELS:
-        launches[name] = dense_run["launches"][name] \
-            + dsa_run["launches"][name]
+    for cfg_, batch_, seq_ in ((yi_train, 2, 2048), (yi_dsa_train, 1, 4096),
+                               (yi_block.replace(num_layers=8), 1, 4096)):
+        launches.update(train_run(cfg_, batch=batch_, seq=seq_,
+                                  steps=5)["launches"])
+        _free()
     profile_train_step(yi_train, batch=2, seq=2048)
     _free()
     profile_train_step(yi_dsa_train, batch=1, seq=4096)
+    _free()
+    profile_train_step(yi_block.replace(num_layers=8), batch=1, seq=4096)
     _free()
     profile_decode(yi)
     _free()
@@ -1718,7 +2189,8 @@ def main() -> int:
     _free()
     profile_decode(glm5)
 
-    sources = {"gqa": "src/repro_torch/csrc/paged_attention.cu",
+    sources = {"block_sparse": "src/repro_torch/csrc/block_sparse.cu",
+               "gqa": "src/repro_torch/csrc/paged_attention.cu",
                "mla": "src/repro_torch/csrc/paged_mla.cu",
                "indexer": "src/repro_torch/csrc/paged_indexer.cu",
                "lightning_indexer": "src/repro_torch/csrc/lightning_indexer.cu",
@@ -1740,6 +2212,9 @@ def main() -> int:
                 "lightning_indexer":
                 ("lightning_indexer",
                  "src/repro/kernels/lightning_indexer/kernel.py:37"),
+                "block_sparse_attention":
+                ("block_sparse",
+                 "src/repro/kernels/sparse_attention/kernel.py:69"),
                 "flash_attention":
                 ("flash_attention",
                  "src/repro/kernels/flash_attention/kernel.py:81"),

@@ -9,7 +9,9 @@ layer ``first_k_dense + g*P + j`` of the port takes index ``g`` of
 ``slotJ`` (an MoE slot's expert tensors are ``(n_groups, E, in, out)``, so
 index ``g`` leaves the port's ``(E, in, out)``).  MLA, MoE and DSA-indexer
 leaves (``idx``: ``wq_idx``, ``wk_idx``, ``w_head``) keep the reference's
-names.  Both packages keep matrices as (in, out) and
+names, and so does the MTP head (``mtp``: ``h_norm``, ``e_norm``,
+``proj`` and its block, indexer included).  Both packages keep matrices
+as (in, out) and
 compute ``x @ W``, so no weight is transposed.  This module never imports
 JAX: it only reads numpy arrays.
 """
@@ -56,7 +58,7 @@ def from_jax_params(params_np: dict, cfg: ModelConfig, device=None,
     state = {k: torch.tensor(_jax_leaf(params_np, cfg, k))
              for k in model.state_dict()}
     # every reference weight must land somewhere: a leaf the port has no
-    # home for (an MTP head) would otherwise be dropped silently
+    # home for would otherwise be dropped silently
     n_port = sum(t.numel() for t in state.values())
     n_ref = _n_elements(params_np)
     if n_port != n_ref:

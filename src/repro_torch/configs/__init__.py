@@ -3,9 +3,9 @@
 ``get_config(arch_id)`` returns the full published config,
 ``get_smoke_config(arch_id)`` the reduced same-family variant.  Every
 registered model carries the reference's DSA retrofit, which the port
-serves; GLM-5 also carries its MTP head, which the port serves with
-``.replace(mtp=None)``: the MTP slice is not ported yet, and the model
-constructors reject a config that sets it.
+serves; GLM-5 also carries its MTP head, which the port trains and drafts
+speculative tokens with (``serving.speculative``,
+``ContinuousEngine(spec_steps=...)``).
 """
 from __future__ import annotations
 

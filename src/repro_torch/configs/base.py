@@ -1,9 +1,10 @@
 """Model configuration dataclasses (the port's copy of ``repro.configs.base``).
 
 ``ModelConfig`` keeps the reference's fields that the port reads, with the
-same names and defaults.  ``dsa`` is served with the token selector and
-deterministic top-k; ``mtp`` and the other ``family`` values mark parts of
-later slices, and the model constructors reject a config that sets one.
+same names and defaults.  ``dsa`` is served with either selector and
+deterministic top-k, ``mtp`` with its shared head; the other ``family``
+values mark parts of later slices, and the model constructors reject a
+config that sets one.
 The reference's expert-parallel switches
 (``moe_impl``, ``capacity_factor``: the mesh slice), SSM / hybrid /
 encoder / frontend fields and its implementation switches (``attn_impl``,
@@ -26,10 +27,10 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class DSAConfig:
     """DeepSeek Sparse Attention (GLM-5 §2.1.1): a lightning indexer
-    scores every cached token, the top ``top_k`` are attended.  The port
-    serves ``selector="token"`` with ``deterministic_topk=True``; the
-    block selector (with the block-sparse kernel) and the randomized
-    tie-breaking of the RL-determinism study are rejected by the model
+    scores every cached token, the top ``top_k`` are attended (``token``)
+    or the top ``top_k // block_size`` key blocks of each query block
+    (``block``).  The randomized tie-breaking of the RL-determinism study
+    (``deterministic_topk=False``) is rejected by the model
     constructors."""
     index_heads: int = 32
     index_head_dim: int = 128
@@ -52,8 +53,7 @@ class MLAConfig:
 
 @dataclass(frozen=True)
 class MTPConfig:
-    """Multi-token prediction with parameter sharing (GLM-5 §2.1); MTP
-    slice."""
+    """Multi-token prediction with parameter sharing (GLM-5 §2.1)."""
     num_predict: int = 3
     share_params: bool = True
 

@@ -6,10 +6,9 @@ Q-LoRA 2048 / KV-LoRA 512, qk head dim 192 (128 nope + 64 rope), v head dim
 MoE d_ff 2048, dense d_ff 12288, vocab 154880, DSA indexer 32 heads x 128,
 MTP with 3-step parameter sharing.
 
-The port serves it with ``.replace(mtp=None)`` (the MTP slice is not ported
-yet; the model constructors reject it).  Its MLA layers write the DSA
-indexer keys into the cache and, as in the reference, read none at serve
-time.
+Its MLA layers write the DSA indexer keys into the cache and, as in the
+reference, read none at serve time; the MTP head drafts speculative
+tokens (``ContinuousEngine(spec_steps=3)``).
 """
 from repro_torch.configs.base import DSAConfig, MLAConfig, MTPConfig, ModelConfig
 

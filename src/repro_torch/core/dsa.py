@@ -21,15 +21,24 @@ top-k, for serving and training.  Three parts:
 3. **Sparse attention** over the selected tokens, gathered one by one
    (``paged_take`` straight from the block pool on the paged paths).
 
+The block selector (``selector="block"``, the reference's TPU adaptation)
+pools the indexer scores over 128-query and 128-key blocks and keeps the
+top ``top_k // block_size`` key blocks per query block
+(``select_topk_blocks``); ``sparse_block_attention`` attends them through
+K8 (``kernels.sparse_attention``), differentiable through a plain
+backward.  ``dsa_attention`` takes that branch where the reference does
+(its chunking decides it, see there); a decode step keeps the token
+selector (``dsa_decode_paged``), as in the reference.
+
 Training (``dsa_attention(with_indexer_loss=True)``) adds the indexer's KL
 to the head-mean sparse attention over the selected support: the top-k
 indices carry no gradient, so this term is the only gradient path into the
-indexer (GLM-5 §2.1.1).
+indexer (GLM-5 §2.1.1).  The block branch's term is the reference's
+``-mean(log_softmax)`` of the scores of every selected block's tokens.
 
-Not here (the model constructors reject configs that need them): the
-block-granular selector (``select_topk_blocks``, ``sparse_block_attention``;
-it comes with the block-sparse kernel) and the randomized tie-breaking of
-the RL-determinism study (``deterministic_topk=False``).
+Not here (the model constructors reject configs that need it): the
+randomized tie-breaking of the RL-determinism study
+(``deterministic_topk=False``).
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from repro_torch.core.paging import paged_take
 from repro_torch.kernels.lightning_indexer import ops as li_ops
 from repro_torch.kernels.paged_attention.ops import (paged_indexer_prefill,
                                                      paged_indexer_scores)
+from repro_torch.kernels.sparse_attention import kernel as sparse_kernel
 from repro_torch.layers.attention import NEG_INF, attention_mask
 from repro_torch.layers.common import _empty
 
@@ -122,6 +132,40 @@ def select_topk(scores: torch.Tensor, mask: torch.Tensor, k: int
     return idx[..., :k], vals[..., :k] > NEG_INF / 2
 
 
+def select_topk_blocks(scores: torch.Tensor, mask: torch.Tensor, k: int,
+                       block_size: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-granular selection (the reference's TPU adaptation).
+
+    scores/mask (B, S, T), S and T multiples of ``block_size``.  Per
+    (query block, key block): the max of the masked scores plus half their
+    mean; the top ``k // block_size`` key blocks of each query block,
+    ties by the lower index (a stable sort, as ``select_topk``).  Returns
+    (block_idx (B, S/bs, nb) int32, valid).
+
+    The reference takes that mean in fp32 over scores where masked entries
+    are NEG_INF = -2e38: two of them already sum past the fp32 range, so
+    the mean of a key block with two or more masked entries is -inf, in any
+    order of summation, and the block ranks below even the wholly masked
+    blocks (NEG_INF) and is never valid: no diagonal block is ever chosen
+    (ROADMAP queue 3).  The mean is computed here in that closed form, not
+    left to the accumulator precision of ``torch.mean``."""
+    B, S, T = scores.shape
+    qb = kb = block_size
+    nqb, nkb = S // qb, T // kb
+    m = mask.reshape(B, nqb, qb, nkb, kb)
+    s = torch.where(m, scores.reshape(m.shape), NEG_INF)
+    pooled_max = s.amax(dim=(2, 4))
+    n_masked = (~m).sum(dim=(2, 4))
+    total = torch.where(m, s, 0.0).sum(dim=(2, 4)) + n_masked * NEG_INF
+    pooled_mean = torch.where(n_masked >= 2, -torch.inf, total / (qb * kb))
+    pooled = pooled_max + 0.5 * pooled_mean               # (B, nqb, nkb)
+    pooled = torch.where(m.any(dim=(2, 4)), pooled, NEG_INF)
+    nb = min(max(1, k // kb), nkb)
+    vals, idx = torch.sort(pooled, dim=-1, descending=True, stable=True)
+    return idx[..., :nb].to(torch.int32), vals[..., :nb] > NEG_INF / 2
+
+
 # ---------------------------------------------------------------------------
 # sparse attention cores
 # ---------------------------------------------------------------------------
@@ -175,6 +219,54 @@ def sparse_token_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ok = valid & (sel_pos <= q_positions[..., None])
     return _attend_selected(q, k_sel, v_sel, ok, softcap=softcap,
                             return_probs=return_probs)
+
+
+class _SparseBlockAttend(torch.autograd.Function):
+    """K8 forward; the backward recomputes K8's plain version and
+    differentiates it (the reference has no backward kernel: JAX
+    differentiates its XLA ``sparse_block_attention``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, block_idx, q_start, block_size, softcap):
+        ctx.save_for_backward(q, k, v, block_idx, q_start)
+        ctx.block_size, ctx.softcap = block_size, softcap
+        return sparse_kernel.block_sparse_attention(
+            q, k, v, block_idx, q_start, block_size=block_size,
+            softcap=softcap, empty_mean=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, block_idx, q_start = ctx.saved_tensors
+        with torch.enable_grad():
+            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+            out = sparse_kernel.block_sparse_attention_plain(
+                qd, kd, vd, block_idx, q_start, block_size=ctx.block_size,
+                softcap=ctx.softcap, empty_mean=True)
+            dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
+        return dq, dk, dv, None, None, None, None
+
+
+def sparse_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           block_idx: torch.Tensor, block_valid: torch.Tensor,
+                           q_positions: torch.Tensor, block_size: int, *,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """Block-gathered attention: every query block attends its selected
+    key blocks (dense within a block), through K8.
+
+    q (B, S, H, dqk); k (B, T, KVH, dqk), v (B, T, KVH, dv), key j at
+    position j (every caller's keys: no cache, the contiguous cache, the
+    gathered view); block_idx/block_valid (B, S/bs, nb) from
+    ``select_topk_blocks``; q_positions (B, S) ascending by one from each
+    row's start.  A query attends the keys of its block's valid blocks at
+    or before its position; one that sees none gets the mean of V over all
+    the selected blocks' tokens, as the reference's softmax over scores
+    that are all NEG_INF does.  Differentiable in q, k and v."""
+    ids = block_idx.to(torch.int32)
+    ids = torch.where(block_valid, ids, -ids - 1).contiguous()
+    q_start = q_positions[:, 0].to(torch.int32).contiguous()
+    return _SparseBlockAttend.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), ids, q_start, block_size,
+                                    softcap)
 
 
 def _by_query_chunks(fn: Callable[[int, int], torch.Tensor], S: int,
@@ -284,8 +376,23 @@ def dsa_attention(idx: Indexer, q: torch.Tensor, k: torch.Tensor,
     takes one block when ``S % q_chunk``: the same mean.  Each chunk is
     recomputed in the backward (``torch.utils.checkpoint``, the
     reference's ``jax.checkpoint``), so one chunk's gathered K/V is live at
-    a time; the recompute runs the indexer scores again."""
+    a time; the recompute runs the indexer scores again.
+
+    With the block selector the reference's rule decides the branch: it
+    chunks only when S is a multiple of ``q_chunk`` (else one chunk of all
+    S queries), and a chunk takes the block branch when S >= block_size
+    and both the chunk and T are multiples of block_size; otherwise the
+    token branch, as above (S = 300 with blocks of 128: tokens; S = 384:
+    one block-branch chunk of three query blocks)."""
     dsa = cfg.dsa
+    B, S = q.shape[:2]
+    if dsa.selector == "block":
+        step = q_chunk if 0 < q_chunk < S and S % q_chunk == 0 else S
+        bs = dsa.block_size
+        if S >= bs and k.shape[1] % bs == 0 and step % bs == 0:
+            return _dsa_blocks(idx, q, k, v, x_q, k_idx, q_positions,
+                               kv_positions, cfg, kv_len, window, softcap,
+                               step, with_indexer_loss)
 
     def chunk(q_c, xq_c, pos):
         scores = indexer_scores(idx, xq_c, k_idx, dsa)
@@ -307,8 +414,7 @@ def dsa_attention(idx: Indexer, q: torch.Tensor, k: torch.Tensor,
     if not with_indexer_loss:
         return _by_query_chunks(
             lambda lo, hi: chunk(q[:, lo:hi], x_q[:, lo:hi],
-                                 q_positions[:, lo:hi]), q.shape[1], q_chunk)
-    B, S = q.shape[:2]
+                                 q_positions[:, lo:hi]), S, q_chunk)
     step = q_chunk if q_chunk > 0 else S
     outs, kl_sum = [], 0.0
     for lo in range(0, S, step):
@@ -318,3 +424,46 @@ def dsa_attention(idx: Indexer, q: torch.Tensor, k: torch.Tensor,
         outs.append(out)
         kl_sum = kl_sum + kl
     return torch.cat(outs, dim=1), kl_sum / (B * S)
+
+
+def _dsa_blocks(idx: Indexer, q, k, v, x_q, k_idx, q_positions,
+                kv_positions, cfg: ModelConfig, kv_len, window: int,
+                softcap: float, step: int, with_indexer_loss: bool):
+    """The block branch of ``dsa_attention`` over query chunks of ``step``
+    rows: indexer scores -> ``select_topk_blocks`` -> K8.  With the loss,
+    each chunk's is the reference's ``-mean(log_softmax)`` of the scores of
+    the tokens of its query blocks' selected blocks (no validity or causal
+    mask: which invalid blocks the top-k order picks changes it), and the
+    result the mean over the chunks; each chunk is recomputed in the
+    backward (``torch.utils.checkpoint``), so K8 runs twice a chunk."""
+    dsa = cfg.dsa
+    bs = dsa.block_size
+    B, S = q.shape[:2]
+    offs = torch.arange(bs, device=q.device)
+
+    def chunk(q_c, xq_c, pos):
+        scores = indexer_scores(idx, xq_c, k_idx, dsa)
+        mask = attention_mask(pos, kv_positions, causal=True, window=window,
+                              kv_len=kv_len)
+        bidx, bval = select_topk_blocks(scores.detach(), mask, dsa.top_k, bs)
+        out = sparse_block_attention(q_c, k, v, bidx, bval, pos, bs,
+                                     softcap=softcap)
+        if not with_indexer_loss:
+            return out
+        tok = (bidx.long()[..., None] * bs + offs).reshape(
+            B, bidx.shape[1], -1).repeat_interleave(bs, dim=1)
+        ind_logp = torch.log_softmax(torch.gather(scores, -1, tok), dim=-1)
+        return out, -ind_logp.mean()
+
+    outs, kls = [], []
+    for lo in range(0, S, step):
+        sl = slice(lo, lo + step)
+        args = (q[:, sl], x_q[:, sl], q_positions[:, sl])
+        if with_indexer_loss:
+            out, kl = checkpoint(chunk, *args, use_reentrant=False)
+            kls.append(kl)
+        else:
+            out = chunk(*args)
+        outs.append(out)
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return (out, torch.stack(kls).mean()) if with_indexer_loss else out

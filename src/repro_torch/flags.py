@@ -51,3 +51,10 @@ def admit_window() -> int:
     """Head-of-line scan window for admission (``REPRO_ADMIT_WINDOW``,
     default 4; 0 restores strict FCFS)."""
     return int(os.environ.get("REPRO_ADMIT_WINDOW", "4"))
+
+
+def default_spec_steps() -> int:
+    """Default MTP speculative draft depth for ``ContinuousEngine``
+    (``REPRO_SPEC_STEPS``, default 0 = speculation off); an explicit
+    ``spec_steps=`` always wins."""
+    return int(os.environ.get("REPRO_SPEC_STEPS", "0"))

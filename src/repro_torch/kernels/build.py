@@ -61,6 +61,11 @@ ENTRIES = {
     # K7: dtype, Di, q, w, k, out, B, S, T, Hi, scale, stream
     "lightning_indexer": ("lightning_indexer",
                           [_I] * 2 + [_P] * 4 + [_I] * 4 + [_F, _P]),
+    # K8: dtype, dqk, dv, q, k, v, block_idx, q_start, out, B, S, T, H,
+    # KVH, block_size, nb, empty_mean, softcap, scale, stream
+    "block_sparse_attention": ("block_sparse",
+                               [_I] * 3 + [_P] * 6 + [_I] * 8
+                               + [_F, _F, _P]),
     # K9: dtype, d, q, k, v, out, B, Sq, Sk, H, KVH, causal, window,
     # q_offset, softcap, scale, stream
     "flash_attention": ("flash_attention",

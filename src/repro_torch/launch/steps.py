@@ -35,8 +35,11 @@ def make_train_step(model: T.Transformer, *,
             p.grad = None
         total, metrics = T.loss(model, batch)
         total.backward()
+        # a parameter the loss never reads (the MTP block's indexer: the
+        # head runs dense) has no gradient; JAX gives it zeros
         grads, gnorm = muon.global_norm_clip(
-            {k: p.grad for k, p in params.items()}, tc.grad_clip)
+            {k: p.grad if p.grad is not None else torch.zeros_like(p)
+             for k, p in params.items()}, tc.grad_clip)
         opt_state = muon.update(params, grads, axes, opt_state, lr=lr,
                                 cfg=cfg, weight_decay=tc.weight_decay,
                                 split=tc.muon_split)

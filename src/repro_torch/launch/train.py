@@ -10,9 +10,8 @@ periodic async checkpointing and one JSON line of metrics every
 step, lr, tok_per_s).  It runs on the GPU unless ``--device cpu`` is
 given.  ``train(cfg, tc)`` is the loop itself, for callers with their own
 ``ModelConfig`` (a depth-cut one, say); ``main`` parses the reference's
-flags into it.  The reference's default arch, ``glm-5``, needs the MTP
-head, which the port does not have yet: pass ``--arch`` another model, or
-GLM-5 through ``train`` with ``cfg.replace(mtp=None)``.
+flags into it.  The reference's default arch, ``glm-5``, trains with its
+MTP head (0.3 × the MTP losses in the loss, logged as ``mtp``).
 """
 from __future__ import annotations
 

@@ -2,22 +2,30 @@
 
 Port of ``repro.models.transformer`` for configurations the port serves
 exactly as the reference does: GQA or MLA attention, DSA sparse attention
-on the ``global`` layers (the lightning indexer, deterministic top-k and
-the token selector), dense MLP (swiglu / relu2 / gelu) or routed MoE FFN
-(the pattern layers, after ``first_k_dense`` dense-MLP layers), the
-``attention_pattern`` layer groups (local sliding-window / global),
-attention and final logit softcaps, tied (gemma-scaled) embeddings and
-``qk_norm``.  A config that needs a part not ported yet — MTP, the DSA
-block selector or its randomized top-k, another family — raises
-``NotImplementedError`` instead of quietly running without it.
+on the ``global`` layers (the lightning indexer, deterministic top-k, the
+token or the block selector), dense MLP (swiglu / relu2 / gelu) or routed
+MoE FFN (the pattern layers, after ``first_k_dense`` dense-MLP layers),
+the ``attention_pattern`` layer groups (local sliding-window / global),
+attention and final logit softcaps, tied (gemma-scaled) embeddings,
+``qk_norm`` and the MTP head (``core.mtp``: one shared non-MoE ``global``
+block; under DSA it has an indexer, and runs dense, ``sparse=False``, as
+in the reference).  A config that needs a part not ported yet — DSA's
+randomized top-k, another family — raises ``NotImplementedError`` instead
+of quietly running without it.
 
-Training: ``loss(model, batch)`` is the reference's ``loss`` without the
-MTP branch: the chunked cross-entropy (K10) plus the auxiliary losses that
-``hidden`` sums over the layers (the MoE router's load-balance loss and
-0.01 × the DSA indexer KL).  Without a cache a GQA layer attends through
-K9 (``layers.attention.flash_attend``) and a DSA layer scores through K7;
-``param_axes`` gives every parameter the logical axes its reference
-``b.param`` call declares, which Muon reads.
+``sparse`` (on ``hidden``, ``apply_block``, ``verify_step``, ``loss``;
+default ``cfg.dsa is not None``, the reference's) switches a layer's DSA
+indexer on or off: with ``sparse=False`` a GQA layer attends densely and
+writes no indexer keys, an MLA layer still writes them into its cache.
+
+Training: ``loss(model, batch)`` is the reference's ``loss``: the chunked
+cross-entropy (K10) plus the auxiliary losses that ``hidden`` sums over
+the layers (the MoE router's load-balance loss and 0.01 × the DSA indexer
+KL), plus 0.3 × the MTP losses when the config has the head.  Without a
+cache a GQA layer attends through K9 (``layers.attention.flash_attend``),
+a DSA layer scores through K7 and, with the block selector, attends
+through K8; ``param_axes`` gives every parameter the logical axes its
+reference ``b.param`` call declares, which Muon reads.
 
 Layout differences from the reference:
 
@@ -46,6 +54,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dsa as dsa_mod
 from repro_torch.core import mla as mla_mod
+from repro_torch.core import mtp as mtp_mod
 from repro_torch.core.paging import paged_update, paged_view
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import (paged_gqa_attend,
@@ -56,10 +65,10 @@ from repro_torch.layers.common import (MLP, Embedding, _empty, embed,
                                        logits_from_hidden, rmsnorm,
                                        unembed_matrix)
 from repro_torch.layers.moe import ROUTER_SCALE, MoE, apply_moe
-from repro_torch.models.losses import chunked_softmax_xent
+from repro_torch.models.losses import chunked_softmax_xent, mean_xent
 
 NORMS = ("attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm",
-         "q_a_norm", "kv_a_norm")
+         "q_a_norm", "kv_a_norm", "h_norm", "e_norm")
 FAMILIES = ("dense", "moe")
 
 
@@ -69,17 +78,13 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (the port serves "
             f"{FAMILIES})")
-    if cfg.dsa is not None and cfg.dsa.selector != "token":
-        raise NotImplementedError(
-            f"DSA selector {cfg.dsa.selector!r} is not ported (it comes "
-            f"with the block-sparse kernel); the port serves 'token'")
+    if cfg.dsa is not None and cfg.dsa.selector not in ("token", "block"):
+        raise ValueError(f"DSA selector {cfg.dsa.selector!r}: the reference "
+                         f"has 'token' and 'block'")
     if cfg.dsa is not None and not cfg.dsa.deterministic_topk:
         raise NotImplementedError(
             "DSA with deterministic_topk=False (randomized tie-breaking, "
             "the RL-determinism study) is not ported")
-    if cfg.mtp is not None:
-        raise NotImplementedError("the MTP head is the MTP slice, not "
-                                  "ported yet; serve cfg.replace(mtp=None)")
     if cfg.attention_type not in ("gqa", "mla"):
         raise NotImplementedError(
             f"attention_type {cfg.attention_type!r} is not ported")
@@ -133,7 +138,8 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Parameters of the whole decoder; ``forward(tokens)`` gives logits."""
+    """Parameters of the whole decoder (and the MTP head ``mtp`` when the
+    config has one); ``forward(tokens)`` gives logits."""
 
     AXES = {"final_norm": ("embed",)}
 
@@ -149,6 +155,9 @@ class Transformer(nn.Module):
                   cfg.num_experts > 0 and i >= cfg.first_k_dense, **kw)
             for i in range(cfg.num_layers))
         self.final_norm = _empty(cfg.d_model, **kw)
+        if cfg.mtp is not None:
+            self.mtp = mtp_mod.MTP(
+                cfg, lambda: Block(cfg, "global", False, **kw), **kw)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return logits(self, tokens)
@@ -213,18 +222,20 @@ def _cache_index_keys(idx: dsa_mod.Indexer, h: torch.Tensor, layer_cache,
 def _attend_mla(block: Block, h: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, layer_cache, cache_index,
                 block_tables: Optional[torch.Tensor],
-                paged_impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                paged_impl: str, sparse: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MLA branch of the reference's ``_attend``: MHA-style without a
-    cache (sparse over the indexer's top-k on a DSA layer, with the
-    indexer KL), absorbed over the latent cache with one (paged: K3 for a
-    step, K4 for a span).  With a cache a DSA layer writes its indexer keys
+    cache (sparse over the indexer's top-k on a DSA layer when ``sparse``,
+    with the indexer KL; the block selector attends through K8), absorbed
+    over the latent cache with one (paged: K3 for a step, K4 for a span).
+    With a cache a DSA layer writes its indexer keys (``sparse`` or not)
     and reads none, as the reference does: its attention stays dense.
     Returns (out, indexer KL or 0)."""
     attn, idx = block.attn, getattr(block, "idx", None)
     B, S, _ = h.shape
     zero = h.new_zeros((), dtype=torch.float32)
     if layer_cache is None:
-        if idx is None:
+        if idx is None or not sparse:
             return mla_mod.apply_mla(attn, h, cfg, positions=positions), zero
         q, k, v, _, _ = mla_mod.mla_qkv(attn, h, cfg, positions)
         out, kl = dsa_mod.dsa_attention(
@@ -250,9 +261,11 @@ def _attend_mla(block: Block, h: torch.Tensor, cfg: ModelConfig,
 def _attend(block: Block, h: torch.Tensor, cfg: ModelConfig,
             positions: torch.Tensor, layer_cache, cache_index,
             block_tables: Optional[torch.Tensor],
-            paged_impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
+            paged_impl: str, sparse: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention sub-layer on normed hidden h; returns (out, indexer KL):
-    the KL of a DSA layer without a cache, 0 otherwise.
+    the KL of a DSA layer without a cache, 0 otherwise.  A GQA layer uses
+    its indexer only when ``sparse``.
 
     ``layer_cache`` is None (no cache), this layer's dict of contiguous
     (B, T, *f) leaves, or, with ``block_tables`` (this layer's table,
@@ -263,14 +276,20 @@ def _attend(block: Block, h: torch.Tensor, cfg: ModelConfig,
     tokens it gathers through the table.  ``paged_impl='ref'`` is the
     gather oracle: a span gathers the padded view (DSA: then
     ``dsa_attention`` over it), a DSA step keeps ``dsa_decode_paged`` with
-    the gathered indexer scores, as in the reference.  Without a cache the
-    positions are 0..S-1 (``hidden`` makes them so): a layer without DSA
-    runs K9, one with DSA the training form of ``dsa_attention`` (K7, the
-    indexer KL)."""
+    the gathered indexer scores, as in the reference.  A span of a DSA
+    layer with the block selector gathers the view on either route (the
+    reference has no in-place span for it) and runs ``dsa_attention``: its
+    block branch (K8) where the span and the view are multiples of the
+    block size.  Without a cache the positions are 0..S-1 (``hidden`` makes
+    them so): a layer without DSA runs K9, one with DSA the training form
+    of ``dsa_attention`` (K7, the indexer KL; K8 with the block
+    selector)."""
     if cfg.attention_type == "mla":
         return _attend_mla(block, h, cfg, positions, layer_cache, cache_index,
-                           block_tables, paged_impl)
-    attn, idx = block.attn, getattr(block, "idx", None)
+                           block_tables, paged_impl, sparse)
+    attn = block.attn
+    idx = getattr(block, "idx", None) if sparse else None
+    q_chunk = min(cfg.q_chunk, 256)
     B, S, _ = h.shape
     window = cfg.sliding_window if block.kind == "local" else 0
     softcap = cfg.attn_logit_softcap
@@ -284,7 +303,7 @@ def _attend(block: Block, h: torch.Tensor, cfg: ModelConfig,
             out, kl = dsa_mod.dsa_attention(
                 idx, q, k, v, h, dsa_mod.indexer_keys(idx, h), positions,
                 positions, cfg, window=window, softcap=softcap,
-                q_chunk=min(cfg.q_chunk, 256), with_indexer_loss=True)
+                q_chunk=q_chunk, with_indexer_loss=True)
     elif block_tables is not None:
         k_pool, v_pool = layer_cache["k"], layer_cache["v"]
         paged_update(k_pool, k, block_tables, positions)
@@ -301,7 +320,7 @@ def _attend(block: Block, h: torch.Tensor, cfg: ModelConfig,
                     idx, q, k_pool, v_pool, h, ki_pool, block_tables,
                     positions[:, 0], positions, cfg, softcap=softcap,
                     impl=paged_impl)
-            elif paged_impl != "ref":
+            elif paged_impl != "ref" and cfg.dsa.selector == "token":
                 out = dsa_mod.dsa_prefill_paged(
                     idx, q, k_pool, v_pool, h, ki_pool, block_tables,
                     positions, cfg, window=window, softcap=softcap,
@@ -313,7 +332,7 @@ def _attend(block: Block, h: torch.Tensor, cfg: ModelConfig,
                     idx, q, k_full, paged_view(v_pool, block_tables), h,
                     paged_view(ki_pool, block_tables), positions,
                     torch.arange(T, device=h.device).expand(B, T), cfg,
-                    window=window, softcap=softcap)
+                    window=window, softcap=softcap, q_chunk=q_chunk)
     else:
         k_cache, v_cache = layer_cache["k"], layer_cache["v"]
         k_cache[:, cache_index:cache_index + S] = k.to(k_cache.dtype)
@@ -330,20 +349,20 @@ def _attend(block: Block, h: torch.Tensor, cfg: ModelConfig,
             out = dsa_mod.dsa_attention(
                 idx, q, k_cache, v_cache, h, ki_cache, positions,
                 kv_positions, cfg, kv_len=cache_index + S, window=window,
-                softcap=softcap)
+                softcap=softcap, q_chunk=q_chunk)
     return out.reshape(B, S, -1) @ attn.wo, kl
 
 
 def apply_block(block: Block, h: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, *, layer_cache=None,
-                cache_index=None, block_tables=None,
+                positions: torch.Tensor, *, sparse: bool = False,
+                layer_cache=None, cache_index=None, block_tables=None,
                 paged_impl: str = "kernel"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (h, aux loss): the MoE router's load-balance loss plus 0.01 ×
     the indexer KL (the reference's coefficients)."""
     a_in = rmsnorm(h, block.attn_norm, cfg.norm_eps)
     a_out, ind_kl = _attend(block, a_in, cfg, positions, layer_cache,
-                            cache_index, block_tables, paged_impl)
+                            cache_index, block_tables, paged_impl, sparse)
     h = h + a_out
     m_in = rmsnorm(h, block.mlp_norm, cfg.norm_eps)
     if hasattr(block, "moe"):
@@ -375,8 +394,8 @@ def _layer_caches(cfg: ModelConfig, cache: dict, block_tables):
 
 
 def hidden(model: Transformer, tokens: torch.Tensor, *,
-           cache: Optional[dict] = None, cache_index=None,
-           block_tables: Optional[torch.Tensor] = None,
+           sparse: Optional[bool] = None, cache: Optional[dict] = None,
+           cache_index=None, block_tables: Optional[torch.Tensor] = None,
            paged_impl: str = "kernel"
            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Returns (final-normed hidden (B, S, D), aux loss, cache).
@@ -386,6 +405,8 @@ def hidden(model: Transformer, tokens: torch.Tensor, *,
     (B,); with a contiguous cache ``cache_index`` is the int offset of
     token 0; without a cache they are 0..S-1."""
     cfg = model.cfg
+    if sparse is None:
+        sparse = cfg.dsa is not None
     B, S = tokens.shape
     dev = tokens.device
     h = embed(model.embed, tokens, cfg)
@@ -398,9 +419,9 @@ def hidden(model: Transformer, tokens: torch.Tensor, *,
         else ((None, None) for _ in model.layers)
     aux = h.new_zeros((), dtype=torch.float32)
     for block, (layer_cache, tables) in zip(model.layers, layers):
-        h, a = apply_block(block, h, cfg, positions, layer_cache=layer_cache,
-                           cache_index=cache_index, block_tables=tables,
-                           paged_impl=paged_impl)
+        h, a = apply_block(block, h, cfg, positions, sparse=sparse,
+                           layer_cache=layer_cache, cache_index=cache_index,
+                           block_tables=tables, paged_impl=paged_impl)
         aux = aux + a
     return rmsnorm(h, model.final_norm, cfg.norm_eps), aux, cache
 
@@ -411,25 +432,44 @@ def logits(model: Transformer, tokens: torch.Tensor, **kw) -> torch.Tensor:
     return logits_from_hidden(model.embed, h, model.cfg)
 
 
-def loss(model: Transformer, batch: Dict[str, torch.Tensor]
+def loss(model: Transformer, batch: Dict[str, torch.Tensor], *,
+         sparse: Optional[bool] = None
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The reference's ``loss`` without MTP: ``batch`` holds ``tokens`` and
-    ``targets`` (B, S) and optionally ``loss_mask`` (default ones).
-    Returns (total, {"ce", "aux", "loss"}): the masked mean token NLL
-    (K10) plus the layers' auxiliary losses."""
+    """The reference's ``loss``: ``batch`` holds ``tokens`` and ``targets``
+    (B, S) and optionally ``loss_mask`` (default ones).  Returns (total,
+    {"ce", "aux", "loss"} and "mtp" with the head): the masked mean token
+    NLL (K10) plus the layers' auxiliary losses, plus 0.3 × the MTP losses
+    (``core.mtp.mtp_train_losses``: each step's mean NLL over the masked-in
+    positions that still have a target j tokens ahead, its block dense)."""
     cfg = model.cfg
-    targets = batch["targets"]
+    tokens, targets = batch["tokens"], batch["targets"]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
-    h, aux, _ = hidden(model, batch["tokens"])
+    h, aux, _ = hidden(model, tokens, sparse=sparse)
+    W = unembed_matrix(model.embed, cfg)
     ce_sum, count = chunked_softmax_xent(
-        h, unembed_matrix(model.embed, cfg), targets, mask,
-        chunk=cfg.loss_chunk, softcap=cfg.final_logit_softcap)
+        h, W, targets, mask, chunk=cfg.loss_chunk,
+        softcap=cfg.final_logit_softcap)
     ce = ce_sum / count.clamp_min(1.0)
     total = ce + aux
-    return total, {"ce": ce, "aux": aux, "loss": total}
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp is not None:
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        mtp_loss = mtp_mod.mtp_train_losses(
+            model.mtp, cfg, h, tokens, targets, positions,
+            lambda t: embed(model.embed, t, cfg),
+            lambda hh, tg, valid: mean_xent(
+                hh, W, tg, mask * valid, chunk=cfg.loss_chunk,
+                softcap=cfg.final_logit_softcap),
+            lambda blk, x, pos: apply_block(blk, x, cfg, pos,
+                                            sparse=False)[0])
+        total = total + 0.3 * mtp_loss
+        metrics["mtp"] = mtp_loss
+    metrics["loss"] = total
+    return total, metrics
 
 
 def param_axes(model: nn.Module) -> Dict[str, Tuple[Optional[str], ...]]:
@@ -511,6 +551,25 @@ def prefill(model: Transformer, tokens: torch.Tensor, cache: dict, *,
     if block_tables is None:
         h = h[:, -1:]
     return logits_from_hidden(model.embed, h, model.cfg), cache
+
+
+@torch.no_grad()
+def verify_step(model: Transformer, tokens: torch.Tensor, cache: dict,
+                seq_lens: torch.Tensor, *, sparse: Optional[bool] = None,
+                block_tables: Optional[torch.Tensor] = None,
+                paged_impl: str = "kernel"
+                ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """Speculative verification: an S-token span at per-row starts
+    ``seq_lens`` (B,) (token i of row b at position ``seq_lens[b] + i``),
+    through the same paged span path as prefill; returns (logits (B, S, V),
+    the final-normed hidden (B, S, D), cache).  ``logits[:, j]`` is the
+    model's next-token distribution after token j (the accept test),
+    ``hidden[:, j]`` the state the next MTP draft chains from.  Rejected
+    positions are rolled back by the caller truncating its lengths."""
+    h, _, cache = hidden(model, tokens, sparse=sparse, cache=cache,
+                         cache_index=seq_lens, block_tables=block_tables,
+                         paged_impl=paged_impl)
+    return logits_from_hidden(model.embed, h, model.cfg), h, cache
 
 
 @torch.no_grad()

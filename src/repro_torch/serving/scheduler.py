@@ -22,10 +22,34 @@ GQA layer with DSA scores its indexer keys through K5
 (``paged_indexer_scores_kernel``) / K6 (``paged_prefill_indexer``) and
 attends the top-k tokens it gathers through the table;
 ``attn_impl="ref"`` switches both phases to the ``paged_view`` gather
-oracle.  The pool's leaves are whatever the model's ``init_paged_cache``
-builds (``k``/``v`` for GQA, the latent ``c``/``kr`` for MLA, ``k_idx`` on
-a DSA layer): the COW fork, the per-token byte count and the gather-bytes
-stats walk every leaf.
+oracle.  With the DSA block selector a GQA layer's spans gather the view
+on either route and attend through K8 (the reference has no in-place span
+for that selector; ``prefill_gather_bytes_saved`` then counts MLA and
+token-selector configs only, as the reference's does).  The pool's leaves
+are whatever the model's ``init_paged_cache`` builds (``k``/``v`` for GQA,
+the latent ``c``/``kr`` for MLA, ``k_idx`` on a DSA layer): the COW fork,
+the per-token byte count and the gather-bytes stats walk every leaf.
+
+MTP speculative decode (``spec_steps=n``, GLM-5 §2.1 / Table 2): every
+step emits up to ``n + 1`` tokens a slot.  Each slot keeps the trunk
+hidden state at its last cached position (``h_last``, from the prefill
+span or the last round); the shared MTP head drafts ``n`` tokens from it
+(``serving.speculative.mtp_draft``) and ONE batched S = n+1 span
+(``transformer.verify_step``, the paged span path at per-row starts)
+verifies [pending, drafts], writes their KV and returns every position's
+logits and hidden state.  The accept length is 1 + the greedy-matching
+draft prefix, the depth capped per slot at ``max_new - len(out) - 1``;
+rejected drafts are rolled back by truncating the slot's length
+(``_rollback``): their KV stays as dead values in blocks the slot owns
+alone, rewritten by the next span before any mask admits them, and the
+table's ``ceil(n / block_size)`` extra columns send writes past a slot's
+lifetime blocks to the trash block.  Greedy tokens equal those of
+``spec_steps=0`` (in fp32; in bf16 a span and a decode step sum in other
+orders, so near-ties may differ).  Speculation is greedy-only.
+``draft_tokens`` / ``accepted_tokens`` / ``spec_rounds`` and
+``rolling_accept_length`` track Table 2's quantity; ``step_token_budget``
+holds admission back when live slots × the rolling accept length would
+pass the budget.
 
 Differences from the reference, all deliberate:
 
@@ -34,11 +58,12 @@ Differences from the reference, all deliberate:
   kept for its key and stays 0 — nothing is traced;
 * logits cross to the host every step and sampling stays on the host with
   the numpy generator, as in the reference, so greedy ties break alike;
-* MTP speculative decode (``spec_steps > 0``), the hybrid family and the
-  host spill tier (``spill=True``) belong to later slices and raise
-  ``NotImplementedError``; logprob capture, the step-token budget and
-  ``respawn`` (the RL, speculation and front-end layers use them) come
-  with those layers.
+* the hybrid family and the host spill tier (``spill=True``) belong to
+  later slices and raise ``NotImplementedError``; logprob capture
+  (``capture_logprobs`` / ``true_logprobs``) and ``respawn`` (the RL and
+  front-end layers use them) come with those layers;
+* a slot's ``h_last`` stays on the device in the model's dtype (the
+  reference moves it to the host as fp32 every round).
 """
 from __future__ import annotations
 
@@ -67,7 +92,8 @@ from repro_torch.serving.prefix_cache import PrefixCache
 class _Active:
     """One in-flight sequence: its request, blocks, sampling state, and —
     while its prompt is still being chunk-prefilled — the prefill cursor."""
-    __slots__ = ("req", "blocks", "out", "pending", "row", "pos", "version")
+    __slots__ = ("req", "blocks", "out", "pending", "row", "pos", "version",
+                 "h_last")
 
     def __init__(self, req: Request, blocks: List[int], row: np.ndarray,
                  pos: int, version: int = 0):
@@ -78,6 +104,9 @@ class _Active:
         self.pending: Optional[int] = None   # None: prompt not fully prefilled
         self.row = row                       # full block-table row
         self.pos = pos                       # next prefill position
+        # (D,) trunk hidden at the last CACHED position: the next MTP
+        # draft's input (spec_steps only), on the device
+        self.h_last: Optional[torch.Tensor] = None
 
 
 class ContinuousEngine:
@@ -89,8 +118,9 @@ class ContinuousEngine:
                  prefix_cache: bool = True,
                  prefill_chunk: Optional[int] = None,
                  attn_impl: Optional[str] = None,
-                 spec_steps: int = 0,
+                 spec_steps: Optional[int] = None,
                  weight_version: int = 0,
+                 step_token_budget: Optional[int] = None,
                  registry: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None,
                  max_waiting: Optional[int] = None,
@@ -102,10 +132,24 @@ class ContinuousEngine:
             raise NotImplementedError(
                 "the hybrid family (mamba2 + shared attention) is the "
                 "hybrid slice of the port, not ported yet")
-        if spec_steps:
-            raise NotImplementedError(
-                "MTP speculative decode (spec_steps > 0) is the MTP slice "
-                "of the port, not ported yet")
+        if spec_steps is None:
+            from repro_torch.flags import default_spec_steps
+            spec_steps = default_spec_steps()
+        if spec_steps < 0:
+            raise ValueError(f"spec_steps must be >= 0, got {spec_steps}")
+        if spec_steps > 0:
+            if cfg.mtp is None:
+                raise ValueError("spec_steps > 0 needs an MTP head "
+                                 "(cfg.mtp is None)")
+            if not cfg.mtp.share_params and \
+                    spec_steps > cfg.mtp.num_predict:
+                raise ValueError(
+                    f"spec_steps={spec_steps} exceeds the "
+                    f"{cfg.mtp.num_predict} separately-trained MTP layers "
+                    f"(share_params=False has no layer to draft beyond)")
+        if step_token_budget is not None and step_token_budget < 1:
+            raise ValueError("step_token_budget must be >= 1, got "
+                             f"{step_token_budget}")
         if spill:
             raise NotImplementedError(
                 "the host-RAM KV spill tier is a later slice of the port "
@@ -136,12 +180,17 @@ class ContinuousEngine:
         self.faults = FaultInjector.from_env() if faults is None else faults
         self.cfg = cfg
         self.params = params
+        self.spec_steps = spec_steps
+        self.step_token_budget = step_token_budget
         self.weight_version = weight_version
         self._pending_push: Optional[tuple] = None
         self.max_batch = max_batch
         self.block_size = block_size
         self.max_blocks = max(1, max_len // block_size)   # capacity per seq
-        self.table_width = self.max_blocks
+        # a verify span writes up to spec_steps positions past a slot's
+        # lifetime blocks (the batched span has one shape): the extra
+        # columns point at the trash block
+        self.table_width = self.max_blocks + -(-spec_steps // block_size)
         self.kv = PagedKVCache(num_blocks, block_size,
                                registry=self.registry, faults=self.faults)
         self.kv.set_version(weight_version)
@@ -164,9 +213,11 @@ class ContinuousEngine:
              "prefill_tokens", "cached_tokens", "cow_forks", "chunk_steps",
              "gather_bytes_saved", "prefill_gather_bytes_saved",
              "weight_pushes",
-             # kept for the reference's key set: no speculation, no token
-             # budget, and nothing is traced, so these stay 0
+             # speculative decode: drafted and accepted tokens; rounds are
+             # (slot, step) verifications that drafted at least one token
              "draft_tokens", "accepted_tokens", "spec_rounds",
+             # admissions deferred by the step-token budget; "compiles" is
+             # kept for the reference's key set: nothing is traced
              "budget_deferrals", "compiles",
              "cancels", "deadline_expired", "sheds", "overloads",
              "admit_skips", "request_faults"],
@@ -175,6 +226,10 @@ class ContinuousEngine:
         self._next_rid = 0
         self._push_t0: Optional[float] = None
         self._in_place = self.attn_impl != "ref"
+        # the block selector's GQA spans gather the view on either route
+        self._prefill_in_place = self._in_place and not (
+            cfg.dsa is not None and cfg.dsa.selector == "block"
+            and cfg.attention_type != "mla")
         self._token_bytes = self._pool_token_bytes()
 
     # ------------------------------------------------------------ telemetry
@@ -220,7 +275,12 @@ class ContinuousEngine:
 
     # ------------------------------------------------------------ scheduler
     def validate(self, req: Request) -> None:
-        """Reject requests the engine could never serve (size)."""
+        """Reject requests the engine could never serve (size, sampling)."""
+        if self.spec_steps and req.temperature > 0:
+            raise ValueError(
+                "speculative decoding is greedy-only: acceptance compares "
+                "drafts against the model's argmax (submit temperature=0 "
+                "requests or build the engine with spec_steps=0)")
         need = len(req.prompt) + req.max_new
         if need > self.max_blocks * self.block_size:
             raise ValueError(
@@ -307,7 +367,8 @@ class ContinuousEngine:
                      waiting=len(self.waiting),
                      live_tokens=int(self.lengths.sum()),
                      pool_used=self.kv.used_blocks,
-                     pool_free=self.kv.free_blocks, phase="decode")
+                     pool_free=self.kv.free_blocks,
+                     phase="spec" if self.spec_steps else "decode")
         if self.faults.enabled:
             if self.faults.fires("slow"):
                 time.sleep(self.faults.param("slow", 0.02))
@@ -317,7 +378,10 @@ class ContinuousEngine:
         self._apply_push_if_drained()
         self._admit()
         self._prefill_chunks()
-        self._decode_active()
+        if self.spec_steps:
+            self._spec_decode_active()
+        else:
+            self._decode_active()
         self.stats["steps"] += 1
         if tr.enabled:
             tr.end("engine.step")
@@ -481,6 +545,9 @@ class ContinuousEngine:
         if self._pending_push is not None:
             return          # draining toward the weight-push barrier
         while self.waiting and None in self.slots:
+            if not self._step_budget_allows():
+                self.stats["budget_deferrals"] += 1
+                return
             head = self.waiting[0]
             try:
                 admitted = self._try_admit(head)
@@ -528,6 +595,23 @@ class ContinuousEngine:
                 f"after eviction; pinned by sessions?): shed request "
                 f"{req.rid} at queue depth {len(self.waiting) + 1}"),
             "shed")
+
+    def _step_budget_allows(self) -> bool:
+        """Accept-length-aware slot budgeting (``step_token_budget``): each
+        live slot emits up to ``spec_steps + 1`` tokens a step; admission
+        projects ``live + 1`` slots at the rolling accept length
+        (``spec_steps + 1`` until one is measured) and defers past the
+        budget.  The first slot is always admitted."""
+        if self.step_token_budget is None:
+            return True
+        live = sum(1 for s in self.slots if s is not None)
+        if live == 0:
+            return True
+        per_slot = 1.0
+        if self.spec_steps:
+            est = self.rolling_accept_length
+            per_slot = est if est > 0 else float(self.spec_steps + 1)
+        return (live + 1) * per_slot <= self.step_token_budget
 
     def _try_admit(self, req: Request) -> bool:
         if self.faults.enabled:
@@ -607,12 +691,19 @@ class ContinuousEngine:
         real = min(plen - start, span)
         assert real > 0 and start + real <= self.max_blocks * bs
         toks = self._device_ints(np.asarray(prompt[start:start + real])[None])
-        logits, self.pool = self.model.prefill(
-            self.params, toks, self.pool,
-            block_tables=self._device_ints(s.row[None]),
-            cache_index=self._device_ints(np.asarray([start])),
-            paged_impl=self.attn_impl)
-        if self._in_place:
+        table = self._device_ints(s.row[None])
+        starts = self._device_ints(np.asarray([start]))
+        if self.spec_steps:
+            # the same span, with the trunk hidden states the first MTP
+            # draft chains from
+            logits, hid, self.pool = self.model.verify_step(
+                self.params, toks, self.pool, starts, block_tables=table,
+                paged_impl=self.attn_impl)
+        else:
+            logits, self.pool = self.model.prefill(
+                self.params, toks, self.pool, block_tables=table,
+                cache_index=starts, paged_impl=self.attn_impl)
+        if self._prefill_in_place:
             # traffic the in-place span avoided vs the padded-view gather
             live = ((start + real - 1) // bs + 1) * bs
             self.stats["prefill_gather_bytes_saved"] += \
@@ -623,6 +714,8 @@ class ContinuousEngine:
         if s.pos >= plen:                       # final span: sample token 1
             lg = logits[0, real - 1].float().cpu().numpy()
             s.pending = sample_token(lg, s.req.temperature, self._rng)
+            if self.spec_steps:                 # the first draft's input
+                s.h_last = hid[0, real - 1]
             self.tables[slot] = s.row
             self.lengths[slot] = plen
             if s.req.t_first is None:           # the TTFT stamp
@@ -680,3 +773,98 @@ class ContinuousEngine:
             s.pending = sample_token(lg[i], s.req.temperature, self._rng)
         self.stats["decode_steps"] += 1
         self.stats["decode_tokens"] += len(active)
+
+    # ------------------------------------------------------- speculative
+    @property
+    def rolling_accept_length(self) -> float:
+        """Mean accepted tokens a speculative round so far (Table 2's accept
+        length; 1.0 = every draft rejected, spec_steps + 1 = all accepted).
+        Rounds near a request's budget cap draft fewer tokens (never none),
+        slightly deflating the mean."""
+        r = self.stats["spec_rounds"]
+        return self.stats["accepted_tokens"] / r if r else 0.0
+
+    def _spec_decode_active(self) -> None:
+        """One speculative round for every decoding slot: the MTP head
+        drafts ``n`` tokens a slot, [pending, drafts] is verified as ONE
+        batched S = n+1 span, the greedy-matching prefix is accepted and
+        the rest rolled back.  A slot's draft depth is capped at
+        ``max_new - len(out) - 1`` (deeper accepts could not be emitted),
+        which keeps every trusted verify position inside its lifetime
+        blocks; the span still runs at full width, a capped slot's deeper
+        writes land in its own dead tail or the trash columns, and their
+        logits are never read."""
+        from repro_torch.serving.speculative import mtp_draft
+        n = self.spec_steps
+        active = [i for i, s in enumerate(self.slots)
+                  if s is not None and s.pending is not None
+                  and len(s.out) + 1 < s.req.max_new]
+        if not active:
+            return
+        dtype = next(self.params.parameters()).dtype
+        h = torch.zeros((self.max_batch, 1, self.cfg.d_model), dtype=dtype,
+                        device=self.device)
+        tok = np.zeros((self.max_batch, 1), np.int32)
+        pos = np.zeros((self.max_batch, 1), np.int32)
+        for i in active:
+            s = self.slots[i]
+            h[i, 0] = s.h_last
+            tok[i, 0] = s.pending
+            pos[i, 0] = self.lengths[i] - 1      # h_last's position
+        tok_d = self._device_ints(tok)
+        with torch.no_grad():
+            drafts = mtp_draft(self.params, h, tok_d, self._device_ints(pos),
+                               n).to(torch.int32)
+        logits, hid, self.pool = self.model.verify_step(
+            self.params, torch.cat([tok_d, drafts], dim=1), self.pool,
+            self._device_ints(self.lengths),
+            block_tables=self._device_ints(self.tables),
+            paged_impl=self.attn_impl)
+        if self._prefill_in_place:
+            # the span reads each row's blocks in place; the gather would
+            # move the whole padded view (post-span coverage a row)
+            bs = self.block_size
+            live = sum((int(l) + n) // bs + 1 for l in self.lengths) * bs
+            self.stats["prefill_gather_bytes_saved"] += \
+                max(0, self.max_batch * self.table_width * bs - live) \
+                * self._token_bytes
+        verify = logits.argmax(-1).cpu().numpy()            # (B, n+1)
+        drafts = drafts.cpu().numpy()                       # (B, n)
+        for i in active:
+            s = self.slots[i]
+            L = int(self.lengths[i])
+            n_i = min(n, s.req.max_new - len(s.out) - 1)
+            matches = 0
+            while matches < n_i and drafts[i, matches] == verify[i, matches]:
+                matches += 1
+            acc = 1 + matches
+            s.out.append(s.pending)             # the guaranteed token
+            s.out.extend(int(t) for t in drafts[i, :acc - 1])
+            self._rollback(i, s, L + acc)
+            # the bonus token: the model's own choice after the accept point
+            s.pending = int(verify[i, acc - 1])
+            s.h_last = hid[i, acc - 1]
+            # the active filter guarantees len(out) + 1 < max_new, so every
+            # processed slot drafted at least one token
+            assert n_i >= 1, (i, n_i)
+            self.stats["spec_rounds"] += 1
+            self.stats["draft_tokens"] += n_i
+            self.stats["accepted_tokens"] += acc
+            self.stats["decode_tokens"] += acc
+            self.tracer.instant("req.spec_round", req=s.req.rid,
+                                drafted=n_i, accepted=acc)
+        self.stats["decode_steps"] += 1
+
+    def _rollback(self, i: int, s: _Active, new_len: int) -> None:
+        """Roll rejected drafts out of the paged cache: truncate the slot's
+        length to the accept point.  No block changes hands: admission
+        allocated the request's whole lifetime, the draft-depth cap keeps
+        every trusted position inside it and the extra table columns route
+        deeper writes to trash, so refcounts and COW state are untouched;
+        rejected positions' KV stays as dead values in blocks the slot owns
+        alone (the next span rewrites them before any mask admits them),
+        and ``_finish`` hands the prefix cache only the blocks covering the
+        truncated length."""
+        assert new_len <= len(s.blocks) * self.block_size, \
+            (new_len, len(s.blocks))
+        self.lengths[i] = new_len

@@ -25,6 +25,26 @@ JAX model) to the reference and to the port, in fp32:
   radix hit with a COW fork and chunked prefill: JAX's ``ServingEngine``
   tokens wherever the top-2 margin is >= 1e-3; inside the port ``kernel``
   vs ``ref`` and cache on vs off identical.
+
+The block selector (K8's path):
+
+* ``select_topk_blocks`` ids and validity element for element against the
+  reference's, with ties at NEG_INF (wholly masked blocks), at -inf (the
+  reference's fp32 mean of a block with two or more masked entries
+  overflows, so no diagonal block is ever valid) and among equal scores,
+  under causal, kv_len and window masks;
+* block-branch ``dsa_attention`` (blocks of 128, top-k 256) at S = 256
+  (one block-branch chunk), 300 (the reference takes the token branch for
+  all 300 queries) and 384 (one block-branch chunk of three query
+  blocks, not a multiple of the 256-query chunk), with and without the
+  indexer loss: values, the loss and the gradients of q, k, v and the
+  indexer's query and head weights, 2e-5 (the indexer's 1e-4);
+* Yi-6B smoke and GLM-5 smoke (MTP head on) logits with
+  ``selector="block"`` at S = 96 (the block branch) and 100 (the token
+  branch), rtol 1e-4;
+* the port's engine against JAX's ``ContinuousEngine`` with the block
+  selector (spans of 16 reach K8's plain version; whole-prompt spans of
+  32 and 40), greedy tokens equal, ``kernel`` and ``ref`` alike.
 """
 import dataclasses
 
@@ -43,7 +63,9 @@ from repro.kernels.paged_attention.kernel import \
     paged_indexer_scores_kernel as jax_indexer
 from repro.kernels.paged_attention.prefill import \
     paged_prefill_indexer as jax_prefill_indexer
+from repro.layers import attention as jattn
 from repro.models import get_model
+from repro.serving import ContinuousEngine as JaxEngine
 from repro.serving import Request as JaxRequest
 from repro.serving import ServingEngine as JaxOracle
 from repro_torch.bridge import from_jax_params
@@ -55,6 +77,7 @@ from repro_torch.kernels.paged_attention import kernel as K5
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention import prefill as K6
 from repro_torch.kernels.paged_attention import ref as tref
+from repro_torch.layers import attention as tattn
 from repro_torch.models import transformer as T
 from repro_torch.serving import ContinuousEngine, Request
 
@@ -212,6 +235,32 @@ def test_select_topk_breaks_ties_like_jax(k):
     np.testing.assert_array_equal(got_valid.numpy(), np.asarray(want_valid))
 
 
+@pytest.mark.parametrize("start,kv_len,window,k", [
+    (0, None, 0, 32), (0, None, 0, 64), (24, None, 0, 48),
+    (8, 70, 0, 32), (40, None, 24, 32), (0, None, 0, 8)])
+def test_select_topk_blocks_matches_jax(start, kv_len, window, k):
+    """Query blocks from a per-row start, tied integer scores, masked
+    (NEG_INF) and partly masked (-inf) key blocks."""
+    bs, B, S, T = 8, 2, 32, 96
+    rng = np.random.default_rng(start + k)
+    scores = rng.integers(0, 3, size=(B, S, T)).astype(np.float32)
+    scores[:, :, 16:40] = 0.0
+    pos = (start + np.arange(S, dtype=np.int32))[None].repeat(B, 0)
+    kvp = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T))
+    jm = jattn.attention_mask(jnp.asarray(pos), jnp.asarray(kvp),
+                              causal=True, window=window, kv_len=kv_len)
+    tm = tattn.attention_mask(torch.from_numpy(pos),
+                              torch.from_numpy(np.ascontiguousarray(kvp)),
+                              causal=True, window=window, kv_len=kv_len)
+    want_idx, want_valid = jdsa.select_topk_blocks(jnp.asarray(scores), jm,
+                                                   k, bs)
+    got_idx, got_valid = tdsa.select_topk_blocks(torch.from_numpy(scores),
+                                                 tm, k, bs)
+    np.testing.assert_array_equal(got_idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(got_valid.numpy(), np.asarray(want_valid))
+    assert not np.asarray(want_valid).all()      # some blocks not valid
+
+
 def _qkv(seed, B=2, S=24, T=24, H=4, KVH=2, dh=16):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, S, H, dh)).astype(np.float32)
@@ -283,6 +332,64 @@ def test_dsa_attention_matches_jax_chunked_or_not(idx_layer, S, chunk):
     _close(got.numpy(), want)
 
 
+@pytest.fixture(scope="module")
+def block_idx_layer():
+    """Layer 0 of the Yi-6B smoke config with the block selector at the
+    reference's block size (128, top-k 256: two blocks a query block)."""
+    jcfg = get_smoke_config("yi_6b").replace(dsa=JaxDSAConfig(
+        index_heads=2, index_head_dim=16, top_k=256, block_size=128,
+        selector="block"))
+    params, _ = get_model(jcfg).init(jax.random.key(0), jcfg)
+    model = from_jax_params(jax.tree.map(np.asarray, params), port_cfg(jcfg),
+                            device="cpu")
+    jidx = jax.tree.map(lambda a: a[0], params["slot0"]["idx"])
+    return jcfg, jidx, model.layers[0].idx, model.cfg
+
+
+@pytest.mark.parametrize("S", [256, 300, 384])
+@pytest.mark.parametrize("with_loss", [False, True])
+def test_block_dsa_attention_matches_jax(block_idx_layer, S, with_loss):
+    """The reference's chunking decides the branch: S = 256 and 384 take
+    the block branch (one chunk), 300 the token branch for all queries."""
+    jcfg, jidx, tidx, cfg = block_idx_layer
+    H, KVH, dh = jcfg.num_heads, jcfg.num_kv_heads, jcfg.head_dim
+    q, k, v = _qkv(20 + S, B=1, S=S, T=S, H=H, KVH=KVH, dh=dh)
+    rng = np.random.default_rng(S)
+    x = rng.standard_normal((1, S, jcfg.d_model)).astype(np.float32)
+    ki = rng.standard_normal((1, S, jcfg.dsa.index_head_dim)) \
+        .astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)[None]
+    g = rng.standard_normal((1, S, H, dh)).astype(np.float32)
+
+    def jfn(p, q_, k_, v_):
+        res = jdsa.dsa_attention(p, q_, k_, v_, jnp.asarray(x),
+                                 jnp.asarray(ki), jnp.asarray(pos),
+                                 jnp.asarray(pos), jcfg,
+                                 with_indexer_loss=with_loss)
+        out, kl = res if with_loss else (res, jnp.zeros(()))
+        return jnp.sum(out * g) + kl, (out, kl)
+
+    (_, (want, want_kl)), jgrads = jax.value_and_grad(
+        jfn, argnums=(0, 1, 2, 3), has_aux=True)(jidx, *_j(q, k, v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tidx.zero_grad()
+    tidx.requires_grad_(True)
+    res = tdsa.dsa_attention(tidx, tq, tk, tv, *_t(x, ki, pos, pos), cfg,
+                             with_indexer_loss=with_loss)
+    got, kl = res if with_loss else (res, torch.zeros(()))
+    _close(got.detach().numpy(), want)
+    ((got * torch.from_numpy(g)).sum() + kl).backward()
+    for t, jg in zip((tq, tk, tv), jgrads[1:]):
+        _close(t.grad.numpy(), jg)
+    if with_loss:
+        np.testing.assert_allclose(float(kl.detach()), float(want_kl),
+                                   rtol=1e-5)
+        for name in ("wq_idx", "w_head"):     # k_idx is given: no wk_idx
+            _close(getattr(tidx, name).grad.numpy(), jgrads[0][name],
+                   rtol=1e-4, atol=1e-4)
+    tidx.requires_grad_(False)
+
+
 def _paged_setup(seed, jcfg, B, mb, bs):
     rng = np.random.default_rng(seed)
     nb = B * mb + 1
@@ -337,30 +444,54 @@ def test_dsa_prefill_paged_matches_jax(idx_layer, impl):
 # ---------------------------------------------------------------------------
 
 def _model_cfg(name):
+    block = JaxDSAConfig(index_heads=2, index_head_dim=16, top_k=64,
+                         block_size=16, selector="block")
     if name == "yi_dsa":
         return get_smoke_config("yi_6b")
+    if name == "yi_block":
+        return get_smoke_config("yi_6b").replace(dsa=block)
     if name == "gemma2_dsa":       # DSA on the global layers only
         return get_smoke_config("gemma2_2b").replace(sliding_window=16)
+    if name == "glm5_block_mtp":   # the MTP head bridged too, unused here
+        return get_smoke_config("glm5_744b").replace(moe_impl="dense",
+                                                     dsa=block)
     return get_smoke_config("glm5_744b").replace(mtp=None, moe_impl="dense")
 
 
-@pytest.fixture(scope="module",
-                params=["yi_dsa", "glm5_dsa_moe", "gemma2_dsa"])
-def pair(request):
-    jcfg = _model_cfg(request.param)
+def _pair(name):
+    jcfg = _model_cfg(name)
     params, _ = get_model(jcfg).init(jax.random.key(0), jcfg)
     model = from_jax_params(jax.tree.map(np.asarray, params), port_cfg(jcfg),
                             device="cpu")
     return jcfg, params, model
 
 
-def test_logits_without_cache_match_jax(pair):
-    jcfg, params, model = pair
-    toks = np.random.default_rng(12).integers(3, jcfg.vocab_size, (2, 100))
+@pytest.fixture(scope="module",
+                params=["yi_dsa", "glm5_dsa_moe", "gemma2_dsa"])
+def pair(request):
+    return _pair(request.param)
+
+
+def _logits_match(jcfg, params, model, S=100):
+    toks = np.random.default_rng(12).integers(3, jcfg.vocab_size, (2, S))
     want = get_model(jcfg).logits(params, jnp.asarray(toks, jnp.int32), jcfg)
     with torch.no_grad():
         got = model(torch.from_numpy(toks))
     _close(got.numpy(), want, rtol=RTOL_MODEL, atol=ATOL_MODEL)
+
+
+def test_logits_without_cache_match_jax(pair):
+    _logits_match(*pair)
+
+
+@pytest.mark.parametrize("name,lengths", [("yi_block", (96, 100)),
+                                          ("glm5_block_mtp", (96,))])
+def test_block_selector_logits_match_jax(name, lengths):
+    """The block selector without a cache (S = 96: one block-branch chunk
+    of six 16-query blocks; S = 100: the token branch)."""
+    jcfg, params, model = _pair(name)
+    for S in lengths:
+        _logits_match(jcfg, params, model, S=S)
 
 
 @pytest.mark.parametrize("impl", ["kernel", "ref"])
@@ -424,10 +555,14 @@ def test_paged_prefill_decode_match_contiguous_and_jax(pair, impl):
 def test_models_reject_dsa_parts_not_ported():
     base = port_cfg(get_smoke_config("yi_6b"))
     T.init(base, device="cpu")                       # the token selector
-    for dsa in (DSAConfig(selector="block"),
-                DSAConfig(deterministic_topk=False)):
-        with pytest.raises(NotImplementedError):
-            T.init(base.replace(dsa=dsa), device="cpu")
+    for dsa in (DSAConfig(selector="block"),         # 16 blocks of 128
+                DSAConfig(selector="block", top_k=128)):     # one block
+        T.init(base.replace(dsa=dsa), device="cpu")
+    with pytest.raises(NotImplementedError):
+        T.init(base.replace(dsa=DSAConfig(deterministic_topk=False)),
+               device="cpu")
+    with pytest.raises(ValueError, match="selector"):
+        T.init(base.replace(dsa=DSAConfig(selector="tokens")), device="cpu")
 
 
 def test_init_scales_w_head_like_the_reference():
@@ -514,3 +649,35 @@ def test_engine_with_dsa_matches_jax_oracle(name):
         compared += 1
         np.testing.assert_array_equal(got, o.out)
     assert compared >= 4
+
+
+def test_engine_with_block_selector_matches_jax_engine():
+    """GQA + DSA with the block selector (blocks of 16, top-k 32): spans of
+    16 (chunked prefill) and whole prompts of 32 and 40 through the
+    gathered view, the block branch where the span is a multiple of 16;
+    the port's engine gives JAX's ``ContinuousEngine`` tokens, on both
+    routes, with and without chunked prefill."""
+    dsa = JaxDSAConfig(index_heads=2, index_head_dim=16, top_k=32,
+                       block_size=16, selector="block")
+    jcfg = _engine_cfg("gqa_dsa").replace(dsa=dsa)
+    params, _ = get_model(jcfg).init(jax.random.key(0), jcfg)
+    model = from_jax_params(jax.tree.map(np.asarray, params), port_cfg(jcfg),
+                            device="cpu")
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(3, jcfg.vocab_size, size=n).astype(np.int32)
+               for n in (32, 40, 9, 48)]
+    max_new = [6, 4, 5, 3]
+    kw = dict(max_batch=2, block_size=8, num_blocks=40, max_len=64)
+    for chunk in (16, None):
+        want = [JaxRequest(prompt=p, max_new=m)
+                for p, m in zip(prompts, max_new)]
+        JaxEngine(jcfg, params, prefill_chunk=chunk, **kw).serve(want)
+        for impl in ("kernel", "ref"):
+            eng = ContinuousEngine(model.cfg, model, prefill_chunk=chunk,
+                                   attn_impl=impl, device="cpu", **kw)
+            reqs = [Request(prompt=p, max_new=m)
+                    for p, m in zip(prompts, max_new)]
+            eng.serve(reqs)
+            for a, b in zip(reqs, want):
+                np.testing.assert_array_equal(a.out, b.out,
+                                              err_msg=f"{impl} {chunk}")

@@ -1,5 +1,5 @@
-"""PyTorch port, the training path's CUDA kernels (K7, K9, K10) against
-their plain versions on the card.
+"""PyTorch port, the training path's CUDA kernels (K7, K9, K10) and the
+block selector's (K8) against their plain versions on the card.
 
 Every case is ``cuda``-marked and skips itself without a GPU.  This file
 imports no JAX, so it runs on the machine with the card, where JAX is not
@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels.chunked_ce import kernel as K10
 from repro_torch.kernels.flash_attention import kernel as K9
 from repro_torch.kernels.lightning_indexer import kernel as K7
+from repro_torch.kernels.sparse_attention import kernel as K8
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 
@@ -77,3 +78,34 @@ def test_chunked_ce_matches_plain(dtype):
         torch.cuda.synchronize()
         np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-5)
         assert float(got[1]) == float(want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_block_sparse_attention_matches_plain(dtype, tol):
+    """K8 at the smoke shape (blocks of 16, 4 a query block, d 64), Yi-6B's
+    (H 32 / KVH 4, d 128, blocks of 128) and GLM-5's MLA (H 64, dqk 192,
+    dv 256): queries from per-row starts, skipped ids (one query block with
+    none attended), softcap 50, both rules for a query with no key."""
+    _need_gpu()
+    rng = np.random.default_rng(3)
+    for B, S, H, KVH, dqk, dv, bs, nb, T in (
+            (2, 64, 4, 2, 64, 64, 16, 4, 256),
+            (1, 256, 32, 4, 128, 128, 128, 8, 2048),
+            (1, 256, 64, 64, 192, 256, 128, 8, 2048)):
+        q = _cuda(rng, B, S, H, dqk, dtype=dtype)
+        k = _cuda(rng, B, T, KVH, dqk, dtype=dtype)
+        v = _cuda(rng, B, T, KVH, dv, dtype=dtype)
+        ids = np.stack([[rng.permutation(T // bs)[:nb]
+                         for _ in range(S // bs)] for _ in range(B)])
+        ids = np.where(rng.random(ids.shape) < 0.3, -ids - 1, ids)
+        ids[0, 0] = -np.abs(ids[0, 0]) - 1
+        ids = torch.from_numpy(ids.astype(np.int32)).cuda()
+        start = torch.tensor([T - S - 3 * b for b in range(B)],
+                             dtype=torch.int32).cuda()
+        for empty_mean in (True, False):
+            kw = dict(block_size=bs, softcap=50.0, empty_mean=empty_mean)
+            got = K8.block_sparse_attention(q, k, v, ids, start, **kw)
+            want = K8.block_sparse_attention_plain(q, k, v, ids, start, **kw)
+            torch.cuda.synchronize()
+            assert (got.float() - want.float()).abs().max().item() <= tol

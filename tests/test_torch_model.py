@@ -194,22 +194,27 @@ def test_models_reject_configs_they_cannot_serve():
                                      v_head_dim=16))
     moe = base.replace(family="moe", num_experts=4, experts_per_token=2,
                        moe_d_ff=32, num_shared_experts=1, first_k_dense=1)
-    # served now: MLA attention, MoE FFNs, both together, and DSA (the
-    # token selector with deterministic top-k) on any of them
+    # served now: MLA attention, MoE FFNs, both together, DSA (either
+    # selector, deterministic top-k; the block selector with one block a
+    # query block too) on any of them, and the MTP head (shared or not)
     for cfg in (mla, moe, mla.replace(family="moe", num_experts=4,
                                       experts_per_token=2, moe_d_ff=32),
                 base.replace(dsa=DSAConfig()), mla.replace(dsa=DSAConfig()),
-                moe.replace(dsa=DSAConfig())):
+                moe.replace(dsa=DSAConfig()),
+                base.replace(dsa=DSAConfig(selector="block")),
+                moe.replace(dsa=DSAConfig(selector="block", top_k=128)),
+                base.replace(mtp=MTPConfig()),
+                moe.replace(mtp=MTPConfig(share_params=False))):
         T.init(cfg, device="cpu")
-    bad = [base.replace(dsa=DSAConfig(selector="block")),
-           mla.replace(dsa=DSAConfig(deterministic_topk=False)),
-           moe.replace(dsa=DSAConfig(selector="block")),
-           base.replace(mtp=MTPConfig()),
-           moe.replace(mtp=MTPConfig()),
+    bad = [mla.replace(dsa=DSAConfig(deterministic_topk=False)),
+           base.replace(dsa=DSAConfig(deterministic_topk=False,
+                                      selector="block")),
            base.replace(family="hybrid")]
     for cfg in bad:
         with pytest.raises(NotImplementedError):
             T.init(cfg, device="cpu")
+    with pytest.raises(ValueError):               # no such selector
+        T.init(base.replace(dsa=DSAConfig(selector="blocks")), device="cpu")
     with pytest.raises(ValueError):               # a router with no top-k
         T.init(base.replace(num_experts=4), device="cpu")
     from repro_torch.models import get_model as port_get_model

@@ -314,7 +314,7 @@ def test_engine_rejects_later_slices(setup):
     _, _, model = setup
     kw = dict(max_batch=1, block_size=8, num_blocks=8, max_len=64,
               device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="MTP"):  # served, with a head
         ContinuousEngine(model.cfg, model, spec_steps=2, **kw)
     with pytest.raises(NotImplementedError):
         ContinuousEngine(model.cfg, model, spill=True, **kw)

@@ -8,8 +8,12 @@ batches go through both packages in fp32:
   K9's autograd Function in every layer), Yi-6B smoke + DSA (top-k 64 of
   256 positions, the indexer KL), gemma2 smoke (window 16 on the local
   layers, DSA on the global ones, attention and final softcaps, tied
-  embeddings) and GLM-5 smoke with ``mtp=None`` (MLA + DSA + MoE: the
-  router's aux loss); the loss, ce and aux within rtol 1e-5, every gradient
+  embeddings), GLM-5 smoke with ``mtp=None`` (MLA + DSA + MoE: the
+  router's aux loss), GLM-5 smoke whole (its MTP head: 0.3 × the mean of
+  three shared-block steps' losses, the head's block dense, so its
+  indexer gets no gradient: JAX's zeros) and Yi-6B smoke with the DSA
+  block selector (K8's plain version and its backward, the block-mode
+  indexer loss); the loss, ce, aux (and mtp) within rtol 1e-5, every gradient
   within rtol 1e-4 and atol 1e-5 of its leaf's max |gradient|, except the
   indexer weights': their only gradient is the KL over each query's top-k
   set, and a key whose indexer dot products sit within rounding of 0 (a
@@ -31,6 +35,8 @@ batches go through both packages in fp32:
   numpy stream; a checkpoint round trip, and a checkpoint the reference
   writes restoring into the port through ``from_jax_params``;
 * ``launch.train.main`` on the CPU for 6 steps: the loss falls by 10 %;
+  with the default arch (GLM-5 smoke, MTP on) for 2 steps: it trains and
+  logs the MTP loss;
   ``TrainConfig`` refuses the reference's ``optimizer`` and ``min_lr``,
   which the trainer does not read.
 """
@@ -59,7 +65,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer as T
 from repro_torch.optim import muon, schedule
 
-CONFIGS = ["yi", "yi_dsa", "gemma2", "glm5"]
+CONFIGS = ["yi", "yi_dsa", "gemma2", "glm5", "glm5_mtp", "yi_block"]
 
 
 def _jcfg(name):
@@ -69,6 +75,11 @@ def _jcfg(name):
         return get_smoke_config("yi_6b")
     if name == "gemma2":
         return get_smoke_config("gemma2_2b").replace(sliding_window=16)
+    if name == "glm5_mtp":
+        return get_smoke_config("glm5_744b").replace(moe_impl="dense")
+    if name == "yi_block":
+        return get_smoke_config("yi_6b").replace(dsa=dataclasses.replace(
+            get_smoke_config("yi_6b").dsa, selector="block"))
     return get_smoke_config("glm5_744b").replace(mtp=None, moe_impl="dense")
 
 
@@ -119,7 +130,8 @@ def test_loss_and_grads_match_jax(name):
     total, metrics = T.loss(model, {k: torch.from_numpy(v)
                                     for k, v in batch.items()})
     total.backward()
-    for key in ("loss", "ce", "aux"):
+    assert set(metrics) == set(jm)
+    for key in jm:
         np.testing.assert_allclose(float(metrics[key].detach()),
                                    float(jm[key]), rtol=1e-5, atol=1e-7)
     if name != "yi":
@@ -127,8 +139,12 @@ def test_loss_and_grads_match_jax(name):
     g_np = jax.tree.map(np.asarray, jg)
     cfg = model.cfg
     for n, p in model.named_parameters():
-        _close(p.grad.numpy(), _jax_leaf(g_np, cfg, n),
-               atol=5e-3 if ".idx." in n else 1e-5)
+        want = _jax_leaf(g_np, cfg, n)
+        if p.grad is None:            # read by no loss term: JAX's zeros
+            assert n.startswith("mtp.block.idx."), n
+            assert not want.any(), n
+            continue
+        _close(p.grad.numpy(), want, atol=5e-3 if ".idx." in n else 1e-5)
 
 
 def _ref_axes(specs, cfg, name):
@@ -288,6 +304,19 @@ def test_train_main_loss_falls():
     assert losses[-1] < losses[0] * 0.9
     assert set(hist[0]) == {"loss", "ce", "aux", "grad_norm", "step", "lr",
                             "tok_per_s"}
+
+
+def test_train_main_default_arch_trains_glm5_with_mtp():
+    """The reference's default ``--arch glm-5`` on its smoke config: MLA +
+    DSA + MoE + the MTP head trains, its loss logged every step (that
+    losses fall is ``test_train_main_loss_falls``'s and the chip's)."""
+    hist = ttrain.main(["--smoke", "--steps", "2", "--warmup", "0",
+                        "--batch", "2", "--seq", "32", "--log-every", "1",
+                        "--device", "cpu"])
+    assert [h["step"] for h in hist] == [0, 1]
+    assert all(np.isfinite(h["loss"]) and h["mtp"] > 0 for h in hist)
+    assert set(hist[0]) == {"loss", "ce", "aux", "mtp", "grad_norm", "step",
+                            "lr", "tok_per_s"}
 
 
 @pytest.mark.parametrize("knob", [{"optimizer": "adamw"}, {"min_lr": 1e-5}])
