@@ -9,12 +9,14 @@ and K2), GLM-5's MLA + MoE path (slice 2: K3 and K4; with DSA on, its MLA
 layers write the indexer keys and read none), DSA sparse attention on GQA
 (Yi-6B with its own DSAConfig, slice 3: K5 and K6), the DSA block
 selector (slice 5: Yi-6B + DSA(block), K5 for a decode step, K7 + K8 for
-a span) and GLM-5's MTP speculative decode (slice 5: spans through K4);
-and the training path (slice 4: the Muon Split trainer on Yi-6B, Yi-6B +
-DSA and, slice 5, Yi-6B + DSA(block) at full width, 8 layers; K9 flash
-attention, K10 chunked cross-entropy, K7 lightning indexer, K8
-block-sparse attention).  Phases, each printing lines of numbers (any
-failure exits non-zero):
+a span), GLM-5's MTP speculative decode (slice 5: spans through K4) and
+the attention-free Mamba-1 family (slice 6: falcon-mamba-7b through the
+static ServingEngine, K11 selective scan in prefill and decode); and the
+training path (slice 4: the Muon Split trainer on Yi-6B, Yi-6B + DSA and,
+slice 5, Yi-6B + DSA(block) at full width, 8 layers; slice 6,
+falcon-mamba-7b at full width, 8 layers; K9 flash attention, K10 chunked
+cross-entropy, K7 lightning indexer, K8 block-sparse attention, K11).
+Phases, each printing lines of numbers (any failure exits non-zero):
 
   build    compile the hand-written CUDA kernels from ``src/repro_torch/csrc``
            with nvcc for sm_90a into ``build/`` (cached by source hash), one
@@ -41,7 +43,14 @@ failure exits non-zero):
            GLM-5's MLA shape (H 64, dqk 192, dv 256) and the smoke shape
            (4 blocks of 16), queries from mid-sequence, skipped ids,
            softcap 0 and 50, fp32 and bf16, and its gradients on both
-           routes;
+           routes; then K11 (both entry points: the model form, which
+           discretizes inside, and the Pallas contract) at falcon-mamba's
+           width (E 8192, N 16), the smoke width (E 512, N 8) and a ragged
+           E (96), S 1 / 7 / 256 / 1024, fp32 and bf16 inputs, fp32 and
+           bf16 nonzero states (the model form's fp32 outputs held at the
+           fp32 tolerance whatever the inputs' dtype; the contract form's
+           outputs, stored in its input dtype, may also differ by one ulp
+           of their magnitude), and the gradients through its autograd Function on both routes;
   timing   K3/K4's and K5/K6's registers, spills, shared memory and CTAs
            resident on an SM, as the CUDA runtime reports them; then
            each kernel, its plain version and one PyTorch library call
@@ -69,7 +78,14 @@ failure exits non-zero):
            K8 at a 256-token span ending at 6144 of the block-selector
            serve (bf16) and at the block training run's last 256-query
            chunk against 4096 keys (fp32), beside SDPA over each query
-           block's selected K/V gathered before the timed loop;
+           block's selected K/V gathered before the timed loop; K11's model
+           form at falcon-mamba's serve prefill (B 8, S 1024, bf16), decode
+           step (B 8, S 1) and training shape (B 2, S 2048, fp32), its
+           contract form at B 1, S 256 (no single library call computes
+           the recurrence; the expf's special-function-unit bound is
+           logged beside the bytes / operations bound); K10 again at the
+           falcon-mamba trainer's shape (2 x 2048 tokens, D 4096, V 65024),
+           held as at Yi-6B's;
   parity   Yi-6B at full width with 2 layers in fp32: the port's
            ContinuousEngine (mid-flight admission, a shared prefix with a
            radix hit and a COW fork, chunked prefill) gives the same greedy
@@ -87,7 +103,14 @@ failure exits non-zero):
            selector depends on them), K8 launched on the first only; then
            GLM-5 + DSA + MTP at 2 layers: spec_steps=3 against
            spec_steps=0, and a run with the drafts pointed at the spec-off
-           tokens (every draft accepts), tokens equal;
+           tokens (every draft accepts), tokens equal; then falcon-mamba-7b
+           at full width with 2 layers in fp32 through the static
+           ServingEngine (its family's engine; the ContinuousEngine refuses
+           it, as the reference's does), batches of 3 left-padded prompts:
+           the kernel route's greedy tokens equal to the plain route's
+           wherever the padded row's top-2 margin is >= 1e-3, K11's
+           launches one a layer a prefill and a decode step; and prefill +
+           decode logits equal to the full forward's;
   serve    Yi-6B at full width and depth (32 layers, dsa=None) in bf16 on a
            2 GiB pool: 8 requests of 32..1024 prompt tokens, half sharing a
            system prefix, prefill_chunk 256; then Yi-6B with DSA (32
@@ -99,23 +122,36 @@ failure exits non-zero):
            layers + 1 MLA + MoE layer, DSA on) and its MTP layer (~27 GB
            of bf16 weights) on the first request mix, spec_steps=0 and
            then spec_steps=3 (accept length, rounds, TPOT / TTFT / decode
-           tok/s beside spec off).  Each path's kernels' launch counters
+           tok/s beside spec off); then falcon-mamba-7b at full width and
+           depth (64 layers, 7.27 B parameters, bf16) through the static
+           ServingEngine on the first mix's 8 prompts in one left-padded
+           batch, 32 new tokens: prefill ms (the batch's TTFT), decode step
+           ms p50 and decode tok/s, timed by the script around the engine's
+           calls (it stamps no times), K11's launches (64 + 32 x 64 = 2112)
+           and K10's (0).  Each path's kernels' launch counters
            are set to 0 just before and read just after its run;
   train    one Muon step on the kernel route and one on the plain route
            (the three wrappers pointed at their plain versions) from the
            same fp32 weights and batch, Yi-6B width at 2 layers, dense (seq
-           1024), with DSA and with DSA(block) (seq 2560): loss, every
+           1024), with DSA and with DSA(block) (seq 2560), and
+           falcon-mamba-7b's width at 2 layers (seq 1024; K11 on one route,
+           its plain version on the other): loss, every
            gradient and every parameter after the step within the
            tolerances of ``train_parity``; then the trainer
            (``launch.train.train``) for 5 steps of Yi-6B (8 layers, dense,
            batch 2 x 2048), of Yi-6B + DSA and of Yi-6B + DSA(block) (8
-           layers, batch 1 x 4096): losses finite and falling, step ms,
-           tokens/s, peak memory, and the launches of K7/K8/K9/K10, which
-           must equal the count expected from the depth and the chunks;
+           layers, batch 1 x 4096) and of falcon-mamba-7b (8 layers, batch
+           2 x 2048): losses finite and falling, step ms,
+           tokens/s, peak memory, and the launches of K7/K8/K9/K10/K11,
+           which must equal the count expected from the depth and the
+           chunks;
   profile  one training step of each training run cut into its layers
            (forward, loss, backward, Muon; synchronised between them) and
            one traced with torch.profiler (busy share, top kernels, K7/K8/
-           K9/K10 device time; the block-selector run too); then 8
+           K9/K10/K11 device time; the block-selector and falcon-mamba runs
+           too); 8 static-engine decode steps of the full-depth
+           falcon-mamba at 8 rows after 512-token prompts, traced (busy
+           share, K11 device time a call); then 8
            decode-only steps of each served model
            at 8 rows, timed and
            then traced with torch.profiler: device busy share, top kernels
@@ -1555,26 +1591,30 @@ def profile_decode(cfg, device="cuda", steps=8, block_size=16,
 # ---------------------------------------------------------------------------
 
 TRAIN_KERNELS = ("lightning_indexer", "flash_attention", "chunked_ce",
-                 "block_sparse_attention")
+                 "block_sparse_attention", "mamba_scan_model")
 
 
 def train_kernel_wrappers() -> dict:
     """name -> (module, wrapper, plain version) of the training kernels
-    (K8 with them: the block selector's DSA chunks)."""
+    (K8 with them: the block selector's DSA chunks; K11's model form: the
+    ssm family's scan, in serving too)."""
     from repro_torch.kernels.chunked_ce import kernel as K10
     from repro_torch.kernels.flash_attention import kernel as K9
     from repro_torch.kernels.lightning_indexer import kernel as K7
+    from repro_torch.kernels.mamba_scan import kernel as K11
     from repro_torch.kernels.sparse_attention import kernel as K8
     return {"lightning_indexer": (K7, K7.lightning_indexer, K7.reference),
             "flash_attention": (K9, K9.flash_attention, K9.reference),
             "chunked_ce": (K10, K10.chunked_ce, K10.reference),
             "block_sparse_attention": (K8, K8.block_sparse_attention,
-                                       K8.block_sparse_attention_plain)}
+                                       K8.block_sparse_attention_plain),
+            "mamba_scan_model": (K11, K11.mamba_scan_model,
+                                 K11.scan_model)}
 
 
 class plain_route:
     """Inside ``with plain_route():`` the model reaches the plain versions of
-    K7, K8, K9 and K10 on CUDA tensors (each wrapper's module attribute is
+    K7, K8, K9, K10 and K11 on CUDA tensors (each wrapper's module attribute is
     pointed at its plain version, which takes the same arguments); the
     kernels are restored on exit.  Only this script's parity phases do
     this: the port itself has no switch to the plain versions on the card."""
@@ -1744,32 +1784,8 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
         bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
         shape=f"B={B} S={S} H={H} KVH={KVH} d={d} causal")
     del q, k, v, qs, ks, vs
-    # unit-scale logits, as the model's (its first loss is ~log V + 0.5):
-    # the part of the sum that depends on h.W, sum - count * log V, is then
-    # ~Tk / 2, far above the tolerance, so a kernel that drops or corrupts
-    # the product fails
-    Tk, D, V = B * S, dense_cfg.d_model, dense_cfg.vocab_size
-    h, w = rnd(Tk, D), rnd(D, V) * D ** -0.5
-    t = torch.randint(0, V, (Tk,), generator=gen, device=device,
-                      dtype=torch.int32)
-    m = torch.ones(Tk, device=device)
-    _, K10, K10p = wrappers["chunked_ce"]
-    got, want = K10(h, w, t, m), K10p(h, w, t, m)
-    err = _hold_rel("K10 train-shape", got[0], want[0], 1e-5)
-    product_part = float(want[0]) - float(want[1]) * math.log(V)
-    if not abs(product_part) > 100 * 1e-5 * abs(float(want[0])):
-        raise AssertionError(f"K10 train-shape: the h.W part of the sum, "
-                             f"{product_part}, is not far above the "
-                             f"tolerance")
-    _log("kernels", kernel="chunked_ce", Tk=Tk, D=D, V=V, dtype="float32",
-         loss_sum=float(want[0]), product_part=product_part, max_abs_err=err)
-    out["chunked_ce"] = dict(
-        ms=cuda_ms(lambda: K10(h, w, t, m), 3),
-        plain_ms=cuda_ms(lambda: K10p(h, w, t, m), 2), library_ms=None,
-        max_abs_err=err,
-        flops=2 * Tk * D * V, bytes=4 * (h.numel() + w.numel() + 2 * Tk),
-        shape=f"Tk={Tk} D={D} V={V}")
-    del h, w
+    out["chunked_ce"] = _k10_train_shape(gen, B * S, dense_cfg.d_model,
+                                         dense_cfg.vocab_size, device)
     dsa = dsa_cfg.dsa
     Hi, Di, rows = dsa.index_heads, dsa.index_head_dim, 256
     qi, wi, ki = rnd(1, rows, Hi * Di), torch.softmax(rnd(1, rows, Hi), -1), \
@@ -1784,6 +1800,46 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
         flops=rows * dsa_seq * Hi * (2 * Di + 2),
         bytes=4 * (qi.numel() + wi.numel() + ki.numel() + rows * dsa_seq),
         shape=f"S={rows} T={dsa_seq} Hi={Hi} Di={Di}")
+    _bounds_fp32(out)
+    return out
+
+
+def _k10_train_shape(gen, Tk, D, V, device="cuda") -> dict:
+    """K10 over one training step's Tk tokens against a (D, V) unembedding
+    in fp32, held against its plain version (1e-5 of max(1, |plain|)) and
+    timed beside it.  Unit-scale logits, as the model's (its first loss is
+    ~log V + 0.5): the part of the sum that depends on h.W, sum - count *
+    log V, is then ~Tk / 2, far above the tolerance, so a kernel that drops
+    or corrupts the product fails."""
+    import torch
+    from repro_torch.kernels.chunked_ce import kernel as K10
+    h = torch.randn(Tk, D, generator=gen, device=device)
+    w = torch.randn(D, V, generator=gen, device=device) * D ** -0.5
+    t = torch.randint(0, V, (Tk,), generator=gen, device=device,
+                      dtype=torch.int32)
+    m = torch.ones(Tk, device=device)
+    got, want = K10.chunked_ce(h, w, t, m), K10.reference(h, w, t, m)
+    what = f"K10 train-shape Tk={Tk} D={D} V={V}"
+    err = _hold_rel(what, got[0], want[0], 1e-5)
+    product_part = float(want[0]) - float(want[1]) * math.log(V)
+    if not abs(product_part) > 100 * 1e-5 * abs(float(want[0])):
+        raise AssertionError(f"{what}: the h.W part of the sum, "
+                             f"{product_part}, is not far above the "
+                             f"tolerance")
+    _log("kernels", kernel="chunked_ce", Tk=Tk, D=D, V=V, dtype="float32",
+         loss_sum=float(want[0]), product_part=product_part, max_abs_err=err)
+    return dict(
+        ms=cuda_ms(lambda: K10.chunked_ce(h, w, t, m), 3),
+        plain_ms=cuda_ms(lambda: K10.reference(h, w, t, m), 2),
+        library_ms=None, max_abs_err=err,
+        flops=2 * Tk * D * V, bytes=4 * (h.numel() + w.numel() + 2 * Tk),
+        shape=f"Tk={Tk} D={D} V={V}")
+
+
+def _bounds_fp32(out: dict) -> None:
+    """``_bounds`` for fp32 kernels: bytes over 3.35 TB/s or flops over
+    67 TFLOP/s (fp32 on the CUDA cores), the larger; logged with the
+    times."""
     for name, r in out.items():
         t_bytes = r["bytes"] / H100_BYTES_PER_S * 1e3
         t_ops = r["flops"] / H100_FLOPS["float32"] * 1e3
@@ -1793,7 +1849,6 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
              plain_ms=r["plain_ms"], library_ms=r["library_ms"],
              bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              max_abs_err=r["max_abs_err"], dtype="float32")
-    return out
 
 
 def _train_batch(cfg, batch, seq, device):
@@ -1826,11 +1881,12 @@ def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
     import torch
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
     from repro_torch.optim import muon
-    model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+    M = get_model(cfg)
+    model = M.init(cfg, torch.Generator(device=device).manual_seed(SEED),
                    device=device)
-    axes = T.param_axes(model)
+    axes = M.param_axes(model)
     start = {k: p.detach().clone() for k, p in model.named_parameters()}
     data = _train_batch(cfg, batch, seq, device)
     tc = TrainConfig(batch_size=batch, seq_len=seq)
@@ -1882,7 +1938,7 @@ def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
                max_rel_grad_err=g_err, max_rel_indexer_grad_err=idx_err,
                max_param_err=p_err)
     _log("train.parity", model=cfg.name, layers=cfg.num_layers,
-         dsa=cfg.dsa is not None,
+         family=cfg.family, dsa=cfg.dsa is not None,
          selector=cfg.dsa.selector if cfg.dsa is not None else None,
          batch=batch, seq=seq, **res)
     del model, start, grads_k, grads_p, after_k, after_p
@@ -1891,12 +1947,17 @@ def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
 
 def expected_launches(cfg, seq, steps) -> dict:
     """Kernel launches the trainer makes in ``steps`` steps: K10 once a
-    step (its backward is plain); K9 once a layer without DSA (forward
+    step (its backward is plain); for the ssm family K11 once a layer (its
+    model form, forward only: the backward recomputes plainly) and no
+    other; K9 once a layer without DSA (forward
     only: the backward recomputes plainly); K7 twice a DSA layer's query
     chunk (the forward, and the checkpoint's recompute in the backward);
     with the block selector K8 twice a chunk too, where the reference's
     rule takes the block branch (chunks of 256 when seq is a multiple of
     256, else one; the chunk and seq multiples of the DSA block)."""
+    if cfg.family == "ssm":
+        return dict(dict.fromkeys(TRAIN_KERNELS, 0), chunked_ce=steps,
+                    mamba_scan_model=cfg.num_layers * steps)
     dsa_layers = cfg.num_layers if cfg.dsa is not None else 0
     q_chunk = min(cfg.q_chunk, 256)
     chunks = -(-seq // q_chunk)
@@ -1910,7 +1971,7 @@ def expected_launches(cfg, seq, steps) -> dict:
     return {"chunked_ce": steps,
             "flash_attention": (cfg.num_layers - dsa_layers) * steps,
             "lightning_indexer": 2 * dsa_layers * chunks * steps,
-            "block_sparse_attention": k8}
+            "block_sparse_attention": k8, "mamba_scan_model": 0}
 
 
 def train_run(cfg, batch, seq, steps, device="cuda", lr=2e-3) -> dict:
@@ -1954,7 +2015,7 @@ def train_run(cfg, batch, seq, steps, device="cuda", lr=2e-3) -> dict:
                max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches_per_step={n: c / steps for n, c in launches.items()},
                wall_s=wall)
-    _log("train", model=cfg.name, layers=cfg.num_layers,
+    _log("train", model=cfg.name, layers=cfg.num_layers, family=cfg.family,
          dsa=cfg.dsa is not None,
          selector=cfg.dsa.selector if cfg.dsa is not None else None,
          batch=batch, seq=seq, steps=steps,
@@ -1976,15 +2037,16 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch.steps import make_train_step
     from repro_torch.layers.common import unembed_matrix
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
     from repro_torch.models.losses import chunked_softmax_xent
     from repro_torch.optim import muon
-    model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+    M = get_model(cfg)
+    model = M.init(cfg, torch.Generator(device=device).manual_seed(SEED),
                    device=device)
     tc = TrainConfig(batch_size=batch, seq_len=seq)
     step = make_train_step(model, train_cfg=tc, lr=lr)
     params = dict(model.named_parameters())
-    axes = T.param_axes(model)
+    axes = M.param_axes(model)
     opt = muon.init(params, axes)
     data = _train_batch(cfg, batch, seq, device)
     opt, _ = step(opt, data)                             # warm-up
@@ -1997,7 +2059,7 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
 
     for p in params.values():
         p.grad = None
-    h, aux, _ = T.hidden(model, data["tokens"])
+    h, aux, _ = M.hidden(model, data["tokens"])
     mark()
     ce_sum, count = chunked_softmax_xent(
         h, unembed_matrix(model.embed, cfg), data["targets"],
@@ -2035,7 +2097,8 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
                 ("flash_attention", [("gqa_tile_kernel", "DenseKV")]),
                 ("chunked_ce", [("ce_tile_kernel",), ("ce_combine_kernel",)]),
                 ("lightning_indexer", [("indexer_tile_kernel", "DenseKeys")]),
-                ("block_sparse_attention", [("block_sparse_kernel",)]))}
+                ("block_sparse_attention", [("block_sparse_kernel",)]),
+                ("mamba_scan", [("mamba_scan_model_kernel",)]))}
     res = dict(phases, step_ms=sum(phases.values()),
                profiled_step_ms=wall * 1e3,
                device_busy_ms=busy_us / 1e3,
@@ -2043,13 +2106,436 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
                kernel_launches=sum(e.count for e in kernels),
                **{f"{k}_device_ms": v for k, v in ours.items()})
     _log("train.profile", model=cfg.name, layers=cfg.num_layers,
-         dsa=cfg.dsa is not None,
+         family=cfg.family, dsa=cfg.dsa is not None,
          selector=cfg.dsa.selector if cfg.dsa is not None else None,
          batch=batch, seq=seq, **res)
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         _log("train.profile.kernel", name=repr(e.key[:60]), calls=e.count,
              device_ms=dev_us(e) / 1e3)
     del model, opt, params, grads
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the ssm family (falcon-mamba-7b): K11, the static engine, the trainer
+# ---------------------------------------------------------------------------
+
+def _scan_inputs(gen, B, S, E, N, dtype, h0_dtype, device):
+    """K11's model-form inputs as the layer makes them: dt = softplus(.) > 0
+    in the model's dtype, A = -exp(A_log) with the reference's log(1..N)
+    init, x / Bc / Cc unit normal, a nonzero h0."""
+    import torch
+    import torch.nn.functional as F
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    dt = F.softplus(rnd(B, S, E) - 1.0).to(dtype)
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=device) \
+        .expand(E, N).contiguous()
+    x, Bc, Cc = rnd(B, S, E).to(dtype), rnd(B, S, N).to(dtype), \
+        rnd(B, S, N).to(dtype)
+    h0 = (0.5 * rnd(B, E, N)).to(h0_dtype)
+    return dt, A, x, Bc, Cc, h0
+
+
+def _hold_stored(what, got, want, dtype) -> float:
+    """``_hold`` for an output the kernel stores in ``dtype`` (K11's
+    contract form): each element may also differ by one unit in the last
+    place of its own magnitude (at most 2^-7 of it in bf16, 2^-23 in
+    fp32: the dtype's epsilon), where the two versions' fp32 values round
+    to neighbouring stored values.  Returns the max abs error."""
+    import torch
+    name = str(dtype).split(".")[1]
+    ulp = torch.finfo(dtype).eps
+    diff = (got.float() - want.float()).abs()
+    tol = TOL[name] * min(1.0, want.float().abs().max().item())
+    bad = diff > tol + ulp * want.float().abs()
+    if not torch.isfinite(got).all() or bool(bad.any()):
+        raise AssertionError(f"{what} {name}: {int(bad.sum())} elements past "
+                             f"{tol} + one stored ulp, max abs err "
+                             f"{diff.max().item()}, or non-finite")
+    return diff.max().item()
+
+
+def check_scan_kernels(device="cuda") -> dict:
+    """K11 against its plain versions: the model form (``mamba_scan_model``)
+    at falcon-mamba's width (E 8192, N 16), the smoke width (E 512, N 8)
+    and a ragged E (96, N 16), S 1 (decode), 7, 256 and 1024, dt / x / Bc /
+    Cc in fp32 and bf16, h0 nonzero in fp32 and bf16; its y and hT are
+    computed and stored in fp32 by both versions from the same inputs, so
+    each is held within the fp32 tolerance (1e-4) x min(1, max|plain|)
+    whatever the inputs' dtype; the contract form (``mamba_scan``, the
+    Pallas kernel's) on the same values discretized, in the same dtype,
+    which it also stores its outputs in (fp32 1e-4, bf16 2e-2, scaled, and
+    ``_hold_stored``); then the gradients through the autograd
+    Function (``mamba1_scan``) on both routes (equal: its backward is plain
+    and recomputes from the inputs).  Returns the max error."""
+    import torch
+    from repro_torch.kernels.mamba_scan import kernel as K11
+    from repro_torch.kernels.mamba_scan import ref as R11
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    worst = 0.0
+    shapes = ((8, 1, 8192, 16), (2, 7, 8192, 16), (1, 1024, 8192, 16),
+              (2, 256, 512, 8), (1, 1024, 512, 8), (3, 7, 96, 16),
+              (2, 256, 96, 16))
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for B, S, E, N in shapes:
+            for h0_dtype in (torch.float32, torch.bfloat16):
+                ins = _scan_inputs(gen, B, S, E, N, dtype, h0_dtype, device)
+                got, want = K11.mamba_scan_model(*ins), R11.scan_model(*ins)
+                err = max(_hold(f"K11 model y B={B} S={S} E={E} N={N} {dn}",
+                                got[0], want[0], torch.float32),
+                          _hold(f"K11 model hT B={B} S={S} E={E} N={N} {dn}",
+                                got[1], want[1], torch.float32))
+                worst = max(worst, err)
+                _log("kernels", kernel="mamba_scan_model", B=B, S=S, E=E,
+                     N=N, dtype=dn, h0_dtype=str(h0_dtype).split(".")[1],
+                     max_abs_err=err)
+            dt, A, x, Bc, Cc, h0 = ins
+            dA, dBx = (t.to(dtype) for t in R11.discretize(dt, A, x, Bc))
+            h0 = h0.to(dtype)
+            got, want = K11.mamba_scan(dA, dBx, Cc, h0), \
+                R11.reference(dA, dBx, Cc, h0)
+            err = max(_hold_stored(f"K11 contract y B={B} S={S} E={E} "
+                                   f"N={N}", got[0], want[0], dtype),
+                      _hold_stored(f"K11 contract hT B={B} S={S} E={E} "
+                                   f"N={N}", got[1], want[1], dtype))
+            worst = max(worst, err)
+            _log("kernels", kernel="mamba_scan", B=B, S=S, E=E, N=N,
+                 dtype=dn, max_abs_err=err)
+            del dA, dBx
+    for B, S, E, N in ((2, 300, 512, 8), (1, 130, 8192, 16)):
+        _same_grads(f"mamba1_scan B={B} S={S} E={E} N={N}", K11.mamba1_scan,
+                    _scan_inputs(gen, B, S, E, N, torch.float32,
+                                 torch.float32, device))
+    _log("kernels", autograd="mamba1_scan", grads="equal on both routes")
+    return {"mamba_scan": worst}
+
+
+# special-function units: 16 results a clock an SM (compute capability
+# 9.0), 132 SMs, 1.98 GHz boost: the expf issue rate of an H100 SXM
+H100_SFU_PER_S = 16 * 132 * 1.98e9
+
+
+def time_scan_kernels(cfg, serve_batch, serve_seq, train_batch, train_seq,
+                      device="cuda") -> dict:
+    """K11's model form at the serve prefill (bf16), the serve decode step
+    (S 1, bf16 state) and the training shape (fp32), beside its plain
+    version; the contract form at B 1, S 256 (the Pallas kernel's chunk).
+    Bound: bytes (dt, x, Bc, Cc, A, h0 read once, y and hT written once)
+    over 3.35 TB/s, or operations (8 fp32 operations an element (b, t, e,
+    n), the expf counted as one, over 67 TFLOP/s), the larger; the expf's
+    issue bound on the special-function units (``H100_SFU_PER_S``, not in
+    the guide's table) is logged beside it.  No single PyTorch call
+    computes the recurrence, so no library time.  Then K10 at the falcon
+    trainer's shape (train_batch x train_seq tokens, d_model, vocabulary
+    65024), held against its plain version as at Yi-6B's
+    (``_k10_train_shape``), as ``chunked_ce_falcon``."""
+    import torch
+    from repro_torch.kernels.mamba_scan import kernel as K11
+    from repro_torch.kernels.mamba_scan import ref as R11
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    E, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    out = {}
+    for name, B, S, dtype, h0_dtype, reps in (
+            ("prefill", serve_batch, serve_seq, torch.bfloat16,
+             torch.bfloat16, 20),
+            ("decode", serve_batch, 1, torch.bfloat16, torch.bfloat16, 200),
+            ("train", train_batch, train_seq, torch.float32, torch.float32,
+             20)):
+        ins = _scan_inputs(gen, B, S, E, N, dtype, h0_dtype, device)
+        dn = str(dtype).split(".")[1]
+        got, want = K11.mamba_scan_model(*ins), R11.scan_model(*ins)
+        # fp32 outputs from the same inputs on both sides: fp32 tolerance
+        err = max(_hold(f"K11 {name}-shape y {dn}", got[0], want[0],
+                        torch.float32),
+                  _hold(f"K11 {name}-shape hT {dn}", got[1], want[1],
+                        torch.float32))
+        del got, want
+        ms = cuda_ms(lambda: K11.mamba_scan_model(*ins), reps)
+        plain_ms = cuda_ms(lambda: R11.scan_model(*ins), 2, warmup=1)
+        item, elems = ins[0].element_size(), B * S * E * N
+        nbytes = (2 * B * S * E + 2 * B * S * N) * item + E * N * 4 \
+            + B * E * N * ins[5].element_size() + (B * S * E + B * E * N) * 4
+        ops = 8 * elems + B * S * E
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_FLOPS["float32"] * 1e3
+        r = dict(ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
+                 bytes=nbytes, flops=ops, bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 sfu_bound_ms=elems / H100_SFU_PER_S * 1e3,
+                 shape=f"B={B} S={S} E={E} N={N}")
+        out[f"mamba_scan_{name}"] = r
+        _log("timing", kernel=f"mamba_scan_model ({name})",
+             shape=repr(r["shape"]), ms=ms, plain_ms=plain_ms,
+             library_ms=None, bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+             sfu_bound_ms=r["sfu_bound_ms"], max_abs_err=err, dtype=dn,
+             gb_per_s=nbytes / ms / 1e6)
+        del ins
+    B, S = 1, 256
+    dt, A, x, Bc, Cc, h0 = _scan_inputs(gen, B, S, E, N, torch.float32,
+                                        torch.float32, device)
+    dA, dBx = R11.discretize(dt, A, x, Bc)
+    ms = cuda_ms(lambda: K11.mamba_scan(dA, dBx, Cc, h0), 20)
+    plain_ms = cuda_ms(lambda: R11.reference(dA, dBx, Cc, h0), 2, warmup=1)
+    err = _hold("K11 contract chunk", K11.mamba_scan(dA, dBx, Cc, h0)[0],
+                R11.reference(dA, dBx, Cc, h0)[0], torch.float32)
+    nbytes = 4 * (2 * dA.numel() + B * S * N + 2 * B * E * N + B * S * E)
+    _log("timing", kernel="mamba_scan (contract)",
+         shape=repr(f"B={B} S={S} E={E} N={N}"), ms=ms, plain_ms=plain_ms,
+         library_ms=None, bound_ms=nbytes / H100_BYTES_PER_S * 1e3,
+         bound_by="bytes", max_abs_err=err, dtype="float32")
+    del dt, A, x, Bc, Cc, h0, dA, dBx
+    ce = {"chunked_ce_falcon": _k10_train_shape(
+        gen, train_batch * train_seq, cfg.d_model, cfg.vocab_size, device)}
+    _bounds_fp32(ce)
+    out.update(ce)
+    return out
+
+
+def _ssm_margins_ok(model, prompt, out, plen, device, min_margin=1e-3):
+    """Top-2 logit margin of every generated token of a row the static
+    engine left-padded to ``plen`` (teacher forcing over the padded row)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import ssm_model
+    seq = np.concatenate([np.zeros(plen - len(prompt), np.int64), prompt,
+                          out[:-1]]).astype(np.int64)
+    with torch.no_grad():
+        lg = ssm_model.logits(model, torch.from_numpy(seq)[None].to(device))
+    top2 = lg[0, plen - 1:].float().topk(2, dim=-1).values
+    return bool(((top2[:, 0] - top2[:, 1]) >= min_margin).all())
+
+
+def parity_ssm(cfg, device="cuda", max_batch=3) -> dict:
+    """falcon-mamba in fp32 through the static ServingEngine (the family's
+    engine): greedy tokens on the kernel route equal to the plain route's
+    (K11's plain version), wherever the teacher-forced top-2 margin of the
+    left-padded row is >= 1e-3, on the short prompt mix in batches of 3
+    (left-padding inside each); K11 launched on the kernel route only;
+    then prefill + decode logits equal to the full forward's (atol/rtol
+    3e-4, as ``tests/test_models.py``'s ssm case)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.mamba_scan import kernel as K11
+    from repro_torch.models import ssm_model as SM
+    from repro_torch.serving import Request, ServingEngine
+    model = SM.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                    device=device, dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 1)
+    prompts, max_new = _short_prompts(rng, cfg.vocab_size, 16)
+    outs, launches = {}, {}
+    for route in ("kernel", "plain"):
+        K11.mamba_scan_model.launches = 0
+        eng = ServingEngine(cfg, model, max_batch=max_batch, max_len=256,
+                            device=device)
+        reqs = [Request(prompt=p, max_new=m) for p, m in zip(prompts, max_new)]
+        if route == "kernel":
+            eng.serve(reqs)
+        else:
+            with plain_route():
+                eng.serve(reqs)
+        outs[route] = [r.out for r in reqs]
+        launches[route] = K11.mamba_scan_model.launches
+    compared = 0
+    with plain_route():
+        for i, (p, a, b) in enumerate(zip(prompts, outs["kernel"],
+                                          outs["plain"])):
+            batch = prompts[i // max_batch * max_batch:
+                            (i // max_batch + 1) * max_batch]
+            if not _ssm_margins_ok(model, p, b, max(map(len, batch)), device):
+                continue
+            compared += 1
+            if not np.array_equal(a, b):
+                raise AssertionError(f"parity (ssm): kernel route "
+                                     f"{a.tolist()} != plain {b.tolist()}")
+    batches = -(-len(prompts) // max_batch)
+    want = cfg.num_layers * (batches + sum(
+        max(max_new[i:i + max_batch]) for i in range(0, len(prompts),
+                                                     max_batch)))
+    if compared == 0 or device != "cpu" and (launches["kernel"] != want
+                                             or launches["plain"]):
+        raise AssertionError(f"parity (ssm): compared {compared}, K11 "
+                             f"launches {launches}, expected {want}")
+    # decode = forward (the reference's test_decode_matches_forward_ssm)
+    tok = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, 65))).to(device)
+    with torch.no_grad():
+        full = SM.logits(model, tok)
+    cache = SM.init_cache(cfg, 2, 0, device=device)
+    lg, cache = SM.prefill(model, tok[:, :-1], cache)
+    lg2, _ = SM.decode_step(model, tok[:, -1:], cache, 64)
+    dec_err = 0.0
+    for what, a, b in (("prefill", lg[:, 0], full[:, -2]),
+                       ("decode", lg2[:, 0], full[:, -1])):
+        err = (a - b).abs().max().item()
+        if not err <= 3e-4 * (1 + b.abs().max().item()):
+            raise AssertionError(f"parity (ssm): {what} logits differ from "
+                                 f"the forward's by {err}")
+        dec_err = max(dec_err, err)
+    res = dict(compared=compared, skipped=len(prompts) - compared,
+               k11_launches=launches["kernel"],
+               decode_vs_forward_max_abs_err=dec_err)
+    _log("parity", model=cfg.name, layers=cfg.num_layers, family=cfg.family,
+         engine="ServingEngine", dtype="float32", oracle="plain route",
+         **res)
+    del model
+    return res
+
+
+class _TimedModel:
+    """The static engine's model module with each call it makes timed by
+    the script (the engine stamps no times): a synchronise before and after
+    ``prefill`` and every ``decode_step``."""
+
+    def __init__(self, module):
+        self._m = module
+        self.prefill_ms, self.decode_ms = [], []
+
+    def __getattr__(self, name):
+        return getattr(self._m, name)
+
+    def _timed(self, fn, into, *a, **kw):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        into.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def prefill(self, *a, **kw):
+        return self._timed(self._m.prefill, self.prefill_ms, *a, **kw)
+
+    def decode_step(self, *a, **kw):
+        return self._timed(self._m.decode_step, self.decode_ms, *a, **kw)
+
+
+def serve_ssm(cfg, prompt_lens, device="cuda", max_new=32) -> dict:
+    """falcon-mamba at full width and depth in bf16 through the static
+    ServingEngine: one batch of the prompts (left-padded to the longest),
+    after a warm-up batch: prefill ms (the batch's TTFT), decode step ms
+    (p50), decode tok/s (B x max_new over the decode steps' time), K11's
+    launches (one a layer for the prefill and for each of the max_new
+    decode steps) and K10's (none: serving computes logits, no loss).  The
+    result carries the model under ``"model"``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.chunked_ce import kernel as K10
+    from repro_torch.kernels.mamba_scan import kernel as K11
+    from repro_torch.models import ssm_model as SM
+    from repro_torch.serving import Request, ServingEngine
+    t0 = time.perf_counter()
+    model = SM.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                    device=device, dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    eng = ServingEngine(cfg, model, max_batch=len(prompt_lens),
+                        max_len=max(prompt_lens) + max_new, device=device)
+    rng = np.random.default_rng(SEED + 2)
+    V = cfg.vocab_size
+    prompts = [rng.integers(3, V, size=n).astype(np.int32)
+               for n in prompt_lens]
+    eng.serve([Request(prompt=p[:16], max_new=2) for p in prompts])  # warm-up
+    setup_s = time.perf_counter() - t0
+    timed = eng.model = _TimedModel(SM)
+    reqs = [Request(prompt=p, max_new=max_new) for p in prompts]
+    K11.mamba_scan_model.launches = K11.mamba_scan.launches = 0
+    K10.chunked_ce.launches = 0                  # counts of the main path
+    t0 = time.perf_counter()
+    eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"mamba_scan_model": K11.mamba_scan_model.launches,
+                "mamba_scan": K11.mamba_scan.launches,
+                "chunked_ce": K10.chunked_ce.launches}
+    for r in reqs:
+        if r.out is None or len(r.out) != max_new \
+                or not ((r.out >= 0) & (r.out < V)).all():
+            raise AssertionError(f"serve (ssm): bad output {r.out}")
+    want = cfg.num_layers * (1 + max_new)
+    if device != "cpu" and launches["mamba_scan_model"] != want:
+        raise AssertionError(f"serve (ssm): K11 launched "
+                             f"{launches['mamba_scan_model']} times, want "
+                             f"{want}")
+    decode_s = sum(timed.decode_ms) / 1e3
+    res = dict(params_b=n_params / 1e9, batch=len(reqs),
+               prompt_tokens=int(sum(prompt_lens)),
+               padded_prompt=max(prompt_lens), new_tokens=max_new,
+               prefill_ms=timed.prefill_ms[0],
+               decode_step_p50_ms=float(np.median(timed.decode_ms)),
+               decode_steps=len(timed.decode_ms),
+               decode_tok_s=len(reqs) * max_new / decode_s,
+               wall_s=wall, setup_s=setup_s,
+               state_mb_per_request=2 * cfg.num_layers * (
+                   (cfg.ssm_conv - 1) + cfg.ssm_state)
+               * cfg.ssm_expand * cfg.d_model / 1e6,
+               mamba_scan_launches=launches["mamba_scan_model"],
+               chunked_ce_launches=launches["chunked_ce"])
+    _log("serve", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         family=cfg.family, engine="ServingEngine", dtype="bfloat16", **res)
+    res["launches"] = launches
+    res["model"] = model
+    return res
+
+
+def profile_ssm_decode(cfg, model, device="cuda", batch=8, prompt_len=512,
+                       steps=8) -> dict:
+    """``steps`` decode steps of the static engine's call
+    (``ssm_model.decode_step``) on ``batch`` rows after a ``prompt_len``
+    prefill, timed and then traced with torch.profiler: device busy share,
+    launches a step, top kernels and K11's device time a call."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import ssm_model as SM
+    rng = np.random.default_rng(SEED + 3)
+    tok = torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                        (batch, prompt_len))).to(device)
+    cache = SM.init_cache(cfg, batch, 0, dtype=torch.bfloat16, device=device)
+    lg, cache = SM.prefill(model, tok, cache)
+    nxt = lg.argmax(-1)
+    for _ in range(2):                                  # warm
+        lg, cache = SM.decode_step(model, nxt, cache)
+        nxt = lg.argmax(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lg, cache = SM.decode_step(model, nxt, cache)
+        nxt = lg.argmax(-1)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lg, cache = SM.decode_step(model, nxt, cache)
+            nxt = lg.argmax(-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0.0)
+    busy_us = sum(dev_us(e) for e in kernels)
+    k11 = [e for e in kernels if "mamba_scan_model_kernel" in e.key]
+    k11_calls = sum(e.count for e in k11)
+    res = dict(step_ms=plain_wall / steps * 1e3,
+               profiled_step_ms=wall / steps * 1e3,
+               device_busy_ms_per_step=busy_us / steps / 1e3,
+               device_busy_share=busy_us / 1e6 / wall,
+               kernel_launches_per_step=sum(e.count for e in kernels) / steps,
+               mamba_scan_calls_per_step=k11_calls / steps,
+               mamba_scan_device_ms_per_call=sum(dev_us(e) for e in k11)
+               / max(k11_calls, 1) / 1e3)
+    _log("profile", model=cfg.name, layers=cfg.num_layers, family=cfg.family,
+         batch=batch, prompt_len=prompt_len, **res)
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        _log("profile.kernel", name=repr(e.key[:60]),
+             device_ms_per_step=dev_us(e) / steps / 1e3,
+             calls_per_step=e.count / steps,
+             device_ms_per_call=dev_us(e) / max(e.count, 1) / 1e3)
     return res
 
 
@@ -2087,6 +2573,7 @@ def main() -> int:
     worst.update(check_indexer_kernels())
     worst.update(check_train_kernels())
     worst.update(check_sparse_kernels())
+    worst.update(check_scan_kernels())
     prompt_lens = [1024, 32, 777, 150, 512, 64, 900, 300]
     serve_lens = [n + 16 for n in prompt_lens]
     # the DSA mix: two prompts past 3 x top-k, four past top-k
@@ -2129,6 +2616,18 @@ def main() -> int:
     timing.update(time_sparse_kernels(yi_block, max(dsa_lens), block_view,
                                       train_shapes["dsa_seq"]))
     _free()
+    # falcon-mamba-7b: full width (d_model 4096, E 8192, N 16) and depth (64
+    # layers) for serving in bf16; depth cut to 8 layers for fp32 training
+    falcon = get_config("falcon_mamba_7b")
+    falcon_train = falcon.replace(num_layers=8)
+    timing.update(time_scan_kernels(falcon, serve_batch=len(prompt_lens),
+                                    serve_seq=max(prompt_lens),
+                                    train_batch=2, train_seq=2048))
+    timing["mamba_scan"] = timing["mamba_scan_prefill"]
+    # K10 on both trainers' shapes: the line's error is the worse of the two
+    worst["chunked_ce"] = max(worst["chunked_ce"],
+                              timing["chunked_ce_falcon"]["max_abs_err"])
+    _free()
     parity(yi.replace(num_layers=2))
     _free()
     parity(yi_dsa.replace(num_layers=2), long=True)
@@ -2138,6 +2637,8 @@ def main() -> int:
     parity_block(yi_block.replace(num_layers=2))
     _free()
     parity_mtp(glm5_mtp.replace(num_layers=2, first_k_dense=1))   # ~51 GB
+    _free()
+    parity_ssm(falcon.replace(num_layers=2))
     _free()
     # the main paths' launches: every serve and train run below, summed
     launches = collections.Counter()
@@ -2165,6 +2666,11 @@ def main() -> int:
          spec_rounds=glm5_on["spec_rounds"])
     del glm5_on, glm5_off
     _free()
+    falcon_serve = serve_ssm(falcon, prompt_lens, max_new=new_tokens)
+    launches.update(falcon_serve["launches"])
+    profile_ssm_decode(falcon, falcon_serve.pop("model"))
+    del falcon_serve
+    _free()
     train_parity(yi.replace(num_layers=2), batch=1, seq=1024)
     _free()
     train_parity(yi_dsa.replace(num_layers=2), batch=1, seq=2560)
@@ -2172,8 +2678,11 @@ def main() -> int:
     train_parity(yi_block.replace(num_layers=2), batch=1, seq=2560,
                  idx_tol=5e-3)
     _free()
+    train_parity(falcon.replace(num_layers=2), batch=1, seq=1024)
+    _free()
     for cfg_, batch_, seq_ in ((yi_train, 2, 2048), (yi_dsa_train, 1, 4096),
-                               (yi_block.replace(num_layers=8), 1, 4096)):
+                               (yi_block.replace(num_layers=8), 1, 4096),
+                               (falcon_train, 2, 2048)):
         launches.update(train_run(cfg_, batch=batch_, seq=seq_,
                                   steps=5)["launches"])
         _free()
@@ -2182,6 +2691,8 @@ def main() -> int:
     profile_train_step(yi_dsa_train, batch=1, seq=4096)
     _free()
     profile_train_step(yi_block.replace(num_layers=8), batch=1, seq=4096)
+    _free()
+    profile_train_step(falcon_train, batch=2, seq=2048)
     _free()
     profile_decode(yi)
     _free()
@@ -2195,7 +2706,8 @@ def main() -> int:
                "indexer": "src/repro_torch/csrc/paged_indexer.cu",
                "lightning_indexer": "src/repro_torch/csrc/lightning_indexer.cu",
                "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-               "chunked_ce": "src/repro_torch/csrc/chunked_ce.cu"}
+               "chunked_ce": "src/repro_torch/csrc/chunked_ce.cu",
+               "mamba_scan": "src/repro_torch/csrc/mamba_scan.cu"}
     replaces = {"paged_decode_gqa":
                 ("gqa", "src/repro/kernels/paged_attention/kernel.py:109"),
                 "paged_prefill_gqa":
@@ -2219,7 +2731,11 @@ def main() -> int:
                 ("flash_attention",
                  "src/repro/kernels/flash_attention/kernel.py:81"),
                 "chunked_ce":
-                ("chunked_ce", "src/repro/kernels/chunked_ce/kernel.py:70")}
+                ("chunked_ce", "src/repro/kernels/chunked_ce/kernel.py:70"),
+                "mamba_scan":
+                ("mamba_scan", "src/repro/kernels/mamba_scan/kernel.py:46")}
+    # K11's launches: both entry points (the main path runs the model form)
+    launches["mamba_scan"] += launches.pop("mamba_scan_model")
     kernels = []
     for name, (src, where) in replaces.items():
         t = timing[name]

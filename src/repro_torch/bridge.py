@@ -3,7 +3,10 @@
 ``from_jax_params`` takes the reference's parameter pytree — nested dicts
 of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)`` of
 ``repro.models.get_model(cfg).init(key, cfg)[0]`` — and returns the port's
-``Transformer`` holding the same weights.  The reference stacks every
+model (``Transformer``, or ``SSMModel`` for family ``ssm``) holding the
+same weights.  The reference's ssm model stacks every layer leaf on a
+leading ``layers`` axis (``stack_init``): layer ``i`` of the port takes
+index ``i`` of ``params["layers"][...]``.  Its transformer stacks every
 pattern slot ``slotJ`` on a leading ``n_groups`` axis for its layer scan;
 layer ``first_k_dense + g*P + j`` of the port takes index ``g`` of
 ``slotJ`` (an MoE slot's expert tensors are ``(n_groups, E, in, out)``, so
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.ssm_model import SSMModel
 from repro_torch.models.transformer import Transformer
 
 
@@ -34,7 +38,9 @@ def _jax_leaf(params, cfg: ModelConfig, key: str) -> np.ndarray:
         return np.asarray(node)
     i, rest = int(parts[1]), parts[2:]
     g = None
-    if i < cfg.first_k_dense:
+    if cfg.family == "ssm":
+        node, g = params["layers"], i
+    elif i < cfg.first_k_dense:
         node = params[f"dense_{i}"]
     else:
         g, j = divmod(i - cfg.first_k_dense, len(cfg.attention_pattern))
@@ -52,9 +58,10 @@ def _n_elements(tree) -> int:
 
 
 def from_jax_params(params_np: dict, cfg: ModelConfig, device=None,
-                    dtype=torch.float32) -> Transformer:
+                    dtype=torch.float32) -> torch.nn.Module:
     """The reference's parameters as the port's model on ``device``."""
-    model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
+    cls = SSMModel if cfg.family == "ssm" else Transformer
+    model = cls(cfg, device=resolve_device(device), dtype=dtype)
     state = {k: torch.tensor(_jax_leaf(params_np, cfg, k))
              for k in model.state_dict()}
     # every reference weight must land somewhere: a leaf the port has no

@@ -5,7 +5,9 @@
 registered model carries the reference's DSA retrofit, which the port
 serves; GLM-5 also carries its MTP head, which the port trains and drafts
 speculative tokens with (``serving.speculative``,
-``ContinuousEngine(spec_steps=...)``).
+``ContinuousEngine(spec_steps=...)``).  ``falcon_mamba_7b`` is the
+attention-free Mamba-1 LM (family ``ssm``), served by the static
+``ServingEngine`` and trained.
 """
 from __future__ import annotations
 
@@ -14,9 +16,10 @@ import importlib
 from repro_torch.configs.base import (DSAConfig, MLAConfig, MTPConfig,
                                       ModelConfig)
 
-ARCH_IDS = ["gemma2_2b", "glm5_744b", "yi_6b"]
+ARCH_IDS = ["falcon_mamba_7b", "gemma2_2b", "glm5_744b", "yi_6b"]
 
-_ALIASES = {"gemma2-2b": "gemma2_2b", "glm-5": "glm5_744b",
+_ALIASES = {"falcon-mamba-7b": "falcon_mamba_7b",
+            "gemma2-2b": "gemma2_2b", "glm-5": "glm5_744b",
             "glm-5-744b": "glm5_744b",
             "yi-6b": "yi_6b"}
 

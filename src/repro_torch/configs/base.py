@@ -2,12 +2,15 @@
 
 ``ModelConfig`` keeps the reference's fields that the port reads, with the
 same names and defaults.  ``dsa`` is served with either selector and
-deterministic top-k, ``mtp`` with its shared head; the other ``family``
-values mark parts of later slices, and the model constructors reject a
-config that sets one.
+deterministic top-k, ``mtp`` with its shared head; family ``ssm`` is the
+Mamba-1 LM (``models.ssm_model``: ``ssm_state``, ``ssm_conv``,
+``ssm_expand``; ``ssm_version=2``, Mamba-2, is the hybrid slice's and its
+model constructor raises); the other ``family`` values mark parts of later
+slices, and the model constructors reject a config that sets one.
 The reference's expert-parallel switches
-(``moe_impl``, ``capacity_factor``: the mesh slice), SSM / hybrid /
-encoder / frontend fields and its implementation switches (``attn_impl``,
+(``moe_impl``, ``capacity_factor``: the mesh slice), the Mamba-2 and
+hybrid fields (``ssm_head_dim``, ``hybrid_attn_every``), encoder /
+frontend fields and its implementation switches (``attn_impl``,
 ``scan_layers``, ``remat``, ...) are left out, so a setting the port
 cannot honour fails when the config is built instead of being ignored.
 ``q_chunk`` and ``loss_chunk`` bound the training path's transient memory
@@ -96,6 +99,12 @@ class ModelConfig:
     moe_d_ff: int = 0
     first_k_dense: int = 0         # leading dense-MLP layers
     router_aux_coef: float = 0.001
+
+    # SSM (mamba1)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_version: int = 1           # 1 = mamba1 (falcon-mamba), 2 = mamba2 (zamba2)
 
     # memory / compute layout of the training path
     q_chunk: int = 1024            # query rows a chunk (attention, DSA)

@@ -73,6 +73,12 @@ ENTRIES = {
     # K10: dtype, h, w, targets, mask, partials, loss, count, Tk, D, V,
     # softcap, stream
     "chunked_ce": ("chunked_ce", [_I] + [_P] * 7 + [_I] * 3 + [_F, _P]),
+    # K11 model form: dtype, h0 dtype, N, dt, A, x, Bc, Cc, h0, y, hT, B,
+    # S, E, stream
+    "mamba_scan_model": ("mamba_scan", [_I] * 3 + [_P] * 8 + [_I] * 3 + [_P]),
+    # K11 contract: dtype, N, dA, dBx, C, h0, y, hT, B, S, E, stream
+    "mamba_scan_contract": ("mamba_scan",
+                            [_I] * 2 + [_P] * 6 + [_I] * 3 + [_P]),
 }
 LIBRARIES = sorted({lib for lib, _ in ENTRIES.values()})
 

@@ -1,0 +1,113 @@
+"""Plain versions of K11, the Mamba-1 selective scan (port of
+``repro.kernels.mamba_scan.ref``, whose oracle is
+``layers/ssm._mamba1_scan``).
+
+    h[t] = dA[t] * h[t-1] + dBx[t],   y[t] = sum_n h[t] * C[t]
+
+in fp32 from h[-1] = h0, in two forms:
+
+* ``reference(dA, dBx, C, h0)``: the Pallas kernel's contract, dA and dBx
+  (B, S, E, N), C (B, S, N), h0 (B, E, N) -> y (B, S, E), hT (B, E, N),
+  both in ``dA.dtype``;
+* ``scan_model(dt, A, x, Bc, Cc, h0)``: the tensors ``apply_mamba1`` has,
+  dt and x (B, S, E), A (E, N) fp32, Bc and Cc (B, S, N), h0 (B, E, N) ->
+  y (B, S, E), hT (B, E, N) in fp32.  It discretizes as the reference
+  does (``discretize``), one time step at a time, so no (B, S, E, N)
+  tensor is made.
+
+``scan_model_grads`` is the gradient of ``scan_model``: the adjoint
+recursion ``g_h[t] = dA[t+1] * g_h[t+1] + C[t] * g_y[t]``, with the states
+recomputed ``BWD_CHUNK`` time steps at a time from states kept at the
+chunks' starts.  These run the CPU tests, the model on CPU tensors,
+``chip_smoke.py``'s plain route and the autograd Function's backward.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+BWD_CHUNK = 64      # time steps whose states the backward holds at once
+
+
+def reference(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
+              h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Pallas ``mamba_scan`` contract in plain PyTorch."""
+    h = h0.float()
+    ys = []
+    for t in range(dA.shape[1]):
+        h = dA[:, t].float() * h + dBx[:, t].float()
+        ys.append((h * C[:, t, None].float()).sum(-1))
+    return torch.stack(ys, 1).to(dA.dtype), h.to(dA.dtype)
+
+
+def discretize(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
+               Bc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dt and x (..., E), A (E, N), Bc (..., N) -> dA = exp(dt·A) and
+    dBx = (dt·x)·B (..., E, N) in fp32, the reference's order of products
+    (``layers/ssm.apply_mamba1``)."""
+    dtf = dt.float()
+    dA = torch.exp(dtf[..., None] * A.float())
+    dBx = (dtf * x.float())[..., None] * Bc.float()[..., None, :]
+    return dA, dBx
+
+
+def scan_model(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
+               Bc: torch.Tensor, Cc: torch.Tensor, h0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model's form of K11 in plain PyTorch: -> (y, hT) in fp32."""
+    h = h0.float()
+    ys = []
+    for t in range(dt.shape[1]):
+        dA, dBx = discretize(dt[:, t], A, x[:, t], Bc[:, t])
+        h = dA * h + dBx
+        ys.append((h * Cc[:, t, None].float()).sum(-1))
+    return torch.stack(ys, 1), h
+
+
+def scan_model_grads(dt, A, x, Bc, Cc, h0, g_y: torch.Tensor,
+                     g_hT: Optional[torch.Tensor]):
+    """Gradients of ``scan_model``'s (y, hT) against (dt, A, x, Bc, Cc, h0),
+    in fp32.  One pass keeps the state at every chunk's start; then, chunk
+    by chunk from the end, the chunk's states are recomputed and the
+    adjoint G = dL/dh walks back through it, so memory holds a few
+    (B, BWD_CHUNK, E, N) tensors and S / BWD_CHUNK states, never the whole
+    history."""
+    B, S, E = dt.shape
+    chunk = BWD_CHUNK
+    dtf, xf, Bf, Cf, Af = (t.float() for t in (dt, x, Bc, Cc, A))
+    gy = g_y.float()
+    starts = list(range(0, S, chunk))
+    h = h0.float()
+    saved = []
+    for t0 in starts:
+        saved.append(h)
+        dA, dBx = discretize(dtf[:, t0:t0 + chunk], Af, xf[:, t0:t0 + chunk],
+                             Bf[:, t0:t0 + chunk])
+        for k in range(dA.shape[1]):
+            h = torch.addcmul(dBx[:, k], dA[:, k], h)
+    G = torch.zeros_like(h) if g_hT is None else g_hT.float().clone()
+    g_dt, g_x = torch.empty_like(dtf), torch.empty_like(xf)
+    g_B, g_C = torch.empty_like(Bf), torch.empty_like(Cf)
+    g_A = torch.zeros_like(Af)
+    for t0, h_start in zip(reversed(starts), reversed(saved)):
+        t1 = min(t0 + chunk, S)
+        dtc, xc = dtf[:, t0:t1], xf[:, t0:t1]
+        dA, dBx = discretize(dtc, Af, xc, Bf[:, t0:t1])
+        hs = [h_start]                    # hs[k] = the state before step k
+        for k in range(t1 - t0):
+            hs.append(torch.addcmul(dBx[:, k], dA[:, k], hs[-1]))
+        H = torch.stack(hs, 1)
+        Gs = torch.empty_like(dA)         # Gs[:, k] = dL/dh at step t0 + k
+        for k in reversed(range(t1 - t0)):
+            G = torch.addcmul(G, gy[:, t0 + k, :, None], Cf[:, t0 + k, None])
+            Gs[:, k] = G
+            G = G * dA[:, k]
+        g_C[:, t0:t1] = torch.einsum("bke,bken->bkn", gy[:, t0:t1], H[:, 1:])
+        q = Gs * H[:, :-1] * dA           # dL/d(dt·A)
+        g_dtx = (Gs * Bf[:, t0:t1, None, :]).sum(-1)     # dL/d(dt·x)
+        g_B[:, t0:t1] = torch.einsum("bken,bke->bkn", Gs, dtc * xc)
+        g_dt[:, t0:t1] = (q * Af).sum(-1) + g_dtx * xc
+        g_x[:, t0:t1] = g_dtx * dtc
+        g_A += torch.einsum("bken,bke->en", q, dtc)
+    return g_dt, g_A, g_x, g_B, g_C, G

@@ -1,23 +1,26 @@
 """The training step (port of ``repro.launch.steps.make_train_step``).
 
-One step: the loss and its gradients (``models.transformer.loss``:
-forward through K9 / K7, the cross-entropy through K10, and their plain
-backwards), global-norm clipping, then the Muon(+Split) update, in place on
-the model's parameters.  ``make_prefill_step`` / ``make_serve_step`` of the
-reference are the serving engine's job in the port.
+One step: the loss and its gradients (the config's model through the
+registry: ``transformer.loss`` runs its forward through K9 / K7 / K8,
+``ssm_model.loss`` through K11; the cross-entropy through K10; the
+kernels' backwards are plain), global-norm clipping, then the Muon(+Split)
+update, in place on the model's parameters.  ``make_prefill_step`` /
+``make_serve_step`` of the reference are the serving engine's job in the
+port.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch import nn
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.models import transformer as T
+from repro_torch.models import get_model
 from repro_torch.optim import muon
 
 
-def make_train_step(model: T.Transformer, *,
+def make_train_step(model: nn.Module, *,
                     train_cfg: Optional[TrainConfig] = None,
                     lr: float = 2e-4) -> Callable:
     """Returns ``train_step(opt_state, batch, lr=lr) -> (opt_state,
@@ -25,15 +28,16 @@ def make_train_step(model: T.Transformer, *,
     their gradients on)."""
     tc = train_cfg or TrainConfig()
     cfg = model.cfg
+    M = get_model(cfg)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
-    axes = T.param_axes(model)
+    axes = M.param_axes(model)
 
     def train_step(opt_state: muon.MuonState, batch: Dict[str, torch.Tensor],
                    lr: float = lr) -> Tuple[muon.MuonState, dict]:
         for p in params.values():
             p.grad = None
-        total, metrics = T.loss(model, batch)
+        total, metrics = M.loss(model, batch)
         total.backward()
         # a parameter the loss never reads (the MTP block's indexer: the
         # head runs dense) has no gradient; JAX gives it zeros

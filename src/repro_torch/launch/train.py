@@ -11,7 +11,9 @@ step, lr, tok_per_s).  It runs on the GPU unless ``--device cpu`` is
 given.  ``train(cfg, tc)`` is the loop itself, for callers with their own
 ``ModelConfig`` (a depth-cut one, say); ``main`` parses the reference's
 flags into it.  The reference's default arch, ``glm-5``, trains with its
-MTP head (0.3 × the MTP losses in the loss, logged as ``mtp``).
+MTP head (0.3 × the MTP losses in the loss, logged as ``mtp``);
+``--arch falcon-mamba-7b`` trains the Mamba-1 LM (the model comes from the
+registry by the config's family).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.data.pipeline import Pipeline, lm_generator
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models import transformer as T
+from repro_torch.models import get_model
 from repro_torch.optim import muon, schedule
 
 
@@ -44,12 +46,13 @@ def train(cfg: ModelConfig, tc: TrainConfig, *, device=None,
     """Train ``cfg`` for ``tc.total_steps`` steps; returns the logged
     metric dicts (one every ``log_every`` steps and the last)."""
     dev = resolve_device(device)
-    model = T.init(cfg, torch.Generator(device=dev).manual_seed(tc.seed),
+    M = get_model(cfg)
+    model = M.init(cfg, torch.Generator(device=dev).manual_seed(tc.seed),
                    device=dev)
     print(f"arch={cfg.name} params={n_params(model) / 1e6:.1f}M "
           f"family={cfg.family}", flush=True)
     step_fn = make_train_step(model, train_cfg=tc, lr=tc.learning_rate)
-    opt_state = muon.init(dict(model.named_parameters()), T.param_axes(model))
+    opt_state = muon.init(dict(model.named_parameters()), M.param_axes(model))
     pipe = Pipeline(lm_generator(cfg.vocab_size, tc.seq_len, tc.batch_size,
                                  seed=tc.seed, steps=tc.total_steps),
                     device=dev)

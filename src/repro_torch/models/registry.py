@@ -1,13 +1,22 @@
 """Model registry: family -> implementation module (port of
-``repro.models.registry``, trimmed to the families the port has)."""
+``repro.models.registry``, trimmed to the families the port has).
+
+Every module implements the same interface (the model is an
+``nn.Module`` holding the parameters, first argument of each function):
+``init(cfg, generator, device, dtype)``, ``hidden``, ``loss(model,
+batch)``, ``logits``, ``init_cache(cfg, batch, max_len, dtype, device)``,
+``prefill(model, tokens, cache)``, ``decode_step(model, token, cache,
+cache_index)`` and ``param_axes(model)``.  The transformer also has the
+paged cache of the continuous-batching engine.
+"""
 from __future__ import annotations
 
 from types import ModuleType
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import ssm_model, transformer
 
-_FAMILY = {"dense": transformer, "moe": transformer}
+_FAMILY = {"dense": transformer, "moe": transformer, "ssm": ssm_model}
 
 
 def get_model(cfg: ModelConfig) -> ModuleType:

@@ -128,6 +128,11 @@ class ContinuousEngine:
                  spill: Optional[bool] = None,
                  faults: Optional[FaultInjector] = None,
                  device=None):
+        if cfg.family not in ("dense", "moe", "hybrid"):
+            raise NotImplementedError(
+                f"ContinuousEngine supports the transformer and hybrid "
+                f"families, got {cfg.family!r} (the static ServingEngine "
+                f"serves the ssm family)")
         if cfg.family == "hybrid":
             raise NotImplementedError(
                 "the hybrid family (mamba2 + shared attention) is the "

@@ -1,5 +1,6 @@
-"""PyTorch port, the training path's CUDA kernels (K7, K9, K10) and the
-block selector's (K8) against their plain versions on the card.
+"""PyTorch port, the training path's CUDA kernels (K7, K9, K10), the
+block selector's (K8) and the Mamba-1 selective scan (K11) against their
+plain versions on the card.
 
 Every case is ``cuda``-marked and skips itself without a GPU.  This file
 imports no JAX, so it runs on the machine with the card, where JAX is not
@@ -16,6 +17,8 @@ import torch
 from repro_torch.kernels.chunked_ce import kernel as K10
 from repro_torch.kernels.flash_attention import kernel as K9
 from repro_torch.kernels.lightning_indexer import kernel as K7
+from repro_torch.kernels.mamba_scan import kernel as K11
+from repro_torch.kernels.mamba_scan import ref as K11ref
 from repro_torch.kernels.sparse_attention import kernel as K8
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
@@ -109,3 +112,62 @@ def test_block_sparse_attention_matches_plain(dtype, tol):
             want = K8.block_sparse_attention_plain(q, k, v, ids, start, **kw)
             torch.cuda.synchronize()
             assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _scan_inputs(rng, B, S, E, N, dtype, h0_dtype):
+    dt = torch.nn.functional.softplus(_cuda(rng, B, S, E) - 1.0).to(dtype)
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device="cuda") \
+        .expand(E, N).contiguous()
+    x, Bc, Cc = (_cuda(rng, *s, dtype=dtype)
+                 for s in ((B, S, E), (B, S, N), (B, S, N)))
+    h0 = (0.5 * _cuda(rng, B, E, N)).to(h0_dtype)
+    return dt, A, x, Bc, Cc, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_mamba_scan_matches_plain(dtype, tol):
+    """Both entry points of K11 at ragged E, S 1 and S past a tile, N 4, 8
+    and 16, fp32 and bf16 states; y and hT within tol x min(1, max|plain|),
+    the contract form's (stored in dtype) plus one unit in the last place
+    of each element's magnitude, where the two versions round to
+    neighbouring stored values."""
+    _need_gpu()
+    rng = np.random.default_rng(4)
+    for B, S, E, N in ((2, 7, 96, 16), (1, 1, 512, 8), (2, 70, 64, 4),
+                       (1, 300, 8192, 16)):
+        for h0_dtype in (torch.float32, torch.bfloat16):
+            ins = _scan_inputs(rng, B, S, E, N, dtype, h0_dtype)
+            got = K11.mamba_scan_model(*ins)
+            want = K11ref.scan_model(*ins)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                scale = min(1.0, b.abs().max().item())
+                assert (a - b).abs().max().item() <= tol * scale
+        dt, A, x, Bc, Cc, h0 = ins
+        dA, dBx = (t.to(dtype) for t in K11ref.discretize(dt, A, x, Bc))
+        h0 = h0.to(dtype)
+        got = K11.mamba_scan(dA, dBx, Cc, h0)
+        want = K11ref.reference(dA, dBx, Cc, h0)
+        torch.cuda.synchronize()
+        ulp = torch.finfo(dtype).eps          # one ulp, at most
+        for a, b in zip(got, want):
+            a, b = a.float(), b.float()
+            scale = min(1.0, b.abs().max().item())
+            assert ((a - b).abs() <= tol * scale + ulp * b.abs()).all()
+
+
+@pytest.mark.cuda
+def test_mamba_scan_refuses_what_it_cannot_take():
+    _need_gpu()
+    rng = np.random.default_rng(5)
+    dt, A, x, Bc, Cc, h0 = _scan_inputs(rng, 1, 5, 24, 8, torch.float32,
+                                        torch.float32)
+    with pytest.raises(ValueError):           # N does not divide 32
+        K11.mamba_scan_model(dt, A[:, :6].contiguous(), x, Bc[..., :6]
+                             .contiguous(), Cc[..., :6].contiguous(),
+                             h0[..., :6].contiguous())
+    with pytest.raises(ValueError):           # not contiguous
+        K11.mamba_scan_model(dt.transpose(0, 1), A, x, Bc, Cc, h0)
+    with pytest.raises(TypeError):            # A must be fp32
+        K11.mamba_scan_model(dt, A.bfloat16(), x, Bc, Cc, h0)

@@ -219,7 +219,7 @@ def test_models_reject_configs_they_cannot_serve():
         T.init(base.replace(num_experts=4), device="cpu")
     from repro_torch.models import get_model as port_get_model
     with pytest.raises(NotImplementedError):
-        port_get_model(base.replace(family="ssm"))
+        port_get_model(base.replace(family="audio"))
 
 
 # ---------------------------------------------------------------------------
