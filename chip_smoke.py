@@ -52,7 +52,12 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            outputs, stored in its input dtype, may also differ by one ulp
            of their magnitude), and the gradients through its autograd Function on both routes;
   timing   K3/K4's and K5/K6's registers, spills, shared memory and CTAs
-           resident on an SM, as the CUDA runtime reports them; then
+           resident on an SM, as the CUDA runtime reports them, and those
+           of the bf16 tensor-core tile K2 and K8 share (csrc/mma_tile.cuh)
+           with the key-range split the wrapper picks at the serve shapes,
+           and the HMMA instructions of each of the tile's instantiations
+           in the built libraries (cuobjdump -sass; fails where one has
+           none); then
            each kernel, its plain version and one PyTorch library call
            (scaled_dot_product_attention over the KV gathered and its heads
            repeated once, before the timed loop; timed here only, the port
@@ -76,9 +81,14 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            unit-scale logits, as the model's, so that the part of its sum
            that depends on h.W is far above the 1e-5 relative tolerance;
            K8 at a 256-token span ending at 6144 of the block-selector
-           serve (bf16) and at the block training run's last 256-query
-           chunk against 4096 keys (fp32), beside SDPA over each query
-           block's selected K/V gathered before the timed loop; K11's model
+           serve (bf16, and fp32 on its own line) and at the block training
+           run's last 256-query chunk against 4096 keys (fp32), beside SDPA
+           over each query block's selected K/V gathered before the timed
+           loop; K2's fp32 body at its serve shape on its own line; K2's
+           and K8's lines carry, beside the wrapper's CUDA-event time, the
+           device time of the same calls replayed from a CUDA graph (the
+           wrapper's host overhead taken out) and the TFLOP/s that gives;
+           K11's model
            form at falcon-mamba's serve prefill (B 8, S 1024, bf16), decode
            step (B 8, S 1) and training shape (B 2, S 2048, fp32), its
            contract form at B 1, S 256 (no single library call computes
@@ -236,6 +246,33 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     t0.record()
     for _ in range(reps):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of ``fn`` with the host taken out:
+    ``reps`` calls captured in one CUDA graph (after a call on a side
+    stream), replayed once between CUDA events.  A wrapper whose kernel is
+    shorter than its Python and ctypes overhead reads that overhead under
+    ``cuda_ms``; this is its device time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
@@ -511,6 +548,8 @@ def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
     q = torch.randn((1, kvh, S * G, d), generator=gen, device=device).to(dtype)
     ms = cuda_ms(lambda: K2.paged_prefill_gqa(
         q, kp, vp, per_layer[next(it) % L], st, groups=G), reps // 4)
+    device_ms = graph_ms(lambda: K2.paged_prefill_gqa(
+        q, kp, vp, per_layer[next(it) % L], st, groups=G), reps // 4)
     plain_ms = cuda_ms(lambda: K2.paged_prefill_gqa_plain(
         q, kp, vp, per_layer[next(it) % L], st, groups=G), 4)
     T = start + S
@@ -532,14 +571,28 @@ def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
                   K2.paged_prefill_gqa(q32, k32, v32, tables, st, groups=G),
                   K2.paged_prefill_gqa_plain(q32, k32, v32, tables, st,
                                              groups=G), torch.float32)
-    del q32, k32, v32
     keys = sum(start + i + 1 for i in range(S))
     nbytes = T * kvh * d * 2 * item + 2 * q.numel() * item \
         + tables.numel() * 4 + 4
     flops = 4 * keys * G * kvh * d
+    # the fp32 body (the exact parity route) at the same shape, layer 0's
+    # blocks only: the fp32 pool of every layer would not fit beside
+    fp32_ms = cuda_ms(lambda: K2.paged_prefill_gqa(q32, k32, v32, tables, st,
+                                                   groups=G), reps // 4)
+    fp32_dev = graph_ms(lambda: K2.paged_prefill_gqa(q32, k32, v32, tables,
+                                                     st, groups=G), reps // 4)
+    b32 = 2 * nbytes - tables.numel() * 4 - 4     # fp32 items, same tables
+    t_bytes, t_ops = b32 / H100_BYTES_PER_S * 1e3, \
+        flops / H100_FLOPS["float32"] * 1e3
+    _log("timing", kernel="paged_prefill_gqa", dtype="float32",
+         body="gqa_tile (SIMT)", shape=repr(f"B=1 S={S} start={start}"),
+         ms=fp32_ms, device_ms=fp32_dev, bound_ms=max(t_bytes, t_ops),
+         bound_by="bytes" if t_bytes >= t_ops else "operations",
+         tflops=flops / fp32_dev / 1e9, max_abs_err=err32)
+    del q32, k32, v32
     out["paged_prefill_gqa"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
-        max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
         shape=f"B=1 S={S} start={start}")
     del kp, vp
     _bounds(out)
@@ -555,8 +608,10 @@ def _bounds(out: dict) -> None:
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         _log("timing", kernel=name, shape=repr(r["shape"]), ms=r["ms"],
-             plain_ms=r["plain_ms"], library_ms=r["library_ms"],
-             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+             device_ms=r.get("device_ms"), plain_ms=r["plain_ms"],
+             library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+             bound_by=r["bound_by"],
+             tflops=r["flops"] / r.get("device_ms", r["ms"]) / 1e9,
              max_abs_err=r["max_abs_err"],
              max_abs_err_fp32=r["max_abs_err_fp32"], dtype="bfloat16")
 
@@ -710,6 +765,69 @@ def mla_resources(cfg, batch) -> None:
              registers=regs, spill_bytes=spill, smem_bytes=smem,
              ctas_per_sm=ctas, rows_per_cta=rows,
              decode_ctas=batch * -(-cfg.num_heads // rows), sms=sms)
+
+
+def tile_resources(gqa_cfg, block_cfg, span) -> None:
+    """The bf16 tensor-core tile of K2 and K8 (csrc/mma_tile.cuh) at the
+    serve phase's shapes (``gqa_cfg``'s heads over blocks of 16, and
+    ``block_cfg``'s over its DSA blocks, spans of ``span`` tokens):
+    registers, spills, shared memory and CTAs resident on one SM as the CUDA
+    runtime reports them, the rows a CTA and the key-range parts the wrapper
+    picks; then the HMMA (tensor-core) instructions of every instantiation
+    of the tile in the built libraries, from ``cuobjdump -sass`` (it fails
+    where an instantiation has none; where the tool is missing it says so)."""
+    import re
+    import shutil
+    import torch
+    from repro_torch.kernels import build
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    d, kvh = gqa_cfg.head_dim, gqa_cfg.num_kv_heads
+    bs = block_cfg.dsa.block_size
+    dk = block_cfg.head_dim
+    for kernel, query, args, rows, others, dv in (
+            ("paged_prefill_gqa", "paged_prefill_gqa_resources", (d, 16),
+             span * (gqa_cfg.num_heads // kvh), kvh, d),
+            ("block_sparse_attention", "block_sparse_resources", (dk, dk),
+             bs * (block_cfg.num_heads // block_cfg.num_kv_heads),
+             span // bs * block_cfg.num_kv_heads, dk)):
+        regs, spill, smem, ctas, per_cta = build.resources(query, *args)
+        parts = build.key_split(query, args, rows, others, dv, dev)[0]
+        _log("resources", kernel=kernel, dtype="bfloat16",
+             body="mma_tile", instance="x".join(map(str, args)),
+             registers=regs,
+             spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
+             rows_per_cta=per_cta, serve_tiles=-(-rows // per_cta) * others,
+             parts=parts, sms=sms)
+    tool = shutil.which("cuobjdump") or str(Path(build.nvcc()).parent
+                                            / "cuobjdump")
+    if not Path(tool).exists():
+        _log("sass", cuobjdump="missing")
+        return
+    for lib in ("paged_attention", "block_sparse"):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts, name = {}, None
+        for line in sass.splitlines():
+            found = re.search(r"Function : (\S+)", line)
+            if found:
+                name = found.group(1)
+                if "mma_tile" in name and "attention_kernel" in name:
+                    counts[name] = 0
+            elif name in counts and "HMMA" in line:
+                counts[name] += 1
+        for name, n in counts.items():
+            dims = re.search(r"attention_kernelILi(\d+)ELi(\d+)E", name)
+            page = re.search(r"PagedSpanILi(\d+)E", name)
+            label = (f"attention_kernel<{dims[1]},{dims[2]},"
+                     + (f"PagedSpan<{page[1]}>>" if page
+                        else "SelectedBlocks>"))
+            _log("sass", library=lib, kernel=label, hmma=n)
+            if n == 0:
+                raise AssertionError(f"{lib} {label}: no HMMA instruction")
+        if not counts:
+            raise AssertionError(f"{lib}: no tensor-core tile in its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -1056,6 +1174,8 @@ def time_sparse_kernels(cfg, span_end, view_len, train_seq, device="cuda",
     out = {}
     for name, end, T, dtype in (
             ("block_sparse_attention", span_end, view_len, torch.bfloat16),
+            ("block_sparse_attention_fp32", span_end, view_len,
+             torch.float32),
             ("block_sparse_attention_train", train_seq, train_seq,
              torch.float32)):
         start = end - S
@@ -1072,6 +1192,8 @@ def time_sparse_kernels(cfg, span_end, view_len, train_seq, device="cuda",
         kw = dict(block_size=bs, empty_mean=True)
         ms = cuda_ms(lambda: K8.block_sparse_attention(q, k, v, ids, qs,
                                                        **kw), reps)
+        device_ms = graph_ms(lambda: K8.block_sparse_attention(
+            q, k, v, ids, qs, **kw), reps)
         plain_ms = cuda_ms(lambda: K8.block_sparse_attention_plain(
             q, k, v, ids, qs, **kw), 3)
         tok = (ids.long()[..., None] * bs
@@ -1097,17 +1219,21 @@ def time_sparse_kernels(cfg, span_end, view_len, train_seq, device="cuda",
         dn = str(dtype).split(".")[1]
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = flops / H100_FLOPS[dn] * 1e3
-        r = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                 max_abs_err=err, bytes=nbytes, flops=flops,
+        r = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, max_abs_err=err, bytes=nbytes,
+                 flops=flops,
                  bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
                  shape=f"S={S} start={start} T={T} H={H} KVH={KVH} d={d} "
                        f"bs={bs} nb={nb}")
         out[name] = r
         _log("timing", kernel=name, shape=repr(r["shape"]), ms=ms,
-             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=r["bound_ms"],
-             bound_by=r["bound_by"], max_abs_err=err, dtype=dn,
-             tflops=flops / ms / 1e9)
+             device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+             max_abs_err=err, dtype=dn,
+             body="mma_tile (tensor cores)" if dn == "bfloat16"
+             else "block_sparse_kernel (SIMT)",
+             tflops=flops / device_ms / 1e9)
         del q, k, v, kg, vg, qb
     return out
 
@@ -2591,6 +2717,7 @@ def main() -> int:
     chunk, new_tokens = 256, 32
     dsa_max_len = max(dsa_lens) + new_tokens + chunk
     indexer_resources(yi_dsa, len(dsa_lens), dsa_max_len, 16)
+    tile_resources(yi, yi_block, chunk)
     timing = time_kernels(yi, serve_lens, max(prompt_lens), bs=16,
                           num_blocks=2048, chunk=chunk)
     _free()

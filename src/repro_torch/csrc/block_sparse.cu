@@ -24,11 +24,10 @@
 //
 // What bounds it on this card: arithmetic.  At the Yi-6B serve span (256
 // queries, H 32 / KVH 4, d 128, 16 blocks of 128 keys) it is 2*2*S*H*nb*bs*d
-// = 8.6 GFLOP against ~8 MB of K/V; bf16 inputs, so the tensor cores'
-// 989 TFLOP/s would make it ~0.009 ms; this kernel computes on the CUDA
-// cores (fp32 FMA, 67 TFLOP/s at best).
+// = 8.6 GFLOP against ~8 MB of K/V: ~0.009 ms on the tensor cores' 989
+// TFLOP/s in bf16, 0.13 ms on the CUDA cores' 67 TFLOP/s in fp32.
 //
-// What the design does about it (a first, right version):
+// What the design does about it:
 //   * the Pallas grid is (BH, n_q_blocks, nb) with VMEM scratch across the
 //     selected blocks; here one CTA per (tile of packed rows of one query
 //     block, query block, KV head x batch row) walks that query block's
@@ -38,16 +37,22 @@
 //     with the same result;
 //   * a tile packs the G query heads of one KV head for consecutive tokens
 //     (row r = token r / G, head r % G, as K2 and K9), so each staged K/V
-//     position serves every query row of the tile;
-//   * the listed blocks' keys, flattened, are staged 64 a round in shared
-//     memory as fp32 (the key at flat index t is block list[t / bs], offset
-//     t % bs), so any block size works; K and V have their own widths;
-//   * the accumulator (64 rows, 32 when DQK or DV is above 128) lives in
-//     registers, each thread owning fixed columns; the softmax is a warp per
-//     row; a row left with no key takes a second pass over the listed
-//     blocks' V for the mean.
-// Not done yet (later work): tensor cores (mma/wgmma for bf16), TMA, a
-// register prefetch of the next round.
+//     position serves every query row of the tile; the listed blocks' keys,
+//     flattened (the key at flat index t is block list[t / bs], offset
+//     t % bs), are staged 64 a round, so any block size works;
+//   * the body is chosen by dtype.  bf16, the serving path, runs
+//     mma_tile.cuh's tensor-core tile (mma.sync QK^T and PV, K/V kept bf16
+//     in a cp.async ring, the flat key range split over up to 4 CTAs and
+//     folded by a combine pass, so the 128 tiles of a serve span fill the
+//     card; dv 256 split over two warp groups): SelectedBlocks below is its
+//     layout, and its empty-row mean.  fp32, the training chunks and the
+//     exact parity runs, runs block_sparse_kernel below: K/V staged in
+//     shared memory as fp32, scores and P @ V on scalar FMAs, the
+//     accumulator (64 rows, 32 when DQK or DV is above 128) in registers,
+//     a warp a row for the softmax; a row left with no key takes a second
+//     pass over the listed blocks' V for the mean.
+// Not done yet (later work): the fp32 training chunk on the tensor cores
+// (3xTF32 or bf16 training), wgmma and TMA for the bf16 tile.
 //
 // Interface: plain C, loaded with ctypes.  The entry point returns the
 // cudaError_t of its launch (0 on success); it launches on the given stream,
@@ -57,6 +62,7 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "mma_tile.cuh"
 #include "vec.cuh"
 
 namespace {
@@ -66,9 +72,6 @@ constexpr int kTokens = 64;        // key positions staged per round
 constexpr int kMaxBlocks = 64;     // nb the kernel takes
 constexpr float kNegInf = -1e30f;  // the reference kernels' NEG_INF
 constexpr int kLdP = kTokens + 4;
-
-__device__ inline float to_float(float x) { return x; }
-__device__ inline float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // +4 keeps 16-byte alignment for float4 reads and spreads rows over banks
 template <int D>
@@ -90,14 +93,16 @@ struct Params {
   float softcap, scale;
 };
 
-template <typename T, int DQK, int DV, int ROWS>
+// the fp32 body
+template <int DQK, int DV, int ROWS>
 __global__ void __launch_bounds__(kThreads)
-block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ out, Params p) {
+block_sparse_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out,
+                    Params p) {
   static_assert(DQK % 32 == 0 && ROWS % 4 == 0, "tile shape");
   static_assert(DV % kThreads == 0 || kThreads % DV == 0, "column split");
   constexpr int LDK = kLd<DQK>;
-  constexpr int VN = Vec<T>::N;
+  constexpr int VN = Vec<float>::N;
   constexpr int CPT = DV >= kThreads ? DV / kThreads : 1;  // columns a thread
   constexpr int RG = DV >= kThreads ? 1 : kThreads / DV;   // row groups
   constexpr int RPT = ROWS / RG;                           // rows a thread
@@ -145,7 +150,7 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < rows * KROW; i += kThreads) {
     const int r = i / KROW, e = (i % KROW) * VN;
     float tmp[VN];
-    Vec<T>::convert(ld16(q + q_off(r0 + r) * DQK + e), tmp);
+    Vec<float>::convert(ld16(q + q_off(r0 + r) * DQK + e), tmp);
 #pragma unroll
     for (int u = 0; u < VN; ++u) Qs[r * LDK + e + u] = tmp[u];
   }
@@ -181,7 +186,7 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kt[VN];
       const int pos = t < n ? key_pos(c0 + t) : p.T;
       if (pos < p.T) {
-        Vec<T>::convert(ld16(k + kv_off(pos) * DQK + e), kt);
+        Vec<float>::convert(ld16(k + kv_off(pos) * DQK + e), kt);
       } else {
 #pragma unroll
         for (int w = 0; w < VN; ++w) kt[w] = 0.f;
@@ -199,7 +204,7 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float vt[VN];
       const int pos = t < n ? key_pos(c0 + t) : p.T;
       if (pos < p.T) {
-        Vec<T>::convert(ld16(v + kv_off(pos) * DV + e), vt);
+        Vec<float>::convert(ld16(v + kv_off(pos) * DV + e), vt);
       } else {
 #pragma unroll
         for (int w = 0; w < VN; ++w) vt[w] = 0.f;
@@ -327,10 +332,10 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int id = ids[jb] >= 0 ? ids[jb] : -ids[jb] - 1;
       for (int t = 0; t < p.bs; ++t) {
         const int pos = min(id * p.bs + t, p.T - 1);
-        const T* vr = v + kv_off(pos) * DV;
+        const float* vr = v + kv_off(pos) * DV;
 #pragma unroll
         for (int j = 0; j < CPT; ++j)
-          mean[j] += to_float(vr[col0 + j * kThreads]);
+          mean[j] += vr[col0 + j * kThreads];
       }
     }
     const float inv = 1.f / (float)(p.nb * p.bs);
@@ -343,7 +348,7 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = rg + i * RG;
     if (r < rows) {
       const float l = Ls[r];
-      T* o = out + q_off(r0 + r) * DV + col0;
+      float* o = out + q_off(r0 + r) * DV + col0;
 #pragma unroll
       for (int j = 0; j < CPT; ++j)
         store_out(o + j * kThreads,
@@ -352,11 +357,11 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DQK, int DV, int ROWS>
+template <int DQK, int DV, int ROWS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const Params& p, int B, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<DQK, DV, ROWS>() * sizeof(float);
-  auto kern = block_sparse_kernel<T, DQK, DV, ROWS>;
+  auto kern = block_sparse_kernel<DQK, DV, ROWS>;
   static bool configured = false;  // once per instantiation
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -366,22 +371,90 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   }
   dim3 grid((p.bs * p.G + ROWS - 1) / ROWS, p.S / p.bs, B * p.KVH);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), p);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), p);
   return cudaGetLastError();
 }
 
-// tiles: 64 rows when both widths are <= 128, else 32 (register budget of
-// the accumulator, shared memory of the staged tiles)
-template <typename T>
-cudaError_t dispatch(int dqk, int dv, const void* q, const void* k,
-                     const void* v, void* out, const Params& p, int B,
-                     cudaStream_t s) {
-  if (dqk == 64 && dv == 64) return launch<T, 64, 64, 64>(q, k, v, out, p, B, s);
-  if (dqk == 128 && dv == 128)
-    return launch<T, 128, 128, 64>(q, k, v, out, p, B, s);
-  if (dqk == 192 && dv == 256)
-    return launch<T, 192, 256, 32>(q, k, v, out, p, B, s);
+// K8's layout on the tensor-core tile (grid y = query block, z = batch row
+// x KV head): packed row r of query block y is token y*bs + r / G, head
+// kvh*G + r % G; flat key t is block list[t / bs], offset t % bs, where
+// list holds the attended ids that can admit a key of the tile.
+struct SelectedBlocks {
+  static constexpr int kList = kMaxBlocks;
+  static constexpr bool kMean = true;
+  const int* bidx;
+  const int* q_start;
+  int S, T, H, KVH, G, bs, nb, dv, empty_mean, window;
+  __device__ int rows(int, int) const { return bs * G; }
+  __device__ int pos0(int y, int z) const { return q_start[z / KVH] + y * bs; }
+  __device__ size_t q_row(int y, int z, int r) const {
+    return ((size_t)(z / KVH) * S + y * bs + r / G) * H + (z % KVH) * G
+           + r % G;
+  }
+  __device__ size_t out_row(int y, int z, int r) const {
+    return q_row(y, z, r);
+  }
+  __device__ const int* ids(int y, int z) const {
+    return bidx + ((size_t)(z / KVH) * (S / bs) + y) * nb;
+  }
+  __device__ void list_keys(int y, int z, int, int q_last, int* list,
+                            int* range) const {
+    const int* id = ids(y, z);
+    int n = 0;
+    for (int j = 0; j < nb; ++j)
+      if (id[j] >= 0 && id[j] * bs <= q_last && id[j] * bs < T)
+        list[n++] = id[j];
+    range[0] = 0;
+    range[1] = n * bs - 1;
+  }
+  __device__ int key(int, int z, int t, const int* list, size_t& row) const {
+    const int pos = list[t / bs] * bs + t % bs;
+    if (pos >= T) return mma_tile::kNoKey;
+    row = ((size_t)(z / KVH) * T + pos) * KVH + z % KVH;
+    return pos;
+  }
+  // the mean of V column c over all nb * bs keys the query block lists
+  __device__ float v_mean(const __nv_bfloat16* v, int y, int z,
+                          int c) const {
+    const int* id = ids(y, z);
+    float sum = 0.f;
+    for (int jb = 0; jb < nb; ++jb) {
+      const int blk = id[jb] >= 0 ? id[jb] : -id[jb] - 1;
+      for (int t = 0; t < bs; ++t) {
+        const int pos = min(blk * bs + t, T - 1);
+        sum += __bfloat162float(
+            v[(((size_t)(z / KVH) * T + pos) * KVH + z % KVH) * dv + c]);
+      }
+    }
+    return sum * (1.f / (float)(nb * bs));
+  }
+};
+
+// the tensor-core body (bf16)
+template <int DQK, int DV>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
+                       void* ws, const Params& p, int B, int parts,
+                       cudaStream_t stream) {
+  const SelectedBlocks layout{p.bidx, p.q_start, p.S, p.T, p.H, p.KVH, p.G,
+                              p.bs, p.nb, DV, p.empty_mean, 0};
+  return mma_tile::launch_attention<DQK, DV>(q, k, v, out, ws, layout,
+                                             p.bs * p.G, p.S / p.bs,
+                                             B * p.KVH, parts, p.softcap,
+                                             p.scale, stream);
+}
+
+// by dtype: fp32 the SIMT body (64 rows a CTA when both widths are <= 128,
+// else 32: the register budget of the accumulator, the shared memory of the
+// fp32 tiles), bf16 the tensor-core tile
+template <int DQK, int DV>
+cudaError_t launch_dtype(int dtype, const void* q, const void* k,
+                         const void* v, void* out, void* ws, const Params& p,
+                         int B, int parts, cudaStream_t s) {
+  if (dtype == 0 && parts == 1)
+    return launch<DQK, DV, (DQK <= 128 && DV <= 128) ? 64 : 32>(q, k, v, out,
+                                                                p, B, s);
+  if (dtype == 1) return launch_mma<DQK, DV>(q, k, v, out, ws, p, B, parts, s);
   return cudaErrorInvalidValue;
 }
 
@@ -391,13 +464,17 @@ extern "C" {
 
 // K8.  q (B, S, H, dqk); k (B, T, KVH, dqk); v (B, T, KVH, dv); out (B, S,
 // H, dv); block_idx (B, S / bs, nb) int32; q_start (B,) int32; dtype: 0 =
-// float32, 1 = bfloat16; empty_mean 0/1.
+// float32, 1 = bfloat16; empty_mean 0/1.  bf16 splits each tile's keys into
+// `parts` (1..4) CTAs, with a workspace (fp32, parts > 1) of tiles x parts x
+// 64 x (dv + 2) floats, tiles = ceil(bs * H / KVH / 64) * (S / bs) * B *
+// KVH; fp32 takes parts = 1.
 int block_sparse_attention(int dtype, int dqk, int dv, const void* q,
                            const void* k, const void* v,
                            const void* block_idx, const void* q_start,
                            void* out, int B, int S, int T, int H, int KVH,
                            int block_size, int nb, int empty_mean,
-                           float softcap, float scale, void* stream) {
+                           float softcap, float scale, int parts,
+                           void* workspace, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || KVH <= 0 || H % KVH || block_size <= 0 ||
       S % block_size || nb <= 0 || nb > kMaxBlocks)
     return (int)cudaErrorInvalidValue;
@@ -405,9 +482,28 @@ int block_sparse_attention(int dtype, int dqk, int dv, const void* q,
                  static_cast<const int*>(q_start), S, T, H, KVH, H / KVH,
                  block_size, nb, empty_mean, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(dqk, dv, q, k, v, out, p, B, s);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(dqk, dv, q, k, v, out, p, B, s);
+  if (dqk == 64 && dv == 64)
+    return (int)launch_dtype<64, 64>(dtype, q, k, v, out, workspace, p, B,
+                                     parts, s);
+  if (dqk == 128 && dv == 128)
+    return (int)launch_dtype<128, 128>(dtype, q, k, v, out, workspace, p, B,
+                                       parts, s);
+  if (dqk == 192 && dv == 256)
+    return (int)launch_dtype<192, 256>(dtype, q, k, v, out, workspace, p, B,
+                                       parts, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Resources of K8's bf16 (tensor-core) body for (dqk, dv) (launches
+// nothing): out[5] = registers a thread, spill bytes a thread, shared
+// memory bytes a CTA, CTAs resident on one SM, packed query rows a CTA.
+int block_sparse_resources(int dqk, int dv, int* out) {
+  if (dqk == 64 && dv == 64)
+    return (int)mma_tile::resources<64, 64, SelectedBlocks>(out);
+  if (dqk == 128 && dv == 128)
+    return (int)mma_tile::resources<128, 128, SelectedBlocks>(out);
+  if (dqk == 192 && dv == 256)
+    return (int)mma_tile::resources<192, 256, SelectedBlocks>(out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,7 +11,9 @@ runs at import time: the CPU tests import every module without a compiler.
 
 ``ENTRIES`` lists every C entry point of every library with its argument
 types; ``cuda_entry(name)`` is the loaded function and ``LIBRARIES`` the
-sources ``build_all`` compiles.
+sources ``build_all`` compiles.  ``key_split`` sizes the key-range split of
+the bf16 tensor-core attention tile (``csrc/mma_tile.cuh``, K2 and K8) and
+allocates its workspace.
 """
 from __future__ import annotations
 
@@ -44,8 +46,14 @@ _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 ENTRIES = {
     "paged_decode_gqa": ("paged_attention",
                          [_I] * 3 + [_P] * 6 + [_I] * 5 + [_F, _F, _P]),
+    # K2: dtype, d, bs, q, k_pool, v_pool, tables, starts, out, B, KVH,
+    # SG, G, mb, window, softcap, scale, parts, workspace, stream
     "paged_prefill_gqa": ("paged_attention",
-                          [_I] * 3 + [_P] * 6 + [_I] * 6 + [_F, _F, _P]),
+                          [_I] * 3 + [_P] * 6 + [_I] * 6 + [_F, _F, _I, _P,
+                                                            _P]),
+    # K2's bf16 tile: d, bs -> registers, spill bytes, shared memory, CTAs
+    # an SM, rows a CTA
+    "paged_prefill_gqa_resources": ("paged_attention", [_I] * 2 + [_P]),
     "paged_decode_mla": ("paged_mla",
                          [_I] * 4 + [_P] * 7 + [_I] * 3 + [_F, _P]),
     "paged_prefill_mla": ("paged_mla",
@@ -62,10 +70,13 @@ ENTRIES = {
     "lightning_indexer": ("lightning_indexer",
                           [_I] * 2 + [_P] * 4 + [_I] * 4 + [_F, _P]),
     # K8: dtype, dqk, dv, q, k, v, block_idx, q_start, out, B, S, T, H,
-    # KVH, block_size, nb, empty_mean, softcap, scale, stream
+    # KVH, block_size, nb, empty_mean, softcap, scale, parts, workspace,
+    # stream
     "block_sparse_attention": ("block_sparse",
                                [_I] * 3 + [_P] * 6 + [_I] * 8
-                               + [_F, _F, _P]),
+                               + [_F, _F, _I, _P, _P]),
+    # K8's bf16 tile: dqk, dv -> as K2's
+    "block_sparse_resources": ("block_sparse", [_I] * 2 + [_P]),
     # K9: dtype, d, q, k, v, out, B, Sq, Sk, H, KVH, causal, window,
     # q_offset, softcap, scale, stream
     "flash_attention": ("flash_attention",
@@ -153,6 +164,49 @@ def cuda_entry(name: str):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def resources(query: str, *args: int) -> tuple:
+    """(registers a thread, spill bytes a thread, shared memory bytes a CTA,
+    CTAs resident on one SM, packed query rows a CTA) of the kernel that
+    the C entry point ``query`` describes for ``args``, as the CUDA runtime
+    reports them (cached: they do not change within a process)."""
+    out = (ctypes.c_int * 5)()
+    check_launch(query, cuda_entry(query)(*args, out))
+    return tuple(out)
+
+
+MAX_PARTS = 4   # key-range splits a tile of csrc/mma_tile.cuh takes
+
+
+def key_split(query: str, args: Sequence[int], rows: int, others: int,
+              dv: int, device: torch.device) -> tuple:
+    """How a launch of the bf16 tensor-core attention tile fills the card:
+    (parts, workspace).  ``rows`` packed query rows a (y, z) grid row,
+    ``others`` grid rows, so ceil(rows / rows a CTA) * others tiles.  Each
+    tile's key rounds are split over ``parts`` CTAs, as many as one wave of
+    every CTA slot of the card holds (the CTAs an SM and the rows a CTA from
+    the tile's resource query ``query`` for ``args``, times the SMs), at
+    most ``MAX_PARTS``.  With parts > 1 the parts' (m, l, acc) go to the
+    fp32 workspace returned here (tiles x parts x rows a CTA x (dv + 2)),
+    folded by the kernel's combine pass; with 1 it is None."""
+    parts, tiles, per_cta = _split(query, tuple(args), rows, others,
+                                   device.index)
+    if parts == 1:
+        return 1, None
+    return parts, torch.empty(tiles * parts * per_cta * (dv + 2),
+                              dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _split(query: str, args: tuple, rows: int, others: int,
+           index: int) -> tuple:
+    _, _, _, per_sm, per_cta = resources(query, *args)
+    tiles = -(-rows // per_cta) * others
+    slots = per_sm * torch.cuda.get_device_properties(index) \
+        .multi_processor_count
+    return max(1, min(MAX_PARTS, slots // tiles)), tiles, per_cta
 
 
 def check_launch(name: str, err: int) -> None:

@@ -56,6 +56,9 @@ def check_cuda_args(q, k_pool, v_pool, block_tables, positions) -> None:
         raise TypeError("paged attention: tables and positions must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged attention kernel needs contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("paged attention kernel needs 16-byte aligned "
+                         "tensors")
     d, bs = q.shape[-1], k_pool.shape[1]
     if d not in HEAD_DIMS:
         raise ValueError(f"paged attention kernel: head_dim {d} not in "

@@ -19,7 +19,11 @@ The CUDA kernels (``csrc/paged_attention.cu``, ``csrc/paged_mla.cu``,
 ``csrc/paged_indexer.cu``) tile those rows — the Pallas kernels keep the
 whole span resident in VMEM, which no Hopper shared memory holds — and each
 attention tile stops at the block of its own last query position; K6 scores
-every block up to the span's last position.
+every block up to the span's last position.  K2 chooses its body by dtype:
+bf16 (the serving path) runs the tensor-core tile of ``csrc/mma_tile.cuh``
+(mma.sync, K/V in a cp.async ring, each tile's causal key range split over
+up to 4 CTAs with a combine pass when that fills the card better); fp32
+runs the exact SIMT tile of ``csrc/gqa_tile.cuh``.
 
 Each wrapper runs the plain version on CPU tensors and launches the kernel
 on CUDA tensors, or raises; ``<wrapper>.launches`` counts kernel launches.
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.build import key_split
 from repro_torch.kernels.paged_attention.kernel import (
     NEG_INF, _DTYPE_CODE, _check_launch, check_cuda_args,
     check_cuda_indexer_args, check_cuda_mla_args, cuda_entry,
@@ -87,7 +92,11 @@ def paged_prefill_gqa(q: torch.Tensor, k_pool: torch.Tensor,
                       softcap: float = 0.0) -> torch.Tensor:
     """K2: q (B, KVH, S*G, d) packed span queries; k/v pools
     (nb, bs, KVH, d); tables (B, mb) int32; starts (B,) int32 ->
-    (B, KVH, S*G, d) in q.dtype."""
+    (B, KVH, S*G, d) in q.dtype.
+
+    On CUDA tensors bf16 launches the tensor-core tile (and, when its key
+    range is split, its combine pass: one launch counted), fp32 the SIMT
+    tile."""
     if q.device.type == "cpu":
         return paged_prefill_gqa_plain(q, k_pool, v_pool, block_tables,
                                        starts, groups=groups, window=window,
@@ -96,12 +105,17 @@ def paged_prefill_gqa(q: torch.Tensor, k_pool: torch.Tensor,
     B, KVH, SG, d = q.shape
     if SG % groups:
         raise ValueError(f"packed rows {SG} not a multiple of groups {groups}")
+    bs = k_pool.shape[1]
     out = torch.empty_like(q)
+    parts, ws = 1, None
+    if q.dtype == torch.bfloat16:
+        parts, ws = key_split("paged_prefill_gqa_resources", (d, bs), SG,
+                              KVH * B, d, q.device)
     err = cuda_entry("paged_prefill_gqa")(
-        _DTYPE_CODE[q.dtype], d, k_pool.shape[1], q.data_ptr(),
-        k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-        starts.data_ptr(), out.data_ptr(), B, KVH, SG, groups,
-        block_tables.shape[1], window, softcap, d ** -0.5,
+        _DTYPE_CODE[q.dtype], d, bs, q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), block_tables.data_ptr(), starts.data_ptr(),
+        out.data_ptr(), B, KVH, SG, groups, block_tables.shape[1], window,
+        softcap, d ** -0.5, parts, None if ws is None else ws.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _check_launch("paged_prefill_gqa", err)
     paged_prefill_gqa.launches += 1

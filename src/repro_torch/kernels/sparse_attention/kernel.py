@@ -33,13 +33,19 @@ needs that rule.
 The wrapper chooses by the tensors' device: on the CPU it runs the plain
 version, on a CUDA device it launches the kernel (``csrc/block_sparse.cu``,
 built by ``repro_torch.kernels.build``) or raises.  There is no fallback.
+The kernel's body is chosen by dtype: bf16 (the serving path) runs the
+tensor-core tile of ``csrc/mma_tile.cuh`` (mma.sync, K/V in a cp.async
+ring, each tile's selected keys split over up to 4 CTAs with a combine
+pass when that fills the card better); fp32 (training, the exact parity
+runs) runs the SIMT body of ``csrc/block_sparse.cu``.
 ``block_sparse_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODE, check_launch, cuda_entry
+from repro_torch.kernels.build import (DTYPE_CODE, check_launch, cuda_entry,
+                                      key_split)
 
 NEG_INF = -1e30
 MAX_BLOCKS = 64                          # nb the kernel takes (csrc)
@@ -132,7 +138,9 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors run ``block_sparse_attention_plain``; CUDA tensors launch
     the Hopper kernel on the current stream (one CTA per tile of packed
-    (token, head) rows of one query block, KV head and batch row)."""
+    (token, head) rows of one query block, KV head and batch row): bf16 the
+    tensor-core tile (and, when its keys are split, its combine pass: one
+    launch counted), fp32 the SIMT body."""
     if q.device.type == "cpu":
         return block_sparse_attention_plain(
             q, k, v, block_idx, q_start, block_size=block_size,
@@ -141,11 +149,17 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, H, dqk = q.shape
     T, KVH, dv = k.shape[1], k.shape[2], v.shape[-1]
     out = torch.empty((B, S, H, dv), dtype=q.dtype, device=q.device)
+    parts, ws = 1, None
+    if q.dtype == torch.bfloat16:
+        parts, ws = key_split("block_sparse_resources", (dqk, dv),
+                              block_size * (H // KVH),
+                              (S // block_size) * B * KVH, dv, q.device)
     err = cuda_entry("block_sparse_attention")(
         DTYPE_CODE[q.dtype], dqk, dv, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), block_idx.data_ptr(), q_start.data_ptr(),
         out.data_ptr(), B, S, T, H, KVH, block_size, block_idx.shape[2],
-        int(empty_mean), softcap, dqk ** -0.5,
+        int(empty_mean), softcap, dqk ** -0.5, parts,
+        None if ws is None else ws.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("block_sparse_attention", err)
     block_sparse_attention.launches += 1

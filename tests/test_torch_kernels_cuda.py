@@ -1,6 +1,14 @@
 """PyTorch port, the training path's CUDA kernels (K7, K9, K10), the
-block selector's (K8) and the Mamba-1 selective scan (K11) against their
-plain versions on the card.
+block selector's (K8), the GQA span prefill (K2) and the Mamba-1 selective
+scan (K11) against their plain versions on the card.
+
+K2 and K8 run a bf16 body on the tensor cores (``csrc/mma_tile.cuh``) and
+an fp32 body on the CUDA cores: both are held over every case their
+dispatch takes (head dims, block sizes, groups, window, softcap, ragged
+rows, skipped ids, both empty-row rules, and grids that the wrapper splits
+into 1, 2 or 4 key-range parts), at the bf16 2e-2 and fp32 1e-4 bounds
+scaled by min(1, max|plain|), as ``chip_smoke.py`` holds them: an output
+row over ~1000 keys averages them, so its magnitude is well under 1.
 
 Every case is ``cuda``-marked and skips itself without a GPU.  This file
 imports no JAX, so it runs on the machine with the card, where JAX is not
@@ -19,6 +27,7 @@ from repro_torch.kernels.flash_attention import kernel as K9
 from repro_torch.kernels.lightning_indexer import kernel as K7
 from repro_torch.kernels.mamba_scan import kernel as K11
 from repro_torch.kernels.mamba_scan import ref as K11ref
+from repro_torch.kernels.paged_attention import prefill as K2
 from repro_torch.kernels.sparse_attention import kernel as K8
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
@@ -83,35 +92,112 @@ def test_chunked_ce_matches_plain(dtype):
         assert float(got[1]) == float(want[1])
 
 
+def _hold(got, want, tol):
+    """Finite, and max abs error <= tol * min(1, max|plain|)."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    scale = min(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert err <= tol * scale, f"max abs err {err} > {tol * scale}"
+
+
+def _k2_case(rng, dtype, tol, B, KVH, G, d, bs, S, starts, mb, window=0,
+             softcap=0.0, trash_row=False):
+    """K2 over shuffled disjoint tables (row 0 all trash with
+    ``trash_row``; unused entries point at the trash block)."""
+    live = [(s + S - 1) // bs + 1 for s in starts]
+    nb = sum(live) + 1
+    kp = _cuda(rng, nb, bs, KVH, d, dtype=dtype)
+    vp = _cuda(rng, nb, bs, KVH, d, dtype=dtype)
+    ids = rng.permutation(nb - 1)
+    t = np.full((B, mb), nb - 1, np.int32)
+    at = 0
+    for b, n in enumerate(live):
+        if not (trash_row and b == 0):
+            t[b, :n] = ids[at:at + n]
+            at += n
+    tables = torch.from_numpy(t).cuda()
+    st = torch.tensor(starts, dtype=torch.int32).cuda()
+    q = _cuda(rng, B, KVH, S * G, d, dtype=dtype)
+    kw = dict(groups=G, window=window, softcap=softcap)
+    got = K2.paged_prefill_gqa(q, kp, vp, tables, st, **kw)
+    want = K2.paged_prefill_gqa_plain(q, kp, vp, tables, st, **kw)
+    torch.cuda.synchronize()
+    _hold(got, want, tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-def test_block_sparse_attention_matches_plain(dtype, tol):
-    """K8 at the smoke shape (blocks of 16, 4 a query block, d 64), Yi-6B's
-    (H 32 / KVH 4, d 128, blocks of 128) and GLM-5's MLA (H 64, dqk 192,
-    dv 256): queries from per-row starts, skipped ids (one query block with
-    none attended), softcap 50, both rules for a query with no key."""
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_paged_prefill_gqa_matches_plain(dtype, tol, d, bs):
+    """K2 at every (head dim, block size) it instantiates, G 1 / 3 / 8 with
+    S*G of 5, 63 and 296 (not a multiple of 16 or 64): a trash row, a span
+    starting mid-block, one at a block edge, one ending at the table's last
+    position."""
+    _need_gpu()
+    rng = np.random.default_rng(6)
+    mb = 16
+    for G, S in ((1, 5), (3, 21), (8, 37)):
+        _k2_case(rng, dtype, tol, 4, 2, G, d, bs, S,
+                 [0, bs + bs // 2, 2 * bs, mb * bs - S], mb, trash_row=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", [
+    # window and softcap (gemma2-like and narrower)
+    dict(B=2, KVH=4, G=2, d=256, bs=16, S=37, starts=[3, 100], mb=12,
+         window=64, softcap=50.0),
+    dict(B=2, KVH=4, G=8, d=128, bs=8, S=50, starts=[0, 60], mb=16,
+         window=40, softcap=30.0),
+    # Yi-6B's serve span (128 tiles: 2 parts), a grid of 512 tiles (no
+    # split) and one of 8 tiles over a long prefix (4 parts)
+    dict(B=1, KVH=4, G=8, d=128, bs=16, S=256, starts=[768], mb=64),
+    dict(B=2, KVH=8, G=8, d=128, bs=16, S=256, starts=[0, 500], mb=64),
+    dict(B=1, KVH=4, G=8, d=128, bs=16, S=16, starts=[4000], mb=252),
+])
+def test_paged_prefill_gqa_windows_and_splits(dtype, tol, case):
+    _need_gpu()
+    _k2_case(np.random.default_rng(7), dtype, tol, **case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("dqk,dv", [(64, 64), (128, 128), (192, 256)])
+@pytest.mark.parametrize("B,S,H,KVH,bs,nb,T", [
+    (2, 64, 4, 2, 16, 4, 256),         # the smoke shape
+    (1, 256, 64, 64, 128, 8, 2048),    # GLM-5's MLA heads: G 1
+    (2, 64, 8, 2, 16, 64, 1030),       # nb 64, T not a multiple of bs
+    (1, 256, 32, 4, 128, 16, 2125),    # Yi-6B's serve blocks, ragged T
+    (2, 256, 32, 8, 128, 16, 4096),    # 256 tiles: no key-range split
+])
+def test_block_sparse_attention_matches_plain(dtype, tol, dqk, dv, B, S, H,
+                                              KVH, bs, nb, T):
+    """K8 at every (dqk, dv) it instantiates, block sizes 16 and 128 and
+    grids its bf16 wrapper splits into 1, 2 or 4 parts: a third of the ids
+    skipped, one query block with none attended, queries from per-row
+    starts, softcap 0 and 50, both rules for a query that sees no key."""
     _need_gpu()
     rng = np.random.default_rng(3)
-    for B, S, H, KVH, dqk, dv, bs, nb, T in (
-            (2, 64, 4, 2, 64, 64, 16, 4, 256),
-            (1, 256, 32, 4, 128, 128, 128, 8, 2048),
-            (1, 256, 64, 64, 192, 256, 128, 8, 2048)):
-        q = _cuda(rng, B, S, H, dqk, dtype=dtype)
-        k = _cuda(rng, B, T, KVH, dqk, dtype=dtype)
-        v = _cuda(rng, B, T, KVH, dv, dtype=dtype)
-        ids = np.stack([[rng.permutation(T // bs)[:nb]
-                         for _ in range(S // bs)] for _ in range(B)])
-        ids = np.where(rng.random(ids.shape) < 0.3, -ids - 1, ids)
-        ids[0, 0] = -np.abs(ids[0, 0]) - 1
-        ids = torch.from_numpy(ids.astype(np.int32)).cuda()
-        start = torch.tensor([T - S - 3 * b for b in range(B)],
-                             dtype=torch.int32).cuda()
+    q = _cuda(rng, B, S, H, dqk, dtype=dtype)
+    k = _cuda(rng, B, T, KVH, dqk, dtype=dtype)
+    v = _cuda(rng, B, T, KVH, dv, dtype=dtype)
+    blocks = -(-T // bs)
+    ids = np.stack([[rng.permutation(blocks)[:nb] for _ in range(S // bs)]
+                    for _ in range(B)])
+    ids = np.where(rng.random(ids.shape) < 0.3, -ids - 1, ids)
+    ids[0, 0] = -np.abs(ids[0, 0]) - 1
+    ids = torch.from_numpy(ids.astype(np.int32)).cuda()
+    start = torch.tensor([T - S - 3 * b for b in range(B)],
+                         dtype=torch.int32).cuda()
+    for softcap in (0.0, 50.0):
         for empty_mean in (True, False):
-            kw = dict(block_size=bs, softcap=50.0, empty_mean=empty_mean)
+            kw = dict(block_size=bs, softcap=softcap, empty_mean=empty_mean)
             got = K8.block_sparse_attention(q, k, v, ids, start, **kw)
             want = K8.block_sparse_attention_plain(q, k, v, ids, start, **kw)
             torch.cuda.synchronize()
-            assert (got.float() - want.float()).abs().max().item() <= tol
+            _hold(got, want, tol)
 
 
 def _scan_inputs(rng, B, S, E, N, dtype, h0_dtype):
