@@ -30,11 +30,18 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            starting mid-block, shuffled tables; then K3 (absorbed-MLA
            decode) and K4 (MLA span prefill) the same way at GLM-5 shapes
            (H 64, kv_lora 512, rope 64) and at H 16, with fp32 q_lat and
-           the pools and q_rope in fp32 or bf16; then K5 (indexer decode
+           the pools and q_rope in fp32 or bf16, and K4 (bf16: its
+           tensor-core tile; fp32: its SIMT body) over block sizes 8, 16
+           and 32 with a trash row, spans from position 1, across a block
+           edge, at one, mid-block and ending at the table's last
+           position, S 37 and verify spans of S 4 (the bf16 wrapper splits
+           their key range into 4 parts); then K5 (indexer decode
            scores) and K6 (span scores) at Yi-6B's (Hi 16, Di 64) and
            GLM-5's (Hi 32, Di 128) indexer shapes, where the dead blocks
-           (NEG_INF) must also match; then K9 (d 64/128/256; causal,
-           window + softcap, q_offset, non-causal; S*G and Sk ragged), K7
+           (NEG_INF) must also match; then K9 (fp32: its 3xTF32 tensor-
+           core tile; bf16: its SIMT body; d 64/128/256 each with causal,
+           window, softcap, q_offset and non-causal cases; S*G and Sk
+           ragged), K7
            (Hi x Di 16x64, 32x128, 2x16; S and T ragged) and K10 (Tk and V
            ragged, softcap 0 and 30, a partial mask; its two sums held to
            1e-5 relative), and the gradients through their autograd
@@ -53,11 +60,14 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            of their magnitude), and the gradients through its autograd Function on both routes;
   timing   K3/K4's and K5/K6's registers, spills, shared memory and CTAs
            resident on an SM, as the CUDA runtime reports them, and those
-           of the bf16 tensor-core tile K2 and K8 share (csrc/mma_tile.cuh)
-           with the key-range split the wrapper picks at the serve shapes,
-           and the HMMA instructions of each of the tile's instantiations
-           in the built libraries (cuobjdump -sass; fails where one has
-           none); then
+           of the tensor-core tiles: the bf16 one K2 and K8 share
+           (csrc/mma_tile.cuh) and K4's bf16 MLA tile (csrc/paged_mla.cu),
+           with the key-range split the wrapper picks at the serve shapes
+           (K4: its chunk and its verify span), and K9's fp32 3xTF32 tile
+           (csrc/tf32_tile.cuh) at every head dim; and the HMMA
+           instructions of each of the tiles' instantiations in the built
+           libraries (cuobjdump -sass; K9's must all be HMMA .TF32; fails
+           where one has none); then
            each kernel, its plain version and one PyTorch library call
            (scaled_dot_product_attention over the KV gathered and its heads
            repeated once, before the timed loop; timed here only, the port
@@ -66,7 +76,9 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            TFLOP/s, whichever is larger); at these shapes each kernel is
            also held against its plain version, in bf16 and in fp32, with
            the tolerances above scaled by min(1, max|plain|); K3 and K4
-           at GLM-5's serve shapes (the library call there is SDPA over
+           at GLM-5's serve shapes, K4 at a prefill chunk and at the
+           verify span of a spec-3 round over the decode batch (B 8, S 4;
+           the library call there is SDPA over
            q = [q_lat | q_rope], k = [c | kr] and v = c, the latent
            gathered and expanded to the 64 heads before the timed loop);
            K5 at a decode step and K6 at a 256-token span ending at 6143
@@ -76,16 +88,19 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            kernel's and from the plain scores compared (they may differ
            only at near-ties of the 2048th score; their count is printed);
            K9, K10 and K7 at the training runs' shapes in fp32 (bound by
-           67 TFLOP/s, fp32 on the CUDA cores: TF32 is off), K9 beside
-           scaled_dot_product_attention(is_causal=True); K10 there on
+           67 TFLOP/s, fp32 on the CUDA cores: TF32 is off; K9 by its
+           three TF32 products over 494.7 TFLOP/s, its CUDA-core bound
+           logged beside), K9 beside scaled_dot_product_attention(
+           is_causal=True), whose kernel the profiler names; K10 there on
            unit-scale logits, as the model's, so that the part of its sum
            that depends on h.W is far above the 1e-5 relative tolerance;
            K8 at a 256-token span ending at 6144 of the block-selector
            serve (bf16, and fp32 on its own line) and at the block training
            run's last 256-query chunk against 4096 keys (fp32), beside SDPA
            over each query block's selected K/V gathered before the timed
-           loop; K2's fp32 body at its serve shape on its own line; K2's
-           and K8's lines carry, beside the wrapper's CUDA-event time, the
+           loop; K2's and K4's fp32 bodies at their serve shapes on lines
+           of their own; K2's, K4's, K8's and K9's lines carry, beside the
+           wrapper's CUDA-event time, the
            device time of the same calls replayed from a CUDA graph (the
            wrapper's host overhead taken out) and the TFLOP/s that gives;
            K11's model
@@ -158,10 +173,11 @@ Phases, each printing lines of numbers (any failure exits non-zero):
   profile  one training step of each training run cut into its layers
            (forward, loss, backward, Muon; synchronised between them) and
            one traced with torch.profiler (busy share, top kernels, K7/K8/
-           K9/K10/K11 device time; the block-selector and falcon-mamba runs
-           too); 8 static-engine decode steps of the full-depth
-           falcon-mamba at 8 rows after 512-token prompts, traced (busy
-           share, K11 device time a call); then 8
+           K9/K10/K11 device time, found by kernel name: a kernel the step
+           launched that no name matches fails the run; the block-selector
+           and falcon-mamba runs too); 8 static-engine decode steps of the
+           full-depth falcon-mamba at 8 rows after 512-token prompts,
+           traced (busy share, K11 device time a call); then 8
            decode-only steps of each served model
            at 8 rows, timed and
            then traced with torch.profiler: device busy share, top kernels
@@ -188,7 +204,8 @@ SRC = ROOT / "src"
 SEED = 0
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, SXM data sheet
-H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, tensor/FP32
+# dense: bf16 and TF32 on the tensor cores, fp32 on the CUDA cores
+H100_FLOPS = {"bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
@@ -444,6 +461,62 @@ def check_mla_kernels(device="cuda") -> dict:
                 _log("kernels", shape=f"mla_h{H}", block_size=bs,
                      dtype=str(dtype).split(".")[1], k3_max_abs_err=err,
                      k4_max_abs_err=err2, tol=TOL[str(dtype).split(".")[1]])
+    worst["paged_prefill_mla"] = max(worst["paged_prefill_mla"],
+                                     check_mla_spans(device))
+    return worst
+
+
+def check_mla_spans(device="cuda") -> float:
+    """K4 (bf16: the tensor-core tile; fp32: the SIMT body) against its
+    plain version over every block size it takes, at H 64 and 16: 8 rows
+    of which row 0 is a trash row (no block of its own), spans starting at
+    position 1, crossing a block edge, at one, mid-block, after 300 tokens
+    and ending at the table's last position; S 37 (ragged tiles: 37 x 64
+    and 37 x 16 rows) and the verify span of a speculative round (S 4:
+    32 or 8 tiles, which the bf16 wrapper splits into 4 key-range parts),
+    and one long row (S 37 at 1003: 37 tiles, 3 parts).  Returns the max
+    error."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import prefill as K4
+    rng = np.random.default_rng(SEED + 1)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    L, R, scale = 512, 64, 192 ** -0.5
+    worst = 0.0
+    for H in (64, 16):
+        for bs in (8, 16, 32):
+            cases = [(S, [0, 1, bs - 2, bs, bs + bs // 2, 3 * bs + 1, 300,
+                          48 * bs - S]) for S in (37, 4)] + [(37, [1003])]
+            for S, starts in cases:
+                B = len(starts)
+                mb = (max(starts) + S - 1) // bs + 1
+                live = [0] + [(s + S - 1) // bs + 1 for s in starts[1:]] \
+                    if B > 1 else [mb]
+                trash = sum(live)
+                tables = torch.from_numpy(
+                    _tables(rng, B, mb, trash, live)).to(device)
+                st = torch.tensor(starts, dtype=torch.int32, device=device)
+                parts = build.key_split("paged_prefill_mla_resources",
+                                        (L, R), S * H, B, L,
+                                        torch.device(device))[0]
+                for dtype in (torch.float32, torch.bfloat16):
+                    c, kr = _latent_pool(gen, trash + 1, bs, L, R, dtype,
+                                         device)
+                    ql, qr = _mla_queries(gen, B, S * H, L, R, dtype, device)
+                    err = _hold(f"K4 H={H} bs={bs} S={S} B={B}",
+                                K4.paged_prefill_mla(ql, qr, c, kr, tables,
+                                                     st, heads=H,
+                                                     scale=scale),
+                                K4.paged_prefill_mla_plain(
+                                    ql, qr, c, kr, tables, st, heads=H,
+                                    scale=scale), dtype)
+                    worst = max(worst, err)
+                    _log("kernels", kernel="paged_prefill_mla", heads=H,
+                         block_size=bs, S=S, B=B,
+                         parts=parts if dtype == torch.bfloat16 else 1,
+                         dtype=str(dtype).split(".")[1], max_abs_err=err,
+                         tol=TOL[str(dtype).split(".")[1]])
     return worst
 
 
@@ -601,17 +674,19 @@ def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
 
 def _bounds(out: dict) -> None:
     """Each kernel's least time on the card (bytes over 3.35 TB/s or flops
-    over 989 TFLOP/s, whichever is larger), logged with its times."""
+    over 989 TFLOP/s, whichever is larger), logged with its times and the
+    share of the bound its device time reaches."""
     for name, r in out.items():
         t_bytes = r["bytes"] / H100_BYTES_PER_S * 1e3
         t_ops = r["flops"] / H100_FLOPS["bfloat16"] * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        dev = r.get("device_ms", r["ms"])
         _log("timing", kernel=name, shape=repr(r["shape"]), ms=r["ms"],
              device_ms=r.get("device_ms"), plain_ms=r["plain_ms"],
              library_ms=r["library_ms"], bound_ms=r["bound_ms"],
-             bound_by=r["bound_by"],
-             tflops=r["flops"] / r.get("device_ms", r["ms"]) / 1e9,
+             bound_by=r["bound_by"], tflops=r["flops"] / dev / 1e9,
+             bound_share=r["bound_ms"] / dev,
              max_abs_err=r["max_abs_err"],
              max_abs_err_fp32=r["max_abs_err_fp32"], dtype="bfloat16")
 
@@ -630,11 +705,16 @@ def _latent_views(c, kr, tables, T, heads):
 
 
 def time_mla_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
-                     device="cuda", reps=64, layers=16) -> dict:
-    """K3 and K4 at the GLM-5 serve phase's shapes, each launch on another
-    layer of a ``layers``-deep layer-major latent pool (604 MB at 16
-    layers of 2049 blocks: larger than the 50 MB L2 cache, as a deeper
-    model's pool would be), so the latent comes from device memory."""
+                     spec=3, device="cuda", reps=64, layers=16) -> dict:
+    """K3 and K4 at the GLM-5 serve phase's shapes (K4 at a prefill chunk
+    and, as ``paged_prefill_mla_verify``, at the verify span of a
+    ``spec``-deep speculative round over the decode batch), each launch on
+    another layer of a ``layers``-deep layer-major latent pool (604 MB at
+    16 layers of 2049 blocks: larger than the 50 MB L2 cache, as a deeper
+    model's pool would be), so the latent comes from device memory.  K4's
+    bf16 lines carry the wrapper's CUDA-event time and the device time of
+    the same calls replayed from a CUDA graph; its fp32 body is timed at
+    the chunk on a line of its own."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -707,6 +787,9 @@ def time_mla_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
     ms = cuda_ms(lambda: K4.paged_prefill_mla(
         ql, qr, c, kr, per_layer[next(it) % layers], st, heads=H,
         scale=scale), reps // 4)
+    device_ms = graph_ms(lambda: K4.paged_prefill_mla(
+        ql, qr, c, kr, per_layer[next(it) % layers], st, heads=H,
+        scale=scale), reps // 4)
     plain_ms = cuda_ms(lambda: K4.paged_prefill_mla_plain(
         ql, qr, c, kr, per_layer[next(it) % layers], st, heads=H,
         scale=scale), 4)
@@ -736,13 +819,91 @@ def time_mla_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
     nbytes = T * (Lr + R) * item + ql.numel() * 4 + qr.numel() * item \
         + S * H * Lr * 4 + tables.numel() * 4 + 4
     flops = H * keys * (2 * (Lr + R) + 2 * Lr)
+    # the fp32 body (the exact parity route) at the same shape, layer 0's
+    # blocks only
+    fp32_ms = cuda_ms(lambda: K4.paged_prefill_mla(
+        ql, qr32, c32, kr32, tables, st, heads=H, scale=scale), reps // 4)
+    fp32_dev = graph_ms(lambda: K4.paged_prefill_mla(
+        ql, qr32, c32, kr32, tables, st, heads=H, scale=scale), reps // 8)
+    b32 = nbytes + T * (Lr + R) * 2 + qr.numel() * 2   # fp32 latent, q_rope
+    t_bytes, t_ops = b32 / H100_BYTES_PER_S * 1e3, \
+        flops / H100_FLOPS["float32"] * 1e3
+    _log("timing", kernel="paged_prefill_mla", dtype="float32",
+         body="paged_mla_kernel (SIMT)",
+         shape=repr(f"B=1 S={S} start={start}"),
+         ms=fp32_ms, device_ms=fp32_dev, bound_ms=max(t_bytes, t_ops),
+         bound_by="bytes" if t_bytes >= t_ops else "operations",
+         tflops=flops / fp32_dev / 1e9, max_abs_err=err32)
     out["paged_prefill_mla"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
-        max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
         shape=f"B=1 H={H} S={S} start={start}")
+    out["paged_prefill_mla_verify"] = _time_mla_verify(
+        c, kr, per_layer, stride, lens, mb, spec, H, Lr, R, scale, rng, gen,
+        it, reps, device)
     del c, kr, c32, kr32
     _bounds(out)
     return out
+
+
+def _time_mla_verify(c, kr, per_layer, stride, lens, mb, spec, H, Lr, R,
+                     scale, rng, gen, it, reps, device) -> dict:
+    """K4 at a speculative round's verify span: every row of a decode
+    batch (live lengths ``lens``) verifies [pending, drafts], S = spec + 1
+    tokens at its own start, 32 tiles at GLM-5's heads (B 8, S 4): the
+    wrapper splits each tile's key range over parts CTAs.  The library call
+    is SDPA over each row's latent gathered to the longest row with a
+    per-row causal mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import prefill as K4
+    dtype, item = torch.bfloat16, 2
+    bs = c.shape[1]
+    B, S = len(lens), spec + 1
+    layers = len(per_layer)
+    live = [(int(n) + S - 1) // bs + 1 for n in lens]
+    tables = torch.from_numpy(_tables(rng, B, mb, stride - 1, live)).to(device)
+    layered = [tables + g * stride for g in range(layers)]
+    st = torch.from_numpy(lens.astype("int32")).to(device)
+    ql, qr = _mla_queries(gen, B, S * H, Lr, R, dtype, device)
+
+    def call(t):
+        return K4.paged_prefill_mla(ql, qr, c, kr, t, st, heads=H,
+                                    scale=scale)
+    ms = cuda_ms(lambda: call(layered[next(it) % layers]), reps)
+    device_ms = graph_ms(lambda: call(layered[next(it) % layers]), reps // 2)
+    plain_ms = cuda_ms(lambda: K4.paged_prefill_mla_plain(
+        ql, qr, c, kr, layered[next(it) % layers], st, heads=H, scale=scale),
+        4)
+    T = int(lens.max()) + S
+    views = [_latent_views(c, kr, t, T, H) for t in layered[:2]]
+    qpos = st[:, None].long() + torch.arange(S, device=device)[None]
+    mask = (torch.arange(T, device=device)[None, None, :]
+            <= qpos[..., None])[:, None]                     # (B, 1, S, T)
+    qs = torch.cat([ql.to(dtype), qr], dim=-1).reshape(B, S, H, Lr + R) \
+        .transpose(1, 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, *views[next(it) % 2], attn_mask=mask, scale=scale), reps)
+    del views, qs
+    _free()
+    err = _hold("K4 verify-shape", call(tables),
+                K4.paged_prefill_mla_plain(ql, qr, c, kr, tables, st,
+                                           heads=H, scale=scale), dtype)
+    c32, kr32, qr32 = c[:stride].float(), kr[:stride].float(), qr.float()
+    err32 = _hold("K4 verify-shape",
+                  K4.paged_prefill_mla(ql, qr32, c32, kr32, tables, st,
+                                       heads=H, scale=scale),
+                  K4.paged_prefill_mla_plain(ql, qr32, c32, kr32, tables,
+                                             st, heads=H, scale=scale),
+                  torch.float32)
+    keys = int(sum(int(n) + i + 1 for n in lens for i in range(S)))
+    toks = int(sum(int(n) + S for n in lens))
+    nbytes = toks * (Lr + R) * item + ql.numel() * 4 + qr.numel() * item \
+        + ql.numel() * 4 + tables.numel() * 4 + B * 4
+    return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, max_abs_err=err, max_abs_err_fp32=err32,
+                bytes=nbytes, flops=H * keys * (2 * (Lr + R) + 2 * Lr),
+                shape=f"B={B} H={H} S={S} lens={lens.tolist()}")
 
 
 def mla_resources(cfg, batch) -> None:
@@ -767,15 +928,21 @@ def mla_resources(cfg, batch) -> None:
              decode_ctas=batch * -(-cfg.num_heads // rows), sms=sms)
 
 
-def tile_resources(gqa_cfg, block_cfg, span) -> None:
-    """The bf16 tensor-core tile of K2 and K8 (csrc/mma_tile.cuh) at the
-    serve phase's shapes (``gqa_cfg``'s heads over blocks of 16, and
-    ``block_cfg``'s over its DSA blocks, spans of ``span`` tokens):
+def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
+                   train_cfg) -> None:
+    """The tensor-core attention tiles at the serve and training shapes:
+    the bf16 tile of K2 and K8 (csrc/mma_tile.cuh; ``gqa_cfg``'s heads over
+    blocks of 16, and ``block_cfg``'s over its DSA blocks, spans of
+    ``span`` tokens), K4's bf16 MLA tile (csrc/paged_mla.cu; ``mla_cfg``'s
+    heads at a ``span``-token chunk and at a ``spec``-deep verify span of
+    ``batch`` rows) and K9's fp32 3xTF32 tile (csrc/tf32_tile.cuh; every
+    head dim, the grid of ``train_cfg``'s layer at batch 2 x 2048):
     registers, spills, shared memory and CTAs resident on one SM as the CUDA
-    runtime reports them, the rows a CTA and the key-range parts the wrapper
-    picks; then the HMMA (tensor-core) instructions of every instantiation
-    of the tile in the built libraries, from ``cuobjdump -sass`` (it fails
-    where an instantiation has none; where the tool is missing it says so)."""
+    runtime reports them, the rows a CTA and the key-range parts the
+    wrapper picks; then the HMMA (tensor-core) instructions of every
+    instantiation of the tiles in the built libraries, from ``cuobjdump
+    -sass`` (K9's must be HMMA .TF32; it fails where an instantiation has
+    none; where the tool is missing it says so)."""
     import re
     import shutil
     import torch
@@ -785,26 +952,46 @@ def tile_resources(gqa_cfg, block_cfg, span) -> None:
     d, kvh = gqa_cfg.head_dim, gqa_cfg.num_kv_heads
     bs = block_cfg.dsa.block_size
     dk = block_cfg.head_dim
-    for kernel, query, args, rows, others, dv in (
-            ("paged_prefill_gqa", "paged_prefill_gqa_resources", (d, 16),
-             span * (gqa_cfg.num_heads // kvh), kvh, d),
-            ("block_sparse_attention", "block_sparse_resources", (dk, dk),
-             bs * (block_cfg.num_heads // block_cfg.num_kv_heads),
-             span // bs * block_cfg.num_kv_heads, dk)):
+    H, L, R = mla_cfg.num_heads, mla_cfg.mla.kv_lora_dim, \
+        mla_cfg.mla.qk_rope_dim
+    cases = [("paged_prefill_gqa", "mma_tile", "paged_prefill_gqa_resources",
+              (d, 16), span * (gqa_cfg.num_heads // kvh), kvh, d, "serve"),
+             ("block_sparse_attention", "mma_tile", "block_sparse_resources",
+              (dk, dk), bs * (block_cfg.num_heads // block_cfg.num_kv_heads),
+              span // bs * block_cfg.num_kv_heads, dk, "serve"),
+             ("paged_prefill_mla", "mla_span_kernel",
+              "paged_prefill_mla_resources", (L, R), span * H, 1, L, "serve"),
+             ("paged_prefill_mla", "mla_span_kernel",
+              "paged_prefill_mla_resources", (L, R), (spec + 1) * H, batch,
+              L, "verify")]
+    for kernel, body, query, args, rows, others, dv, at in cases:
         regs, spill, smem, ctas, per_cta = build.resources(query, *args)
         parts = build.key_split(query, args, rows, others, dv, dev)[0]
-        _log("resources", kernel=kernel, dtype="bfloat16",
-             body="mma_tile", instance="x".join(map(str, args)),
-             registers=regs,
+        _log("resources", kernel=kernel, dtype="bfloat16", body=body,
+             instance="x".join(map(str, args)), shape=at, registers=regs,
              spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
-             rows_per_cta=per_cta, serve_tiles=-(-rows // per_cta) * others,
+             rows_per_cta=per_cta, tiles=-(-rows // per_cta) * others,
              parts=parts, sms=sms)
+    G = train_cfg.num_heads // train_cfg.num_kv_heads
+    for hd in (64, 128, 256):
+        regs, spill, smem, ctas, per_cta = build.resources(
+            "flash_attention_resources", hd)
+        _log("resources", kernel="flash_attention", dtype="float32",
+             body="tf32_tile (3xTF32)", instance=hd, registers=regs,
+             spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
+             rows_per_cta=per_cta,
+             train_tiles=-(-2048 * G // per_cta) * train_cfg.num_kv_heads * 2
+             if hd == train_cfg.head_dim else None, sms=sms)
     tool = shutil.which("cuobjdump") or str(Path(build.nvcc()).parent
                                             / "cuobjdump")
     if not Path(tool).exists():
         _log("sass", cuobjdump="missing")
         return
-    for lib in ("paged_attention", "block_sparse"):
+    # (library, the parts of a name that mark the tile's kernels)
+    tile = ("mma_tile", "attention_kernel")
+    for lib, marks in (("paged_attention", tile), ("block_sparse", tile),
+                       ("paged_mla", ("mla_span_kernel",)),
+                       ("flash_attention", ("tf32_tile", "attention_kernel"))):
         sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
@@ -813,19 +1000,27 @@ def tile_resources(gqa_cfg, block_cfg, span) -> None:
             found = re.search(r"Function : (\S+)", line)
             if found:
                 name = found.group(1)
-                if "mma_tile" in name and "attention_kernel" in name:
-                    counts[name] = 0
+                if all(m in name for m in marks):
+                    counts[name] = [0, 0]
             elif name in counts and "HMMA" in line:
-                counts[name] += 1
-        for name, n in counts.items():
+                counts[name][0] += 1
+                counts[name][1] += ".TF32" in line
+        for name, (n, tf32) in counts.items():
             dims = re.search(r"attention_kernelILi(\d+)ELi(\d+)E", name)
             page = re.search(r"PagedSpanILi(\d+)E", name)
-            label = (f"attention_kernel<{dims[1]},{dims[2]},"
-                     + (f"PagedSpan<{page[1]}>>" if page
-                        else "SelectedBlocks>"))
-            _log("sass", library=lib, kernel=label, hmma=n)
-            if n == 0:
-                raise AssertionError(f"{lib} {label}: no HMMA instruction")
+            if lib == "paged_mla":
+                label = "mla_span_kernel"
+            elif lib == "flash_attention":
+                label = "tf32_tile::attention_kernel<" + re.search(
+                    r"attention_kernelILi(\d+)E", name)[1] + ",DenseKV>"
+            else:
+                label = (f"attention_kernel<{dims[1]},{dims[2]},"
+                         + (f"PagedSpan<{page[1]}>>" if page
+                            else "SelectedBlocks>"))
+            _log("sass", library=lib, kernel=label, hmma=n, hmma_tf32=tf32)
+            if n == 0 or (lib == "flash_attention" and tf32 != n):
+                raise AssertionError(f"{lib} {label}: {n} HMMA instructions, "
+                                     f"{tf32} of them .TF32")
         if not counts:
             raise AssertionError(f"{lib}: no tensor-core tile in its SASS")
 
@@ -1816,13 +2011,20 @@ def check_train_kernels(device="cuda") -> dict:
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        # K9: S*G not a multiple of the row tile, Sk ragged, d 64/128/256,
-        # causal / window + softcap / q_offset with Sq < Sk / non-causal
+        # K9 (fp32: the 3xTF32 tile; bf16: the SIMT body): S*G not a
+        # multiple of the row tile, Sk ragged, d 64/128/256, causal / window
+        # + softcap / q_offset with Sq < Sk / non-causal, each head dim with
+        # each option
         cases = [(64, 197, 197, 8, 2, dict()),
                  (128, 200, 200, 32, 4, dict(window=64, softcap=50.0)),
                  (256, 131, 131, 8, 4, dict(window=40, softcap=30.0)),
                  (128, 100, 333, 8, 2, dict(q_offset=233)),
-                 (64, 70, 333, 4, 4, dict(causal=False))]
+                 (64, 70, 333, 4, 4, dict(causal=False)),
+                 (256, 100, 333, 8, 2, dict(q_offset=233, softcap=30.0)),
+                 (64, 150, 150, 8, 8, dict(window=32, softcap=20.0)),
+                 (64, 90, 301, 6, 2, dict(q_offset=211, window=48)),
+                 (128, 333, 333, 4, 1, dict()),
+                 (256, 70, 333, 4, 4, dict(causal=False, window=50))]
         for d, Sq, Sk, H, KVH, kw in cases:
             q, k, v = rnd(2, Sq, H, d, dtype=dtype), \
                 rnd(2, Sk, KVH, d, dtype=dtype), rnd(2, Sk, KVH, d, dtype=dtype)
@@ -1902,13 +2104,22 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
     vs = v.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
     out["flash_attention"] = dict(
         ms=cuda_ms(lambda: K9(q, k, v), reps),
+        device_ms=graph_ms(lambda: K9(q, k, v), reps // 2),
         plain_ms=cuda_ms(lambda: K9p(q, k, v), 2),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True), reps),
         max_abs_err=_hold("K9 train-shape", K9(q, k, v), K9p(q, k, v), f32),
-        flops=4 * B * H * S * S * d / 2,
+        flops=4 * B * H * S * S * d / 2, tf32_products=3,
         bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
         shape=f"B={B} S={S} H={H} KVH={KVH} d={d} causal")
+    # which kernel the library call runs on these fp32 inputs
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        torch.cuda.synchronize()
+    _log("timing", kernel="flash_attention", library_kernels=repr(
+        [e.key[:120] for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA]))
     del q, k, v, qs, ks, vs
     out["chunked_ce"] = _k10_train_shape(gen, B * S, dense_cfg.d_model,
                                          dense_cfg.vocab_size, device)
@@ -1965,15 +2176,27 @@ def _k10_train_shape(gen, Tk, D, V, device="cuda") -> dict:
 def _bounds_fp32(out: dict) -> None:
     """``_bounds`` for fp32 kernels: bytes over 3.35 TB/s or flops over
     67 TFLOP/s (fp32 on the CUDA cores), the larger; logged with the
-    times."""
+    times.  A kernel that runs its fp32 products on the tensor cores as
+    ``tf32_products`` TF32 products each (K9: 3xTF32) is bound by those
+    over 494.7 TFLOP/s (TF32, dense) instead, which can be the lower: its
+    CUDA-core bound is logged beside it as ``bound_ms_fp32_cores``."""
     for name, r in out.items():
         t_bytes = r["bytes"] / H100_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / H100_FLOPS["float32"] * 1e3
+        t_cores = r["flops"] / H100_FLOPS["float32"] * 1e3
+        t_ops = t_cores
+        extra = {}
+        if r.get("tf32_products"):
+            t_ops = r["tf32_products"] * r["flops"] / H100_FLOPS["tf32"] * 1e3
+            extra = dict(bound_ms_fp32_cores=max(t_bytes, t_cores),
+                         tf32_products=r["tf32_products"])
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        dev = r.get("device_ms", r["ms"])
         _log("timing", kernel=name, shape=repr(r["shape"]), ms=r["ms"],
-             plain_ms=r["plain_ms"], library_ms=r["library_ms"],
-             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+             device_ms=r.get("device_ms"), plain_ms=r["plain_ms"],
+             library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+             bound_by=r["bound_by"], tflops=r["flops"] / dev / 1e9,
+             bound_share=r["bound_ms"] / dev, **extra,
              max_abs_err=r["max_abs_err"], dtype="float32")
 
 
@@ -2202,12 +2425,15 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
     mark()
     phases = dict(zip(("forward_ms", "loss_ms", "backward_ms", "muon_ms"),
                       (1e3 * (b - a) for a, b in zip(marks, marks[1:]))))
+    wrappers = train_kernel_wrappers()
+    before = {n: w.launches for n, (_, w, _) in wrappers.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         opt, _ = step(opt, data)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launched = {n: w.launches - before[n] for n, (_, w, _) in wrappers.items()}
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
 
@@ -2215,16 +2441,25 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
         return getattr(e, "self_device_time_total", None) \
             or getattr(e, "self_cuda_time_total", 0.0)
     busy_us = sum(dev_us(e) for e in kernels)
-    # a kernel's instantiations by name: K9 is the attention tile on the
-    # dense layout, K7 the indexer tile on dense keys, K10 two kernels
+    # a kernel's instantiations by name: K9 is the 3xTF32 tile on the dense
+    # layout in fp32 (the SIMT tile in bf16), K7 the indexer tile on dense
+    # keys, K10 two kernels
     ours = {name: sum(dev_us(e) for e in kernels
                       if any(all(k in e.key for k in keys) for keys in alts))
             / 1e3 for name, alts in (
-                ("flash_attention", [("gqa_tile_kernel", "DenseKV")]),
+                ("flash_attention", [("tf32_tile", "DenseKV"),
+                                     ("gqa_tile_kernel", "DenseKV")]),
                 ("chunked_ce", [("ce_tile_kernel",), ("ce_combine_kernel",)]),
                 ("lightning_indexer", [("indexer_tile_kernel", "DenseKeys")]),
                 ("block_sparse_attention", [("block_sparse_kernel",)]),
                 ("mamba_scan", [("mamba_scan_model_kernel",)]))}
+    # a kernel the step launched must be found by its name in the trace
+    for name, n in launched.items():
+        key = "mamba_scan" if name == "mamba_scan_model" else name
+        if n and not ours[key] > 0:
+            raise AssertionError(f"train.profile: {name} launched {n} times "
+                                 f"but no kernel of the trace matches its "
+                                 f"names")
     res = dict(phases, step_ms=sum(phases.values()),
                profiled_step_ms=wall * 1e3,
                device_busy_ms=busy_us / 1e3,
@@ -2717,7 +2952,8 @@ def main() -> int:
     chunk, new_tokens = 256, 32
     dsa_max_len = max(dsa_lens) + new_tokens + chunk
     indexer_resources(yi_dsa, len(dsa_lens), dsa_max_len, 16)
-    tile_resources(yi, yi_block, chunk)
+    tile_resources(yi, yi_block, chunk, glm5, len(prompt_lens), 3,
+                   yi.replace(num_layers=8))
     timing = time_kernels(yi, serve_lens, max(prompt_lens), bs=16,
                           num_blocks=2048, chunk=chunk)
     _free()

@@ -22,10 +22,14 @@
 // What bounds it on this card: arithmetic.  At the Yi-6B training shape
 // (B 2, S 2048, H 32 / KVH 4, d 128, causal) the half of 4*B*H*S^2*d that
 // the causal mask keeps is 69 GFLOP against 0.2 GB of q/k/v/out; with
-// TF32 off, fp32 runs on the CUDA cores at 67 TFLOP/s, so the bound is
-// ~1 ms a layer.
+// TF32 off, fp32 runs on the CUDA cores at 67 TFLOP/s (~1 ms a layer), or
+// on the tensor cores as three TF32 products (3 x 69 GFLOP at 495
+// TFLOP/s: 0.42 ms).
 //
-// What the design does about it:
+// Two bodies, chosen by dtype.  fp32 (the trainer's) runs tf32_tile.cuh's
+// 3xTF32 tensor-core tile: each fp32 operand split into two TF32 values,
+// three products summed in fp32, for fp32-level error (see that header).
+// bf16 runs gqa_tile.cuh's SIMT body, shared with K1 and K2's fp32 route:
 //   * the Pallas grid is (BH, n_q_blocks, n_k_blocks) with the key axis
 //     sequential in VMEM scratch; here one CTA per (query-row tile, KV head,
 //     batch row) loops over key tiles itself, starting at the first key of
@@ -43,10 +47,9 @@
 //     flight during this round's arithmetic;
 //   * the accumulator (64 rows, 32 at d = 256) lives in registers, each
 //     thread owning fixed columns; the online softmax is a warp per row.
-// The tile body is gqa_tile.cuh's, shared with K1/K2; this file gives it the
-// contiguous layout (DenseKV below).  Not done yet (later work): tensor
-// cores (mma/wgmma: with TF32 off, bf16 inputs only), TMA, a split over
-// keys for short sequences.
+// This file gives both bodies the contiguous layout (DenseKV below).  Not
+// done yet (later work): the bf16 route on the tensor cores, wgmma and TMA,
+// a split over keys for short sequences.
 //
 // Interface: plain C, loaded with ctypes.  The entry point returns the
 // cudaError_t of its launch (0 on success); it launches on the given stream,
@@ -56,6 +59,7 @@
 #include <stddef.h>
 
 #include "gqa_tile.cuh"
+#include "tf32_tile.cuh"
 
 namespace {
 
@@ -89,25 +93,48 @@ struct Args {
   float softcap, scale;
 };
 
-template <typename T, int D, int ROWS>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int G = a.H / a.KVH;
-  const DenseKV layout{a.Sq, a.Sk, a.H, a.KVH, G, a.causal, a.q_offset};
-  return launch_gqa_tiles<T, D, ROWS>(a.q, a.k, a.v, a.out, layout, a.B,
-                                      a.KVH, a.Sq * G, G, a.window,
-                                      a.softcap, a.scale, stream);
+DenseKV dense_layout(const Args& a) {
+  return DenseKV{a.Sq, a.Sk, a.H, a.KVH, a.H / a.KVH, a.causal, a.q_offset};
 }
 
-// tiles: 64 rows at d <= 128, 32 at d = 256 (register budget of the
+// bf16: the SIMT body
+template <int D, int ROWS>
+cudaError_t launch_simt(const Args& a, cudaStream_t stream) {
+  const int G = a.H / a.KVH;
+  return launch_gqa_tiles<__nv_bfloat16, D, ROWS>(
+      a.q, a.k, a.v, a.out, dense_layout(a), a.B, a.KVH, a.Sq * G, G,
+      a.window, a.softcap, a.scale, stream);
+}
+
+// fp32: the 3xTF32 tensor-core tile
+template <int D>
+cudaError_t launch_tf32(const Args& a, cudaStream_t stream) {
+  const int G = a.H / a.KVH;
+  return tf32_tile::launch_attention<D>(a.q, a.k, a.v, a.out, dense_layout(a),
+                                        a.Sq * G, G, a.KVH, a.B, a.window,
+                                        a.softcap, a.scale, stream);
+}
+
+// SIMT tiles: 64 rows at d <= 128, 32 at d = 256 (register budget of the
 // per-thread accumulator, shared memory of the staged tiles)
-template <typename T>
-cudaError_t dispatch(int d, const Args& a, cudaStream_t s) {
-  switch (d) {
-    case 64: return launch<T, 64, 64>(a, s);
-    case 128: return launch<T, 128, 64>(a, s);
-    case 256: return launch<T, 256, 32>(a, s);
-    default: return cudaErrorInvalidValue;
+cudaError_t dispatch(int dtype, int d, const Args& a, cudaStream_t s) {
+  if (dtype == 0) {
+    switch (d) {
+      case 64: return launch_tf32<64>(a, s);
+      case 128: return launch_tf32<128>(a, s);
+      case 256: return launch_tf32<256>(a, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (dtype == 1) {
+    switch (d) {
+      case 64: return launch_simt<64, 64>(a, s);
+      case 128: return launch_simt<128, 64>(a, s);
+      case 256: return launch_simt<256, 32>(a, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -124,10 +151,20 @@ int flash_attention(int dtype, int head_dim, const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, softcap,
          scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(head_dim, a, s);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(head_dim, a, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch(dtype, head_dim, a, static_cast<cudaStream_t>(stream));
+}
+
+// Resources of K9's fp32 (3xTF32 tensor-core) tile for `head_dim`
+// (launches nothing): out[5] = registers a thread, spill bytes a thread,
+// shared memory bytes a CTA, CTAs resident on one SM, packed query rows a
+// CTA.
+int flash_attention_resources(int head_dim, int* out) {
+  switch (head_dim) {
+    case 64: return (int)tf32_tile::resources<64, DenseKV>(out);
+    case 128: return (int)tf32_tile::resources<128, DenseKV>(out);
+    case 256: return (int)tf32_tile::resources<256, DenseKV>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -449,15 +449,26 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// 4 output columns in the output's type (bf16: K2, K8; fp32: K4's MLA tile)
+__device__ inline void store4(bf16* p, const float (&o)[4]) {
+  store_pair(p, o[0], o[1]);
+  store_pair(p + 2, o[2], o[3]);
+}
+__device__ inline void store4(float* p, const float (&o)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+}
+
 // Fold the parts of a split launch: a CTA for kFoldRows rows of a tile, a
 // thread for 4 columns of a row at a time, every part's loads issued before
 // they are used; out = sum_p 2^(m_p - M) acc_p / sum_p 2^(m_p - M) l_p.
+// The workspace is any tile's whose parts write it as attention_kernel's
+// do (K4's tile in paged_mla.cu too, with fp32 output rows).
 constexpr int kFoldRows = 16;
 
-template <int DV, typename KV>
+template <int DV, typename KV, typename TO = bf16>
 __global__ void __launch_bounds__(128)
 combine_kernel(const float* __restrict__ ws, const bf16* __restrict__ v,
-               bf16* __restrict__ out, KV layout, int parts) {
+               TO* __restrict__ out, KV layout, int parts) {
   constexpr int kSplits = kRows / kFoldRows;   // CTAs a tile
   __shared__ float w[kFoldRows][kMaxParts];
   __shared__ float lsum[kFoldRows];
@@ -522,9 +533,7 @@ combine_kernel(const float* __restrict__ ws, const bf16* __restrict__ v,
 #pragma unroll
       for (int u = 0; u < 4; ++u) o[u] = vmean[c + u];
     }
-    bf16* dst = out + layout.out_row(y, z, r0 + f0 + r) * DV + c;
-    store_pair(dst, o[0], o[1]);
-    store_pair(dst + 2, o[2], o[3]);
+    store4(out + layout.out_row(y, z, r0 + f0 + r) * DV + c, o);
   }
 }
 

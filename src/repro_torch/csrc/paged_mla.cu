@@ -24,10 +24,14 @@
 // step does ~120 flops per latent byte.  That is below the ~295 flop/byte
 // ridge of the tensor cores (so the bound below is the latent bytes for
 // decode and the operations for long spans), but far above what CUDA cores
-// in fp32 sustain per byte: this kernel, which runs on CUDA cores, is
-// bound by its fp32 arithmetic and shared-memory traffic.
+// in fp32 sustain per byte.
 //
-// What the design does:
+// Two bodies, chosen by dtype.  K4 in bf16 (the serving path: every
+// prefill chunk and, with speculation, every verify span) runs the
+// tensor-core tile below (mla_tile: mma.sync, the latent in a cp.async
+// ring, the key range split with mma_tile.cuh's combine pass).  K3 in
+// both dtypes and K4 in fp32 (the exact parity runs) run the SIMT body,
+// bound by its fp32 arithmetic and shared-memory traffic:
 //   * one CTA per (16-row tile, batch row) walks only that tile's live
 //     blocks itself: it loads its own table entries and start and stops at
 //     the block of its last query position (causal early exit per tile), so
@@ -45,9 +49,9 @@
 //   * scores: warp w owns rows 2w and 2w+1 and lane t position t of the
 //     round, so the warp holds whole score rows and runs their online
 //     softmax in registers with shuffles, without another barrier.
-// Not done yet (later work): tensor cores (mma/wgmma, bf16 in, fp32
-// accumulate), split-KV with a combine pass (decode at B = 8, H = 64
-// launches only 32 CTAs on 132 SMs), TMA.
+// Not done yet (later work): K3 on the tensor cores with split-KV (decode
+// at B = 8, H = 64 launches only 32 CTAs on 132 SMs); wgmma and TMA for
+// the K4 tile.
 //
 // Interface: plain C, loaded with ctypes.  Each entry point returns the
 // cudaError_t of its launch (0 on success); it launches on the given stream,
@@ -57,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -330,6 +336,418 @@ paged_mla_kernel(const float* __restrict__ q_lat,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4's bf16 body on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// GLM-5's span (H 64 heads reading one latent, dk 576 = lora 512 + rope 64,
+// dv 512) is arithmetic: 2176 flops a row and key.  This body runs both
+// products on mma.sync (m16n8k16, bf16 in, fp32 accumulate) with the
+// helpers, the cp.async ring and the split-and-combine pass of
+// mma_tile.cuh; what differs from that tile is the width:
+//   * dv 512 would need a 16 x 512 fp32 accumulator a warp (256 registers)
+//     in mma_tile's one-warp-a-16-rows layout.  Here a CTA of 16 warps owns
+//     kRows = 64 packed rows, and the warps regroup between the products:
+//     QK^T runs as 4 row groups x 4 slices of the 576 dims (9 k-steps of
+//     16 each; a warp's Q fragment is loaded once a k-step and serves the
+//     round's 4 key tiles), whose partial scores meet in shared memory; the
+//     softmax runs 8 threads a row over the summed scores, keeps each row's
+//     running (m, l) in those threads' registers and writes P once, as
+//     bf16, with the rescale alpha; PV runs as 2 row groups of 32 rows x 8
+//     column groups of 64 (each V fragment serves two 16-row tiles), so a
+//     warp holds a 32 x 64 accumulator (64 registers);
+//   * V is the staged key rows' first 512 columns: one cp.async copy of
+//     [c | kr] a key serves both products, as in the SIMT body;
+//   * shared memory: Q (64 x 584 bf16, 74.75 KB, q_lat rounded to bf16 once
+//     while staged), kStages rounds of kKeys keys (32 x 584 bf16 each), the
+//     partial scores (fp32) and P: 1 CTA an SM.  Packed row r of a tile is
+//     token r / H, head r % H (H 64: one token; H 16: 4 tokens, the causal
+//     mask per row);
+//   * the span's tiles (256 at the serve chunk of 256 tokens) fill the card;
+//     a verify span (B 8 x S 4 x H 64: 32 tiles) splits each tile's key
+//     rounds over `parts` CTAs (wrapper: build.key_split), folded by
+//     mma_tile's combine pass into the fp32 output;
+//   * numerics: QK^T of bf16 q_lat / q_rope against the bf16 latent, exact
+//     products in fp32 accumulators; scores scaled in fp32; the softmax in
+//     the log2 domain (masked: -inf, p = 0); P rounded to bf16 for PV (as
+//     K2 / K8); out = acc / max(l, 1e-20) in fp32.
+// The tile sizes are compile-time knobs (REPRO_MLA_KEYS 16 / 32,
+// REPRO_MLA_STAGES 2 / 3) so tile_study.py can build and time the others.
+
+#ifndef REPRO_MLA_KEYS
+#define REPRO_MLA_KEYS 32
+#endif
+#ifndef REPRO_MLA_STAGES
+#define REPRO_MLA_STAGES 2
+#endif
+
+namespace mla_tile {
+
+using mma_tile::bf16;
+using mma_tile::cp_async16;
+using mma_tile::cp_async_commit;
+using mma_tile::cp_async_wait;
+using mma_tile::kLog2e;
+using mma_tile::kNegInf;
+using mma_tile::kNoKey;
+using mma_tile::ldsm_x4;
+using mma_tile::ldsm_x4_trans;
+using mma_tile::mma16816;
+using mma_tile::store_pair;
+using mma_tile::ws_rows;
+
+constexpr int kL = 512, kR = 64, kD = kL + kR;
+constexpr int kRows = mma_tile::kRows;   // 64 packed rows a CTA
+constexpr int kKeys = REPRO_MLA_KEYS;    // keys a round
+constexpr int kStages = REPRO_MLA_STAGES;
+constexpr int kSlots = kStages + 1;      // key tables in flight
+constexpr int kThreads = 512;            // 16 warps
+constexpr int kDimGroups = 4;            // QK^T: slices of the 576 dims
+constexpr int kSteps = kD / 16 / kDimGroups;   // k-steps a slice (9)
+constexpr int kPvCols = 64;              // PV: columns a warp
+constexpr int kLdK = kD + 8;             // bf16: Q and [c | kr] rows
+constexpr int kLdS = kKeys + 4;          // fp32: partial scores
+constexpr int kLdP = kKeys + 8;          // bf16: P rows
+constexpr int kPerThread = kKeys * kRows / kThreads;  // softmax entries
+static_assert(kD % (16 * kDimGroups) == 0 && kKeys % 16 == 0 &&
+              kPerThread >= 1 && 8 * kPerThread == kKeys, "tile shape");
+static_assert(kStages >= 2, "a round lands while the last computes");
+
+constexpr size_t kSmem =
+    ((size_t)kRows * kLdK + (size_t)kStages * kKeys * kLdK) * 2   // Q, K/V
+    + (size_t)kDimGroups * kRows * kLdS * 4                       // S parts
+    + (size_t)kRows * kLdP * 2                                    // P
+    + (size_t)3 * kRows * 4                                       // alpha, m, l
+    + (size_t)kSlots * 2 * kKeys * 4;                             // key table
+
+// the rows and keys of a batch row's span, for the combine pass too
+struct LatentSpan {
+  static constexpr bool kMean = false;   // a row with no key gets 0
+  const int* tables;
+  const int* starts;
+  int SH, H, mb, bs;
+  __device__ int rows(int, int) const { return SH; }
+  __device__ size_t out_row(int y, int, int r) const {
+    return (size_t)y * SH + r;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+mla_span_kernel(const float* __restrict__ q_lat,
+                const bf16* __restrict__ q_rope,
+                const bf16* __restrict__ c_pool,
+                const bf16* __restrict__ kr_pool,
+                float* __restrict__ out, float* __restrict__ ws,
+                LatentSpan layout, int parts, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + kRows * kLdK;                        // [kStages][kKeys]
+  float* Sp = reinterpret_cast<float*>(Ks + kStages * kKeys * kLdK);
+  bf16* Ps = reinterpret_cast<bf16*>(Sp + kDimGroups * kRows * kLdS);
+  float* As = reinterpret_cast<float*>(Ps + kRows * kLdP);
+  float* Ms = As + kRows;
+  float* Ls = Ms + kRows;
+  int* Kpos = reinterpret_cast<int*>(Ls + kRows);      // [kSlots][kKeys]
+  int* Krow = Kpos + kSlots * kKeys;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int ntiles = gridDim.x / parts;
+  const int part = blockIdx.x % parts;
+  const int x = ntiles - 1 - blockIdx.x / parts;   // the longest tiles first
+  const int b = blockIdx.y;
+  const int H = layout.H, bs = layout.bs;
+  const int r0 = x * kRows;
+  const int rows = min(kRows, layout.SH - r0);
+  const int pos0 = layout.starts[b];
+  const int* table = layout.tables + (size_t)b * layout.mb;
+  const size_t row0 = (size_t)b * layout.SH + r0;
+
+  // the queries: q_rope by cp.async, q_lat rounded to bf16 on the way in;
+  // rows past `rows` are zero and never written
+  for (int i = tid; i < kRows * (kR / 8); i += kThreads) {
+    const int r = i / (kR / 8), c = (i % (kR / 8)) * 8;
+    const bool ok = r < rows;
+    cp_async16(Qs + r * kLdK + kL + c,
+               q_rope + (ok ? row0 + r : 0) * kR + c, ok);
+  }
+  for (int i = tid; i < kRows * (kL / 4); i += kThreads) {
+    const int r = i / (kL / 4), c = (i % (kL / 4)) * 4;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows)
+      f = *reinterpret_cast<const float4*>(q_lat + (row0 + r) * kL + c);
+    store_pair(Qs + r * kLdK + c, f.x, f.y);
+    store_pair(Qs + r * kLdK + c + 2, f.z, f.w);
+  }
+
+  // every key from position 0 to the tile's last query, in rounds
+  const int hi = min(pos0 + (r0 + rows - 1) / H, layout.mb * bs - 1);
+  const int rounds = hi / kKeys + 1;
+  const int rb = rounds * part / parts, re = rounds * (part + 1) / parts;
+
+  // round rd's key table (slot (rd - rb) % kSlots): position (kNoKey past
+  // hi) and latent row of each key
+  auto look_up = [&](int rd) {
+    if (tid >= kKeys || rd >= re) return;
+    const int t = rd * kKeys + tid;
+    const int slot = (rd - rb) % kSlots;
+    Kpos[slot * kKeys + tid] = t <= hi ? t : kNoKey;
+    Krow[slot * kKeys + tid] =
+        t <= hi ? __ldg(table + t / bs) * bs + t % bs : 0;
+  };
+  // round rd's [c | kr] rows into stage (rd - rb) % kStages; a key that is
+  // not there is zero-filled
+  auto issue = [&](int rd) {
+    if (rd >= re) return;
+    const int* pos = Kpos + ((rd - rb) % kSlots) * kKeys;
+    const int* row = Krow + ((rd - rb) % kSlots) * kKeys;
+    bf16* st = Ks + ((rd - rb) % kStages) * kKeys * kLdK;
+    constexpr int kChunks = kD / 8;   // 64 of c, 8 of kr
+    for (int i = tid; i < kKeys * kChunks; i += kThreads) {
+      const int j = i / kChunks, c = (i % kChunks) * 8;
+      const bool ok = pos[j] != kNoKey;
+      const bf16* src = c < kL ? c_pool + (size_t)row[j] * kL + c
+                               : kr_pool + (size_t)row[j] * kR + (c - kL);
+      cp_async16(st + j * kLdK + c, src, ok);
+    }
+  };
+
+  for (int s = 0; s < kStages; ++s) look_up(rb + s);
+  __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) {
+    issue(rb + s);
+    cp_async_commit();   // the first group also holds q_rope
+  }
+
+  // QK^T warps: row group qg, dim slice dg; PV warps: row group pg (32
+  // rows), column group cg; softmax threads: row sr, keys sj..
+  const int qg = warp % 4, dg = warp / 4;
+  const int pg = warp % 2, cg = warp / 2;
+  const int sr = tid / 8, sj = (tid % 8) * kPerThread;
+  const int s_qpos = pos0 + (r0 + sr) / H;
+  const float scale2 = scale * kLog2e;
+  float m_run = kNegInf, l_run = 0.f;   // row sr's, in all 8 threads
+  float acc[2][kPvCols / 8][4];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int n = 0; n < kPvCols / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][n][e] = 0.f;
+
+  for (int rd = rb; rd < re; ++rd) {
+    const int slot = (rd - rb) % kSlots;
+    const bf16* Kst = Ks + ((rd - rb) % kStages) * kKeys * kLdK;
+    cp_async_wait<kStages - 2>();
+    // round rd has landed, its key table and the next ones are written, and
+    // every reader of the stage refilled below (round rd - 1's) is done
+    __syncthreads();
+    issue(rd + kStages - 1);
+    cp_async_commit();
+    look_up(rd + kStages);
+
+    // partial S = Q K^T over this warp's 144 dims: 16 rows x kKeys keys
+    {
+      float s[kKeys / 8][4];
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        const int kk = (dg * kSteps + ks) * 16;
+        uint32_t a[4];
+        ldsm_x4(a, Qs + (qg * 16 + lane % 16) * kLdK + kk + (lane / 16) * 8);
+#pragma unroll
+        for (int n2 = 0; n2 < kKeys / 16; ++n2) {
+          uint32_t bb[4];
+          ldsm_x4(bb, Kst + (n2 * 16 + lane % 8 + (lane / 16) * 8) * kLdK
+                          + kk + ((lane / 8) % 2) * 8);
+          mma16816(s[2 * n2], a, bb[0], bb[1]);
+          mma16816(s[2 * n2 + 1], a, bb[2], bb[3]);
+        }
+      }
+      float* sp = Sp + (dg * kRows + qg * 16 + lane / 4) * kLdS
+                  + (lane % 4) * 2;
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+        *reinterpret_cast<float2*>(sp + n * 8) = make_float2(s[n][0], s[n][1]);
+        *reinterpret_cast<float2*>(sp + 8 * kLdS + n * 8) =
+            make_float2(s[n][2], s[n][3]);
+      }
+    }
+    __syncthreads();   // the partial scores are in
+
+    // the online softmax of row sr over its kPerThread keys: the four
+    // slices summed, scaled, masked; max and sum over the row's 8 threads
+    {
+      const int* kp = Kpos + slot * kKeys;
+      float sv[kPerThread];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < kPerThread; ++u) {
+        float x = 0.f;
+#pragma unroll
+        for (int g = 0; g < kDimGroups; ++g)
+          x += Sp[(g * kRows + sr) * kLdS + sj + u];
+        sv[u] = kp[sj + u] <= s_qpos ? x * scale2 : -INFINITY;
+        mx = fmaxf(mx, sv[u]);
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m_run, mx);
+      const float alpha = exp2f(m_run - m_new);
+      m_run = m_new;
+      float ls = 0.f;
+#pragma unroll
+      for (int u = 0; u < kPerThread; u += 2) {
+        const float p0 = exp2f(sv[u] - m_new), p1 = exp2f(sv[u + 1] - m_new);
+        ls += p0 + p1;
+        store_pair(Ps + sr * kLdP + sj + u, p0, p1);
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        ls += __shfl_xor_sync(0xffffffffu, ls, o);
+      l_run = l_run * alpha + ls;
+      if (tid % 8 == 0) As[sr] = alpha;
+    }
+    __syncthreads();   // P and alpha are in
+
+    // acc = acc * alpha + P V over this warp's 32 rows x 64 columns
+    {
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int r = pg * 32 + t * 16 + lane / 4;
+        const float a0 = As[r], a1 = As[r + 8];
+#pragma unroll
+        for (int n = 0; n < kPvCols / 8; ++n) {
+          acc[t][n][0] *= a0;
+          acc[t][n][1] *= a0;
+          acc[t][n][2] *= a1;
+          acc[t][n][3] *= a1;
+        }
+      }
+      const bf16* Vst = Kst + cg * kPvCols;
+#pragma unroll
+      for (int kt = 0; kt < kKeys / 16; ++kt) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          ldsm_x4(a[t], Ps + (pg * 32 + t * 16 + lane % 16) * kLdP + kt * 16
+                             + (lane / 16) * 8);
+#pragma unroll
+        for (int n2 = 0; n2 < kPvCols / 16; ++n2) {
+          uint32_t bb[4];
+          ldsm_x4_trans(bb, Vst + (kt * 16 + lane % 8 + ((lane / 8) % 2) * 8)
+                                      * kLdK + n2 * 16 + (lane / 16) * 8);
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            mma16816(acc[t][2 * n2], a[t], bb[0], bb[1]);
+            mma16816(acc[t][2 * n2 + 1], a[t], bb[2], bb[3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();   // a part with no round still has q_rope's group
+  if (tid % 8 == 0) {
+    Ms[sr] = m_run;
+    Ls[sr] = l_run;
+  }
+  __syncthreads();
+
+  const int col0 = cg * kPvCols + (lane % 4) * 2;
+  if (parts > 1) {   // this part's (m, l, acc) for the combine pass
+    const size_t tile = (size_t)b * ntiles + x;
+    const size_t all = (size_t)ntiles * gridDim.y;
+    float* ml = ws + ws_rows(tile, parts, part) * 2;
+    float* wacc = ws + all * parts * kRows * 2
+                  + ws_rows(tile, parts, part) * kL;
+    for (int r = tid; r < rows; r += kThreads) {
+      ml[2 * r] = Ms[r];
+      ml[2 * r + 1] = Ls[r];
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = pg * 32 + t * 16 + lane / 4 + 8 * i;
+        if (r >= rows) continue;
+#pragma unroll
+        for (int n = 0; n < kPvCols / 8; ++n)
+          *reinterpret_cast<float2*>(wacc + (size_t)r * kL + col0 + n * 8) =
+              make_float2(acc[t][n][2 * i], acc[t][n][2 * i + 1]);
+      }
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = pg * 32 + t * 16 + lane / 4 + 8 * i;
+      if (r >= rows) continue;
+      const float inv = 1.f / fmaxf(Ls[r], 1e-20f);
+      float* o = out + (row0 + r) * kL + col0;
+#pragma unroll
+      for (int n = 0; n < kPvCols / 8; ++n)
+        *reinterpret_cast<float2*>(o + n * 8) =
+            make_float2(acc[t][n][2 * i] * inv, acc[t][n][2 * i + 1] * inv);
+    }
+}
+
+cudaError_t configure() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      mla_span_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
+  done = e == cudaSuccess;
+  return e;
+}
+
+// (ceil(SH / kRows) x parts, B) CTAs, then the combine pass where parts > 1
+// (workspace: tiles x parts x kRows x (512 + 2) floats)
+cudaError_t launch(const float* q_lat, const void* q_rope,
+                   const void* c_pool, const void* kr_pool,
+                   const LatentSpan& layout, float* out, void* ws, int B,
+                   int parts, float scale, cudaStream_t stream) {
+  if (parts < 1 || parts > mma_tile::kMaxParts ||
+      (parts > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t e = configure();
+  if (e != cudaSuccess) return e;
+  const int tiles = (layout.SH + kRows - 1) / kRows;
+  mla_span_kernel<<<dim3(tiles * parts, B), kThreads, kSmem, stream>>>(
+      q_lat, static_cast<const bf16*>(q_rope),
+      static_cast<const bf16*>(c_pool), static_cast<const bf16*>(kr_pool),
+      out, static_cast<float*>(ws), layout, parts, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || parts == 1) return e;
+  mma_tile::combine_kernel<kL, LatentSpan, float>
+      <<<dim3(tiles * (kRows / mma_tile::kFoldRows), B), 128, 0, stream>>>(
+          static_cast<const float*>(ws), nullptr, out, layout, parts);
+  return cudaGetLastError();
+}
+
+cudaError_t resources(int* out) {
+  cudaError_t e = configure();
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, mla_span_kernel);
+  if (e != cudaSuccess) return e;
+  int ctas = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, mla_span_kernel,
+                                                    kThreads, kSmem);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)(kSmem + attr.sharedSizeBytes);
+  out[3] = ctas;
+  out[4] = kRows;
+  return e;
+}
+
+}  // namespace mla_tile
+
 struct Args {
   const float* q_lat;
   const void* q_rope;
@@ -421,25 +839,46 @@ int paged_decode_mla(int dtype, int lora, int rope, int block_size,
 
 // K4.  q_lat (B, S*H, lora) packed rows i*H + h; q_rope (B, S*H, rope);
 // starts (B,) int32 (position of span token 0); out (B, S*H, lora) float32.
+// bf16 runs the tensor-core tile: each row tile's keys split into `parts`
+// (1..4) CTAs, workspace (fp32, parts > 1) of tiles x parts x 64 x
+// (lora + 2) floats, tiles = ceil(S*H / 64) * B; fp32 takes parts = 1.
 int paged_prefill_mla(int dtype, int lora, int rope, int block_size,
                       const float* q_lat, const void* q_rope,
                       const void* c_pool, const void* kr_pool,
                       const int* tables, const int* starts, float* out,
-                      int B, int SH, int H, int mb, float scale,
-                      void* stream) {
+                      int B, int SH, int H, int mb, float scale, int parts,
+                      void* workspace, void* stream) {
+  if (dtype == 1) {
+    if (block_size != 8 && block_size != 16 && block_size != 32)
+      return (int)cudaErrorInvalidValue;
+    if (lora != mla_tile::kL || rope != mla_tile::kR)
+      return (int)cudaErrorInvalidValue;
+    const mla_tile::LatentSpan layout{tables, starts, SH, H, mb, block_size};
+    return (int)mla_tile::launch(q_lat, q_rope, c_pool, kr_pool, layout, out,
+                                 workspace, B, parts, scale,
+                                 static_cast<cudaStream_t>(stream));
+  }
+  if (parts != 1) return (int)cudaErrorInvalidValue;
   Args a{q_lat, q_rope, c_pool, kr_pool, tables, starts, out,
          B, SH, H, mb, block_size, scale};
   return run(dtype, lora, rope, a, stream);
 }
 
-// Resources of the K3/K4 kernel for `dtype` (launches nothing): out[5] =
-// registers a thread, spill bytes a thread, shared memory bytes a CTA, CTAs
-// resident on one SM, packed query rows a CTA.
+// Resources of K3's kernel, and K4's fp32 one, for `dtype` (launches
+// nothing): out[5] = registers a thread, spill bytes a thread, shared memory
+// bytes a CTA, CTAs resident on one SM, packed query rows a CTA.
 int paged_mla_resources(int dtype, int lora, int rope, int* out) {
   if (lora != 512 || rope != 64) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)query<float, 512, 64>(out);
   if (dtype == 1) return (int)query<__nv_bfloat16, 512, 64>(out);
   return (int)cudaErrorInvalidValue;
+}
+
+// Resources of K4's bf16 (tensor-core) span body, as above.
+int paged_prefill_mla_resources(int lora, int rope, int* out) {
+  if (lora != mla_tile::kL || rope != mla_tile::kR)
+    return (int)cudaErrorInvalidValue;
+  return (int)mla_tile::resources(out);
 }
 
 }  // extern "C"

@@ -12,8 +12,8 @@ runs at import time: the CPU tests import every module without a compiler.
 ``ENTRIES`` lists every C entry point of every library with its argument
 types; ``cuda_entry(name)`` is the loaded function and ``LIBRARIES`` the
 sources ``build_all`` compiles.  ``key_split`` sizes the key-range split of
-the bf16 tensor-core attention tile (``csrc/mma_tile.cuh``, K2 and K8) and
-allocates its workspace.
+the bf16 tensor-core attention tiles (``csrc/mma_tile.cuh``, K2 and K8, and
+K4's in ``csrc/paged_mla.cu``) and allocates its workspace.
 """
 from __future__ import annotations
 
@@ -56,10 +56,15 @@ ENTRIES = {
     "paged_prefill_gqa_resources": ("paged_attention", [_I] * 2 + [_P]),
     "paged_decode_mla": ("paged_mla",
                          [_I] * 4 + [_P] * 7 + [_I] * 3 + [_F, _P]),
+    # K4: dtype, lora, rope, bs, q_lat, q_rope, c_pool, kr_pool, tables,
+    # starts, out, B, SH, H, mb, scale, parts, workspace, stream
     "paged_prefill_mla": ("paged_mla",
-                          [_I] * 4 + [_P] * 7 + [_I] * 4 + [_F, _P]),
-    # registers, spill bytes, shared memory, CTAs an SM, rows a CTA
+                          [_I] * 4 + [_P] * 7 + [_I] * 4 + [_F, _I, _P, _P]),
+    # K3's and fp32 K4's kernel: dtype, lora, rope -> registers, spill
+    # bytes, shared memory, CTAs an SM, rows a CTA
     "paged_mla_resources": ("paged_mla", [_I] * 3 + [_P]),
+    # K4's bf16 tile: lora, rope -> as above
+    "paged_prefill_mla_resources": ("paged_mla", [_I] * 2 + [_P]),
     "paged_indexer_scores": ("paged_indexer",
                              [_I] * 3 + [_P] * 6 + [_I] * 3 + [_F, _P]),
     "paged_prefill_indexer": ("paged_indexer",
@@ -81,6 +86,8 @@ ENTRIES = {
     # q_offset, softcap, scale, stream
     "flash_attention": ("flash_attention",
                         [_I] * 2 + [_P] * 4 + [_I] * 8 + [_F, _F, _P]),
+    # K9's fp32 (3xTF32 tensor-core) tile: d -> as K2's
+    "flash_attention_resources": ("flash_attention", [_I] + [_P]),
     # K10: dtype, h, w, targets, mask, partials, loss, count, Tk, D, V,
     # softcap, stream
     "chunked_ce": ("chunked_ce", [_I] + [_P] * 7 + [_I] * 3 + [_F, _P]),

@@ -53,8 +53,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """K9: q (B, Sq, H, d), k/v (B, Sk, KVH, d) -> (B, Sq, H, d) in q.dtype.
 
     CPU tensors run ``ref.reference``; CUDA tensors launch the Hopper kernel
-    on the current stream (one CTA per 64-row tile of packed (token, head)
-    query rows, KV head and batch row; 32 rows at d = 256)."""
+    on the current stream, one CTA per 64-row tile of packed (token, head)
+    query rows, KV head and batch row: fp32 runs the 3xTF32 tensor-core
+    tile (``csrc/tf32_tile.cuh``; fp32-level error with TF32 off), bf16 the
+    SIMT tile (``csrc/gqa_tile.cuh``; 32 rows at d = 256)."""
     if q.device.type == "cpu":
         return reference(q, k, v, causal=causal, window=window,
                          softcap=softcap, q_offset=q_offset)

@@ -19,11 +19,12 @@ The CUDA kernels (``csrc/paged_attention.cu``, ``csrc/paged_mla.cu``,
 ``csrc/paged_indexer.cu``) tile those rows — the Pallas kernels keep the
 whole span resident in VMEM, which no Hopper shared memory holds — and each
 attention tile stops at the block of its own last query position; K6 scores
-every block up to the span's last position.  K2 chooses its body by dtype:
-bf16 (the serving path) runs the tensor-core tile of ``csrc/mma_tile.cuh``
-(mma.sync, K/V in a cp.async ring, each tile's causal key range split over
-up to 4 CTAs with a combine pass when that fills the card better); fp32
-runs the exact SIMT tile of ``csrc/gqa_tile.cuh``.
+every block up to the span's last position.  K2 and K4 choose their body by
+dtype: bf16 (the serving path) runs a tensor-core tile (mma.sync, K/V in a
+cp.async ring, each tile's causal key range split over up to 4 CTAs with a
+combine pass when that fills the card better: K2 the tile of
+``csrc/mma_tile.cuh``, K4 its 16-warp MLA form in ``csrc/paged_mla.cu``);
+fp32 runs the exact SIMT bodies (``csrc/gqa_tile.cuh``, K4's own).
 
 Each wrapper runs the plain version on CPU tensors and launches the kernel
 on CUDA tensors, or raises; ``<wrapper>.launches`` counts kernel launches.
@@ -159,7 +160,12 @@ def paged_prefill_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
     """K4: q_lat (B, S*H, lora) fp32 packed (row i*H + h = head h of span
     token i); q_rope (B, S*H, rope); c/kr pools (nb, bs, ·); tables (B, mb)
     int32; starts (B,) int32 -> out_lat (B, S*H, lora) fp32 (``probs · c``;
-    the caller applies W^UV and W^O)."""
+    the caller applies W^UV and W^O).
+
+    On CUDA tensors bf16 pools launch the tensor-core tile (q_lat rounded
+    to bf16 as it is staged, P rounded to bf16 for PV; with its key range
+    split, its combine pass too: one launch counted), fp32 pools the SIMT
+    body."""
     if q_lat.device.type == "cpu":
         return paged_prefill_mla_plain(q_lat, q_rope, c_pool, kr_pool,
                                        block_tables, starts, heads=heads,
@@ -167,12 +173,18 @@ def paged_prefill_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
     check_cuda_mla_args(q_lat, q_rope, c_pool, kr_pool, block_tables, starts)
     _span_rows(q_lat, heads)
     B, SH, L = q_lat.shape
+    R = q_rope.shape[-1]
     out = torch.empty_like(q_lat)
+    parts, ws = 1, None
+    if c_pool.dtype == torch.bfloat16:
+        parts, ws = key_split("paged_prefill_mla_resources", (L, R), SH, B,
+                              L, q_lat.device)
     err = cuda_entry("paged_prefill_mla")(
-        _DTYPE_CODE[c_pool.dtype], L, q_rope.shape[-1], c_pool.shape[1],
+        _DTYPE_CODE[c_pool.dtype], L, R, c_pool.shape[1],
         q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
         kr_pool.data_ptr(), block_tables.data_ptr(), starts.data_ptr(),
-        out.data_ptr(), B, SH, heads, block_tables.shape[1], scale,
+        out.data_ptr(), B, SH, heads, block_tables.shape[1], scale, parts,
+        None if ws is None else ws.data_ptr(),
         torch.cuda.current_stream(q_lat.device).cuda_stream)
     _check_launch("paged_prefill_mla", err)
     paged_prefill_mla.launches += 1

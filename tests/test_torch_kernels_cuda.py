@@ -1,14 +1,17 @@
 """PyTorch port, the training path's CUDA kernels (K7, K9, K10), the
-block selector's (K8), the GQA span prefill (K2) and the Mamba-1 selective
-scan (K11) against their plain versions on the card.
+block selector's (K8), the GQA and MLA span prefills (K2, K4) and the
+Mamba-1 selective scan (K11) against their plain versions on the card.
 
-K2 and K8 run a bf16 body on the tensor cores (``csrc/mma_tile.cuh``) and
-an fp32 body on the CUDA cores: both are held over every case their
-dispatch takes (head dims, block sizes, groups, window, softcap, ragged
-rows, skipped ids, both empty-row rules, and grids that the wrapper splits
-into 1, 2 or 4 key-range parts), at the bf16 2e-2 and fp32 1e-4 bounds
-scaled by min(1, max|plain|), as ``chip_smoke.py`` holds them: an output
-row over ~1000 keys averages them, so its magnitude is well under 1.
+K2, K4 and K8 run a bf16 body on the tensor cores (``csrc/mma_tile.cuh``;
+K4's MLA form in ``csrc/paged_mla.cu``) and an fp32 body on the CUDA
+cores; K9 runs its fp32 route on the tensor cores by 3xTF32
+(``csrc/tf32_tile.cuh``) and its bf16 route on the CUDA cores.  Each is
+held over every case its dispatch takes (head dims, block sizes, groups,
+window, softcap, q_offset, ragged rows, skipped ids, both empty-row rules,
+and grids that the wrapper splits into 1, 2 or 4 key-range parts), at the
+bf16 2e-2 and fp32 1e-4 bounds scaled by min(1, max|plain|), as
+``chip_smoke.py`` holds them: an output row over ~1000 keys averages them,
+so its magnitude is well under 1.
 
 Every case is ``cuda``-marked and skips itself without a GPU.  This file
 imports no JAX, so it runs on the machine with the card, where JAX is not
@@ -198,6 +201,72 @@ def test_block_sparse_attention_matches_plain(dtype, tol, dqk, dv, B, S, H,
             want = K8.block_sparse_attention_plain(q, k, v, ids, start, **kw)
             torch.cuda.synchronize()
             _hold(got, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("kw", [
+    dict(), dict(window=40, softcap=30.0), dict(q_offset=211),
+    dict(q_offset=211, window=48, softcap=20.0), dict(causal=False),
+    dict(causal=False, window=50)])
+def test_flash_attention_tf32_tile_matches_plain(d, kw):
+    """K9's fp32 route, the 3xTF32 tensor-core tile, at every head dim it
+    instantiates with each option: S*G 360 and 90 (not multiples of the
+    64-row tile), G 4 and 1, Sk ragged (301 with q_offset, Sq < Sk, and
+    non-causal); fp32 1e-4 scaled by min(1, max|plain|)."""
+    _need_gpu()
+    rng = np.random.default_rng(8)
+    Sk = 301 if "q_offset" in kw or not kw.get("causal", True) else 90
+    for Sq, H, KVH in ((90, 8, 2), (90, 4, 4)):
+        q = _cuda(rng, 2, Sq, H, d)
+        k, v = (_cuda(rng, 2, Sk, KVH, d) for _ in range(2))
+        got = K9.flash_attention(q, k, v, **kw)
+        want = K9.reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        _hold(got, want, 1e-4)
+
+
+def _k4_case(rng, dtype, tol, H, bs, S, starts):
+    """K4 over shuffled disjoint tables, row 0 a trash row (no block of its
+    own); q_lat fp32, q_rope and the pools in ``dtype``."""
+    L, R = 512, 64
+    B = len(starts)
+    mb = (max(starts) + S - 1) // bs + 1
+    live = [0] + [(s + S - 1) // bs + 1 for s in starts[1:]]
+    nb = sum(live) + 1
+    c, kr = _cuda(rng, nb, bs, L, dtype=dtype), _cuda(rng, nb, bs, R,
+                                                       dtype=dtype)
+    ids = rng.permutation(nb - 1)
+    t = np.full((B, mb), nb - 1, np.int32)
+    at = 0
+    for b, n in enumerate(live):
+        t[b, :n] = ids[at:at + n]
+        at += n
+    tables = torch.from_numpy(t).cuda()
+    st = torch.tensor(starts, dtype=torch.int32).cuda()
+    q_lat = _cuda(rng, B, S * H, L)
+    q_rope = _cuda(rng, B, S * H, R, dtype=dtype)
+    kw = dict(heads=H, scale=192 ** -0.5)
+    got = K2.paged_prefill_mla(q_lat, q_rope, c, kr, tables, st, **kw)
+    want = K2.paged_prefill_mla_plain(q_lat, q_rope, c, kr, tables, st, **kw)
+    torch.cuda.synchronize()
+    _hold(got, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("H", [16, 64])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("S", [37, 4])
+def test_paged_prefill_mla_matches_plain(dtype, tol, H, bs, S):
+    """K4: bf16 the tensor-core tile, fp32 the SIMT body.  A trash row,
+    spans from position 1, across a block edge, at one, mid-block and
+    ending at the table's last position; S 37 (ragged tiles) and the
+    verify span S 4, whose 8 or 32 tiles the bf16 wrapper splits into 4
+    key-range parts."""
+    _need_gpu()
+    _k4_case(np.random.default_rng(9), dtype, tol, H, bs, S,
+             [0, 1, bs - 2, bs, bs + bs // 2, 300, 48 * bs - S])
 
 
 def _scan_inputs(rng, B, S, E, N, dtype, h0_dtype):

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Study of the bf16 tensor-core attention tile of K2 and K8 on one GPU.
+"""Study of the port's tensor-core attention tiles on one GPU.
 
     python3 tile_study.py [--parent DIR]
 
-The tile (``src/repro_torch/csrc/mma_tile.cuh``) splits each tile's key
-range over ``parts`` CTAs where the tiles leave CTA slots of the card
-empty (``repro_torch.kernels.build.key_split``).  This script measures
-that choice and the tile against its yardsticks, in bf16:
+The tiles: the bf16 tile of K2 and K8 (``csrc/mma_tile.cuh``), K4's bf16
+MLA tile (``csrc/paged_mla.cu``) and K9's fp32 3xTF32 tile
+(``csrc/tf32_tile.cuh``).  The bf16 tiles split each tile's key range
+over ``parts`` CTAs where the tiles leave CTA slots of the card empty
+(``repro_torch.kernels.build.key_split``).  This script measures that
+choice, the tile sizes and the tiles against their yardsticks:
 
-  resources  the tile's registers, spills, shared memory and CTAs an SM
+  resources  every tile's registers, spills, shared memory and CTAs an SM
              for every instantiation, as the CUDA runtime reports them;
   split      K2 (paged span prefill) and K8 (block-sparse attention) at
              the serve shapes of ``chip_smoke.py`` and at grids of 8 to
@@ -20,13 +22,25 @@ that choice and the tile against its yardsticks, in bf16:
              at the serve shapes also scaled_dot_product_attention on the
              same inputs (the KV gathered and its heads repeated once,
              before the timed loop);
+  mla        K4 at GLM-5's serve chunk (B 1, S 256 from 768), at the
+             verify span of a speculative round (B 8 x S 4 at the serve
+             lengths) and at a first chunk (S 256 from 0): the tile built
+             with 16 and 32 keys a round and 2 and 3 K/V stages
+             (``-DREPRO_MLA_KEYS``, ``-DREPRO_MLA_STAGES``, into
+             ``build/study/``), each with 1, 2 and 4 parts, beside the
+             wrapper (the default build), SDPA and the plain version's
+             bound;
+  tf32       K9's fp32 route at Yi-6B's training shape (B 2, S 2048, H 32
+             / KVH 4, d 128, causal), at d 64 and 256 (gemma2's heads) and
+             with a window of 512: the tile built with 32 and 64 keys a
+             round (``-DREPRO_TF32_KEYS``; d 256 takes 32 only), held at
+             the fp32 bound, beside SDPA (is_causal) where no window;
   parent     with ``--parent DIR``, a copy of another revision's
              ``src/repro_torch/csrc`` (for example ``git archive <commit>
-             src/repro_torch/csrc``, unpacked): its K2 and K8 bf16 kernels
-             at the serve shapes (called through the C interface that
-             revision had, without the split arguments), and its K8 body's
-             registers and spills (``nvcc -Xptxas -v``) and SASS
-             instruction counts (``cuobjdump -sass``) in bf16 and fp32.
+             src/repro_torch/csrc``, unpacked): its K2, K8, K4 and K9 at
+             the same shapes, called through the C interface that revision
+             had (K4 without the split arguments), and its K4 and K9
+             bodies' registers and spills (``nvcc -Xptxas -v``).
 
 It prints the card's name and power limit first.  It needs a CUDA device
 and exits non-zero without one.
@@ -34,7 +48,6 @@ and exits non-zero without one.
 from __future__ import annotations
 
 import argparse
-import collections
 import ctypes
 import re
 import subprocess
@@ -109,7 +122,7 @@ def k2_case(tag, B, KVH, G, d, bs, start, S, parent=None, sdpa=False):
             build.check_launch("parent paged_prefill_gqa", parent(
                 1, d, bs, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                 tables.data_ptr(), st.data_ptr(), out.data_ptr(), B, KVH,
-                S * G, G, mb, 0, 0.0, d ** -0.5, stream()))
+                S * G, G, mb, 0, 0.0, d ** -0.5, 1, None, stream()))
         old()
         torch.cuda.synchronize()
         _hold(f"K2 {tag} parent", out, want, torch.bfloat16)
@@ -175,7 +188,7 @@ def k8_case(tag, B, H, KVH, d, bs, nb, S, end, T, parent=None, sdpa=False):
             build.check_launch("parent block_sparse_attention", parent(
                 1, d, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 ids.data_ptr(), qs.data_ptr(), out.data_ptr(), B, S, T, H,
-                KVH, bs, nb, 1, 0.0, d ** -0.5, stream()))
+                KVH, bs, nb, 1, 0.0, d ** -0.5, 1, None, stream()))
         old()
         torch.cuda.synchronize()
         _hold(f"K8 {tag} parent", out, want, torch.bfloat16)
@@ -194,71 +207,234 @@ def k8_case(tag, B, H, KVH, d, bs, nb, S, end, T, parent=None, sdpa=False):
     report("block_sparse_attention", tag, tiles, flops, times)
 
 
-def parent_libraries(csrc: Path) -> dict:
-    """Build the parent's K2 and K8 libraries (into build/parent/) with
-    ``-Xptxas -v``; print its K8 body's registers and spills and its SASS
-    instruction counts; return the two C entry points."""
+def _nvcc(src: Path, out: Path, defines=(), verbose=False):
+    """Start nvcc on ``src`` (the repo's flags, ``-D`` ``defines``,
+    ``-Xptxas -v`` when ``verbose``) into ``out``; returns the process."""
     from repro_torch.kernels import build
-    out_dir = build.BUILD_DIR / "parent"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [build.nvcc(), *build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+           *(["-Xptxas", "-v"] if verbose else []), "-o", str(out), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _entry(so: Path, name: str, argtypes):
+    fn = getattr(ctypes.CDLL(str(so)), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+# the tile sizes studied: (keys a round, K/V stages) of K4's tile, keys a
+# round of K9's; the first of each is the default build's
+MLA_VARIANTS = ((32, 2), (32, 3), (16, 2), (16, 3))
+TF32_VARIANTS = (32, 64)
+
+
+def variant_libraries() -> dict:
+    """Build K4's and K9's libraries at every other tile size (into
+    build/study/, all nvcc processes at once); returns name -> the C entry
+    point (``mla_k{keys}_s{stages}``, ``tf32_k{keys}``)."""
+    from repro_torch.kernels import build
+    out_dir = build.BUILD_DIR / "study"
+    jobs = {}
+    for keys, stages in MLA_VARIANTS[1:]:
+        tag = f"mla_k{keys}_s{stages}"
+        jobs[tag] = ("paged_mla", "paged_prefill_mla", _nvcc(
+            build.CSRC / "paged_mla.cu", out_dir / tag / "libpaged_mla.so",
+            (f"REPRO_MLA_KEYS={keys}", f"REPRO_MLA_STAGES={stages}")))
+    for keys in TF32_VARIANTS[1:]:
+        tag = f"tf32_k{keys}"
+        jobs[tag] = ("flash_attention", "flash_attention", _nvcc(
+            build.CSRC / "flash_attention.cu",
+            out_dir / tag / "libflash_attention.so",
+            (f"REPRO_TF32_KEYS={keys}",)))
     entries = {}
-    for lib, name, argtypes in (
-            ("paged_attention", "paged_prefill_gqa",
-             [_I] * 3 + [_P] * 6 + [_I] * 6 + [_F, _F, _P]),
-            ("block_sparse", "block_sparse_attention",
-             [_I] * 3 + [_P] * 6 + [_I] * 8 + [_F, _F, _P])):
-        so = out_dir / f"lib{lib}.so"
-        proc = subprocess.run(
-            [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so),
-             str(csrc / f"{lib}.cu")], capture_output=True, text=True)
+    for tag, (lib, name, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {tag}:\n{err}")
+        entries[tag] = _entry(out_dir / tag / f"lib{lib}.so", name,
+                              build.ENTRIES[name][1])
+    return entries
+
+
+def parent_libraries(csrc: Path) -> dict:
+    """Build the parent's K2, K8, K4 and K9 libraries (into build/parent/)
+    with ``-Xptxas -v``; print its K4 and K9 bodies' registers and spills;
+    return the C entry points (K2, K8, K9 with this revision's arguments,
+    K4 without the split's)."""
+    from repro_torch.kernels import build
+    _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    out_dir = build.BUILD_DIR / "parent"
+    libs = {"paged_attention": ["paged_prefill_gqa"],
+            "block_sparse": ["block_sparse_attention"],
+            "paged_mla": ["paged_prefill_mla"],
+            "flash_attention": ["flash_attention"]}
+    procs = {lib: _nvcc(csrc / f"{lib}.cu", out_dir / f"lib{lib}.so",
+                        verbose=True) for lib in libs}
+    entries = {}
+    for lib, proc in procs.items():
+        _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the parent's {lib}.cu:\n"
-                               f"{proc.stderr}")
-        if lib == "block_sparse":
-            lines = proc.stderr.splitlines()
-            for i, line in enumerate(lines):
-                if "Compiling entry function" in line \
-                        and "block_sparse_kernel" in line:
-                    info = " ".join(x.split(":", 1)[-1].strip()
-                                    for x in lines[i + 2:i + 4])
-                    print(f"[parent.ptxas] {_instance(line)}: {info}",
-                          flush=True)
-            _sass_counts(so)
-        fn = getattr(ctypes.CDLL(str(so)), name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        entries[name] = fn
+                               f"{err}")
+        lines = err.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and any(
+                    m in line for m in ("paged_mla_kernel", "DenseKV")):
+                info = " ".join(x.split(":", 1)[-1].strip()
+                                for x in lines[i + 2:i + 4])
+                print(f"[parent.ptxas] {lib} {_instance(line)}: {info}",
+                      flush=True)
+        for name in libs[lib]:
+            argtypes = build.ENTRIES[name][1]
+            if name == "paged_prefill_mla":
+                argtypes = [_I] * 4 + [_P] * 7 + [_I] * 4 + [_F, _P]
+            entries[name] = _entry(out_dir / f"lib{lib}.so", name, argtypes)
     return entries
 
 
 def _instance(mangled: str) -> str:
+    """A short name for a parent SIMT body's mangled instantiation: its
+    kernel, element type and template integers."""
+    kernel = "paged_mla_kernel" if "paged_mla_kernel" in mangled \
+        else "gqa_tile_kernel"
     dtype = "bf16" if "nv_bfloat16" in mangled else "fp32"
-    dims = re.search(r"Li(\d+)ELi(\d+)ELi(\d+)E", mangled)
-    return f"block_sparse_kernel<{dtype},{','.join(dims.groups())}>"
+    dims = re.findall(r"Li(\d+)E", mangled)
+    return f"{kernel}<{dtype},{','.join(dims)}>"
 
 
-def _sass_counts(so: Path) -> None:
+def k4_case(tag, B, H, bs, starts, S, variants, parent=None, sdpa=False):
+    """K4 (bf16) at one shape: every tile-size variant with 1, 2 and 4
+    parts, the wrapper (the default build, its own parts), SDPA and the
+    parent."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import build
-    tool = Path(build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
-                          text=True, check=True).stdout
-    ops, name = {}, None
-    for line in sass.splitlines():
-        found = re.search(r"Function : (\S+)", line)
-        if found:
-            name = found.group(1)
-            ops[name] = []
-        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            op = re.sub(r"/\*[0-9a-f]{4,}\*/\s*", "", line).strip()
-            op = re.sub(r"^@!?U?P\w+\s+", "", op)
-            if op:
-                ops[name].append(op.split()[0].split(".")[0])
-    for name, seen in ops.items():
-        if "block_sparse_kernel" in name:
-            top = collections.Counter(seen).most_common(8)
-            print(f"[parent.sass] {_instance(name)}: instructions="
-                  f"{len(seen)} " + " ".join(f"{k}={v}" for k, v in top),
-                  flush=True)
+    from repro_torch.kernels.paged_attention import prefill as K4
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    L, R, scale = 512, 64, 192 ** -0.5
+    nbk = 4096
+    c = torch.randn((nbk + 1, bs, L), generator=gen, device="cuda").bfloat16()
+    kr = torch.randn((nbk + 1, bs, R), generator=gen,
+                     device="cuda").bfloat16()
+    mb = (max(starts) + S) // bs + 1
+    t = np.full((B, mb), nbk, np.int32)
+    perm, at = rng.permutation(nbk), 0
+    for b, st in enumerate(starts):
+        live = (st + S - 1) // bs + 1
+        t[b, :live] = perm[at:at + live]
+        at += live
+    tables = torch.from_numpy(t).cuda()
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    q_lat = torch.randn((B, S * H, L), generator=gen, device="cuda")
+    q_rope = torch.randn((B, S * H, R), generator=gen,
+                         device="cuda").bfloat16()
+    out = torch.empty_like(q_lat)
+    flops = H * sum(s0 + i + 1 for s0 in starts for i in range(S)) \
+        * (2 * (L + R) + 2 * L)
+    want = K4.paged_prefill_mla_plain(q_lat, q_rope, c, kr, tables, st,
+                                      heads=H, scale=scale)
+    tiles = -(-S * H // 64) * B
+    times = {}
+    for name, fn in variants.items():
+        for parts in (1, 2, 4):
+            ws = torch.empty(tiles * parts * 64 * (L + 2), device="cuda")
+
+            def call():
+                build.check_launch("paged_prefill_mla", fn(
+                    1, L, R, bs, q_lat.data_ptr(), q_rope.data_ptr(),
+                    c.data_ptr(), kr.data_ptr(), tables.data_ptr(),
+                    st.data_ptr(), out.data_ptr(), B, S * H, H, mb, scale,
+                    parts, ws.data_ptr(), stream()))
+            call()
+            torch.cuda.synchronize()
+            _hold(f"K4 {tag} {name} parts={parts}", out, want,
+                  torch.bfloat16)
+            times[f"{name}_p{parts}"] = cuda_ms(call, 30)
+
+    def wrapper():
+        return K4.paged_prefill_mla(q_lat, q_rope, c, kr, tables, st,
+                                    heads=H, scale=scale)
+    _hold(f"K4 {tag} wrapper", wrapper(), want, torch.bfloat16)
+    times["wrapper"] = cuda_ms(wrapper, 30)
+    times["wrapper_device"] = graph_ms(wrapper, 10)
+    if parent is not None:
+        def old():
+            build.check_launch("parent paged_prefill_mla", parent(
+                1, L, R, bs, q_lat.data_ptr(), q_rope.data_ptr(),
+                c.data_ptr(), kr.data_ptr(), tables.data_ptr(),
+                st.data_ptr(), out.data_ptr(), B, S * H, H, mb, scale,
+                stream()))
+        old()
+        torch.cuda.synchronize()
+        _hold(f"K4 {tag} parent", out, want, torch.bfloat16)
+        times["parent"] = cuda_ms(old, 10)
+    if sdpa:
+        T = max(starts) + S
+        cv = c[tables].reshape(B, -1, L)[:, :T]
+        k = torch.cat([cv, kr[tables].reshape(B, -1, R)[:, :T]], dim=-1)
+        kh = k[:, None].expand(B, H, T, L + R).contiguous()
+        vh = cv[:, None].expand(B, H, T, L).contiguous()
+        qpos = st[:, None].long() + torch.arange(S, device="cuda")
+        mask = (torch.arange(T, device="cuda")[None, None]
+                <= qpos[..., None])[:, None]
+        qs = torch.cat([q_lat.bfloat16(), q_rope], -1) \
+            .reshape(B, S, H, L + R).transpose(1, 2)
+        times["sdpa"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, kh, vh, attn_mask=mask, scale=scale), 30)
+    report("paged_prefill_mla", tag, tiles, flops, times)
+
+
+def k9_case(tag, B, S, H, KVH, d, variants, parent=None, sdpa=False,
+            **kw):
+    """K9 (fp32) at one shape: every tile-size variant, the wrapper (the
+    default build), SDPA where the mask is the plain causal one, and the
+    parent; each held at the fp32 bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as K9
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    q = torch.randn((B, S, H, d), generator=gen, device="cuda")
+    k, v = (torch.randn((B, S, KVH, d), generator=gen, device="cuda")
+            for _ in range(2))
+    out = torch.empty_like(q)
+    window = kw.get("window", 0)
+    keys = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    flops = 4 * B * H * keys * d
+    want = K9.reference(q, k, v, **kw)
+    times = {}
+    entries = dict(variants)
+    if parent is not None:
+        entries["parent"] = parent
+    for name, fn in entries.items():
+        if d > 128 and name.startswith("tf32_k") and name != "tf32_k32":
+            continue                      # d 256 takes one tile size only
+
+        def call():
+            build.check_launch("flash_attention", fn(
+                0, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), B, S, S, H, KVH, 1, window, 0, 0.0,
+                d ** -0.5, stream()))
+        call()
+        torch.cuda.synchronize()
+        _hold(f"K9 {tag} {name}", out, want, torch.float32)
+        times[name] = cuda_ms(call, 10)
+    _hold(f"K9 {tag} wrapper", K9.flash_attention(q, k, v, **kw), want,
+          torch.float32)
+    times["wrapper_device"] = graph_ms(
+        lambda: K9.flash_attention(q, k, v, **kw), 5)
+    if sdpa:
+        qs = q.transpose(1, 2).contiguous()
+        ks, vs = (x.repeat_interleave(H // KVH, 2).transpose(1, 2)
+                  .contiguous() for x in (k, v))
+        times["sdpa"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), 10)
+    report("flash_attention", tag, -(-S * (H // KVH) // 64) * KVH * B,
+           flops, times)
 
 
 def main() -> int:
@@ -271,25 +447,33 @@ def main() -> int:
         print("tile_study: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
-    build.build_all(["paged_attention", "block_sparse"])
+    build.build_all(["paged_attention", "block_sparse", "paged_mla",
+                     "flash_attention"])
     for query, insts in (("paged_prefill_gqa_resources",
                           [(d, bs) for d in (64, 128, 256)
                            for bs in (8, 16, 32)]),
                          ("block_sparse_resources",
-                          [(64, 64), (128, 128), (192, 256)])):
+                          [(64, 64), (128, 128), (192, 256)]),
+                         ("paged_prefill_mla_resources", [(512, 64)]),
+                         ("flash_attention_resources",
+                          [(64,), (128,), (256,)])):
         for inst in insts:
             regs, spill, smem, ctas, rows = build.resources(query, *inst)
             print(f"[resources] query={query} instance="
                   f"{'x'.join(map(str, inst))} registers={regs} "
                   f"spill_bytes={spill} smem_bytes={smem} "
                   f"ctas_per_sm={ctas} rows_per_cta={rows}", flush=True)
+    studied = variant_libraries()
     parent = parent_libraries(args.parent) if args.parent else {}
-    # the serve shapes of chip_smoke.py, then grids of 8 to 512 tiles
+    # K2 and K8: the serve shapes of chip_smoke.py, then grids of 8 to 512
+    # tiles
     k2_case("serve", 1, 4, 8, 128, 16, 768, 256,
             parent=parent.get("paged_prefill_gqa"), sdpa=True)
     k2_case("first-chunk", 1, 4, 8, 128, 16, 0, 256)
@@ -300,6 +484,24 @@ def main() -> int:
             parent=parent.get("block_sparse_attention"), sdpa=True)
     k8_case("one-query-block", 1, 32, 4, 128, 128, 16, 128, 4096, 4224)
     k8_case("batch-2", 2, 32, 4, 128, 128, 16, 256, 4096, 4224)
+    # K4: GLM-5's serve chunk, its verify span (spec 3 over the serve
+    # lengths), a first chunk
+    mla = {"mla_k32_s2": build.cuda_entry("paged_prefill_mla")}
+    mla.update({k: v for k, v in studied.items() if k.startswith("mla")})
+    k4_kw = dict(variants=mla, parent=parent.get("paged_prefill_mla"),
+                 sdpa=True)
+    k4_case("serve", 1, 64, 16, [768], 256, **k4_kw)
+    k4_case("verify", 8, 64, 16, [1040, 48, 793, 166, 528, 80, 916, 316], 4,
+            **k4_kw)
+    k4_case("first-chunk", 1, 64, 16, [0], 256, **k4_kw)
+    # K9: Yi-6B's training layer, d 64 and gemma2's d 256, a window
+    tf32 = {"tf32_k32": build.cuda_entry("flash_attention")}
+    tf32.update({k: v for k, v in studied.items() if k.startswith("tf32")})
+    k9_kw = dict(variants=tf32, parent=parent.get("flash_attention"))
+    k9_case("train", 2, 2048, 32, 4, 128, sdpa=True, **k9_kw)
+    k9_case("d64", 2, 2048, 32, 4, 64, sdpa=True, **k9_kw)
+    k9_case("d256", 2, 2048, 8, 4, 256, sdpa=True, **k9_kw)
+    k9_case("window-512", 2, 2048, 32, 4, 128, window=512, **k9_kw)
     return 0
 
 
