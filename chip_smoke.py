@@ -21,8 +21,8 @@ Phases, each printing lines of numbers (any failure exits non-zero):
   build    compile the hand-written CUDA kernels from ``src/repro_torch/csrc``
            with nvcc for sm_90a into ``build/`` (cached by source hash), one
            nvcc per source, all started together;
-  kernels  K1 (paged decode) and K2 (span prefill) against their plain
-           PyTorch versions at Yi-6B shapes (KVH 4, G 8, d 128) and a
+  kernels  K1 (split-KV paged decode) and K2 (span prefill) against their
+           plain PyTorch versions at Yi-6B shapes (KVH 4, G 8, d 128) and a
            gemma2-like shape (KVH 4, G 2, d 256, window 64, softcap 50),
            block sizes 16 and 8, fp32 (atol 1e-4) and bf16 (atol 2e-2, one
            bf16 ulp at unit scale plus summation order), on ragged rows:
@@ -64,9 +64,12 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            (csrc/mma_tile.cuh) and K4's bf16 MLA tile (csrc/paged_mla.cu),
            with the key-range split the wrapper picks at the serve shapes
            (K4: its chunk and its verify span), and K9's fp32 3xTF32 tile
-           (csrc/tf32_tile.cuh) at every head dim; and the HMMA
-           instructions of each of the tiles' instantiations in the built
-           libraries (cuobjdump -sass; K9's must all be HMMA .TF32; fails
+           (csrc/tf32_tile.cuh) at every head dim, K1's split-KV decode
+           body in both dtypes with the parts the wrapper picks for the
+           decode step, and K10's logits tiles (fp32 3xTF32, bf16 SIMT);
+           and the HMMA instructions of each of the tiles' instantiations
+           in the built libraries, K1's bf16 body among them (cuobjdump
+           -sass; K9's and K10's fp32 tiles' must all be HMMA .TF32; fails
            where one has none); then
            each kernel, its plain version and one PyTorch library call
            (scaled_dot_product_attention over the KV gathered and its heads
@@ -75,7 +78,11 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            the card could take (bytes over 3.35 TB/s or flops over 989
            TFLOP/s, whichever is larger); at these shapes each kernel is
            also held against its plain version, in bf16 and in fp32, with
-           the tolerances above scaled by min(1, max|plain|); K3 and K4
+           the tolerances above scaled by min(1, max|plain|); K1 at the
+           parts its wrapper picks and at parts 1, its line carrying the
+           device time (CUDA graph) beside SDPA's (library_device_ms), the
+           wrapper's host microseconds a call (back-to-back calls, no
+           synchronise), the parts, GB/s and the bound's share; K3 and K4
            at GLM-5's serve shapes, K4 at a prefill chunk and at the
            verify span of a spec-3 round over the decode batch (B 8, S 4;
            the library call there is SDPA over
@@ -88,9 +95,10 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            kernel's and from the plain scores compared (they may differ
            only at near-ties of the 2048th score; their count is printed);
            K9, K10 and K7 at the training runs' shapes in fp32 (bound by
-           67 TFLOP/s, fp32 on the CUDA cores: TF32 is off; K9 by its
-           three TF32 products over 494.7 TFLOP/s, its CUDA-core bound
-           logged beside), K9 beside scaled_dot_product_attention(
+           67 TFLOP/s, fp32 on the CUDA cores: TF32 is off; K9 and K10 by
+           their three TF32 products over 494.7 TFLOP/s, the CUDA-core
+           bound logged beside; both with a CUDA-graph device time), K9
+           beside scaled_dot_product_attention(
            is_causal=True), whose kernel the profiler names; K10 there on
            unit-scale logits, as the model's, so that the part of its sum
            that depends on h.W is far above the 1e-5 relative tolerance;
@@ -293,6 +301,23 @@ def graph_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn``: the wall time of ``calls``
+    back-to-back calls with no synchronise between them (the device work
+    queues behind; ``calls`` stays below the launch queue's depth), over
+    ``calls``.  For a wrapper whose kernel is shorter than its Python and
+    ctypes work, this is what sets its time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / calls * 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -558,6 +583,7 @@ def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.build import DTYPE_CODE
     from repro_torch.kernels.paged_attention import kernel as K1
     from repro_torch.kernels.paged_attention import prefill as K2
     dtype = torch.bfloat16
@@ -579,9 +605,15 @@ def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
     per_layer = [tables + g * stride for g in range(L)]
     sl = torch.from_numpy(lens).to(device)
     q = torch.randn((B, kvh, G, d), generator=gen, device=device).to(dtype)
+    parts = K1.decode_parts(DTYPE_CODE[dtype], d, bs, B, kvh, G, mb,
+                            q.device.index)[0]
     it = iter(range(10 ** 9))
-    ms = cuda_ms(lambda: K1.paged_decode_gqa(
-        q, kp, vp, per_layer[next(it) % L], sl), reps)
+
+    def k1():
+        return K1.paged_decode_gqa(q, kp, vp, per_layer[next(it) % L], sl)
+    ms = cuda_ms(k1, reps)
+    device_ms = graph_ms(k1, reps)
+    call_us = host_us(k1)
     plain_ms = cuda_ms(lambda: K1.paged_decode_gqa_plain(
         q, kp, vp, per_layer[next(it) % L], sl), max(4, reps // 8))
     T = int(lens.max()) + 1
@@ -590,26 +622,39 @@ def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
     mask = (torch.arange(T, device=device)[None, :]
             <= sl[:, None].long())[:, None, None, :]
     qs = q.reshape(B, kvh * G, 1, d)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qs, *kv_views[next(it) % 8], attn_mask=mask), reps)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, *kv_views[next(it) % 8],
+                                              attn_mask=mask)
+    lib_ms = cuda_ms(sdpa, reps)
+    lib_dev = graph_ms(sdpa, reps)
     del kv_views
     # held against the plain version at these shapes, in bf16 and in fp32
-    # (layer 0's blocks: the tables without a layer offset)
-    err = _hold("K1 serve-shape", K1.paged_decode_gqa(q, kp, vp, tables, sl),
-                K1.paged_decode_gqa_plain(q, kp, vp, tables, sl), dtype)
+    # (layer 0's blocks: the tables without a layer offset), at the parts
+    # the wrapper picks and at parts 1 (no combine pass)
     q32, k32, v32 = q.float(), kp[:stride].float(), vp[:stride].float()
-    err32 = _hold("K1 serve-shape",
-                  K1.paged_decode_gqa(q32, k32, v32, tables, sl),
-                  K1.paged_decode_gqa_plain(q32, k32, v32, tables, sl),
-                  torch.float32)
+    err = err32 = 0.0
+    for qq, kk, vv, dt in ((q, kp, vp, dtype), (q32, k32, v32, torch.float32)):
+        want = K1.paged_decode_gqa_plain(qq, kk, vv, tables, sl)
+        e = max(_hold(f"K1 serve-shape parts={parts}",
+                      K1.paged_decode_gqa(qq, kk, vv, tables, sl), want, dt),
+                _hold("K1 serve-shape parts=1", K1.launch_decode_gqa(
+                    qq, kk, vv, tables, sl, 0, 0.0, 1), want, dt))
+        if dt == dtype:
+            err = e
+        else:
+            err32 = e
+    del q32, k32, v32
     toks = int((lens + 1).sum())
     nbytes = toks * kvh * d * 2 * item + 2 * q.numel() * item \
         + tables.numel() * 4 + B * 4
     flops = 4 * toks * G * kvh * d
     out["paged_decode_gqa"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
-        max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
-        shape=f"B={B} lens={lens.tolist()}")
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
+        shape=f"B={B} lens={lens.tolist()}",
+        extra=dict(library_device_ms=lib_dev, host_us=call_us, parts=parts,
+                   gb_per_s=nbytes / device_ms / 1e6))
 
     # K2: the last prefill chunk of the longest prompt
     start = ((max_prompt - 1) // chunk) * chunk
@@ -686,7 +731,7 @@ def _bounds(out: dict) -> None:
              device_ms=r.get("device_ms"), plain_ms=r["plain_ms"],
              library_ms=r["library_ms"], bound_ms=r["bound_ms"],
              bound_by=r["bound_by"], tflops=r["flops"] / dev / 1e9,
-             bound_share=r["bound_ms"] / dev,
+             bound_share=r["bound_ms"] / dev, **r.get("extra", {}),
              max_abs_err=r["max_abs_err"],
              max_abs_err_fp32=r["max_abs_err_fp32"], dtype="bfloat16")
 
@@ -929,20 +974,23 @@ def mla_resources(cfg, batch) -> None:
 
 
 def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
-                   train_cfg) -> None:
+                   train_cfg, decode_mb) -> None:
     """The tensor-core attention tiles at the serve and training shapes:
     the bf16 tile of K2 and K8 (csrc/mma_tile.cuh; ``gqa_cfg``'s heads over
     blocks of 16, and ``block_cfg``'s over its DSA blocks, spans of
     ``span`` tokens), K4's bf16 MLA tile (csrc/paged_mla.cu; ``mla_cfg``'s
     heads at a ``span``-token chunk and at a ``spec``-deep verify span of
     ``batch`` rows) and K9's fp32 3xTF32 tile (csrc/tf32_tile.cuh; every
-    head dim, the grid of ``train_cfg``'s layer at batch 2 x 2048):
-    registers, spills, shared memory and CTAs resident on one SM as the CUDA
-    runtime reports them, the rows a CTA and the key-range parts the
-    wrapper picks; then the HMMA (tensor-core) instructions of every
-    instantiation of the tiles in the built libraries, from ``cuobjdump
-    -sass`` (K9's must be HMMA .TF32; it fails where an instantiation has
-    none; where the tool is missing it says so)."""
+    head dim, the grid of ``train_cfg``'s layer at batch 2 x 2048), K1's
+    split-KV body (``gqa_cfg``'s heads, ``batch`` rows over ``decode_mb``
+    blocks of 16) and K10's logits tiles (fp32 by 3xTF32, bf16 SIMT, at
+    ``train_cfg``'s vocabulary): registers, spills, shared memory and CTAs
+    resident on one SM as the CUDA runtime reports them, the rows a CTA and
+    the key-range parts the wrapper picks; then the HMMA (tensor-core)
+    instructions of every instantiation of the tiles in the built
+    libraries, from ``cuobjdump -sass`` (K9's and K10's fp32 tiles' must be
+    HMMA .TF32; K1's bf16 body is among them; it fails where an
+    instantiation has none; where the tool is missing it says so)."""
     import re
     import shutil
     import torch
@@ -972,6 +1020,31 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
              spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
              rows_per_cta=per_cta, tiles=-(-rows // per_cta) * others,
              parts=parts, sms=sms)
+    # K1's split-KV body (no tensor cores) at the decode step's shape
+    from repro_torch.kernels.paged_attention import kernel as K1
+    G1 = gqa_cfg.num_heads // kvh
+    for dtype, code in (("float32", 0), ("bfloat16", 1)):
+        regs, spill, smem, ctas, per_cta = build.resources(
+            "paged_decode_gqa_resources", code, d, 16)
+        _log("resources", kernel="paged_decode_gqa", dtype=dtype,
+             body="decode_split::" + ("simt_kernel" if code == 0
+                                      else "mma_kernel (tensor cores)"),
+             instance=f"{d}x16",
+             shape="serve", registers=regs, spill_bytes=spill,
+             smem_bytes=smem, ctas_per_sm=ctas, rows_per_cta=per_cta,
+             tiles=batch * kvh * -(-G1 // per_cta),
+             parts=K1.decode_parts(code, d, 16, batch, kvh, G1, decode_mb,
+                                   dev.index)[0], sms=sms)
+    # K10's logits tile: fp32 by 3xTF32, bf16 on the CUDA cores
+    for dtype, code, body in (("float32", 0, "ce_tf32 (3xTF32)"),
+                              ("bfloat16", 1, "ce_tile_kernel (SIMT)")):
+        regs, spill, smem, ctas, per_cta = build.resources(
+            "chunked_ce_resources", code)
+        _log("resources", kernel="chunked_ce", dtype=dtype, body=body,
+             registers=regs, spill_bytes=spill, smem_bytes=smem,
+             ctas_per_sm=ctas, tokens_per_cta=per_cta,
+             train_tiles=-(-2 * 2048 // per_cta)
+             * -(-train_cfg.vocab_size // 128), sms=sms)
     G = train_cfg.num_heads // train_cfg.num_kv_heads
     for hd in (64, 128, 256):
         regs, spill, smem, ctas, per_cta = build.resources(
@@ -989,9 +1062,12 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
         return
     # (library, the parts of a name that mark the tile's kernels)
     tile = ("mma_tile", "attention_kernel")
+    tf32_libs = ("flash_attention", "chunked_ce")
     for lib, marks in (("paged_attention", tile), ("block_sparse", tile),
                        ("paged_mla", ("mla_span_kernel",)),
-                       ("flash_attention", ("tf32_tile", "attention_kernel"))):
+                       ("flash_attention", ("tf32_tile", "attention_kernel")),
+                       ("chunked_ce", ("ce_tf32", "tile_kernel")),
+                       ("paged_attention", ("decode_split", "mma_kernel"))):
         sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
@@ -1010,6 +1086,11 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
             page = re.search(r"PagedSpanILi(\d+)E", name)
             if lib == "paged_mla":
                 label = "mla_span_kernel"
+            elif lib == "chunked_ce":
+                label = "ce_tf32::tile_kernel"
+            elif "decode_split" in name:
+                label = "decode_split::mma_kernel<{},{}>".format(*re.search(
+                    r"mma_kernelILi(\d+)ELi(\d+)E", name).groups())
             elif lib == "flash_attention":
                 label = "tf32_tile::attention_kernel<" + re.search(
                     r"attention_kernelILi(\d+)E", name)[1] + ",DenseKV>"
@@ -1018,7 +1099,7 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
                          + (f"PagedSpan<{page[1]}>>" if page
                             else "SelectedBlocks>"))
             _log("sass", library=lib, kernel=label, hmma=n, hmma_tf32=tf32)
-            if n == 0 or (lib == "flash_attention" and tf32 != n):
+            if n == 0 or (lib in tf32_libs and tf32 != n):
                 raise AssertionError(f"{lib} {label}: {n} HMMA instructions, "
                                      f"{tf32} of them .TF32")
         if not counts:
@@ -1895,7 +1976,8 @@ def profile_decode(cfg, device="cuda", steps=8, block_size=16,
     # and the port's own kernels wherever they rank: their device time a
     # call, which CUDA events around back-to-back wrapper calls (the timing
     # phase) overstate when a launch is shorter than the wrapper's host work
-    ours = [e for e in kernels if "paged_" in e.key and e not in top]
+    ours = [e for e in kernels if e not in top and any(
+        m in e.key for m in ("paged_", "decode_split"))]
     for e in top + ours:
         _log("profile.kernel", name=repr(e.key[:60]),
              device_ms_per_step=dev_us(e) / steps / 1e3,
@@ -2081,10 +2163,11 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
     (B, S, KVH, d) k/v, causal; K10 over one step's tokens against the
     unembedding; K7 over one 256-query chunk of the DSA run against its
     keys.  Bound: bytes (inputs read once, the output written once) over
-    3.35 TB/s or flops over 67 TFLOP/s (fp32 on the CUDA cores), the larger.
-    Library: one scaled_dot_product_attention(is_causal=True) over the same
-    q and the KV heads repeated once before the timed loop (for K9 only: no
-    single PyTorch call computes K7 or K10)."""
+    3.35 TB/s or flops over 67 TFLOP/s (fp32 on the CUDA cores; K9 and K10,
+    which run 3xTF32 on the tensor cores, three TF32 products over 494.7),
+    the larger.  Library: one scaled_dot_product_attention(is_causal=True)
+    over the same q and the KV heads repeated once before the timed loop
+    (for K9 only: no single PyTorch call computes K7 or K10)."""
     import torch
     import torch.nn.functional as F
     wrappers = train_kernel_wrappers()
@@ -2143,11 +2226,12 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
 
 def _k10_train_shape(gen, Tk, D, V, device="cuda") -> dict:
     """K10 over one training step's Tk tokens against a (D, V) unembedding
-    in fp32, held against its plain version (1e-5 of max(1, |plain|)) and
-    timed beside it.  Unit-scale logits, as the model's (its first loss is
-    ~log V + 0.5): the part of the sum that depends on h.W, sum - count *
-    log V, is then ~Tk / 2, far above the tolerance, so a kernel that drops
-    or corrupts the product fails."""
+    in fp32 (its 3xTF32 tile: bound by three TF32 products), held against
+    its plain version (1e-5 of max(1, |plain|)) and timed beside it.
+    Unit-scale logits, as the model's (its first loss is ~log V + 0.5): the
+    part of the sum that depends on h.W, sum - count * log V, is then
+    ~Tk / 2, far above the tolerance, so a kernel that drops or corrupts
+    the product fails."""
     import torch
     from repro_torch.kernels.chunked_ce import kernel as K10
     h = torch.randn(Tk, D, generator=gen, device=device)
@@ -2167,9 +2251,11 @@ def _k10_train_shape(gen, Tk, D, V, device="cuda") -> dict:
          loss_sum=float(want[0]), product_part=product_part, max_abs_err=err)
     return dict(
         ms=cuda_ms(lambda: K10.chunked_ce(h, w, t, m), 3),
+        device_ms=graph_ms(lambda: K10.chunked_ce(h, w, t, m), 2),
         plain_ms=cuda_ms(lambda: K10.reference(h, w, t, m), 2),
         library_ms=None, max_abs_err=err,
-        flops=2 * Tk * D * V, bytes=4 * (h.numel() + w.numel() + 2 * Tk),
+        flops=2 * Tk * D * V, tf32_products=3,
+        bytes=4 * (h.numel() + w.numel() + 2 * Tk),
         shape=f"Tk={Tk} D={D} V={V}")
 
 
@@ -2443,13 +2529,14 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
     busy_us = sum(dev_us(e) for e in kernels)
     # a kernel's instantiations by name: K9 is the 3xTF32 tile on the dense
     # layout in fp32 (the SIMT tile in bf16), K7 the indexer tile on dense
-    # keys, K10 two kernels
+    # keys, K10 two kernels (its fp32 tile the 3xTF32 one)
     ours = {name: sum(dev_us(e) for e in kernels
                       if any(all(k in e.key for k in keys) for keys in alts))
             / 1e3 for name, alts in (
                 ("flash_attention", [("tf32_tile", "DenseKV"),
                                      ("gqa_tile_kernel", "DenseKV")]),
-                ("chunked_ce", [("ce_tile_kernel",), ("ce_combine_kernel",)]),
+                ("chunked_ce", [("ce_tf32", "tile_kernel"),
+                                ("ce_tile_kernel",), ("ce_combine_kernel",)]),
                 ("lightning_indexer", [("indexer_tile_kernel", "DenseKeys")]),
                 ("block_sparse_attention", [("block_sparse_kernel",)]),
                 ("mamba_scan", [("mamba_scan_model_kernel",)]))}
@@ -2953,7 +3040,8 @@ def main() -> int:
     dsa_max_len = max(dsa_lens) + new_tokens + chunk
     indexer_resources(yi_dsa, len(dsa_lens), dsa_max_len, 16)
     tile_resources(yi, yi_block, chunk, glm5, len(prompt_lens), 3,
-                   yi.replace(num_layers=8))
+                   yi.replace(num_layers=8),
+                   (max(serve_lens + prompt_lens) + chunk) // 16 + 1)
     timing = time_kernels(yi, serve_lens, max(prompt_lens), bs=16,
                           num_blocks=2048, chunk=chunk)
     _free()

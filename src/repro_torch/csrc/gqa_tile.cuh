@@ -1,7 +1,8 @@
-// The SIMT attention tile: K1 (csrc/paged_attention.cu, decode in fp32 and
-// bf16, K/V through a block table), K2's fp32 span prefill (the exact
-// parity route; bf16 spans run mma_tile.cuh's tensor-core tile) and K9
-// (csrc/flash_attention.cu, contiguous K/V).
+// The SIMT attention tile: K2's fp32 span prefill (csrc/paged_attention.cu,
+// K/V through a block table: the exact parity route; bf16 spans run
+// mma_tile.cuh's tensor-core tile) and K9's bf16 route
+// (csrc/flash_attention.cu, contiguous K/V; its fp32 route runs
+// tf32_tile.cuh).
 //
 // One CTA of kThreads threads owns ROWS packed query rows of one KV head of
 // one batch row: packed row r is group query (head) r % G of token r / G,
@@ -16,10 +17,9 @@
 // row that sees no key gets 0.  A round past the live range stages zeros,
 // so a masked p = 0 never meets stale shared memory.
 //
-// What bounds it: decode (K1) does 4 * G flops a K/V value, far below the
-// ~295 flop/byte ridge, so the K/V bytes do and scalar FMAs cost nothing
-// there; fp32 spans (K2's fp32 route, K9) are bound by the CUDA cores'
-// fp32 rate (67 TFLOP/s), the rate an exact fp32 product (TF32 off) has.
+// What bounds it: fp32 spans (K2's fp32 route) are bound by the CUDA
+// cores' fp32 rate (67 TFLOP/s), the rate an exact fp32 product (TF32 off)
+// has; K9's bf16 route by the same FMAs (not yet on the tensor cores).
 //
 // Where the rows and keys live is the layout policy's (type KV):
 //   start(b)            position of batch row b's token 0

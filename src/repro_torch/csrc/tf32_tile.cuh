@@ -1,14 +1,17 @@
 // The fp32 attention tile on Hopper's tensor cores by 3xTF32: K9's fp32
 // route (csrc/flash_attention.cu, the training path's dense attention).
-// K9's bf16 route keeps gqa_tile.cuh's SIMT body; K1 and fp32 K2 keep it too.
+// K9's bf16 route and fp32 K2 keep gqa_tile.cuh's SIMT body.  Its TF32
+// helpers split and mma1688 (and the cp.async ones it takes from
+// mma_tile.cuh) also serve K10's fp32 logits tile (csrc/chunked_ce.cu).
 //
 // What bounds it on this card: arithmetic.  The training shape (Yi-6B: B 2,
 // S 2048, H 32 / KVH 4, d 128, causal) is 6.87e10 flops against 0.2 GB of
 // q/k/v/out.  The trainer keeps TF32 off, since its parity contract is
 // fp32, so a single TF32 product is not allowed; on the CUDA cores fp32 runs
 // at 67 TFLOP/s at best (1.03 ms).  3xTF32 writes each fp32 operand as
-// big + small, two TF32 values (big = cvt.rna.tf32(x), small =
-// cvt.rna.tf32(x - big): together x to ~2^-22 relative), and sums three
+// big + small, two TF32 values (big = x rounded to TF32 as cvt.rna.tf32
+// rounds, small = x - big rounded the same way: together x to ~2^-22
+// relative), and sums three
 // tensor-core products, big.big + big.small + small.big, in fp32
 // accumulators: only small.small (~2^-22 of a product) is dropped.  Three
 // products at the TF32 rate (495 TFLOP/s) bound the shape at 0.417 ms.
@@ -92,13 +95,15 @@ struct Tile {
                 "tile shape");
 };
 
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero), bit for bit on finite values, by two integer ops: half of the
+// dropped 13 bits' range added to the magnitude, then cleared.  The cvt
+// instruction measured 19 % (K9) and 15-30 % (K10) slower on the card.
 __device__ inline uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// x = big + small, both TF32 (rounded to nearest, ties away from zero)
+// x = big + small, both TF32
 __device__ inline void split(float x, uint32_t& big, uint32_t& small) {
   big = to_tf32(x);
   small = to_tf32(x - __uint_as_float(big));

@@ -44,8 +44,14 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype arg
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 # entry point -> (csrc library, argument types)
 ENTRIES = {
+    # K1: dtype, d, bs, q, k_pool, v_pool, tables, seq_lens, out, B, KVH,
+    # G, mb, window, softcap, scale, parts, workspace, stream
     "paged_decode_gqa": ("paged_attention",
-                         [_I] * 3 + [_P] * 6 + [_I] * 5 + [_F, _F, _P]),
+                         [_I] * 3 + [_P] * 6 + [_I] * 5 + [_F, _F, _I, _P,
+                                                           _P]),
+    # K1's split-KV body: dtype, d, bs -> registers, spill bytes, shared
+    # memory, CTAs an SM, query rows a CTA
+    "paged_decode_gqa_resources": ("paged_attention", [_I] * 3 + [_P]),
     # K2: dtype, d, bs, q, k_pool, v_pool, tables, starts, out, B, KVH,
     # SG, G, mb, window, softcap, scale, parts, workspace, stream
     "paged_prefill_gqa": ("paged_attention",
@@ -91,6 +97,9 @@ ENTRIES = {
     # K10: dtype, h, w, targets, mask, partials, loss, count, Tk, D, V,
     # softcap, stream
     "chunked_ce": ("chunked_ce", [_I] + [_P] * 7 + [_I] * 3 + [_F, _P]),
+    # K10's tile (fp32: 3xTF32 on the tensor cores; bf16: SIMT): dtype ->
+    # registers, spill bytes, shared memory, CTAs an SM, tokens a CTA
+    "chunked_ce_resources": ("chunked_ce", [_I] + [_P]),
     # K11 model form: dtype, h0 dtype, N, dt, A, x, Bc, Cc, h0, y, hT, B,
     # S, E, stream
     "mamba_scan_model": ("mamba_scan", [_I] * 3 + [_P] * 8 + [_I] * 3 + [_P]),

@@ -25,11 +25,14 @@ fallback.  ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODE as _DTYPE_CODE
 from repro_torch.kernels.build import check_launch as _check_launch
 from repro_torch.kernels.build import cuda_entry
+from repro_torch.kernels.build import resources as _resources
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -40,37 +43,43 @@ BLOCK_SIZES = (8, 16, 32)
 
 
 def check_cuda_args(q, k_pool, v_pool, block_tables, positions) -> None:
-    """Raise on anything the CUDA kernels do not take."""
-    tensors = (q, k_pool, v_pool, block_tables, positions)
-    if q.device.type != "cuda":
+    """Raise on anything the CUDA kernels do not take.  Called on every
+    decode and prefill launch, so each tensor attribute is read once (the
+    wrapper's host work sets K1's time at the decode step)."""
+    dev = q.device
+    if dev.type != "cuda":
         raise ValueError(f"paged attention kernel runs on CUDA tensors, got "
-                         f"{q.device}")
-    if any(t.device != q.device for t in tensors):
+                         f"{dev}")
+    if k_pool.device != dev or v_pool.device != dev \
+            or block_tables.device != dev or positions.device != dev:
         raise ValueError("paged attention: all tensors must be on one device")
-    if q.dtype not in _DTYPE_CODE:
+    dtype = q.dtype
+    if dtype not in _DTYPE_CODE:
         raise TypeError(f"paged attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+                        f"got {dtype}")
+    if k_pool.dtype != dtype or v_pool.dtype != dtype:
         raise TypeError("paged attention: q and the pools must share a dtype")
     if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
         raise TypeError("paged attention: tables and positions must be int32")
-    if not all(t.is_contiguous() for t in tensors):
+    if not (q.is_contiguous() and k_pool.is_contiguous()
+            and v_pool.is_contiguous() and block_tables.is_contiguous()
+            and positions.is_contiguous()):
         raise ValueError("paged attention kernel needs contiguous tensors")
-    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+    if (q.data_ptr() | k_pool.data_ptr() | v_pool.data_ptr()) % 16:
         raise ValueError("paged attention kernel needs 16-byte aligned "
                          "tensors")
-    d, bs = q.shape[-1], k_pool.shape[1]
+    qs, ks = q.shape, k_pool.shape
+    d, bs = qs[-1], ks[1]
     if d not in HEAD_DIMS:
         raise ValueError(f"paged attention kernel: head_dim {d} not in "
                          f"{HEAD_DIMS}")
     if bs not in BLOCK_SIZES:
         raise ValueError(f"paged attention kernel: block size {bs} not in "
                          f"{BLOCK_SIZES}")
-    if k_pool.shape != v_pool.shape or k_pool.shape[-1] != d \
-            or k_pool.shape[2] != q.shape[1]:
-        raise ValueError(f"paged attention: pools {tuple(k_pool.shape)} do "
-                         f"not match q {tuple(q.shape)}")
-    if block_tables.shape[0] != q.shape[0] or positions.shape != (q.shape[0],):
+    if ks != v_pool.shape or ks[-1] != d or ks[2] != qs[1]:
+        raise ValueError(f"paged attention: pools {tuple(ks)} do not match "
+                         f"q {tuple(qs)}")
+    if block_tables.shape[0] != qs[0] or positions.shape != (qs[0],):
         raise ValueError("paged attention: tables/positions batch mismatch")
 
 
@@ -114,6 +123,68 @@ def paged_decode_gqa_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return (acc / l.clamp_min(1e-20)[..., None]).to(q.dtype)
 
 
+MAX_DECODE_PARTS = 16     # runs of blocks K1 cuts a row's live range into
+DECODE_ROWS = 8           # query rows a CTA of K1
+
+
+def decode_workspace(B: int, KVH: int, G: int, d: int, parts: int) -> int:
+    """fp32 floats of K1's combine workspace: each run's (m, l, acc) of a
+    CTA's rows, for every (batch row, kv head, row tile)."""
+    return B * KVH * -(-G // DECODE_ROWS) * parts * DECODE_ROWS * (d + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_parts(dtype_code: int, d: int, bs: int, B: int, KVH: int, G: int,
+                 mb: int, index: int) -> tuple:
+    """The key-range split of K1's launch, from the shapes alone (never
+    ``seq_lens``, which would cost a device-to-host copy): (parts,
+    workspace floats).  As many runs of blocks a (kv head, batch row, 8
+    query rows) as one wave of every CTA slot of the card holds (the CTAs
+    an SM from K1's occupancy query, times the SMs), at most
+    ``MAX_DECODE_PARTS`` and at most ``mb`` (one block a run); the combine
+    pass's workspace holds each run's (m, l, acc) of 8 rows."""
+    *_, per_sm, rows = _resources("paged_decode_gqa_resources", dtype_code,
+                                  d, bs)
+    if rows != DECODE_ROWS:
+        raise RuntimeError(f"K1's library takes {rows} rows a CTA, the "
+                           f"wrapper {DECODE_ROWS}: a stale build")
+    tiles = B * KVH * -(-G // DECODE_ROWS)
+    slots = per_sm * torch.cuda.get_device_properties(index) \
+        .multi_processor_count
+    parts = max(1, min(MAX_DECODE_PARTS, mb, slots // tiles))
+    return parts, decode_workspace(B, KVH, G, d, parts)
+
+
+def _launch(q, k_pool, v_pool, block_tables, seq_lens, window, softcap,
+            code, B, KVH, G, d, parts, ws_floats, index) -> torch.Tensor:
+    # the raw stream handle, as Triton's launcher reads it: Stream objects
+    # cost microseconds, and K1's time at the decode step is host work
+    out = torch.empty_like(q)
+    ws = None if parts == 1 else q.new_empty(ws_floats, dtype=torch.float32)
+    err = cuda_entry("paged_decode_gqa")(
+        code, d, k_pool.shape[1], q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
+        out.data_ptr(), B, KVH, G, block_tables.shape[1], window, softcap,
+        d ** -0.5, parts, None if ws is None else ws.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(index))
+    _check_launch("paged_decode_gqa", err)
+    return out
+
+
+def launch_decode_gqa(q: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, block_tables: torch.Tensor,
+                      seq_lens: torch.Tensor, window: int, softcap: float,
+                      parts: int) -> torch.Tensor:
+    """K1's C entry point on checked CUDA tensors with the live range cut
+    into ``parts`` runs (1..16; the workspace of the combine pass from
+    PyTorch's caching allocator) -> out.  Counts nothing: the wrapper does,
+    and the tests call this to force ``parts``."""
+    B, KVH, G, d = q.shape
+    return _launch(q, k_pool, v_pool, block_tables, seq_lens, window,
+                   softcap, _DTYPE_CODE[q.dtype], B, KVH, G, d, parts,
+                   decode_workspace(B, KVH, G, d, parts), q.get_device())
+
+
 def paged_decode_gqa(q: torch.Tensor, k_pool: torch.Tensor,
                      v_pool: torch.Tensor, block_tables: torch.Tensor,
                      seq_lens: torch.Tensor, *, window: int = 0,
@@ -122,21 +193,20 @@ def paged_decode_gqa(q: torch.Tensor, k_pool: torch.Tensor,
     int32; seq_lens (B,) int32 -> (B, KVH, G, d) in q.dtype.
 
     CPU tensors run ``paged_decode_gqa_plain``; CUDA tensors launch the
-    Hopper kernel on the current stream (one CTA per (kv-head, row))."""
+    Hopper kernel on the current stream: split-KV, a CTA per (kv head,
+    batch row, run of blocks), ``decode_parts`` runs, and a combine pass
+    where there is more than one (one launch on the count)."""
     if q.device.type == "cpu":
         return paged_decode_gqa_plain(q, k_pool, v_pool, block_tables,
                                       seq_lens, window=window,
                                       softcap=softcap)
     check_cuda_args(q, k_pool, v_pool, block_tables, seq_lens)
     B, KVH, G, d = q.shape
-    out = torch.empty_like(q)
-    err = cuda_entry("paged_decode_gqa")(
-        _DTYPE_CODE[q.dtype], d, k_pool.shape[1], q.data_ptr(),
-        k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), B, KVH, G,
-        block_tables.shape[1], window, softcap, d ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _check_launch("paged_decode_gqa", err)
+    code, index = _DTYPE_CODE[q.dtype], q.get_device()
+    parts, ws_floats = decode_parts(code, d, k_pool.shape[1], B, KVH, G,
+                                    block_tables.shape[1], index)
+    out = _launch(q, k_pool, v_pool, block_tables, seq_lens, window, softcap,
+                  code, B, KVH, G, d, parts, ws_floats, index)
     paged_decode_gqa.launches += 1
     return out
 

@@ -1,11 +1,15 @@
 """PyTorch port, the training path's CUDA kernels (K7, K9, K10), the
-block selector's (K8), the GQA and MLA span prefills (K2, K4) and the
-Mamba-1 selective scan (K11) against their plain versions on the card.
+block selector's (K8), the GQA split-KV decode (K1), the GQA and MLA span
+prefills (K2, K4) and the Mamba-1 selective scan (K11) against their plain
+versions on the card.
 
 K2, K4 and K8 run a bf16 body on the tensor cores (``csrc/mma_tile.cuh``;
 K4's MLA form in ``csrc/paged_mla.cu``) and an fp32 body on the CUDA
-cores; K9 runs its fp32 route on the tensor cores by 3xTF32
-(``csrc/tf32_tile.cuh``) and its bf16 route on the CUDA cores.  Each is
+cores; K9 and K10 run their fp32 routes on the tensor cores by 3xTF32
+(``csrc/tf32_tile.cuh``, ``csrc/chunked_ce.cu``) and their bf16 routes on
+the CUDA cores; K1 cuts each row's live range into runs of blocks, a CTA
+each, folded by a combine pass (forced here to every count 1..16 through
+its C entry point).  Each is
 held over every case its dispatch takes (head dims, block sizes, groups,
 window, softcap, q_offset, ragged rows, skipped ids, both empty-row rules,
 and grids that the wrapper splits into 1, 2 or 4 key-range parts), at the
@@ -30,6 +34,7 @@ from repro_torch.kernels.flash_attention import kernel as K9
 from repro_torch.kernels.lightning_indexer import kernel as K7
 from repro_torch.kernels.mamba_scan import kernel as K11
 from repro_torch.kernels.mamba_scan import ref as K11ref
+from repro_torch.kernels.paged_attention import kernel as K1
 from repro_torch.kernels.paged_attention import prefill as K2
 from repro_torch.kernels.sparse_attention import kernel as K8
 
@@ -93,6 +98,90 @@ def test_chunked_ce_matches_plain(dtype):
         torch.cuda.synchronize()
         np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-5)
         assert float(got[1]) == float(want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tk,D,V,softcap", [
+    (1000, 256, 1000, 0.0),        # ragged token and vocab tiles
+    (1000, 256, 1000, 30.0),
+    (333, 100, 1001, 0.0),         # V not a multiple of 4: 4-byte copies
+    (130, 97, 129, 30.0),          # D not a multiple of 4 or 32
+    (4096, 4096, 1000, 0.0),       # the training width, a short vocab
+])
+def test_chunked_ce_tf32_tile_matches_plain(Tk, D, V, softcap):
+    """K10's fp32 route (3xTF32) against ``ref.reference`` at 1e-5
+    relative, a partial mask."""
+    _need_gpu()
+    rng = np.random.default_rng(Tk + D + V)
+    h = _cuda(rng, Tk, D)
+    w = _cuda(rng, D, V) / D ** 0.5
+    t = torch.from_numpy(rng.integers(0, V, Tk).astype(np.int32)).cuda()
+    m = torch.from_numpy((rng.random(Tk) > 0.3).astype(np.float32)).cuda()
+    got = K10.chunked_ce(h, w, t, m, softcap=softcap)
+    want = K10.reference(h, w, t, m, softcap=softcap)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-5)
+    assert float(got[1]) == float(want[1])
+
+
+def _k1_inputs(rng, dtype, KVH, G, d, bs, mb, lens):
+    """Pools with the trash block last, row 0 an idle slot (length 0, all
+    trash), the other rows' blocks disjoint and shuffled."""
+    B = len(lens)
+    live = [0] + [n // bs + 1 for n in lens[1:]]
+    nb = sum(live) + 1
+    t = np.full((B, mb), nb - 1, np.int32)
+    ids, at = rng.permutation(nb - 1), 0
+    for b, n in enumerate(live):
+        t[b, :n] = ids[at:at + n]
+        at += n
+    kp = _cuda(rng, nb, bs, KVH, d, dtype=dtype)
+    vp = _cuda(rng, nb, bs, KVH, d, dtype=dtype)
+    q = _cuda(rng, B, KVH, G, d, dtype=dtype)
+    return q, kp, vp, torch.from_numpy(t).cuda(), \
+        torch.tensor(lens, dtype=torch.int32).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", [
+    # (KVH, G, d, bs, mb, lens, window, softcap)
+    (4, 8, 128, 16, 82, [0, 1, 15, 16, 531, 1039, 300, 777], 0, 0.0),
+    (2, 3, 64, 8, 12, [0, 2, 7, 8, 40, 95], 0, 0.0),
+    (4, 2, 256, 16, 12, [0, 5, 64, 100, 191], 64, 50.0),
+    (2, 12, 128, 32, 6, [0, 31, 32, 150, 191], 40, 30.0),
+])
+def test_paged_decode_gqa_split_matches_plain(dtype, tol, case):
+    """K1 through its C entry point with the live range cut into every
+    count of runs 1..16 (more runs than a row's blocks leaves some empty),
+    and through the wrapper (its own count): an idle slot, ragged lengths,
+    G 2 / 3 / 8 / 12 (two row tiles), window and softcap."""
+    _need_gpu()
+    KVH, G, d, bs, mb, lens, window, softcap = case
+    rng = np.random.default_rng(len(lens) + d)
+    q, kp, vp, tables, sl = _k1_inputs(rng, dtype, KVH, G, d, bs, mb, lens)
+    want = K1.paged_decode_gqa_plain(q, kp, vp, tables, sl, window=window,
+                                     softcap=softcap)
+    for parts in range(1, K1.MAX_DECODE_PARTS + 1):
+        got = K1.launch_decode_gqa(q, kp, vp, tables, sl, window, softcap,
+                                   parts)
+        torch.cuda.synchronize()
+        _hold(got, want, tol)
+    before = K1.paged_decode_gqa.launches
+    _hold(K1.paged_decode_gqa(q, kp, vp, tables, sl, window=window,
+                              softcap=softcap), want, tol)
+    assert K1.paged_decode_gqa.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_paged_decode_gqa_refuses_what_it_cannot_take():
+    _need_gpu()
+    rng = np.random.default_rng(9)
+    q, kp, vp, tables, sl = _k1_inputs(rng, torch.float32, 2, 4, 64, 8, 4,
+                                       [0, 9])
+    for parts in (0, K1.MAX_DECODE_PARTS + 1):
+        with pytest.raises(RuntimeError):
+            K1.launch_decode_gqa(q, kp, vp, tables, sl, 0, 0.0, parts)
 
 
 def _hold(got, want, tol):

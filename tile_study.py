@@ -4,8 +4,10 @@
     python3 tile_study.py [--parent DIR]
 
 The tiles: the bf16 tile of K2 and K8 (``csrc/mma_tile.cuh``), K4's bf16
-MLA tile (``csrc/paged_mla.cu``) and K9's fp32 3xTF32 tile
-(``csrc/tf32_tile.cuh``).  The bf16 tiles split each tile's key range
+MLA tile (``csrc/paged_mla.cu``), K9's fp32 3xTF32 tile
+(``csrc/tf32_tile.cuh``), K10's fp32 3xTF32 logits tile
+(``csrc/chunked_ce.cu``) and K1's split-KV decode body
+(``csrc/paged_attention.cu``).  The bf16 tiles split each tile's key range
 over ``parts`` CTAs where the tiles leave CTA slots of the card empty
 (``repro_torch.kernels.build.key_split``).  This script measures that
 choice, the tile sizes and the tiles against their yardsticks:
@@ -35,11 +37,26 @@ choice, the tile sizes and the tiles against their yardsticks:
              with a window of 512: the tile built with 32 and 64 keys a
              round (``-DREPRO_TF32_KEYS``; d 256 takes 32 only), held at
              the fp32 bound, beside SDPA (is_causal) where no window;
-  parent     with ``--parent DIR``, a copy of another revision's
-             ``src/repro_torch/csrc`` (for example ``git archive <commit>
-             src/repro_torch/csrc``, unpacked): its K2, K8, K4 and K9 at
-             the same shapes, called through the C interface that revision
-             had (K4 without the split arguments), and its K4 and K9
+  decode     K1 at Yi-6B's decode step (B 8, KVH 4, G 8, d 128, bs 16,
+             the serve lengths; each call on another of 8 layers' tables,
+             so the K/V come from device memory), bf16 and fp32: the C
+             entry point with the key range in 1, 2, 4, 8, 12 and 16 parts
+             and the wrapper (its own parts), device times from CUDA-graph
+             replay, each held against the plain version; SDPA's device
+             time on the same step (the KV gathered once); the wrapper's
+             host microseconds a call (``chip_smoke.host_us``);
+  ce         K10's fp32 route at Yi-6B's training shape (Tk 4096, D 4096,
+             V 64000): the tile built with warp tiles of 64 x 32 and 32 x 64
+             (tokens x ids, ``-DREPRO_CE_WARP_M``) and 3 and 2 stages
+             (``-DREPRO_CE_STAGES``), each held at 1e-5 relative against
+             the plain version and timed (CUDA events);
+  parent     with ``--parent DIR``, another revision's
+             ``src/repro_torch/csrc`` with its ``src/repro_torch/kernels``
+             beside it (for example ``git archive <commit> src/repro_torch``,
+             unpacked): its K2, K8, K4, K9, K1 and K10 at the same shapes,
+             called through the C interface that revision had (K2, K4 and
+             K8 with one part; K1 through that revision's own wrapper, so
+             its host work is measured as it was), and its K4 and K9
              bodies' registers and spills (``nvcc -Xptxas -v``).
 
 It prints the card's name and power limit first.  It needs a CUDA device
@@ -54,7 +71,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-from chip_smoke import _hold, cuda_ms, graph_ms
+from chip_smoke import _hold, cuda_ms, graph_ms, host_us
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -228,12 +245,15 @@ def _entry(so: Path, name: str, argtypes):
 # round of K9's; the first of each is the default build's
 MLA_VARIANTS = ((32, 2), (32, 3), (16, 2), (16, 3))
 TF32_VARIANTS = (32, 64)
+# K10's fp32 tile: (tokens a warp, stages)
+CE_VARIANTS = ((64, 3), (64, 2), (32, 3), (32, 2))
 
 
 def variant_libraries() -> dict:
-    """Build K4's and K9's libraries at every other tile size (into
+    """Build K4's, K9's and K10's libraries at every other tile size (into
     build/study/, all nvcc processes at once); returns name -> the C entry
-    point (``mla_k{keys}_s{stages}``, ``tf32_k{keys}``)."""
+    point (``mla_k{keys}_s{stages}``, ``tf32_k{keys}``,
+    ``ce_m{warp_m}_s{stages}``)."""
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR / "study"
     jobs = {}
@@ -248,6 +268,11 @@ def variant_libraries() -> dict:
             build.CSRC / "flash_attention.cu",
             out_dir / tag / "libflash_attention.so",
             (f"REPRO_TF32_KEYS={keys}",)))
+    for warp_m, stages in CE_VARIANTS[1:]:
+        tag = f"ce_m{warp_m}_s{stages}"
+        jobs[tag] = ("chunked_ce", "chunked_ce", _nvcc(
+            build.CSRC / "chunked_ce.cu", out_dir / tag / "libchunked_ce.so",
+            (f"REPRO_CE_WARP_M={warp_m}", f"REPRO_CE_STAGES={stages}")))
     entries = {}
     for tag, (lib, name, proc) in jobs.items():
         _, err = proc.communicate()
@@ -259,17 +284,19 @@ def variant_libraries() -> dict:
 
 
 def parent_libraries(csrc: Path) -> dict:
-    """Build the parent's K2, K8, K4 and K9 libraries (into build/parent/)
-    with ``-Xptxas -v``; print its K4 and K9 bodies' registers and spills;
-    return the C entry points (K2, K8, K9 with this revision's arguments,
-    K4 without the split's)."""
+    """Build the parent's K2, K8, K4, K9, K1 and K10 libraries (into
+    build/parent/) with ``-Xptxas -v``; print its K4 and K9 bodies'
+    registers and spills; return the C entry points (with this revision's
+    arguments) and, for K1, the parent's wrapper (its ``kernels/
+    paged_attention/kernel.py`` beside ``csrc``) around its entry point."""
     from repro_torch.kernels import build
     _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
     out_dir = build.BUILD_DIR / "parent"
-    libs = {"paged_attention": ["paged_prefill_gqa"],
+    libs = {"paged_attention": ["paged_prefill_gqa", "paged_decode_gqa"],
             "block_sparse": ["block_sparse_attention"],
             "paged_mla": ["paged_prefill_mla"],
-            "flash_attention": ["flash_attention"]}
+            "flash_attention": ["flash_attention"],
+            "chunked_ce": ["chunked_ce"]}
     procs = {lib: _nvcc(csrc / f"{lib}.cu", out_dir / f"lib{lib}.so",
                         verbose=True) for lib in libs}
     entries = {}
@@ -288,10 +315,24 @@ def parent_libraries(csrc: Path) -> dict:
                       flush=True)
         for name in libs[lib]:
             argtypes = build.ENTRIES[name][1]
-            if name == "paged_prefill_mla":
-                argtypes = [_I] * 4 + [_P] * 7 + [_I] * 4 + [_F, _P]
+            if name == "paged_decode_gqa":
+                argtypes = [_I] * 3 + [_P] * 6 + [_I] * 5 + [_F, _F, _P]
             entries[name] = _entry(out_dir / f"lib{lib}.so", name, argtypes)
+    entries["paged_decode_gqa"] = _parent_wrapper(
+        csrc.parent / "kernels" / "paged_attention" / "kernel.py",
+        entries["paged_decode_gqa"])
     return entries
+
+
+def _parent_wrapper(path: Path, entry):
+    """The other revision's K1 wrapper, its own Python (``path``) around its
+    own C entry point: its host work as it was."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("parent_k1", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.cuda_entry = lambda name: entry
+    return module.paged_decode_gqa
 
 
 def _instance(mangled: str) -> str:
@@ -366,8 +407,8 @@ def k4_case(tag, B, H, bs, starts, S, variants, parent=None, sdpa=False):
             build.check_launch("parent paged_prefill_mla", parent(
                 1, L, R, bs, q_lat.data_ptr(), q_rope.data_ptr(),
                 c.data_ptr(), kr.data_ptr(), tables.data_ptr(),
-                st.data_ptr(), out.data_ptr(), B, S * H, H, mb, scale,
-                stream()))
+                st.data_ptr(), out.data_ptr(), B, S * H, H, mb, scale, 1,
+                None, stream()))
         old()
         torch.cuda.synchronize()
         _hold(f"K4 {tag} parent", out, want, torch.bfloat16)
@@ -437,10 +478,133 @@ def k9_case(tag, B, S, H, KVH, d, variants, parent=None, sdpa=False,
            flops, times)
 
 
+def k1_case(dtype_name, parent=None):
+    """K1 at Yi-6B's decode step (see the module's ``decode``); ``parent``
+    the other revision's K1 wrapper."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import kernel as K1
+    dtype = getattr(torch, dtype_name)
+    B, KVH, G, d, bs, layers, nbk = 8, 4, 8, 128, 16, 8, 2048
+    lens = np.asarray([1040, 48, 793, 166, 528, 80, 916, 316], np.int32)
+    mb = 82
+    rng = np.random.default_rng(SEED + 4)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    stride = nbk + 1
+    kp, vp = (torch.randn((layers * stride, bs, KVH, d), generator=gen,
+                          device="cuda").to(dtype) for _ in range(2))
+    t = np.full((B, mb), nbk, np.int32)
+    perm, at = rng.permutation(nbk), 0
+    for b, n in enumerate(lens):
+        live = int(n) // bs + 1
+        t[b, :live] = perm[at:at + live]
+        at += live
+    tables = [torch.from_numpy(t + g * stride).cuda() for g in range(layers)]
+    sl = torch.from_numpy(lens).cuda()
+    q = torch.randn((B, KVH, G, d), generator=gen, device="cuda").to(dtype)
+    out = torch.empty_like(q)
+    want = [K1.paged_decode_gqa_plain(q, kp, vp, tb, sl) for tb in tables]
+    it = iter(range(10 ** 9))
+    times = {}
+    fn = build.cuda_entry("paged_decode_gqa")
+    code = build.DTYPE_CODE[dtype]
+    for parts in (1, 2, 4, 8, 12, 16):
+        ws = torch.empty(K1.decode_workspace(B, KVH, G, d, parts),
+                         device="cuda")
+
+        def call():
+            g = next(it) % layers
+            build.check_launch("paged_decode_gqa", fn(
+                code, d, bs, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                tables[g].data_ptr(), sl.data_ptr(), out.data_ptr(), B, KVH,
+                G, mb, 0, 0.0, d ** -0.5, parts, ws.data_ptr(), stream()))
+            return g
+        g = call()
+        torch.cuda.synchronize()
+        _hold(f"K1 {dtype_name} parts={parts}", out, want[g], dtype)
+        times[f"parts{parts}"] = graph_ms(call, 64)
+
+    def wrapper():
+        return K1.paged_decode_gqa(q, kp, vp, tables[next(it) % layers], sl)
+    _hold(f"K1 {dtype_name} wrapper",
+          K1.paged_decode_gqa(q, kp, vp, tables[0], sl), want[0], dtype)
+    times["wrapper"] = cuda_ms(wrapper, 64)
+    times["wrapper_device"] = graph_ms(wrapper, 64)
+    host = {"wrapper_host_us": host_us(wrapper)}
+    if parent is not None:
+        def old_wrapper():
+            return parent(q, kp, vp, tables[next(it) % layers], sl)
+        it = iter(range(10 ** 9))         # old_wrapper's first: layer 0
+        _hold(f"K1 {dtype_name} parent", old_wrapper(), want[0], dtype)
+        times["parent_device"] = graph_ms(old_wrapper, 64)
+        host["parent_host_us"] = host_us(old_wrapper)
+    if dtype == torch.bfloat16:
+        T = int(lens.max()) + 1
+        views = [tuple(p[tb.long()].reshape(B, -1, KVH, d)[:, :T]
+                       .transpose(1, 2).repeat_interleave(G, 1).contiguous()
+                       for p in (kp, vp)) for tb in tables]
+        mask = (torch.arange(T, device="cuda")[None, :]
+                <= sl[:, None].long())[:, None, None, :]
+        qs = q.reshape(B, KVH * G, 1, d)
+        times["sdpa_device"] = graph_ms(
+            lambda: F.scaled_dot_product_attention(
+                qs, *views[next(it) % layers], attn_mask=mask), 64)
+    item = q.element_size()
+    nbytes = int((lens + 1).sum()) * KVH * d * 2 * item \
+        + 2 * q.numel() * item + t.size * 4 + B * 4
+    print(f"[decode] kernel=paged_decode_gqa dtype={dtype_name} "
+          f"bound_ms={nbytes / 3.35e12 * 1e3:.5f} " + " ".join(
+              f"{k}_ms={v:.5f} {k}_gb_per_s={nbytes / v / 1e6:.0f}"
+              for k, v in times.items()) + " " + " ".join(
+              f"{k}={v:.2f}" for k, v in host.items()), flush=True)
+
+
+def k10_case(variants, parent=None):
+    """K10's fp32 route at Yi-6B's training shape (see ``ce``)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.chunked_ce import kernel as K10
+    Tk, D, V = 4096, 4096, 64000
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    h = torch.randn(Tk, D, generator=gen, device="cuda")
+    w = torch.randn(D, V, generator=gen, device="cuda") * D ** -0.5
+    t = torch.randint(0, V, (Tk,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    m = torch.ones(Tk, device="cuda")
+    want = float(K10.reference(h, w, t, m)[0])
+    n_tt, n_vt = -(-Tk // 128), -(-V // 128)
+    part = torch.empty(3 * n_vt * Tk, device="cuda")
+    sums = torch.empty((2, n_tt), device="cuda")
+    entries = dict(variants)
+    if parent is not None:
+        entries["parent"] = parent
+    times = {}
+    for name, fn in entries.items():
+        def call():
+            build.check_launch("chunked_ce", fn(
+                0, h.data_ptr(), w.data_ptr(), t.data_ptr(), m.data_ptr(),
+                part.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(), Tk,
+                D, V, 0.0, stream()))
+        call()
+        got = float(sums[0].sum())
+        if not abs(got - want) <= 1e-5 * abs(want):
+            raise AssertionError(f"K10 {name}: {got} vs plain {want}")
+        times[name] = cuda_ms(call, 3)
+    flops = 2 * Tk * D * V
+    print(f"[ce] kernel=chunked_ce Tk={Tk} D={D} V={V} "
+          f"bound_3xtf32_ms={3 * flops / 494.7e12 * 1e3:.3f} "
+          f"bound_fp32_cores_ms={flops / 67e12 * 1e3:.3f} " + " ".join(
+              f"{k}_ms={v:.3f} {k}_tflops={flops / v / 1e9:.1f}"
+              for k, v in times.items()), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path, default=None,
-                        help="another revision's src/repro_torch/csrc")
+                        help="another revision's src/repro_torch/csrc, its "
+                             "kernels/ beside it")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -455,7 +619,7 @@ def main() -> int:
                          text=True)
     print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
     build.build_all(["paged_attention", "block_sparse", "paged_mla",
-                     "flash_attention"])
+                     "flash_attention", "chunked_ce"])
     for query, insts in (("paged_prefill_gqa_resources",
                           [(d, bs) for d in (64, 128, 256)
                            for bs in (8, 16, 32)]),
@@ -463,7 +627,11 @@ def main() -> int:
                           [(64, 64), (128, 128), (192, 256)]),
                          ("paged_prefill_mla_resources", [(512, 64)]),
                          ("flash_attention_resources",
-                          [(64,), (128,), (256,)])):
+                          [(64,), (128,), (256,)]),
+                         ("paged_decode_gqa_resources",
+                          [(c, d, bs) for c in (0, 1) for d in (64, 128, 256)
+                           for bs in (8, 16, 32)]),
+                         ("chunked_ce_resources", [(0,), (1,)])):
         for inst in insts:
             regs, spill, smem, ctas, rows = build.resources(query, *inst)
             print(f"[resources] query={query} instance="
@@ -502,6 +670,13 @@ def main() -> int:
     k9_case("d64", 2, 2048, 32, 4, 64, sdpa=True, **k9_kw)
     k9_case("d256", 2, 2048, 8, 4, 256, sdpa=True, **k9_kw)
     k9_case("window-512", 2, 2048, 32, 4, 128, window=512, **k9_kw)
+    # K1: Yi-6B's decode step, both dtypes
+    for dtype_name in ("bfloat16", "float32"):
+        k1_case(dtype_name, parent=parent.get("paged_decode_gqa"))
+    # K10: Yi-6B's training step, every tile size
+    ce = {"ce_m64_s3": build.cuda_entry("chunked_ce")}
+    ce.update({k: v for k, v in studied.items() if k.startswith("ce_")})
+    k10_case(ce, parent=parent.get("chunked_ce"))
     return 0
 
 
