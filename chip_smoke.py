@@ -49,8 +49,9 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            at Yi-6B's shape (H 32 / KVH 4, d 128, 16 blocks of 128),
            GLM-5's MLA shape (H 64, dqk 192, dv 256) and the smoke shape
            (4 blocks of 16), queries from mid-sequence, skipped ids,
-           softcap 0 and 50, fp32 and bf16, and its gradients on both
-           routes; then K11 (both entry points: the model form, which
+           softcap 0 and 50, fp32 (its 3xTF32 tile) and bf16 (its bf16
+           tile), and its gradients on both routes; then K11 (both entry
+           points: the model form, which
            discretizes inside, and the Pallas contract) at falcon-mamba's
            width (E 8192, N 16), the smoke width (E 512, N 8) and a ragged
            E (96), S 1 / 7 / 256 / 1024, fp32 and bf16 inputs, fp32 and
@@ -59,18 +60,21 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            outputs, stored in its input dtype, may also differ by one ulp
            of their magnitude), and the gradients through its autograd Function on both routes;
   timing   K3/K4's and K5/K6's registers, spills, shared memory and CTAs
-           resident on an SM, as the CUDA runtime reports them, and those
+           resident on an SM, as the CUDA runtime reports them (K6's bf16
+           tensor-core body at both indexer shapes), and those
            of the tensor-core tiles: the bf16 one K2 and K8 share
            (csrc/mma_tile.cuh) and K4's bf16 MLA tile (csrc/paged_mla.cu),
            with the key-range split the wrapper picks at the serve shapes
-           (K4: its chunk and its verify span), and K9's fp32 3xTF32 tile
-           (csrc/tf32_tile.cuh) at every head dim, K1's split-KV decode
+           (K4: its chunk and its verify span), and the fp32 3xTF32 tile
+           (csrc/tf32_tile.cuh) of K9 at every head dim and of K8 at the
+           training chunk and GLM-5's MLA shape, K1's split-KV decode
            body in both dtypes with the parts the wrapper picks for the
            decode step, and K10's logits tiles (fp32 3xTF32, bf16 SIMT);
            and the HMMA instructions of each of the tiles' instantiations
-           in the built libraries, K1's bf16 body among them (cuobjdump
-           -sass; K9's and K10's fp32 tiles' must all be HMMA .TF32; fails
-           where one has none); then
+           in the built libraries, K1's bf16 body and K6's among them
+           (cuobjdump -sass; K8's, K9's and K10's fp32 tiles' must all be
+           HMMA .TF32, the bf16 ones' none; fails where one has none);
+           then
            each kernel, its plain version and one PyTorch library call
            (scaled_dot_product_attention over the KV gathered and its heads
            repeated once, before the timed loop; timed here only, the port
@@ -93,7 +97,9 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            library call computes their ReLU between product and head sum,
            so no library time), with the top-2048 sets chosen from the
            kernel's and from the plain scores compared (they may differ
-           only at near-ties of the 2048th score; their count is printed);
+           only at near-ties of the 2048th score; their count is printed),
+           K6's line (its bf16 tensor-core body) also with its CUDA-graph
+           device time and its wrapper's host microseconds a call;
            K9, K10 and K7 at the training runs' shapes in fp32 (bound by
            67 TFLOP/s, fp32 on the CUDA cores: TF32 is off; K9 and K10 by
            their three TF32 products over 494.7 TFLOP/s, the CUDA-core
@@ -104,9 +110,11 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            that depends on h.W is far above the 1e-5 relative tolerance;
            K8 at a 256-token span ending at 6144 of the block-selector
            serve (bf16, and fp32 on its own line) and at the block training
-           run's last 256-query chunk against 4096 keys (fp32), beside SDPA
+           run's last 256-query chunk against 4096 keys (fp32; both fp32
+           lines bound by three TF32 products, as K9's), beside SDPA
            over each query block's selected K/V gathered before the timed
-           loop; K2's and K4's fp32 bodies at their serve shapes on lines
+           loop, with the key-range parts its wrapper picks; K2's and
+           K4's fp32 bodies at their serve shapes on lines
            of their own; K2's, K4's, K8's and K9's lines carry, beside the
            wrapper's CUDA-event time, the
            device time of the same calls replayed from a CUDA graph (the
@@ -957,6 +965,7 @@ def mla_resources(cfg, batch) -> None:
     launches for one decode step of ``batch`` rows and the card's SMs."""
     import ctypes
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.build import DTYPE_CODE as _DTYPE_CODE
     from repro_torch.kernels.build import cuda_entry
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -980,17 +989,19 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
     blocks of 16, and ``block_cfg``'s over its DSA blocks, spans of
     ``span`` tokens), K4's bf16 MLA tile (csrc/paged_mla.cu; ``mla_cfg``'s
     heads at a ``span``-token chunk and at a ``spec``-deep verify span of
-    ``batch`` rows) and K9's fp32 3xTF32 tile (csrc/tf32_tile.cuh; every
-    head dim, the grid of ``train_cfg``'s layer at batch 2 x 2048), K1's
+    ``batch`` rows), the fp32 3xTF32 tile (csrc/tf32_tile.cuh) of K9 (every
+    head dim, the grid of ``train_cfg``'s layer at batch 2 x 2048) and of
+    K8 (``block_cfg``'s training chunk and GLM-5's MLA 192 / 256), K1's
     split-KV body (``gqa_cfg``'s heads, ``batch`` rows over ``decode_mb``
     blocks of 16) and K10's logits tiles (fp32 by 3xTF32, bf16 SIMT, at
     ``train_cfg``'s vocabulary): registers, spills, shared memory and CTAs
     resident on one SM as the CUDA runtime reports them, the rows a CTA and
     the key-range parts the wrapper picks; then the HMMA (tensor-core)
     instructions of every instantiation of the tiles in the built
-    libraries, from ``cuobjdump -sass`` (K9's and K10's fp32 tiles' must be
-    HMMA .TF32; K1's bf16 body is among them; it fails where an
-    instantiation has none; where the tool is missing it says so)."""
+    libraries, from ``cuobjdump -sass`` (K8's, K9's and K10's fp32 tiles'
+    must be HMMA .TF32 and the bf16 ones' not; K1's bf16 body and K6's
+    tensor-core body are among them; it fails where an instantiation has
+    none; where the tool is missing it says so)."""
     import re
     import shutil
     import torch
@@ -1000,13 +1011,19 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
     d, kvh = gqa_cfg.head_dim, gqa_cfg.num_kv_heads
     bs = block_cfg.dsa.block_size
     dk = block_cfg.head_dim
+    Gb = block_cfg.num_heads // block_cfg.num_kv_heads
     H, L, R = mla_cfg.num_heads, mla_cfg.mla.kv_lora_dim, \
         mla_cfg.mla.qk_rope_dim
     cases = [("paged_prefill_gqa", "mma_tile", "paged_prefill_gqa_resources",
               (d, 16), span * (gqa_cfg.num_heads // kvh), kvh, d, "serve"),
              ("block_sparse_attention", "mma_tile", "block_sparse_resources",
-              (dk, dk), bs * (block_cfg.num_heads // block_cfg.num_kv_heads),
-              span // bs * block_cfg.num_kv_heads, dk, "serve"),
+              (1, dk, dk), bs * Gb, span // bs * block_cfg.num_kv_heads, dk,
+              "serve"),
+             ("block_sparse_attention", "tf32_tile", "block_sparse_resources",
+              (0, dk, dk), bs * Gb, span // bs * block_cfg.num_kv_heads, dk,
+              "train"),
+             ("block_sparse_attention", "tf32_tile", "block_sparse_resources",
+              (0, 192, 256), bs, span // bs * 64, 256, "glm5_mla"),
              ("paged_prefill_mla", "mla_span_kernel",
               "paged_prefill_mla_resources", (L, R), span * H, 1, L, "serve"),
              ("paged_prefill_mla", "mla_span_kernel",
@@ -1015,8 +1032,10 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
     for kernel, body, query, args, rows, others, dv, at in cases:
         regs, spill, smem, ctas, per_cta = build.resources(query, *args)
         parts = build.key_split(query, args, rows, others, dv, dev)[0]
-        _log("resources", kernel=kernel, dtype="bfloat16", body=body,
-             instance="x".join(map(str, args)), shape=at, registers=regs,
+        _log("resources", kernel=kernel,
+             dtype="float32" if body == "tf32_tile" else "bfloat16",
+             body=body, instance="x".join(map(str, args[-2:])), shape=at,
+             registers=regs,
              spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
              rows_per_cta=per_cta, tiles=-(-rows // per_cta) * others,
              parts=parts, sms=sms)
@@ -1060,14 +1079,18 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
     if not Path(tool).exists():
         _log("sass", cuobjdump="missing")
         return
-    # (library, the parts of a name that mark the tile's kernels)
-    tile = ("mma_tile", "attention_kernel")
-    tf32_libs = ("flash_attention", "chunked_ce")
-    for lib, marks in (("paged_attention", tile), ("block_sparse", tile),
-                       ("paged_mla", ("mla_span_kernel",)),
-                       ("flash_attention", ("tf32_tile", "attention_kernel")),
-                       ("chunked_ce", ("ce_tf32", "tile_kernel")),
-                       ("paged_attention", ("decode_split", "mma_kernel"))):
+    # (library, the parts of a name that mark the tile's kernels, whether
+    # every HMMA must be .TF32: the fp32 tiles)
+    tile, tf32 = ("mma_tile", "attention_kernel"), ("tf32_tile",
+                                                    "attention_kernel")
+    for lib, marks, tf32_only in (
+            ("paged_attention", tile, False), ("block_sparse", tile, False),
+            ("block_sparse", tf32, True), ("paged_mla", ("mla_span_kernel",),
+                                           False),
+            ("flash_attention", tf32, True),
+            ("chunked_ce", ("ce_tf32", "tile_kernel"), True),
+            ("paged_attention", ("decode_split", "mma_kernel"), False),
+            ("paged_indexer", ("span_mma", "span_kernel"), False)):
         sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
@@ -1081,8 +1104,9 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
             elif name in counts and "HMMA" in line:
                 counts[name][0] += 1
                 counts[name][1] += ".TF32" in line
-        for name, (n, tf32) in counts.items():
-            dims = re.search(r"attention_kernelILi(\d+)ELi(\d+)E", name)
+        for name, (n, n_tf32) in counts.items():
+            dims = re.search(r"(?:attention|span)_kernelILi(\d+)ELi(\d+)E",
+                             name)
             page = re.search(r"PagedSpanILi(\d+)E", name)
             if lib == "paged_mla":
                 label = "mla_span_kernel"
@@ -1091,17 +1115,18 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
             elif "decode_split" in name:
                 label = "decode_split::mma_kernel<{},{}>".format(*re.search(
                     r"mma_kernelILi(\d+)ELi(\d+)E", name).groups())
-            elif lib == "flash_attention":
-                label = "tf32_tile::attention_kernel<" + re.search(
-                    r"attention_kernelILi(\d+)E", name)[1] + ",DenseKV>"
+            elif lib == "paged_indexer":
+                label = f"span_mma::span_kernel<{dims[1]},{dims[2]}>"
             else:
-                label = (f"attention_kernel<{dims[1]},{dims[2]},"
-                         + (f"PagedSpan<{page[1]}>>" if page
+                label = (f"{marks[0]}::attention_kernel<{dims[1]},{dims[2]},"
+                         + (f"PagedSpan<{page[1]}>>" if page else
+                            "DenseKV>" if lib == "flash_attention"
                             else "SelectedBlocks>"))
-            _log("sass", library=lib, kernel=label, hmma=n, hmma_tf32=tf32)
-            if n == 0 or (lib in tf32_libs and tf32 != n):
+            _log("sass", library=lib, kernel=label, hmma=n, hmma_tf32=n_tf32)
+            if n == 0 or (tf32_only and n_tf32 != n) \
+                    or (not tf32_only and n_tf32):
                 raise AssertionError(f"{lib} {label}: {n} HMMA instructions, "
-                                     f"{tf32} of them .TF32")
+                                     f"{n_tf32} of them .TF32")
         if not counts:
             raise AssertionError(f"{lib}: no tensor-core tile in its SASS")
 
@@ -1229,8 +1254,10 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     lengths) and K6 at one 256-token span whose last position lies past
     2048, each launch on another layer of a full-depth layer-major k_idx
     pool; each held against its plain version (bf16 and fp32) with its
-    top-k sets compared.  No single PyTorch call computes ReLU between the
-    product and the head sum, so there is no library time."""
+    top-k sets compared; K6 (its bf16 tensor-core body) also with its
+    device time from CUDA-graph replay and its wrapper's host microseconds
+    a call.  No single PyTorch call computes ReLU between the product and
+    the head sum, so there is no library time."""
     import numpy as np
     import torch
     from repro_torch.kernels.paged_attention import kernel as K5
@@ -1288,6 +1315,10 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     q, w = _indexer_queries(gen, 1, S * Hi, Hi, Di, dtype, device)
     ms = cuda_ms(lambda: K6.paged_prefill_indexer(
         q, w, kp, per_layer[next(it) % L], st, heads=Hi), reps // 4)
+    device_ms = graph_ms(lambda: K6.paged_prefill_indexer(
+        q, w, kp, per_layer[next(it) % L], st, heads=Hi), reps // 4)
+    host = host_us(lambda: K6.paged_prefill_indexer(
+        q, w, kp, per_layer[next(it) % L], st, heads=Hi), 100)
     plain_ms = cuda_ms(lambda: K6.paged_prefill_indexer_plain(
         q, w, kp, per_layer[next(it) % L], st, heads=Hi), 4)
     got = K6.paged_prefill_indexer(q, w, kp, tables, st, heads=Hi)
@@ -1308,9 +1339,10 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     nbytes = toks * Di * item + q.numel() * item + w.numel() * 4 \
         + S * mb * bs * 4 + tables.numel() * 4 + 4
     out["paged_prefill_indexer"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
-        max_abs_err_fp32=err32, bytes=nbytes,
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+        max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes,
         flops=S * toks * Hi * (2 * Di + 2), topk_near_ties=near,
+        extra=dict(host_us=host, body="span_mma (tensor cores)"),
         shape=f"B=1 Hi={Hi} Di={Di} S={S} start={start}")
     for name, r in out.items():
         _log("topk", kernel=name, k=top_k,
@@ -1321,10 +1353,12 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
 
 def indexer_resources(cfg, batch, max_len, bs) -> None:
     """K5/K6's registers, spills, shared memory and CTAs resident on one SM,
-    as the CUDA runtime reports them for each dtype at the config's indexer
-    shape, beside the CTAs K5 launches for one decode step."""
+    as the CUDA runtime reports them: the SIMT tile (K5, fp32 K6) for each
+    dtype at the config's indexer shape, beside the CTAs K5 launches for
+    one decode step; K6's bf16 tensor-core body at both indexer shapes."""
     import ctypes
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.build import DTYPE_CODE as _DTYPE_CODE
     from repro_torch.kernels.build import cuda_entry
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1338,10 +1372,19 @@ def indexer_resources(cfg, batch, max_len, bs) -> None:
                                f"{err}")
         regs, spill, smem, ctas, toks = list(r)
         _log("resources", kernel="paged_indexer", heads=Hi, index_dim=Di,
-             dtype=str(dtype).split(".")[1], registers=regs,
-             spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
-             tokens_per_cta=toks,
+             dtype=str(dtype).split(".")[1], body="indexer_tile (SIMT)",
+             registers=regs, spill_bytes=spill, smem_bytes=smem,
+             ctas_per_sm=ctas, tokens_per_cta=toks,
              decode_ctas=batch * -(-(max_len // bs * bs) // 128), sms=sms)
+    # K6's bf16 tensor-core body at both indexer shapes
+    for name, heads, dim in INDEXER_SHAPES:
+        regs, spill, smem, ctas, toks = build.resources(
+            "paged_prefill_indexer_resources", heads, dim)
+        _log("resources", kernel="paged_prefill_indexer", shape=name,
+             heads=heads, index_dim=dim, dtype="bfloat16",
+             body="span_mma (tensor cores)", registers=regs,
+             spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
+             tokens_per_cta=toks, sms=sms)
 
 
 # ---------------------------------------------------------------------------
@@ -1430,17 +1473,22 @@ def time_sparse_kernels(cfg, span_end, view_len, train_seq, device="cuda",
     """K8 at the serve phase's shape, a 256-query span ending at
     ``span_end`` over a gathered view of ``view_len`` keys (Yi-6B + DSA(block),
     bf16), and at the training run's, the last 256-query chunk against
-    ``train_seq`` keys (fp32); the top_k // 128 blocks of each query block
-    all lie before it, so every query attends all nb * 128 of its keys.
-    Beside each: the plain version, and scaled_dot_product_attention over
-    each query block's selected K/V gathered (and the KV heads repeated)
-    once before the timed loop, with a boolean causal mask (timed here
-    only).  Bound: flops 4*S*H*nb*bs*d over the dtype's peak, or the bytes
-    of q, out, the ids and the distinct selected blocks' K/V over 3.35
-    TB/s, the larger."""
+    ``train_seq`` keys (fp32; both fp32 lines run the 3xTF32 tile); the
+    top_k // 128 blocks of each query block all lie before it, so every
+    query attends all nb * 128 of its keys.  Beside each: the device time
+    of the same calls from a CUDA graph, the plain version, and
+    scaled_dot_product_attention over each query block's selected K/V
+    gathered (and the KV heads repeated) once before the timed loop, with a
+    boolean causal mask (timed here only), and the key-range parts the
+    wrapper picks.  Bound: flops 4*S*H*nb*bs*d over the bf16 peak (fp32:
+    three times that over the TF32 peak, the CUDA cores' bound logged
+    beside), or the bytes of q, out, the ids and the distinct selected
+    blocks' K/V over 3.35 TB/s, the larger."""
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.build import DTYPE_CODE
     from repro_torch.kernels.sparse_attention import kernel as K8
     rng = np.random.default_rng(SEED + 5)
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
@@ -1494,7 +1542,13 @@ def time_sparse_kernels(cfg, span_end, view_len, train_seq, device="cuda",
         flops = 4 * S * H * nb * bs * d
         dn = str(dtype).split(".")[1]
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = flops / H100_FLOPS[dn] * 1e3
+        extra = {}
+        if dn == "bfloat16":
+            t_ops = flops / H100_FLOPS[dn] * 1e3
+        else:   # three TF32 products; the CUDA cores' fp32 bound beside
+            t_ops = 3 * flops / H100_FLOPS["tf32"] * 1e3
+            extra = dict(tf32_products=3, bound_ms_fp32_cores=max(
+                t_bytes, flops / H100_FLOPS["float32"] * 1e3))
         r = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                  library_ms=lib_ms, max_abs_err=err, bytes=nbytes,
                  flops=flops,
@@ -1505,11 +1559,15 @@ def time_sparse_kernels(cfg, span_end, view_len, train_seq, device="cuda",
         out[name] = r
         _log("timing", kernel=name, shape=repr(r["shape"]), ms=ms,
              device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
-             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+             bound_ms=r["bound_ms"], bound_by=r["bound_by"], **extra,
              max_abs_err=err, dtype=dn,
              body="mma_tile (tensor cores)" if dn == "bfloat16"
-             else "block_sparse_kernel (SIMT)",
-             tflops=flops / device_ms / 1e9)
+             else "tf32_tile (3xTF32, tensor cores)",
+             parts=build.key_split(
+                 "block_sparse_resources", (DTYPE_CODE[dtype], d, d),
+                 bs * G, S // bs * KVH, d, q.device)[0],
+             tflops=flops / device_ms / 1e9,
+             bound_share=r["bound_ms"] / device_ms)
         del q, k, v, kg, vg, qb
     return out
 
@@ -2528,7 +2586,8 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
             or getattr(e, "self_cuda_time_total", 0.0)
     busy_us = sum(dev_us(e) for e in kernels)
     # a kernel's instantiations by name: K9 is the 3xTF32 tile on the dense
-    # layout in fp32 (the SIMT tile in bf16), K7 the indexer tile on dense
+    # layout in fp32 (the SIMT tile in bf16), K8 the same tile on the
+    # selected blocks and its combine pass, K7 the indexer tile on dense
     # keys, K10 two kernels (its fp32 tile the 3xTF32 one)
     ours = {name: sum(dev_us(e) for e in kernels
                       if any(all(k in e.key for k in keys) for keys in alts))
@@ -2538,7 +2597,9 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
                 ("chunked_ce", [("ce_tf32", "tile_kernel"),
                                 ("ce_tile_kernel",), ("ce_combine_kernel",)]),
                 ("lightning_indexer", [("indexer_tile_kernel", "DenseKeys")]),
-                ("block_sparse_attention", [("block_sparse_kernel",)]),
+                ("block_sparse_attention", [("tf32_tile", "SelectedBlocks"),
+                                            ("combine_kernel",
+                                             "SelectedBlocks")]),
                 ("mamba_scan", [("mamba_scan_model_kernel",)]))}
     # a kernel the step launched must be found by its name in the trace
     for name, n in launched.items():

@@ -66,9 +66,14 @@ namespace {
 // K9's layout: q and out (B, Sq, H, D), k and v (B, Sk, KVH, D); packed row
 // r of (b, kv head) is head kvh * G + r % G of token r / G; a tile reads
 // from the first key in its window to its last query's key, or every key
-// when not causal.
+// when not causal.  It serves both bodies: gqa_tile.cuh's interface
+// (start, q_row, kv_row, range) and, with grid y = batch row and z = KV
+// head, tf32_tile.cuh's (rows, pos0, q_row, out_row, list_keys, key: flat
+// key index = position).
 struct DenseKV {
-  int Sq, Sk, H, KVH, G, causal_, q_offset;
+  static constexpr int kList = 1;        // no shared list
+  static constexpr bool kMean = false;   // a row with no key gets 0
+  int Sq, Sk, H, KVH, G, causal_, q_offset, window;
   __device__ int start(int) const { return q_offset; }
   __device__ bool causal() const { return causal_ != 0; }
   __device__ size_t q_row(int b, int kvh, int r) const {
@@ -77,10 +82,23 @@ struct DenseKV {
   __device__ size_t kv_row(int b, int kvh, int pos) const {
     return ((size_t)b * Sk + pos) * KVH + kvh;
   }
-  __device__ void range(int q_first, int q_last, int window, int& lo,
+  __device__ void range(int q_first, int q_last, int window_, int& lo,
                         int& hi) const {
-    lo = window > 0 ? max(q_first - window + 1, 0) : 0;
+    lo = window_ > 0 ? max(q_first - window_ + 1, 0) : 0;
     hi = causal_ ? min(q_last, Sk - 1) : Sk - 1;
+  }
+  __device__ int rows(int, int) const { return Sq * G; }
+  __device__ int pos0(int, int) const { return q_offset; }
+  __device__ size_t out_row(int b, int kvh, int r) const {
+    return q_row(b, kvh, r);
+  }
+  __device__ void list_keys(int, int, int q_first, int q_last, int*,
+                            int* lo_hi) const {
+    range(q_first, q_last, window, lo_hi[0], lo_hi[1]);
+  }
+  __device__ int key(int b, int kvh, int t, const int*, size_t& row) const {
+    row = kv_row(b, kvh, t);
+    return t;
   }
 };
 
@@ -94,7 +112,8 @@ struct Args {
 };
 
 DenseKV dense_layout(const Args& a) {
-  return DenseKV{a.Sq, a.Sk, a.H, a.KVH, a.H / a.KVH, a.causal, a.q_offset};
+  return DenseKV{a.Sq, a.Sk, a.H, a.KVH, a.H / a.KVH, a.causal, a.q_offset,
+                 a.window};
 }
 
 // bf16: the SIMT body
@@ -110,9 +129,10 @@ cudaError_t launch_simt(const Args& a, cudaStream_t stream) {
 template <int D>
 cudaError_t launch_tf32(const Args& a, cudaStream_t stream) {
   const int G = a.H / a.KVH;
-  return tf32_tile::launch_attention<D>(a.q, a.k, a.v, a.out, dense_layout(a),
-                                        a.Sq * G, G, a.KVH, a.B, a.window,
-                                        a.softcap, a.scale, stream);
+  return tf32_tile::launch_attention<D, D>(a.q, a.k, a.v, a.out, nullptr,
+                                           dense_layout(a), a.Sq * G, a.B,
+                                           a.KVH, 1, a.softcap, a.scale,
+                                           stream);
 }
 
 // SIMT tiles: 64 rows at d <= 128, 32 at d = 256 (register budget of the
@@ -160,9 +180,9 @@ int flash_attention(int dtype, int head_dim, const void* q, const void* k,
 // CTA.
 int flash_attention_resources(int head_dim, int* out) {
   switch (head_dim) {
-    case 64: return (int)tf32_tile::resources<64, DenseKV>(out);
-    case 128: return (int)tf32_tile::resources<128, DenseKV>(out);
-    case 256: return (int)tf32_tile::resources<256, DenseKV>(out);
+    case 64: return (int)tf32_tile::resources<64, 64, DenseKV>(out);
+    case 128: return (int)tf32_tile::resources<128, 128, DenseKV>(out);
+    case 256: return (int)tf32_tile::resources<256, 256, DenseKV>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
-// The lightning-indexer tile shared by K5/K6 (csrc/paged_indexer.cu, keys
-// through a block table) and K7 (csrc/lightning_indexer.cu, contiguous
-// keys).
+// The lightning-indexer SIMT tile shared by K5 and K6's fp32 route
+// (csrc/paged_indexer.cu, keys through a block table; K6's bf16 route runs
+// that file's tensor-core body, span_mma) and K7
+// (csrc/lightning_indexer.cu, contiguous keys).
 //
 // For query row (b, i) and key position p:
 //   out[b, i, p] = sum_h w[b, i, h] * (ReLU(q[b, i, h] . k[p]) * scale)

@@ -1,9 +1,10 @@
 // The bf16 attention tile on Hopper's tensor cores, shared by K2 (span
 // prefill over the paged pools, csrc/paged_attention.cu) and K8 (block-
 // sparse attention over the selected key blocks, csrc/block_sparse.cu).
-// The fp32 routes of both kernels keep their exact SIMT bodies
-// (gqa_tile.cuh, block_sparse.cu's block_sparse_kernel): this tile is the
-// bf16 one, chosen by dtype in each kernel's dispatch.
+// K2's fp32 route keeps gqa_tile.cuh's SIMT body and K8's runs
+// tf32_tile.cuh's 3xTF32 tile, which walks its keys as this tile does and
+// folds its parts with this file's combine kernel: this tile is the bf16
+// one, chosen by dtype in each kernel's dispatch.
 //
 // What bounds it on this card: arithmetic.  At the serve shapes (64 packed
 // query rows against ~1000-2000 keys a CTA, d 128) a K/V byte staged in
@@ -462,12 +463,13 @@ __device__ inline void store4(float* p, const float (&o)[4]) {
 // thread for 4 columns of a row at a time, every part's loads issued before
 // they are used; out = sum_p 2^(m_p - M) acc_p / sum_p 2^(m_p - M) l_p.
 // The workspace is any tile's whose parts write it as attention_kernel's
-// do (K4's tile in paged_mla.cu too, with fp32 output rows).
+// do (K4's tile in paged_mla.cu too, with fp32 output rows; tf32_tile.cuh's,
+// fp32 output rows and V).
 constexpr int kFoldRows = 16;
 
-template <int DV, typename KV, typename TO = bf16>
+template <int DV, typename KV, typename TO = bf16, typename TV = bf16>
 __global__ void __launch_bounds__(128)
-combine_kernel(const float* __restrict__ ws, const bf16* __restrict__ v,
+combine_kernel(const float* __restrict__ ws, const TV* __restrict__ v,
                TO* __restrict__ out, KV layout, int parts) {
   constexpr int kSplits = kRows / kFoldRows;   // CTAs a tile
   __shared__ float w[kFoldRows][kMaxParts];

@@ -723,7 +723,7 @@ cudaError_t launch(const float* q_lat, const void* q_rope,
       out, static_cast<float*>(ws), layout, parts, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || parts == 1) return e;
-  mma_tile::combine_kernel<kL, LatentSpan, float>
+  mma_tile::combine_kernel<kL, LatentSpan, float, mma_tile::bf16>
       <<<dim3(tiles * (kRows / mma_tile::kFoldRows), B), 128, 0, stream>>>(
           static_cast<const float*>(ws), nullptr, out, layout, parts);
   return cudaGetLastError();

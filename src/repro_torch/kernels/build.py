@@ -12,8 +12,9 @@ runs at import time: the CPU tests import every module without a compiler.
 ``ENTRIES`` lists every C entry point of every library with its argument
 types; ``cuda_entry(name)`` is the loaded function and ``LIBRARIES`` the
 sources ``build_all`` compiles.  ``key_split`` sizes the key-range split of
-the bf16 tensor-core attention tiles (``csrc/mma_tile.cuh``, K2 and K8, and
-K4's in ``csrc/paged_mla.cu``) and allocates its workspace.
+the tensor-core attention tiles (``csrc/mma_tile.cuh``, bf16 K2 and K8, and
+K4's in ``csrc/paged_mla.cu``; ``csrc/tf32_tile.cuh``, fp32 K8) and
+allocates its workspace.
 """
 from __future__ import annotations
 
@@ -75,8 +76,11 @@ ENTRIES = {
                              [_I] * 3 + [_P] * 6 + [_I] * 3 + [_F, _P]),
     "paged_prefill_indexer": ("paged_indexer",
                               [_I] * 3 + [_P] * 6 + [_I] * 4 + [_F, _P]),
-    # registers, spill bytes, shared memory, CTAs an SM, tokens a CTA
+    # K5's and fp32 K6's SIMT tile: dtype, Di, Hi -> registers, spill
+    # bytes, shared memory, CTAs an SM, tokens a CTA
     "paged_indexer_resources": ("paged_indexer", [_I] * 3 + [_P]),
+    # K6's bf16 tensor-core body: Hi, Di -> as above
+    "paged_prefill_indexer_resources": ("paged_indexer", [_I] * 2 + [_P]),
     # K7: dtype, Di, q, w, k, out, B, S, T, Hi, scale, stream
     "lightning_indexer": ("lightning_indexer",
                           [_I] * 2 + [_P] * 4 + [_I] * 4 + [_F, _P]),
@@ -86,8 +90,9 @@ ENTRIES = {
     "block_sparse_attention": ("block_sparse",
                                [_I] * 3 + [_P] * 6 + [_I] * 8
                                + [_F, _F, _I, _P, _P]),
-    # K8's bf16 tile: dqk, dv -> as K2's
-    "block_sparse_resources": ("block_sparse", [_I] * 2 + [_P]),
+    # K8's body: dtype (0: the fp32 3xTF32 tile, 1: the bf16 tile), dqk, dv
+    # -> as K2's
+    "block_sparse_resources": ("block_sparse", [_I] * 3 + [_P]),
     # K9: dtype, d, q, k, v, out, B, Sq, Sk, H, KVH, causal, window,
     # q_offset, softcap, scale, stream
     "flash_attention": ("flash_attention",
@@ -193,12 +198,12 @@ def resources(query: str, *args: int) -> tuple:
     return tuple(out)
 
 
-MAX_PARTS = 4   # key-range splits a tile of csrc/mma_tile.cuh takes
+MAX_PARTS = 4   # key-range splits a tile takes (mma_tile.cuh, tf32_tile.cuh)
 
 
 def key_split(query: str, args: Sequence[int], rows: int, others: int,
               dv: int, device: torch.device) -> tuple:
-    """How a launch of the bf16 tensor-core attention tile fills the card:
+    """How a launch of a tensor-core attention tile fills the card:
     (parts, workspace).  ``rows`` packed query rows a (y, z) grid row,
     ``others`` grid rows, so ceil(rows / rows a CTA) * others tiles.  Each
     tile's key rounds are split over ``parts`` CTAs, as many as one wave of

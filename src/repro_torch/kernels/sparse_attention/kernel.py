@@ -33,11 +33,14 @@ needs that rule.
 The wrapper chooses by the tensors' device: on the CPU it runs the plain
 version, on a CUDA device it launches the kernel (``csrc/block_sparse.cu``,
 built by ``repro_torch.kernels.build``) or raises.  There is no fallback.
-The kernel's body is chosen by dtype: bf16 (the serving path) runs the
-tensor-core tile of ``csrc/mma_tile.cuh`` (mma.sync, K/V in a cp.async
-ring, each tile's selected keys split over up to 4 CTAs with a combine
-pass when that fills the card better); fp32 (training, the exact parity
-runs) runs the SIMT body of ``csrc/block_sparse.cu``.
+Both dtypes run on the tensor cores, with K/V in a cp.async ring and each
+tile's selected keys split over up to 4 CTAs with a combine pass when that
+fills the card better (``key_split``, from the shapes and the body's
+occupancy query): bf16 (the serving path) the tile of
+``csrc/mma_tile.cuh`` (mma.sync on bf16), fp32 (training, the exact parity
+runs) the tile of ``csrc/tf32_tile.cuh`` (3xTF32: each fp32 operand split
+into two TF32 values and three products summed in fp32, so its error stays
+at fp32 level with TF32 off), at every (dqk, dv) in ``HEAD_DIMS``.
 ``block_sparse_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -45,7 +48,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, check_launch, cuda_entry,
-                                      key_split)
+                                      key_split, resources)
 
 NEG_INF = -1e30
 MAX_BLOCKS = 64                          # nb the kernel takes (csrc)
@@ -130,30 +133,32 @@ def check_cuda_args(q, k, v, block_idx, q_start, block_size) -> None:
                          f"{tuple(q_start.shape)}, want ({B},)")
 
 
-def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           block_idx: torch.Tensor, q_start: torch.Tensor, *,
-                           block_size: int, softcap: float = 0.0,
-                           empty_mean: bool = False) -> torch.Tensor:
-    """K8: -> (B, S, H, dv) in q.dtype.
+def launch_block_sparse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        block_idx: torch.Tensor, q_start: torch.Tensor, *,
+                        block_size: int, softcap: float, empty_mean: bool,
+                        parts: int) -> torch.Tensor:
+    """K8's C entry point on checked CUDA tensors with each tile's keys
+    split over ``parts`` CTAs (1..4; the combine pass's workspace from
+    PyTorch's caching allocator) -> out.  Counts nothing: the wrapper does,
+    and the tests call this to force ``parts``."""
+    B, S, H, dqk = q.shape
+    KVH, dv = k.shape[2], v.shape[-1]
+    per_cta = resources("block_sparse_resources", DTYPE_CODE[q.dtype], dqk,
+                        dv)[4]
+    tiles = -(-block_size * (H // KVH) // per_cta) * (S // block_size) \
+        * B * KVH
+    ws = None if parts == 1 else torch.empty(
+        tiles * parts * per_cta * (dv + 2), dtype=torch.float32,
+        device=q.device)
+    return _launch(q, k, v, block_idx, q_start, block_size, softcap,
+                   empty_mean, parts, ws)
 
-    CPU tensors run ``block_sparse_attention_plain``; CUDA tensors launch
-    the Hopper kernel on the current stream (one CTA per tile of packed
-    (token, head) rows of one query block, KV head and batch row): bf16 the
-    tensor-core tile (and, when its keys are split, its combine pass: one
-    launch counted), fp32 the SIMT body."""
-    if q.device.type == "cpu":
-        return block_sparse_attention_plain(
-            q, k, v, block_idx, q_start, block_size=block_size,
-            softcap=softcap, empty_mean=empty_mean)
-    check_cuda_args(q, k, v, block_idx, q_start, block_size)
+
+def _launch(q, k, v, block_idx, q_start, block_size, softcap, empty_mean,
+            parts, ws) -> torch.Tensor:
     B, S, H, dqk = q.shape
     T, KVH, dv = k.shape[1], k.shape[2], v.shape[-1]
     out = torch.empty((B, S, H, dv), dtype=q.dtype, device=q.device)
-    parts, ws = 1, None
-    if q.dtype == torch.bfloat16:
-        parts, ws = key_split("block_sparse_resources", (dqk, dv),
-                              block_size * (H // KVH),
-                              (S // block_size) * B * KVH, dv, q.device)
     err = cuda_entry("block_sparse_attention")(
         DTYPE_CODE[q.dtype], dqk, dv, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), block_idx.data_ptr(), q_start.data_ptr(),
@@ -162,6 +167,33 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if ws is None else ws.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("block_sparse_attention", err)
+    return out
+
+
+def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           block_idx: torch.Tensor, q_start: torch.Tensor, *,
+                           block_size: int, softcap: float = 0.0,
+                           empty_mean: bool = False) -> torch.Tensor:
+    """K8: -> (B, S, H, dv) in q.dtype.
+
+    CPU tensors run ``block_sparse_attention_plain``; CUDA tensors launch
+    the Hopper kernel on the current stream (one CTA per tile of packed
+    (token, head) rows of one query block, KV head and batch row, times the
+    key-range parts): bf16 the bf16 tensor-core tile, fp32 the 3xTF32 tile,
+    and, when the keys are split, the combine pass (one launch counted)."""
+    if q.device.type == "cpu":
+        return block_sparse_attention_plain(
+            q, k, v, block_idx, q_start, block_size=block_size,
+            softcap=softcap, empty_mean=empty_mean)
+    check_cuda_args(q, k, v, block_idx, q_start, block_size)
+    B, S, H, dqk = q.shape
+    KVH, dv = k.shape[2], v.shape[-1]
+    parts, ws = key_split("block_sparse_resources",
+                          (DTYPE_CODE[q.dtype], dqk, dv),
+                          block_size * (H // KVH),
+                          (S // block_size) * B * KVH, dv, q.device)
+    out = _launch(q, k, v, block_idx, q_start, block_size, softcap,
+                  empty_mean, parts, ws)
     block_sparse_attention.launches += 1
     return out
 

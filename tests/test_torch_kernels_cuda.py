@@ -1,13 +1,15 @@
 """PyTorch port, the training path's CUDA kernels (K7, K9, K10), the
 block selector's (K8), the GQA split-KV decode (K1), the GQA and MLA span
-prefills (K2, K4) and the Mamba-1 selective scan (K11) against their plain
-versions on the card.
+prefills (K2, K4), the DSA indexer span (K6) and the Mamba-1 selective
+scan (K11) against their plain versions on the card.
 
 K2, K4 and K8 run a bf16 body on the tensor cores (``csrc/mma_tile.cuh``;
-K4's MLA form in ``csrc/paged_mla.cu``) and an fp32 body on the CUDA
-cores; K9 and K10 run their fp32 routes on the tensor cores by 3xTF32
-(``csrc/tf32_tile.cuh``, ``csrc/chunked_ce.cu``) and their bf16 routes on
-the CUDA cores; K1 cuts each row's live range into runs of blocks, a CTA
+K4's MLA form in ``csrc/paged_mla.cu``); K2's and K4's fp32 bodies run on
+the CUDA cores; K8, K9 and K10 run their fp32 routes on the tensor cores
+by 3xTF32 (``csrc/tf32_tile.cuh``, ``csrc/chunked_ce.cu``; K8's forced
+here to every key-range split 1..4 through ``launch_block_sparse``), and
+K9's and K10's bf16 routes on the CUDA cores; K6's bf16 route runs a
+tensor-core body of its own (``csrc/paged_indexer.cu``); K1 cuts each row's live range into runs of blocks, a CTA
 each, folded by a combine pass (forced here to every count 1..16 through
 its C entry point).  Each is
 held over every case its dispatch takes (head dims, block sizes, groups,
@@ -36,6 +38,7 @@ from repro_torch.kernels.mamba_scan import kernel as K11
 from repro_torch.kernels.mamba_scan import ref as K11ref
 from repro_torch.kernels.paged_attention import kernel as K1
 from repro_torch.kernels.paged_attention import prefill as K2
+from repro_torch.kernels.paged_attention import prefill as K6
 from repro_torch.kernels.sparse_attention import kernel as K8
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
@@ -290,6 +293,79 @@ def test_block_sparse_attention_matches_plain(dtype, tol, dqk, dv, B, S, H,
             want = K8.block_sparse_attention_plain(q, k, v, ids, start, **kw)
             torch.cuda.synchronize()
             _hold(got, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", [(64, 64), (128, 128), (192, 256)])
+@pytest.mark.parametrize("B,S,H,KVH,bs,nb,T", [
+    (2, 64, 8, 2, 16, 6, 300),          # blocks of 16, T not a multiple
+    (1, 256, 32, 4, 128, 16, 4096),     # Yi-6B's training chunk
+])
+def test_block_sparse_tf32_tile_every_split(dqk, dv, B, S, H, KVH, bs, nb,
+                                            T):
+    """K8's fp32 route, the 3xTF32 tile, through its C entry point with the
+    keys of every tile split over 1, 2, 3 and 4 CTAs: a third of the ids
+    skipped, the last query block of row 0 with none attended, queries
+    from per-row starts (ids past a tile's last query are not listed),
+    softcap 0 and 30, both rules for a query that sees no key; fp32 1e-4
+    scaled by min(1, max|plain|)."""
+    _need_gpu()
+    rng = np.random.default_rng(11)
+    q = _cuda(rng, B, S, H, dqk)
+    k = _cuda(rng, B, T, KVH, dqk)
+    v = _cuda(rng, B, T, KVH, dv)
+    blocks = -(-T // bs)
+    ids = np.stack([[rng.permutation(blocks)[:nb] for _ in range(S // bs)]
+                    for _ in range(B)])
+    ids = np.where(rng.random(ids.shape) < 0.3, -ids - 1, ids)
+    ids[0, -1] = -np.abs(ids[0, -1]) - 1
+    ids = torch.from_numpy(ids.astype(np.int32)).cuda()
+    start = torch.tensor([T - S - 5 * b for b in range(B)],
+                         dtype=torch.int32).cuda()
+    for softcap in (0.0, 30.0):
+        for empty_mean in (True, False):
+            kw = dict(block_size=bs, softcap=softcap, empty_mean=empty_mean)
+            want = K8.block_sparse_attention_plain(q, k, v, ids, start, **kw)
+            for parts in (1, 2, 3, 4):
+                got = K8.launch_block_sparse(q, k, v, ids, start,
+                                             parts=parts, **kw)
+                torch.cuda.synchronize()
+                _hold(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hi,Di", [(16, 64), (32, 128)])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("S", [37, 256])
+def test_paged_prefill_indexer_tensor_cores_match_plain(Hi, Di, bs, S):
+    """K6's bf16 route, the tensor-core body, at Yi-6B's and GLM-5's indexer
+    shapes: an idle slot (length 0, every table entry the trash block),
+    spans from 0, mid-block, at a block edge and ending at the table's last
+    position, a view past 4 chunks of keys; dead blocks NEG_INF in both,
+    the live scores within the bf16 2e-2 scaled by min(1, max|plain|)."""
+    _need_gpu()
+    rng = np.random.default_rng(Hi + bs + S)
+    mb = (1100 + S) // bs + 1
+    starts = [0, 0, bs + bs // 2, 2 * bs, 1100, mb * bs - S]
+    B = len(starts)
+    live = [0] + [(st + S - 1) // bs + 1 for st in starts[1:]]
+    nb = sum(live) + 1
+    tables = np.full((B, mb), nb - 1, np.int32)          # row 0: idle slot
+    perm, at = rng.permutation(nb - 1), 0
+    for b, n in enumerate(live):
+        tables[b, :n] = perm[at:at + n]
+        at += n
+    kp = _cuda(rng, nb, bs, Di, dtype=torch.bfloat16)
+    q = _cuda(rng, B, S * Hi, Di, dtype=torch.bfloat16)
+    w = torch.softmax(_cuda(rng, B, S, Hi), -1).reshape(B, S * Hi)
+    tables = torch.from_numpy(tables).cuda()
+    st = torch.tensor(starts, dtype=torch.int32).cuda()
+    got = K6.paged_prefill_indexer(q, w, kp, tables, st, heads=Hi)
+    want = K6.paged_prefill_indexer_plain(q, w, kp, tables, st, heads=Hi)
+    torch.cuda.synchronize()
+    dead = want <= -1e29
+    assert torch.equal(got <= -1e29, dead)
+    _hold(got.masked_fill(dead, 0.0), want.masked_fill(dead, 0.0), 2e-2)
 
 
 @pytest.mark.cuda

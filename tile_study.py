@@ -4,13 +4,14 @@
     python3 tile_study.py [--parent DIR]
 
 The tiles: the bf16 tile of K2 and K8 (``csrc/mma_tile.cuh``), K4's bf16
-MLA tile (``csrc/paged_mla.cu``), K9's fp32 3xTF32 tile
+MLA tile (``csrc/paged_mla.cu``), the fp32 3xTF32 tile of K9 and K8
 (``csrc/tf32_tile.cuh``), K10's fp32 3xTF32 logits tile
-(``csrc/chunked_ce.cu``) and K1's split-KV decode body
-(``csrc/paged_attention.cu``).  The bf16 tiles split each tile's key range
-over ``parts`` CTAs where the tiles leave CTA slots of the card empty
-(``repro_torch.kernels.build.key_split``).  This script measures that
-choice, the tile sizes and the tiles against their yardsticks:
+(``csrc/chunked_ce.cu``), K1's split-KV decode body
+(``csrc/paged_attention.cu``) and K6's tensor-core span body
+(``csrc/paged_indexer.cu``).  The attention tiles split each tile's key
+range over ``parts`` CTAs where the tiles leave CTA slots of the card
+empty (``repro_torch.kernels.build.key_split``).  This script measures
+that choice, the tile sizes and the tiles against their yardsticks:
 
   resources  every tile's registers, spills, shared memory and CTAs an SM
              for every instantiation, as the CUDA runtime reports them;
@@ -50,14 +51,28 @@ choice, the tile sizes and the tiles against their yardsticks:
              (tokens x ids, ``-DREPRO_CE_WARP_M``) and 3 and 2 stages
              (``-DREPRO_CE_STAGES``), each held at 1e-5 relative against
              the plain version and timed (CUDA events);
+  sparse32   K8's fp32 route (the 3xTF32 tile) at the block selector's
+             training chunk (S 256 from 3840 against 16 blocks of 128 keys,
+             H 32 / KVH 4, d 128): the tile built with 32 and 64 keys a
+             round (``-DREPRO_TF32_KEYS``), each with the key range in 1, 2
+             and 4 parts, device times from CUDA-graph replay, held at the
+             fp32 bound, beside the wrapper (its own parts) and SDPA;
+  indexer    K6's bf16 route (the tensor-core body) at the DSA serve span
+             (S 256 ending at 6143 of a view of 6432 positions, Hi 16, Di
+             64, blocks of 16): the body built with 1, 2 and 4 tokens a
+             warp (``-DREPRO_IDX_TOKENS``) and chunks of 2, 4 and 8 rounds
+             of 64 keys a CTA (``-DREPRO_IDX_ROUNDS``), device times from
+             CUDA-graph replay, held at the bf16 bound, beside the
+             wrapper's device and host time;
   parent     with ``--parent DIR``, another revision's
              ``src/repro_torch/csrc`` with its ``src/repro_torch/kernels``
              beside it (for example ``git archive <commit> src/repro_torch``,
-             unpacked): its K2, K8, K4, K9, K1 and K10 at the same shapes,
-             called through the C interface that revision had (K2, K4 and
-             K8 with one part; K1 through that revision's own wrapper, so
-             its host work is measured as it was), and its K4 and K9
-             bodies' registers and spills (``nvcc -Xptxas -v``).
+             unpacked): its K2, K8 (both dtypes), K4, K9, K1, K10 and K6
+             at the same shapes, called through the C interface that
+             revision had (K2, K4 and K8 with one part; K1 through that
+             revision's own wrapper, so its host work is measured as it
+             was), and its K4 and K9 bodies' registers and spills (``nvcc
+             -Xptxas -v``).
 
 It prints the card's name and power limit first.  It needs a CUDA device
 and exits non-zero without one.
@@ -242,18 +257,21 @@ def _entry(so: Path, name: str, argtypes):
 
 
 # the tile sizes studied: (keys a round, K/V stages) of K4's tile, keys a
-# round of K9's; the first of each is the default build's
+# round of K9's and K8's fp32 tile; the first of each is the default build's
 MLA_VARIANTS = ((32, 2), (32, 3), (16, 2), (16, 3))
 TF32_VARIANTS = (32, 64)
 # K10's fp32 tile: (tokens a warp, stages)
 CE_VARIANTS = ((64, 3), (64, 2), (32, 3), (32, 2))
+# K6's tensor-core body: (tokens a warp, rounds of 64 keys a CTA)
+IDX_VARIANTS = ((4, 4), (4, 2), (4, 8), (2, 4), (2, 8), (1, 8))
 
 
 def variant_libraries() -> dict:
-    """Build K4's, K9's and K10's libraries at every other tile size (into
-    build/study/, all nvcc processes at once); returns name -> the C entry
-    point (``mla_k{keys}_s{stages}``, ``tf32_k{keys}``,
-    ``ce_m{warp_m}_s{stages}``)."""
+    """Build K4's, K9's, K10's, K8's and K6's libraries at every other tile
+    size (into build/study/, all nvcc processes at once); returns name ->
+    the C entry point (``mla_k{keys}_s{stages}``, ``tf32_k{keys}``,
+    ``ce_m{warp_m}_s{stages}``, ``sparse32_k{keys}``,
+    ``idx_t{tokens}_r{rounds}``)."""
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR / "study"
     jobs = {}
@@ -268,6 +286,17 @@ def variant_libraries() -> dict:
             build.CSRC / "flash_attention.cu",
             out_dir / tag / "libflash_attention.so",
             (f"REPRO_TF32_KEYS={keys}",)))
+        tag = f"sparse32_k{keys}"
+        jobs[tag] = ("block_sparse", "block_sparse_attention", _nvcc(
+            build.CSRC / "block_sparse.cu",
+            out_dir / tag / "libblock_sparse.so",
+            (f"REPRO_TF32_KEYS={keys}",)))
+    for tokens, rounds in IDX_VARIANTS[1:]:
+        tag = f"idx_t{tokens}_r{rounds}"
+        jobs[tag] = ("paged_indexer", "paged_prefill_indexer", _nvcc(
+            build.CSRC / "paged_indexer.cu",
+            out_dir / tag / "libpaged_indexer.so",
+            (f"REPRO_IDX_TOKENS={tokens}", f"REPRO_IDX_ROUNDS={rounds}")))
     for warp_m, stages in CE_VARIANTS[1:]:
         tag = f"ce_m{warp_m}_s{stages}"
         jobs[tag] = ("chunked_ce", "chunked_ce", _nvcc(
@@ -284,19 +313,19 @@ def variant_libraries() -> dict:
 
 
 def parent_libraries(csrc: Path) -> dict:
-    """Build the parent's K2, K8, K4, K9, K1 and K10 libraries (into
+    """Build the parent's K2, K8, K4, K9, K1, K10 and K6 libraries (into
     build/parent/) with ``-Xptxas -v``; print its K4 and K9 bodies'
     registers and spills; return the C entry points (with this revision's
     arguments) and, for K1, the parent's wrapper (its ``kernels/
     paged_attention/kernel.py`` beside ``csrc``) around its entry point."""
     from repro_torch.kernels import build
-    _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
     out_dir = build.BUILD_DIR / "parent"
     libs = {"paged_attention": ["paged_prefill_gqa", "paged_decode_gqa"],
             "block_sparse": ["block_sparse_attention"],
             "paged_mla": ["paged_prefill_mla"],
             "flash_attention": ["flash_attention"],
-            "chunked_ce": ["chunked_ce"]}
+            "chunked_ce": ["chunked_ce"],
+            "paged_indexer": ["paged_prefill_indexer"]}
     procs = {lib: _nvcc(csrc / f"{lib}.cu", out_dir / f"lib{lib}.so",
                         verbose=True) for lib in libs}
     entries = {}
@@ -314,10 +343,8 @@ def parent_libraries(csrc: Path) -> dict:
                 print(f"[parent.ptxas] {lib} {_instance(line)}: {info}",
                       flush=True)
         for name in libs[lib]:
-            argtypes = build.ENTRIES[name][1]
-            if name == "paged_decode_gqa":
-                argtypes = [_I] * 3 + [_P] * 6 + [_I] * 5 + [_F, _F, _P]
-            entries[name] = _entry(out_dir / f"lib{lib}.so", name, argtypes)
+            entries[name] = _entry(out_dir / f"lib{lib}.so", name,
+                                   build.ENTRIES[name][1])
     entries["paged_decode_gqa"] = _parent_wrapper(
         csrc.parent / "kernels" / "paged_attention" / "kernel.py",
         entries["paged_decode_gqa"])
@@ -600,6 +627,128 @@ def k10_case(variants, parent=None):
               for k, v in times.items()), flush=True)
 
 
+def k8_fp32_case(variants, parent=None):
+    """K8's fp32 route at the block selector's training chunk (see
+    ``sparse32``)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sparse_attention import kernel as K8
+    B, S, H, KVH, d, bs, nb, T = 1, 256, 32, 4, 128, 128, 16, 4096
+    start = T - S
+    rng = np.random.default_rng(SEED + 6)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    q = torch.randn((B, S, H, d), generator=gen, device="cuda")
+    k, v = (torch.randn((B, T, KVH, d), generator=gen, device="cuda")
+            for _ in range(2))
+    sel = np.stack([rng.permutation(start // bs)[:nb] for _ in range(S // bs)])
+    ids = torch.from_numpy(sel[None].astype(np.int32)).cuda()
+    qs = torch.full((B,), start, dtype=torch.int32, device="cuda")
+    out = torch.empty_like(q)
+    flops = 4 * B * S * H * nb * bs * d
+    kw = dict(block_size=bs, empty_mean=True)
+    want = K8.block_sparse_attention_plain(q, k, v, ids, qs, **kw)
+    tiles = -(-bs * (H // KVH) // 64) * (S // bs) * B * KVH
+    entries = dict(variants)
+    if parent is not None:
+        entries["parent"] = parent
+    times = {}
+    for name, fn in entries.items():
+        for parts in ((1,) if name == "parent" else (1, 2, 4)):
+            ws = torch.empty(tiles * parts * 64 * (d + 2), device="cuda")
+
+            def call():
+                build.check_launch("block_sparse_attention", fn(
+                    0, d, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    ids.data_ptr(), qs.data_ptr(), out.data_ptr(), B, S, T,
+                    H, KVH, bs, nb, 1, 0.0, d ** -0.5, parts,
+                    None if parts == 1 else ws.data_ptr(), stream()))
+            call()
+            torch.cuda.synchronize()
+            _hold(f"K8 fp32 {name} parts={parts}", out, want, torch.float32)
+            times[f"{name}_p{parts}"] = graph_ms(call, 20)
+
+    def wrapper():
+        return K8.block_sparse_attention(q, k, v, ids, qs, **kw)
+    _hold("K8 fp32 wrapper", wrapper(), want, torch.float32)
+    times["wrapper"] = cuda_ms(wrapper, 20)
+    times["wrapper_device"] = graph_ms(wrapper, 20)
+    G = H // KVH
+    tok = (ids[0].long()[..., None] * bs
+           + torch.arange(bs, device="cuda")).reshape(S // bs, nb * bs)
+    kg, vg = (x[0][tok].permute(0, 2, 1, 3).repeat_interleave(G, 1)
+              .contiguous() for x in (k, v))
+    qb = q[0].reshape(S // bs, bs, H, d).transpose(1, 2).contiguous()
+    qpos = start + torch.arange(S, device="cuda").reshape(S // bs, bs)
+    mask = (tok[:, None, :] <= qpos[..., None])[:, None]
+    times["sdpa"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qb, kg, vg, attn_mask=mask), 20)
+    print(f"[sparse32] kernel=block_sparse_attention dtype=float32 "
+          f"tiles={tiles} bound_3xtf32_ms={3 * flops / 494.7e12 * 1e3:.4f} "
+          + " ".join(f"{k_}_ms={v_:.5f} {k_}_tflops={flops / v_ / 1e9:.1f}"
+                     for k_, v_ in times.items()), flush=True)
+
+
+def k6_case(variants, parent=None):
+    """K6's bf16 route at the DSA serve span (see ``indexer``); each call on
+    another layer of an 8-layer pool, so the keys come from device
+    memory."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import prefill as K6
+    Hi, Di, bs, S, start, layers, nbk = 16, 64, 16, 256, 5888, 8, 2048
+    mb = 6432 // bs
+    rng = np.random.default_rng(SEED + 7)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    stride = nbk + 1
+    kp = torch.randn((layers * stride, bs, Di), generator=gen,
+                     device="cuda").bfloat16()
+    live = (start + S - 1) // bs + 1
+    t = np.full((1, mb), nbk, np.int32)
+    t[0, :live] = rng.permutation(nbk)[:live]
+    tables = [torch.from_numpy(t + g * stride).cuda() for g in range(layers)]
+    st = torch.tensor([start], dtype=torch.int32, device="cuda")
+    q = torch.randn((1, S * Hi, Di), generator=gen, device="cuda").bfloat16()
+    w = torch.softmax(torch.randn((1, S, Hi), generator=gen, device="cuda"),
+                      -1).reshape(1, S * Hi)
+    out = torch.empty((1, S, mb * bs), device="cuda")
+    want = [K6.paged_prefill_indexer_plain(q, w, kp, tb, st, heads=Hi)
+            for tb in tables]
+    it = iter(range(10 ** 9))
+    entries = dict(variants)
+    if parent is not None:
+        entries["parent"] = parent
+    times = {}
+    for name, fn in entries.items():
+        def call():
+            g = next(it) % layers
+            build.check_launch("paged_prefill_indexer", fn(
+                1, Di, bs, q.data_ptr(), w.data_ptr(), kp.data_ptr(),
+                tables[g].data_ptr(), st.data_ptr(), out.data_ptr(), 1,
+                S * Hi, Hi, mb, Di ** -0.5, stream()))
+            return g
+        g = call()
+        torch.cuda.synchronize()
+        dead = want[g] <= -1e29
+        _hold(f"K6 {name}", out.masked_fill(dead, 0.0),
+              want[g].masked_fill(dead, 0.0), torch.bfloat16)
+        times[name] = graph_ms(call, 32)
+
+    def wrapper():
+        return K6.paged_prefill_indexer(q, w, kp, tables[next(it) % layers],
+                                        st, heads=Hi)
+    times["wrapper"] = cuda_ms(wrapper, 32)
+    times["wrapper_device"] = graph_ms(wrapper, 32)
+    flops = S * live * bs * Hi * (2 * Di + 2)
+    print(f"[indexer] kernel=paged_prefill_indexer Hi={Hi} Di={Di} S={S} "
+          f"start={start} bound_ms={flops / 989e12 * 1e3:.5f} "
+          f"wrapper_host_us={host_us(wrapper):.2f} " + " ".join(
+              f"{k_}_ms={v_:.5f} {k_}_tflops={flops / v_ / 1e9:.1f}"
+              for k_, v_ in times.items()), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path, default=None,
@@ -619,12 +768,17 @@ def main() -> int:
                          text=True)
     print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
     build.build_all(["paged_attention", "block_sparse", "paged_mla",
-                     "flash_attention", "chunked_ce"])
+                     "flash_attention", "chunked_ce", "paged_indexer"])
     for query, insts in (("paged_prefill_gqa_resources",
                           [(d, bs) for d in (64, 128, 256)
                            for bs in (8, 16, 32)]),
                          ("block_sparse_resources",
-                          [(64, 64), (128, 128), (192, 256)]),
+                          [(c, 64, 64) for c in (0, 1)]
+                          + [(c, 128, 128) for c in (0, 1)]
+                          + [(c, 192, 256) for c in (0, 1)]),
+                         ("paged_prefill_indexer_resources",
+                          [(hi, di) for hi in (16, 32)
+                           for di in (16, 32, 64, 128)]),
                          ("paged_prefill_mla_resources", [(512, 64)]),
                          ("flash_attention_resources",
                           [(64,), (128,), (256,)]),
@@ -677,6 +831,15 @@ def main() -> int:
     ce = {"ce_m64_s3": build.cuda_entry("chunked_ce")}
     ce.update({k: v for k, v in studied.items() if k.startswith("ce_")})
     k10_case(ce, parent=parent.get("chunked_ce"))
+    # K8's fp32 route: the block selector's training chunk, every tile size
+    sparse32 = {"sparse32_k32": build.cuda_entry("block_sparse_attention")}
+    sparse32.update({k: v for k, v in studied.items()
+                     if k.startswith("sparse32")})
+    k8_fp32_case(sparse32, parent=parent.get("block_sparse_attention"))
+    # K6's bf16 route: the DSA serve span, every tile size
+    idx = {"idx_t4_r4": build.cuda_entry("paged_prefill_indexer")}
+    idx.update({k: v for k, v in studied.items() if k.startswith("idx")})
+    k6_case(idx, parent=parent.get("paged_prefill_indexer"))
     return 0
 
 
