@@ -51,8 +51,9 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            (4 blocks of 16), queries from mid-sequence, skipped ids,
            softcap 0 and 50, fp32 (its 3xTF32 tile) and bf16 (its bf16
            tile), and its gradients on both routes; then K11 (both entry
-           points: the model form, which
-           discretizes inside, and the Pallas contract) at falcon-mamba's
+           points: the model form, which discretizes inside and cuts time
+           into the chunks its wrapper picks, and the Pallas contract) at
+           falcon-mamba's
            width (E 8192, N 16), the smoke width (E 512, N 8) and a ragged
            E (96), S 1 / 7 / 256 / 1024, fp32 and bf16 inputs, fp32 and
            bf16 nonzero states (the model form's fp32 outputs held at the
@@ -60,8 +61,9 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            outputs, stored in its input dtype, may also differ by one ulp
            of their magnitude), and the gradients through its autograd Function on both routes;
   timing   K3/K4's and K5/K6's registers, spills, shared memory and CTAs
-           resident on an SM, as the CUDA runtime reports them (K6's bf16
-           tensor-core body at both indexer shapes), and those
+           resident on an SM, as the CUDA runtime reports them (the indexer
+           tensor-core body at both indexer shapes: K6's bf16, K7's bf16
+           and fp32), and those
            of the tensor-core tiles: the bf16 one K2 and K8 share
            (csrc/mma_tile.cuh) and K4's bf16 MLA tile (csrc/paged_mla.cu),
            with the key-range split the wrapper picks at the serve shapes
@@ -100,10 +102,13 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            only at near-ties of the 2048th score; their count is printed),
            K6's line (its bf16 tensor-core body) also with its CUDA-graph
            device time and its wrapper's host microseconds a call;
-           K9, K10 and K7 at the training runs' shapes in fp32 (bound by
-           67 TFLOP/s, fp32 on the CUDA cores: TF32 is off; K9 and K10 by
-           their three TF32 products over 494.7 TFLOP/s, the CUDA-core
-           bound logged beside; both with a CUDA-graph device time), K9
+           K9, K10 and K7 at the training runs' shapes in fp32 (TF32 is
+           off; all three run 3xTF32 on the tensor cores, so each is bound
+           by its three TF32 products over 494.7 TFLOP/s, the CUDA cores'
+           67 TFLOP/s bound logged beside; each with a CUDA-graph device
+           time; K7's line with the count of top-2048 indices the selector
+           would pick differently from its scores and the plain ones, all
+           near-ties), K9
            beside scaled_dot_product_attention(
            is_causal=True), whose kernel the profiler names; K10 there on
            unit-scale logits, as the model's, so that the part of its sum
@@ -113,15 +118,22 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            run's last 256-query chunk against 4096 keys (fp32; both fp32
            lines bound by three TF32 products, as K9's), beside SDPA
            over each query block's selected K/V gathered before the timed
-           loop, with the key-range parts its wrapper picks; K2's and
+           loop, with the key-range parts its wrapper picks; K7 (bf16, its
+           tensor-core body) at the block selector's last serve span of the
+           6144-token prompt (S 256 against the 6528-position view; the
+           shape logged), with its device time, host microseconds a call
+           and the fp32 route's error there; K2's and
            K4's fp32 bodies at their serve shapes on lines
            of their own; K2's, K4's, K8's and K9's lines carry, beside the
            wrapper's CUDA-event time, the
            device time of the same calls replayed from a CUDA graph (the
            wrapper's host overhead taken out) and the TFLOP/s that gives;
-           K11's model
+           K11's scan kernel's registers, spills, shared memory and CTAs
+           an SM, its model
            form at falcon-mamba's serve prefill (B 8, S 1024, bf16), decode
-           step (B 8, S 1) and training shape (B 2, S 2048, fp32), its
+           step (B 8, S 1; with its CUDA-graph device time and the
+           wrapper's host microseconds a call) and training shape (B 2,
+           S 2048, fp32), each with the time chunks its wrapper picks, its
            contract form at B 1, S 256 (no single library call computes
            the recurrence; the expf's special-function-unit bound is
            logged beside the bytes / operations bound); K10 again at the
@@ -998,10 +1010,11 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
     resident on one SM as the CUDA runtime reports them, the rows a CTA and
     the key-range parts the wrapper picks; then the HMMA (tensor-core)
     instructions of every instantiation of the tiles in the built
-    libraries, from ``cuobjdump -sass`` (K8's, K9's and K10's fp32 tiles'
-    must be HMMA .TF32 and the bf16 ones' not; K1's bf16 body and K6's
-    tensor-core body are among them; it fails where an instantiation has
-    none; where the tool is missing it says so)."""
+    libraries, from ``cuobjdump -sass`` (K8's, K9's, K10's and K7's fp32
+    tiles' must be HMMA .TF32 and the bf16 ones' not; K1's bf16 body and
+    the indexer tensor-core body, K6's and K7's, are among them; it fails
+    where an instantiation has none; where the tool is missing it says
+    so)."""
     import re
     import shutil
     import torch
@@ -1090,7 +1103,9 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
             ("flash_attention", tf32, True),
             ("chunked_ce", ("ce_tf32", "tile_kernel"), True),
             ("paged_attention", ("decode_split", "mma_kernel"), False),
-            ("paged_indexer", ("span_mma", "span_kernel"), False)):
+            ("paged_indexer", ("indexer_mma", "span_kernel"), False),
+            ("lightning_indexer", ("span_kernelI13__nv_bfloat16",), False),
+            ("lightning_indexer", ("span_kernelIf",), True)):
         sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
@@ -1105,8 +1120,8 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
                 counts[name][0] += 1
                 counts[name][1] += ".TF32" in line
         for name, (n, n_tf32) in counts.items():
-            dims = re.search(r"(?:attention|span)_kernelILi(\d+)ELi(\d+)E",
-                             name)
+            dims = re.search(r"(?:attention|span)_kernelI(?:13__nv_bfloat16|f)?"
+                             r"Li(\d+)ELi(\d+)E", name)
             page = re.search(r"PagedSpanILi(\d+)E", name)
             if lib == "paged_mla":
                 label = "mla_span_kernel"
@@ -1115,8 +1130,10 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
             elif "decode_split" in name:
                 label = "decode_split::mma_kernel<{},{}>".format(*re.search(
                     r"mma_kernelILi(\d+)ELi(\d+)E", name).groups())
-            elif lib == "paged_indexer":
-                label = f"span_mma::span_kernel<{dims[1]},{dims[2]}>"
+            elif lib in ("paged_indexer", "lightning_indexer"):
+                label = "indexer_mma::span_kernel<{},{},{},{}>".format(
+                    "float" if tf32_only else "bf16", dims[1], dims[2],
+                    "PagedKeys" if lib == "paged_indexer" else "DenseKeys")
             else:
                 label = (f"{marks[0]}::attention_kernel<{dims[1]},{dims[2]},"
                          + (f"PagedSpan<{page[1]}>>" if page else
@@ -1342,7 +1359,7 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
         ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
         max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes,
         flops=S * toks * Hi * (2 * Di + 2), topk_near_ties=near,
-        extra=dict(host_us=host, body="span_mma (tensor cores)"),
+        extra=dict(host_us=host, body="indexer_mma (tensor cores)"),
         shape=f"B=1 Hi={Hi} Di={Di} S={S} start={start}")
     for name, r in out.items():
         _log("topk", kernel=name, k=top_k,
@@ -1355,7 +1372,8 @@ def indexer_resources(cfg, batch, max_len, bs) -> None:
     """K5/K6's registers, spills, shared memory and CTAs resident on one SM,
     as the CUDA runtime reports them: the SIMT tile (K5, fp32 K6) for each
     dtype at the config's indexer shape, beside the CTAs K5 launches for
-    one decode step; K6's bf16 tensor-core body at both indexer shapes."""
+    one decode step; the tensor-core body at both indexer shapes: K6's
+    (bf16, paged keys) and K7's (bf16 and fp32 by 3xTF32, dense keys)."""
     import ctypes
     import torch
     from repro_torch.kernels import build
@@ -1382,9 +1400,20 @@ def indexer_resources(cfg, batch, max_len, bs) -> None:
             "paged_prefill_indexer_resources", heads, dim)
         _log("resources", kernel="paged_prefill_indexer", shape=name,
              heads=heads, index_dim=dim, dtype="bfloat16",
-             body="span_mma (tensor cores)", registers=regs,
+             body="indexer_mma (tensor cores)", registers=regs,
              spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
              tokens_per_cta=toks, sms=sms)
+    # K7's routes on the same body over dense keys: bf16, fp32 by 3xTF32
+    for name, heads, dim in INDEXER_SHAPES:
+        for dtype, code in (("bfloat16", 1), ("float32", 0)):
+            regs, spill, smem, ctas, toks = build.resources(
+                "lightning_indexer_resources", code, heads, dim)
+            _log("resources", kernel="lightning_indexer", shape=name,
+                 heads=heads, index_dim=dim, dtype=dtype,
+                 body="indexer_mma (tensor cores"
+                      + (", 3xTF32)" if code == 0 else ")"),
+                 registers=regs, spill_bytes=spill, smem_bytes=smem,
+                 ctas_per_sm=ctas, tokens_per_cta=toks, sms=sms)
 
 
 # ---------------------------------------------------------------------------
@@ -1569,6 +1598,53 @@ def time_sparse_kernels(cfg, span_end, view_len, train_seq, device="cuda",
              tflops=flops / device_ms / 1e9,
              bound_share=r["bound_ms"] / device_ms)
         del q, k, v, kg, vg, qb
+    return out
+
+
+def time_k7_span(cfg, span_end, view_len, device="cuda", reps=32) -> dict:
+    """K7 as the block selector's serve runs it (bf16, its tensor-core
+    body): the last 256-query span of a prompt ending at ``span_end``
+    scored against the gathered view of ``view_len`` index keys (the shape
+    logged), each call on another of 8 layers' keys (so they come from
+    device memory): the wrapper's time, its device time from CUDA-graph
+    replay, its host microseconds a call and the plain version's, held at
+    the bf16 bound.  Bound: flops S*T*Hi*(2*Di + 2) over the bf16 peak or
+    the bytes of q, w, the keys and the fp32 scores over 3.35 TB/s."""
+    import torch
+    from repro_torch.kernels.lightning_indexer import kernel as K7
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    Hi, Di, S, layers = cfg.dsa.index_heads, cfg.dsa.index_head_dim, 256, 8
+    T = view_len
+    q = torch.randn((1, S, Hi * Di), generator=gen,
+                    device=device).bfloat16()
+    w = torch.softmax(torch.randn((1, S, Hi), generator=gen, device=device),
+                      -1)
+    ks = [torch.randn((1, T, Di), generator=gen, device=device).bfloat16()
+          for _ in range(layers)]
+    it = iter(range(10 ** 9))
+    kw = dict(heads=Hi, head_dim=Di)
+
+    def call():
+        return K7.lightning_indexer(q, w, ks[next(it) % layers], **kw)
+    err = _hold("K7 serve-span", K7.lightning_indexer(q, w, ks[0], **kw),
+                K7.reference(q, w, ks[0], **kw), torch.bfloat16)
+    err32 = _hold("K7 serve-span",
+                  K7.lightning_indexer(q.float(), w, ks[0].float(), **kw),
+                  K7.reference(q.float(), w, ks[0].float(), **kw),
+                  torch.float32)
+    shape = f"S={S} start={span_end - S} T={T} Hi={Hi} Di={Di}"
+    _log("timing", kernel="lightning_indexer", serve_span_shape=repr(shape))
+    out = {"lightning_indexer_serve": dict(
+        ms=cuda_ms(call, reps), device_ms=graph_ms(call, reps),
+        plain_ms=cuda_ms(lambda: K7.reference(q, w, ks[next(it) % layers],
+                                              **kw), 4),
+        library_ms=None, max_abs_err=err, max_abs_err_fp32=err32,
+        flops=S * T * Hi * (2 * Di + 2),
+        bytes=2 * (q.numel() + T * Di) + 4 * (w.numel() + S * T),
+        extra=dict(host_us=host_us(call, 100),
+                   body="indexer_mma (tensor cores)"),
+        shape=shape)}
+    _bounds(out)
     return out
 
 
@@ -2220,10 +2296,12 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
     as the trainer runs): K9 over one dense layer's (B, S, H, d) q and
     (B, S, KVH, d) k/v, causal; K10 over one step's tokens against the
     unembedding; K7 over one 256-query chunk of the DSA run against its
-    keys.  Bound: bytes (inputs read once, the output written once) over
-    3.35 TB/s or flops over 67 TFLOP/s (fp32 on the CUDA cores; K9 and K10,
-    which run 3xTF32 on the tensor cores, three TF32 products over 494.7),
-    the larger.  Library: one scaled_dot_product_attention(is_causal=True)
+    keys, with the count of top-k indices the selector would pick
+    differently from its scores and the plain ones (near-ties only).
+    Bound: bytes (inputs read once, the output written once) over 3.35 TB/s
+    or flops over 67 TFLOP/s (fp32 on the CUDA cores; K9, K10 and K7, which
+    run 3xTF32 on the tensor cores, three TF32 products over 494.7), the
+    larger.  Library: one scaled_dot_product_attention(is_causal=True)
     over the same q and the KV heads repeated once before the timed loop
     (for K9 only: no single PyTorch call computes K7 or K10)."""
     import torch
@@ -2270,14 +2348,26 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
         rnd(1, dsa_seq, Di)
     _, K7, K7p = wrappers["lightning_indexer"]
     kw = dict(heads=Hi, head_dim=Di)
+    got, want = K7(qi, wi, ki, **kw), K7p(qi, wi, ki, **kw)
+    err = _hold("K7 train-shape", got, want, f32)
+    # the selector's top-k sets of the run's last chunk (queries at
+    # dsa_seq - rows ..): 3xTF32 sums in another order than plain
+    qpos = dsa_seq - rows + torch.arange(rows, device=device)
+    near = _topk_boundary("K7 train-shape", got[0], want[0], qpos,
+                          dsa.top_k, TOL["float32"]
+                          * min(1.0, want.abs().max().item()))
+    _log("topk", kernel="lightning_indexer", k=dsa.top_k,
+         near_tie_indices_differing=near)
+    del got, want
     out["lightning_indexer"] = dict(
         ms=cuda_ms(lambda: K7(qi, wi, ki, **kw), 50),
+        device_ms=graph_ms(lambda: K7(qi, wi, ki, **kw), 50),
         plain_ms=cuda_ms(lambda: K7p(qi, wi, ki, **kw), 10), library_ms=None,
-        max_abs_err=_hold("K7 train-shape", K7(qi, wi, ki, **kw),
-                          K7p(qi, wi, ki, **kw), f32),
+        max_abs_err=err, tf32_products=3, topk_near_ties=near,
         flops=rows * dsa_seq * Hi * (2 * Di + 2),
         bytes=4 * (qi.numel() + wi.numel() + ki.numel() + rows * dsa_seq),
-        shape=f"S={rows} T={dsa_seq} Hi={Hi} Di={Di}")
+        shape=f"S={rows} T={dsa_seq} Hi={Hi} Di={Di} "
+              f"body=indexer_mma (3xTF32)")
     _bounds_fp32(out)
     return out
 
@@ -2587,8 +2677,10 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
     busy_us = sum(dev_us(e) for e in kernels)
     # a kernel's instantiations by name: K9 is the 3xTF32 tile on the dense
     # layout in fp32 (the SIMT tile in bf16), K8 the same tile on the
-    # selected blocks and its combine pass, K7 the indexer tile on dense
-    # keys, K10 two kernels (its fp32 tile the 3xTF32 one)
+    # selected blocks and its combine pass, K7 the indexer tensor-core body
+    # (or, at other head counts, the SIMT tile) on dense keys, K10 two
+    # kernels (its fp32 tile the 3xTF32 one), K11 its scan kernel (both
+    # passes where time is chunked) or its one-step kernel
     ours = {name: sum(dev_us(e) for e in kernels
                       if any(all(k in e.key for k in keys) for keys in alts))
             / 1e3 for name, alts in (
@@ -2596,11 +2688,14 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
                                      ("gqa_tile_kernel", "DenseKV")]),
                 ("chunked_ce", [("ce_tf32", "tile_kernel"),
                                 ("ce_tile_kernel",), ("ce_combine_kernel",)]),
-                ("lightning_indexer", [("indexer_tile_kernel", "DenseKeys")]),
+                ("lightning_indexer", [("indexer_mma::span_kernel",
+                                        "DenseKeys"),
+                                       ("indexer_tile_kernel", "DenseKeys")]),
                 ("block_sparse_attention", [("tf32_tile", "SelectedBlocks"),
                                             ("combine_kernel",
                                              "SelectedBlocks")]),
-                ("mamba_scan", [("mamba_scan_model_kernel",)]))}
+                ("mamba_scan", [("mamba::scan_kernel",),
+                                ("mamba::step_kernel",)]))}
     # a kernel the step launched must be found by its name in the trace
     for name, n in launched.items():
         key = "mamba_scan" if name == "mamba_scan_model" else name
@@ -2729,9 +2824,13 @@ H100_SFU_PER_S = 16 * 132 * 1.98e9
 
 def time_scan_kernels(cfg, serve_batch, serve_seq, train_batch, train_seq,
                       device="cuda") -> dict:
-    """K11's model form at the serve prefill (bf16), the serve decode step
-    (S 1, bf16 state) and the training shape (fp32), beside its plain
-    version; the contract form at B 1, S 256 (the Pallas kernel's chunk).
+    """K11's scan kernel's registers, spills, shared memory and CTAs an SM
+    (bf16 and fp32, falcon-mamba's N); its model form at the serve prefill
+    (bf16), the serve decode step (S 1, bf16 state; also its device time
+    from CUDA-graph replay and the wrapper's host microseconds a call) and
+    the training shape (fp32), with the time chunks (``parts``) the
+    wrapper picks, beside its plain version; the contract form at B 1,
+    S 256 (the Pallas kernel's chunk).
     Bound: bytes (dt, x, Bc, Cc, A, h0 read once, y and hT written once)
     over 3.35 TB/s, or operations (8 fp32 operations an element (b, t, e,
     n), the expf counted as one, over 67 TFLOP/s), the larger; the expf's
@@ -2742,10 +2841,20 @@ def time_scan_kernels(cfg, serve_batch, serve_seq, train_batch, train_seq,
     65024), held against its plain version as at Yi-6B's
     (``_k10_train_shape``), as ``chunked_ce_falcon``."""
     import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.build import DTYPE_CODE
     from repro_torch.kernels.mamba_scan import kernel as K11
     from repro_torch.kernels.mamba_scan import ref as R11
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
     E, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dn, code in (("bfloat16", 1), ("float32", 0)):
+        regs, spill, smem, ctas, per_cta = build.resources(
+            "mamba_scan_model_resources", code, code, N)
+        _log("resources", kernel="mamba_scan_model", dtype=dn, N=N,
+             body="mamba::scan_kernel (a thread a channel)", registers=regs,
+             spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
+             channels_per_cta=per_cta, sms=sms)
     out = {}
     for name, B, S, dtype, h0_dtype, reps in (
             ("prefill", serve_batch, serve_seq, torch.bfloat16,
@@ -2763,6 +2872,13 @@ def time_scan_kernels(cfg, serve_batch, serve_seq, train_batch, train_seq,
                         torch.float32))
         del got, want
         ms = cuda_ms(lambda: K11.mamba_scan_model(*ins), reps)
+        parts = K11.scan_parts(DTYPE_CODE[dtype], DTYPE_CODE[h0_dtype], N, B,
+                               S, E, torch.cuda.current_device())
+        extra = dict(parts=parts)
+        if S == 1:   # host-bound: the device time and the host's share
+            extra.update(
+                device_ms=graph_ms(lambda: K11.mamba_scan_model(*ins), reps),
+                host_us=host_us(lambda: K11.mamba_scan_model(*ins), 100))
         plain_ms = cuda_ms(lambda: R11.scan_model(*ins), 2, warmup=1)
         item, elems = ins[0].element_size(), B * S * E * N
         nbytes = (2 * B * S * E + 2 * B * S * N) * item + E * N * 4 \
@@ -2774,13 +2890,13 @@ def time_scan_kernels(cfg, serve_batch, serve_seq, train_batch, train_seq,
                  bytes=nbytes, flops=ops, bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
                  sfu_bound_ms=elems / H100_SFU_PER_S * 1e3,
-                 shape=f"B={B} S={S} E={E} N={N}")
+                 shape=f"B={B} S={S} E={E} N={N}", **extra)
         out[f"mamba_scan_{name}"] = r
         _log("timing", kernel=f"mamba_scan_model ({name})",
              shape=repr(r["shape"]), ms=ms, plain_ms=plain_ms,
              library_ms=None, bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              sfu_bound_ms=r["sfu_bound_ms"], max_abs_err=err, dtype=dn,
-             gb_per_s=nbytes / ms / 1e6)
+             gb_per_s=nbytes / ms / 1e6, **extra)
         del ins
     B, S = 1, 256
     dt, A, x, Bc, Cc, h0 = _scan_inputs(gen, B, S, E, N, torch.float32,
@@ -3028,7 +3144,7 @@ def profile_ssm_decode(cfg, model, device="cuda", batch=8, prompt_len=512,
         return getattr(e, "self_device_time_total", None) \
             or getattr(e, "self_cuda_time_total", 0.0)
     busy_us = sum(dev_us(e) for e in kernels)
-    k11 = [e for e in kernels if "mamba_scan_model_kernel" in e.key]
+    k11 = [e for e in kernels if "mamba::step_kernel" in e.key]
     k11_calls = sum(e.count for e in k11)
     res = dict(step_ms=plain_wall / steps * 1e3,
                profiled_step_ms=wall / steps * 1e3,
@@ -3127,6 +3243,7 @@ def main() -> int:
     block_view = _round_up(dsa_max_len, yi_block.dsa.block_size)
     timing.update(time_sparse_kernels(yi_block, max(dsa_lens), block_view,
                                       train_shapes["dsa_seq"]))
+    timing.update(time_k7_span(yi_block, max(dsa_lens), block_view))
     _free()
     # falcon-mamba-7b: full width (d_model 4096, E 8192, N 16) and depth (64
     # layers) for serving in bf16; depth cut to 8 layers for fp32 training

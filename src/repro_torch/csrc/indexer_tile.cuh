@@ -1,7 +1,7 @@
 // The lightning-indexer SIMT tile shared by K5 and K6's fp32 route
-// (csrc/paged_indexer.cu, keys through a block table; K6's bf16 route runs
-// that file's tensor-core body, span_mma) and K7
-// (csrc/lightning_indexer.cu, contiguous keys).
+// (csrc/paged_indexer.cu, keys through a block table) and K7 at head counts
+// other than 16 and 32 (csrc/lightning_indexer.cu, contiguous keys).  K6's
+// bf16 route and K7 at Hi 16 / 32 run indexer_mma.cuh's tensor-core body.
 //
 // For query row (b, i) and key position p:
 //   out[b, i, p] = sum_h w[b, i, h] * (ReLU(q[b, i, h] . k[p]) * scale)

@@ -1,5 +1,6 @@
 // DSA lightning-indexer scores for Hopper (sm_90a): K7, the contiguous form
-// the training path runs (no cache, no block table).
+// the training path and the block selector's serve spans run (no cache, no
+// block table).
 //
 // Replaces the TPU kernel of the JAX package:
 //   K7  src/repro/kernels/lightning_indexer/kernel.py  lightning_indexer
@@ -14,42 +15,52 @@
 //
 // What bounds it on this card: arithmetic.  A (query, key) pair costs
 // Hi*(2*Di + 2) flops (2080 at Yi-6B's 16 x 64) and each key's Di values
-// serve every query of the CTA; at the Yi-6B + DSA training shape (a
-// 256-query chunk against 4096 keys) that is 2.2 GFLOP against 4.2 MB of
-// fp32 output, and in fp32 the CUDA cores' 67 TFLOP/s set the bound.
+// serve every query of the CTA.  At the Yi-6B + DSA training chunk (a
+// 256-query chunk against 4096 keys, fp32, TF32 off in the trainer) that is
+// 2.2 GFLOP against 4.2 MB of fp32 output: 0.033 ms on the CUDA cores'
+// 67 TFLOP/s, 0.013 ms as three TF32 products at 495.  The block selector's
+// serve span (256 queries against the ~6.5 K-position gathered view, bf16)
+// is 3.5 GFLOP: 0.0035 ms at the bf16 rate.
 //
-// What the design does (indexer_tile.cuh, K6's body, with contiguous keys
-// and none dead: DenseKeys below):
-//   * the Pallas grid is (B, nQ, nK) with a 128 x 128 score tile on the
-//     MXU; here a CTA of 128 threads owns 128 consecutive keys (one a
-//     thread) and up to kMaxTok queries, so a 256 x 4096 chunk is 32 x 32
-//     CTAs a batch row;
-//   * the CTA stages its queries and weights in shared memory as fp32
-//     (Hi x Di x 4 = 4 KB a query at 16 x 64), read as broadcasts;
-//   * a thread holds its key's Di values in registers as fp32 (16-byte
-//     vector loads) and reuses them for every query row of the tile;
-//   * a query's output row is written by consecutive threads at
-//     consecutive keys: coalesced.
-// Not done yet (later work): tensor cores (the (S*Hi) x Di by Di x keys
-// product is an mma tile), staging keys through shared memory, TMA.
+// What the design does: the Pallas grid is (B, nQ, nK) with a 128 x 128
+// score tile on the MXU; here Hi 16 and 32 (Yi-6B's 16 x 64, GLM-5's
+// 32 x 128) run the tensor-core body of indexer_mma.cuh, K6's, with the
+// keys addressed directly (DenseKeys: row b*T + p, none dead, a ragged T
+// zero-filled by the copy and never stored):
+//   * bf16 on mma.sync m16n8k16, the body K6 runs;
+//   * fp32 by 3xTF32 on mma.sync m16n8k8 (big.big + big.small +
+//     small.big, fp32-level error: the trainer's parity contract is fp32
+//     and a single TF32 product misses it), the queries split once as they
+//     are staged, the keys as their fragments load.
+// Any other head count runs indexer_tile.cuh's SIMT tile (K5's): a CTA of
+// 128 threads owns 128 consecutive keys (one a thread, in registers as
+// fp32) and up to kMaxTok queries staged in shared memory.  Not done yet
+// (later work): wgmma, TMA.
 //
-// Interface: plain C, loaded with ctypes.  The entry point returns the
-// cudaError_t of its launch (0 on success); it launches on the given stream,
-// does not synchronise and allocates nothing.
+// Interface: plain C, loaded with ctypes.  The entry points return the
+// cudaError_t of their launch (0 on success); they launch on the given
+// stream, do not synchronise and allocate nothing.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "indexer_mma.cuh"
 #include "indexer_tile.cuh"
 
 namespace {
 
 // K7's keys: k (B, T, Di) contiguous, every position live.
 struct DenseKeys {
-  int T;
+  static constexpr bool kTable = false;
+  int T, S;
   __host__ __device__ int len() const { return T; }
+  __host__ __device__ int tokens() const { return S; }
   __device__ bool dead(int, int) const { return false; }
   __device__ size_t slot(int b, int p) const { return (size_t)b * T + p; }
+  __device__ int live_end(int) const { return T; }
+  __device__ size_t row(int b, int p, int, const int*) const {
+    return slot(b, p);
+  }
 };
 
 struct Args {
@@ -63,12 +74,18 @@ struct Args {
 
 template <typename T, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  return launch_indexer_tiles<T, D>(a.q, a.w, a.k, a.out, DenseKeys{a.T},
-                                    a.B, a.S, a.Hi, a.scale, stream);
+  return launch_indexer_tiles<T, D>(a.q, a.w, a.k, a.out,
+                                    DenseKeys{a.T, a.S}, a.B, a.S, a.Hi,
+                                    a.scale, stream);
 }
 
 template <typename T>
 cudaError_t launch_dim(int D, const Args& a, cudaStream_t s) {
+  if (indexer_mma::takes(a.Hi, D))
+    return indexer_mma::by_shape(a.Hi, D, [&](auto hi, auto di) {
+      return indexer_mma::launch<T, decltype(hi)::value, decltype(di)::value>(
+          a.q, a.w, a.k, a.out, DenseKeys{a.T, a.S}, a.B, a.scale, s);
+    });
   switch (D) {
     case 16: return launch<T, 16>(a, s);
     case 32: return launch<T, 32>(a, s);
@@ -95,6 +112,22 @@ int lightning_indexer(int dtype, int index_dim, const void* q, const float* w,
   if (dtype == 0) return (int)launch_dim<float>(index_dim, a, s);
   if (dtype == 1) return (int)launch_dim<__nv_bfloat16>(index_dim, a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Resources of K7's tensor-core body for `dtype` (0: fp32 by 3xTF32, 1:
+// bf16), `heads` and `index_dim` (launches nothing; cudaErrorInvalidValue
+// where K7 runs the SIMT tile): out[5] = registers a thread, spill bytes a
+// thread, shared memory bytes a CTA, CTAs resident on one SM, tokens a CTA.
+int lightning_indexer_resources(int dtype, int heads, int index_dim,
+                                int* out) {
+  if (!indexer_mma::takes(heads, index_dim) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  return (int)indexer_mma::by_shape(heads, index_dim, [&](auto hi, auto di) {
+    constexpr int HI = decltype(hi)::value, DI = decltype(di)::value;
+    return dtype == 0
+        ? indexer_mma::resources<float, HI, DI, DenseKeys>(out)
+        : indexer_mma::resources<__nv_bfloat16, HI, DI, DenseKeys>(out);
+  });
 }
 
 }  // extern "C"

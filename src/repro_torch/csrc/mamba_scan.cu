@@ -9,237 +9,409 @@
 //   y[t][e]    = sum_n h[t][e][n] * C[t][n]
 // returning y (B, S, E) and the last state hT (B, E, N).  Two entry points
 // share one body:
-//   * mamba_scan_contract: the Pallas kernel's contract: dA and dBx
-//     (B, S, E, N), C (B, S, N) and h0 (B, E, N) in one dtype (float32 or
-//     bfloat16); y and hT in that dtype;
 //   * mamba_scan_model: the tensors the model has (layers/ssm.py,
 //     apply_mamba1): dt and x (B, S, E), Bc and Cc (B, S, N) in the model's
 //     dtype (float32 or bfloat16), A (E, N) float32 and h0 (B, E, N) float32
-//     or bfloat16; it discretizes itself, dA = expf(dt * A[e][n]) and
+//     or bfloat16; it discretizes itself, dA = exp2f(dt * A2[e][n]) with
+//     A2 = A * log2(e) formed once a thread (one multiply and one MUFU.EX2
+//     a state, not expf's range reduction; the build has no fast math) and
 //     dBx = (dt * x) * Bc[n], the reference's order of products, so the
 //     (B, S, E, N) dA and dBx (1 MiB a token a layer at falcon-mamba's
-//     E 8192, N 16) never reach device memory; y and hT in float32.
-// expf, not __expf: the build has no fast math.
+//     E 8192, N 16) never reach device memory; y and hT in float32;
+//   * mamba_scan_contract: the Pallas kernel's contract, for the parity
+//     tests: dA and dBx (B, S, E, N), C (B, S, N) and h0 (B, E, N) in one
+//     dtype (float32 or bfloat16), read a step at a time; y and hT in that
+//     dtype.
 //
 // What bounds it on this card: at falcon-mamba's serve prefill (B 8, S 1024,
 // E 8192, N 16, bf16) the model form moves dt, x (bf16) and y (fp32), ~0.54
-// GB, 0.16 ms at 3.35 TB/s; it also takes B*S*E*N = 1.07 G expf, which the
-// special-function units issue at 16 a clock an SM (~0.26 ms on 132 SMs at
-// 1.98 GHz), and the sequential time walk: each step of a lane is a
-// dependent chain of an expf, two FMAs and log2(N) shuffles.  That chain
-// sets this version's time (1.51 ms there on an H100 80GB HBM3 at 700 W,
-// chip_smoke.py's timing phase).  A decode step (S 1) reads h0 and writes
-// hT: launch latency dominates.
+// GB, 0.16 ms at 3.35 TB/s; it also takes B*S*E*N = 1.07 G exponentials,
+// which the special-function units issue at 16 a clock an SM (~0.26 ms on
+// 132 SMs at 1.98 GHz): the exponentials set the floor.  The time walk is
+// sequential, but the N states of a channel are N independent chains.
 //
 // What the design does about it:
 //   * the Pallas grid is (B, E / 512), each program a (512, N) fp32 state
-//     tile in VMEM walking time; here a lane owns one (channel, state) pair,
-//     its h in a register, so a warp holds 32 / N whole channels and a CTA
-//     of 256 threads 256 / N channels of one batch row; the grid is
-//     (ceil(E / (256 / N)), B), so B*E*N lanes fill the card even at batch 1
-//     (a thread per channel would leave most SMs idle at the training shape);
-//   * y[t][e] is a __shfl_xor_sync butterfly over the N lanes of a channel;
-//   * each round stages TT time steps of the CTA's channels in shared memory
-//     with coalesced loads (model form: dt and dt * x a channel, Bc and Cc a
-//     state; contract form: C), so a step's own chain reads only shared
-//     memory (the contract form reads its dA and dBx straight from device
-//     memory: consecutive lanes hold consecutive (e, n), so each step's
-//     loads are coalesced); the round's y are staged too and written out as
-//     rows of the CTA's channels;
-//   * ragged E is masked (a lane past E holds h = 0 and stores nothing);
-//     the last round of a ragged S is short.
-// Not done yet (later work): a chunked parallel scan over time, fewer
-// shuffles a step (a transposed reduction over N steps at once), a backward
-// kernel (the backward is plain PyTorch, kernels/mamba_scan/ref.py).
+//     tile in VMEM walking time; here a thread owns one channel: its N
+//     states and A's row in registers, so y[t] is an in-register sum of N
+//     products (no shuffle) and each step offers N independent chains;
+//   * dt and x load straight from device memory, consecutive channels on
+//     consecutive threads (coalesced), a round of kSteps steps ahead in
+//     registers; Bc and Cc (N values a step, shared by every channel) are
+//     loaded a round ahead the same way by the whole CTA and staged in
+//     shared memory (2 buffers, one __syncthreads a round), read as
+//     broadcasts; y is stored from the thread, coalesced;
+//   * where B*E channel threads leave most of the card's slots empty (the
+//     training shape, B 2), time is cut into `parts` chunks: pass 1 runs
+//     chunks 0 .. parts-2 from h = 0 and writes each one's end state and
+//     its decay exp2(A2 * sum dt) (N exponentials a chunk, not one a step)
+//     to a workspace; pass 2 folds the chunks before its own into its
+//     start state (h = decay * h + h_end, from h0) and reruns its chunk,
+//     writing y and, in the last chunk, hT.  The wrapper picks parts from
+//     the shapes (kernels/mamba_scan/kernel.py, scan_parts);
+//   * a decode step (S 1) runs a kernel of its own: a thread does the one
+//     step, h0 read and hT written as 16-byte vectors where aligned, no
+//     staging and no barrier;
+//   * ragged E is masked (a thread past E holds h = 0, stores nothing and
+//     still takes its part in staging and barriers); the last round of a
+//     chunk is short.
+// The steps a round are a compile-time knob (REPRO_SCAN_STEPS; 8 at most
+// for N 32) so tile_study.py can build and time others: a longer round
+// keeps more steps' dt and x in registers (255 a thread at 16 steps, 2
+// CTAs an SM), and the prefill ran 0.92 ms at 16 against 0.56 at 4 (an
+// H100 80GB HBM3 at 700 W).  Not done yet
+// (later work): a backward kernel (the backward is plain PyTorch,
+// kernels/mamba_scan/ref.py).
 //
 // Interface: plain C, loaded with ctypes.  The entry points return the
 // cudaError_t of their launch (0 on success); they launch on the given
-// stream, do not synchronise and allocate nothing.
+// stream, do not synchronise and allocate nothing (the wrapper allocates
+// pass 1's workspace).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include <type_traits>
 
 #include "vec.cuh"
 
-namespace {
+#ifndef REPRO_SCAN_STEPS
+#define REPRO_SCAN_STEPS 4
+#endif
 
-constexpr int THREADS = 256;
+namespace {
+namespace mamba {
+
+constexpr int kThreads = 128;    // channels a CTA, one a thread
+constexpr int kMaxParts = 16;    // time chunks a call
+constexpr float kLog2e = 1.4426950408889634f;
+
+// time steps a round
+template <int N>
+struct Tile {
+  static constexpr int kSteps =
+      N >= 32 && REPRO_SCAN_STEPS > 8 ? 8 : REPRO_SCAN_STEPS;
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// CE channels a CTA (a lane per (channel, state)), TT time steps a round
+// a thread's N contiguous values: 16-byte vectors where the row allows them
+// and lies 16-byte aligned, else one element at a time
+template <int N, typename T>
+__device__ __forceinline__ void load_row(const T* p, float (&v)[N]) {
+  constexpr int EL = 16 / (int)sizeof(T);
+  if constexpr (N % EL == 0) {
+    if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+      for (int i = 0; i < N / EL; ++i)
+        Vec<T>::convert(ld16(p + i * EL), v + i * EL);
+      return;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) v[n] = to_f32(p[n]);
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void store_row(T* p, const float (&v)[N]) {
+  if constexpr (std::is_same<T, float>::value && N % 4 == 0) {
+    if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+      for (int i = 0; i < N / 4; ++i)
+        reinterpret_cast<float4*>(p)[i] =
+            make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) store_out(p + n, v[n]);
+}
+
+// Bc and Cc of two rounds: the one computed and the next
 template <int N>
-struct Tile {
-  static constexpr int CE = THREADS / N;
-  static constexpr int TT =
-      1024 / CE < 8 ? 8 : (1024 / CE > 32 ? 32 : 1024 / CE);
+struct Stage {
+  float b[2][Tile<N>::kSteps][N];
+  float c[2][Tile<N>::kSteps][N];
 };
 
-// The model form's source of a step: dt and dt * x a channel, Bc and Cc a
-// state, staged; dA and dBx computed in the lane.
+// The model form's inputs of a step: dt and dt * x of the thread's channel,
+// a round ahead in registers; dA and dBx formed in the thread.
 template <int N, typename T>
 struct ModelSrc {
-  static constexpr int CE = Tile<N>::CE, TT = Tile<N>::TT;
-  struct Shared {
-    float dt[TT][CE];
-    float dtx[TT][CE];
-    float b[TT][N];
-    float c[TT][N];
-    float y[TT][CE];
-  };
+  static constexpr bool kB = true;   // Bc staged beside Cc
+  static constexpr int R = Tile<N>::kSteps;
   const T* dt;
   const T* x;
-  const T* bc;
-  const T* cc;
-  float a;  // A[e][n] of this lane
+  float a2[N];        // A[e] * log2(e)
+  float d[R], dx[R];  // the round's dt and dt * x
+  T dn[R], xn[R];     // the next round's, in flight
 
-  __device__ void stage(Shared& s, int b, int t0, int nt, int e0, int S,
-                        int E) const {
-    for (int i = threadIdx.x; i < TT * CE; i += THREADS) {
-      const int r = i / CE, c = i % CE;
-      float d = 0.f, xv = 0.f;
-      if (r < nt && e0 + c < E) {
-        const size_t at = ((size_t)b * S + t0 + r) * E + e0 + c;
-        d = to_f32(dt[at]);
-        xv = to_f32(x[at]);
-      }
-      s.dt[r][c] = d;
-      s.dtx[r][c] = d * xv;
-    }
-    for (int i = threadIdx.x; i < TT * N; i += THREADS) {
-      const int r = i / N, n = i % N;
-      float bv = 0.f, cv = 0.f;
-      if (r < nt) {
-        const size_t at = ((size_t)b * S + t0 + r) * N + n;
-        bv = to_f32(bc[at]);
-        cv = to_f32(cc[at]);
-      }
-      s.b[r][n] = bv;
-      s.c[r][n] = cv;
+  // round steps t0 .. t0 + nt - 1; `at` = (b * S + t0) * E + e
+  __device__ __forceinline__ void fetch(size_t at, int nt, int E,
+                                        bool live) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool ok = live && r < nt;
+      dn[r] = ok ? dt[at + (size_t)r * E] : T(0.f);
+      xn[r] = ok ? x[at + (size_t)r * E] : T(0.f);
     }
   }
-
-  // dA and dBx of step r of the round (a lane past E: dt = 0, so dA = 1
-  // and dBx = 0, and its h stays 0)
-  __device__ void step(const Shared& s, int r, int c, int n, size_t,
-                       float& da, float& dbx) const {
-    da = expf(s.dt[r][c] * a);
-    dbx = s.dtx[r][c] * s.b[r][n];
+  __device__ __forceinline__ void land() {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      d[r] = to_f32(dn[r]);
+      dx[r] = d[r] * to_f32(xn[r]);
+    }
+  }
+  // step r of the round; a thread past E has dt = 0: dA = 1, dBx = 0
+  __device__ __forceinline__ void step(int r, size_t, bool,
+                                       const float* bt, float (&da)[N],
+                                       float (&dbx)[N]) const {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      da[n] = exp2f(d[r] * a2[n]);
+      dbx[n] = dx[r] * bt[n];
+    }
   }
 };
 
-// The contract form's source: C staged, dA and dBx read in the lane.
+// The contract form's: dA and dBx rows read a step at a time.
 template <int N, typename T>
 struct ContractSrc {
-  static constexpr int CE = Tile<N>::CE, TT = Tile<N>::TT;
-  struct Shared {
-    float c[TT][N];
-    float y[TT][CE];
-  };
+  static constexpr bool kB = false;
   const T* dA;
   const T* dBx;
-  const T* cmat;
-  bool live;
-
-  __device__ void stage(Shared& s, int b, int t0, int nt, int, int S,
-                        int) const {
-    for (int i = threadIdx.x; i < TT * N; i += THREADS) {
-      const int r = i / N, n = i % N;
-      s.c[r][n] = r < nt ? to_f32(cmat[((size_t)b * S + t0 + r) * N + n])
-                         : 0.f;
+  __device__ __forceinline__ void fetch(size_t, int, int, bool) {}
+  __device__ __forceinline__ void land() {}
+  // ``at``: the element (b, t, e, 0) of dA / dBx
+  __device__ __forceinline__ void step(int, size_t at, bool live,
+                                       const float*, float (&da)[N],
+                                       float (&dbx)[N]) const {
+    if (live) {
+      load_row<N>(dA + at, da);
+      load_row<N>(dBx + at, dbx);
+    } else {
+#pragma unroll
+      for (int n = 0; n < N; ++n) da[n] = dbx[n] = 0.f;
     }
-  }
-
-  // ``at``: the element (b, t, e, n) of dA / dBx this lane reads
-  __device__ void step(const Shared&, int, int, int, size_t at, float& da,
-                       float& dbx) const {
-    da = live ? to_f32(dA[at]) : 0.f;
-    dbx = live ? to_f32(dBx[at]) : 0.f;
   }
 };
 
-// One CTA: batch row blockIdx.y, channels [e0, e0 + CE); thread i holds
-// channel e0 + i / N, state i % N.
-template <int N, class Src, typename HT, typename OutT>
-__device__ void scan_body(const Src& src, typename Src::Shared& s,
-                          const HT* h0, OutT* y, OutT* hT, int S, int E) {
-  constexpr int CE = Src::CE, TT = Src::TT;
-  const int b = blockIdx.y, e0 = blockIdx.x * CE;
-  const int c = threadIdx.x / N, n = threadIdx.x % N;
-  const int e = e0 + c;
-  const bool live = e < E;
-  const size_t hs = ((size_t)b * E + e) * N + n;
-  float h = live ? to_f32(h0[hs]) : 0.f;
-  for (int t0 = 0; t0 < S; t0 += TT) {
-    const int nt = min(TT, S - t0);
-    __syncthreads();  // the last round's y tile is written out
-    src.stage(s, b, t0, nt, e0, S, E);
-    __syncthreads();
-    for (int r = 0; r < nt; ++r) {
-      float da, dbx;
-      src.step(s, r, c, n, (((size_t)b * S + t0 + r) * E + e) * N + n, da,
-               dbx);
-      h = da * h + dbx;
-      float v = h * s.c[r][n];
+// Walk steps t0 .. t1 - 1 of batch row b for channel e from the state h
+// (every thread of the CTA takes part: the staging and barriers are the
+// CTA's); y[t] stored unless kEnds (pass 1), whose dt sum goes to *dsum.
+template <int N, bool kEnds, typename Src, typename T, typename OT>
+__device__ __forceinline__ void walk(Src& src, const T* bc, const T* cc,
+                                     Stage<N>& st, float (&h)[N], OT* y,
+                                     int b, int e, bool live, int t0, int t1,
+                                     int S, int E, float* dsum) {
+  constexpr int R = Tile<N>::kSteps;
+  constexpr int kVals = (Src::kB ? 2 : 1) * R * N;   // staged a round
+  constexpr int kPer = (kVals + kThreads - 1) / kThreads;
+  const int rounds = t1 > t0 ? (t1 - t0 + R - 1) / R : 0;
+  T bcn[kPer];
+  // Cc (and Bc) of the round from step rt0, nt steps long
+  auto fetch_bc = [&](int rt0, int nt) {
 #pragma unroll
-      for (int off = N / 2; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (n == 0) s.y[r][c] = v;
+    for (int i = 0; i < kPer; ++i) {
+      const int v = threadIdx.x + i * kThreads;
+      const int which = v / (R * N), r = v % (R * N) / N, n = v % N;
+      const T* src_ = which ? bc : cc;
+      bcn[i] = v < kVals && r < nt
+          ? src_[((size_t)b * S + rt0 + r) * N + n] : T(0.f);
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nt * CE; i += THREADS) {
-      const int r = i / CE, cc = i % CE;
-      if (e0 + cc < E)
-        store_out(&y[((size_t)b * S + t0 + r) * E + e0 + cc], s.y[r][cc]);
+  };
+  auto land_bc = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int v = threadIdx.x + i * kThreads;
+      if (v >= kVals) break;
+      const int which = v / (R * N), r = v % (R * N) / N, n = v % N;
+      (which ? st.b : st.c)[buf][r][n] = to_f32(bcn[i]);
+    }
+  };
+  if (rounds == 0) return;
+  const size_t row0 = (size_t)b * S;   // first (b, t) row
+  fetch_bc(t0, min(R, t1 - t0));
+  src.fetch((row0 + t0) * E + e, min(R, t1 - t0), E, live);
+  land_bc(0);
+  src.land();
+  __syncthreads();
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int buf = rd & 1, rt0 = t0 + rd * R, nt = min(R, t1 - rt0);
+    const bool more = rd + 1 < rounds;
+    if (more) {   // the next round's loads, in flight while this computes
+      const int nt1 = min(R, t1 - rt0 - R);
+      fetch_bc(rt0 + R, nt1);
+      src.fetch((row0 + rt0 + R) * E + e, nt1, E, live);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= nt) break;
+      const size_t bt = row0 + rt0 + r;
+      float da[N], dbx[N];
+      src.step(r, (bt * E + e) * N, live, st.b[buf][r], da, dbx);
+      const float* ct = st.c[buf][r];
+      float yv = 0.f;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        h[n] = fmaf(da[n], h[n], dbx[n]);
+        yv = fmaf(h[n], ct[n], yv);
+      }
+      if constexpr (kEnds) {
+        *dsum += src.d[r];
+      } else {
+        if (live) store_out(&y[bt * E + e], yv);
+      }
+    }
+    if (more) {
+      land_bc(buf ^ 1);
+      src.land();
+    }
+    __syncthreads();   // buf is refilled after the next round
+  }
+}
+
+// The model form over chunk blockIdx.z of `parts` (L = ceil(S / parts)
+// steps each) for batch row blockIdx.y and kThreads channels.  kEnds (pass
+// 1): from h = 0, the chunk's end state and decay into ws; else (pass 2, or
+// the whole scan when parts = 1): from h0 folded through the chunks before,
+// y and, in the last chunk, hT.  ws: h_end (B, parts - 1, E, N), then the
+// decay, the same shape.
+template <int N, typename T, typename HT, bool kEnds>
+__global__ void __launch_bounds__(kThreads)
+scan_kernel(const T* __restrict__ dt, const float* __restrict__ A,
+            const T* __restrict__ x, const T* __restrict__ bc,
+            const T* __restrict__ cc, const HT* __restrict__ h0,
+            float* __restrict__ y, float* __restrict__ hT,
+            float* __restrict__ ws, int S, int E, int parts) {
+  __shared__ Stage<N> st;
+  const int b = blockIdx.y, c = blockIdx.z;
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = e < E;
+  const int L = (S + parts - 1) / parts;
+  const int t0 = c * L, t1 = min(S, t0 + L);
+  ModelSrc<N, T> src{dt, x};
+  float h[N];
+  if (live) {
+    load_row<N>(A + (size_t)e * N, src.a2);
+  } else {
+#pragma unroll
+    for (int n = 0; n < N; ++n) src.a2[n] = 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    src.a2[n] *= kLog2e;
+    h[n] = 0.f;
+  }
+  const size_t ends = (size_t)gridDim.y * (parts - 1) * E * N;
+  if (!kEnds && live) {
+    load_row<N>(h0 + ((size_t)b * E + e) * N, h);
+    for (int j = 0; j < c; ++j) {   // the chunks before this one
+      const float* he = ws + (((size_t)b * (parts - 1) + j) * E + e) * N;
+      float hv[N], pv[N];
+      load_row<N>(he, hv);
+      load_row<N>(he + ends, pv);
+#pragma unroll
+      for (int n = 0; n < N; ++n) h[n] = fmaf(pv[n], h[n], hv[n]);
     }
   }
-  if (live) store_out(&hT[hs], h);
+  float dsum = 0.f;
+  walk<N, kEnds>(src, bc, cc, st, h, y, b, e, live, t0, t1, S, E, &dsum);
+  if (!live) return;
+  if constexpr (kEnds) {
+    float* he = ws + (((size_t)b * (parts - 1) + c) * E + e) * N;
+    float pv[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) pv[n] = exp2f(src.a2[n] * dsum);
+    store_row<N>(he, h);
+    store_row<N>(he + ends, pv);
+  } else {
+    if (c == parts - 1) store_row<N>(hT + ((size_t)b * E + e) * N, h);
+  }
 }
 
+// A decode step (S = 1) of the model form: one step a thread.
 template <int N, typename T, typename HT>
-__global__ void __launch_bounds__(THREADS)
-    mamba_scan_model_kernel(const T* dt, const float* A, const T* x,
-                            const T* bc, const T* cc, const HT* h0, float* y,
-                            float* hT, int S, int E) {
-  using Src = ModelSrc<N, T>;
-  __shared__ typename Src::Shared s;
-  const int e = blockIdx.x * Src::CE + threadIdx.x / N;
-  const float a = e < E ? A[(size_t)e * N + threadIdx.x % N] : 0.f;
-  const Src src{dt, x, bc, cc, a};
-  scan_body<N>(src, s, h0, y, hT, S, E);
+__global__ void __launch_bounds__(kThreads)
+step_kernel(const T* __restrict__ dt, const float* __restrict__ A,
+            const T* __restrict__ x, const T* __restrict__ bc,
+            const T* __restrict__ cc, const HT* __restrict__ h0,
+            float* __restrict__ y, float* __restrict__ hT, int E) {
+  const int b = blockIdx.y, e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= E) return;
+  const size_t at = (size_t)b * E + e;
+  const float d = to_f32(dt[at]), dx = d * to_f32(x[at]);
+  float h[N], a[N], bv[N], cv[N];
+  load_row<N>(h0 + at * N, h);
+  load_row<N>(A + (size_t)e * N, a);
+  load_row<N>(bc + (size_t)b * N, bv);
+  load_row<N>(cc + (size_t)b * N, cv);
+  float yv = 0.f;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    h[n] = fmaf(exp2f(d * (a[n] * kLog2e)), h[n], dx * bv[n]);
+    yv = fmaf(h[n], cv[n], yv);
+  }
+  y[at] = yv;
+  store_row<N>(hT + at * N, h);
 }
 
+// The contract form: the whole scan, one chunk.
 template <int N, typename T>
-__global__ void __launch_bounds__(THREADS)
-    mamba_scan_contract_kernel(const T* dA, const T* dBx, const T* cmat,
-                               const T* h0, T* y, T* hT, int S, int E) {
-  using Src = ContractSrc<N, T>;
-  __shared__ typename Src::Shared s;
-  const int e = blockIdx.x * Src::CE + threadIdx.x / N;
-  const Src src{dA, dBx, cmat, e < E};
-  scan_body<N>(src, s, h0, y, hT, S, E);
-}
-
-template <int N>
-dim3 grid(int B, int E) {
-  return dim3((E + Tile<N>::CE - 1) / Tile<N>::CE, B);
+__global__ void __launch_bounds__(kThreads)
+contract_kernel(const T* __restrict__ dA, const T* __restrict__ dBx,
+                const T* __restrict__ cmat, const T* __restrict__ h0,
+                T* __restrict__ y, T* __restrict__ hT, int S, int E) {
+  __shared__ Stage<N> st;
+  const int b = blockIdx.y, e = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = e < E;
+  ContractSrc<N, T> src{dA, dBx};
+  float h[N];
+  if (live) {
+    load_row<N>(h0 + ((size_t)b * E + e) * N, h);
+  } else {
+#pragma unroll
+    for (int n = 0; n < N; ++n) h[n] = 0.f;
+  }
+  walk<N, false>(src, static_cast<const T*>(nullptr), cmat, st, h, y, b, e,
+                 live, 0, S, S, E, static_cast<float*>(nullptr));
+  if (live) store_row<N>(hT + ((size_t)b * E + e) * N, h);
 }
 
 template <int N, typename T, typename HT>
 int launch_model(const void* dt, const void* A, const void* x, const void* bc,
-                 const void* cc, const void* h0, void* y, void* hT, int B,
-                 int S, int E, cudaStream_t stream) {
-  mamba_scan_model_kernel<N, T, HT><<<grid<N>(B, E), THREADS, 0, stream>>>(
-      static_cast<const T*>(dt), static_cast<const float*>(A),
-      static_cast<const T*>(x), static_cast<const T*>(bc),
-      static_cast<const T*>(cc), static_cast<const HT*>(h0),
-      static_cast<float*>(y), static_cast<float*>(hT), S, E);
+                 const void* cc, const void* h0, void* y, void* hT, void* ws,
+                 int B, int S, int E, int parts, cudaStream_t stream) {
+  const auto* dt_ = static_cast<const T*>(dt);
+  const auto* A_ = static_cast<const float*>(A);
+  const auto* x_ = static_cast<const T*>(x);
+  const auto* bc_ = static_cast<const T*>(bc);
+  const auto* cc_ = static_cast<const T*>(cc);
+  const auto* h0_ = static_cast<const HT*>(h0);
+  auto* y_ = static_cast<float*>(y);
+  auto* hT_ = static_cast<float*>(hT);
+  auto* ws_ = static_cast<float*>(ws);
+  const unsigned gx = (E + kThreads - 1) / kThreads;
+  if (S == 1) {
+    step_kernel<N, T, HT><<<dim3(gx, B), kThreads, 0, stream>>>(
+        dt_, A_, x_, bc_, cc_, h0_, y_, hT_, E);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (parts > 1) {
+    scan_kernel<N, T, HT, true><<<dim3(gx, B, parts - 1), kThreads, 0,
+                                  stream>>>(dt_, A_, x_, bc_, cc_, h0_, y_,
+                                            hT_, ws_, S, E, parts);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  scan_kernel<N, T, HT, false><<<dim3(gx, B, parts), kThreads, 0, stream>>>(
+      dt_, A_, x_, bc_, cc_, h0_, y_, hT_, ws_, S, E, parts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -247,11 +419,31 @@ template <int N, typename T>
 int launch_contract(const void* dA, const void* dBx, const void* cmat,
                     const void* h0, void* y, void* hT, int B, int S, int E,
                     cudaStream_t stream) {
-  mamba_scan_contract_kernel<N, T><<<grid<N>(B, E), THREADS, 0, stream>>>(
+  contract_kernel<N, T><<<dim3((E + kThreads - 1) / kThreads, B), kThreads,
+                          0, stream>>>(
       static_cast<const T*>(dA), static_cast<const T*>(dBx),
       static_cast<const T*>(cmat), static_cast<const T*>(h0),
       static_cast<T*>(y), static_cast<T*>(hT), S, E);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out = {registers a thread, local (spill) bytes a thread, shared memory
+// bytes a CTA, CTAs resident on one SM, channels a CTA} of the model form's
+// scan kernel (pass 2: the whole scan where parts = 1)
+template <int N, typename T, typename HT>
+int resources(int* out) {
+  auto kern = scan_kernel<N, T, HT, false>;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int ctas = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kern, kThreads, 0);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  out[3] = ctas;
+  out[4] = kThreads;
+  return static_cast<int>(e);
 }
 
 // f(std::integral_constant<int, N>) for the state sizes the kernels take
@@ -268,47 +460,54 @@ int with_state_size(int N, F&& f) {
   }
 }
 
-template <typename T, typename HT>
-int model_n(int N, const void* dt, const void* A, const void* x,
-            const void* bc, const void* cc, const void* h0, void* y, void* hT,
-            int B, int S, int E, cudaStream_t st) {
-  return with_state_size(N, [&](auto n) {
-    return launch_model<decltype(n)::value, T, HT>(dt, A, x, bc, cc, h0, y,
-                                                    hT, B, S, E, st);
-  });
+// f(T, HT) for the (dtype, h0 dtype) codes: 0 float32, 1 bfloat16
+template <class F>
+int with_types(int dtype, int h0_dtype, F&& f) {
+  using bf = __nv_bfloat16;
+  if (dtype == 0 && h0_dtype == 0) return f(float(), float());
+  if (dtype == 0 && h0_dtype == 1) return f(float(), bf());
+  if (dtype == 1 && h0_dtype == 0) return f(bf(), float());
+  if (dtype == 1 && h0_dtype == 1) return f(bf(), bf());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
-int contract_n(int N, const void* dA, const void* dBx, const void* cmat,
-               const void* h0, void* y, void* hT, int B, int S, int E,
-               cudaStream_t st) {
-  return with_state_size(N, [&](auto n) {
-    return launch_contract<decltype(n)::value, T>(dA, dBx, cmat, h0, y, hT,
-                                                  B, S, E, st);
-  });
-}
-
+}  // namespace mamba
 }  // namespace
 
-// dtype / h0_dtype: 0 float32, 1 bfloat16 (dt, x, Bc, Cc one dtype)
+// dtype / h0_dtype: 0 float32, 1 bfloat16 (dt, x, Bc, Cc one dtype).  ws:
+// pass 1's workspace, 2 x B x (parts - 1) x E x N floats (null where
+// parts = 1); parts: 1 .. 16 time chunks, at most S (1 where S = 1).
 extern "C" int mamba_scan_model(int dtype, int h0_dtype, int N,
                                 const void* dt, const void* A, const void* x,
                                 const void* bc, const void* cc,
-                                const void* h0, void* y, void* hT, int B,
-                                int S, int E, void* stream) {
+                                const void* h0, void* y, void* hT, void* ws,
+                                int B, int S, int E, int parts,
+                                void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || E < 1 || parts < 1
+      || parts > mamba::kMaxParts || parts > S
+      || (parts > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && h0_dtype == 0)
-    return model_n<float, float>(N, dt, A, x, bc, cc, h0, y, hT, B, S, E, st);
-  if (dtype == 0 && h0_dtype == 1)
-    return model_n<float, __nv_bfloat16>(N, dt, A, x, bc, cc, h0, y, hT, B, S,
-                                         E, st);
-  if (dtype == 1 && h0_dtype == 0)
-    return model_n<__nv_bfloat16, float>(N, dt, A, x, bc, cc, h0, y, hT, B, S,
-                                         E, st);
-  if (dtype == 1 && h0_dtype == 1)
-    return model_n<__nv_bfloat16, __nv_bfloat16>(N, dt, A, x, bc, cc, h0, y,
-                                                 hT, B, S, E, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return mamba::with_state_size(N, [&](auto n) {
+    return mamba::with_types(dtype, h0_dtype, [&](auto t, auto ht) {
+      return mamba::launch_model<decltype(n)::value, decltype(t),
+                                 decltype(ht)>(dt, A, x, bc, cc, h0, y, hT,
+                                               ws, B, S, E, parts, st);
+    });
+  });
+}
+
+// The model form's scan kernel for (dtype, h0_dtype, N) (launches nothing):
+// out[5] = registers a thread, spill bytes a thread, shared memory bytes a
+// CTA, CTAs resident on one SM, channels a CTA.
+extern "C" int mamba_scan_model_resources(int dtype, int h0_dtype, int N,
+                                          int* out) {
+  return mamba::with_state_size(N, [&](auto n) {
+    return mamba::with_types(dtype, h0_dtype, [&](auto t, auto ht) {
+      return mamba::resources<decltype(n)::value, decltype(t),
+                              decltype(ht)>(out);
+    });
+  });
 }
 
 // dtype: 0 float32, 1 bfloat16 (dA, dBx, C, h0, y, hT one dtype)
@@ -316,11 +515,16 @@ extern "C" int mamba_scan_contract(int dtype, int N, const void* dA,
                                    const void* dBx, const void* cmat,
                                    const void* h0, void* y, void* hT, int B,
                                    int S, int E, void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || E < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return contract_n<float>(N, dA, dBx, cmat, h0, y, hT, B, S, E, st);
-  if (dtype == 1)
-    return contract_n<__nv_bfloat16>(N, dA, dBx, cmat, h0, y, hT, B, S, E,
-                                     st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return mamba::with_state_size(N, [&](auto n) {
+    if (dtype == 0)
+      return mamba::launch_contract<decltype(n)::value, float>(
+          dA, dBx, cmat, h0, y, hT, B, S, E, st);
+    if (dtype == 1)
+      return mamba::launch_contract<decltype(n)::value, __nv_bfloat16>(
+          dA, dBx, cmat, h0, y, hT, B, S, E, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }

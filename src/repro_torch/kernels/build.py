@@ -84,6 +84,9 @@ ENTRIES = {
     # K7: dtype, Di, q, w, k, out, B, S, T, Hi, scale, stream
     "lightning_indexer": ("lightning_indexer",
                           [_I] * 2 + [_P] * 4 + [_I] * 4 + [_F, _P]),
+    # K7's tensor-core body (dtype 0: fp32 by 3xTF32, 1: bf16): dtype, Hi,
+    # Di -> as K6's
+    "lightning_indexer_resources": ("lightning_indexer", [_I] * 3 + [_P]),
     # K8: dtype, dqk, dv, q, k, v, block_idx, q_start, out, B, S, T, H,
     # KVH, block_size, nb, empty_mean, softcap, scale, parts, workspace,
     # stream
@@ -105,9 +108,12 @@ ENTRIES = {
     # K10's tile (fp32: 3xTF32 on the tensor cores; bf16: SIMT): dtype ->
     # registers, spill bytes, shared memory, CTAs an SM, tokens a CTA
     "chunked_ce_resources": ("chunked_ce", [_I] + [_P]),
-    # K11 model form: dtype, h0 dtype, N, dt, A, x, Bc, Cc, h0, y, hT, B,
-    # S, E, stream
-    "mamba_scan_model": ("mamba_scan", [_I] * 3 + [_P] * 8 + [_I] * 3 + [_P]),
+    # K11 model form: dtype, h0 dtype, N, dt, A, x, Bc, Cc, h0, y, hT,
+    # workspace, B, S, E, parts, stream
+    "mamba_scan_model": ("mamba_scan", [_I] * 3 + [_P] * 9 + [_I] * 4 + [_P]),
+    # K11's scan kernel: dtype, h0 dtype, N -> registers, spill bytes,
+    # shared memory, CTAs an SM, channels a CTA
+    "mamba_scan_model_resources": ("mamba_scan", [_I] * 3 + [_P]),
     # K11 contract: dtype, N, dA, dBx, C, h0, y, hT, B, S, E, stream
     "mamba_scan_contract": ("mamba_scan",
                             [_I] * 2 + [_P] * 6 + [_I] * 3 + [_P]),

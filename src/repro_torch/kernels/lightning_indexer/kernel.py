@@ -4,8 +4,10 @@ Hopper.
 Ports ``repro.kernels.lightning_indexer.kernel.lightning_indexer``: the
 DSA indexer scores of every query against every key, with score, ReLU and
 the head-weighted sum fused.  The CUDA kernel is in
-``csrc/lightning_indexer.cu`` (K6's body with contiguous key addressing),
-built by ``repro_torch.kernels.build``; ``ref.reference`` is the same
+``csrc/lightning_indexer.cu``, built by ``repro_torch.kernels.build``: at
+Hi 16 or 32 K6's tensor-core body (``csrc/indexer_mma.cuh``) over
+contiguous keys, bf16 on ``mma.sync`` and fp32 by 3xTF32 (fp32-level
+error); at other head counts the SIMT tile.  ``ref.reference`` is the same
 function in plain PyTorch.  The kernel takes K6's index head dims and
 width (Di 16/32/64/128, Hi·Di <= 8192).
 
@@ -66,8 +68,8 @@ def lightning_indexer(q_idx: torch.Tensor, w_head: torch.Tensor,
     (B, T, Di) -> scores (B, S, T) fp32.
 
     CPU tensors run ``ref.reference``; CUDA tensors launch the Hopper
-    kernel on the current stream (a CTA per 128 keys, up to 8 queries and
-    batch row)."""
+    kernel on the current stream (at Hi 16 / 32 a CTA per chunk of keys
+    and group of tokens of a batch row, on the tensor cores)."""
     if q_idx.device.type == "cpu":
         return reference(q_idx, w_head, k_idx, heads=heads,
                          head_dim=head_dim)

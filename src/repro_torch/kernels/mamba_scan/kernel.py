@@ -4,41 +4,48 @@ and the autograd Function of the model's form.
 Ports ``repro.kernels.mamba_scan.kernel.mamba_scan`` (the recurrence
 ``h[t] = dA[t]·h[t-1] + dBx[t]``, ``y[t] = <h[t], C[t]>``; see ``ref.py``)
 with two entry points over one CUDA body (``csrc/mamba_scan.cu``, built by
-``repro_torch.kernels.build``):
+``repro_torch.kernels.build``; a thread a channel, its N states in
+registers):
 
 * ``mamba_scan(dA, dBx, C, h0)``: the Pallas kernel's contract, for the
   parity tests; y and hT in ``dA.dtype``;
 * ``mamba_scan_model(dt, A, x, Bc, Cc, h0)``: the tensors
   ``layers.ssm.apply_mamba1`` has; the kernel discretizes
-  (``dA = exp(dt·A)``, ``dBx = (dt·x)·B``) itself, so the (B, S, E, N)
-  dA and dBx never reach device memory; y and hT in fp32.  dt, x, Bc and
-  Cc are in the model's dtype (float32 or bfloat16), A fp32, h0 fp32 or
-  bfloat16.
+  (``dA = exp2(dt·A·log2 e)``, ``dBx = (dt·x)·B``) itself, so the
+  (B, S, E, N) dA and dBx never reach device memory; y and hT in fp32.
+  dt, x, Bc and Cc are in the model's dtype (float32 or bfloat16), A fp32,
+  h0 fp32 or bfloat16.  Where the batch's channels leave the card's
+  thread slots mostly empty, time is cut into ``scan_parts`` chunks (a
+  pass of chunk end states, then the chunks rerun from their true
+  starts); a decode step (S 1) runs a one-step kernel.
 
-N (the state size) must divide 32 (a warp holds whole channels, a lane per
-(channel, state) pair); E and S >= 1 are free.  ``mamba1_scan`` is the
-model's entry point: an autograd Function whose forward is
-``mamba_scan_model`` and whose backward is the plain recomputing gradient
-``ref.scan_model_grads`` (the reference differentiates its ``lax.scan``;
-no backward kernel yet).
+N (the state size) is one of 1, 2, 4, 8, 16, 32; E and S >= 1 are free.
+``mamba1_scan`` is the model's entry point: an autograd Function whose
+forward is ``mamba_scan_model`` and whose backward is the plain recomputing
+gradient ``ref.scan_model_grads`` (the reference differentiates its
+``lax.scan``; no backward kernel yet).
 
 The wrappers choose by the tensors' device: on the CPU they run the plain
 versions, on a CUDA device they launch the kernel or raise.  There is no
 fallback.  ``mamba_scan.launches`` and ``mamba_scan_model.launches`` count
-kernel launches.
+wrapper calls that launched the kernel (one a call, whatever its passes).
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODE, check_launch, cuda_entry
+from repro_torch.kernels.build import resources as _resources
 from repro_torch.kernels.mamba_scan.ref import (reference, scan_model,
                                                 scan_model_grads)
 
-STATE_SIZES = (1, 2, 4, 8, 16, 32)     # N: divides the 32 lanes of a warp
+STATE_SIZES = (1, 2, 4, 8, 16, 32)     # N: the instantiated state sizes
 MAX_BATCH = 65535                      # the grid's y dimension
+MAX_PARTS = 16                         # time chunks a call
+MIN_CHUNK = 64                         # time steps a chunk, at least
 
 
 def _check_common(name, tensors, B, S, E, N) -> None:
@@ -51,7 +58,7 @@ def _check_common(name, tensors, B, S, E, N) -> None:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} kernel needs contiguous tensors")
     if N not in STATE_SIZES:
-        raise ValueError(f"{name} kernel: state size {N} must divide 32 "
+        raise ValueError(f"{name} kernel: state size {N} not in "
                          f"{STATE_SIZES}")
     if not (1 <= B <= MAX_BATCH and S >= 1 and E >= 1):
         raise ValueError(f"{name} kernel: B={B} (1..{MAX_BATCH}), S={S} and "
@@ -77,27 +84,48 @@ def check_cuda_args(dA, dBx, C, h0) -> None:
                          f"match dA {tuple(dA.shape)}")
 
 
-def check_cuda_args_model(dt, A, x, Bc, Cc, h0) -> None:
-    """Raise on anything the model form of the kernel does not take."""
-    if dt.ndim != 3 or A.ndim != 2:
-        raise ValueError(f"mamba_scan_model: dt {tuple(dt.shape)}, A "
-                         f"{tuple(A.shape)}, want (B, S, E) and (E, N)")
-    (B, S, E), N = dt.shape, A.shape[1]
-    _check_common("mamba_scan_model", (dt, A, x, Bc, Cc, h0), B, S, E, N)
-    if dt.dtype not in DTYPE_CODE or any(t.dtype != dt.dtype
-                                         for t in (x, Bc, Cc)):
+def check_cuda_args_model(dt, A, x, Bc, Cc, h0) -> tuple:
+    """Raise on anything the model form of the kernel does not take; else
+    return (B, S, E, N, the device's index).  It runs before every launch,
+    a decode step's among them, where the wrapper's host work is most of
+    K11's time: each tensor attribute is read once."""
+    shape, a_shape = dt.shape, A.shape
+    if len(shape) != 3 or len(a_shape) != 2:
+        raise ValueError(f"mamba_scan_model: dt {tuple(shape)}, A "
+                         f"{tuple(a_shape)}, want (B, S, E) and (E, N)")
+    (B, S, E), N = shape, a_shape[1]
+    index = dt.get_device()
+    if index < 0:
+        raise ValueError(f"mamba_scan_model kernel runs on CUDA tensors, got "
+                         f"{dt.device}")
+    others = (A, x, Bc, Cc, h0)
+    if any(t.get_device() != index for t in others):
+        raise ValueError("mamba_scan_model: all tensors must be on one "
+                         "device")
+    if not (dt.is_contiguous() and all(t.is_contiguous() for t in others)):
+        raise ValueError("mamba_scan_model kernel needs contiguous tensors")
+    if N not in STATE_SIZES:
+        raise ValueError(f"mamba_scan_model kernel: state size {N} not in "
+                         f"{STATE_SIZES}")
+    if not (1 <= B <= MAX_BATCH and S >= 1 and E >= 1):
+        raise ValueError(f"mamba_scan_model kernel: B={B} (1..{MAX_BATCH}), "
+                         f"S={S} and E={E} (>= 1)")
+    dtype = dt.dtype
+    if dtype not in DTYPE_CODE or x.dtype != dtype or Bc.dtype != dtype \
+            or Cc.dtype != dtype:
         raise TypeError(f"mamba_scan_model kernel takes float32 or bfloat16 "
-                        f"dt, x, Bc and Cc of one dtype, got {dt.dtype}, "
+                        f"dt, x, Bc and Cc of one dtype, got {dtype}, "
                         f"{x.dtype}, {Bc.dtype}, {Cc.dtype}")
     if A.dtype != torch.float32 or h0.dtype not in DTYPE_CODE:
         raise TypeError(f"mamba_scan_model kernel takes float32 A and a "
                         f"float32 or bfloat16 h0, got {A.dtype}, {h0.dtype}")
-    if x.shape != dt.shape or A.shape != (E, N) or Bc.shape != (B, S, N) \
+    if x.shape != shape or a_shape != (E, N) or Bc.shape != (B, S, N) \
             or Cc.shape != (B, S, N) or h0.shape != (B, E, N):
         raise ValueError(f"mamba_scan_model: x {tuple(x.shape)}, A "
-                         f"{tuple(A.shape)}, Bc {tuple(Bc.shape)}, Cc "
+                         f"{tuple(a_shape)}, Bc {tuple(Bc.shape)}, Cc "
                          f"{tuple(Cc.shape)}, h0 {tuple(h0.shape)} do not "
-                         f"match dt {tuple(dt.shape)}")
+                         f"match dt {tuple(shape)}")
+    return B, S, E, N, index
 
 
 def mamba_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
@@ -105,8 +133,8 @@ def mamba_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
     """K11, the Pallas contract: -> (y (B, S, E), hT (B, E, N)) in dA.dtype.
 
     CPU tensors run ``ref.reference``; CUDA tensors launch the Hopper
-    kernel on the current stream (one CTA per 256/N channels of a batch
-    row)."""
+    kernel on the current stream (a CTA per 128 channels of a batch row,
+    the whole of time in one chunk)."""
     if dA.device.type == "cpu":
         return reference(dA, dBx, C, h0)
     check_cuda_args(dA, dBx, C, h0)
@@ -125,27 +153,75 @@ def mamba_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
 mamba_scan.launches = 0
 
 
+def parts_rule(ctas: int, S: int, sms: int, per_sm: int) -> int:
+    """Time chunks for a scan of ``ctas`` CTAs of channels over S steps on
+    ``sms`` SMs that hold ``per_sm`` CTAs each: 1 where the CTAs outnumber
+    the SMs (a pass then keeps every SM busy, and more passes only add
+    work: on an H100, B 4 at falcon-mamba's width ran slower in 2 chunks
+    than in 1); else as many as fill the card's CTA slots, at most
+    ``MAX_PARTS`` and at most S // ``MIN_CHUNK``."""
+    if ctas > sms:
+        return 1
+    return max(1, min(MAX_PARTS, per_sm * sms // ctas, S // MIN_CHUNK))
+
+
+@functools.lru_cache(maxsize=None)
+def scan_parts(code: int, h0_code: int, N: int, B: int, S: int, E: int,
+               index: int) -> int:
+    """``parts_rule`` at these shapes, with the CTAs an SM and channels a
+    CTA from the scan kernel's occupancy query; 1 for a decode step.
+    Cached: shapes only, never the data."""
+    if S == 1:
+        return 1
+    *_, per_sm, per_cta = _resources("mamba_scan_model_resources", code,
+                                     h0_code, N)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return parts_rule(B * -(-E // per_cta), S, sms, per_sm)
+
+
+def _launch(dt, A, x, Bc, Cc, h0, B, S, E, N, index, parts):
+    y = dt.new_empty((B, S, E), dtype=torch.float32)
+    hT = dt.new_empty((B, E, N), dtype=torch.float32)
+    ws = None if parts == 1 else \
+        dt.new_empty(2 * B * (parts - 1) * E * N, dtype=torch.float32)
+    # the raw stream handle: a Stream object costs microseconds, and a
+    # decode step's time is the wrapper's host work
+    err = cuda_entry("mamba_scan_model")(
+        DTYPE_CODE[dt.dtype], DTYPE_CODE[h0.dtype], N, dt.data_ptr(),
+        A.data_ptr(), x.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+        h0.data_ptr(), y.data_ptr(), hT.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, S, E, parts,
+        torch._C._cuda_getCurrentRawStream(index))
+    check_launch("mamba_scan_model", err)
+    return y, hT
+
+
+def launch_scan_model(dt, A, x, Bc, Cc, h0, parts: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model form's C entry point on checked CUDA tensors with time in
+    ``parts`` chunks (1..16, at most S; 1 where S = 1) -> (y, hT).  Counts
+    nothing: the wrapper does, and the tests and the study call this to
+    force ``parts``."""
+    B, S, E, N, index = check_cuda_args_model(dt, A, x, Bc, Cc, h0)
+    return _launch(dt, A, x, Bc, Cc, h0, B, S, E, N, index, parts)
+
+
 def mamba_scan_model(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
                      Bc: torch.Tensor, Cc: torch.Tensor, h0: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K11, the model's form: -> (y (B, S, E), hT (B, E, N)) in fp32.
 
     CPU tensors run ``ref.scan_model``; CUDA tensors launch the Hopper
-    kernel on the current stream."""
+    kernel on the current stream: a thread a channel, time in
+    ``scan_parts`` chunks (one launch on the count)."""
     if dt.device.type == "cpu":
         return scan_model(dt, A, x, Bc, Cc, h0)
-    check_cuda_args_model(dt, A, x, Bc, Cc, h0)
-    (B, S, E), N = dt.shape, A.shape[1]
-    y = torch.empty((B, S, E), dtype=torch.float32, device=dt.device)
-    hT = torch.empty((B, E, N), dtype=torch.float32, device=dt.device)
-    err = cuda_entry("mamba_scan_model")(
-        DTYPE_CODE[dt.dtype], DTYPE_CODE[h0.dtype], N, dt.data_ptr(),
-        A.data_ptr(), x.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-        h0.data_ptr(), y.data_ptr(), hT.data_ptr(), B, S, E,
-        torch.cuda.current_stream(dt.device).cuda_stream)
-    check_launch("mamba_scan_model", err)
+    B, S, E, N, index = check_cuda_args_model(dt, A, x, Bc, Cc, h0)
+    parts = scan_parts(DTYPE_CODE[dt.dtype], DTYPE_CODE[h0.dtype], N, B, S,
+                       E, index)
+    out = _launch(dt, A, x, Bc, Cc, h0, B, S, E, N, index, parts)
     mamba_scan_model.launches += 1
-    return y, hT
+    return out
 
 
 mamba_scan_model.launches = 0

@@ -86,7 +86,8 @@ def test_every_header_enters_the_build_hash(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC", csrc)
     headers = sorted(csrc.glob("*.cuh"))
     assert {h.name for h in headers} >= {"gqa_tile.cuh", "mma_tile.cuh",
-                                         "indexer_tile.cuh", "vec.cuh"}
+                                         "indexer_tile.cuh", "vec.cuh",
+                                         "tf32_tile.cuh", "indexer_mma.cuh"}
     for header in headers:
         before = {lib: build.library_path(lib) for lib in build.LIBRARIES}
         header.write_text(header.read_text() + "\n// edited\n")

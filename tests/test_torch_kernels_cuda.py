@@ -8,10 +8,14 @@ K4's MLA form in ``csrc/paged_mla.cu``); K2's and K4's fp32 bodies run on
 the CUDA cores; K8, K9 and K10 run their fp32 routes on the tensor cores
 by 3xTF32 (``csrc/tf32_tile.cuh``, ``csrc/chunked_ce.cu``; K8's forced
 here to every key-range split 1..4 through ``launch_block_sparse``), and
-K9's and K10's bf16 routes on the CUDA cores; K6's bf16 route runs a
-tensor-core body of its own (``csrc/paged_indexer.cu``); K1 cuts each row's live range into runs of blocks, a CTA
-each, folded by a combine pass (forced here to every count 1..16 through
-its C entry point).  Each is
+K9's and K10's bf16 routes on the CUDA cores; K6's bf16 route and both
+of K7's routes at Hi 16 / 32 run the indexer tensor-core body
+(``csrc/indexer_mma.cuh``: bf16 mma.sync, fp32 by 3xTF32), K7 at other
+head counts the SIMT tile; K1 cuts each row's live range into runs of
+blocks, a CTA each, folded by a combine pass (forced here to every count
+1..16 through its C entry point); K11 gives a thread each channel and cuts
+time into chunks (forced here to every count the rule can pick through
+``launch_scan_model``; S 1 runs its one-step kernel).  Each is
 held over every case its dispatch takes (head dims, block sizes, groups,
 window, softcap, q_offset, ragged rows, skipped ids, both empty-row rules,
 and grids that the wrapper splits into 1, 2 or 4 key-range parts), at the
@@ -83,6 +87,68 @@ def test_lightning_indexer_matches_plain(dtype, tol):
         want = K7.reference(q, w, k, heads=Hi, head_dim=Di)
         torch.cuda.synchronize()
         assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("Hi,Di", [(16, 64), (32, 128), (16, 16)])
+@pytest.mark.parametrize("S,T", [(1, 65), (37, 333), (256, 4100)])
+def test_lightning_indexer_tensor_cores_match_plain(dtype, tol, Hi, Di, S,
+                                                    T):
+    """K7 at Hi 16 / 32, both routes on the tensor cores (bf16 mma.sync,
+    fp32 by 3xTF32): S and T ragged against the tokens a CTA and the keys
+    a chunk, one query, two batch rows; every (s, t) finite (K7 writes no
+    NEG_INF) and within tol x min(1, max|plain|)."""
+    _need_gpu()
+    rng = np.random.default_rng(Hi + Di + S)
+    q = _cuda(rng, 2, S, Hi * Di, dtype=dtype)
+    k = _cuda(rng, 2, T, Di, dtype=dtype)
+    w = torch.softmax(_cuda(rng, 2, S, Hi), -1)
+    before = K7.lightning_indexer.launches
+    got = K7.lightning_indexer(q, w, k, heads=Hi, head_dim=Di)
+    want = K7.reference(q, w, k, heads=Hi, head_dim=Di)
+    torch.cuda.synchronize()
+    assert K7.lightning_indexer.launches == before + 1
+    assert (got > -1e29).all()
+    _hold(got, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("Hi,Di", [(2, 16), (8, 64), (4, 128)])
+def test_lightning_indexer_simt_route_at_other_heads(dtype, tol, Hi, Di):
+    """Head counts other than 16 and 32 keep the SIMT tile: the tensor-core
+    body's resource query refuses them, and the kernel matches plain."""
+    _need_gpu()
+    from repro_torch.kernels import build
+    with pytest.raises(RuntimeError):
+        build.resources("lightning_indexer_resources",
+                        build.DTYPE_CODE[dtype], Hi, Di)
+    rng = np.random.default_rng(Hi * Di)
+    q = _cuda(rng, 2, 150, Hi * Di, dtype=dtype)
+    k = _cuda(rng, 2, 333, Di, dtype=dtype)
+    w = torch.softmax(_cuda(rng, 2, 150, Hi), -1)
+    got = K7.lightning_indexer(q, w, k, heads=Hi, head_dim=Di)
+    want = K7.reference(q, w, k, heads=Hi, head_dim=Di)
+    torch.cuda.synchronize()
+    _hold(got, want, tol)
+
+
+@pytest.mark.cuda
+def test_lightning_indexer_refuses_what_it_cannot_take():
+    _need_gpu()
+    rng = np.random.default_rng(13)
+    q, k = _cuda(rng, 1, 8, 16 * 64), _cuda(rng, 1, 40, 64)
+    w = torch.softmax(_cuda(rng, 1, 8, 16), -1)
+    with pytest.raises(ValueError):           # head dim not taken
+        K7.lightning_indexer(_cuda(rng, 1, 8, 16 * 48), w,
+                             _cuda(rng, 1, 40, 48), heads=16, head_dim=48)
+    with pytest.raises(TypeError):            # q and k in two dtypes
+        K7.lightning_indexer(q, w, k.bfloat16(), heads=16, head_dim=64)
+    with pytest.raises(TypeError):            # bf16 head weights
+        K7.lightning_indexer(q, w.bfloat16(), k, heads=16, head_dim=64)
+    with pytest.raises(ValueError):           # not contiguous
+        K7.lightning_indexer(q.transpose(0, 1), w, k, heads=16, head_dim=64)
 
 
 @pytest.mark.cuda
@@ -491,3 +557,56 @@ def test_mamba_scan_refuses_what_it_cannot_take():
         K11.mamba_scan_model(dt.transpose(0, 1), A, x, Bc, Cc, h0)
     with pytest.raises(TypeError):            # A must be fp32
         K11.mamba_scan_model(dt, A.bfloat16(), x, Bc, Cc, h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h0_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,E,N", [(2, 1, 96, 16), (1, 1, 8192, 16),
+                                     (2, 1, 100, 1), (3, 301, 96, 16),
+                                     (2, 1000, 200, 8), (1, 130, 40, 32),
+                                     (2, 77, 64, 2)])
+def test_mamba_scan_model_every_parts(dtype, h0_dtype, B, S, E, N):
+    """K11's model form through its C entry point at every count of time
+    chunks the rule can pick (1..16, at most S; S 1 is the one-step decode
+    kernel), and through the wrapper (its own count, one launch on the
+    count): ragged E and S, N 1 to 32, both h0 dtypes; y and hT in fp32 on
+    both sides, so each within the fp32 1e-4 x min(1, max|plain|)."""
+    _need_gpu()
+    rng = np.random.default_rng(B * S + E + N)
+    ins = _scan_inputs(rng, B, S, E, N, dtype, h0_dtype)
+    want = K11ref.scan_model(*ins)
+    for parts in sorted({1, 2, 3, 4, 7, 16} & set(range(1, S + 1))):
+        got = K11.launch_scan_model(*ins, parts)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            _hold(a, b, 1e-4)
+    before = K11.mamba_scan_model.launches
+    got = K11.mamba_scan_model(*ins)
+    torch.cuda.synchronize()
+    assert K11.mamba_scan_model.launches == before + 1
+    for a, b in zip(got, want):
+        _hold(a, b, 1e-4)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_parts_rule_at_the_main_shapes():
+    """The wrapper's time chunks at falcon-mamba's shapes (E 8192, N 16):
+    one at the serve prefill (B 8 fills the card), more at the training
+    shape (B 2), one at a decode step."""
+    _need_gpu()
+    code, index = 1, torch.cuda.current_device()
+    assert K11.scan_parts(code, code, 16, 8, 1, 8192, index) == 1
+    train = K11.scan_parts(0, 0, 16, 2, 2048, 8192, index)
+    assert 1 < train <= K11.MAX_PARTS
+    assert K11.scan_parts(code, code, 16, 8, 1024, 8192, index) <= train
+
+
+@pytest.mark.cuda
+def test_mamba_scan_model_refuses_parts_it_cannot_take():
+    _need_gpu()
+    rng = np.random.default_rng(6)
+    ins = _scan_inputs(rng, 1, 5, 24, 8, torch.float32, torch.float32)
+    for parts in (0, 6, K11.MAX_PARTS + 1):   # past S = 5, past the limit
+        with pytest.raises(RuntimeError):
+            K11.launch_scan_model(*ins, parts)

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Study of the port's tensor-core attention tiles on one GPU.
+"""Study of the port's tensor-core tiles and scan on one GPU.
 
-    python3 tile_study.py [--parent DIR]
+    python3 tile_study.py [--parent DIR] [--only STUDY,...]
 
 The tiles: the bf16 tile of K2 and K8 (``csrc/mma_tile.cuh``), K4's bf16
 MLA tile (``csrc/paged_mla.cu``), the fp32 3xTF32 tile of K9 and K8
 (``csrc/tf32_tile.cuh``), K10's fp32 3xTF32 logits tile
 (``csrc/chunked_ce.cu``), K1's split-KV decode body
-(``csrc/paged_attention.cu``) and K6's tensor-core span body
-(``csrc/paged_indexer.cu``).  The attention tiles split each tile's key
+(``csrc/paged_attention.cu``), the indexer tensor-core body of K6 and K7
+(``csrc/indexer_mma.cuh``) and K11's scan (``csrc/mamba_scan.cu``).  The attention tiles split each tile's key
 range over ``parts`` CTAs where the tiles leave CTA slots of the card
 empty (``repro_torch.kernels.build.key_split``).  This script measures
 that choice, the tile sizes and the tiles against their yardsticks:
@@ -64,17 +64,34 @@ that choice, the tile sizes and the tiles against their yardsticks:
              of 64 keys a CTA (``-DREPRO_IDX_ROUNDS``), device times from
              CUDA-graph replay, held at the bf16 bound, beside the
              wrapper's device and host time;
+  lightning  K7 on that body at Hi 16 / Di 64: the DSA training chunk
+             (fp32 by 3xTF32, S 256 against 4096 keys) with the body built
+             at tokens a warp x rounds a CTA x keys a round
+             (``-DREPRO_IDX32_TOKENS``, ``_ROUNDS``, ``_KEYS``), and the
+             block selector's last serve span of the 6144-token prompt
+             (bf16, S 256 against its 6528-position view, 8 layers' keys)
+             with ``-DREPRO_IDX_TOKENS`` / ``_ROUNDS``; device times from
+             CUDA-graph replay, each held at its dtype's bound, beside the
+             wrapper's times and host microseconds a call;
+  scan       K11's model form at falcon-mamba's serve prefill (B 8, S
+             1024, bf16), training shape (B 2 and 4, S 2048, fp32) and
+             decode step (B 8, S 1): the scan built with 4, 2 and 8 time
+             steps a round (``-DREPRO_SCAN_STEPS``), each at every time
+             split 1..16 the shape allows, held at the fp32 bound against
+             the plain version, beside the wrapper (its parts) and its host
+             microseconds a call, and the SFU floor;
   parent     with ``--parent DIR``, another revision's
              ``src/repro_torch/csrc`` with its ``src/repro_torch/kernels``
              beside it (for example ``git archive <commit> src/repro_torch``,
-             unpacked): its K2, K8 (both dtypes), K4, K9, K1, K10 and K6
-             at the same shapes, called through the C interface that
-             revision had (K2, K4 and K8 with one part; K1 through that
-             revision's own wrapper, so its host work is measured as it
-             was), and its K4 and K9 bodies' registers and spills (``nvcc
-             -Xptxas -v``).
+             unpacked): its K2, K8 (both dtypes), K4, K9, K1, K10, K6, K7
+             and K11 at the same shapes, called through the C interface
+             that revision had (its ``kernels/build.py``; K2, K4 and K8
+             with one part; K1 and K11 through that revision's own
+             wrappers, so their host work is measured as it was), and its
+             K4 and K9 bodies' registers and spills (``nvcc -Xptxas -v``).
 
-It prints the card's name and power limit first.  It needs a CUDA device
+``--only`` runs (and builds for) the named studies alone.  It prints the
+card's name and power limit first.  It needs a CUDA device
 and exits non-zero without one.
 """
 from __future__ import annotations
@@ -264,44 +281,69 @@ TF32_VARIANTS = (32, 64)
 CE_VARIANTS = ((64, 3), (64, 2), (32, 3), (32, 2))
 # K6's tensor-core body: (tokens a warp, rounds of 64 keys a CTA)
 IDX_VARIANTS = ((4, 4), (4, 2), (4, 8), (2, 4), (2, 8), (1, 8))
+# K7's fp32 route on that body: (tokens a warp, rounds a CTA, keys a round)
+IDX32_VARIANTS = ((2, 8, 64), (2, 4, 64), (1, 8, 64), (1, 16, 64),
+                  (4, 8, 32), (4, 16, 32), (2, 16, 32))
+# K11's time steps a round
+SCAN_VARIANTS = (4, 2, 8)
 
 
-def variant_libraries() -> dict:
-    """Build K4's, K9's, K10's, K8's and K6's libraries at every other tile
-    size (into build/study/, all nvcc processes at once); returns name ->
-    the C entry point (``mla_k{keys}_s{stages}``, ``tf32_k{keys}``,
-    ``ce_m{warp_m}_s{stages}``, ``sparse32_k{keys}``,
-    ``idx_t{tokens}_r{rounds}``)."""
+# the studies each variant (by its tag's prefix) and each parent library
+# serve, so that ``--only`` builds no more than it runs
+PREFIX_STUDY = {"mla_": "mla", "tf32_": "tf32", "sparse32_": "sparse32",
+                "idx_": "indexer", "li_": "lightning", "li32_": "lightning",
+                "scan_": "scan", "ce_": "ce"}
+LIBRARY_STUDIES = {"paged_attention": ("split", "decode"),
+                   "block_sparse": ("split", "sparse32"),
+                   "paged_mla": ("mla",), "flash_attention": ("tf32",),
+                   "chunked_ce": ("ce",), "paged_indexer": ("indexer",),
+                   "lightning_indexer": ("lightning",),
+                   "mamba_scan": ("scan",)}
+
+
+def variant_libraries(run=lambda study: True) -> dict:
+    """Build K4's, K9's, K10's, K8's, K6's, K7's and K11's libraries at
+    every other tile size that a study ``run`` takes (into build/study/,
+    all nvcc processes at once); returns name -> the C entry point
+    (``mla_k{keys}_s{stages}``, ``tf32_k{keys}``, ``ce_m{warp_m}_s{stages}``,
+    ``sparse32_k{keys}``, ``idx_t{tokens}_r{rounds}``,
+    ``li_t{tokens}_r{rounds}`` (K7 bf16), ``li32_t{tokens}_r{rounds}_k{keys}``
+    (K7 fp32), ``scan_s{steps}``)."""
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR / "study"
     jobs = {}
+
+    def add(tag, lib, name, defines):
+        study = next(v for k, v in PREFIX_STUDY.items() if tag.startswith(k))
+        if run(study):
+            jobs[tag] = (lib, name, _nvcc(build.CSRC / f"{lib}.cu",
+                                          out_dir / tag / f"lib{lib}.so",
+                                          defines))
     for keys, stages in MLA_VARIANTS[1:]:
-        tag = f"mla_k{keys}_s{stages}"
-        jobs[tag] = ("paged_mla", "paged_prefill_mla", _nvcc(
-            build.CSRC / "paged_mla.cu", out_dir / tag / "libpaged_mla.so",
-            (f"REPRO_MLA_KEYS={keys}", f"REPRO_MLA_STAGES={stages}")))
+        add(f"mla_k{keys}_s{stages}", "paged_mla", "paged_prefill_mla",
+            (f"REPRO_MLA_KEYS={keys}", f"REPRO_MLA_STAGES={stages}"))
     for keys in TF32_VARIANTS[1:]:
-        tag = f"tf32_k{keys}"
-        jobs[tag] = ("flash_attention", "flash_attention", _nvcc(
-            build.CSRC / "flash_attention.cu",
-            out_dir / tag / "libflash_attention.so",
-            (f"REPRO_TF32_KEYS={keys}",)))
-        tag = f"sparse32_k{keys}"
-        jobs[tag] = ("block_sparse", "block_sparse_attention", _nvcc(
-            build.CSRC / "block_sparse.cu",
-            out_dir / tag / "libblock_sparse.so",
-            (f"REPRO_TF32_KEYS={keys}",)))
+        add(f"tf32_k{keys}", "flash_attention", "flash_attention",
+            (f"REPRO_TF32_KEYS={keys}",))
+        add(f"sparse32_k{keys}", "block_sparse", "block_sparse_attention",
+            (f"REPRO_TF32_KEYS={keys}",))
     for tokens, rounds in IDX_VARIANTS[1:]:
-        tag = f"idx_t{tokens}_r{rounds}"
-        jobs[tag] = ("paged_indexer", "paged_prefill_indexer", _nvcc(
-            build.CSRC / "paged_indexer.cu",
-            out_dir / tag / "libpaged_indexer.so",
-            (f"REPRO_IDX_TOKENS={tokens}", f"REPRO_IDX_ROUNDS={rounds}")))
+        knobs = (f"REPRO_IDX_TOKENS={tokens}", f"REPRO_IDX_ROUNDS={rounds}")
+        add(f"idx_t{tokens}_r{rounds}", "paged_indexer",
+            "paged_prefill_indexer", knobs)
+        add(f"li_t{tokens}_r{rounds}", "lightning_indexer",
+            "lightning_indexer", knobs)
+    for tokens, rounds, keys in IDX32_VARIANTS[1:]:
+        add(f"li32_t{tokens}_r{rounds}_k{keys}", "lightning_indexer",
+            "lightning_indexer",
+            (f"REPRO_IDX32_TOKENS={tokens}", f"REPRO_IDX32_ROUNDS={rounds}",
+             f"REPRO_IDX32_KEYS={keys}"))
+    for steps in SCAN_VARIANTS[1:]:
+        add(f"scan_s{steps}", "mamba_scan", "mamba_scan_model",
+            (f"REPRO_SCAN_STEPS={steps}",))
     for warp_m, stages in CE_VARIANTS[1:]:
-        tag = f"ce_m{warp_m}_s{stages}"
-        jobs[tag] = ("chunked_ce", "chunked_ce", _nvcc(
-            build.CSRC / "chunked_ce.cu", out_dir / tag / "libchunked_ce.so",
-            (f"REPRO_CE_WARP_M={warp_m}", f"REPRO_CE_STAGES={stages}")))
+        add(f"ce_m{warp_m}_s{stages}", "chunked_ce", "chunked_ce",
+            (f"REPRO_CE_WARP_M={warp_m}", f"REPRO_CE_STAGES={stages}"))
     entries = {}
     for tag, (lib, name, proc) in jobs.items():
         _, err = proc.communicate()
@@ -312,12 +354,13 @@ def variant_libraries() -> dict:
     return entries
 
 
-def parent_libraries(csrc: Path) -> dict:
-    """Build the parent's K2, K8, K4, K9, K1, K10 and K6 libraries (into
-    build/parent/) with ``-Xptxas -v``; print its K4 and K9 bodies'
-    registers and spills; return the C entry points (with this revision's
-    arguments) and, for K1, the parent's wrapper (its ``kernels/
-    paged_attention/kernel.py`` beside ``csrc``) around its entry point."""
+def parent_libraries(csrc: Path, run=lambda study: True) -> dict:
+    """Build the parent's K2, K8, K4, K9, K1, K10, K6, K7 and K11 libraries
+    (into build/parent/) with ``-Xptxas -v``; print its K4 and K9 bodies'
+    registers and spills; return the C entry points (with the arguments of
+    that revision's ``kernels/build.py`` beside ``csrc``) and, for K1 and
+    K11, the parent's wrappers (its ``kernels/paged_attention/kernel.py``
+    and ``kernels/mamba_scan/kernel.py``) around its entry points."""
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR / "parent"
     libs = {"paged_attention": ["paged_prefill_gqa", "paged_decode_gqa"],
@@ -325,7 +368,13 @@ def parent_libraries(csrc: Path) -> dict:
             "paged_mla": ["paged_prefill_mla"],
             "flash_attention": ["flash_attention"],
             "chunked_ce": ["chunked_ce"],
-            "paged_indexer": ["paged_prefill_indexer"]}
+            "paged_indexer": ["paged_prefill_indexer"],
+            "lightning_indexer": ["lightning_indexer"],
+            "mamba_scan": ["mamba_scan_model"]}
+    libs = {lib: names for lib, names in libs.items()
+            if any(run(st) for st in LIBRARY_STUDIES[lib])}
+    entries_of = _module(csrc.parent / "kernels" / "build.py",
+                         "parent_build").ENTRIES
     procs = {lib: _nvcc(csrc / f"{lib}.cu", out_dir / f"lib{lib}.so",
                         verbose=True) for lib in libs}
     entries = {}
@@ -344,22 +393,31 @@ def parent_libraries(csrc: Path) -> dict:
                       flush=True)
         for name in libs[lib]:
             entries[name] = _entry(out_dir / f"lib{lib}.so", name,
-                                   build.ENTRIES[name][1])
-    entries["paged_decode_gqa"] = _parent_wrapper(
-        csrc.parent / "kernels" / "paged_attention" / "kernel.py",
-        entries["paged_decode_gqa"])
+                                   entries_of[name][1])
+    kernels = csrc.parent / "kernels"
+    for name, path in (("paged_decode_gqa", "paged_attention"),
+                       ("mamba_scan_model", "mamba_scan")):
+        if name in entries:
+            entries[name] = _parent_wrapper(kernels / path / "kernel.py",
+                                            entries[name], name)
     return entries
 
 
-def _parent_wrapper(path: Path, entry):
-    """The other revision's K1 wrapper, its own Python (``path``) around its
-    own C entry point: its host work as it was."""
+def _module(path: Path, name: str):
+    """The module of another revision's file ``path``, loaded as ``name``."""
     import importlib.util
-    spec = importlib.util.spec_from_file_location("parent_k1", path)
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
+    return module
+
+
+def _parent_wrapper(path: Path, entry, wrapper: str):
+    """The other revision's wrapper ``wrapper``, its own Python (``path``)
+    around its own C entry point: its host work as it was."""
+    module = _module(path, f"parent_{wrapper}")
     module.cuda_entry = lambda name: entry
-    return module.paged_decode_gqa
+    return getattr(module, wrapper)
 
 
 def _instance(mangled: str) -> str:
@@ -749,12 +807,139 @@ def k6_case(variants, parent=None):
               for k_, v_ in times.items()), flush=True)
 
 
+def k7_case(tag, dtype_name, S, T, variants, parent=None, layers=1):
+    """K7 at Hi 16 / Di 64 (see ``lightning``): ``S`` queries against ``T``
+    keys in ``dtype_name``, each call on another of ``layers`` key tensors;
+    every built variant of the tensor-core body and the parent's entry
+    point (CUDA-graph device times), held at the dtype's bound, beside the
+    wrapper's time, device time and host microseconds a call."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.lightning_indexer import kernel as K7
+    dtype = getattr(torch, dtype_name)
+    Hi, Di = 16, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    q = torch.randn((1, S, Hi * Di), generator=gen, device="cuda").to(dtype)
+    w = torch.softmax(torch.randn((1, S, Hi), generator=gen, device="cuda"),
+                      -1)
+    ks = [torch.randn((1, T, Di), generator=gen, device="cuda").to(dtype)
+          for _ in range(layers)]
+    out = torch.empty((1, S, T), device="cuda")
+    want = [K7.reference(q, w, k, heads=Hi, head_dim=Di) for k in ks]
+    it = iter(range(10 ** 9))
+    entries = dict(variants)
+    if parent is not None:
+        entries["parent"] = parent
+    times = {}
+    for name, fn in entries.items():
+        def call():
+            g = next(it) % layers
+            build.check_launch("lightning_indexer", fn(
+                build.DTYPE_CODE[dtype], Di, q.data_ptr(), w.data_ptr(),
+                ks[g].data_ptr(), out.data_ptr(), 1, S, T, Hi, Di ** -0.5,
+                stream()))
+            return g
+        g = call()
+        torch.cuda.synchronize()
+        _hold(f"K7 {tag} {name}", out, want[g], dtype)
+        times[name] = graph_ms(call, 32)
+
+    def wrapper():
+        return K7.lightning_indexer(q, w, ks[next(it) % layers], heads=Hi,
+                                    head_dim=Di)
+    times["wrapper"] = cuda_ms(wrapper, 32)
+    times["wrapper_device"] = graph_ms(wrapper, 32)
+    flops = S * T * Hi * (2 * Di + 2)
+    bound = 3 * flops / 494.7e12 if dtype == torch.float32 \
+        else flops / 989e12
+    print(f"[lightning] kernel=lightning_indexer case={tag} "
+          f"dtype={dtype_name} Hi={Hi} Di={Di} S={S} T={T} "
+          f"bound_ms={bound * 1e3:.5f} "
+          f"wrapper_host_us={host_us(wrapper):.2f} " + " ".join(
+              f"{k_}_ms={v_:.5f} {k_}_tflops={flops / v_ / 1e9:.1f}"
+              for k_, v_ in times.items()), flush=True)
+
+
+def k11_case(tag, B, S, dtype_name, variants, parent=None):
+    """K11's model form at falcon-mamba's width (E 8192, N 16; see
+    ``scan``): every built variant at every time split 1..16 it can take
+    (the C entry point, CUDA events; CUDA-graph replay at S 1), held at
+    the fp32 bound against the plain version, the wrapper (its own parts)
+    and its host microseconds a call, and the parent's wrapper."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mamba_scan import kernel as K11
+    from repro_torch.kernels.mamba_scan import ref as R11
+    from chip_smoke import H100_SFU_PER_S, _scan_inputs
+    dtype = getattr(torch, dtype_name)
+    E, N = 8192, 16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    ins = _scan_inputs(gen, B, S, E, N, dtype, dtype, "cuda")
+    dt, A, x, Bc, Cc, h0 = ins
+    want = R11.scan_model(*ins)
+    y = torch.empty((B, S, E), device="cuda")
+    hT = torch.empty((B, E, N), device="cuda")
+    code = build.DTYPE_CODE[dtype]
+    timer = graph_ms if S == 1 else cuda_ms
+    times = {}
+    for name, fn in variants.items():
+        for parts in (1, 2, 4, 8, 16):
+            if parts > max(1, S // K11.MIN_CHUNK):
+                continue
+            ws = torch.empty(max(1, 2 * B * (parts - 1) * E * N),
+                             device="cuda")
+
+            def call():
+                build.check_launch("mamba_scan_model", fn(
+                    code, code, N, dt.data_ptr(), A.data_ptr(),
+                    x.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                    h0.data_ptr(), y.data_ptr(), hT.data_ptr(),
+                    ws.data_ptr(), B, S, E, parts, stream()))
+            call()
+            torch.cuda.synchronize()
+            _hold(f"K11 {tag} {name} parts={parts} y", y, want[0],
+                  torch.float32)
+            _hold(f"K11 {tag} {name} parts={parts} hT", hT, want[1],
+                  torch.float32)
+            times[f"{name}_p{parts}"] = timer(call, 20)
+
+    def wrapper():
+        return K11.mamba_scan_model(*ins)
+    times["wrapper"] = cuda_ms(wrapper, 20)
+    if S == 1:
+        times["wrapper_device"] = graph_ms(wrapper, 20)
+    host = {"wrapper_host_us": host_us(wrapper, 100)}
+    if parent is not None:
+        def old():
+            return parent(*ins)
+        got = old()
+        _hold(f"K11 {tag} parent y", got[0], want[0], torch.float32)
+        times["parent"] = cuda_ms(old, 20)
+        if S == 1:
+            times["parent_device"] = graph_ms(old, 20)
+        host["parent_host_us"] = host_us(old, 100)
+    parts = K11.scan_parts(code, code, N, B, S, E, torch.cuda.current_device())
+    print(f"[scan] kernel=mamba_scan_model case={tag} dtype={dtype_name} "
+          f"B={B} S={S} E={E} N={N} wrapper_parts={parts} "
+          f"sfu_bound_ms={B * S * E * N / H100_SFU_PER_S * 1e3:.5f} "
+          + " ".join(f"{k}_ms={v:.5f}" for k, v in times.items()) + " "
+          + " ".join(f"{k}={v:.2f}" for k, v in host.items()), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path, default=None,
                         help="another revision's src/repro_torch/csrc, its "
                              "kernels/ beside it")
+    parser.add_argument("--only", default=None,
+                        help="comma-separated studies to run (split, mla, "
+                             "tf32, decode, ce, sparse32, indexer, lightning, "
+                             "scan); all by default")
     args = parser.parse_args()
+    only = None if args.only is None else set(args.only.split(","))
+
+    def run(study):
+        return only is None or study in only
     import torch
     if not torch.cuda.is_available():
         print("tile_study: no CUDA device", file=sys.stderr)
@@ -767,8 +952,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
-    build.build_all(["paged_attention", "block_sparse", "paged_mla",
-                     "flash_attention", "chunked_ce", "paged_indexer"])
+    build.build_all(build.LIBRARIES)
     for query, insts in (("paged_prefill_gqa_resources",
                           [(d, bs) for d in (64, 128, 256)
                            for bs in (8, 16, 32)]),
@@ -779,67 +963,106 @@ def main() -> int:
                          ("paged_prefill_indexer_resources",
                           [(hi, di) for hi in (16, 32)
                            for di in (16, 32, 64, 128)]),
+                         ("lightning_indexer_resources",
+                          [(c, hi, di) for c in (0, 1) for hi in (16, 32)
+                           for di in (16, 32, 64, 128)]),
                          ("paged_prefill_mla_resources", [(512, 64)]),
                          ("flash_attention_resources",
                           [(64,), (128,), (256,)]),
                          ("paged_decode_gqa_resources",
                           [(c, d, bs) for c in (0, 1) for d in (64, 128, 256)
                            for bs in (8, 16, 32)]),
-                         ("chunked_ce_resources", [(0,), (1,)])):
+                         ("chunked_ce_resources", [(0,), (1,)]),
+                         ("mamba_scan_model_resources",
+                          [(c, h, n) for c in (0, 1) for h in (0, 1)
+                           for n in (8, 16, 32)])):
         for inst in insts:
             regs, spill, smem, ctas, rows = build.resources(query, *inst)
             print(f"[resources] query={query} instance="
                   f"{'x'.join(map(str, inst))} registers={regs} "
                   f"spill_bytes={spill} smem_bytes={smem} "
                   f"ctas_per_sm={ctas} rows_per_cta={rows}", flush=True)
-    studied = variant_libraries()
-    parent = parent_libraries(args.parent) if args.parent else {}
+    studied = variant_libraries(run)
+    parent = parent_libraries(args.parent, run) if args.parent else {}
     # K2 and K8: the serve shapes of chip_smoke.py, then grids of 8 to 512
     # tiles
-    k2_case("serve", 1, 4, 8, 128, 16, 768, 256,
-            parent=parent.get("paged_prefill_gqa"), sdpa=True)
-    k2_case("first-chunk", 1, 4, 8, 128, 16, 0, 256)
-    k2_case("chunk-at-3840", 1, 4, 8, 128, 16, 3840, 256)
-    k2_case("16-tokens-at-4000", 1, 4, 8, 128, 16, 4000, 16)
-    k2_case("8-rows-of-64", 8, 4, 8, 128, 16, 0, 64)
-    k8_case("serve", 1, 32, 4, 128, 128, 16, 256, 6144, 6528,
-            parent=parent.get("block_sparse_attention"), sdpa=True)
-    k8_case("one-query-block", 1, 32, 4, 128, 128, 16, 128, 4096, 4224)
-    k8_case("batch-2", 2, 32, 4, 128, 128, 16, 256, 4096, 4224)
+    if run("split"):
+        k2_case("serve", 1, 4, 8, 128, 16, 768, 256,
+                parent=parent.get("paged_prefill_gqa"), sdpa=True)
+        k2_case("first-chunk", 1, 4, 8, 128, 16, 0, 256)
+        k2_case("chunk-at-3840", 1, 4, 8, 128, 16, 3840, 256)
+        k2_case("16-tokens-at-4000", 1, 4, 8, 128, 16, 4000, 16)
+        k2_case("8-rows-of-64", 8, 4, 8, 128, 16, 0, 64)
+        k8_case("serve", 1, 32, 4, 128, 128, 16, 256, 6144, 6528,
+                parent=parent.get("block_sparse_attention"), sdpa=True)
+        k8_case("one-query-block", 1, 32, 4, 128, 128, 16, 128, 4096, 4224)
+        k8_case("batch-2", 2, 32, 4, 128, 128, 16, 256, 4096, 4224)
     # K4: GLM-5's serve chunk, its verify span (spec 3 over the serve
     # lengths), a first chunk
-    mla = {"mla_k32_s2": build.cuda_entry("paged_prefill_mla")}
-    mla.update({k: v for k, v in studied.items() if k.startswith("mla")})
-    k4_kw = dict(variants=mla, parent=parent.get("paged_prefill_mla"),
-                 sdpa=True)
-    k4_case("serve", 1, 64, 16, [768], 256, **k4_kw)
-    k4_case("verify", 8, 64, 16, [1040, 48, 793, 166, 528, 80, 916, 316], 4,
-            **k4_kw)
-    k4_case("first-chunk", 1, 64, 16, [0], 256, **k4_kw)
+    if run("mla"):
+        mla = {"mla_k32_s2": build.cuda_entry("paged_prefill_mla")}
+        mla.update({k: v for k, v in studied.items() if k.startswith("mla")})
+        k4_kw = dict(variants=mla, parent=parent.get("paged_prefill_mla"),
+                     sdpa=True)
+        k4_case("serve", 1, 64, 16, [768], 256, **k4_kw)
+        k4_case("verify", 8, 64, 16, [1040, 48, 793, 166, 528, 80, 916, 316],
+                4, **k4_kw)
+        k4_case("first-chunk", 1, 64, 16, [0], 256, **k4_kw)
     # K9: Yi-6B's training layer, d 64 and gemma2's d 256, a window
-    tf32 = {"tf32_k32": build.cuda_entry("flash_attention")}
-    tf32.update({k: v for k, v in studied.items() if k.startswith("tf32")})
-    k9_kw = dict(variants=tf32, parent=parent.get("flash_attention"))
-    k9_case("train", 2, 2048, 32, 4, 128, sdpa=True, **k9_kw)
-    k9_case("d64", 2, 2048, 32, 4, 64, sdpa=True, **k9_kw)
-    k9_case("d256", 2, 2048, 8, 4, 256, sdpa=True, **k9_kw)
-    k9_case("window-512", 2, 2048, 32, 4, 128, window=512, **k9_kw)
+    if run("tf32"):
+        tf32 = {"tf32_k32": build.cuda_entry("flash_attention")}
+        tf32.update({k: v for k, v in studied.items()
+                     if k.startswith("tf32")})
+        k9_kw = dict(variants=tf32, parent=parent.get("flash_attention"))
+        k9_case("train", 2, 2048, 32, 4, 128, sdpa=True, **k9_kw)
+        k9_case("d64", 2, 2048, 32, 4, 64, sdpa=True, **k9_kw)
+        k9_case("d256", 2, 2048, 8, 4, 256, sdpa=True, **k9_kw)
+        k9_case("window-512", 2, 2048, 32, 4, 128, window=512, **k9_kw)
     # K1: Yi-6B's decode step, both dtypes
-    for dtype_name in ("bfloat16", "float32"):
-        k1_case(dtype_name, parent=parent.get("paged_decode_gqa"))
+    if run("decode"):
+        for dtype_name in ("bfloat16", "float32"):
+            k1_case(dtype_name, parent=parent.get("paged_decode_gqa"))
     # K10: Yi-6B's training step, every tile size
-    ce = {"ce_m64_s3": build.cuda_entry("chunked_ce")}
-    ce.update({k: v for k, v in studied.items() if k.startswith("ce_")})
-    k10_case(ce, parent=parent.get("chunked_ce"))
+    if run("ce"):
+        ce = {"ce_m64_s3": build.cuda_entry("chunked_ce")}
+        ce.update({k: v for k, v in studied.items() if k.startswith("ce_")})
+        k10_case(ce, parent=parent.get("chunked_ce"))
     # K8's fp32 route: the block selector's training chunk, every tile size
-    sparse32 = {"sparse32_k32": build.cuda_entry("block_sparse_attention")}
-    sparse32.update({k: v for k, v in studied.items()
-                     if k.startswith("sparse32")})
-    k8_fp32_case(sparse32, parent=parent.get("block_sparse_attention"))
+    if run("sparse32"):
+        sparse32 = {"sparse32_k32":
+                    build.cuda_entry("block_sparse_attention")}
+        sparse32.update({k: v for k, v in studied.items()
+                         if k.startswith("sparse32")})
+        k8_fp32_case(sparse32, parent=parent.get("block_sparse_attention"))
     # K6's bf16 route: the DSA serve span, every tile size
-    idx = {"idx_t4_r4": build.cuda_entry("paged_prefill_indexer")}
-    idx.update({k: v for k, v in studied.items() if k.startswith("idx")})
-    k6_case(idx, parent=parent.get("paged_prefill_indexer"))
+    if run("indexer"):
+        idx = {"idx_t4_r4": build.cuda_entry("paged_prefill_indexer")}
+        idx.update({k: v for k, v in studied.items() if k.startswith("idx")})
+        k6_case(idx, parent=parent.get("paged_prefill_indexer"))
+    # K7: the DSA training chunk (fp32, 3xTF32) and the block selector's
+    # last serve span of the 6144-token prompt over its 6528-position view
+    # (bf16), every tile size of each route
+    if run("lightning"):
+        li32 = {"li32_t2_r8_k64": build.cuda_entry("lightning_indexer")}
+        li32.update({k: v for k, v in studied.items()
+                     if k.startswith("li32")})
+        k7_case("train-chunk", "float32", 256, 4096, li32,
+                parent=parent.get("lightning_indexer"))
+        li = {"li_t4_r4": build.cuda_entry("lightning_indexer")}
+        li.update({k: v for k, v in studied.items() if k.startswith("li_")})
+        k7_case("serve-span", "bfloat16", 256, 6528, li,
+                parent=parent.get("lightning_indexer"), layers=8)
+    # K11: falcon-mamba's serve prefill, training shape and decode step,
+    # every steps-a-round build at every time split
+    if run("scan"):
+        scan = {"scan_s4": build.cuda_entry("mamba_scan_model")}
+        scan.update({k: v for k, v in studied.items()
+                     if k.startswith("scan")})
+        k11_kw = dict(variants=scan, parent=parent.get("mamba_scan_model"))
+        k11_case("prefill", 8, 1024, "bfloat16", **k11_kw)
+        k11_case("train", 2, 2048, "float32", **k11_kw)
+        k11_case("train-b4", 4, 2048, "float32", **k11_kw)
+        k11_case("decode", 8, 1, "bfloat16", **k11_kw)
     return 0
 
 
