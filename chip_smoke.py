@@ -28,22 +28,26 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            bf16 ulp at unit scale plus summation order), on ragged rows:
            a trash row of length 0, length 1, block boundaries, a span
            starting mid-block, shuffled tables; then K3 (absorbed-MLA
-           decode) and K4 (MLA span prefill) the same way at GLM-5 shapes
-           (H 64, kv_lora 512, rope 64) and at H 16, with fp32 q_lat and
-           the pools and q_rope in fp32 or bf16, and K4 (bf16: its
+           decode; bf16: its tensor-core tile, split-KV, held at the parts
+           its wrapper picks, at parts 1 and at 16, where parts past a
+           short row's rounds hold no key; fp32: its SIMT body) and K4 (MLA
+           span prefill) the same way at GLM-5 shapes (H 64, kv_lora 512,
+           rope 64) and at H 16, block sizes 8, 16 and 32, with fp32 q_lat
+           and the pools and q_rope in fp32 or bf16, and K4 (bf16: its
            tensor-core tile; fp32: its SIMT body) over block sizes 8, 16
            and 32 with a trash row, spans from position 1, across a block
            edge, at one, mid-block and ending at the table's last
            position, S 37 and verify spans of S 4 (the bf16 wrapper splits
            their key range into 4 parts); then K5 (indexer decode
            scores) and K6 (span scores) at Yi-6B's (Hi 16, Di 64) and
-           GLM-5's (Hi 32, Di 128) indexer shapes, where the dead blocks
-           (NEG_INF) must also match; then K9 (fp32: its 3xTF32 tensor-
-           core tile; bf16: its SIMT body; d 64/128/256 each with causal,
-           window, softcap, q_offset and non-causal cases; S*G and Sk
-           ragged), K7
-           (Hi x Di 16x64, 32x128, 2x16; S and T ragged) and K10 (Tk and V
-           ragged, softcap 0 and 30, a partial mask; its two sums held to
+           GLM-5's (Hi 32, Di 128) indexer shapes (bf16: their tensor-core
+           bodies; fp32: the SIMT tile), block sizes 8, 16 and 32, where
+           the dead blocks (NEG_INF) must also match; then K9 (fp32: its
+           3xTF32 tensor-core tile; bf16: its SIMT body; d 64/128/256
+           each with causal, window, softcap, q_offset and non-causal
+           cases; S*G and Sk ragged), K7 (Hi x Di 16x64, 32x128, 2x16;
+           S and T ragged) and K10 (Tk and V ragged, softcap 0 and 30, a
+           partial mask; its two sums held to
            1e-5 relative), and the gradients through their autograd
            Functions on the kernel and the plain routes (equal); then K8
            at Yi-6B's shape (H 32 / KVH 4, d 128, 16 blocks of 128),
@@ -61,8 +65,9 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            outputs, stored in its input dtype, may also differ by one ulp
            of their magnitude), and the gradients through its autograd Function on both routes;
   timing   K3/K4's and K5/K6's registers, spills, shared memory and CTAs
-           resident on an SM, as the CUDA runtime reports them (the indexer
-           tensor-core body at both indexer shapes: K6's bf16, K7's bf16
+           resident on an SM, as the CUDA runtime reports them (K3's parts
+           and CTAs at the decode step; the indexer tensor-core bodies at
+           both indexer shapes: K5's decode form, K6's bf16, K7's bf16
            and fp32), and those
            of the tensor-core tiles: the bf16 one K2 and K8 share
            (csrc/mma_tile.cuh) and K4's bf16 MLA tile (csrc/paged_mla.cu),
@@ -73,7 +78,8 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            body in both dtypes with the parts the wrapper picks for the
            decode step, and K10's logits tiles (fp32 3xTF32, bf16 SIMT);
            and the HMMA instructions of each of the tiles' instantiations
-           in the built libraries, K1's bf16 body and K6's among them
+           in the built libraries, K1's bf16 body, K3/K4's tile and K5's
+           and K6's among them
            (cuobjdump -sass; K8's, K9's and K10's fp32 tiles' must all be
            HMMA .TF32, the bf16 ones' none; fails where one has none);
            then
@@ -89,7 +95,9 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            device time (CUDA graph) beside SDPA's (library_device_ms), the
            wrapper's host microseconds a call (back-to-back calls, no
            synchronise), the parts, GB/s and the bound's share; K3 and K4
-           at GLM-5's serve shapes, K4 at a prefill chunk and at the
+           at GLM-5's serve shapes, K3's line with the same numbers as K1's
+           but SDPA's device time, held at its parts and at parts 1, K4 at
+           a prefill chunk and at the
            verify span of a spec-3 round over the decode batch (B 8, S 4;
            the library call there is SDPA over
            q = [q_lat | q_rope], k = [c | kr] and v = c, the latent
@@ -100,8 +108,9 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            so no library time), with the top-2048 sets chosen from the
            kernel's and from the plain scores compared (they may differ
            only at near-ties of the 2048th score; their count is printed),
-           K6's line (its bf16 tensor-core body) also with its CUDA-graph
-           device time and its wrapper's host microseconds a call;
+           K5's and K6's lines (their bf16 tensor-core bodies) also with
+           their CUDA-graph device time and their wrappers' host
+           microseconds a call;
            K9, K10 and K7 at the training runs' shapes in fp32 (TF32 is
            off; all three run 3xTF32 on the tensor cores, so each is bound
            by its three TF32 products over 494.7 TFLOP/s, the CUDA cores'
@@ -451,8 +460,10 @@ def _mla_queries(gen, B, rows, lora, rope, dtype, device):
 
 
 def check_mla_kernels(device="cuda") -> dict:
-    """K3/K4 vs plain on ragged rows at GLM-5 shapes (H 64) and H 16;
-    returns the max error per kernel."""
+    """K3/K4 vs plain on ragged rows at GLM-5 shapes (H 64) and H 16, every
+    block size; K3's bf16 tile at the wrapper's parts, at parts 1 and at
+    its cap (parts past a short row's rounds hold no key); returns the max
+    error per kernel."""
     import numpy as np
     import torch
     from repro_torch.kernels.paged_attention import kernel as K3
@@ -462,7 +473,7 @@ def check_mla_kernels(device="cuda") -> dict:
     worst = {"paged_decode_mla": 0.0, "paged_prefill_mla": 0.0}
     L, R, scale = 512, 64, 192 ** -0.5
     for H in (64, 16):
-        for bs in (16, 8):
+        for bs in (16, 8, 32):
             mb = 12
             for dtype in (torch.float32, torch.bfloat16):
                 # decode: trash row (len 0), 1 token, block edges, deep row
@@ -475,12 +486,17 @@ def check_mla_kernels(device="cuda") -> dict:
                     _tables(rng, B, mb, trash, live)).to(device)
                 sl = torch.tensor(lens, dtype=torch.int32, device=device)
                 ql, qr = _mla_queries(gen, B, H, L, R, dtype, device)
+                want = K3.paged_decode_mla_plain(ql, qr, c, kr, tables, sl,
+                                                 scale=scale)
                 err = _hold(f"K3 H={H} bs={bs}",
                             K3.paged_decode_mla(ql, qr, c, kr, tables, sl,
-                                                scale=scale),
-                            K3.paged_decode_mla_plain(ql, qr, c, kr, tables,
-                                                      sl, scale=scale),
-                            dtype)
+                                                scale=scale), want, dtype)
+                if dtype == torch.bfloat16:
+                    for parts in (1, K3.MAX_MLA_DECODE_PARTS):
+                        err = max(err, _hold(
+                            f"K3 H={H} bs={bs} parts={parts}",
+                            K3.launch_decode_mla(ql, qr, c, kr, tables, sl,
+                                                 scale, parts), want, dtype))
                 worst["paged_decode_mla"] = max(worst["paged_decode_mla"],
                                                 err)
                 # span prefill: start 0, mid-block, at a block edge, last
@@ -542,8 +558,8 @@ def check_mla_spans(device="cuda") -> float:
                 tables = torch.from_numpy(
                     _tables(rng, B, mb, trash, live)).to(device)
                 st = torch.tensor(starts, dtype=torch.int32, device=device)
-                parts = build.key_split("paged_prefill_mla_resources",
-                                        (L, R), S * H, B, L,
+                parts = build.key_split("paged_mla_resources",
+                                        (1, L, R), S * H, B, L,
                                         torch.device(device))[0]
                 for dtype in (torch.float32, torch.bfloat16):
                     c, kr = _latent_pool(gen, trash + 1, bs, L, R, dtype,
@@ -776,10 +792,12 @@ def time_mla_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
     ``spec``-deep speculative round over the decode batch), each launch on
     another layer of a ``layers``-deep layer-major latent pool (604 MB at
     16 layers of 2049 blocks: larger than the 50 MB L2 cache, as a deeper
-    model's pool would be), so the latent comes from device memory.  K4's
+    model's pool would be), so the latent comes from device memory.  The
     bf16 lines carry the wrapper's CUDA-event time and the device time of
-    the same calls replayed from a CUDA graph; its fp32 body is timed at
-    the chunk on a line of its own."""
+    the same calls replayed from a CUDA graph; K3's also its wrapper's host
+    microseconds a call and its parts, and K3 is held at the wrapper's
+    parts and at parts 1 in both dtypes; K4's fp32 body is timed at the
+    chunk on a line of its own."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -806,8 +824,15 @@ def time_mla_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
     per_layer = [tables + g * stride for g in range(layers)]
     sl = torch.from_numpy(lens).to(device)
     ql, qr = _mla_queries(gen, B, H, Lr, R, dtype, device)
-    ms = cuda_ms(lambda: K3.paged_decode_mla(
-        ql, qr, c, kr, per_layer[next(it) % layers], sl, scale=scale), reps)
+    parts = K3.mla_decode_parts(B, H, Lr, R, mb, ql.device.index)[0]
+
+    def k3():
+        return K3.paged_decode_mla(ql, qr, c, kr,
+                                   per_layer[next(it) % layers], sl,
+                                   scale=scale)
+    ms = cuda_ms(k3, reps)
+    device_ms = graph_ms(k3, reps)
+    call_us = host_us(k3)
     plain_ms = cuda_ms(lambda: K3.paged_decode_mla_plain(
         ql, qr, c, kr, per_layer[next(it) % layers], sl, scale=scale),
         max(4, reps // 8))
@@ -820,12 +845,15 @@ def time_mla_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
         qs, *views[next(it) % 2], attn_mask=mask, scale=scale), reps)
     del views
     _free()
-    # held against the plain version at these shapes, in bf16 and in fp32
-    # (layer 0's blocks: the tables without a layer offset)
-    err = _hold("K3 serve-shape",
-                K3.paged_decode_mla(ql, qr, c, kr, tables, sl, scale=scale),
-                K3.paged_decode_mla_plain(ql, qr, c, kr, tables, sl,
-                                          scale=scale), dtype)
+    # held against the plain version at these shapes, in bf16 (at the
+    # wrapper's parts and at parts 1) and in fp32 (layer 0's blocks: the
+    # tables without a layer offset)
+    want = K3.paged_decode_mla_plain(ql, qr, c, kr, tables, sl, scale=scale)
+    err = max(_hold(f"K3 serve-shape parts={parts}",
+                    K3.paged_decode_mla(ql, qr, c, kr, tables, sl,
+                                        scale=scale), want, dtype),
+              _hold("K3 serve-shape parts=1", K3.launch_decode_mla(
+                  ql, qr, c, kr, tables, sl, scale, 1), want, dtype))
     c32, kr32, qr32 = c[:stride].float(), kr[:stride].float(), qr.float()
     err32 = _hold("K3 serve-shape",
                   K3.paged_decode_mla(ql, qr32, c32, kr32, tables, sl,
@@ -837,9 +865,12 @@ def time_mla_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
         + B * H * Lr * 4 + tables.numel() * 4 + B * 4
     flops = H * toks * (2 * (Lr + R) + 2 * Lr)
     out["paged_decode_mla"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
-        max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
-        shape=f"B={B} H={H} lens={lens.tolist()}")
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
+        shape=f"B={B} H={H} lens={lens.tolist()}",
+        extra=dict(host_us=call_us, parts=parts,
+                   body="mla_tile (tensor cores)",
+                   gb_per_s=nbytes / device_ms / 1e6))
 
     # K4: the last prefill chunk of the longest prompt
     start = ((max_prompt - 1) // chunk) * chunk
@@ -971,27 +1002,28 @@ def _time_mla_verify(c, kr, per_layer, stride, lens, mb, spec, H, Lr, R,
                 shape=f"B={B} H={H} S={S} lens={lens.tolist()}")
 
 
-def mla_resources(cfg, batch) -> None:
+def mla_resources(cfg, batch, mb) -> None:
     """K3/K4's registers, spills, shared memory and CTAs resident on one SM,
-    as the CUDA runtime reports them for each dtype, beside the CTAs K3
-    launches for one decode step of ``batch`` rows and the card's SMs."""
-    import ctypes
+    as the CUDA runtime reports them for each body (fp32: the SIMT body;
+    bf16: the tensor-core tile), beside the parts and CTAs K3 launches for
+    one decode step of ``batch`` rows over ``mb`` blocks and the card's
+    SMs."""
     import torch
     from repro_torch.kernels import build
-    from repro_torch.kernels.build import DTYPE_CODE as _DTYPE_CODE
-    from repro_torch.kernels.build import cuda_entry
+    from repro_torch.kernels.paged_attention import kernel as K3
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for dtype in (torch.float32, torch.bfloat16):
-        r = (ctypes.c_int * 5)()
-        err = cuda_entry("paged_mla_resources")(
-            _DTYPE_CODE[dtype], cfg.mla.kv_lora_dim, cfg.mla.qk_rope_dim, r)
-        if err != 0:
-            raise RuntimeError(f"paged_mla_resources failed: cudaError {err}")
-        regs, spill, smem, ctas, rows = list(r)
-        _log("resources", kernel="paged_mla", dtype=str(dtype).split(".")[1],
+    H, L, R = cfg.num_heads, cfg.mla.kv_lora_dim, cfg.mla.qk_rope_dim
+    for code, dtype, body in ((0, "float32", "paged_mla_kernel (SIMT)"),
+                              (1, "bfloat16", "mla_tile (tensor cores)")):
+        regs, spill, smem, ctas, rows = build.resources(
+            "paged_mla_resources", code, L, R)
+        parts = K3.mla_decode_parts(batch, H, L, R, mb,
+                                    torch.cuda.current_device())[0] \
+            if code else 1
+        _log("resources", kernel="paged_mla", dtype=dtype, body=body,
              registers=regs, spill_bytes=spill, smem_bytes=smem,
-             ctas_per_sm=ctas, rows_per_cta=rows,
-             decode_ctas=batch * -(-cfg.num_heads // rows), sms=sms)
+             ctas_per_sm=ctas, rows_per_cta=rows, decode_parts=parts,
+             decode_ctas=batch * -(-H // rows) * parts, sms=sms)
 
 
 def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
@@ -1011,10 +1043,10 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
     the key-range parts the wrapper picks; then the HMMA (tensor-core)
     instructions of every instantiation of the tiles in the built
     libraries, from ``cuobjdump -sass`` (K8's, K9's, K10's and K7's fp32
-    tiles' must be HMMA .TF32 and the bf16 ones' not; K1's bf16 body and
-    the indexer tensor-core body, K6's and K7's, are among them; it fails
-    where an instantiation has none; where the tool is missing it says
-    so)."""
+    tiles' must be HMMA .TF32 and the bf16 ones' not; K1's bf16 body, K3's
+    and K4's tile (one kernel) and the indexer tensor-core bodies, K5's
+    decode form, K6's and K7's span body, are among them; it fails where an
+    instantiation has none; where the tool is missing it says so)."""
     import re
     import shutil
     import torch
@@ -1038,10 +1070,10 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
              ("block_sparse_attention", "tf32_tile", "block_sparse_resources",
               (0, 192, 256), bs, span // bs * 64, 256, "glm5_mla"),
              ("paged_prefill_mla", "mla_span_kernel",
-              "paged_prefill_mla_resources", (L, R), span * H, 1, L, "serve"),
+              "paged_mla_resources", (1, L, R), span * H, 1, L, "serve"),
              ("paged_prefill_mla", "mla_span_kernel",
-              "paged_prefill_mla_resources", (L, R), (spec + 1) * H, batch,
-              L, "verify")]
+              "paged_mla_resources", (1, L, R), (spec + 1) * H, batch, L,
+              "verify")]
     for kernel, body, query, args, rows, others, dv, at in cases:
         regs, spill, smem, ctas, per_cta = build.resources(query, *args)
         parts = build.key_split(query, args, rows, others, dv, dev)[0]
@@ -1100,6 +1132,7 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
             ("paged_attention", tile, False), ("block_sparse", tile, False),
             ("block_sparse", tf32, True), ("paged_mla", ("mla_span_kernel",),
                                            False),
+            ("paged_indexer", ("indexer_mma", "decode_kernel"), False),
             ("flash_attention", tf32, True),
             ("chunked_ce", ("ce_tf32", "tile_kernel"), True),
             ("paged_attention", ("decode_split", "mma_kernel"), False),
@@ -1124,12 +1157,16 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
                              r"Li(\d+)ELi(\d+)E", name)
             page = re.search(r"PagedSpanILi(\d+)E", name)
             if lib == "paged_mla":
-                label = "mla_span_kernel"
+                label = "mla_span_kernel (K3 decode, K4 span)"
             elif lib == "chunked_ce":
                 label = "ce_tf32::tile_kernel"
             elif "decode_split" in name:
                 label = "decode_split::mma_kernel<{},{}>".format(*re.search(
                     r"mma_kernelILi(\d+)ELi(\d+)E", name).groups())
+            elif "decode_kernel" in name:
+                label = "indexer_mma::decode_kernel<{},{},PagedKeys>".format(
+                    *re.search(r"decode_kernelILi(\d+)ELi(\d+)E",
+                               name).groups())
             elif lib in ("paged_indexer", "lightning_indexer"):
                 label = "indexer_mma::span_kernel<{},{},{},{}>".format(
                     "float" if tf32_only else "bf16", dims[1], dims[2],
@@ -1183,7 +1220,8 @@ def _hold_scores(what, got, want, dtype) -> float:
 
 def check_indexer_kernels(device="cuda") -> dict:
     """K5/K6 vs plain on ragged rows at Yi-6B's (Hi 16, Di 64) and GLM-5's
-    (Hi 32, Di 128) indexer shapes; returns the max error per kernel."""
+    (Hi 32, Di 128) indexer shapes (bf16: their tensor-core bodies; fp32:
+    the SIMT tile), every block size; returns the max error per kernel."""
     import numpy as np
     import torch
     from repro_torch.kernels.paged_attention import kernel as K5
@@ -1193,8 +1231,8 @@ def check_indexer_kernels(device="cuda") -> dict:
     worst = {"paged_indexer_scores_kernel": 0.0,
              "paged_prefill_indexer": 0.0}
     for name, Hi, Di in INDEXER_SHAPES:
-        for bs in (16, 8):
-            mb = 20                       # 160 or 320 positions: 2-3 tiles
+        for bs in (16, 8, 32):
+            mb = 20                       # 160-640 positions: 2-5 tiles
             for dtype in (torch.float32, torch.bfloat16):
                 # decode: trash row (len 0), 1 token, block edges, deep rows
                 lens = [0, 1, bs - 1, bs, 2 * bs + 3, 130, mb * bs - 1]
@@ -1271,10 +1309,10 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     lengths) and K6 at one 256-token span whose last position lies past
     2048, each launch on another layer of a full-depth layer-major k_idx
     pool; each held against its plain version (bf16 and fp32) with its
-    top-k sets compared; K6 (its bf16 tensor-core body) also with its
-    device time from CUDA-graph replay and its wrapper's host microseconds
-    a call.  No single PyTorch call computes ReLU between the product and
-    the head sum, so there is no library time."""
+    top-k sets compared; both (their bf16 tensor-core bodies) also with
+    their device time from CUDA-graph replay and their wrappers' host
+    microseconds a call.  No single PyTorch call computes ReLU between the
+    product and the head sum, so there is no library time."""
     import numpy as np
     import torch
     from repro_torch.kernels.paged_attention import kernel as K5
@@ -1298,8 +1336,13 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     per_layer = [tables + g * stride for g in range(L)]
     sl = torch.from_numpy(lens).to(device)
     q, w = _indexer_queries(gen, B, Hi, Hi, Di, dtype, device)
-    ms = cuda_ms(lambda: K5.paged_indexer_scores_kernel(
-        q, w, kp, per_layer[next(it) % L], sl), reps)
+
+    def k5():
+        return K5.paged_indexer_scores_kernel(q, w, kp,
+                                              per_layer[next(it) % L], sl)
+    ms = cuda_ms(k5, reps)
+    device_ms = graph_ms(k5, reps)
+    call_us = host_us(k5)
     plain_ms = cuda_ms(lambda: K5.paged_indexer_scores_plain(
         q, w, kp, per_layer[next(it) % L], sl), max(4, reps // 8))
     got = K5.paged_indexer_scores_kernel(q, w, kp, tables, sl)
@@ -1317,9 +1360,12 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     nbytes = toks * Di * item + q.numel() * item + w.numel() * 4 \
         + B * mb * bs * 4 + tables.numel() * 4 + B * 4
     out["paged_indexer_scores_kernel"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
-        max_abs_err_fp32=err32, bytes=nbytes,
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+        max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes,
         flops=toks * Hi * (2 * Di + 2), topk_near_ties=near,
+        extra=dict(host_us=call_us,
+                   body="indexer_mma::decode_kernel (tensor cores)",
+                   gb_per_s=nbytes / device_ms / 1e6),
         shape=f"B={B} Hi={Hi} Di={Di} lens={lens.tolist()}")
 
     # K6: one prefill span of the longest prompt
@@ -1370,30 +1416,33 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
 
 def indexer_resources(cfg, batch, max_len, bs) -> None:
     """K5/K6's registers, spills, shared memory and CTAs resident on one SM,
-    as the CUDA runtime reports them: the SIMT tile (K5, fp32 K6) for each
-    dtype at the config's indexer shape, beside the CTAs K5 launches for
-    one decode step; the tensor-core body at both indexer shapes: K6's
-    (bf16, paged keys) and K7's (bf16 and fp32 by 3xTF32, dense keys)."""
-    import ctypes
+    as the CUDA runtime reports them: the SIMT tile (fp32 K5 and K6) at the
+    config's indexer shape; the tensor-core bodies at both indexer shapes:
+    K5's decode form (bf16, paged keys) beside the CTAs it launches for one
+    decode step of ``batch`` rows over ``max_len`` positions, K6's span
+    body (bf16, paged keys) and K7's (bf16 and fp32 by 3xTF32, dense
+    keys)."""
     import torch
     from repro_torch.kernels import build
-    from repro_torch.kernels.build import DTYPE_CODE as _DTYPE_CODE
-    from repro_torch.kernels.build import cuda_entry
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     Hi, Di = cfg.dsa.index_heads, cfg.dsa.index_head_dim
-    for dtype in (torch.float32, torch.bfloat16):
-        r = (ctypes.c_int * 5)()
-        err = cuda_entry("paged_indexer_resources")(_DTYPE_CODE[dtype], Di,
-                                                   Hi, r)
-        if err != 0:
-            raise RuntimeError(f"paged_indexer_resources failed: cudaError "
-                               f"{err}")
-        regs, spill, smem, ctas, toks = list(r)
-        _log("resources", kernel="paged_indexer", heads=Hi, index_dim=Di,
-             dtype=str(dtype).split(".")[1], body="indexer_tile (SIMT)",
+    regs, spill, smem, ctas, toks = build.resources(
+        "paged_indexer_resources", 0, Di, Hi)
+    _log("resources", kernel="paged_indexer", heads=Hi, index_dim=Di,
+         dtype="float32", body="indexer_tile (SIMT)", registers=regs,
+         spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
+         tokens_per_cta=toks, sms=sms)
+    # K5's bf16 decode form at both indexer shapes
+    for name, heads, dim in INDEXER_SHAPES:
+        regs, spill, smem, ctas, per_cta = build.resources(
+            "paged_indexer_scores_resources", heads, dim)
+        _log("resources", kernel="paged_indexer_scores_kernel", shape=name,
+             heads=heads, index_dim=dim, dtype="bfloat16",
+             body="indexer_mma::decode_kernel (tensor cores)",
              registers=regs, spill_bytes=spill, smem_bytes=smem,
-             ctas_per_sm=ctas, tokens_per_cta=toks,
-             decode_ctas=batch * -(-(max_len // bs * bs) // 128), sms=sms)
+             ctas_per_sm=ctas, positions_per_cta=per_cta,
+             decode_ctas=batch * -(-(max_len // bs * bs) // per_cta),
+             sms=sms)
     # K6's bf16 tensor-core body at both indexer shapes
     for name, heads, dim in INDEXER_SHAPES:
         regs, spill, smem, ctas, toks = build.resources(
@@ -2111,7 +2160,8 @@ def profile_decode(cfg, device="cuda", steps=8, block_size=16,
     # call, which CUDA events around back-to-back wrapper calls (the timing
     # phase) overstate when a launch is shorter than the wrapper's host work
     ours = [e for e in kernels if e not in top and any(
-        m in e.key for m in ("paged_", "decode_split"))]
+        m in e.key for m in ("paged_", "decode_split", "mla_tile",
+                             "indexer_mma"))]
     for e in top + ours:
         _log("profile.kernel", name=repr(e.key[:60]),
              device_ms_per_step=dev_us(e) / steps / 1e3,
@@ -3212,13 +3262,13 @@ def main() -> int:
     # and its MTP layer (one dense-MLP MLA block, shared by 3 steps)
     glm5_mtp = get_config("glm5_744b").replace(num_layers=4)
     glm5 = glm5_mtp.replace(mtp=None)
-    mla_resources(glm5, len(prompt_lens))
     chunk, new_tokens = 256, 32
+    decode_mb = (max(serve_lens + prompt_lens) + chunk) // 16 + 1
+    mla_resources(glm5, len(prompt_lens), decode_mb)
     dsa_max_len = max(dsa_lens) + new_tokens + chunk
     indexer_resources(yi_dsa, len(dsa_lens), dsa_max_len, 16)
     tile_resources(yi, yi_block, chunk, glm5, len(prompt_lens), 3,
-                   yi.replace(num_layers=8),
-                   (max(serve_lens + prompt_lens) + chunk) // 16 + 1)
+                   yi.replace(num_layers=8), decode_mb)
     timing = time_kernels(yi, serve_lens, max(prompt_lens), bs=16,
                           num_blocks=2048, chunk=chunk)
     _free()

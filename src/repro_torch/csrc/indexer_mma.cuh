@@ -2,8 +2,10 @@
 // bf16 route (csrc/paged_indexer.cu: a prefill span over the paged index
 // keys) and K7's bf16 and fp32 routes (csrc/lightning_indexer.cu: queries
 // against contiguous keys, the DSA training chunks and the block
-// selector's serve spans).  K5, and K6 in fp32, keep indexer_tile.cuh's
-// SIMT tile, as does any head count this body does not take.
+// selector's serve spans), and its decode form, K5's bf16 route
+// (decode_kernel below: one token a row over the paged index keys).  K5
+// and K6 in fp32 keep indexer_tile.cuh's SIMT tile, as does any head count
+// these bodies do not take.
 //
 // For query token i of batch row b and key position p:
 //   out[b, i, p] = sum_h w[b, i, h] * (ReLU(q[b, i, h] . k[p]) * scale)
@@ -52,6 +54,20 @@
 // knobs, REPRO_IDX_TOKENS / REPRO_IDX_ROUNDS for bf16 and
 // REPRO_IDX32_TOKENS / REPRO_IDX32_ROUNDS / REPRO_IDX32_KEYS for fp32, so
 // tile_study.py can build and time others.
+//
+// The decode form (K5, bf16, S = 1).  The span body puts 4 warps x
+// kTokens tokens in a CTA: at one token a row it would leave all but one
+// token slot empty.  Here every warp of a CTA takes the row's one token
+// and keys of its own: a CTA owns 4 x kDecKeys view positions, 32 a warp
+// (two m-tiles of 16 keys as the A operand), copied by cp.async through
+// the key policy's staged table; the token's Hi heads are N, their B
+// fragments loaded into registers from shared memory; the epilogue is the
+// span body's (ReLU, scale, the head weights, the two quad shuffles), and
+// a warp's 32 scores go out as one 128-byte row.  One such round a CTA:
+// a decode step's ~2300 live positions a row over 8 rows give ~145 CTAs,
+// one wave of the card, and their copies are all in flight at once (2 and
+// 4 rounds a CTA, a 2-buffer ring, measured 1.3x and 2.1x slower); a
+// launch's own latency, not the ~0.7 us of its bytes, is the floor.
 //
 // Where the keys live is the Keys policy's:
 //   kTable            whether the chunk's rows go through a table staged
@@ -444,6 +460,185 @@ cudaError_t resources(int* out) {
   out[2] = (int)(Sh::kSmem + attr.sharedSizeBytes);
   out[3] = ctas;
   out[4] = Sh::kTok;
+  return e;
+}
+
+// ---------------------------------------------------------------------------
+// The decode form: one token a row (K5)
+// ---------------------------------------------------------------------------
+
+constexpr int kDecKeys = 32;   // positions a warp: two m-tiles
+
+template <int HI, int DI, typename Keys>
+struct DecodeShape {
+  static constexpr int kNT = HI / 8;     // n-tiles of 8 heads
+  static constexpr int kKS = DI / 16;    // k-steps of 16 dims
+  static constexpr int kChunk = kWarps * kDecKeys;   // positions a CTA
+  static constexpr int kLd = DI + kPad;  // bf16 row of a head or key
+  static constexpr size_t kSmem =
+      ((size_t)HI * kLd + (size_t)kChunk * kLd) * 2
+      + (size_t)kChunk * 4 + (Keys::kTable ? (size_t)(kChunk + 1) * 4 : 0);
+  static_assert(HI % 16 == 0 && DI % 16 == 0, "indexer_mma decode shape");
+};
+
+template <int HI, int DI, typename Keys>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const bf16* __restrict__ q, const float* __restrict__ w,
+              const bf16* __restrict__ k, float* __restrict__ out,
+              Keys keys, float scale) {
+  using Sh = DecodeShape<HI, DI, Keys>;
+  constexpr int NT = Sh::kNT, KS = Sh::kKS, LD = Sh::kLd;
+  constexpr int CH = DI / 8;   // 16-byte chunks a row
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);              // [HI][LD]
+  bf16* Ks = Qs + HI * LD;                               // [kChunk][LD]
+  float* Os = reinterpret_cast<float*>(Ks + Sh::kChunk * LD);
+  int* Tab = reinterpret_cast<int*>(Os + Sh::kChunk);    // kTable only
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int len = keys.len();
+  const int c0 = blockIdx.x * Sh::kChunk;   // the CTA's first position
+  const int b = blockIdx.y;
+  const int c_end = min(c0 + Sh::kChunk, len);
+  const int live = min(c_end, keys.live_end(b));   // dead from here on
+  float* o = out + (size_t)b * len;
+
+  // the dead positions: NEG_INF, nothing read
+  for (int p = max(c0, live) + tid; p < c_end; p += kThreads) o[p] = kNegInf;
+  if (live <= c0) return;
+
+  if constexpr (Keys::kTable) {
+    keys.stage(b, c0, live, Tab);
+    __syncthreads();
+  }
+  // the token's queries and the CTA's keys; a position past the live
+  // ones is zero-filled
+  const bf16* qsrc = q + (size_t)b * HI * DI;
+  for (int i = tid; i < HI * CH; i += kThreads) {
+    const int r = i / CH, e = (i % CH) * 8;
+    cp_async16(Qs + r * LD + e, qsrc + (size_t)r * DI + e, true);
+  }
+  for (int i = tid; i < Sh::kChunk * CH; i += kThreads) {
+    const int j = i / CH, e = (i % CH) * 8, p = c0 + j;
+    const bool ok = p < live;
+    const size_t row = ok ? keys.row(b, p, c0, Tab) : 0;
+    cp_async16(Ks + j * LD + e, k + row * DI + e, ok);
+  }
+  cp_async_commit();
+
+  // this thread's head weights: heads n*8 + 2*t4 and + 1
+  float wv[NT][2];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      wv[n][u] = w[(size_t)b * HI + n * 8 + 2 * t4 + u];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the token's B fragments
+  uint32_t qf[NT][KS][2];
+#pragma unroll
+  for (int n2 = 0; n2 < NT / 2; ++n2)
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t r[4];
+      ldsm_x4(r, Qs + (n2 * 16 + lane % 8 + (lane / 16) * 8) * LD + ks * 16
+                     + ((lane / 8) % 2) * 8);
+      qf[2 * n2][ks][0] = r[0];
+      qf[2 * n2][ks][1] = r[1];
+      qf[2 * n2 + 1][ks][0] = r[2];
+      qf[2 * n2 + 1][ks][1] = r[3];
+    }
+  // the warp's 32 keys
+  const bf16* Kw = Ks + warp * kDecKeys * LD;
+  float* Ow = Os + warp * kDecKeys;
+#pragma unroll
+  for (int mt = 0; mt < kDecKeys / 16; ++mt) {
+    // scores^T of 16 keys x the token's heads, fp32
+    float acc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, Kw + (mt * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mma16816(acc[n], a, qf[n][ks][0], qf[n][ks][1]);
+    }
+    // ReLU, scale and weights; the head sum over the thread's columns,
+    // then over the quad: keys g and g + 8
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      s0 = fmaf(wv[n][0], fmaxf(acc[n][0], 0.f) * scale, s0);
+      s0 = fmaf(wv[n][1], fmaxf(acc[n][1], 0.f) * scale, s0);
+      s1 = fmaf(wv[n][0], fmaxf(acc[n][2], 0.f) * scale, s1);
+      s1 = fmaf(wv[n][1], fmaxf(acc[n][3], 0.f) * scale, s1);
+    }
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    if (t4 == 0) Ow[mt * 16 + g] = s0;
+    if (t4 == 1) Ow[mt * 16 + g + 8] = s1;
+  }
+  __syncwarp();
+  // the warp's 32 scores: one 128-byte row
+  const int p = c0 + warp * kDecKeys + lane;
+  if (p < live) o[p] = Ow[lane];
+}
+
+template <int HI, int DI, typename Keys>
+cudaError_t configure_decode() {
+  static bool done = false;  // once per instantiation
+  if (done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_kernel<HI, DI, Keys>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)DecodeShape<HI, DI, Keys>::kSmem);
+  done = e == cudaSuccess;
+  return e;
+}
+
+// over (chunks of the view, B) CTAs
+template <int HI, int DI, typename Keys>
+cudaError_t launch_decode(const void* q, const float* w, const void* k,
+                          float* out, const Keys& keys, int B, float scale,
+                          cudaStream_t stream) {
+  using Sh = DecodeShape<HI, DI, Keys>;
+  if (B < 1 || B > 65535 || keys.len() < 1) return cudaErrorInvalidValue;
+  cudaError_t e = configure_decode<HI, DI, Keys>();
+  if (e != cudaSuccess) return e;
+  const dim3 grid((keys.len() + Sh::kChunk - 1) / Sh::kChunk, B);
+  decode_kernel<HI, DI, Keys><<<grid, kThreads, Sh::kSmem, stream>>>(
+      static_cast<const bf16*>(q), w, static_cast<const bf16*>(k), out, keys,
+      scale);
+  return cudaGetLastError();
+}
+
+// registers, spill bytes, shared memory bytes, CTAs an SM, positions a CTA
+template <int HI, int DI, typename Keys>
+cudaError_t resources_decode(int* out) {
+  using Sh = DecodeShape<HI, DI, Keys>;
+  cudaError_t e = configure_decode<HI, DI, Keys>();
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, decode_kernel<HI, DI, Keys>);
+  if (e != cudaSuccess) return e;
+  int ctas = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, decode_kernel<HI, DI, Keys>, kThreads, Sh::kSmem);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)(Sh::kSmem + attr.sharedSizeBytes);
+  out[3] = ctas;
+  out[4] = Sh::kChunk;
   return e;
 }
 

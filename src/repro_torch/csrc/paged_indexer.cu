@@ -30,19 +30,27 @@
 //     (B, S, mb*bs) fp32 output it writes.
 //
 // What the design does:
-//   * the Pallas grid is (B, mb), one block of keys a step; here K6's bf16
-//     route (the serving path) runs the tensor-core body of
-//     indexer_mma.cuh (shared with K7) with the keys through the block
-//     table (PagedKeys below: the chunk's table entries read once into
-//     shared memory), and K5 and K6's fp32 route (the exact parity runs)
-//     the SIMT tile of indexer_tile.cuh;
+//   * the Pallas grid is (B, mb), one block of keys a step; here the bf16
+//     routes at Hi 16 or 32 (the serving path: Yi-6B's 16 x 64, GLM-5's
+//     32 x 128) run the tensor-core bodies of indexer_mma.cuh with the
+//     keys through the block table (PagedKeys below: a chunk's table
+//     entries read once into shared memory): K6 the span body (shared
+//     with K7), K5 its decode form; the fp32 routes (the exact parity
+//     runs) and other head counts run the SIMT tile of indexer_tile.cuh;
 //   * K6 bf16: S^T = K Q^T on mma.sync m16n8k16, keys as the A operand
 //     and a token's heads as N (indexer_mma.cuh's header); each key is
 //     read from L2 once a token group and each query once a chunk (16 and
 //     25 times at the Yi-6B serve span: ~20 MB of L2 reads against 3.3
 //     GFLOP).  bf16 products are exact in fp32, so the scores are the
 //     plain version's up to the order of the fp32 sums;
-//   * both bodies: a position of a dead block gets NEG_INF and its key is
+//   * K5 bf16: at the byte bound its 2080 flops a key would need ~54 of
+//     the CUDA cores' 67 fp32 TFLOP/s, plus the bf16 -> fp32 conversions,
+//     which the SIMT tile cannot reach; on the tensor cores the product is
+//     nearly free.  The decode form gives every warp of a CTA the row's
+//     one token and 32 keys of its own a round, the token's B fragments in
+//     registers, so each live key is read once from device memory and the
+//     grid of 128-position chunks fills the card at a decode step;
+//   * every body: a position of a dead block gets NEG_INF and its key is
 //     never read; a CTA whose positions are all dead writes and returns;
 //     an idle slot (a row of length 0 on the trash block) reads the trash
 //     block and stays finite;
@@ -52,11 +60,10 @@
 //     broadcasts), a thread holds its key's Di values in registers as fp32
 //     and reuses them for every query row of the tile; a token's output row
 //     is written by consecutive threads at consecutive positions.
-// The routes by shape: K6 in bf16 with Hi 16 or 32 (Yi-6B's 16 x 64,
-// GLM-5's 32 x 128; any Di the kernel takes) runs the tensor-core body;
-// every other K6 call (fp32, or another head count) and every K5 call runs
-// the SIMT tile.  Not done yet (later work): K5 on the tensor cores, wgmma,
-// TMA.
+// The routes by shape: K5 and K6 in bf16 with Hi 16 or 32 (any Di the
+// kernel takes) run the tensor-core bodies; every other call (fp32, or
+// another head count) runs the SIMT tile.  Not done yet (later work):
+// wgmma, TMA.
 //
 // Interface: plain C, loaded with ctypes.  Each entry point returns the
 // cudaError_t of its launch (0 on success); it launches on the given stream,
@@ -75,7 +82,7 @@ namespace {
 // K5/K6's keys: position p of row b lives at (tables[b, p / bs], p % bs)
 // of the pool; a block that starts after the span's last position
 // (starts[b] + S - 1) is dead.
-// The tensor-core body (indexer_mma.cuh) stages a chunk's table entries
+// The tensor-core bodies (indexer_mma.cuh) stage a chunk's table entries
 // once a CTA.
 struct PagedKeys {
   static constexpr bool kTable = true;
@@ -185,13 +192,24 @@ extern "C" {
 // (nb, bs, Di); tables (B, mb) int32; seq_lens (B,) int32 (the query's
 // position); out (B, mb*bs) float32 in view coordinates.
 // dtype of q and the pool: 0 = float32, 1 = bfloat16.
+// bf16 at 16 or 32 heads runs the tensor-core decode body, every other
+// call the SIMT tile.
 int paged_indexer_scores(int dtype, int index_dim, int block_size,
                          const void* q, const float* w, const void* k_pool,
                          const int* tables, const int* seq_lens, float* out,
                          int B, int heads, int mb, float scale, void* stream) {
   Args a{q, w, k_pool, tables, seq_lens, out, B, 1, heads, mb, block_size,
          scale};
-  return run(dtype, index_dim, a, stream);
+  if (dtype != 1 || !indexer_mma::takes(heads, index_dim))
+    return run(dtype, index_dim, a, stream);
+  if (mb <= 0 || block_size <= 0) return (int)cudaErrorInvalidValue;
+  const PagedKeys keys{tables, seq_lens, mb, block_size, 1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)indexer_mma::by_shape(heads, index_dim, [&](auto hi, auto di) {
+    return indexer_mma::launch_decode<decltype(hi)::value,
+                                      decltype(di)::value>(
+        q, w, k_pool, out, keys, B, scale, s);
+  });
 }
 
 // K6.  q (B, S*Hi, Di) packed rows i*Hi + h; w (B, S*Hi) float32; starts (B,)
@@ -217,16 +235,28 @@ int paged_prefill_indexer(int dtype, int index_dim, int block_size,
   });
 }
 
-// Resources of the SIMT tile (K5; K6 in fp32 or at other head counts) for
-// `dtype`, `index_dim` and `heads` (launches nothing): out[5] = registers
-// a thread, spill bytes a thread, shared memory bytes a CTA, CTAs resident
-// on one SM, span tokens a CTA.
+// Resources of the SIMT tile (K5 and K6 in fp32 or at other head counts)
+// for `dtype`, `index_dim` and `heads` (launches nothing): out[5] =
+// registers a thread, spill bytes a thread, shared memory bytes a CTA, CTAs
+// resident on one SM, span tokens a CTA.
 int paged_indexer_resources(int dtype, int index_dim, int heads, int* out) {
   if (heads <= 0 || heads * index_dim > kQFloats)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)query_dim<float>(index_dim, heads, out);
   if (dtype == 1) return (int)query_dim<__nv_bfloat16>(index_dim, heads, out);
   return (int)cudaErrorInvalidValue;
+}
+
+// Resources of K5's bf16 tensor-core decode body (indexer_mma.cuh) for
+// `heads` and `index_dim` (launches nothing; cudaErrorInvalidValue where K5
+// runs the SIMT tile): out[5] as above, the last the view positions a CTA.
+int paged_indexer_scores_resources(int heads, int index_dim, int* out) {
+  if (!indexer_mma::takes(heads, index_dim))
+    return (int)cudaErrorInvalidValue;
+  return (int)indexer_mma::by_shape(heads, index_dim, [&](auto hi, auto di) {
+    return indexer_mma::resources_decode<decltype(hi)::value,
+                                         decltype(di)::value, PagedKeys>(out);
+  });
 }
 
 // Resources of K6's bf16 tensor-core body (indexer_mma.cuh) for `heads`

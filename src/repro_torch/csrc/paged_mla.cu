@@ -22,25 +22,35 @@
 // 2*(lora+rope) + 2*lora = 2176 flops (GLM-5: lora 512, rope 64) against
 // 1152 bytes of bf16 latent shared by all H heads, so at H = 64 a decode
 // step does ~120 flops per latent byte.  That is below the ~295 flop/byte
-// ridge of the tensor cores (so the bound below is the latent bytes for
-// decode and the operations for long spans), but far above what CUDA cores
-// in fp32 sustain per byte.
+// ridge of the tensor cores, so K3 (decode) is bound by its bytes: the
+// live latent read once, q_lat (fp32) in and out_lat (fp32) out; K4 at a
+// long span by its operations.  Either way the products belong on the
+// tensor cores: the CUDA cores' fp32 FMAs (67 TFLOP/s at best) would make
+// even a decode step arithmetic-bound.
 //
-// Two bodies, chosen by dtype.  K4 in bf16 (the serving path: every
-// prefill chunk and, with speculation, every verify span) runs the
-// tensor-core tile below (mla_tile: mma.sync, the latent in a cp.async
-// ring, the key range split with mma_tile.cuh's combine pass).  K3 in
-// both dtypes and K4 in fp32 (the exact parity runs) run the SIMT body,
-// bound by its fp32 arithmetic and shared-memory traffic:
+// Two bodies, chosen by dtype.  bf16 (the serving path: every decode step
+// without speculation, every prefill chunk and, with speculation, every
+// verify span) runs the tensor-core tile below (mla_tile: mma.sync, the
+// latent in a cp.async ring, the key range split over `parts` CTAs and
+// folded by a combine pass).  A decode step is a span of one token
+// (starts = seq_lens): at H 64 a row's heads are exactly one 64-row tile,
+// so every head reads the row's latent from one copy in shared memory,
+// once; the row's key rounds are split over up to kDecodeMaxParts CTAs
+// (split-KV, as K1's decode_split), since B 8 rows give only 8 tiles for
+// 132 SMs, and K3's own combine kernel folds them (a CTA a head and row,
+// every part's loads in flight).  The wrapper picks the parts from the
+// shapes alone, never from seq_lens (a device-to-host copy).  A part
+// whose rounds lie past its row's end (a short row, many parts) writes
+// m = NEG_INF, l = 0 and no read of the pool: the combine gives it zero
+// weight.  fp32 (the exact parity runs) runs the SIMT body:
 //   * one CTA per (16-row tile, batch row) walks only that tile's live
 //     blocks itself: it loads its own table entries and start and stops at
 //     the block of its last query position (causal early exit per tile), so
 //     traffic is O(live tokens) and nothing is gathered into a padded view;
-//   * a round stages 32 positions of [c | kr] in shared memory as fp32; the
-//     same staged c serves the scores and the PV product, so each latent
-//     byte is read from device memory once per tile; every load of a round
-//     is issued before any is used and, for bf16, the next round's loads are
-//     in flight while this round computes;
+//   * a round stages 32 positions of [c | kr] in shared memory; the same
+//     staged c serves the scores and the PV product, so each latent byte is
+//     read from device memory once per tile; every load of a round is
+//     issued before any is used;
 //   * the Pallas kernels keep the whole (H, lora) or (S*H, lora) fp32
 //     accumulator in VMEM (128 KB per decode row, 32 MB for a 256-token
 //     span at H = 64); here the packed rows are tiled 16 at a time and the
@@ -49,9 +59,7 @@
 //   * scores: warp w owns rows 2w and 2w+1 and lane t position t of the
 //     round, so the warp holds whole score rows and runs their online
 //     softmax in registers with shuffles, without another barrier.
-// Not done yet (later work): K3 on the tensor cores with split-KV (decode
-// at B = 8, H = 64 launches only 32 CTAs on 132 SMs); wgmma and TMA for
-// the K4 tile.
+// Not done yet (later work): wgmma and TMA for the tile.
 //
 // Interface: plain C, loaded with ctypes.  Each entry point returns the
 // cudaError_t of its launch (0 on success); it launches on the given stream,
@@ -66,6 +74,10 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// The fp32 SIMT body (K3 and K4 in fp32)
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 2 * kWarps;  // packed query rows per CTA (2 per warp)
@@ -73,35 +85,8 @@ constexpr int kTokens = 32;        // latent positions per round (1 per lane)
 constexpr int kLdP = kTokens + 4;  // probability row stride (floats)
 constexpr float kNegInf = -1e30f;  // the reference kernels' NEG_INF
 
-// 16-byte vectors: N elements of T, loaded raw and converted to fp32
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void convert(const uint4& v, float* o) {
-    const float* f = reinterpret_cast<const float*>(&v);
-    o[0] = f[0]; o[1] = f[1]; o[2] = f[2]; o[3] = f[3];
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void convert(const uint4& v, float* o) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-};
-
-__device__ inline uint4 ld16(const void* p) {
-  return *reinterpret_cast<const uint4*>(p);
+__device__ inline float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 // Shared-memory row stride (floats) of the staged [q_lat | q_rope] rows and
@@ -118,28 +103,25 @@ constexpr size_t smem_floats() {
          + 3 * (size_t)kRows;            // running max, sum, rescale
 }
 
-template <typename T, int L, int R>
+template <int L, int R>
 __global__ void __launch_bounds__(kThreads)
 paged_mla_kernel(const float* __restrict__ q_lat,
-                 const T* __restrict__ q_rope, const T* __restrict__ c_pool,
-                 const T* __restrict__ kr_pool,
+                 const float* __restrict__ q_rope,
+                 const float* __restrict__ c_pool,
+                 const float* __restrict__ kr_pool,
                  const int* __restrict__ tables,
                  const int* __restrict__ starts, float* __restrict__ out,
                  int SH, int H, int mb, int bs, float scale) {
   constexpr int D = L + R;           // length of a score's dot product
   constexpr int LD = kLd<L, R>;
-  constexpr int VN = Vec<T>::N;
-  static_assert(L % VN == 0 && R % VN == 0, "vector width");
-  constexpr int VL = L / VN;         // 16-byte vectors of c per position
-  constexpr int VPK = D / VN;        // ... of [c | kr] per position
+  static_assert(L % 4 == 0 && R % 4 == 0, "vector width");
+  constexpr int VL = L / 4;          // float4s of c per position
+  constexpr int VPK = D / 4;         // ... of [c | kr] per position
   static_assert(kTokens * VPK % kThreads == 0, "staging split");
   constexpr int NV = kTokens * VPK / kThreads;  // per thread and round
   static_assert(L % kThreads == 0, "columns per thread");
   constexpr int CPT = L / kThreads;
   static_assert(kTokens == 32, "one position per lane");
-  // the next round's latent waits in registers while this round computes,
-  // where the accumulator leaves room (bf16)
-  constexpr bool kPrefetch = NV * 4 + kRows * CPT <= 80;
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -158,26 +140,15 @@ paged_mla_kernel(const float* __restrict__ q_lat,
   const int* table = tables + (size_t)b * mb;
   const size_t row0 = (size_t)b * SH + r0;  // packed row index
 
-  // stage the tile's queries [q_lat | q_rope] as fp32; rows past `rows`
-  // are zero and masked, so they fold nothing and are never written
-  for (int i = tid; i < kRows * (L / 4); i += kThreads) {
-    const int r = i / (L / 4), e = (i % (L / 4)) * 4;
+  // stage the tile's queries [q_lat | q_rope]; rows past `rows` are zero
+  // and masked, so they fold nothing and are never written
+  for (int i = tid; i < kRows * (D / 4); i += kThreads) {
+    const int r = i / (D / 4), e = (i % (D / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < rows)
-      v = *reinterpret_cast<const float4*>(q_lat + (row0 + r) * L + e);
+      v = e < L ? ld4(q_lat + (row0 + r) * L + e)
+                : ld4(q_rope + (row0 + r) * R + (e - L));
     *reinterpret_cast<float4*>(Qs + r * LD + e) = v;
-  }
-  for (int i = tid; i < kRows * (R / VN); i += kThreads) {
-    const int r = i / (R / VN), e = (i % (R / VN)) * VN;
-    float tmp[VN];
-    if (r < rows) {
-      Vec<T>::convert(ld16(q_rope + (row0 + r) * R + e), tmp);
-    } else {
-#pragma unroll
-      for (int u = 0; u < VN; ++u) tmp[u] = 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < VN; ++u) Qs[r * LD + L + e + u] = tmp[u];
   }
   for (int r = tid; r < kRows; r += kThreads) {
     Ms[r] = kNegInf;
@@ -198,8 +169,10 @@ paged_mla_kernel(const float* __restrict__ q_lat,
 
   // every load of the round at c0 is issued before any is used; past hi a
   // thread stages zeros, so the p = 0 padding of a short round never meets
-  // stale shared memory
-  uint4 raw[NV];
+  // stale shared memory.  [c | kr] of position t lands at Ks[t*LD ..
+  // t*LD + D): float4 v of the position goes to offset 4v whether it came
+  // from c or from kr
+  float4 raw[NV];
   auto fetch = [&](int c0) {
 #pragma unroll
     for (int u = 0; u < NV; ++u) {
@@ -208,27 +181,19 @@ paged_mla_kernel(const float* __restrict__ q_lat,
       const int pos = c0 + t;
       if (pos <= hi) {
         const size_t slot = (size_t)table[pos / bs] * bs + pos % bs;
-        raw[u] = v < VL ? ld16(c_pool + slot * L + v * VN)
-                        : ld16(kr_pool + slot * R + (v - VL) * VN);
+        raw[u] = v < VL ? ld4(c_pool + slot * L + v * 4)
+                        : ld4(kr_pool + slot * R + (v - VL) * 4);
       } else {
-        raw[u] = make_uint4(0u, 0u, 0u, 0u);
+        raw[u] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
   };
-  // [c | kr] of position t lands at Ks[t*LD .. t*LD + D): vector v of the
-  // position goes to offset v*VN whether it came from c or from kr
   auto stash = [&]() {
 #pragma unroll
     for (int u = 0; u < NV; ++u) {
       const int i = tid + u * kThreads;
       const int t = i / VPK, v = i % VPK;
-      float tmp[VN];
-      Vec<T>::convert(raw[u], tmp);
-      float4* dst = reinterpret_cast<float4*>(Ks + t * LD + v * VN);
-#pragma unroll
-      for (int w = 0; w < VN / 4; ++w)
-        dst[w] = make_float4(tmp[4 * w], tmp[4 * w + 1], tmp[4 * w + 2],
-                             tmp[4 * w + 3]);
+      *reinterpret_cast<float4*>(Ks + t * LD + v * 4) = raw[u];
     }
   };
   // one score row of the warp through the online softmax (the reference's
@@ -254,15 +219,11 @@ paged_mla_kernel(const float* __restrict__ q_lat,
     }
   };
 
-  if constexpr (kPrefetch) fetch(0);
   for (int c0 = 0; c0 <= hi; c0 += kTokens) {
     const int n = min(kTokens, hi - c0 + 1);
-    if constexpr (!kPrefetch) fetch(c0);
+    fetch(c0);
     __syncthreads();  // last round's readers of Ks/Ps/As are done
     stash();
-    if constexpr (kPrefetch) {
-      if (c0 + kTokens <= hi) fetch(c0 + kTokens);  // lands during compute
-    }
     __syncthreads();
 
     // scores of rows ra, rb against position `lane` of the round: the
@@ -337,7 +298,7 @@ paged_mla_kernel(const float* __restrict__ q_lat,
 }
 
 // ---------------------------------------------------------------------------
-// K4's bf16 body on the tensor cores
+// The bf16 body on the tensor cores (K4's spans, K3's decode steps)
 // ---------------------------------------------------------------------------
 //
 // GLM-5's span (H 64 heads reading one latent, dk 576 = lora 512 + rope 64,
@@ -367,6 +328,12 @@ paged_mla_kernel(const float* __restrict__ q_lat,
 //     a verify span (B 8 x S 4 x H 64: 32 tiles) splits each tile's key
 //     rounds over `parts` CTAs (wrapper: build.key_split), folded by
 //     mma_tile's combine pass into the fp32 output;
+//   * a decode step (K3: S 1, a tile a row at H 64) splits each row's
+//     rounds over up to kDecodeMaxParts CTAs (wrapper: mla_decode_parts),
+//     folded by decode_combine_kernel below; at H 16 a tile holds 16 live
+//     rows of 64;
+//   * a part with no round (more parts than the row has rounds) writes
+//     its (m, l, acc) = (NEG_INF, 0, 0) without staging anything;
 //   * numerics: QK^T of bf16 q_lat / q_rope against the bf16 latent, exact
 //     products in fp32 accumulators; scores scaled in fp32; the softmax in
 //     the log2 domain (masked: -inf, p = 0); P rounded to bf16 for PV (as
@@ -461,28 +428,27 @@ mla_span_kernel(const float* __restrict__ q_lat,
   const int pos0 = layout.starts[b];
   const int* table = layout.tables + (size_t)b * layout.mb;
   const size_t row0 = (size_t)b * layout.SH + r0;
-
-  // the queries: q_rope by cp.async, q_lat rounded to bf16 on the way in;
-  // rows past `rows` are zero and never written
-  for (int i = tid; i < kRows * (kR / 8); i += kThreads) {
-    const int r = i / (kR / 8), c = (i % (kR / 8)) * 8;
-    const bool ok = r < rows;
-    cp_async16(Qs + r * kLdK + kL + c,
-               q_rope + (ok ? row0 + r : 0) * kR + c, ok);
-  }
-  for (int i = tid; i < kRows * (kL / 4); i += kThreads) {
-    const int r = i / (kL / 4), c = (i % (kL / 4)) * 4;
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows)
-      f = *reinterpret_cast<const float4*>(q_lat + (row0 + r) * kL + c);
-    store_pair(Qs + r * kLdK + c, f.x, f.y);
-    store_pair(Qs + r * kLdK + c + 2, f.z, f.w);
-  }
+  const int col0 = warp / 2 * kPvCols + (lane % 4) * 2;   // PV's columns
+  // the workspace of this part (parts > 1): (m, l) and acc of its rows
+  const size_t tile = (size_t)b * ntiles + x;
+  const size_t all = (size_t)ntiles * gridDim.y;
+  float* ml = ws + ws_rows(tile, parts, part) * 2;
+  float* wacc = ws + all * parts * kRows * 2 + ws_rows(tile, parts, part) * kL;
 
   // every key from position 0 to the tile's last query, in rounds
   const int hi = min(pos0 + (r0 + rows - 1) / H, layout.mb * bs - 1);
   const int rounds = hi / kKeys + 1;
   const int rb = rounds * part / parts, re = rounds * (part + 1) / parts;
+  if (rb == re) {   // no round (parts > 1): a part the combine weighs 0
+    for (int r = tid; r < rows; r += kThreads) {
+      ml[2 * r] = kNegInf;
+      ml[2 * r + 1] = 0.f;
+    }
+    for (int i = tid; i < rows * (kL / 4); i += kThreads)
+      *reinterpret_cast<float4*>(wacc + (size_t)i * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
 
   // round rd's key table (slot (rd - rb) % kSlots): position (kNoKey past
   // hi) and latent row of each key
@@ -511,11 +477,40 @@ mla_span_kernel(const float* __restrict__ q_lat,
     }
   };
 
+  // the first rounds' keys go out first, so that they land while the
+  // queries are staged: q_rope by cp.async (in the first group), q_lat
+  // rounded to bf16 on the way in, kQLoads float4 loads in flight a
+  // thread; rows past `rows` are zero and never written
   for (int s = 0; s < kStages; ++s) look_up(rb + s);
   __syncthreads();
+  for (int i = tid; i < kRows * (kR / 8); i += kThreads) {
+    const int r = i / (kR / 8), c = (i % (kR / 8)) * 8;
+    const bool ok = r < rows;
+    cp_async16(Qs + r * kLdK + kL + c,
+               q_rope + (ok ? row0 + r : 0) * kR + c, ok);
+  }
   for (int s = 0; s < kStages - 1; ++s) {
     issue(rb + s);
-    cp_async_commit();   // the first group also holds q_rope
+    cp_async_commit();
+  }
+  constexpr int kQLoads = 8;
+  static_assert(kRows * (kL / 4) % (kThreads * kQLoads) == 0, "q staging");
+  for (int i0 = tid; i0 < kRows * (kL / 4); i0 += kThreads * kQLoads) {
+    float4 f[kQLoads];
+#pragma unroll
+    for (int u = 0; u < kQLoads; ++u) {
+      const int i = i0 + u * kThreads, r = i / (kL / 4);
+      f[u] = r < rows ? *reinterpret_cast<const float4*>(
+                            q_lat + (row0 + r) * kL + (i % (kL / 4)) * 4)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kQLoads; ++u) {
+      const int i = i0 + u * kThreads;
+      bf16* q = Qs + (i / (kL / 4)) * kLdK + (i % (kL / 4)) * 4;
+      store_pair(q, f[u].x, f[u].y);
+      store_pair(q + 2, f[u].z, f[u].w);
+    }
   }
 
   // QK^T warps: row group qg, dim slice dg; PV warps: row group pg (32
@@ -649,20 +644,14 @@ mla_span_kernel(const float* __restrict__ q_lat,
       }
     }
   }
-  cp_async_wait<0>();   // a part with no round still has q_rope's group
+  cp_async_wait<0>();
   if (tid % 8 == 0) {
     Ms[sr] = m_run;
     Ls[sr] = l_run;
   }
   __syncthreads();
 
-  const int col0 = cg * kPvCols + (lane % 4) * 2;
   if (parts > 1) {   // this part's (m, l, acc) for the combine pass
-    const size_t tile = (size_t)b * ntiles + x;
-    const size_t all = (size_t)ntiles * gridDim.y;
-    float* ml = ws + ws_rows(tile, parts, part) * 2;
-    float* wacc = ws + all * parts * kRows * 2
-                  + ws_rows(tile, parts, part) * kL;
     for (int r = tid; r < rows; r += kThreads) {
       ml[2 * r] = Ms[r];
       ml[2 * r + 1] = Ls[r];
@@ -705,15 +694,11 @@ cudaError_t configure() {
   return e;
 }
 
-// (ceil(SH / kRows) x parts, B) CTAs, then the combine pass where parts > 1
-// (workspace: tiles x parts x kRows x (512 + 2) floats)
-cudaError_t launch(const float* q_lat, const void* q_rope,
-                   const void* c_pool, const void* kr_pool,
-                   const LatentSpan& layout, float* out, void* ws, int B,
-                   int parts, float scale, cudaStream_t stream) {
-  if (parts < 1 || parts > mma_tile::kMaxParts ||
-      (parts > 1 && ws == nullptr))
-    return cudaErrorInvalidValue;
+// (ceil(SH / kRows) x parts, B) CTAs of the tile
+cudaError_t launch_tiles(const float* q_lat, const void* q_rope,
+                         const void* c_pool, const void* kr_pool,
+                         const LatentSpan& layout, float* out, void* ws,
+                         int B, int parts, float scale, cudaStream_t stream) {
   cudaError_t e = configure();
   if (e != cudaSuccess) return e;
   const int tiles = (layout.SH + kRows - 1) / kRows;
@@ -721,12 +706,100 @@ cudaError_t launch(const float* q_lat, const void* q_rope,
       q_lat, static_cast<const bf16*>(q_rope),
       static_cast<const bf16*>(c_pool), static_cast<const bf16*>(kr_pool),
       out, static_cast<float*>(ws), layout, parts, scale);
-  e = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// K4: the tiles, then mma_tile's combine pass where parts > 1 (workspace:
+// tiles x parts x kRows x (512 + 2) floats)
+cudaError_t launch(const float* q_lat, const void* q_rope,
+                   const void* c_pool, const void* kr_pool,
+                   const LatentSpan& layout, float* out, void* ws, int B,
+                   int parts, float scale, cudaStream_t stream) {
+  if (parts < 1 || parts > mma_tile::kMaxParts ||
+      (parts > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t e = launch_tiles(q_lat, q_rope, c_pool, kr_pool, layout, out,
+                               ws, B, parts, scale, stream);
   if (e != cudaSuccess || parts == 1) return e;
+  const int tiles = (layout.SH + kRows - 1) / kRows;
   mma_tile::combine_kernel<kL, LatentSpan, float, mma_tile::bf16>
       <<<dim3(tiles * (kRows / mma_tile::kFoldRows), B), 128, 0, stream>>>(
           static_cast<const float*>(ws), nullptr, out, layout, parts);
   return cudaGetLastError();
+}
+
+constexpr int kDecodeMaxParts = 16;   // K3: key-range parts a row's tile
+
+// Fold K3's parts: a CTA a (head, batch row), a float4 of the 512 output
+// columns a thread, every part's (m, l) and acc loaded at once; a part
+// with no key (m NEG_INF, l 0) gets weight 0.
+__global__ void __launch_bounds__(kL / 4)
+decode_combine_kernel(const float* __restrict__ ws, float* __restrict__ out,
+                      int H, int parts) {
+  const int r = blockIdx.x, b = blockIdx.y;
+  const int ntiles = (H + kRows - 1) / kRows;
+  const size_t tile = (size_t)b * ntiles + r / kRows;
+  const size_t row = ws_rows(tile, parts, 0) + r % kRows;   // part 0's
+  const size_t all = (size_t)ntiles * gridDim.y;
+  const float* ml = ws + row * 2;
+  const float* acc = ws + all * parts * kRows * 2 + row * kL
+                     + 4 * threadIdx.x;
+  float mv[kDecodeMaxParts], lv[kDecodeMaxParts];
+  float4 f[kDecodeMaxParts];
+#pragma unroll
+  for (int p = 0; p < kDecodeMaxParts; ++p) {
+    if (p < parts) {
+      mv[p] = ml[(size_t)p * kRows * 2];
+      lv[p] = ml[(size_t)p * kRows * 2 + 1];
+      f[p] = *reinterpret_cast<const float4*>(acc + (size_t)p * kRows * kL);
+    }
+  }
+  float M = kNegInf;
+#pragma unroll
+  for (int p = 0; p < kDecodeMaxParts; ++p)
+    if (p < parts) M = fmaxf(M, mv[p]);
+  float L = 0.f;
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int p = 0; p < kDecodeMaxParts; ++p) {
+    if (p < parts) {
+      const float w = exp2f(mv[p] - M);
+      L += w * lv[p];
+      o.x += w * f[p].x;
+      o.y += w * f[p].y;
+      o.z += w * f[p].z;
+      o.w += w * f[p].w;
+    }
+  }
+  const float inv = 1.f / fmaxf(L, 1e-20f);
+  *reinterpret_cast<float4*>(out + ((size_t)b * H + r) * kL
+                             + 4 * threadIdx.x) =
+      make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv);
+}
+
+// K3: a decode step is a span of one token (starts = seq_lens, SH = H):
+// the tiles, then decode_combine_kernel where parts > 1 (workspace: B x
+// ceil(H / kRows) x parts x kRows x (512 + 2) floats)
+cudaError_t launch_decode(const float* q_lat, const void* q_rope,
+                          const void* c_pool, const void* kr_pool,
+                          const LatentSpan& layout, float* out, void* ws,
+                          int B, int parts, float scale,
+                          cudaStream_t stream) {
+  if (parts < 1 || parts > kDecodeMaxParts || (parts > 1 && ws == nullptr)
+      || B < 1 || B > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t e = launch_tiles(q_lat, q_rope, c_pool, kr_pool, layout, out,
+                               ws, B, parts, scale, stream);
+  if (e != cudaSuccess || parts == 1) return e;
+  decode_combine_kernel<<<dim3(layout.H, B), kL / 4, 0, stream>>>(
+      static_cast<const float*>(ws), out, layout.H, parts);
+  return cudaGetLastError();
+}
+
+// whether the tile takes a launch's block size and latent widths
+bool takes(int block_size, int lora, int rope) {
+  return (block_size == 8 || block_size == 16 || block_size == 32) &&
+         lora == kL && rope == kR;
 }
 
 cudaError_t resources(int* out) {
@@ -748,72 +821,53 @@ cudaError_t resources(int* out) {
 
 }  // namespace mla_tile
 
-struct Args {
-  const float* q_lat;
-  const void* q_rope;
-  const void* c_pool;
-  const void* kr_pool;
-  const int* tables;
-  const int* starts;
-  float* out;
-  int B, SH, H, mb, bs;
-  float scale;
-};
+constexpr size_t kSimtSmem = smem_floats<512, 64>() * sizeof(float);
 
-// Lets the instantiation use its dynamic shared memory (over the 48 KB
-// default); once per instantiation.
-template <typename T, int L, int R>
-cudaError_t configure() {
+// Lets the SIMT body use its dynamic shared memory (over the 48 KB
+// default); once.
+cudaError_t configure_simt() {
   static bool configured = false;
   if (configured) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
-      paged_mla_kernel<T, L, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(smem_floats<L, R>() * sizeof(float)));
+      paged_mla_kernel<512, 64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSimtSmem);
   configured = e == cudaSuccess;
   return e;
 }
 
-template <typename T, int L, int R>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<L, R>() * sizeof(float);
-  auto kern = paged_mla_kernel<T, L, R>;
-  cudaError_t e = configure<T, L, R>();
-  if (e != cudaSuccess) return e;
-  dim3 grid((a.SH + kRows - 1) / kRows, a.B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      a.q_lat, static_cast<const T*>(a.q_rope),
-      static_cast<const T*>(a.c_pool), static_cast<const T*>(a.kr_pool),
-      a.tables, a.starts, a.out, a.SH, a.H, a.mb, a.bs, a.scale);
-  return cudaGetLastError();
-}
-
-int run(int dtype, int lora, int rope, const Args& a, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.bs != 8 && a.bs != 16 && a.bs != 32) return (int)cudaErrorInvalidValue;
-  if (lora != 512 || rope != 64) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)launch<float, 512, 64>(a, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16, 512, 64>(a, s);
-  return (int)cudaErrorInvalidValue;
+// the fp32 SIMT body over (ceil(SH / kRows), B) CTAs
+int launch_simt(int lora, int rope, int block_size, const float* q_lat,
+                const void* q_rope, const void* c_pool, const void* kr_pool,
+                const int* tables, const int* starts, float* out, int B,
+                int SH, int H, int mb, float scale, cudaStream_t stream) {
+  if (!mla_tile::takes(block_size, lora, rope))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = configure_simt();
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((SH + kRows - 1) / kRows, B);
+  paged_mla_kernel<512, 64><<<grid, kThreads, kSimtSmem, stream>>>(
+      q_lat, static_cast<const float*>(q_rope),
+      static_cast<const float*>(c_pool), static_cast<const float*>(kr_pool),
+      tables, starts, out, SH, H, mb, block_size, scale);
+  return (int)cudaGetLastError();
 }
 
 // out = {registers a thread, local (spill) bytes a thread, dynamic shared
 // memory bytes a CTA, CTAs resident on one SM (as the runtime reports
-// them), packed query rows a CTA}
-template <typename T, int L, int R>
-cudaError_t query(int* out) {
-  constexpr size_t smem = smem_floats<L, R>() * sizeof(float);
-  auto kern = paged_mla_kernel<T, L, R>;
-  cudaError_t e = configure<T, L, R>();
+// them), packed query rows a CTA} of the SIMT body
+cudaError_t query_simt(int* out) {
+  auto kern = paged_mla_kernel<512, 64>;
+  cudaError_t e = configure_simt();
   if (e != cudaSuccess) return e;
   cudaFuncAttributes attr;
   e = cudaFuncGetAttributes(&attr, kern);
   if (e != cudaSuccess) return e;
   int ctas = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kern, kThreads,
-                                                    smem);
+                                                    kSimtSmem);
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)smem;
+  out[2] = (int)kSimtSmem;
   out[3] = ctas;
   out[4] = kRows;
   return e;
@@ -826,15 +880,28 @@ extern "C" {
 // K3.  q_lat (B, H, lora) float32; q_rope (B, H, rope); pools c (nb, bs,
 // lora), kr (nb, bs, rope); tables (B, mb) int32; seq_lens (B,) int32 (the
 // query's position); out (B, H, lora) float32.
-// dtype of q_rope and the pools: 0 = float32, 1 = bfloat16.
+// dtype of q_rope and the pools: 0 = float32 (the SIMT body, parts = 1),
+// 1 = bfloat16 (the tensor-core tile: each row's keys split into `parts`
+// (1..16) CTAs, workspace (fp32, parts > 1) of B x ceil(H / 64) x parts x
+// 64 x (lora + 2) floats).
 int paged_decode_mla(int dtype, int lora, int rope, int block_size,
                      const float* q_lat, const void* q_rope,
                      const void* c_pool, const void* kr_pool,
                      const int* tables, const int* seq_lens, float* out,
-                     int B, int H, int mb, float scale, void* stream) {
-  Args a{q_lat, q_rope, c_pool, kr_pool, tables, seq_lens, out,
-         B, H, H, mb, block_size, scale};
-  return run(dtype, lora, rope, a, stream);
+                     int B, int H, int mb, float scale, int parts,
+                     void* workspace, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (!mla_tile::takes(block_size, lora, rope))
+      return (int)cudaErrorInvalidValue;
+    const mla_tile::LatentSpan layout{tables, seq_lens, H, H, mb, block_size};
+    return (int)mla_tile::launch_decode(q_lat, q_rope, c_pool, kr_pool,
+                                        layout, out, workspace, B, parts,
+                                        scale, s);
+  }
+  if (dtype != 0 || parts != 1) return (int)cudaErrorInvalidValue;
+  return launch_simt(lora, rope, block_size, q_lat, q_rope, c_pool, kr_pool,
+                     tables, seq_lens, out, B, H, H, mb, scale, s);
 }
 
 // K4.  q_lat (B, S*H, lora) packed rows i*H + h; q_rope (B, S*H, rope);
@@ -848,37 +915,29 @@ int paged_prefill_mla(int dtype, int lora, int rope, int block_size,
                       const int* tables, const int* starts, float* out,
                       int B, int SH, int H, int mb, float scale, int parts,
                       void* workspace, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (block_size != 8 && block_size != 16 && block_size != 32)
-      return (int)cudaErrorInvalidValue;
-    if (lora != mla_tile::kL || rope != mla_tile::kR)
+    if (!mla_tile::takes(block_size, lora, rope))
       return (int)cudaErrorInvalidValue;
     const mla_tile::LatentSpan layout{tables, starts, SH, H, mb, block_size};
     return (int)mla_tile::launch(q_lat, q_rope, c_pool, kr_pool, layout, out,
-                                 workspace, B, parts, scale,
-                                 static_cast<cudaStream_t>(stream));
+                                 workspace, B, parts, scale, s);
   }
-  if (parts != 1) return (int)cudaErrorInvalidValue;
-  Args a{q_lat, q_rope, c_pool, kr_pool, tables, starts, out,
-         B, SH, H, mb, block_size, scale};
-  return run(dtype, lora, rope, a, stream);
+  if (dtype != 0 || parts != 1) return (int)cudaErrorInvalidValue;
+  return launch_simt(lora, rope, block_size, q_lat, q_rope, c_pool, kr_pool,
+                     tables, starts, out, B, SH, H, mb, scale, s);
 }
 
-// Resources of K3's kernel, and K4's fp32 one, for `dtype` (launches
-// nothing): out[5] = registers a thread, spill bytes a thread, shared memory
-// bytes a CTA, CTAs resident on one SM, packed query rows a CTA.
+// Resources of K3's and K4's body for `dtype` (launches nothing): 0 the
+// fp32 SIMT body, 1 the bf16 tensor-core tile.  out[5] = registers a
+// thread, spill bytes a thread, shared memory bytes a CTA, CTAs resident on
+// one SM, packed query rows a CTA.
 int paged_mla_resources(int dtype, int lora, int rope, int* out) {
-  if (lora != 512 || rope != 64) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)query<float, 512, 64>(out);
-  if (dtype == 1) return (int)query<__nv_bfloat16, 512, 64>(out);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Resources of K4's bf16 (tensor-core) span body, as above.
-int paged_prefill_mla_resources(int lora, int rope, int* out) {
   if (lora != mla_tile::kL || rope != mla_tile::kR)
     return (int)cudaErrorInvalidValue;
-  return (int)mla_tile::resources(out);
+  if (dtype == 0) return (int)query_simt(out);
+  if (dtype == 1) return (int)mla_tile::resources(out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -14,7 +14,7 @@ types; ``cuda_entry(name)`` is the loaded function and ``LIBRARIES`` the
 sources ``build_all`` compiles.  ``key_split`` sizes the key-range split of
 the tensor-core attention tiles (``csrc/mma_tile.cuh``, bf16 K2 and K8, and
 K4's in ``csrc/paged_mla.cu``; ``csrc/tf32_tile.cuh``, fp32 K8) and
-allocates its workspace.
+allocates its workspace (K1 and K3 size their own decode splits).
 """
 from __future__ import annotations
 
@@ -61,24 +61,28 @@ ENTRIES = {
     # K2's bf16 tile: d, bs -> registers, spill bytes, shared memory, CTAs
     # an SM, rows a CTA
     "paged_prefill_gqa_resources": ("paged_attention", [_I] * 2 + [_P]),
+    # K3: dtype, lora, rope, bs, q_lat, q_rope, c_pool, kr_pool, tables,
+    # seq_lens, out, B, H, mb, scale, parts, workspace, stream
     "paged_decode_mla": ("paged_mla",
-                         [_I] * 4 + [_P] * 7 + [_I] * 3 + [_F, _P]),
+                         [_I] * 4 + [_P] * 7 + [_I] * 3 + [_F, _I, _P, _P]),
     # K4: dtype, lora, rope, bs, q_lat, q_rope, c_pool, kr_pool, tables,
     # starts, out, B, SH, H, mb, scale, parts, workspace, stream
     "paged_prefill_mla": ("paged_mla",
                           [_I] * 4 + [_P] * 7 + [_I] * 4 + [_F, _I, _P, _P]),
-    # K3's and fp32 K4's kernel: dtype, lora, rope -> registers, spill
-    # bytes, shared memory, CTAs an SM, rows a CTA
+    # K3's and K4's body (dtype 0: the fp32 SIMT body, 1: the bf16 tile),
+    # lora, rope -> registers, spill bytes, shared memory, CTAs an SM, rows
+    # a CTA
     "paged_mla_resources": ("paged_mla", [_I] * 3 + [_P]),
-    # K4's bf16 tile: lora, rope -> as above
-    "paged_prefill_mla_resources": ("paged_mla", [_I] * 2 + [_P]),
     "paged_indexer_scores": ("paged_indexer",
                              [_I] * 3 + [_P] * 6 + [_I] * 3 + [_F, _P]),
     "paged_prefill_indexer": ("paged_indexer",
                               [_I] * 3 + [_P] * 6 + [_I] * 4 + [_F, _P]),
-    # K5's and fp32 K6's SIMT tile: dtype, Di, Hi -> registers, spill
-    # bytes, shared memory, CTAs an SM, tokens a CTA
+    # the SIMT tile (fp32 K5 and K6, other head counts): dtype, Di, Hi ->
+    # registers, spill bytes, shared memory, CTAs an SM, tokens a CTA
     "paged_indexer_resources": ("paged_indexer", [_I] * 3 + [_P]),
+    # K5's bf16 tensor-core decode body: Hi, Di -> as above (positions a
+    # CTA in place of tokens)
+    "paged_indexer_scores_resources": ("paged_indexer", [_I] * 2 + [_P]),
     # K6's bf16 tensor-core body: Hi, Di -> as above
     "paged_prefill_indexer_resources": ("paged_indexer", [_I] * 2 + [_P]),
     # K7: dtype, Di, q, w, k, out, B, S, T, Hi, scale, stream

@@ -7,11 +7,13 @@ paged_decode_gqa`` (GQA); K3 ``paged_decode_mla`` ports ``paged_decode_mla``
 ports ``paged_indexer_scores_kernel`` (DSA lightning-indexer scores over the
 ``k_idx`` pool).  The CUDA kernels are in ``csrc/paged_attention.cu`` (K1,
 K2), ``csrc/paged_mla.cu`` (K3, K4) and ``csrc/paged_indexer.cu`` (K5, K6),
-built by ``repro_torch.kernels.build``; ``*_plain`` is the same function in
-plain PyTorch — the counterpart of the reference's XLA twins
-``ops._blocked_gqa`` / ``_blocked_mla`` / ``_blocked_indexer``: a loop over
-live blocks with the same masks and arithmetic (the attention kernels'
-fp32 online softmax).
+built by ``repro_torch.kernels.build``: K1's bf16 body, K3's bf16 tile and
+K5's bf16 decode body at 16 or 32 indexer heads run on the tensor cores
+(``mma.sync``), the fp32 routes (the exact parity runs) on the CUDA cores.
+``*_plain`` is the same function in plain PyTorch — the counterpart of
+the reference's XLA twins ``ops._blocked_gqa`` / ``_blocked_mla`` /
+``_blocked_indexer``: a loop over live blocks with the same masks and
+arithmetic (the attention kernels' fp32 online softmax).
 
 Addressing contract (as the reference): position ``p`` of row ``b`` lives
 at ``(tables[b, p // bs], p % bs)``; ``seq_lens[b]`` is the query's
@@ -222,41 +224,59 @@ def check_cuda_mla_args(q_lat, q_rope, c_pool, kr_pool, block_tables,
                         positions) -> None:
     """Raise on anything the CUDA MLA kernels (K3, K4) do not take.  q_lat
     (B, R, lora) fp32; q_rope (B, R, rope) in the pools' dtype; pools
-    (nb, bs, ·)."""
-    tensors = (q_lat, q_rope, c_pool, kr_pool, block_tables, positions)
-    if q_lat.device.type != "cuda":
-        raise ValueError(f"paged MLA kernel runs on CUDA tensors, got "
-                         f"{q_lat.device}")
-    if any(t.device != q_lat.device for t in tensors):
+    (nb, bs, ·).  Called on every launch, so each tensor attribute is read
+    once and what depends on dtypes and shapes alone is checked once a
+    combination (``_mla_shapes``); the device, contiguity and alignment
+    are checked every call."""
+    dev = q_lat.device
+    if dev.type != "cuda":
+        raise ValueError(f"paged MLA kernel runs on CUDA tensors, got {dev}")
+    if q_rope.device != dev or c_pool.device != dev \
+            or kr_pool.device != dev or block_tables.device != dev \
+            or positions.device != dev:
         raise ValueError("paged MLA: all tensors must be on one device")
-    if q_lat.dtype != torch.float32:
-        raise TypeError(f"paged MLA: q_lat must be float32 (the absorbed "
-                        f"query is built in fp32), got {q_lat.dtype}")
-    if c_pool.dtype not in _DTYPE_CODE:
-        raise TypeError(f"paged MLA kernel takes float32 or bfloat16 pools, "
-                        f"got {c_pool.dtype}")
-    if q_rope.dtype != c_pool.dtype or kr_pool.dtype != c_pool.dtype:
-        raise TypeError("paged MLA: q_rope and the pools must share a dtype")
-    if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
-        raise TypeError("paged MLA: tables and positions must be int32")
-    if not all(t.is_contiguous() for t in tensors):
+    _mla_shapes(q_lat.dtype, q_rope.dtype, c_pool.dtype, kr_pool.dtype,
+                block_tables.dtype, positions.dtype, q_lat.shape,
+                q_rope.shape, c_pool.shape, kr_pool.shape,
+                block_tables.shape, positions.shape)
+    if not (q_lat.is_contiguous() and q_rope.is_contiguous()
+            and c_pool.is_contiguous() and kr_pool.is_contiguous()
+            and block_tables.is_contiguous() and positions.is_contiguous()):
         raise ValueError("paged MLA kernel needs contiguous tensors")
-    if any(t.data_ptr() % 16 for t in tensors[:4]):
+    if (q_lat.data_ptr() | q_rope.data_ptr() | c_pool.data_ptr()
+            | kr_pool.data_ptr()) % 16:
         raise ValueError("paged MLA kernel needs 16-byte aligned tensors")
-    L, R = q_lat.shape[-1], q_rope.shape[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_shapes(ql_dtype, qr_dtype, c_dtype, kr_dtype, t_dtype, p_dtype,
+                ql_shape, qr_shape, c_shape, kr_shape, t_shape,
+                p_shape) -> None:
+    """The dtype and shape half of ``check_cuda_mla_args``; a combination
+    that passes is remembered, one that raises is not."""
+    if ql_dtype != torch.float32:
+        raise TypeError(f"paged MLA: q_lat must be float32 (the absorbed "
+                        f"query is built in fp32), got {ql_dtype}")
+    if c_dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged MLA kernel takes float32 or bfloat16 pools, "
+                        f"got {c_dtype}")
+    if qr_dtype != c_dtype or kr_dtype != c_dtype:
+        raise TypeError("paged MLA: q_rope and the pools must share a dtype")
+    if t_dtype != torch.int32 or p_dtype != torch.int32:
+        raise TypeError("paged MLA: tables and positions must be int32")
+    L, R = ql_shape[-1], qr_shape[-1]
     if (L, R) not in MLA_DIMS:
         raise ValueError(f"paged MLA kernel: (kv_lora, rope) {(L, R)} not "
                          f"in {MLA_DIMS}")
-    if c_pool.shape[1] not in BLOCK_SIZES:
-        raise ValueError(f"paged MLA kernel: block size {c_pool.shape[1]} "
-                         f"not in {BLOCK_SIZES}")
-    if c_pool.shape[:2] != kr_pool.shape[:2] or c_pool.shape[-1] != L \
-            or kr_pool.shape[-1] != R or q_rope.shape[:2] != q_lat.shape[:2]:
-        raise ValueError(f"paged MLA: pools {tuple(c_pool.shape)}, "
-                         f"{tuple(kr_pool.shape)} do not match q "
-                         f"{tuple(q_lat.shape)}, {tuple(q_rope.shape)}")
-    if block_tables.shape[0] != q_lat.shape[0] \
-            or positions.shape != (q_lat.shape[0],):
+    if c_shape[1] not in BLOCK_SIZES:
+        raise ValueError(f"paged MLA kernel: block size {c_shape[1]} not in "
+                         f"{BLOCK_SIZES}")
+    if c_shape[:2] != kr_shape[:2] or c_shape[-1] != L \
+            or kr_shape[-1] != R or qr_shape[:2] != ql_shape[:2]:
+        raise ValueError(f"paged MLA: pools {tuple(c_shape)}, "
+                         f"{tuple(kr_shape)} do not match q "
+                         f"{tuple(ql_shape)}, {tuple(qr_shape)}")
+    if t_shape[0] != ql_shape[0] or p_shape != (ql_shape[0],):
         raise ValueError("paged MLA: tables/positions batch mismatch")
 
 
@@ -310,6 +330,68 @@ def paged_decode_mla_plain(q_lat: torch.Tensor, q_rope: torch.Tensor,
                            q_pos, n_live, scale)
 
 
+MAX_MLA_DECODE_PARTS = 16   # key-range parts K3's combine pass folds
+MLA_ROWS = 64               # heads a CTA of K3's bf16 tile
+
+
+def mla_decode_workspace(B: int, H: int, L: int, parts: int) -> int:
+    """fp32 floats of K3's combine workspace: each part's (m, l, acc) of
+    every row of every (batch row, 64-head tile)."""
+    return B * -(-H // MLA_ROWS) * parts * MLA_ROWS * (L + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def mla_decode_parts(B: int, H: int, L: int, R: int, mb: int,
+                     index: int) -> tuple:
+    """The key-range split of K3's bf16 launch, from the shapes alone
+    (never ``seq_lens``, which would cost a device-to-host copy): (parts,
+    workspace floats).  As many parts a (batch row, 64-head tile) as one
+    wave of every CTA slot of the card holds (the CTAs an SM of the tile's
+    occupancy query, times the SMs), at most ``MAX_MLA_DECODE_PARTS`` and
+    at most ``mb`` (a block a part)."""
+    *_, per_sm, rows = _resources("paged_mla_resources", 1, L, R)
+    if rows != MLA_ROWS:
+        raise RuntimeError(f"K3's library takes {rows} rows a CTA, the "
+                           f"wrapper {MLA_ROWS}: a stale build")
+    tiles = B * -(-H // MLA_ROWS)
+    slots = per_sm * torch.cuda.get_device_properties(index) \
+        .multi_processor_count
+    parts = max(1, min(MAX_MLA_DECODE_PARTS, mb, slots // tiles))
+    return parts, mla_decode_workspace(B, H, L, parts)
+
+
+def _launch_mla(q_lat, q_rope, c_pool, kr_pool, block_tables, seq_lens,
+                scale, parts, ws_floats, index) -> torch.Tensor:
+    B, H, L = q_lat.shape
+    out = torch.empty_like(q_lat)
+    ws = None if parts == 1 else q_lat.new_empty(ws_floats)
+    err = cuda_entry("paged_decode_mla")(
+        _DTYPE_CODE[c_pool.dtype], L, q_rope.shape[-1], c_pool.shape[1],
+        q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
+        kr_pool.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
+        out.data_ptr(), B, H, block_tables.shape[1], scale, parts,
+        None if ws is None else ws.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(index))
+    _check_launch("paged_decode_mla", err)
+    return out
+
+
+def launch_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                      c_pool: torch.Tensor, kr_pool: torch.Tensor,
+                      block_tables: torch.Tensor, seq_lens: torch.Tensor,
+                      scale: float, parts: int) -> torch.Tensor:
+    """K3's C entry point on checked CUDA tensors with each row's key
+    rounds split into ``parts`` CTAs (bf16: 1..16; fp32: 1; the workspace
+    of the combine pass from PyTorch's caching allocator) -> out.  Counts
+    nothing: the wrapper does, and the tests call this to force
+    ``parts``."""
+    B, H, L = q_lat.shape
+    return _launch_mla(q_lat, q_rope, c_pool, kr_pool, block_tables,
+                       seq_lens, scale, parts,
+                       mla_decode_workspace(B, H, L, parts),
+                       q_lat.get_device())
+
+
 def paged_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
                      c_pool: torch.Tensor, kr_pool: torch.Tensor,
                      block_tables: torch.Tensor, seq_lens: torch.Tensor, *,
@@ -320,22 +402,23 @@ def paged_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
     caller applies W^UV and W^O).  ``scale`` is (qk_nope + qk_rope)^-1/2.
 
     CPU tensors run ``paged_decode_mla_plain``; CUDA tensors launch the
-    Hopper kernel on the current stream (one CTA per 16-head tile and
-    row)."""
+    Hopper kernel on the current stream: bf16 pools the tensor-core tile,
+    a CTA per (64-head tile, batch row, part of the row's key rounds),
+    ``mla_decode_parts`` parts, and a combine pass where there is more
+    than one (one launch on the count); fp32 pools the SIMT body."""
     if q_lat.device.type == "cpu":
         return paged_decode_mla_plain(q_lat, q_rope, c_pool, kr_pool,
                                       block_tables, seq_lens, scale=scale)
     check_cuda_mla_args(q_lat, q_rope, c_pool, kr_pool, block_tables,
                         seq_lens)
-    B, H, L = q_lat.shape
-    out = torch.empty_like(q_lat)
-    err = cuda_entry("paged_decode_mla")(
-        _DTYPE_CODE[c_pool.dtype], L, q_rope.shape[-1], c_pool.shape[1],
-        q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
-        kr_pool.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
-        out.data_ptr(), B, H, block_tables.shape[1], scale,
-        torch.cuda.current_stream(q_lat.device).cuda_stream)
-    _check_launch("paged_decode_mla", err)
+    index = q_lat.get_device()
+    parts, ws_floats = 1, 0
+    if c_pool.dtype == torch.bfloat16:
+        B, H, L = q_lat.shape
+        parts, ws_floats = mla_decode_parts(B, H, L, q_rope.shape[-1],
+                                            block_tables.shape[1], index)
+    out = _launch_mla(q_lat, q_rope, c_pool, kr_pool, block_tables,
+                      seq_lens, scale, parts, ws_floats, index)
     paged_decode_mla.launches += 1
     return out
 
@@ -351,44 +434,60 @@ def check_cuda_indexer_args(q_idx, w_head, k_pool, block_tables,
                             positions, heads: int) -> None:
     """Raise on anything the CUDA indexer kernels (K5, K6) do not take.
     q_idx (B, R, Di) in the pool's dtype, R a multiple of ``heads``;
-    w_head (B, R) fp32; k_pool (nb, bs, Di)."""
-    tensors = (q_idx, w_head, k_pool, block_tables, positions)
-    if q_idx.device.type != "cuda":
+    w_head (B, R) fp32; k_pool (nb, bs, Di).  Called on every launch, so
+    each tensor attribute is read once and what depends on dtypes and
+    shapes alone is checked once a combination (``_indexer_shapes``); the
+    device, contiguity and alignment are checked every call."""
+    dev = q_idx.device
+    if dev.type != "cuda":
         raise ValueError(f"paged indexer kernel runs on CUDA tensors, got "
-                         f"{q_idx.device}")
-    if any(t.device != q_idx.device for t in tensors):
+                         f"{dev}")
+    if w_head.device != dev or k_pool.device != dev \
+            or block_tables.device != dev or positions.device != dev:
         raise ValueError("paged indexer: all tensors must be on one device")
-    if q_idx.dtype not in _DTYPE_CODE:
-        raise TypeError(f"paged indexer kernel takes float32 or bfloat16, "
-                        f"got {q_idx.dtype}")
-    if k_pool.dtype != q_idx.dtype:
-        raise TypeError("paged indexer: q_idx and the pool must share a "
-                        "dtype")
-    if w_head.dtype != torch.float32:
-        raise TypeError(f"paged indexer: head weights must be float32, got "
-                        f"{w_head.dtype}")
-    if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
-        raise TypeError("paged indexer: tables and positions must be int32")
-    if not all(t.is_contiguous() for t in tensors):
+    _indexer_shapes(q_idx.dtype, w_head.dtype, k_pool.dtype,
+                    block_tables.dtype, positions.dtype, q_idx.shape,
+                    w_head.shape, k_pool.shape, block_tables.shape,
+                    positions.shape, heads)
+    if not (q_idx.is_contiguous() and w_head.is_contiguous()
+            and k_pool.is_contiguous() and block_tables.is_contiguous()
+            and positions.is_contiguous()):
         raise ValueError("paged indexer kernel needs contiguous tensors")
-    if q_idx.data_ptr() % 16 or k_pool.data_ptr() % 16:
+    if (q_idx.data_ptr() | k_pool.data_ptr()) % 16:
         raise ValueError("paged indexer kernel needs 16-byte aligned q_idx "
                          "and pool")
-    Di = q_idx.shape[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _indexer_shapes(q_dtype, w_dtype, k_dtype, t_dtype, p_dtype, q_shape,
+                    w_shape, k_shape, t_shape, p_shape, heads) -> None:
+    """The dtype and shape half of ``check_cuda_indexer_args``; a
+    combination that passes is remembered, one that raises is not."""
+    if q_dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged indexer kernel takes float32 or bfloat16, "
+                        f"got {q_dtype}")
+    if k_dtype != q_dtype:
+        raise TypeError("paged indexer: q_idx and the pool must share a "
+                        "dtype")
+    if w_dtype != torch.float32:
+        raise TypeError(f"paged indexer: head weights must be float32, got "
+                        f"{w_dtype}")
+    if t_dtype != torch.int32 or p_dtype != torch.int32:
+        raise TypeError("paged indexer: tables and positions must be int32")
+    Di = q_shape[-1]
     if Di not in INDEX_DIMS:
         raise ValueError(f"paged indexer kernel: index_head_dim {Di} not in "
                          f"{INDEX_DIMS}")
-    if q_idx.shape[1] % heads or heads * Di > INDEX_WIDTH:
-        raise ValueError(f"paged indexer kernel: {q_idx.shape[1]} rows of "
+    if q_shape[1] % heads or heads * Di > INDEX_WIDTH:
+        raise ValueError(f"paged indexer kernel: {q_shape[1]} rows of "
                          f"{heads} heads x {Di} (at most {INDEX_WIDTH})")
-    if k_pool.ndim != 3 or k_pool.shape[-1] != Di:
-        raise ValueError(f"paged indexer: pool {tuple(k_pool.shape)} does "
-                         f"not match q_idx {tuple(q_idx.shape)}")
-    if w_head.shape != q_idx.shape[:2]:
-        raise ValueError(f"paged indexer: weights {tuple(w_head.shape)} do "
-                         f"not match q_idx {tuple(q_idx.shape)}")
-    if block_tables.shape[0] != q_idx.shape[0] \
-            or positions.shape != (q_idx.shape[0],):
+    if len(k_shape) != 3 or k_shape[-1] != Di:
+        raise ValueError(f"paged indexer: pool {tuple(k_shape)} does not "
+                         f"match q_idx {tuple(q_shape)}")
+    if w_shape != q_shape[:2]:
+        raise ValueError(f"paged indexer: weights {tuple(w_shape)} do not "
+                         f"match q_idx {tuple(q_shape)}")
+    if t_shape[0] != q_shape[0] or p_shape != (q_shape[0],):
         raise ValueError("paged indexer: tables/positions batch mismatch")
 
 
@@ -439,20 +538,22 @@ def paged_indexer_scores_kernel(q_idx: torch.Tensor, w_head: torch.Tensor,
     ``seq_lens[b]``'s are NEG_INF.
 
     CPU tensors run ``paged_indexer_scores_plain``; CUDA tensors launch the
-    Hopper kernel on the current stream (one CTA per 128 view positions and
-    row)."""
+    Hopper kernel on the current stream: bf16 at Hi 16 or 32 the
+    tensor-core decode body (a CTA per 128 view positions and row, a warp
+    32 of them), fp32 and other head counts the SIMT tile (a CTA per 128
+    view positions and row)."""
     if q_idx.device.type == "cpu":
         return paged_indexer_scores_plain(q_idx, w_head, k_pool,
                                           block_tables, seq_lens)
     B, Hi, Di = q_idx.shape
     check_cuda_indexer_args(q_idx, w_head, k_pool, block_tables, seq_lens, Hi)
     bs, mb = k_pool.shape[1], block_tables.shape[1]
-    out = torch.empty((B, mb * bs), dtype=torch.float32, device=q_idx.device)
+    out = w_head.new_empty((B, mb * bs))
     err = cuda_entry("paged_indexer_scores")(
         _DTYPE_CODE[q_idx.dtype], Di, bs, q_idx.data_ptr(), w_head.data_ptr(),
         k_pool.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
         out.data_ptr(), B, Hi, mb, Di ** -0.5,
-        torch.cuda.current_stream(q_idx.device).cuda_stream)
+        torch._C._cuda_getCurrentRawStream(q_idx.get_device()))
     _check_launch("paged_indexer_scores", err)
     paged_indexer_scores_kernel.launches += 1
     return out

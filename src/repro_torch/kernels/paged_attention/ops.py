@@ -32,6 +32,18 @@ def check_impl(impl: str) -> str:
     return impl
 
 
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself where it is contiguous: a decode step's wrappers are
+    host-bound, and ``.contiguous()`` costs a dispatch even when it copies
+    nothing."""
+    return x if x.is_contiguous() else x.contiguous()
+
+
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a contiguous int32 tensor, itself where it is one already."""
+    return _dense(x if x.dtype == torch.int32 else x.to(torch.int32))
+
+
 def paged_gqa_attend(q: torch.Tensor, k_pool: torch.Tensor,
                      v_pool: torch.Tensor, block_tables: torch.Tensor,
                      seq_lens: torch.Tensor, *, window: int = 0,
@@ -91,11 +103,9 @@ def paged_mla_attend(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if check_impl(impl) == "ref":
         return _ref.paged_mla_reference(q_lat, q_rope, c_pool, kr_pool,
                                         block_tables, seq_lens, scale=scale)
-    out = _k.paged_decode_mla(q_lat[:, 0].contiguous(),
-                              q_rope[:, 0].contiguous(), c_pool, kr_pool,
-                              block_tables,
-                              seq_lens.to(torch.int32).contiguous(),
-                              scale=scale)
+    out = _k.paged_decode_mla(_dense(q_lat[:, 0]), _dense(q_rope[:, 0]),
+                              c_pool, kr_pool, block_tables,
+                              _int32(seq_lens), scale=scale)
     return out[:, None]
 
 
@@ -133,9 +143,11 @@ def paged_indexer_scores(q_idx: torch.Tensor, w_head: torch.Tensor,
     if check_impl(impl) == "ref":
         return _ref.paged_indexer_reference(q_idx, w_head, k_pool,
                                             block_tables, seq_lens)
+    if w_head.dtype != torch.float32:
+        w_head = w_head.float()
     return _k.paged_indexer_scores_kernel(
-        q_idx.contiguous(), w_head.float().contiguous(), k_pool,
-        block_tables, seq_lens.to(torch.int32).contiguous())
+        _dense(q_idx), _dense(w_head), k_pool, block_tables,
+        _int32(seq_lens))
 
 
 def paged_indexer_prefill(q_idx: torch.Tensor, w_head: torch.Tensor,

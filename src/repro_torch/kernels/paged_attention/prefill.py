@@ -181,8 +181,8 @@ def paged_prefill_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
     out = torch.empty_like(q_lat)
     parts, ws = 1, None
     if c_pool.dtype == torch.bfloat16:
-        parts, ws = key_split("paged_prefill_mla_resources", (L, R), SH, B,
-                              L, q_lat.device)
+        parts, ws = key_split("paged_mla_resources", (1, L, R), SH, B, L,
+                              q_lat.device)
     err = cuda_entry("paged_prefill_mla")(
         _DTYPE_CODE[c_pool.dtype], L, R, c_pool.shape[1],
         q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),

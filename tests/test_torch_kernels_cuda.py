@@ -1,7 +1,8 @@
 """PyTorch port, the training path's CUDA kernels (K7, K9, K10), the
-block selector's (K8), the GQA split-KV decode (K1), the GQA and MLA span
-prefills (K2, K4), the DSA indexer span (K6) and the Mamba-1 selective
-scan (K11) against their plain versions on the card.
+block selector's (K8), the GQA and MLA split-KV decodes (K1, K3), the GQA
+and MLA span prefills (K2, K4), the DSA indexer decode and span (K5, K6)
+and the Mamba-1 selective scan (K11) against their plain versions on the
+card.
 
 K2, K4 and K8 run a bf16 body on the tensor cores (``csrc/mma_tile.cuh``;
 K4's MLA form in ``csrc/paged_mla.cu``); K2's and K4's fp32 bodies run on
@@ -15,7 +16,12 @@ head counts the SIMT tile; K1 cuts each row's live range into runs of
 blocks, a CTA each, folded by a combine pass (forced here to every count
 1..16 through its C entry point); K11 gives a thread each channel and cuts
 time into chunks (forced here to every count the rule can pick through
-``launch_scan_model``; S 1 runs its one-step kernel).  Each is
+``launch_scan_model``; S 1 runs its one-step kernel); K3's bf16 route runs
+K4's tensor-core tile over a one-token span with each row's key rounds
+split over parts (forced here to every count 1..16 through
+``launch_decode_mla``), its fp32 route the SIMT body; K5's bf16 route at
+Hi 16 / 32 runs the decode form of the indexer tensor-core body, fp32 and
+other head counts the SIMT tile.  Each is
 held over every case its dispatch takes (head dims, block sizes, groups,
 window, softcap, q_offset, ragged rows, skipped ids, both empty-row rules,
 and grids that the wrapper splits into 1, 2 or 4 key-range parts), at the
@@ -193,22 +199,28 @@ def test_chunked_ce_tf32_tile_matches_plain(Tk, D, V, softcap):
     assert float(got[1]) == float(want[1])
 
 
-def _k1_inputs(rng, dtype, KVH, G, d, bs, mb, lens):
-    """Pools with the trash block last, row 0 an idle slot (length 0, all
-    trash), the other rows' blocks disjoint and shuffled."""
-    B = len(lens)
-    live = [0] + [n // bs + 1 for n in lens[1:]]
+def _decode_tables(rng, lens, bs, mb):
+    """Disjoint shuffled tables, the trash block last (nb - 1), row b's
+    live blocks those of lens[b] (an idle slot, length 0, owns none)."""
+    live = [0 if n == 0 else n // bs + 1 for n in lens]
     nb = sum(live) + 1
-    t = np.full((B, mb), nb - 1, np.int32)
+    t = np.full((len(lens), mb), nb - 1, np.int32)
     ids, at = rng.permutation(nb - 1), 0
     for b, n in enumerate(live):
         t[b, :n] = ids[at:at + n]
         at += n
+    return torch.from_numpy(t).cuda(), \
+        torch.tensor(lens, dtype=torch.int32).cuda(), nb
+
+
+def _k1_inputs(rng, dtype, KVH, G, d, bs, mb, lens):
+    """Pools with the trash block last, row 0 an idle slot (length 0, all
+    trash), the other rows' blocks disjoint and shuffled."""
+    tables, sl, nb = _decode_tables(rng, lens, bs, mb)
     kp = _cuda(rng, nb, bs, KVH, d, dtype=dtype)
     vp = _cuda(rng, nb, bs, KVH, d, dtype=dtype)
-    q = _cuda(rng, B, KVH, G, d, dtype=dtype)
-    return q, kp, vp, torch.from_numpy(t).cuda(), \
-        torch.tensor(lens, dtype=torch.int32).cuda()
+    q = _cuda(rng, len(lens), KVH, G, d, dtype=dtype)
+    return q, kp, vp, tables, sl
 
 
 @pytest.mark.cuda
@@ -610,3 +622,201 @@ def test_mamba_scan_model_refuses_parts_it_cannot_take():
     for parts in (0, 6, K11.MAX_PARTS + 1):   # past S = 5, past the limit
         with pytest.raises(RuntimeError):
             K11.launch_scan_model(*ins, parts)
+
+
+# ---------------------------------------------------------------------------
+# K3 (absorbed-MLA decode) and K5 (indexer decode scores)
+# ---------------------------------------------------------------------------
+
+def _k3_inputs(rng, dtype, H, bs, lens, mb):
+    tables, sl, nb = _decode_tables(rng, lens, bs, mb)
+    c = _cuda(rng, nb, bs, 512, dtype=dtype)
+    kr = _cuda(rng, nb, bs, 64, dtype=dtype)
+    q_lat = _cuda(rng, len(lens), H, 512)
+    q_rope = _cuda(rng, len(lens), H, 64, dtype=dtype)
+    return q_lat, q_rope, c, kr, tables, sl
+
+
+def _k3_lens(bs, B):
+    """An idle slot, 1, 15, 16, 17 tokens (one round of 32 keys: the other
+    parts hold none), then long rows up to the table's last position."""
+    mb = 1100 // bs + 1
+    lens = [0, 1, 15, 16, 17, 333, 1000, mb * bs - 1]
+    return (lens * (B // len(lens) + 1))[:B], mb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [16, 64])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("B", [8, 16, 32])
+def test_paged_decode_mla_tile_every_parts(H, bs, B):
+    """K3's bf16 route, the tensor-core tile, through its C entry point
+    with each row's key rounds in every count of parts 1..16 (a short row
+    leaves parts without a key), and through the wrapper (its own count,
+    one launch counted); the bf16 2e-2 scaled by min(1, max|plain|)."""
+    _need_gpu()
+    rng = np.random.default_rng(H + bs + B)
+    lens, mb = _k3_lens(bs, B)
+    ins = _k3_inputs(rng, torch.bfloat16, H, bs, lens, mb)
+    scale = 192 ** -0.5
+    want = K1.paged_decode_mla_plain(*ins, scale=scale)
+    for parts in range(1, K1.MAX_MLA_DECODE_PARTS + 1):
+        got = K1.launch_decode_mla(*ins, scale, parts)
+        torch.cuda.synchronize()
+        _hold(got, want, 2e-2)
+    before = K1.paged_decode_mla.launches
+    _hold(K1.paged_decode_mla(*ins, scale=scale), want, 2e-2)
+    assert K1.paged_decode_mla.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [16, 64])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_paged_decode_mla_simt_route(H, bs):
+    """K3's fp32 route, the SIMT body (parts 1), at fp32 1e-4."""
+    _need_gpu()
+    rng = np.random.default_rng(H * bs)
+    lens, mb = _k3_lens(bs, 8)
+    ins = _k3_inputs(rng, torch.float32, H, bs, lens, mb)
+    scale = 192 ** -0.5
+    _hold(K1.paged_decode_mla(*ins, scale=scale),
+          K1.paged_decode_mla_plain(*ins, scale=scale), 1e-4)
+
+
+@pytest.mark.cuda
+def test_paged_decode_mla_parts_rule_at_the_serve_shape():
+    """GLM-5's decode step (B 8, H 64, 82 blocks of 16): one 64-head tile a
+    row, so the wrapper fills the card's CTA slots with up to 16 parts a
+    row, K3's own cap; K2's, K4's and K8's key split keeps its cap of 4."""
+    _need_gpu()
+    from repro_torch.kernels import build
+    index = torch.cuda.current_device()
+    *_, per_sm, rows = build.resources("paged_mla_resources", 1, 512, 64)
+    assert rows == K1.MLA_ROWS
+    slots = per_sm * torch.cuda.get_device_properties(index) \
+        .multi_processor_count
+    parts, ws = K1.mla_decode_parts(8, 64, 512, 64, 82, index)
+    assert parts == min(K1.MAX_MLA_DECODE_PARTS, slots // 8)
+    assert ws == 8 * parts * 64 * 514
+    assert build.MAX_PARTS == 4
+    # a single row: the cap; a table of 2 blocks: at most 2 parts
+    assert K1.mla_decode_parts(1, 64, 512, 64, 82, index)[0] \
+        == K1.MAX_MLA_DECODE_PARTS
+    assert K1.mla_decode_parts(1, 64, 512, 64, 2, index)[0] == 2
+
+
+@pytest.mark.cuda
+def test_paged_decode_mla_refuses_what_it_cannot_take():
+    """Wrong dtypes raise TypeError, a misaligned tensor ValueError, parts
+    out of range (bf16: 0 and 17; fp32: 2) RuntimeError from the C entry."""
+    _need_gpu()
+    rng = np.random.default_rng(11)
+    lens, mb = _k3_lens(16, 8)
+    ins = _k3_inputs(rng, torch.bfloat16, 64, 16, lens, mb)
+    q_lat, q_rope, c, kr, tables, sl = ins
+    scale = 192 ** -0.5
+    with pytest.raises(TypeError):               # q_lat must be fp32
+        K1.paged_decode_mla(q_lat.bfloat16(), q_rope, c, kr, tables, sl,
+                            scale=scale)
+    with pytest.raises(TypeError):               # q_rope and pools differ
+        K1.paged_decode_mla(q_lat, q_rope.float(), c, kr, tables, sl,
+                            scale=scale)
+    with pytest.raises(TypeError):               # int64 lengths
+        K1.paged_decode_mla(q_lat, q_rope, c, kr, tables, sl.long(),
+                            scale=scale)
+    odd = torch.empty(q_lat.numel() + 1, device="cuda")[1:] \
+        .view(q_lat.shape).copy_(q_lat)
+    with pytest.raises(ValueError):              # 4 bytes past 16-aligned
+        K1.paged_decode_mla(odd, q_rope, c, kr, tables, sl, scale=scale)
+    for parts in (0, K1.MAX_MLA_DECODE_PARTS + 1):
+        with pytest.raises(RuntimeError):
+            K1.launch_decode_mla(*ins, scale, parts)
+    ins32 = _k3_inputs(rng, torch.float32, 64, 16, lens, mb)
+    with pytest.raises(RuntimeError):
+        K1.launch_decode_mla(*ins32, scale, 2)
+
+
+def _k5_inputs(rng, dtype, Hi, Di, bs, lens, mb):
+    tables, sl, nb = _decode_tables(rng, lens, bs, mb)
+    kp = _cuda(rng, nb, bs, Di, dtype=dtype)
+    q = _cuda(rng, len(lens), Hi, Di, dtype=dtype)
+    w = torch.softmax(_cuda(rng, len(lens), Hi), -1)
+    return q, w, kp, tables, sl
+
+
+def _hold_scores(got, want, tol):
+    dead = want <= -1e29
+    assert torch.equal(got <= -1e29, dead)
+    assert (got[dead] == -1e30).all()
+    _hold(got.masked_fill(dead, 0.0), want.masked_fill(dead, 0.0), tol)
+
+
+def _k5_lens(bs, B):
+    """An idle slot, 1, bs - 1, bs, 130, then long rows up to the view's
+    last position (a view of ~2300 positions: 18 chunks of 128)."""
+    mb = 2300 // bs + 1
+    lens = [0, 1, bs - 1, bs, 130, 1500, 2200, mb * bs - 1]
+    return (lens * (B // len(lens) + 1))[:B], mb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hi", [16, 32])
+@pytest.mark.parametrize("Di", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("B", [8, 16, 32])
+def test_paged_indexer_scores_tensor_cores_match_plain(Hi, Di, bs, B):
+    """K5's bf16 route, the tensor-core decode body, at Hi 16 / 32 and Di
+    64 / 128: dead blocks NEG_INF in both, the live scores within the bf16
+    2e-2 scaled by min(1, max|plain|); one launch counted."""
+    _need_gpu()
+    rng = np.random.default_rng(Hi + Di + bs + B)
+    lens, mb = _k5_lens(bs, B)
+    ins = _k5_inputs(rng, torch.bfloat16, Hi, Di, bs, lens, mb)
+    before = K1.paged_indexer_scores_kernel.launches
+    got = K1.paged_indexer_scores_kernel(*ins)
+    torch.cuda.synchronize()
+    assert K1.paged_indexer_scores_kernel.launches == before + 1
+    _hold_scores(got, K1.paged_indexer_scores_plain(*ins), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,Hi,Di", [
+    # fp32 at every head count; bf16 where the tensor-core body does not
+    # take the heads
+    (torch.float32, 1e-4, 16, 64), (torch.float32, 1e-4, 32, 128),
+    (torch.float32, 1e-4, 8, 64), (torch.float32, 1e-4, 4, 128),
+    (torch.float32, 1e-4, 2, 16), (torch.bfloat16, 2e-2, 8, 64),
+    (torch.bfloat16, 2e-2, 4, 128), (torch.bfloat16, 2e-2, 2, 16)])
+def test_paged_indexer_scores_simt_routes(dtype, tol, Hi, Di):
+    """K5's SIMT tile: every fp32 call, and bf16 at head counts the
+    tensor-core body does not take."""
+    _need_gpu()
+    rng = np.random.default_rng(Hi * Di)
+    lens, mb = _k5_lens(16, 8)
+    ins = _k5_inputs(rng, dtype, Hi, Di, 16, lens, mb)
+    _hold_scores(K1.paged_indexer_scores_kernel(*ins),
+                 K1.paged_indexer_scores_plain(*ins), tol)
+
+
+@pytest.mark.cuda
+def test_paged_indexer_scores_refuses_what_it_cannot_take():
+    """Wrong dtypes raise TypeError, misaligned q or pool ValueError, a head
+    dim the kernels do not take ValueError."""
+    _need_gpu()
+    rng = np.random.default_rng(12)
+    lens, mb = _k5_lens(16, 8)
+    q, w, kp, tables, sl = _k5_inputs(rng, torch.bfloat16, 16, 64, 16, lens,
+                                      mb)
+    with pytest.raises(TypeError):               # q and the pool differ
+        K1.paged_indexer_scores_kernel(q.float(), w, kp, tables, sl)
+    with pytest.raises(TypeError):               # weights must be fp32
+        K1.paged_indexer_scores_kernel(q, w.bfloat16(), kp, tables, sl)
+    with pytest.raises(TypeError):               # int64 lengths
+        K1.paged_indexer_scores_kernel(q, w, kp, tables, sl.long())
+    odd = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")[1:] \
+        .view(q.shape).copy_(q)
+    with pytest.raises(ValueError):              # 2 bytes past 16-aligned
+        K1.paged_indexer_scores_kernel(odd, w, kp, tables, sl)
+    with pytest.raises(ValueError):              # head dim 48
+        K1.paged_indexer_scores_kernel(q[..., :48].contiguous(), w,
+                                       kp[..., :48].contiguous(), tables, sl)

@@ -8,9 +8,11 @@ MLA tile (``csrc/paged_mla.cu``), the fp32 3xTF32 tile of K9 and K8
 (``csrc/tf32_tile.cuh``), K10's fp32 3xTF32 logits tile
 (``csrc/chunked_ce.cu``), K1's split-KV decode body
 (``csrc/paged_attention.cu``), the indexer tensor-core body of K6 and K7
-(``csrc/indexer_mma.cuh``) and K11's scan (``csrc/mamba_scan.cu``).  The attention tiles split each tile's key
-range over ``parts`` CTAs where the tiles leave CTA slots of the card
-empty (``repro_torch.kernels.build.key_split``).  This script measures
+and its decode form, K5's (``csrc/indexer_mma.cuh``), K4's tile at K3's
+decode step, and K11's scan (``csrc/mamba_scan.cu``).  The attention
+tiles split each tile's key range over ``parts`` CTAs where the tiles
+leave CTA slots of the card empty (``repro_torch.kernels.build.
+key_split``; K1 and K3 their own decode splits).  This script measures
 that choice, the tile sizes and the tiles against their yardsticks:
 
   resources  every tile's registers, spills, shared memory and CTAs an SM
@@ -80,14 +82,31 @@ that choice, the tile sizes and the tiles against their yardsticks:
              split 1..16 the shape allows, held at the fp32 bound against
              the plain version, beside the wrapper (its parts) and its host
              microseconds a call, and the SFU floor;
+  mla_decode K3 (bf16) at GLM-5's decode step (B 8, H 64, bs 16, the serve
+             lengths; each call on another of 8 layers' tables, so the
+             latent comes from device memory): the C entry point with each
+             row's key rounds in 1, 2, 4, 8 and 16 parts, the tile built
+             with 32 and 16 keys a round (``-DREPRO_MLA_KEYS``), device
+             times from CUDA-graph replay, each held at the bf16 bound;
+             the wrapper (its own parts: time, device time, host
+             microseconds a call) and SDPA's device time over the latent
+             gathered to the 64 heads;
+  indexer_decode  K5 (bf16) at the DSA serve phase's decode step (B 8 at
+             the DSA mix's lengths + 16, a view of 6432 positions, blocks
+             of 16, 8 layers' tables) at Yi-6B's (16 x 64) and GLM-5's (32
+             x 128) indexer shapes: the C entry point's device time from
+             CUDA-graph replay, held at the bf16 bound with the dead blocks
+             equal, beside the wrapper's time, device time and host
+             microseconds a call;
   parent     with ``--parent DIR``, another revision's
              ``src/repro_torch/csrc`` with its ``src/repro_torch/kernels``
              beside it (for example ``git archive <commit> src/repro_torch``,
-             unpacked): its K2, K8 (both dtypes), K4, K9, K1, K10, K6, K7
-             and K11 at the same shapes, called through the C interface
-             that revision had (its ``kernels/build.py``; K2, K4 and K8
-             with one part; K1 and K11 through that revision's own
-             wrappers, so their host work is measured as it was), and its
+             unpacked): its K2, K8 (both dtypes), K4, K9, K1, K10, K6, K7,
+             K11, K3 and K5 at the same shapes, called through the C
+             interface that revision had (its ``kernels/build.py``; K2, K4
+             and K8 with one part; K1, K3, K5 and K11 through that
+             revision's own wrappers, so their host work is measured as it
+             was), and its
              K4 and K9 bodies' registers and spills (``nvcc -Xptxas -v``).
 
 ``--only`` runs (and builds for) the named studies alone.  It prints the
@@ -286,17 +305,20 @@ IDX32_VARIANTS = ((2, 8, 64), (2, 4, 64), (1, 8, 64), (1, 16, 64),
                   (4, 8, 32), (4, 16, 32), (2, 16, 32))
 # K11's time steps a round
 SCAN_VARIANTS = (4, 2, 8)
+# K3's decode: keys a round of the MLA tile (-DREPRO_MLA_KEYS)
+MLAD_VARIANTS = (32, 16)
 
 
 # the studies each variant (by its tag's prefix) and each parent library
 # serve, so that ``--only`` builds no more than it runs
 PREFIX_STUDY = {"mla_": "mla", "tf32_": "tf32", "sparse32_": "sparse32",
                 "idx_": "indexer", "li_": "lightning", "li32_": "lightning",
-                "scan_": "scan", "ce_": "ce"}
+                "scan_": "scan", "ce_": "ce", "mlad_": "mla_decode"}
 LIBRARY_STUDIES = {"paged_attention": ("split", "decode"),
                    "block_sparse": ("split", "sparse32"),
-                   "paged_mla": ("mla",), "flash_attention": ("tf32",),
-                   "chunked_ce": ("ce",), "paged_indexer": ("indexer",),
+                   "paged_mla": ("mla", "mla_decode"),
+                   "flash_attention": ("tf32",), "chunked_ce": ("ce",),
+                   "paged_indexer": ("indexer", "indexer_decode"),
                    "lightning_indexer": ("lightning",),
                    "mamba_scan": ("scan",)}
 
@@ -308,7 +330,7 @@ def variant_libraries(run=lambda study: True) -> dict:
     (``mla_k{keys}_s{stages}``, ``tf32_k{keys}``, ``ce_m{warp_m}_s{stages}``,
     ``sparse32_k{keys}``, ``idx_t{tokens}_r{rounds}``,
     ``li_t{tokens}_r{rounds}`` (K7 bf16), ``li32_t{tokens}_r{rounds}_k{keys}``
-    (K7 fp32), ``scan_s{steps}``)."""
+    (K7 fp32), ``scan_s{steps}``, ``mlad_k{keys}`` (K3))."""
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR / "study"
     jobs = {}
@@ -341,6 +363,10 @@ def variant_libraries(run=lambda study: True) -> dict:
     for steps in SCAN_VARIANTS[1:]:
         add(f"scan_s{steps}", "mamba_scan", "mamba_scan_model",
             (f"REPRO_SCAN_STEPS={steps}",))
+    for keys in MLAD_VARIANTS[1:]:
+        add(f"mlad_k{keys}", "paged_mla", "paged_decode_mla",
+            (f"REPRO_MLA_KEYS={keys}",))
+
     for warp_m, stages in CE_VARIANTS[1:]:
         add(f"ce_m{warp_m}_s{stages}", "chunked_ce", "chunked_ce",
             (f"REPRO_CE_WARP_M={warp_m}", f"REPRO_CE_STAGES={stages}"))
@@ -355,20 +381,22 @@ def variant_libraries(run=lambda study: True) -> dict:
 
 
 def parent_libraries(csrc: Path, run=lambda study: True) -> dict:
-    """Build the parent's K2, K8, K4, K9, K1, K10, K6, K7 and K11 libraries
-    (into build/parent/) with ``-Xptxas -v``; print its K4 and K9 bodies'
-    registers and spills; return the C entry points (with the arguments of
-    that revision's ``kernels/build.py`` beside ``csrc``) and, for K1 and
-    K11, the parent's wrappers (its ``kernels/paged_attention/kernel.py``
-    and ``kernels/mamba_scan/kernel.py``) around its entry points."""
+    """Build the parent's K2, K8, K4, K9, K1, K10, K6, K7, K11, K3 and K5
+    libraries (into build/parent/) with ``-Xptxas -v``; print its K4 and
+    K9 bodies' registers and spills; return the C entry points (with the
+    arguments of that revision's ``kernels/build.py`` beside ``csrc``) and,
+    for K1, K3, K5 and K11, the parent's wrappers (its
+    ``kernels/paged_attention/kernel.py`` and
+    ``kernels/mamba_scan/kernel.py``) around its entry points."""
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR / "parent"
     libs = {"paged_attention": ["paged_prefill_gqa", "paged_decode_gqa"],
             "block_sparse": ["block_sparse_attention"],
-            "paged_mla": ["paged_prefill_mla"],
+            "paged_mla": ["paged_prefill_mla", "paged_decode_mla"],
             "flash_attention": ["flash_attention"],
             "chunked_ce": ["chunked_ce"],
-            "paged_indexer": ["paged_prefill_indexer"],
+            "paged_indexer": ["paged_prefill_indexer",
+                              "paged_indexer_scores"],
             "lightning_indexer": ["lightning_indexer"],
             "mamba_scan": ["mamba_scan_model"]}
     libs = {lib: names for lib, names in libs.items()
@@ -395,11 +423,15 @@ def parent_libraries(csrc: Path, run=lambda study: True) -> dict:
             entries[name] = _entry(out_dir / f"lib{lib}.so", name,
                                    entries_of[name][1])
     kernels = csrc.parent / "kernels"
-    for name, path in (("paged_decode_gqa", "paged_attention"),
-                       ("mamba_scan_model", "mamba_scan")):
+    for name, path, wrapper in (
+            ("paged_decode_gqa", "paged_attention", "paged_decode_gqa"),
+            ("paged_decode_mla", "paged_attention", "paged_decode_mla"),
+            ("paged_indexer_scores", "paged_attention",
+             "paged_indexer_scores_kernel"),
+            ("mamba_scan_model", "mamba_scan", "mamba_scan_model")):
         if name in entries:
             entries[name] = _parent_wrapper(kernels / path / "kernel.py",
-                                            entries[name], name)
+                                            entries[name], wrapper)
     return entries
 
 
@@ -563,6 +595,25 @@ def k9_case(tag, B, S, H, KVH, d, variants, parent=None, sdpa=False,
            flops, times)
 
 
+SERVE_LENS = (1040, 48, 793, 166, 528, 80, 916, 316)   # chip_smoke's decode
+DSA_LENS = (6160, 48, 3016, 166, 4112, 80, 2516, 316)  # ... of the DSA mix
+
+
+def _decode_tables(rng, lens, bs, mb, nbk, layers):
+    """Each of ``layers`` layers' tables over one layer-major pool of
+    ``layers`` x (nbk + 1) blocks: row b's live blocks disjoint and
+    shuffled, the rest the trash block (each layer's last)."""
+    import numpy as np
+    import torch
+    t = np.full((len(lens), mb), nbk, np.int32)
+    perm, at = rng.permutation(nbk), 0
+    for b, n in enumerate(lens):
+        live = int(n) // bs + 1
+        t[b, :live] = perm[at:at + live]
+        at += live
+    return [torch.from_numpy(t + g * (nbk + 1)).cuda() for g in range(layers)]
+
+
 def k1_case(dtype_name, parent=None):
     """K1 at Yi-6B's decode step (see the module's ``decode``); ``parent``
     the other revision's K1 wrapper."""
@@ -573,20 +624,13 @@ def k1_case(dtype_name, parent=None):
     from repro_torch.kernels.paged_attention import kernel as K1
     dtype = getattr(torch, dtype_name)
     B, KVH, G, d, bs, layers, nbk = 8, 4, 8, 128, 16, 8, 2048
-    lens = np.asarray([1040, 48, 793, 166, 528, 80, 916, 316], np.int32)
+    lens = np.asarray(SERVE_LENS, np.int32)
     mb = 82
     rng = np.random.default_rng(SEED + 4)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    stride = nbk + 1
-    kp, vp = (torch.randn((layers * stride, bs, KVH, d), generator=gen,
+    kp, vp = (torch.randn((layers * (nbk + 1), bs, KVH, d), generator=gen,
                           device="cuda").to(dtype) for _ in range(2))
-    t = np.full((B, mb), nbk, np.int32)
-    perm, at = rng.permutation(nbk), 0
-    for b, n in enumerate(lens):
-        live = int(n) // bs + 1
-        t[b, :live] = perm[at:at + live]
-        at += live
-    tables = [torch.from_numpy(t + g * stride).cuda() for g in range(layers)]
+    tables = _decode_tables(rng, lens, bs, mb, nbk, layers)
     sl = torch.from_numpy(lens).cuda()
     q = torch.randn((B, KVH, G, d), generator=gen, device="cuda").to(dtype)
     out = torch.empty_like(q)
@@ -638,7 +682,7 @@ def k1_case(dtype_name, parent=None):
                 qs, *views[next(it) % layers], attn_mask=mask), 64)
     item = q.element_size()
     nbytes = int((lens + 1).sum()) * KVH * d * 2 * item \
-        + 2 * q.numel() * item + t.size * 4 + B * 4
+        + 2 * q.numel() * item + B * mb * 4 + B * 4
     print(f"[decode] kernel=paged_decode_gqa dtype={dtype_name} "
           f"bound_ms={nbytes / 3.35e12 * 1e3:.5f} " + " ".join(
               f"{k}_ms={v:.5f} {k}_gb_per_s={nbytes / v / 1e6:.0f}"
@@ -926,6 +970,158 @@ def k11_case(tag, B, S, dtype_name, variants, parent=None):
           + " ".join(f"{k}={v:.2f}" for k, v in host.items()), flush=True)
 
 
+def k3_decode_case(variants, parent=None):
+    """K3 (bf16) at GLM-5's decode step (see ``mla_decode``); ``parent``
+    the other revision's K3 wrapper."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import kernel as K3
+    B, H, L, R, bs, layers, nbk = 8, 64, 512, 64, 16, 8, 2048
+    lens = np.asarray(SERVE_LENS, np.int32)
+    mb = (max(SERVE_LENS) + 256) // bs + 1
+    scale = 192 ** -0.5
+    rng = np.random.default_rng(SEED + 12)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    c = torch.randn((layers * (nbk + 1), bs, L), generator=gen,
+                    device="cuda").bfloat16()
+    kr = torch.randn((layers * (nbk + 1), bs, R), generator=gen,
+                     device="cuda").bfloat16()
+    tables = _decode_tables(rng, lens, bs, mb, nbk, layers)
+    sl = torch.from_numpy(lens).cuda()
+    ql = torch.randn((B, H, L), generator=gen, device="cuda")
+    qr = torch.randn((B, H, R), generator=gen, device="cuda").bfloat16()
+    out = torch.empty_like(ql)
+    want = [K3.paged_decode_mla_plain(ql, qr, c, kr, tb, sl, scale=scale)
+            for tb in tables]
+    it = iter(range(10 ** 9))
+    times = {}
+    for name, fn in variants.items():
+        for parts in (1, 2, 4, 8, 16):
+            ws = torch.empty(K3.mla_decode_workspace(B, H, L, parts),
+                             device="cuda")
+
+            def call():
+                g = next(it) % layers
+                build.check_launch("paged_decode_mla", fn(
+                    1, L, R, bs, ql.data_ptr(), qr.data_ptr(), c.data_ptr(),
+                    kr.data_ptr(), tables[g].data_ptr(), sl.data_ptr(),
+                    out.data_ptr(), B, H, mb, scale, parts, ws.data_ptr(),
+                    stream()))
+                return g
+            g = call()
+            torch.cuda.synchronize()
+            _hold(f"K3 {name} parts={parts}", out, want[g], torch.bfloat16)
+            times[f"{name}_p{parts}"] = graph_ms(call, 32)
+
+    def wrapper():
+        return K3.paged_decode_mla(ql, qr, c, kr, tables[next(it) % layers],
+                                   sl, scale=scale)
+    it = iter(range(10 ** 9))
+    _hold("K3 wrapper", wrapper(), want[0], torch.bfloat16)
+    times["wrapper"] = cuda_ms(wrapper, 32)
+    times["wrapper_device"] = graph_ms(wrapper, 32)
+    host = {"wrapper_host_us": host_us(wrapper)}
+    if parent is not None:
+        def old():
+            return parent(ql, qr, c, kr, tables[next(it) % layers], sl,
+                          scale=scale)
+        it = iter(range(10 ** 9))         # old's first: layer 0
+        _hold("K3 parent", old(), want[0], torch.bfloat16)
+        times["parent"] = cuda_ms(old, 32)
+        times["parent_device"] = graph_ms(old, 32)
+        host["parent_host_us"] = host_us(old)
+    T = int(lens.max()) + 1
+    views = []
+    for tb in tables[:2]:
+        cv = c[tb.long()].reshape(B, -1, L)[:, :T]
+        k = torch.cat([cv, kr[tb.long()].reshape(B, -1, R)[:, :T]], -1)
+        views.append((k[:, None].expand(B, H, T, L + R).contiguous(),
+                      cv[:, None].expand(B, H, T, L).contiguous()))
+    mask = (torch.arange(T, device="cuda")[None, :]
+            <= sl[:, None].long())[:, None, None, :]
+    qs = torch.cat([ql.bfloat16(), qr], -1)[:, :, None]
+    times["sdpa_device"] = graph_ms(lambda: F.scaled_dot_product_attention(
+        qs, *views[next(it) % 2], attn_mask=mask, scale=scale), 32)
+    toks = int((lens + 1).sum())
+    nbytes = toks * (L + R) * 2 + ql.numel() * 4 * 2 + qr.numel() * 2 \
+        + B * mb * 4 + B * 4
+    parts = K3.mla_decode_parts(B, H, L, R, mb, torch.cuda.current_device())
+    print(f"[mla_decode] kernel=paged_decode_mla B={B} H={H} bs={bs} "
+          f"wrapper_parts={parts[0]} bound_ms={nbytes / 3.35e12 * 1e3:.5f} "
+          + " ".join(f"{k}_ms={v:.5f}" for k, v in times.items()) + " "
+          + " ".join(f"{k}={v:.2f}" for k, v in host.items()), flush=True)
+
+
+def k5_decode_case(tag, Hi, Di, parent=None):
+    """K5 (bf16) at the DSA serve phase's decode step (see
+    ``indexer_decode``); ``parent`` the other revision's K5 wrapper."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import kernel as K5
+    B, bs, layers, nbk = 8, 16, 8, 2048
+    lens = np.asarray(DSA_LENS, np.int32)
+    mb = 6432 // bs
+    rng = np.random.default_rng(SEED + 13)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    kp = torch.randn((layers * (nbk + 1), bs, Di), generator=gen,
+                     device="cuda").bfloat16()
+    tables = _decode_tables(rng, lens, bs, mb, nbk, layers)
+    sl = torch.from_numpy(lens).cuda()
+    q = torch.randn((B, Hi, Di), generator=gen, device="cuda").bfloat16()
+    w = torch.softmax(torch.randn((B, Hi), generator=gen, device="cuda"), -1)
+    out = torch.empty((B, mb * bs), device="cuda")
+    want = [K5.paged_indexer_scores_plain(q, w, kp, tb, sl) for tb in tables]
+    it = iter(range(10 ** 9))
+
+    def held(what, got, g):
+        dead = want[g] <= -1e29
+        if not torch.equal(got <= -1e29, dead):
+            raise AssertionError(f"{what}: dead blocks differ")
+        _hold(what, got.masked_fill(dead, 0.0),
+              want[g].masked_fill(dead, 0.0), torch.bfloat16)
+    fn = build.cuda_entry("paged_indexer_scores")
+
+    def call():
+        g = next(it) % layers
+        build.check_launch("paged_indexer_scores", fn(
+            1, Di, bs, q.data_ptr(), w.data_ptr(), kp.data_ptr(),
+            tables[g].data_ptr(), sl.data_ptr(), out.data_ptr(), B, Hi, mb,
+            Di ** -0.5, stream()))
+        return g
+    g = call()
+    torch.cuda.synchronize()
+    held(f"K5 {tag} entry", out, g)
+    times = {"entry": graph_ms(call, 64)}
+
+    def wrapper():
+        return K5.paged_indexer_scores_kernel(q, w, kp,
+                                              tables[next(it) % layers], sl)
+    it = iter(range(10 ** 9))
+    held(f"K5 {tag} wrapper", wrapper(), 0)
+    times["wrapper"] = cuda_ms(wrapper, 64)
+    times["wrapper_device"] = graph_ms(wrapper, 64)
+    host = {"wrapper_host_us": host_us(wrapper)}
+    if parent is not None:
+        def old():
+            return parent(q, w, kp, tables[next(it) % layers], sl)
+        it = iter(range(10 ** 9))
+        held(f"K5 {tag} parent", old(), 0)
+        times["parent"] = cuda_ms(old, 64)
+        times["parent_device"] = graph_ms(old, 64)
+        host["parent_host_us"] = host_us(old)
+    toks = sum(int(n) // bs + 1 for n in lens) * bs
+    nbytes = toks * Di * 2 + q.numel() * 2 + w.numel() * 4 \
+        + B * mb * bs * 4 + B * mb * 4 + B * 4
+    print(f"[indexer_decode] kernel=paged_indexer_scores_kernel case={tag} "
+          f"B={B} Hi={Hi} Di={Di} bs={bs} view={mb * bs} "
+          f"bound_ms={nbytes / 3.35e12 * 1e3:.5f} "
+          + " ".join(f"{k}_ms={v:.5f}" for k, v in times.items()) + " "
+          + " ".join(f"{k}={v:.2f}" for k, v in host.items()), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path, default=None,
@@ -934,7 +1130,8 @@ def main() -> int:
     parser.add_argument("--only", default=None,
                         help="comma-separated studies to run (split, mla, "
                              "tf32, decode, ce, sparse32, indexer, lightning, "
-                             "scan); all by default")
+                             "scan, mla_decode, indexer_decode); all by "
+                             "default")
     args = parser.parse_args()
     only = None if args.only is None else set(args.only.split(","))
 
@@ -963,10 +1160,14 @@ def main() -> int:
                          ("paged_prefill_indexer_resources",
                           [(hi, di) for hi in (16, 32)
                            for di in (16, 32, 64, 128)]),
+                         ("paged_indexer_scores_resources",
+                          [(hi, di) for hi in (16, 32)
+                           for di in (16, 32, 64, 128)]),
                          ("lightning_indexer_resources",
                           [(c, hi, di) for c in (0, 1) for hi in (16, 32)
                            for di in (16, 32, 64, 128)]),
-                         ("paged_prefill_mla_resources", [(512, 64)]),
+                         ("paged_mla_resources",
+                          [(0, 512, 64), (1, 512, 64)]),
                          ("flash_attention_resources",
                           [(64,), (128,), (256,)]),
                          ("paged_decode_gqa_resources",
@@ -1001,7 +1202,7 @@ def main() -> int:
     # lengths), a first chunk
     if run("mla"):
         mla = {"mla_k32_s2": build.cuda_entry("paged_prefill_mla")}
-        mla.update({k: v for k, v in studied.items() if k.startswith("mla")})
+        mla.update({k: v for k, v in studied.items() if k.startswith("mla_")})
         k4_kw = dict(variants=mla, parent=parent.get("paged_prefill_mla"),
                      sdpa=True)
         k4_case("serve", 1, 64, 16, [768], 256, **k4_kw)
@@ -1037,7 +1238,7 @@ def main() -> int:
     # K6's bf16 route: the DSA serve span, every tile size
     if run("indexer"):
         idx = {"idx_t4_r4": build.cuda_entry("paged_prefill_indexer")}
-        idx.update({k: v for k, v in studied.items() if k.startswith("idx")})
+        idx.update({k: v for k, v in studied.items() if k.startswith("idx_")})
         k6_case(idx, parent=parent.get("paged_prefill_indexer"))
     # K7: the DSA training chunk (fp32, 3xTF32) and the block selector's
     # last serve span of the 6144-token prompt over its 6528-position view
@@ -1063,6 +1264,18 @@ def main() -> int:
         k11_case("train", 2, 2048, "float32", **k11_kw)
         k11_case("train-b4", 4, 2048, "float32", **k11_kw)
         k11_case("decode", 8, 1, "bfloat16", **k11_kw)
+    # K3: GLM-5's decode step, keys a round x parts
+    if run("mla_decode"):
+        mlad = {"mlad_k32": build.cuda_entry("paged_decode_mla")}
+        mlad.update({k: v for k, v in studied.items()
+                     if k.startswith("mlad")})
+        k3_decode_case(mlad, parent=parent.get("paged_decode_mla"))
+    # K5: the DSA serve phase's decode step at Yi-6B's and GLM-5's indexer
+    # shapes
+    if run("indexer_decode"):
+        for tag, hi, di in (("yi6b", 16, 64), ("glm5", 32, 128)):
+            k5_decode_case(tag, hi, di,
+                           parent=parent.get("paged_indexer_scores"))
     return 0
 
 
