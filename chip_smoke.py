@@ -11,7 +11,10 @@ layers write the indexer keys and read none), DSA sparse attention on GQA
 selector (slice 5: Yi-6B + DSA(block), K5 for a decode step, K7 + K8 for
 a span), GLM-5's MTP speculative decode (slice 5: spans through K4) and
 the attention-free Mamba-1 family (slice 6: falcon-mamba-7b through the
-static ServingEngine, K11 selective scan in prefill and decode); and the
+static ServingEngine, K11 selective scan in prefill and decode), the
+hybrid family (slice 13: zamba2-2.7b's Mamba-2 layers on K11's
+head-shared form and its one shared attention block on K1/K2 at head dim
+80, or K5/K6 with DSA, through the ContinuousEngine); and the
 training path (slice 4: the Muon Split trainer on Yi-6B, Yi-6B + DSA and,
 slice 5, Yi-6B + DSA(block) at full width, 8 layers; slice 6,
 falcon-mamba-7b at full width, 8 layers; K9 flash attention, K10 chunked
@@ -63,7 +66,13 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            bf16 nonzero states (the model form's fp32 outputs held at the
            fp32 tolerance whatever the inputs' dtype; the contract form's
            outputs, stored in its input dtype, may also differ by one ulp
-           of their magnitude), and the gradients through its autograd Function on both routes;
+           of their magnitude), and the gradients through its autograd
+           Function on both routes; K11's head-shared (Mamba-2) form at
+           zamba2's width (80 heads of 64, N 64) and a ragged one, S 1 / 77
+           / 1024, both dtypes and both state dtypes, at parts 1, the
+           wrapper's and 16 (y at the fp32 tolerance, hT stored in the
+           state's dtype); K1 and K2 also at zamba2's shared-block shape
+           (32 heads of 80, G 1) in the first list;
   timing   K3/K4's and K5/K6's registers, spills, shared memory and CTAs
            resident on an SM, as the CUDA runtime reports them (K3's parts
            and CTAs at the decode step; the indexer tensor-core bodies at
@@ -137,6 +146,13 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            wrapper's CUDA-event time, the
            device time of the same calls replayed from a CUDA graph (the
            wrapper's host overhead taken out) and the TFLOP/s that gives;
+           K1/K2 at zamba2's shared block (head dim 80, G 1, its 9
+           invocations' pools) and K5/K6 at its 8 x 64 indexer (the SIMT
+           tile), lines tagged ``_zamba2``; K11's head-shared form's
+           registers, spills, shared memory and CTAs an SM (N 64), at a
+           zamba2 prefill span (B 1, S 256) and decode step (B 8), with
+           the time chunks its wrapper picks, device time and host
+           microseconds a call;
            K11's scan kernel's registers, spills, shared memory and CTAs
            an SM, its model
            form at falcon-mamba's serve prefill (B 8, S 1024, bf16), decode
@@ -172,7 +188,13 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            the kernel route's greedy tokens equal to the plain route's
            wherever the padded row's top-2 margin is >= 1e-3, K11's
            launches one a layer a prefill and a decode step; and prefill +
-           decode logits equal to the full forward's;
+           decode logits equal to the full forward's; then zamba2-2.7b at
+           full width with 12 layers (two shared-block invocations, so the
+           second reads the pool at table + stride) in fp32, dsa=None on
+           the short mix and with DSA on the long one, each with
+           whole-prompt and 64-token chunked prefill: the ContinuousEngine
+           (prefix cache off, slots reused) against the static oracle on
+           the plain route (K11's plain head-shared scan), as above;
   serve    Yi-6B at full width and depth (32 layers, dsa=None) in bf16 on a
            2 GiB pool: 8 requests of 32..1024 prompt tokens, half sharing a
            system prefix, prefill_chunk 256; then Yi-6B with DSA (32
@@ -184,7 +206,11 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            layers + 1 MLA + MoE layer, DSA on) and its MTP layer (~27 GB
            of bf16 weights) on the first request mix, spec_steps=0 and
            then spec_steps=3 (accept length, rounds, TPOT / TTFT / decode
-           tok/s beside spec off); then falcon-mamba-7b at full width and
+           tok/s beside spec off); then zamba2-2.7b at full width and depth
+           (54 layers, ~2.4 B parameters) in bf16, dsa=None on the first
+           mix and with DSA on the DSA mix (K11's head-shared launches
+           checked: one a layer a decode step and a prefill span); then
+           falcon-mamba-7b at full width and
            depth (64 layers, 7.27 B parameters, bf16) through the static
            ServingEngine on the first mix's 8 prompts in one left-padded
            batch, 32 new tokens: prefill ms (the batch's TTFT), decode step
@@ -207,8 +233,8 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            tokens/s, peak memory, and the launches of K7/K8/K9/K10/K11,
            which must equal the count expected from the depth and the
            chunks;
-  profile  one training step of each training run cut into its layers
-           (forward, loss, backward, Muon; synchronised between them) and
+  profile  one training step of each training run (at 4 layers) cut into
+           its layers (forward, loss, backward, Muon; synchronised) and
            one traced with torch.profiler (busy share, top kernels, K7/K8/
            K9/K10/K11 device time, found by kernel name: a kernel the step
            launched that no name matches fails the run; the block-selector
@@ -219,7 +245,7 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            at 8 rows, timed and
            then traced with torch.profiler: device busy share, top kernels
            and the port's own kernels' device time a call (Yi-6B with DSA
-           at ~2300 live tokens a row, past top-k).
+           at ~2300 live tokens a row, past top-k; zamba2 as published).
 
 Then it prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a GPU, or
@@ -257,9 +283,12 @@ def path_kernels(cfg, spec_steps=0):
     K5/K6 for GQA layers with DSA (the global ones) and the token
     selector, K5 and K7 + K8 with the block selector (its spans gather the
     view: K7 scores it, K8 attends where the span is a multiple of the DSA
-    block), K1/K2 for GQA layers without.  With speculation every step is
-    a verify span: no decode kernel runs."""
+    block), K1/K2 for GQA layers without (the hybrid's shared block as
+    any), and for the hybrid K11's head-shared form, listed with the decode
+    kernels (it runs in every step and every span).  With speculation every
+    step is a verify span: no decode kernel runs."""
     from repro_torch.kernels.lightning_indexer import kernel as K7
+    from repro_torch.kernels.mamba_scan import kernel as K11
     from repro_torch.kernels.paged_attention import kernel as KD
     from repro_torch.kernels.paged_attention import prefill as KP
     from repro_torch.kernels.sparse_attention import kernel as K8
@@ -278,6 +307,8 @@ def path_kernels(cfg, spec_steps=0):
             pre += [K7.lightning_indexer, K8.block_sparse_attention]
         else:
             pre.append(KP.paged_prefill_indexer)
+    if cfg.family == "hybrid":
+        dec.append(K11.mamba_scan_heads)
     return ([] if spec_steps else dec), pre
 
 
@@ -375,7 +406,9 @@ def _tables(rng, B, mb, trash, live_blocks):
 
 
 def check_kernels(device="cuda") -> dict:
-    """K1/K2 vs plain on ragged rows; returns the max error per kernel."""
+    """K1/K2 vs plain on ragged rows (Yi-6B's, a gemma2-like and zamba2's
+    shared-block shape: 32 heads of 80, G 1); returns the max error per
+    kernel."""
     import numpy as np
     import torch
     from repro_torch.kernels.paged_attention import kernel as K1
@@ -383,7 +416,8 @@ def check_kernels(device="cuda") -> dict:
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=device).manual_seed(SEED)
     worst = {"paged_decode_gqa": 0.0, "paged_prefill_gqa": 0.0}
-    shapes = [("yi6b", 4, 8, 128, 0, 0.0), ("gemma2like", 4, 2, 256, 64, 50.0)]
+    shapes = [("yi6b", 4, 8, 128, 0, 0.0), ("gemma2like", 4, 2, 256, 64, 50.0),
+              ("zamba2", 32, 1, 80, 0, 0.0)]
     for name, kvh, G, d, window, softcap in shapes:
         for bs in (16, 8):
             mb = 12
@@ -612,10 +646,11 @@ def _hold(what, got, want, dtype) -> float:
 
 
 def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
-                 device="cuda", reps=64) -> dict:
+                 device="cuda", reps=64, tag="") -> dict:
     """Each kernel over every layer's rows of a full-size layer-major pool
     (as one decode step / prefill chunk of the serve phase reads them), so
-    the KV comes from device memory, not the L2 cache."""
+    the KV comes from device memory, not the L2 cache.  ``tag`` is appended
+    to the result's keys (another model's shapes)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -749,6 +784,7 @@ def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
         max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
         shape=f"B=1 S={S} start={start}")
     del kp, vp
+    out = {k + tag: v for k, v in out.items()}
     _bounds(out)
     return out
 
@@ -1304,15 +1340,17 @@ def _topk_boundary(what, got, want, qpos, k, tol) -> int:
 
 
 def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
-                         num_blocks, mb, device="cuda", reps=64) -> dict:
+                         num_blocks, mb, device="cuda", reps=64,
+                         tag="") -> dict:
     """K5 at one decode step of the DSA serve phase (B = 8 rows at its
     lengths) and K6 at one 256-token span whose last position lies past
     2048, each launch on another layer of a full-depth layer-major k_idx
     pool; each held against its plain version (bf16 and fp32) with its
     top-k sets compared; both (their bf16 tensor-core bodies) also with
     their device time from CUDA-graph replay and their wrappers' host
-    microseconds a call.  No single PyTorch call computes ReLU between the
-    product and the head sum, so there is no library time."""
+    microseconds a call (the SIMT tile at other head counts).  No single
+    PyTorch call computes ReLU between the product and the head sum, so
+    there is no library time.  ``tag`` is appended to the result's keys."""
     import numpy as np
     import torch
     from repro_torch.kernels.paged_attention import kernel as K5
@@ -1320,6 +1358,7 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     dtype = torch.bfloat16
     Hi, Di, top_k = cfg.dsa.index_heads, cfg.dsa.index_head_dim, \
         cfg.dsa.top_k
+    mma = Hi in (16, 32)          # the tensor-core bodies' head counts
     L, item = cfg.num_layers, 2
     stride = num_blocks + 1
     rng = np.random.default_rng(SEED)
@@ -1364,7 +1403,8 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
         max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes,
         flops=toks * Hi * (2 * Di + 2), topk_near_ties=near,
         extra=dict(host_us=call_us,
-                   body="indexer_mma::decode_kernel (tensor cores)",
+                   body="indexer_mma::decode_kernel (tensor cores)" if mma
+                   else "indexer_tile (SIMT)",
                    gb_per_s=nbytes / device_ms / 1e6),
         shape=f"B={B} Hi={Hi} Di={Di} lens={lens.tolist()}")
 
@@ -1405,8 +1445,10 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
         ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
         max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes,
         flops=S * toks * Hi * (2 * Di + 2), topk_near_ties=near,
-        extra=dict(host_us=host, body="indexer_mma (tensor cores)"),
+        extra=dict(host_us=host, body="indexer_mma (tensor cores)" if mma
+                   else "indexer_tile (SIMT)"),
         shape=f"B=1 Hi={Hi} Di={Di} S={S} start={start}")
+    out = {k + tag: v for k, v in out.items()}
     for name, r in out.items():
         _log("topk", kernel=name, k=top_k,
              near_tie_indices_differing=r["topk_near_ties"])
@@ -1706,10 +1748,11 @@ def _margins_ok(model, prompt, out, device, min_margin=1e-3) -> bool:
     (the full-sequence forward without a cache)."""
     import numpy as np
     import torch
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
     seq = np.concatenate([prompt, out[:-1]]).astype(np.int64)
     with torch.no_grad():
-        lg = T.logits(model, torch.from_numpy(seq)[None].to(device))[0]
+        lg = get_model(model.cfg).logits(
+            model, torch.from_numpy(seq)[None].to(device))[0]
     lg = lg[len(prompt) - 1:].float()
     top2 = lg.topk(2, dim=-1).values
     return bool(((top2[:, 0] - top2[:, 1]) >= min_margin).all())
@@ -1747,69 +1790,83 @@ def _all_launched(kernels, before) -> bool:
     return all(k.launches > n for k, n in zip(kernels, before))
 
 
-def parity(cfg, device="cuda", block_size=16, chunk=64, long=False) -> dict:
+def parity(cfg, device="cuda", block_size=16, chunks=(64,),
+           long=False) -> list:
     """fp32 greedy tokens of the port's ContinuousEngine against its
     ServingEngine oracle, on the short prompt mix or (``long``) the DSA mix
-    with prompts past top-k.  The oracle and the margin check run on the
-    plain route: their contiguous DSA scores would otherwise reach K7,
-    whose tile body K5/K6 share, so the engine's kernels are held against
-    plain indexer scores."""
+    with prompts past top-k, once for each prefill chunk of ``chunks``
+    (None: whole-prompt prefill) against one oracle run.  The oracle and
+    the margin check run on the plain route: their contiguous DSA scores
+    would otherwise reach K7, whose tile body K5/K6 share, so the engine's
+    kernels are held against plain indexer scores, and the hybrid's
+    Mamba-2 scans against K11's plain head-shared form.  The hybrid
+    serves without the prefix cache (its recurrent state cannot be
+    re-aliased): there the workload must reuse slots (more requests than
+    slots) instead of hitting the radix tree.  Returns each chunk's
+    result."""
     import numpy as np
     import torch
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
     from repro_torch.serving import ContinuousEngine, Request, ServingEngine
-    model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
-                   device=device, dtype=torch.float32)
+    model = get_model(cfg).init(
+        cfg, torch.Generator(device=device).manual_seed(SEED), device=device,
+        dtype=torch.float32)
     rng = np.random.default_rng(SEED + 1)
     if long:
         prompts, max_new = _long_prompts(rng, cfg.vocab_size)
     else:
         prompts, max_new = _short_prompts(rng, cfg.vocab_size, block_size)
-    max_len = max(len(p) for p in prompts) + max(max_new) + chunk
+    max_len = max(len(p) for p in prompts) + max(max_new) \
+        + max(c or 0 for c in chunks)
     max_len = -(-max_len // block_size) * block_size
-    kernels = [k for ks in path_kernels(cfg) for k in ks]
-    before = [k.launches for k in kernels]
-    eng = ContinuousEngine(cfg, model, max_batch=2 if long else 3,
-                           block_size=block_size,
-                           num_blocks=512 if long else 128, max_len=max_len,
-                           prefill_chunk=chunk, device=device)
-    reqs = [Request(prompt=p, max_new=m) for p, m in zip(prompts, max_new)]
-    eng.serve(reqs)
     oracle = ServingEngine(cfg, model, max_batch=1, max_len=max_len,
                            device=device)
     oreqs = [Request(prompt=p, max_new=m) for p, m in zip(prompts, max_new)]
-    compared = skipped = 0
     with plain_route():
         oracle.serve(oreqs)
-        margins = [_margins_ok(model, r.prompt, o.out, device)
-                   for r, o in zip(reqs, oreqs)]
-    for r, o, ok in zip(reqs, oreqs, margins):
-        if not ok:
-            skipped += 1
-            continue
-        compared += 1
-        if not np.array_equal(r.out, o.out):
-            raise AssertionError(f"parity: engine {r.out.tolist()} != "
-                                 f"oracle {o.out.tolist()}")
-    if compared == 0:
+        margins = [_margins_ok(model, p, o.out, device)
+                   for p, o in zip(prompts, oreqs)]
+    if not any(margins):
         raise AssertionError("parity: no prompt had a top-2 margin")
-    st = eng.stats
-    if st["cached_tokens"] <= 0 or st["cow_forks"] <= 0 \
-            or not any(s > 0 for s in st["admit_steps"]):
-        raise AssertionError(f"parity: workload missed radix/COW/mid-flight "
-                             f"admission: {dict(st)}")
-    if device != "cpu" and not _all_launched(kernels, before):
-        raise AssertionError(f"parity: one of {[k.__name__ for k in kernels]}"
-                             f" never launched")
-    res = dict(compared=compared, skipped=skipped,
-               longest_prompt=max(len(p) for p in prompts),
-               cached_tokens=st["cached_tokens"], cow_forks=st["cow_forks"],
-               chunk_steps=st["chunk_steps"])
-    _log("parity", model=cfg.name, layers=cfg.num_layers,
-         d_model=cfg.d_model, experts=cfg.num_experts,
-         dsa=cfg.dsa is not None, dtype="float32", **res)
-    del eng, oracle, model
-    return res
+    kernels = [k for ks in path_kernels(cfg) for k in ks]
+    hybrid = cfg.family == "hybrid"
+    results = []
+    for chunk in chunks:
+        before = [k.launches for k in kernels]
+        eng = ContinuousEngine(cfg, model, max_batch=2 if long else 3,
+                               block_size=block_size,
+                               num_blocks=512 if long else 128,
+                               max_len=max_len, prefill_chunk=chunk,
+                               device=device)
+        reqs = [Request(prompt=p, max_new=m)
+                for p, m in zip(prompts, max_new)]
+        eng.serve(reqs)
+        for r, o, ok in zip(reqs, oreqs, margins):
+            if ok and not np.array_equal(r.out, o.out):
+                raise AssertionError(f"parity: engine {r.out.tolist()} != "
+                                     f"oracle {o.out.tolist()}")
+        st = eng.stats
+        if (eng.prefix is None) != hybrid or not hybrid and (
+                st["cached_tokens"] <= 0 or st["cow_forks"] <= 0) \
+                or not any(s > 0 for s in st["admit_steps"]):
+            raise AssertionError(f"parity: workload missed radix/COW/"
+                                 f"mid-flight admission: {dict(st)}")
+        if device != "cpu" and not _all_launched(kernels, before):
+            raise AssertionError(f"parity: one of "
+                                 f"{[k.__name__ for k in kernels]} never "
+                                 f"launched")
+        res = dict(compared=sum(margins), skipped=len(margins) - sum(margins),
+                   longest_prompt=max(len(p) for p in prompts),
+                   cached_tokens=st["cached_tokens"],
+                   cow_forks=st["cow_forks"], chunk_steps=st["chunk_steps"])
+        _log("parity", model=cfg.name, layers=cfg.num_layers,
+             d_model=cfg.d_model, experts=cfg.num_experts,
+             dsa=cfg.dsa is not None, prefill_chunk=chunk, dtype="float32",
+             **res)
+        results.append(res)
+        del eng
+    del oracle, model
+    return results
 
 
 def _round_up(n, m):
@@ -1990,13 +2047,14 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
     it again; the result carries it under ``"model"``."""
     import numpy as np
     import torch
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
     from repro_torch.obs.trace import Tracer
     from repro_torch.serving import ContinuousEngine, Request
     t0 = time.perf_counter()
     if model is None:
-        model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
-                       device=device, dtype=torch.bfloat16)
+        model = get_model(cfg).init(
+            cfg, torch.Generator(device=device).manual_seed(SEED),
+            device=device, dtype=torch.bfloat16)
     n_params = sum(p.numel() for p in model.parameters())
     block_sel = cfg.dsa is not None and cfg.dsa.selector == "block" \
         and cfg.attention_type != "mla"
@@ -2067,6 +2125,15 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
                                  f"spans imply {want}")
         extra = dict(spans=n_spans, k8_spans=whole,
                      k8_launches_per_k8_span=got / max(whole, 1))
+    if cfg.family == "hybrid":    # K11 in every layer of every step and span
+        got = launches["mamba_scan_heads"]
+        want = cfg.num_layers * (st["decode_steps"] + st["chunk_steps"])
+        if device != "cpu" and got != want:
+            raise AssertionError(f"serve: K11 (head-shared) launched {got} "
+                                 f"times, the steps and spans imply {want}")
+        extra = dict(ssm_state_mib=sum(
+            x.numel() * x.element_size() for x in eng.pool["ssm"].values())
+            / 2 ** 20)
     if spec_steps:
         extra.update(spec_steps=spec_steps, spec_rounds=st["spec_rounds"],
                      accept_length=eng.rolling_accept_length,
@@ -2092,7 +2159,7 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
         res[f"{k.__name__}_per_prefill_span"] = \
             k.launches / max(st["chunk_steps"], 1)
     _log("serve", model=cfg.name, layers=cfg.num_layers,
-         d_model=cfg.d_model, experts=cfg.num_experts,
+         d_model=cfg.d_model, family=cfg.family, experts=cfg.num_experts,
          dsa=cfg.dsa is not None,
          selector=cfg.dsa.selector if cfg.dsa is not None else None,
          mtp=cfg.mtp is not None, dtype="bfloat16", **res)
@@ -2111,10 +2178,11 @@ def profile_decode(cfg, device="cuda", steps=8, block_size=16,
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
     from repro_torch.serving import ContinuousEngine, Request
-    model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
-                   device=device, dtype=torch.bfloat16)
+    model = get_model(cfg).init(
+        cfg, torch.Generator(device=device).manual_seed(SEED), device=device,
+        dtype=torch.bfloat16)
     eng = ContinuousEngine(cfg, model, max_batch=8, block_size=block_size,
                            num_blocks=num_blocks, max_len=prompt_len + 512,
                            prefill_chunk=256, device=device)
@@ -2161,7 +2229,7 @@ def profile_decode(cfg, device="cuda", steps=8, block_size=16,
     # phase) overstate when a launch is shorter than the wrapper's host work
     ours = [e for e in kernels if e not in top and any(
         m in e.key for m in ("paged_", "decode_split", "mla_tile",
-                             "indexer_mma"))]
+                             "indexer_mma", "head_scan", "head_step"))]
     for e in top + ours:
         _log("profile.kernel", name=repr(e.key[:60]),
              device_ms_per_step=dev_us(e) / steps / 1e3,
@@ -2201,13 +2269,16 @@ def train_kernel_wrappers() -> dict:
 
 class plain_route:
     """Inside ``with plain_route():`` the model reaches the plain versions of
-    K7, K8, K9, K10 and K11 on CUDA tensors (each wrapper's module attribute is
-    pointed at its plain version, which takes the same arguments); the
-    kernels are restored on exit.  Only this script's parity phases do
-    this: the port itself has no switch to the plain versions on the card."""
+    K7, K8, K9, K10 and K11 (both of its model forms) on CUDA tensors (each
+    wrapper's module attribute is pointed at its plain version, which takes
+    the same arguments); the kernels are restored on exit.  Only this
+    script's parity phases do this: the port itself has no switch to the
+    plain versions on the card."""
 
     def __enter__(self):
-        self._saved = train_kernel_wrappers()
+        from repro_torch.kernels.mamba_scan import kernel as K11
+        self._saved = dict(train_kernel_wrappers(), mamba_scan_heads=(
+            K11, K11.mamba_scan_heads, K11.scan_heads))
         for name, (mod, _, plain) in self._saved.items():
             setattr(mod, name, plain)
         return self
@@ -2969,6 +3040,139 @@ def time_scan_kernels(cfg, serve_batch, serve_seq, train_batch, train_seq,
     return out
 
 
+def _head_scan_inputs(gen, B, S, H, P, N, dtype, h0_dtype, device):
+    """K11's head-shared inputs as ``apply_mamba2`` makes them: dt =
+    softplus(.) in fp32 (B, S, H), A = -exp(A_log) with the reference's
+    log(1..H) init, x (B, S, H*P), Bc / Cc unit normal in the model's
+    dtype, a nonzero h0 (B, H, P, N)."""
+    import torch
+    import torch.nn.functional as F
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    dt = F.softplus(rnd(B, S, H) - 1.0)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=device)
+    x, Bc, Cc = (rnd(*sh).to(dtype) for sh in ((B, S, H * P), (B, S, N),
+                                                 (B, S, N)))
+    h0 = (0.5 * rnd(B, H, P, N)).to(h0_dtype)
+    return dt, A, x, Bc, Cc, h0
+
+
+def check_head_scan(device="cuda") -> dict:
+    """K11's head-shared (Mamba-2) form against its plain version
+    (``ref.scan_heads``, the reference's ``_mamba2_scan`` stepped): at
+    zamba2's width (H 80 heads of P 64, N 64) and a ragged one (3 x 40, N
+    32), S 1 (the decode kernel), 77 and 1024, x / Bc / Cc in fp32 and
+    bf16, h0 in fp32 and bf16, at parts 1, the wrapper's and 16 (at most
+    S).  y is fp32 on both sides: held at the fp32 tolerance x min(1,
+    max|plain|); hT is stored in h0's dtype: ``_hold_stored`` there.
+    Returns the max error."""
+    import torch
+    from repro_torch.kernels.mamba_scan import kernel as K11
+    from repro_torch.kernels.mamba_scan import ref as R11
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    worst = 0.0
+    for B, S, H, P, N in ((8, 1, 80, 64, 64), (1, 1024, 80, 64, 64),
+                          (2, 77, 80, 64, 64), (2, 130, 3, 40, 32)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for h0_dtype in (torch.float32, torch.bfloat16):
+                ins = _head_scan_inputs(gen, B, S, H, P, N, dtype, h0_dtype,
+                                        device)
+                want = R11.scan_heads(*ins)
+                runs = [("wrapper", K11.mamba_scan_heads(*ins))]
+                runs += [(f"parts={p}", K11.launch_scan_heads(*ins, p))
+                         for p in (1, 16) if p <= S]
+                dn = str(dtype).split(".")[1]
+                hn = str(h0_dtype).split(".")[1]
+                err = 0.0
+                for how, got in runs:
+                    what = f"K11 heads {how} B={B} S={S} H={H} N={N} {dn}"
+                    err = max(err, _hold(what + " y", got[0], want[0],
+                                         torch.float32),
+                              _hold_stored(what + " hT", got[1], want[1],
+                                           h0_dtype)
+                              if h0_dtype == torch.bfloat16 else
+                              _hold(what + " hT", got[1], want[1],
+                                    torch.float32))
+                    worst = max(worst, err)
+                _log("kernels", kernel="mamba_scan_heads", B=B, S=S, H=H,
+                     P=P, N=N, dtype=dn, h0_dtype=hn, max_abs_err=err,
+                     runs=",".join(h for h, _ in runs))
+    return {"mamba_scan_heads": worst}
+
+
+def time_head_scan(cfg, chunk, batch, device="cuda") -> dict:
+    """K11's head-shared form at zamba2's serve shapes: its scan kernel's
+    registers, spills, shared memory and CTAs an SM (both dtypes, N 64);
+    a prefill span (B 1, S ``chunk``, bf16 x, bf16 state: 40 CTAs of 128
+    channels, time in the wrapper's chunks) and a decode step (B
+    ``batch``, S 1; with its CUDA-graph device time and the wrapper's host
+    microseconds a call), beside the plain version.  Bound: bytes (dt, x,
+    Bc, Cc, A, h0 read once, y and hT written once) over 3.35 TB/s, or
+    operations (5 fp32 flops an element (b, t, e, n): (x·dt)·B, the
+    state's fma and y's fma; and x·dt a channel and step, over 67
+    TFLOP/s), the larger; one exponential a head and step.  No single
+    PyTorch call computes the recurrence, so no library time.  The result's
+    ``mamba_scan_heads`` is the prefill span's."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.build import DTYPE_CODE
+    from repro_torch.kernels.mamba_scan import kernel as K11
+    from repro_torch.kernels.mamba_scan import ref as R11
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    H = cfg.ssm_expand * cfg.d_model // P
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dn, code in (("bfloat16", 1), ("float32", 0)):
+        regs, spill, smem, ctas, per_cta = build.resources(
+            "mamba_scan_heads_resources", code, code, N)
+        _log("resources", kernel="mamba_scan_heads", dtype=dn, N=N,
+             body="mamba::head_scan_kernel (a thread a channel, one dA a "
+             "head)", registers=regs, spill_bytes=spill, smem_bytes=smem,
+             ctas_per_sm=ctas, channels_per_cta=per_cta, sms=sms)
+    out = {}
+    for name, B, S, reps in (("prefill", 1, chunk, 20),
+                             ("decode", batch, 1, 200)):
+        dtype = torch.bfloat16
+        ins = _head_scan_inputs(gen, B, S, H, P, N, dtype, dtype, device)
+        got, want = K11.mamba_scan_heads(*ins), R11.scan_heads(*ins)
+        err = max(_hold(f"K11 heads {name}-shape y", got[0], want[0],
+                        torch.float32),
+                  _hold_stored(f"K11 heads {name}-shape hT", got[1], want[1],
+                               dtype))
+        del got, want
+        ms = cuda_ms(lambda: K11.mamba_scan_heads(*ins), reps)
+        parts = K11.scan_parts(1, 1, N, B, S, H * P,
+                               torch.cuda.current_device(),
+                               "mamba_scan_heads_resources")
+        extra = dict(parts=parts,
+                     device_ms=graph_ms(lambda: K11.mamba_scan_heads(*ins),
+                                        reps))
+        if S == 1:
+            extra["host_us"] = host_us(lambda: K11.mamba_scan_heads(*ins),
+                                       100)
+        plain_ms = cuda_ms(lambda: R11.scan_heads(*ins), 2, warmup=1)
+        E, elems = H * P, B * S * H * P * N
+        nbytes = 4 * B * S * H + 2 * (B * S * E + 2 * B * S * N) + 4 * H             + 2 * 2 * B * E * N + 4 * B * S * E
+        ops = 5 * elems + 2 * B * S * E
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_FLOPS["float32"] * 1e3
+        r = dict(ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
+                 bytes=nbytes, flops=ops, bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 shape=f"B={B} S={S} H={H} P={P} N={N}", **extra)
+        out[f"mamba_scan_heads_{name}"] = r
+        _log("timing", kernel=f"mamba_scan_heads ({name})",
+             shape=repr(r["shape"]), ms=ms, plain_ms=plain_ms,
+             library_ms=None, bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+             bound_share=r["bound_ms"] / extra["device_ms"],
+             max_abs_err=err, dtype="bfloat16",
+             gb_per_s=nbytes / extra["device_ms"] / 1e6, **extra)
+        del ins
+    out["mamba_scan_heads"] = out["mamba_scan_heads_prefill"]
+    return out
+
+
 def _ssm_margins_ok(model, prompt, out, plen, device, min_margin=1e-3):
     """Top-2 logit margin of every generated token of a row the static
     engine left-padded to ``plen`` (teacher forcing over the padded row)."""
@@ -3236,7 +3440,10 @@ def main() -> int:
     _log("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=repr(torch.cuda.get_device_name(0)),
          count=torch.cuda.device_count())
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
+
+    def stamp(phase):     # seconds since the start, at each phase's end
+        _log("time", after=phase, seconds=time.perf_counter() - t_start)
     libs = build.build_all(build.LIBRARIES)   # one nvcc a source, in parallel
     for name in build.LIBRARIES:
         build.load(name)
@@ -3249,6 +3456,8 @@ def main() -> int:
     worst.update(check_train_kernels())
     worst.update(check_sparse_kernels())
     worst.update(check_scan_kernels())
+    worst.update(check_head_scan())
+    stamp("kernels")
     prompt_lens = [1024, 32, 777, 150, 512, 64, 900, 300]
     serve_lens = [n + 16 for n in prompt_lens]
     # the DSA mix: two prompts past 3 x top-k, four past top-k
@@ -3262,6 +3471,12 @@ def main() -> int:
     # and its MTP layer (one dense-MLP MLA block, shared by 3 steps)
     glm5_mtp = get_config("glm5_744b").replace(num_layers=4)
     glm5 = glm5_mtp.replace(mtp=None)
+    # zamba2-2.7b at full width and depth (54 Mamba-2 layers, the shared
+    # block 9 times): as published (dense attention at head dim 80) and
+    # with the repo's DSA retrofit on the shared block (8 x 64 indexer)
+    zamba2_dsa = get_config("zamba2_2p7b")
+    zamba2 = zamba2_dsa.replace(dsa=None)
+    z_groups = zamba2.num_layers // zamba2.hybrid_attn_every
     chunk, new_tokens = 256, 32
     decode_mb = (max(serve_lens + prompt_lens) + chunk) // 16 + 1
     mla_resources(glm5, len(prompt_lens), decode_mb)
@@ -3280,6 +3495,20 @@ def main() -> int:
         yi_dsa, [n + 16 for n in dsa_lens], span_start,
         max(dsa_lens) - span_start, bs=16, num_blocks=2048,
         mb=dsa_max_len // 16))
+    _free()
+    # zamba2's shared block: K1/K2 at head dim 80 (32 heads, G 1) and K5/K6
+    # at 8 x 64 indexer heads over its 9 invocations' pools; K11's
+    # head-shared form at its prefill span and decode step
+    timing.update(time_kernels(zamba2.replace(num_layers=z_groups),
+                               serve_lens, max(prompt_lens), bs=16,
+                               num_blocks=2048, chunk=chunk, tag="_zamba2"))
+    _free()
+    timing.update(time_indexer_kernels(
+        zamba2_dsa.replace(num_layers=z_groups), [n + 16 for n in dsa_lens],
+        span_start, max(dsa_lens) - span_start, bs=16, num_blocks=2048,
+        mb=dsa_max_len // 16, tag="_zamba2"))
+    _free()
+    timing.update(time_head_scan(zamba2, chunk, len(prompt_lens)))
     _free()
     # the training path: Yi-6B at full width, depth cut to 8 layers so that
     # fp32 weights, gradients and Muon state fit beside the activations
@@ -3307,6 +3536,7 @@ def main() -> int:
     worst["chunked_ce"] = max(worst["chunked_ce"],
                               timing["chunked_ce_falcon"]["max_abs_err"])
     _free()
+    stamp("timing")
     parity(yi.replace(num_layers=2))
     _free()
     parity(yi_dsa.replace(num_layers=2), long=True)
@@ -3319,6 +3549,12 @@ def main() -> int:
     _free()
     parity_ssm(falcon.replace(num_layers=2))
     _free()
+    # zamba2 at depth 12 (two shared-block invocations: the second reads
+    # the pool at table + stride), fp32, whole-prompt and chunked prefill
+    for cfg_, long_ in ((zamba2, False), (zamba2_dsa, True)):
+        parity(cfg_.replace(num_layers=12), chunks=(None, 64), long=long_)
+        _free()
+    stamp("parity")
     # the main paths' launches: every serve and train run below, summed
     launches = collections.Counter()
     launches.update(serve(yi, prompt_lens)["launches"])
@@ -3345,11 +3581,18 @@ def main() -> int:
          spec_rounds=glm5_on["spec_rounds"])
     del glm5_on, glm5_off
     _free()
+    launches.update(serve(zamba2, prompt_lens, max_new=new_tokens)
+                    ["launches"])
+    _free()
+    launches.update(serve(zamba2_dsa, dsa_lens, max_new=new_tokens)
+                    ["launches"])
+    _free()
     falcon_serve = serve_ssm(falcon, prompt_lens, max_new=new_tokens)
     launches.update(falcon_serve["launches"])
     profile_ssm_decode(falcon, falcon_serve.pop("model"))
     del falcon_serve
     _free()
+    stamp("serve")
     train_parity(yi.replace(num_layers=2), batch=1, seq=1024)
     _free()
     train_parity(yi_dsa.replace(num_layers=2), batch=1, seq=2560)
@@ -3365,19 +3608,24 @@ def main() -> int:
         launches.update(train_run(cfg_, batch=batch_, seq=seq_,
                                   steps=5)["launches"])
         _free()
-    profile_train_step(yi_train, batch=2, seq=2048)
-    _free()
-    profile_train_step(yi_dsa_train, batch=1, seq=4096)
-    _free()
-    profile_train_step(yi_block.replace(num_layers=8), batch=1, seq=4096)
-    _free()
-    profile_train_step(falcon_train, batch=2, seq=2048)
-    _free()
+    stamp("train")
+    # the training profiles at 4 layers (8 until the hybrid phases came:
+    # the cut keeps the whole run near its earlier time; the per-layer
+    # parts of a step halve, the loss and the vocabulary's do not)
+    for cfg_, batch_, seq_ in ((yi_train, 2, 2048), (yi_dsa_train, 1, 4096),
+                               (yi_block, 1, 4096), (falcon_train, 2, 2048)):
+        profile_train_step(cfg_.replace(num_layers=4), batch=batch_,
+                           seq=seq_)
+        _free()
+    stamp("profile.train")
     profile_decode(yi)
     _free()
     profile_decode(yi_dsa, prompt_len=2304)
     _free()
     profile_decode(glm5)
+    _free()
+    profile_decode(zamba2)
+    stamp("profile")
 
     sources = {"block_sparse": "src/repro_torch/csrc/block_sparse.cu",
                "gqa": "src/repro_torch/csrc/paged_attention.cu",
@@ -3412,6 +3660,11 @@ def main() -> int:
                 "chunked_ce":
                 ("chunked_ce", "src/repro/kernels/chunked_ce/kernel.py:70"),
                 "mamba_scan":
+                ("mamba_scan", "src/repro/kernels/mamba_scan/kernel.py:46"),
+                # K11's head-shared (Mamba-2) form: the reference runs that
+                # scan as a lax.scan (layers/ssm.py, _mamba2_scan); on the
+                # TPU its kernel is K11's
+                "mamba_scan_heads":
                 ("mamba_scan", "src/repro/kernels/mamba_scan/kernel.py:46")}
     # K11's launches: both entry points (the main path runs the model form)
     launches["mamba_scan"] += launches.pop("mamba_scan_model")

@@ -3,10 +3,12 @@
 ``from_jax_params`` takes the reference's parameter pytree — nested dicts
 of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)`` of
 ``repro.models.get_model(cfg).init(key, cfg)[0]`` — and returns the port's
-model (``Transformer``, or ``SSMModel`` for family ``ssm``) holding the
-same weights.  The reference's ssm model stacks every layer leaf on a
-leading ``layers`` axis (``stack_init``): layer ``i`` of the port takes
-index ``i`` of ``params["layers"][...]``.  Its transformer stacks every
+model (``Transformer``, ``SSMModel`` for family ``ssm``, ``HybridModel``
+for family ``hybrid``) holding the same weights.  The reference's ssm and
+hybrid models stack every layer leaf on a leading ``layers`` axis
+(``stack_init``): layer ``i`` of the port takes index ``i`` of
+``params["layers"][...]``; the hybrid's ``shared_attn`` block and
+``final_norm`` are read as they are.  Its transformer stacks every
 pattern slot ``slotJ`` on a leading ``n_groups`` axis for its layer scan;
 layer ``first_k_dense + g*P + j`` of the port takes index ``g`` of
 ``slotJ`` (an MoE slot's expert tensors are ``(n_groups, E, in, out)``, so
@@ -25,8 +27,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.hybrid import HybridModel
 from repro_torch.models.ssm_model import SSMModel
 from repro_torch.models.transformer import Transformer
+
+_MODEL = {"ssm": SSMModel, "hybrid": HybridModel}
 
 
 def _jax_leaf(params, cfg: ModelConfig, key: str) -> np.ndarray:
@@ -38,7 +43,7 @@ def _jax_leaf(params, cfg: ModelConfig, key: str) -> np.ndarray:
         return np.asarray(node)
     i, rest = int(parts[1]), parts[2:]
     g = None
-    if cfg.family == "ssm":
+    if cfg.family in _MODEL:
         node, g = params["layers"], i
     elif i < cfg.first_k_dense:
         node = params[f"dense_{i}"]
@@ -60,7 +65,7 @@ def _n_elements(tree) -> int:
 def from_jax_params(params_np: dict, cfg: ModelConfig, device=None,
                     dtype=torch.float32) -> torch.nn.Module:
     """The reference's parameters as the port's model on ``device``."""
-    cls = SSMModel if cfg.family == "ssm" else Transformer
+    cls = _MODEL.get(cfg.family, Transformer)
     model = cls(cfg, device=resolve_device(device), dtype=dtype)
     state = {k: torch.tensor(_jax_leaf(params_np, cfg, k))
              for k in model.state_dict()}

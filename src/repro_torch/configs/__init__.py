@@ -7,7 +7,8 @@ serves; GLM-5 also carries its MTP head, which the port trains and drafts
 speculative tokens with (``serving.speculative``,
 ``ContinuousEngine(spec_steps=...)``).  ``falcon_mamba_7b`` is the
 attention-free Mamba-1 LM (family ``ssm``), served by the static
-``ServingEngine`` and trained.
+``ServingEngine`` and trained; ``zamba2_2p7b`` the hybrid family (Mamba-2
+layers and one shared attention block), served by both engines.
 """
 from __future__ import annotations
 
@@ -16,12 +17,13 @@ import importlib
 from repro_torch.configs.base import (DSAConfig, MLAConfig, MTPConfig,
                                       ModelConfig)
 
-ARCH_IDS = ["falcon_mamba_7b", "gemma2_2b", "glm5_744b", "yi_6b"]
+ARCH_IDS = ["falcon_mamba_7b", "gemma2_2b", "glm5_744b", "yi_6b",
+            "zamba2_2p7b"]
 
 _ALIASES = {"falcon-mamba-7b": "falcon_mamba_7b",
             "gemma2-2b": "gemma2_2b", "glm-5": "glm5_744b",
             "glm-5-744b": "glm5_744b",
-            "yi-6b": "yi_6b"}
+            "yi-6b": "yi_6b", "zamba2-2.7b": "zamba2_2p7b"}
 
 
 def canonical(arch_id: str) -> str:

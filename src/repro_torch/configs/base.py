@@ -4,12 +4,13 @@
 same names and defaults.  ``dsa`` is served with either selector and
 deterministic top-k, ``mtp`` with its shared head; family ``ssm`` is the
 Mamba-1 LM (``models.ssm_model``: ``ssm_state``, ``ssm_conv``,
-``ssm_expand``; ``ssm_version=2``, Mamba-2, is the hybrid slice's and its
-model constructor raises); the other ``family`` values mark parts of later
-slices, and the model constructors reject a config that sets one.
+``ssm_expand``), family ``hybrid`` the zamba2-style model
+(``models.hybrid``: Mamba-2 layers, ``ssm_version=2`` with heads of
+``ssm_head_dim``, and one shared attention block every
+``hybrid_attn_every`` layers); the other ``family`` values mark parts of
+later slices, and the model constructors reject a config that sets one.
 The reference's expert-parallel switches
-(``moe_impl``, ``capacity_factor``: the mesh slice), the Mamba-2 and
-hybrid fields (``ssm_head_dim``, ``hybrid_attn_every``), encoder /
+(``moe_impl``, ``capacity_factor``: the mesh slice), encoder /
 frontend fields and its implementation switches (``attn_impl``,
 ``scan_layers``, ``remat``, ...) are left out, so a setting the port
 cannot honour fails when the config is built instead of being ignored.
@@ -100,11 +101,16 @@ class ModelConfig:
     first_k_dense: int = 0         # leading dense-MLP layers
     router_aux_coef: float = 0.001
 
-    # SSM (mamba1)
+    # SSM (mamba1/mamba2)
     ssm_state: int = 0
     ssm_conv: int = 4
     ssm_expand: int = 2
     ssm_version: int = 1           # 1 = mamba1 (falcon-mamba), 2 = mamba2 (zamba2)
+    ssm_head_dim: int = 64         # mamba2 only
+
+    # hybrid (zamba2-style): one SHARED attention block applied every
+    # ``hybrid_attn_every`` ssm layers.
+    hybrid_attn_every: int = 0
 
     # memory / compute layout of the training path
     q_chunk: int = 1024            # query rows a chunk (attention, DSA)

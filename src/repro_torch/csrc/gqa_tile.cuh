@@ -13,7 +13,9 @@
 // c*tanh(s/c), masked causally and by the window), folds them with an
 // fp32 online softmax (a warp per row; masked entries count as NEG_INF in
 // the max and contribute p = 0) and accumulates P @ V in registers, each
-// thread owning fixed columns.  The output divides by max(l, 1e-20), so a
+// thread owning fixed columns (D a multiple of 16; where D does not divide
+// the CTA's threads, d 80, the threads past the last whole column group
+// own none).  The output divides by max(l, 1e-20), so a
 // row that sees no key gets 0.  A round past the live range stages zeros,
 // so a masked p = 0 never meets stale shared memory.
 //
@@ -63,12 +65,18 @@ __global__ void __launch_bounds__(kThreads)
 gqa_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, T* __restrict__ out, KV layout,
                 int SG, int G, int window, float softcap, float scale) {
-  static_assert(D % 32 == 0 && ROWS % 4 == 0, "tile shape");
+  static_assert(D % 16 == 0 && ROWS % 4 == 0, "tile shape");
+  static_assert(D < kThreads || D % kThreads == 0, "column split");
   constexpr int LD = kLdQK<D>;
   constexpr int VN = Vec<T>::N;
   constexpr int CPT = D >= kThreads ? D / kThreads : 1;  // columns per thread
   constexpr int RG = D >= kThreads ? 1 : kThreads / D;   // row groups
   constexpr int RPT = ROWS / RG;                         // rows per thread
+  // threads that own output columns: all but the kThreads % D left over
+  // where D does not divide kThreads (d 80: 80 of 128), which take their
+  // part in staging, scores and the softmax only
+  constexpr int kPvThreads = D >= kThreads ? kThreads : RG * D;
+  static_assert(ROWS % RG == 0, "row groups");
   constexpr int VROW = D / VN;            // 16-byte vectors per K/V row
   static_assert(kTokens * VROW % kThreads == 0, "staging split");
   constexpr int NV = kTokens * VROW / kThreads;  // per thread and tensor
@@ -110,6 +118,7 @@ gqa_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int col0 = tid % (D < kThreads ? D : kThreads);
   const int rg = D >= kThreads ? 0 : tid / D;
+  const bool pv = kPvThreads == kThreads || tid < kPvThreads;
   float acc[RPT][CPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
@@ -248,6 +257,7 @@ gqa_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // acc = acc * alpha + P @ V over this round's positions
+    if (!pv) continue;   // no barrier below before the next round's
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = rg + i * RG;
@@ -283,7 +293,7 @@ gqa_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = rg + i * RG;
-    if (r < rows) {
+    if (pv && r < rows) {
       const float l = fmaxf(Ls[r], 1e-20f);
 #pragma unroll
       for (int j = 0; j < CPT; ++j)

@@ -1,14 +1,16 @@
-// Mamba-1 selective scan for Hopper (sm_90a): K11.
+// Mamba selective scan for Hopper (sm_90a): K11.
 //
 // Replaces the TPU kernel of the JAX package:
 //   K11  src/repro/kernels/mamba_scan/kernel.py  mamba_scan (_scan_kernel)
+// and runs the Mamba-2 scan the JAX package writes as a lax.scan
+// (src/repro/layers/ssm.py, _mamba2_scan) in its head-shared form.
 //
 // The recurrence, for batch row b, channel e < E and state n < N, from
 // h[-1] = h0, in fp32:
 //   h[t][e][n] = dA[t][e][n] * h[t-1][e][n] + dBx[t][e][n]
 //   y[t][e]    = sum_n h[t][e][n] * C[t][n]
-// returning y (B, S, E) and the last state hT (B, E, N).  Two entry points
-// share one body:
+// returning y (B, S, E) and the last state hT (B, E, N).  Three entry
+// points share one body:
 //   * mamba_scan_model: the tensors the model has (layers/ssm.py,
 //     apply_mamba1): dt and x (B, S, E), Bc and Cc (B, S, N) in the model's
 //     dtype (float32 or bfloat16), A (E, N) float32 and h0 (B, E, N) float32
@@ -18,6 +20,15 @@
 //     dBx = (dt * x) * Bc[n], the reference's order of products, so the
 //     (B, S, E, N) dA and dBx (1 MiB a token a layer at falcon-mamba's
 //     E 8192, N 16) never reach device memory; y and hT in float32;
+//   * mamba_scan_heads: the head-shared (Mamba-2) form (layers/ssm.py,
+//     apply_mamba2): channel e = h * P + p of head h; dt (B, S, H) and A
+//     (H,) float32, one of each a head, x (B, S, E) and Bc, Cc (B, S, N) in
+//     the model's dtype, h0 (B, H, P, N) float32 or bfloat16;
+//     dA = exp2f(dt * A2[h]) is one exponential a head and step (taken by
+//     each thread of the head: no shuffle), dBx = (x * dt) * Bc[n], the
+//     reference's order of products; y (B, S, H, P) in float32 and hT in
+//     h0's dtype (the reference's cast, round-to-nearest-even, done in the
+//     kernel);
 //   * mamba_scan_contract: the Pallas kernel's contract, for the parity
 //     tests: dA and dBx (B, S, E, N), C (B, S, N) and h0 (B, E, N) in one
 //     dtype (float32 or bfloat16), read a step at a time; y and hT in that
@@ -128,6 +139,19 @@ __device__ __forceinline__ void store_row(T* p, const float (&v)[N]) {
       return;
     }
   }
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && N % 8 == 0) {
+    if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i) {
+        __nv_bfloat162 w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)   // round-to-nearest-even
+          w[j] = __floats2bfloat162_rn(v[8 * i + 2 * j], v[8 * i + 2 * j + 1]);
+        reinterpret_cast<uint4*>(p)[i] = *reinterpret_cast<uint4*>(w);
+      }
+      return;
+    }
+  }
 #pragma unroll
   for (int n = 0; n < N; ++n) store_out(p + n, v[n]);
 }
@@ -147,13 +171,15 @@ struct ModelSrc {
   static constexpr int R = Tile<N>::kSteps;
   const T* dt;
   const T* x;
+  int e;              // the thread's channel
   float a2[N];        // A[e] * log2(e)
   float d[R], dx[R];  // the round's dt and dt * x
   T dn[R], xn[R];     // the next round's, in flight
 
-  // round steps t0 .. t0 + nt - 1; `at` = (b * S + t0) * E + e
-  __device__ __forceinline__ void fetch(size_t at, int nt, int E,
+  // round steps t0 .. t0 + nt - 1 of (b, t) row `row` = b * S + t0
+  __device__ __forceinline__ void fetch(size_t row, int nt, int E,
                                         bool live) {
+    const size_t at = row * E + e;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const bool ok = live && r < nt;
@@ -202,6 +228,50 @@ struct ContractSrc {
   }
 };
 
+// The head-shared (Mamba-2) form's: one dt and one A a head.  The round's
+// dt (the same address for the P threads of a head: one broadcast load)
+// and x * dt are a round ahead in registers; dA is one exponential a step,
+// the same for every state.
+template <int N, typename T>
+struct HeadSrc {
+  static constexpr bool kB = true;
+  static constexpr int R = Tile<N>::kSteps;
+  const float* dt;    // (B, S, H)
+  const T* x;         // (B, S, E)
+  int e, H, hd;       // the thread's channel, the heads, its head
+  float a2;           // A[hd] * log2(e)
+  float d[R], dx[R];  // the round's dt and x * dt
+  float dn[R];        // the next round's, in flight
+  T xn[R];
+
+  __device__ __forceinline__ void fetch(size_t row, int nt, int E,
+                                        bool live) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool ok = live && r < nt;
+      dn[r] = ok ? dt[(row + r) * H + hd] : 0.f;
+      xn[r] = ok ? x[(row + r) * E + e] : T(0.f);
+    }
+  }
+  __device__ __forceinline__ void land() {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      d[r] = dn[r];
+      dx[r] = to_f32(xn[r]) * d[r];
+    }
+  }
+  __device__ __forceinline__ void step(int r, size_t, bool,
+                                       const float* bt, float (&da)[N],
+                                       float (&dbx)[N]) const {
+    const float a = exp2f(d[r] * a2);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      da[n] = a;
+      dbx[n] = dx[r] * bt[n];
+    }
+  }
+};
+
 // Walk steps t0 .. t1 - 1 of batch row b for channel e from the state h
 // (every thread of the CTA takes part: the staging and barriers are the
 // CTA's); y[t] stored unless kEnds (pass 1), whose dt sum goes to *dsum.
@@ -238,7 +308,7 @@ __device__ __forceinline__ void walk(Src& src, const T* bc, const T* cc,
   if (rounds == 0) return;
   const size_t row0 = (size_t)b * S;   // first (b, t) row
   fetch_bc(t0, min(R, t1 - t0));
-  src.fetch((row0 + t0) * E + e, min(R, t1 - t0), E, live);
+  src.fetch(row0 + t0, min(R, t1 - t0), E, live);
   land_bc(0);
   src.land();
   __syncthreads();
@@ -248,7 +318,7 @@ __device__ __forceinline__ void walk(Src& src, const T* bc, const T* cc,
     if (more) {   // the next round's loads, in flight while this computes
       const int nt1 = min(R, t1 - rt0 - R);
       fetch_bc(rt0 + R, nt1);
-      src.fetch((row0 + rt0 + R) * E + e, nt1, E, live);
+      src.fetch(row0 + rt0 + R, nt1, E, live);
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -296,7 +366,7 @@ scan_kernel(const T* __restrict__ dt, const float* __restrict__ A,
   const bool live = e < E;
   const int L = (S + parts - 1) / parts;
   const int t0 = c * L, t1 = min(S, t0 + L);
-  ModelSrc<N, T> src{dt, x};
+  ModelSrc<N, T> src{dt, x, e};
   float h[N];
   if (live) {
     load_row<N>(A + (size_t)e * N, src.a2);
@@ -362,6 +432,87 @@ step_kernel(const T* __restrict__ dt, const float* __restrict__ A,
   store_row<N>(hT + at * N, h);
 }
 
+// The head-shared form over chunk blockIdx.z of `parts`, as scan_kernel:
+// the chunk decay is one value a channel, exp2(A2[h] * sum dt).  ws: h_end
+// (B, parts - 1, E, N), then the decay (B, parts - 1, E).  hT in h0's
+// dtype.
+template <int N, typename T, typename HT, bool kEnds>
+__global__ void __launch_bounds__(kThreads)
+head_scan_kernel(const float* __restrict__ dt, const float* __restrict__ A,
+                 const T* __restrict__ x, const T* __restrict__ bc,
+                 const T* __restrict__ cc, const HT* __restrict__ h0,
+                 float* __restrict__ y, HT* __restrict__ hT,
+                 float* __restrict__ ws, int S, int E, int H, int P,
+                 int parts) {
+  __shared__ Stage<N> st;
+  const int b = blockIdx.y, c = blockIdx.z;
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = e < E;
+  const int L = (S + parts - 1) / parts;
+  const int t0 = c * L, t1 = min(S, t0 + L);
+  HeadSrc<N, T> src{dt, x, e, H, live ? e / P : 0};
+  src.a2 = live ? A[src.hd] * kLog2e : 0.f;
+  float h[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) h[n] = 0.f;
+  const size_t ends = (size_t)gridDim.y * (parts - 1) * E;
+  if (!kEnds && live) {
+    load_row<N>(h0 + ((size_t)b * E + e) * N, h);
+    for (int j = 0; j < c; ++j) {   // the chunks before this one
+      const size_t at = ((size_t)b * (parts - 1) + j) * E + e;
+      float hv[N];
+      load_row<N>(ws + at * N, hv);
+      const float pv = ws[ends * N + at];
+#pragma unroll
+      for (int n = 0; n < N; ++n) h[n] = fmaf(pv, h[n], hv[n]);
+    }
+  }
+  float dsum = 0.f;
+  walk<N, kEnds>(src, bc, cc, st, h, y, b, e, live, t0, t1, S, E, &dsum);
+  if (!live) return;
+  if constexpr (kEnds) {
+    const size_t at = ((size_t)b * (parts - 1) + c) * E + e;
+    store_row<N>(ws + at * N, h);
+    ws[ends * N + at] = exp2f(src.a2 * dsum);
+  } else {
+    if (c == parts - 1) store_row<N>(hT + ((size_t)b * E + e) * N, h);
+  }
+}
+
+// A decode step (S = 1) of the head-shared form: one step a thread, Bc and
+// Cc of the row staged in shared memory once for the CTA (a thread keeps
+// only its N states in registers).
+template <int N, typename T, typename HT>
+__global__ void __launch_bounds__(kThreads)
+head_step_kernel(const float* __restrict__ dt, const float* __restrict__ A,
+                 const T* __restrict__ x, const T* __restrict__ bc,
+                 const T* __restrict__ cc, const HT* __restrict__ h0,
+                 float* __restrict__ y, HT* __restrict__ hT, int E, int H,
+                 int P) {
+  __shared__ float sb[N], sc[N];
+  const int b = blockIdx.y, e = blockIdx.x * kThreads + threadIdx.x;
+  for (int n = threadIdx.x; n < N; n += kThreads) {
+    sb[n] = to_f32(bc[(size_t)b * N + n]);
+    sc[n] = to_f32(cc[(size_t)b * N + n]);
+  }
+  __syncthreads();
+  if (e >= E) return;
+  const int hd = e / P;
+  const size_t at = (size_t)b * E + e;
+  const float d = dt[(size_t)b * H + hd], dx = to_f32(x[at]) * d;
+  const float a = exp2f(d * (A[hd] * kLog2e));
+  float h[N];
+  load_row<N>(h0 + at * N, h);
+  float yv = 0.f;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    h[n] = fmaf(a, h[n], dx * sb[n]);
+    yv = fmaf(h[n], sc[n], yv);
+  }
+  y[at] = yv;
+  store_row<N>(hT + at * N, h);
+}
+
 // The contract form: the whole scan, one chunk.
 template <int N, typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -415,6 +566,39 @@ int launch_model(const void* dt, const void* A, const void* x, const void* bc,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int N, typename T, typename HT>
+int launch_heads(const void* dt, const void* A, const void* x, const void* bc,
+                 const void* cc, const void* h0, void* y, void* hT, void* ws,
+                 int B, int S, int H, int P, int parts, cudaStream_t stream) {
+  const auto* dt_ = static_cast<const float*>(dt);
+  const auto* A_ = static_cast<const float*>(A);
+  const auto* x_ = static_cast<const T*>(x);
+  const auto* bc_ = static_cast<const T*>(bc);
+  const auto* cc_ = static_cast<const T*>(cc);
+  const auto* h0_ = static_cast<const HT*>(h0);
+  auto* y_ = static_cast<float*>(y);
+  auto* hT_ = static_cast<HT*>(hT);
+  auto* ws_ = static_cast<float*>(ws);
+  const int E = H * P;
+  const unsigned gx = (E + kThreads - 1) / kThreads;
+  if (S == 1) {
+    head_step_kernel<N, T, HT><<<dim3(gx, B), kThreads, 0, stream>>>(
+        dt_, A_, x_, bc_, cc_, h0_, y_, hT_, E, H, P);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (parts > 1) {
+    head_scan_kernel<N, T, HT, true><<<dim3(gx, B, parts - 1), kThreads, 0,
+                                       stream>>>(
+        dt_, A_, x_, bc_, cc_, h0_, y_, hT_, ws_, S, E, H, P, parts);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  head_scan_kernel<N, T, HT, false><<<dim3(gx, B, parts), kThreads, 0,
+                                      stream>>>(
+      dt_, A_, x_, bc_, cc_, h0_, y_, hT_, ws_, S, E, H, P, parts);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int N, typename T>
 int launch_contract(const void* dA, const void* dBx, const void* cmat,
                     const void* h0, void* y, void* hT, int B, int S, int E,
@@ -428,11 +612,9 @@ int launch_contract(const void* dA, const void* dBx, const void* cmat,
 }
 
 // out = {registers a thread, local (spill) bytes a thread, shared memory
-// bytes a CTA, CTAs resident on one SM, channels a CTA} of the model form's
-// scan kernel (pass 2: the whole scan where parts = 1)
-template <int N, typename T, typename HT>
-int resources(int* out) {
-  auto kern = scan_kernel<N, T, HT, false>;
+// bytes a CTA, CTAs resident on one SM, channels a CTA} of a scan kernel
+template <typename K>
+int resources(K kern, int* out) {
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kern);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -446,7 +628,19 @@ int resources(int* out) {
   return static_cast<int>(e);
 }
 
-// f(std::integral_constant<int, N>) for the state sizes the kernels take
+// f(std::integral_constant<int, N>) for the state sizes the head-shared
+// form takes
+template <class F>
+int with_head_state_size(int N, F&& f) {
+  switch (N) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// f(std::integral_constant<int, N>) for the state sizes the other forms take
 template <class F>
 int with_state_size(int N, F&& f) {
   switch (N) {
@@ -504,8 +698,47 @@ extern "C" int mamba_scan_model_resources(int dtype, int h0_dtype, int N,
                                           int* out) {
   return mamba::with_state_size(N, [&](auto n) {
     return mamba::with_types(dtype, h0_dtype, [&](auto t, auto ht) {
-      return mamba::resources<decltype(n)::value, decltype(t),
-                              decltype(ht)>(out);
+      return mamba::resources(
+          mamba::scan_kernel<decltype(n)::value, decltype(t), decltype(ht),
+                             false>, out);
+    });
+  });
+}
+
+// The head-shared (Mamba-2) form.  dtype / h0_dtype: 0 float32, 1 bfloat16
+// (x, Bc, Cc one dtype; dt and A float32); N 16, 32 or 64; E = H * P
+// channels; y float32, hT in h0's dtype.  ws: pass 1's workspace,
+// B x (parts - 1) x E x (N + 1) floats (null where parts = 1); parts:
+// 1 .. 16 time chunks, at most S (1 where S = 1).
+extern "C" int mamba_scan_heads(int dtype, int h0_dtype, int N,
+                                const void* dt, const void* A, const void* x,
+                                const void* bc, const void* cc,
+                                const void* h0, void* y, void* hT, void* ws,
+                                int B, int S, int H, int P, int parts,
+                                void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || H < 1 || P < 1 || parts < 1
+      || parts > mamba::kMaxParts || parts > S
+      || (parts > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return mamba::with_head_state_size(N, [&](auto n) {
+    return mamba::with_types(dtype, h0_dtype, [&](auto t, auto ht) {
+      return mamba::launch_heads<decltype(n)::value, decltype(t),
+                                 decltype(ht)>(dt, A, x, bc, cc, h0, y, hT,
+                                               ws, B, S, H, P, parts, st);
+    });
+  });
+}
+
+// The head-shared form's scan kernel (pass 2: the whole scan where parts =
+// 1) for (dtype, h0_dtype, N), as mamba_scan_model_resources.
+extern "C" int mamba_scan_heads_resources(int dtype, int h0_dtype, int N,
+                                          int* out) {
+  return mamba::with_head_state_size(N, [&](auto n) {
+    return mamba::with_types(dtype, h0_dtype, [&](auto t, auto ht) {
+      return mamba::resources(
+          mamba::head_scan_kernel<decltype(n)::value, decltype(t),
+                                  decltype(ht), false>, out);
     });
   });
 }

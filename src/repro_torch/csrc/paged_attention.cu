@@ -61,6 +61,13 @@
 //     below is its layout.
 // Not done yet (later work): wgmma and TMA for the span tile.
 //
+// Head dims: 64, 80 (zamba2's shared attention block), 128 and 256; block
+// sizes 8, 16 and 32.  At d 80 the bf16 decode body adds a half chunk of
+// 16 dims to its 32-dim chunks (one k-step, one m-tile), the fp32 decode
+// body gives a key a whole warp (20 of 32 lanes live), and the fp32 span
+// tile leaves 48 of 128 threads out of P V; zamba2 is MHA (G 1), so the
+// decode CTA's 8 query rows hold 1 (the tile was built for GQA groups).
+//
 // Interface: plain C, loaded with ctypes.  Each entry point returns the
 // cudaError_t of its launch (0 on success); it launches on the given stream,
 // does not synchronise and allocates nothing.
@@ -183,20 +190,35 @@ __device__ inline void fold_warps(Shared<D>& sm, T* __restrict__ out,
 // How a warp reads a key row of D fp32 elements: a 16-byte vector holds 4,
 // kPerKey lanes share a key (kLoads vectors each, kDims dims a lane), so one
 // load instruction of the warp covers kSlots keys; a lane keeps kUnroll keys
-// (of its slot) in flight, K and V, 8 vectors.
+// (of its slot) in flight, K and V, 8 vectors.  kPerKey is the row's
+// vectors rounded up to a power of two (the shuffle sums of a score are
+// butterflies), at most 32: at d 80 a key's 20 vectors take a warp, and
+// lanes 20-31 hold zeros (live() false), load nothing and store nothing.
+constexpr int pow2_ceil(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
+
 template <int D>
 struct Lanes {
   static constexpr int kVec = 4;
-  static constexpr int kPerKey = D / kVec < 32 ? D / kVec : 32;
-  static constexpr int kLoads = D / (kVec * kPerKey);
+  static constexpr int kVecs = D / kVec;             // vectors a key row
+  static constexpr int kPerKey = pow2_ceil(kVecs) < 32 ? pow2_ceil(kVecs)
+                                                       : 32;
+  static constexpr int kLoads = (kVecs + kPerKey - 1) / kPerKey;
   static constexpr int kDims = kLoads * kVec;
   static constexpr int kSlots = 32 / kPerKey;
   static constexpr int kUnroll = 4 / kLoads;
   static constexpr int kKeys = kSlots * kUnroll;   // keys a warp a round
-  static_assert(D % (kVec * kPerKey) == 0 && kUnroll >= 1, "lane split");
+  static_assert(D % kVec == 0 && kUnroll >= 1, "lane split");
   // element of vector l of lane li of a key row
   __device__ static int elem(int l, int li) {
     return (l * kPerKey + li) * kVec;
+  }
+  // whether vector l of lane li lies in the row
+  __device__ static bool live(int l, int li) {
+    return kVecs % kPerKey == 0 || l * kPerKey + li < kVecs;
   }
 };
 
@@ -229,7 +251,7 @@ simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < kRows; ++r)
 #pragma unroll
     for (int l = 0; l < L::kLoads; ++l) {
-      if (r < rows) {
+      if (r < rows && L::live(l, li)) {
         Vec<float>::convert(ld16(q + (qrow0 + r) * D + L::elem(l, li)),
                             &qf[r][l * VN]);
       } else {
@@ -260,8 +282,12 @@ simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const size_t row = kv_row(sm.blk, trow, run, pos, KVH, kvh);
 #pragma unroll
         for (int l = 0; l < L::kLoads; ++l) {
-          kr[u][l] = ld16(k + row * D + L::elem(l, li));
-          vr[u][l] = ld16(v + row * D + L::elem(l, li));
+          if (L::live(l, li)) {
+            kr[u][l] = ld16(k + row * D + L::elem(l, li));
+            vr[u][l] = ld16(v + row * D + L::elem(l, li));
+          } else {
+            kr[u][l] = vr[u][l] = make_uint4(0u, 0u, 0u, 0u);
+          }
         }
       } else {
 #pragma unroll
@@ -340,6 +366,7 @@ simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int r = 0; r < kRows; ++r) {
 #pragma unroll
       for (int l = 0; l < L::kLoads; ++l) {
+        if (!L::live(l, li)) continue;
         float* dst = &sm.acc[warp][r][L::elem(l, li)];
         *reinterpret_cast<float4*>(dst) =
             make_float4(acc[r][l * VN], acc[r][l * VN + 1],
@@ -365,6 +392,10 @@ __device__ inline uint32_t trans8x8(uint32_t x) {
   return r;
 }
 
+__device__ inline uint2 ld8(const void* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+
 // 16-key groups a warp keeps in flight: K and V of 32 keys, 16 KB a warp
 // at d 128 (one group measured the same at the serve shape); d 256 takes
 // one, for its registers
@@ -383,6 +414,10 @@ constexpr int kGroups = D <= 128 ? 2 : 1;
 // 16-byte loads) become the B and A fragments by movmatrix transposes,
 // which also permutes the output dims: m-tile (c, j) row g of O^T is dim
 // 32c + 8 (g / 2) + 2 (2j + h) + g % 2, h = 0 for rows g, 1 for g + 8.
+// Where D is an odd multiple of 16 (d 80), its last 16 dims are a half
+// chunk: lane t's 8 bytes (dims 4t .. 4t + 3 of it) are its k slots 2t,
+// 2t + 1, 2t + 8, 2t + 9 of one k-step, and one more m-tile of O^T, whose
+// row g is dim 32 NC + 4 (g / 2) + 2 h + g % 2.
 template <int D, int BS>
 __global__ void __launch_bounds__(kThreads)
 mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -391,6 +426,9 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
            float* __restrict__ ws, int KVH, int G, int mb, int window,
            float softcap, float scale) {
   constexpr int NC = D / 32;            // 32-dim chunks: 16 bytes a lane
+  constexpr bool HALF = D % 32 == 16;   // a last 16-dim chunk: 8 bytes
+  constexpr int NT = 2 * NC + HALF;     // O^T m-tiles
+  static_assert(D % 16 == 0, "head dim");
   constexpr int NG = kGroups<D>;
   __shared__ Shared<D> sm;
   const int rt = (G + kRows - 1) / kRows;
@@ -410,11 +448,13 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int c = 0; c < NC; ++c)
     qb[c] = g < rows ? ld16(q + (qrow0 + g) * D + 32 * c + 8 * t)
                      : make_uint4(0u, 0u, 0u, 0u);
+  uint2 qh = make_uint2(0u, 0u);        // the half chunk's
+  if (HALF && g < rows) qh = ld8(q + (qrow0 + g) * D + 32 * NC + 4 * t);
   // rows 2t, 2t + 1: running max (log2 units), this lane's share of l
   float m[2] = {kNegInf, kNegInf}, lsum[2] = {0.f, 0.f};
-  float acc[2 * NC][4];                 // O^T m-tiles (c, j)
+  float acc[NT][4];                     // O^T m-tiles (c, j), the half's
 #pragma unroll
-  for (int i = 0; i < 2 * NC; ++i)
+  for (int i = 0; i < NT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   __syncthreads();   // the block ids
@@ -423,6 +463,7 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
        base += kWarps * 16 * NG) {
     // K and V of keys base + 16 n + g + 8 h, every load before any use
     uint4 kr[NG][2][NC], vr[NG][2][NC];
+    uint2 kh[NG][2], vh[NG][2];
     bool ok[NG][2];
 #pragma unroll
     for (int n = 0; n < NG; ++n)
@@ -437,10 +478,15 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             kr[n][h][c] = ld16(k + row * D + 32 * c + 8 * t);
             vr[n][h][c] = ld16(v + row * D + 32 * c + 8 * t);
           }
+          if constexpr (HALF) {
+            kh[n][h] = ld8(k + row * D + 32 * NC + 4 * t);
+            vh[n][h] = ld8(v + row * D + 32 * NC + 4 * t);
+          }
         } else {
 #pragma unroll
           for (int c = 0; c < NC; ++c)
             kr[n][h][c] = vr[n][h][c] = make_uint4(0u, 0u, 0u, 0u);
+          kh[n][h] = vh[n][h] = make_uint2(0u, 0u);
         }
       }
 #pragma unroll
@@ -455,6 +501,11 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const uint32_t a_hi[4] = {k0.z, k1.z, k0.w, k1.w};
         mma16816(st, a_lo, qc.x, qc.y);
         mma16816(st, a_hi, qc.z, qc.w);
+      }
+      if constexpr (HALF) {
+        const uint2 k0 = kh[n][0], k1 = kh[n][1];
+        const uint32_t a[4] = {k0.x, k1.x, k0.y, k1.y};
+        mma16816(st, a, qh.x, qh.y);
       }
       // st[0..1]: key g, rows 2t, 2t + 1; st[2..3]: key g + 8
       float mx[2];
@@ -472,7 +523,7 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         m[i] = m_new;
         lsum[i] *= alpha;
 #pragma unroll
-        for (int j = 0; j < 2 * NC; ++j) {
+        for (int j = 0; j < NT; ++j) {
           acc[j][i] *= alpha;        // column 2t + i of O^T: row 2t + i
           acc[j][i + 2] *= alpha;
         }
@@ -498,6 +549,12 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma16816(acc[2 * c], a0, pb0, pb1);
         mma16816(acc[2 * c + 1], a1, pb0, pb1);
       }
+      if constexpr (HALF) {
+        const uint2 v0 = vh[n][0], v1 = vh[n][1];
+        const uint32_t a[4] = {trans8x8(v0.x), trans8x8(v0.y),
+                               trans8x8(v1.x), trans8x8(v1.y)};
+        mma16816(acc[2 * NC], a, pb0, pb1);
+      }
     }
   }
 
@@ -517,6 +574,13 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int dim = 32 * c + 8 * (g / 2) + 2 * (2 * j + e / 2) + g % 2;
         sm.acc[warp][2 * t + e % 2][dim] = acc[2 * c + j][e];
       }
+  if constexpr (HALF) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int dim = 32 * NC + 4 * (g / 2) + 2 * (e / 2) + g % 2;
+      sm.acc[warp][2 * t + e % 2][dim] = acc[2 * NC][e];
+    }
+  }
   if (g == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -775,6 +839,7 @@ int run(Op op, int dtype, int d, int bs, const Args& a, int* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64: return (int)at_dim<64>(op, dtype, bs, a, out, s);
+    case 80: return (int)at_dim<80>(op, dtype, bs, a, out, s);
     case 128: return (int)at_dim<128>(op, dtype, bs, a, out, s);
     case 256: return (int)at_dim<256>(op, dtype, bs, a, out, s);
     default: return (int)cudaErrorInvalidValue;

@@ -118,6 +118,11 @@ ENTRIES = {
     # K11's scan kernel: dtype, h0 dtype, N -> registers, spill bytes,
     # shared memory, CTAs an SM, channels a CTA
     "mamba_scan_model_resources": ("mamba_scan", [_I] * 3 + [_P]),
+    # K11 head-shared (Mamba-2) form: dtype, h0 dtype, N, dt, A, x, Bc, Cc,
+    # h0, y, hT, workspace, B, S, H, P, parts, stream
+    "mamba_scan_heads": ("mamba_scan", [_I] * 3 + [_P] * 9 + [_I] * 5 + [_P]),
+    # its scan kernel: dtype, h0 dtype, N -> as the model form's
+    "mamba_scan_heads_resources": ("mamba_scan", [_I] * 3 + [_P]),
     # K11 contract: dtype, N, dA, dBx, C, h0, y, hT, B, S, E, stream
     "mamba_scan_contract": ("mamba_scan",
                             [_I] * 2 + [_P] * 6 + [_I] * 3 + [_P]),

@@ -1,10 +1,10 @@
-"""K11: the Mamba-1 selective scan, hand-written for Hopper, its wrappers
-and the autograd Function of the model's form.
+"""K11: the selective scan, hand-written for Hopper, its wrappers and the
+autograd Function of the Mamba-1 model's form.
 
 Ports ``repro.kernels.mamba_scan.kernel.mamba_scan`` (the recurrence
 ``h[t] = dA[t]·h[t-1] + dBx[t]``, ``y[t] = <h[t], C[t]>``; see ``ref.py``)
-with two entry points over one CUDA body (``csrc/mamba_scan.cu``, built by
-``repro_torch.kernels.build``; a thread a channel, its N states in
+with three entry points over one CUDA body (``csrc/mamba_scan.cu``, built
+by ``repro_torch.kernels.build``; a thread a channel, its N states in
 registers):
 
 * ``mamba_scan(dA, dBx, C, h0)``: the Pallas kernel's contract, for the
@@ -17,18 +17,28 @@ registers):
   h0 fp32 or bfloat16.  Where the batch's channels leave the card's
   thread slots mostly empty, time is cut into ``scan_parts`` chunks (a
   pass of chunk end states, then the chunks rerun from their true
-  starts); a decode step (S 1) runs a one-step kernel.
+  starts); a decode step (S 1) runs a one-step kernel;
+* ``mamba_scan_heads(dt, A, x, Bc, Cc, h0)``: the head-shared form that
+  ``layers.ssm.apply_mamba2`` (Mamba-2) has, one dt and one A a head:
+  dt (B, S, H) and A (H,) fp32, x (B, S, H·P), Bc and Cc (B, S, N) in the
+  model's dtype, h0 (B, H, P, N) fp32 or bfloat16; dA = exp2(dt·A·log2 e)
+  is one exponential a head and step; y (B, S, H, P) in fp32 and hT in
+  h0's dtype (rounded to nearest even in the kernel, the reference's
+  cast).  Time chunks and the S = 1 step as the model form.
 
-N (the state size) is one of 1, 2, 4, 8, 16, 32; E and S >= 1 are free.
+N (the state size) is one of 1, 2, 4, 8, 16, 32 (the head-shared form: 16,
+32, 64); E, P and S >= 1 are free.
 ``mamba1_scan`` is the model's entry point: an autograd Function whose
 forward is ``mamba_scan_model`` and whose backward is the plain recomputing
 gradient ``ref.scan_model_grads`` (the reference differentiates its
-``lax.scan``; no backward kernel yet).
+``lax.scan``; no backward kernel yet).  The head-shared form serves the
+hybrid family's inference and has no backward yet.
 
 The wrappers choose by the tensors' device: on the CPU they run the plain
 versions, on a CUDA device they launch the kernel or raise.  There is no
 fallback.  ``mamba_scan.launches`` and ``mamba_scan_model.launches`` count
-wrapper calls that launched the kernel (one a call, whatever its passes).
+wrapper calls that launched the kernel (one a call, whatever its passes),
+and so does ``mamba_scan_heads.launches``.
 """
 from __future__ import annotations
 
@@ -39,10 +49,11 @@ import torch
 
 from repro_torch.kernels.build import DTYPE_CODE, check_launch, cuda_entry
 from repro_torch.kernels.build import resources as _resources
-from repro_torch.kernels.mamba_scan.ref import (reference, scan_model,
-                                                scan_model_grads)
+from repro_torch.kernels.mamba_scan.ref import (reference, scan_heads,
+                                                scan_model, scan_model_grads)
 
 STATE_SIZES = (1, 2, 4, 8, 16, 32)     # N: the instantiated state sizes
+HEAD_STATE_SIZES = (16, 32, 64)        # N of the head-shared form
 MAX_BATCH = 65535                      # the grid's y dimension
 MAX_PARTS = 16                         # time chunks a call
 MIN_CHUNK = 64                         # time steps a chunk, at least
@@ -167,14 +178,14 @@ def parts_rule(ctas: int, S: int, sms: int, per_sm: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def scan_parts(code: int, h0_code: int, N: int, B: int, S: int, E: int,
-               index: int) -> int:
+               index: int, query: str = "mamba_scan_model_resources") -> int:
     """``parts_rule`` at these shapes, with the CTAs an SM and channels a
-    CTA from the scan kernel's occupancy query; 1 for a decode step.
+    CTA from the scan kernel's occupancy query (``query``: the model
+    form's or ``mamba_scan_heads_resources``); 1 for a decode step.
     Cached: shapes only, never the data."""
     if S == 1:
         return 1
-    *_, per_sm, per_cta = _resources("mamba_scan_model_resources", code,
-                                     h0_code, N)
+    *_, per_sm, per_cta = _resources(query, code, h0_code, N)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     return parts_rule(B * -(-E // per_cta), S, sms, per_sm)
 
@@ -225,6 +236,98 @@ def mamba_scan_model(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
 
 
 mamba_scan_model.launches = 0
+
+
+def check_cuda_args_heads(dt, A, x, Bc, Cc, h0) -> tuple:
+    """Raise on anything the head-shared form of the kernel does not take;
+    else return (B, S, H, P, N, the device's index).  It runs before every
+    launch, a decode step's among them."""
+    shape, h_shape = dt.shape, h0.shape
+    if len(shape) != 3 or len(h_shape) != 4:
+        raise ValueError(f"mamba_scan_heads: dt {tuple(shape)}, h0 "
+                         f"{tuple(h_shape)}, want (B, S, H) and (B, H, P, N)")
+    (B, S, H), (P, N) = shape, h_shape[2:]
+    index = dt.get_device()
+    if index < 0:
+        raise ValueError(f"mamba_scan_heads kernel runs on CUDA tensors, got "
+                         f"{dt.device}")
+    others = (A, x, Bc, Cc, h0)
+    if any(t.get_device() != index for t in others):
+        raise ValueError("mamba_scan_heads: all tensors must be on one "
+                         "device")
+    if not (dt.is_contiguous() and all(t.is_contiguous() for t in others)):
+        raise ValueError("mamba_scan_heads kernel needs contiguous tensors")
+    if N not in HEAD_STATE_SIZES:
+        raise ValueError(f"mamba_scan_heads kernel: state size {N} not in "
+                         f"{HEAD_STATE_SIZES}")
+    if not (1 <= B <= MAX_BATCH and S >= 1 and H >= 1 and P >= 1):
+        raise ValueError(f"mamba_scan_heads kernel: B={B} (1..{MAX_BATCH}), "
+                         f"S={S}, H={H} and P={P} (>= 1)")
+    dtype = x.dtype
+    if dtype not in DTYPE_CODE or Bc.dtype != dtype or Cc.dtype != dtype:
+        raise TypeError(f"mamba_scan_heads kernel takes float32 or bfloat16 "
+                        f"x, Bc and Cc of one dtype, got {dtype}, "
+                        f"{Bc.dtype}, {Cc.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32 \
+            or h0.dtype not in DTYPE_CODE:
+        raise TypeError(f"mamba_scan_heads kernel takes float32 dt and A and "
+                        f"a float32 or bfloat16 h0, got {dt.dtype}, "
+                        f"{A.dtype}, {h0.dtype}")
+    if x.shape != (B, S, H * P) or A.shape != (H,) \
+            or Bc.shape != (B, S, N) or Cc.shape != (B, S, N) \
+            or h_shape[:2] != (B, H):
+        raise ValueError(f"mamba_scan_heads: x {tuple(x.shape)}, A "
+                         f"{tuple(A.shape)}, Bc {tuple(Bc.shape)}, Cc "
+                         f"{tuple(Cc.shape)}, h0 {tuple(h_shape)} do not "
+                         f"match dt {tuple(shape)}")
+    return B, S, H, P, N, index
+
+
+def _launch_heads(dt, A, x, Bc, Cc, h0, B, S, H, P, N, index, parts):
+    E = H * P
+    y = dt.new_empty((B, S, H, P))
+    hT = torch.empty_like(h0)
+    ws = None if parts == 1 else \
+        dt.new_empty(B * (parts - 1) * E * (N + 1))
+    err = cuda_entry("mamba_scan_heads")(
+        DTYPE_CODE[x.dtype], DTYPE_CODE[h0.dtype], N, dt.data_ptr(),
+        A.data_ptr(), x.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+        h0.data_ptr(), y.data_ptr(), hT.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, S, H, P, parts,
+        torch._C._cuda_getCurrentRawStream(index))
+    check_launch("mamba_scan_heads", err)
+    return y, hT
+
+
+def launch_scan_heads(dt, A, x, Bc, Cc, h0, parts: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The head-shared form's C entry point on checked CUDA tensors with
+    time in ``parts`` chunks (1..16, at most S; 1 where S = 1) -> (y, hT).
+    Counts nothing, as ``launch_scan_model``."""
+    B, S, H, P, N, index = check_cuda_args_heads(dt, A, x, Bc, Cc, h0)
+    return _launch_heads(dt, A, x, Bc, Cc, h0, B, S, H, P, N, index, parts)
+
+
+def mamba_scan_heads(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
+                     Bc: torch.Tensor, Cc: torch.Tensor, h0: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11, the head-shared (Mamba-2) form: -> (y (B, S, H, P) fp32, hT
+    (B, H, P, N) in h0.dtype).
+
+    CPU tensors run ``ref.scan_heads``; CUDA tensors launch the Hopper
+    kernel on the current stream: a thread a channel, time in
+    ``scan_parts`` chunks (one launch on the count)."""
+    if dt.device.type == "cpu":
+        return scan_heads(dt, A, x, Bc, Cc, h0)
+    B, S, H, P, N, index = check_cuda_args_heads(dt, A, x, Bc, Cc, h0)
+    parts = scan_parts(DTYPE_CODE[x.dtype], DTYPE_CODE[h0.dtype], N, B, S,
+                       H * P, index, "mamba_scan_heads_resources")
+    out = _launch_heads(dt, A, x, Bc, Cc, h0, B, S, H, P, N, index, parts)
+    mamba_scan_heads.launches += 1
+    return out
+
+
+mamba_scan_heads.launches = 0
 
 
 class _MambaScan(torch.autograd.Function):

@@ -1,10 +1,11 @@
-"""Plain versions of K11, the Mamba-1 selective scan (port of
+"""Plain versions of K11, the selective scan (port of
 ``repro.kernels.mamba_scan.ref``, whose oracle is
-``layers/ssm._mamba1_scan``).
+``layers/ssm._mamba1_scan``, and of the reference's Mamba-2 scan
+``layers/ssm._mamba2_scan``).
 
     h[t] = dA[t] * h[t-1] + dBx[t],   y[t] = sum_n h[t] * C[t]
 
-in fp32 from h[-1] = h0, in two forms:
+in fp32 from h[-1] = h0, in three forms:
 
 * ``reference(dA, dBx, C, h0)``: the Pallas kernel's contract, dA and dBx
   (B, S, E, N), C (B, S, N), h0 (B, E, N) -> y (B, S, E), hT (B, E, N),
@@ -13,7 +14,12 @@ in fp32 from h[-1] = h0, in two forms:
   dt and x (B, S, E), A (E, N) fp32, Bc and Cc (B, S, N), h0 (B, E, N) ->
   y (B, S, E), hT (B, E, N) in fp32.  It discretizes as the reference
   does (``discretize``), one time step at a time, so no (B, S, E, N)
-  tensor is made.
+  tensor is made;
+* ``scan_heads(dt, A, x, Bc, Cc, h0)``: the head-shared (Mamba-2) form of
+  ``layers.ssm.apply_mamba2``, one dt and one A a head: dt (B, S, H) and A
+  (H,) fp32, x (B, S, H·P), Bc and Cc (B, S, N), h0 (B, H, P, N) -> y
+  (B, S, H, P) in fp32 and hT in ``h0.dtype``, stepped as the reference's
+  ``_mamba2_scan`` (dA = exp(dt·A), then (x·dt)·B).
 
 ``scan_model_grads`` is the gradient of ``scan_model``: the adjoint
 recursion ``g_h[t] = dA[t+1] * g_h[t+1] + C[t] * g_y[t]``, with the states
@@ -63,6 +69,25 @@ def scan_model(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
         h = dA * h + dBx
         ys.append((h * Cc[:, t, None].float()).sum(-1))
     return torch.stack(ys, 1), h
+
+
+def scan_heads(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
+               Bc: torch.Tensor, Cc: torch.Tensor, h0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The head-shared form of K11 in plain PyTorch, a step at a time:
+    -> (y (B, S, H, P) fp32, hT (B, H, P, N) in h0.dtype)."""
+    B, S, H = dt.shape
+    xh = x.reshape(B, S, H, -1).float()
+    dtf, Bf, Cf = dt.float(), Bc.float(), Cc.float()
+    dA = torch.exp(dtf * A.float())                       # (B, S, H)
+    h = h0.float()
+    ys = []
+    for t in range(S):
+        x_dt = xh[:, t] * dtf[:, t, :, None]              # (B, H, P)
+        h = dA[:, t, :, None, None] * h \
+            + x_dt[..., None] * Bf[:, t, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
+    return torch.stack(ys, 1), h.to(h0.dtype)
 
 
 def scan_model_grads(dt, A, x, Bc, Cc, h0, g_y: torch.Tensor,

@@ -1,12 +1,16 @@
-"""Selective state-space layer: Mamba-1 (falcon-mamba).
+"""Selective state-space layers: Mamba-1 (falcon-mamba) and Mamba-2
+(zamba2).
 
-Port of the Mamba-1 half of ``repro.layers.ssm``.  The reference runs its
-time scan with ``lax.scan`` (``_mamba1_scan``); here the scan is K11
-(``kernels.mamba_scan.kernel.mamba1_scan``, the model form: the kernel
-discretizes dA = exp(dt·A) and dBx = (dt·x)·B itself) in prefill, in the
-S = 1 decode step and in the training forward, with a plain recomputing
-backward.  Decode carries (conv_state, ssm_state) per layer: O(1) per
-token.  The Mamba-2 half is the hybrid slice's.
+Port of ``repro.layers.ssm``.  The reference runs its time scans with
+``lax.scan`` (``_mamba1_scan``, ``_mamba2_scan``); here both are K11:
+Mamba-1's through ``kernels.mamba_scan.kernel.mamba1_scan`` (the model
+form: the kernel discretizes dA = exp(dt·A) and dBx = (dt·x)·B itself) in
+prefill, in the S = 1 decode step and in the training forward, with a
+plain recomputing backward; Mamba-2's through ``mamba_scan_heads`` (the
+head-shared form: one dt and one scalar A a head, so one exponential a
+head and step) in prefill and decode (inference only: its training is a
+later slice).  Decode carries (conv_state, ssm_state) per layer: O(1) per
+token.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba_scan import kernel as scan_kernel
-from repro_torch.layers.common import _empty
+from repro_torch.layers.common import _empty, rmsnorm
 
 
 def dt_rank(cfg: ModelConfig) -> int:
@@ -126,3 +130,98 @@ def mamba1_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
     E, N, W = d_inner(cfg), cfg.ssm_state, cfg.ssm_conv
     return {"conv": torch.zeros((batch, W - 1, E), dtype=dtype, device=device),
             "ssm": torch.zeros((batch, E, N), dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (scalar A per head; ngroups = 1)
+# ---------------------------------------------------------------------------
+
+def n_heads(cfg: ModelConfig) -> int:
+    return d_inner(cfg) // cfg.ssm_head_dim
+
+
+class Mamba2(nn.Module):
+    """The eight leaves of the reference's ``build_mamba2``, with its shapes
+    and logical axes."""
+
+    AXES = {"in_proj": ("embed_fsdp", "ssm_inner"), "conv_w": ("conv", None),
+            "conv_b": (None,), "A_log": (None,), "dt_bias": (None,),
+            "D": (None,), "gate_norm": ("embed",),
+            "out_proj": ("ssm_inner", "embed_fsdp")}
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        D, E, N, W = cfg.d_model, d_inner(cfg), cfg.ssm_state, cfg.ssm_conv
+        H = n_heads(cfg)
+        kw = dict(device=device, dtype=dtype)
+        self.in_proj = _empty(D, 2 * E + 2 * N + H, **kw)
+        self.conv_w = _empty(W, E + 2 * N, **kw)
+        self.conv_b = _empty(E + 2 * N, **kw)
+        self.A_log = _empty(H, **kw)
+        self.dt_bias = _empty(H, **kw)
+        self.D = _empty(H, **kw)
+        self.gate_norm = _empty(E, **kw)
+        self.out_proj = _empty(E, D, **kw)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's inits: matrices normal * shape[0]^-1/2,
+        ``conv_w`` normal / W, ``conv_b`` and ``dt_bias`` zeros, ``D`` and
+        ``gate_norm`` ones, ``A_log`` = log(1..H)."""
+        for name, p in self.named_parameters():
+            if name in ("conv_b", "dt_bias"):
+                p.zero_()
+            elif name in ("D", "gate_norm"):
+                p.fill_(1.0)
+            elif name == "A_log":
+                p.copy_(torch.log(torch.arange(1, p.shape[0] + 1,
+                                               dtype=torch.float32,
+                                               device=p.device)))
+            else:
+                scale = 1.0 / p.shape[0] if name == "conv_w" \
+                    else p.shape[0] ** -0.5
+                p.copy_(torch.randn(p.shape, generator=generator,
+                                    device=p.device, dtype=torch.float32)
+                        * scale)
+
+
+def apply_mamba2(m: Mamba2, x: torch.Tensor, cfg: ModelConfig, *,
+                 state: Optional[dict] = None
+                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x (B, S, D).  ``state`` = {'conv': (B, W-1, E+2N), 'ssm': (B, H, P,
+    N)} for decode; returns (out, new state or None), the new ssm state in
+    the dtype of the one given (K11 writes it so).  dt and the scan in
+    fp32, ``y + x·D`` a head, then the gated RMSNorm over all of E, as the
+    reference."""
+    B, S, _ = x.shape
+    E, N, P = d_inner(cfg), cfg.ssm_state, cfg.ssm_head_dim
+    H = E // P
+    z, xBC, dt_raw = (x @ m.in_proj).split([E, E + 2 * N, H], dim=-1)
+    conv_state = state["conv"] if state is not None else None
+    xBC, new_conv = causal_conv(xBC, m.conv_w, m.conv_b, conv_state)
+    xs, Bc, Cc = xBC.split([E, N, N], dim=-1)
+    dt = F.softplus(dt_raw.float() + m.dt_bias)               # (B, S, H)
+    A = -torch.exp(m.A_log.float())                           # (H,)
+    h0 = state["ssm"] if state is not None else \
+        torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    xs = xs.contiguous()
+    ys, hT = scan_kernel.mamba_scan_heads(dt.contiguous(), A, xs,
+                                          Bc.contiguous(), Cc.contiguous(),
+                                          h0)
+    y = ys + xs.reshape(B, S, H, P).float() * m.D[:, None]
+    y = y.reshape(B, S, E).to(x.dtype)
+    y = rmsnorm(y * F.silu(z), m.gate_norm, cfg.norm_eps)
+    out = y @ m.out_proj
+    new_state = None
+    if state is not None:
+        new_state = {"conv": new_conv, "ssm": hT}
+    return out, new_state
+
+
+def mamba2_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                 device=None) -> dict:
+    E, N, W = d_inner(cfg), cfg.ssm_state, cfg.ssm_conv
+    return {"conv": torch.zeros((batch, W - 1, E + 2 * N), dtype=dtype,
+                                device=device),
+            "ssm": torch.zeros((batch, n_heads(cfg), cfg.ssm_head_dim, N),
+                               dtype=dtype, device=device)}

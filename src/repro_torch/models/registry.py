@@ -6,17 +6,20 @@ Every module implements the same interface (the model is an
 ``init(cfg, generator, device, dtype)``, ``hidden``, ``loss(model,
 batch)``, ``logits``, ``init_cache(cfg, batch, max_len, dtype, device)``,
 ``prefill(model, tokens, cache)``, ``decode_step(model, token, cache,
-cache_index)`` and ``param_axes(model)``.  The transformer also has the
-paged cache of the continuous-batching engine.
+cache_index)`` and ``param_axes(model)``.  The transformer and the hybrid
+also have the paged cache of the continuous-batching engine (the hybrid's
+``init_paged_cache`` takes the engine's slots as ``batch``); the hybrid's
+``loss`` raises (its training is a later slice).
 """
 from __future__ import annotations
 
 from types import ModuleType
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import ssm_model, transformer
+from repro_torch.models import hybrid, ssm_model, transformer
 
-_FAMILY = {"dense": transformer, "moe": transformer, "ssm": ssm_model}
+_FAMILY = {"dense": transformer, "moe": transformer, "ssm": ssm_model,
+           "hybrid": hybrid}
 
 
 def get_model(cfg: ModelConfig) -> ModuleType:

@@ -39,8 +39,8 @@ def check_supported(cfg: ModelConfig) -> None:
                                   f"{cfg.family!r}")
     if cfg.ssm_version != 1:
         raise NotImplementedError(
-            f"ssm_version {cfg.ssm_version}: Mamba-2 is the hybrid slice of "
-            f"the port, not ported yet")
+            f"ssm_version {cfg.ssm_version}: the port runs Mamba-2 layers in "
+            f"the hybrid family (models.hybrid), not in the ssm model")
     if cfg.ssm_state <= 0:
         raise ValueError(f"ssm_state must be positive, got {cfg.ssm_state}")
 

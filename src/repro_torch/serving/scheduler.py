@@ -1,7 +1,8 @@
 """Continuous-batching scheduler over the paged KV cache (GLM-5 §3.6).
 
 Port of ``repro.serving.scheduler.ContinuousEngine`` for the dense and MoE
-families (GQA or MLA attention, with or without DSA).  Iteration-level
+families (GQA or MLA attention, with or without DSA) and the hybrid family
+(Mamba-2 layers and one shared attention block).  Iteration-level
 scheduling: the engine keeps ``max_batch`` decode slots and, every step,
 
   1. retires sequences that produced their ``max_new`` tokens, handing
@@ -29,6 +30,16 @@ token-selector configs only, as the reference's does).  The pool's leaves
 are whatever the model's ``init_paged_cache`` builds (``k``/``v`` for GQA,
 the latent ``c``/``kr`` for MLA, ``k_idx`` on a DSA layer): the COW fork,
 the per-token byte count and the gather-bytes stats walk every leaf.
+
+The hybrid family pages its shared block's KV like everyone else but
+carries per-slot Mamba-2 state (the pool's ``ssm`` leaves, ``(L, slots,
+...)``): admission zeroes the slot's state, a prefill span threads the one
+slot's state through its exact-length span, and a decode step puts back
+the state of slots still mid-chunked-prefill (their old rows only).
+Recurrent state cannot be recovered from KV blocks, so the prefix cache is
+forced off, and speculation is refused (a partial accept cannot roll the
+state back); the COW fork and the per-token byte count skip the ``ssm``
+leaves.
 
 MTP speculative decode (``spec_steps=n``, GLM-5 §2.1 / Table 2): every
 step emits up to ``n + 1`` tokens a slot.  Each slot keeps the trunk
@@ -58,8 +69,8 @@ Differences from the reference, all deliberate:
   kept for its key and stays 0 — nothing is traced;
 * logits cross to the host every step and sampling stays on the host with
   the numpy generator, as in the reference, so greedy ties break alike;
-* the hybrid family and the host spill tier (``spill=True``) belong to
-  later slices and raise ``NotImplementedError``; logprob capture
+* the host spill tier (``spill=True``) belongs to a later slice and
+  raises ``NotImplementedError``; logprob capture
   (``capture_logprobs`` / ``true_logprobs``) and ``respawn`` (the RL and
   front-end layers use them) come with those layers;
 * a slot's ``h_last`` stays on the device in the model's dtype (the
@@ -133,16 +144,18 @@ class ContinuousEngine:
                 f"ContinuousEngine supports the transformer and hybrid "
                 f"families, got {cfg.family!r} (the static ServingEngine "
                 f"serves the ssm family)")
-        if cfg.family == "hybrid":
-            raise NotImplementedError(
-                "the hybrid family (mamba2 + shared attention) is the "
-                "hybrid slice of the port, not ported yet")
         if spec_steps is None:
             from repro_torch.flags import default_spec_steps
             spec_steps = default_spec_steps()
         if spec_steps < 0:
             raise ValueError(f"spec_steps must be >= 0, got {spec_steps}")
         if spec_steps > 0:
+            if cfg.family == "hybrid":
+                raise ValueError(
+                    "spec_steps > 0 is unsupported for the hybrid family: "
+                    "a partial accept cannot roll back recurrent state "
+                    "(KV rollback is a length truncation; mamba2 state "
+                    "advanced over rejected drafts is unrecoverable)")
             if cfg.mtp is None:
                 raise ValueError("spec_steps > 0 needs an MTP head "
                                  "(cfg.mtp is None)")
@@ -200,12 +213,16 @@ class ContinuousEngine:
                                registry=self.registry, faults=self.faults)
         self.kv.set_version(weight_version)
         self.prefill_chunk = prefill_chunk
-        self.prefix = PrefixCache(self.kv) if prefix_cache else None
+        self.hybrid = cfg.family == "hybrid"
+        # recurrent state is not reconstructible from KV blocks: no reuse
+        self.prefix = PrefixCache(self.kv) \
+            if (prefix_cache and not self.hybrid) else None
         self.trash = num_blocks          # reserved scratch block: idle slots
         # pool dtype follows the params (bf16 on the card, fp32 for parity)
+        per_slot = dict(batch=max_batch) if self.hybrid else {}
         self.pool = self.model.init_paged_cache(cfg, num_blocks + 1,
                                                 block_size, first.dtype,
-                                                self.device)
+                                                self.device, **per_slot)
         self.tables = np.full((max_batch, self.table_width), self.trash,
                               np.int32)
         self.lengths = np.zeros((max_batch,), np.int32)
@@ -254,16 +271,23 @@ class ContinuousEngine:
                 for name in ("ttft_ms", "tpot_ms", "latency_ms",
                              "queue_ms")}
 
+    def _kv_leaves(self):
+        """Every paged leaf of the pool, (L*stride, bs, *f) with stride =
+        num_blocks + 1: not the hybrid's per-slot ``ssm`` state."""
+        for name, leaves in self.pool.items():
+            if name != "ssm":
+                yield from leaves.values()
+
     def _pool_token_bytes(self) -> int:
         """Bytes of KV state per token position, summed over layers/leaves
-        (every leaf is (L*stride, bs, *f), stride = num_blocks + 1)."""
+        (the recurrent ssm state excluded: it is per slot, never
+        gathered)."""
         stride = self.kv.num_blocks + 1
         tot = 0
-        for leaves in self.pool.values():
-            for leaf in leaves.values():
-                layers = leaf.shape[0] // stride
-                tot += layers * int(np.prod(leaf.shape[2:], dtype=np.int64)) \
-                    * leaf.element_size()
+        for leaf in self._kv_leaves():
+            layers = leaf.shape[0] // stride
+            tot += layers * int(np.prod(leaf.shape[2:], dtype=np.int64)) \
+                * leaf.element_size()
         return tot
 
     def _device_ints(self, a: np.ndarray) -> torch.Tensor:
@@ -274,9 +298,8 @@ class ContinuousEngine:
         """Copy block ``src`` -> ``dst`` in every layer of every leaf, in
         place (the COW fork moves L·block_size rows, not the pool)."""
         stride = self.kv.num_blocks + 1
-        for leaves in self.pool.values():
-            for leaf in leaves.values():
-                copy_block_strided(leaf, src, dst, stride)
+        for leaf in self._kv_leaves():
+            copy_block_strided(leaf, src, dst, stride)
 
     # ------------------------------------------------------------ scheduler
     def validate(self, req: Request) -> None:
@@ -660,6 +683,9 @@ class ContinuousEngine:
             slot = self.slots.index(None)
             row = np.full((self.table_width,), self.trash, np.int32)
             row[:len(blocks)] = blocks
+            if self.hybrid:     # a fresh sequence starts from zero state
+                for leaf in self.pool["ssm"].values():
+                    leaf[:, slot].zero_()
             s = _Active(req, blocks, row, pos=m,
                         version=self.weight_version)
             self.slots[slot] = s
@@ -698,15 +724,21 @@ class ContinuousEngine:
         toks = self._device_ints(np.asarray(prompt[start:start + real])[None])
         table = self._device_ints(s.row[None])
         starts = self._device_ints(np.asarray([start]))
+        # the hybrid threads this slot's recurrent state (views of its rows,
+        # updated in place) beside the shared KV pool
+        cache = self.pool if not self.hybrid else {
+            "ssm": {k: v[:, slot:slot + 1]
+                    for k, v in self.pool["ssm"].items()},
+            "kv": self.pool["kv"]}
         if self.spec_steps:
             # the same span, with the trunk hidden states the first MTP
             # draft chains from
-            logits, hid, self.pool = self.model.verify_step(
-                self.params, toks, self.pool, starts, block_tables=table,
+            logits, hid, _ = self.model.verify_step(
+                self.params, toks, cache, starts, block_tables=table,
                 paged_impl=self.attn_impl)
         else:
-            logits, self.pool = self.model.prefill(
-                self.params, toks, self.pool, block_tables=table,
+            logits, _ = self.model.prefill(
+                self.params, toks, cache, block_tables=table,
                 cache_index=starts, paged_impl=self.attn_impl)
         if self._prefill_in_place:
             # traffic the in-place span avoided vs the padded-view gather
@@ -749,14 +781,28 @@ class ContinuousEngine:
                   and len(s.out) + 1 < s.req.max_new]
         if not active:
             return
+        # a decode step must not advance the recurrent state of slots
+        # whose prompt is still mid-chunked-prefill: keep their old rows
+        held = None
+        if self.hybrid:
+            prefilling = [i for i, s in enumerate(self.slots)
+                          if s is not None and s.pending is None]
+            if prefilling:
+                rows = torch.tensor(prefilling, device=self.device)
+                held = (rows, {k: v.index_select(1, rows)
+                               for k, v in self.pool["ssm"].items()})
         tok = np.zeros((self.max_batch, 1), np.int32)
         for i in active:
             tok[i, 0] = self.slots[i].pending
-        logits, self.pool = self.model.decode_step(
+        logits, _ = self.model.decode_step(
             self.params, self._device_ints(tok), self.pool,
             self._device_ints(self.lengths),
             block_tables=self._device_ints(self.tables),
             paged_impl=self.attn_impl)
+        if held is not None:
+            rows, old = held
+            for k, v in self.pool["ssm"].items():
+                v.index_copy_(1, rows, old[k])
         if self._in_place:
             # traffic the in-place decode avoided vs the full-view gather:
             # the kernel reads each row's live blocks; the plain version
@@ -820,7 +866,7 @@ class ContinuousEngine:
         with torch.no_grad():
             drafts = mtp_draft(self.params, h, tok_d, self._device_ints(pos),
                                n).to(torch.int32)
-        logits, hid, self.pool = self.model.verify_step(
+        logits, hid, _ = self.model.verify_step(
             self.params, torch.cat([tok_d, drafts], dim=1), self.pool,
             self._device_ints(self.lengths),
             block_tables=self._device_ints(self.tables),

@@ -1,8 +1,8 @@
 """PyTorch port, the training path's CUDA kernels (K7, K9, K10), the
 block selector's (K8), the GQA and MLA split-KV decodes (K1, K3), the GQA
 and MLA span prefills (K2, K4), the DSA indexer decode and span (K5, K6)
-and the Mamba-1 selective scan (K11) against their plain versions on the
-card.
+and the selective scan (K11: Mamba-1's model and contract forms, Mamba-2's
+head-shared form) against their plain versions on the card.
 
 K2, K4 and K8 run a bf16 body on the tensor cores (``csrc/mma_tile.cuh``;
 K4's MLA form in ``csrc/paged_mla.cu``); K2's and K4's fp32 bodies run on
@@ -16,7 +16,11 @@ head counts the SIMT tile; K1 cuts each row's live range into runs of
 blocks, a CTA each, folded by a combine pass (forced here to every count
 1..16 through its C entry point); K11 gives a thread each channel and cuts
 time into chunks (forced here to every count the rule can pick through
-``launch_scan_model``; S 1 runs its one-step kernel); K3's bf16 route runs
+``launch_scan_model``; S 1 runs its one-step kernel; its head-shared form
+the same through ``launch_scan_heads`` at N 16 and 64); K1 and K2 also at
+zamba2's head dim 80 (MHA and GQA, both dtypes, every block size), beside
+K9's bf16 tile, which shares K2's fp32 SIMT tile, at d 64 / 128; K3's bf16
+route runs
 K4's tensor-core tile over a one-token span with each row's key rounds
 split over parts (forced here to every count 1..16 through
 ``launch_decode_mla``), its fp32 route the SIMT body; K5's bf16 route at
@@ -255,6 +259,28 @@ def test_paged_decode_gqa_split_matches_plain(dtype, tol, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("KVH,G", [(32, 1), (4, 4)])
+def test_paged_decode_gqa_head_dim_80(dtype, tol, bs, KVH, G):
+    """K1 at zamba2's head dim 80 (the bf16 body's half chunk, the fp32
+    body's 20 live lanes a key): MHA with 32 heads (G 1: one live row of
+    the CTA's 8) and GQA G 4, an idle slot and ragged lengths, every count
+    of runs 1..16 and the wrapper's."""
+    _need_gpu()
+    lens = [0, 1, bs - 1, bs, 300, 777, 1039, 2 * bs + 3]
+    rng = np.random.default_rng(80 + bs + G)
+    q, kp, vp, tables, sl = _k1_inputs(rng, dtype, KVH, G, 80, bs,
+                                       max(lens) // bs + 2, lens)
+    want = K1.paged_decode_gqa_plain(q, kp, vp, tables, sl)
+    for parts in range(1, K1.MAX_DECODE_PARTS + 1):
+        got = K1.launch_decode_gqa(q, kp, vp, tables, sl, 0, 0.0, parts)
+        torch.cuda.synchronize()
+        _hold(got, want, tol)
+    _hold(K1.paged_decode_gqa(q, kp, vp, tables, sl), want, tol)
+
+
+@pytest.mark.cuda
 def test_paged_decode_gqa_refuses_what_it_cannot_take():
     _need_gpu()
     rng = np.random.default_rng(9)
@@ -263,6 +289,11 @@ def test_paged_decode_gqa_refuses_what_it_cannot_take():
     for parts in (0, K1.MAX_DECODE_PARTS + 1):
         with pytest.raises(RuntimeError):
             K1.launch_decode_gqa(q, kp, vp, tables, sl, 0, 0.0, parts)
+    for d in (96, 48):                       # no such instantiation
+        q, kp, vp, tables, sl = _k1_inputs(rng, torch.float32, 2, 4, d, 8, 4,
+                                           [0, 9])
+        with pytest.raises(ValueError):
+            K1.paged_decode_gqa(q, kp, vp, tables, sl)
 
 
 def _hold(got, want, tol):
@@ -301,7 +332,7 @@ def _k2_case(rng, dtype, tol, B, KVH, G, d, bs, S, starts, mb, window=0,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("bs", [8, 16, 32])
 def test_paged_prefill_gqa_matches_plain(dtype, tol, d, bs):
     """K2 at every (head dim, block size) it instantiates, G 1 / 3 / 8 with
@@ -314,6 +345,27 @@ def test_paged_prefill_gqa_matches_plain(dtype, tol, d, bs):
     for G, S in ((1, 5), (3, 21), (8, 37)):
         _k2_case(rng, dtype, tol, 4, 2, G, d, bs, S,
                  [0, bs + bs // 2, 2 * bs, mb * bs - S], mb, trash_row=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bf16_tile_beside_d80(d):
+    """K9's bf16 route runs the SIMT tile K2's fp32 route shares, whose
+    column split took d 80: at d 64 / 128 (every thread owns columns) it
+    is held on rows that are not a multiple of the tile's 64, G 1 and 4,
+    with and without q_offset."""
+    _need_gpu()
+    rng = np.random.default_rng(d)
+    for Sq, H, KVH, kw in ((77, 4, 4, dict()), (45, 8, 2,
+                                                dict(q_offset=30))):
+        Sk = Sq + kw.get("q_offset", 0)
+        q = _cuda(rng, 2, Sq, H, d, dtype=torch.bfloat16)
+        k, v = (_cuda(rng, 2, Sk, KVH, d, dtype=torch.bfloat16)
+                for _ in range(2))
+        got = K9.flash_attention(q, k, v, **kw)
+        want = K9.reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        _hold(got, want, 2e-2)
 
 
 @pytest.mark.cuda
@@ -820,3 +872,98 @@ def test_paged_indexer_scores_refuses_what_it_cannot_take():
     with pytest.raises(ValueError):              # head dim 48
         K1.paged_indexer_scores_kernel(q[..., :48].contiguous(), w,
                                        kp[..., :48].contiguous(), tables, sl)
+
+
+# ---------------------------------------------------------------------------
+# K11's head-shared (Mamba-2) form
+# ---------------------------------------------------------------------------
+
+def _head_inputs(rng, B, S, H, P, N, dtype, h0_dtype):
+    """zamba2's tensors: dt (B, S, H) fp32 (softplus), A (H,) fp32 with slow
+    and fast heads (so a wrong chunk carry shows), x (B, S, H*P), Bc and Cc
+    in dtype, h0 (B, H, P, N) in h0_dtype."""
+    dt = torch.nn.functional.softplus(_cuda(rng, B, S, H) - 1.0)
+    A = -torch.linspace(0.02, 2.0, H, device="cuda")
+    x, Bc, Cc = (_cuda(rng, *s, dtype=dtype)
+                 for s in ((B, S, H * P), (B, S, N), (B, S, N)))
+    h0 = (0.5 * _cuda(rng, B, H, P, N)).to(h0_dtype)
+    return dt, A, x, Bc, Cc, h0
+
+
+def _hold_scan(got, want, tol=1e-5):
+    """A scan's output: within tol x max(1, max|plain|) (the slow heads'
+    states and outputs grow to ~20 and ~150 here, where two fp32 orders
+    of the same sums differ by ~1e-4: the bound of the chunked-scan tests,
+    ``test_torch_scan_chunk_numerics.py``), plus, for hT stored in bf16,
+    one unit in the last place of the stored value, where both round an
+    fp32 state that differs in its last bits to neighbouring values."""
+    ulp = torch.finfo(got.dtype).eps if got.dtype == torch.bfloat16 else 0.
+    got, want = got.float(), want.float()
+    bound = tol * max(1.0, want.abs().max().item())
+    err = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert (err <= bound + ulp * want.abs()).all(), \
+        f"max abs err {err.max().item()} > {bound} (+ ulp)"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h0_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N", [
+    (8, 1, 80, 64, 64),       # zamba2's decode step
+    (1, 300, 80, 64, 64),     # a prefill span (40 CTAs)
+    (2, 77, 6, 64, 16),
+    (2, 130, 3, 40, 32),      # E 120: a ragged CTA
+    (1, 1, 5, 24, 16)])
+def test_mamba_scan_heads_every_parts(dtype, h0_dtype, B, S, H, P, N):
+    """K11's head-shared form through its C entry point at parts 1, 2 and
+    16 (at most S; S 1 is the one-step kernel) and through the wrapper:
+    y (fp32 on both sides) and hT (in h0's dtype) as ``_hold_scan``
+    holds them."""
+    _need_gpu()
+    rng = np.random.default_rng(B * S + H + N)
+    ins = _head_inputs(rng, B, S, H, P, N, dtype, h0_dtype)
+    want_y, want_h = K11ref.scan_heads(*ins)
+    for parts in sorted({1, 2, 16} & set(range(1, S + 1))):
+        y, hT = K11.launch_scan_heads(*ins, parts)
+        torch.cuda.synchronize()
+        assert y.shape == (B, S, H, P) and hT.dtype == h0_dtype
+        _hold_scan(y, want_y)
+        _hold_scan(hT, want_h)
+    before = K11.mamba_scan_heads.launches
+    y, hT = K11.mamba_scan_heads(*ins)
+    torch.cuda.synchronize()
+    assert K11.mamba_scan_heads.launches == before + 1
+    _hold_scan(y, want_y)
+    _hold_scan(hT, want_h)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_heads_parts_rule_at_zamba2():
+    """A hybrid prefill span is batch 1: 40 CTAs of 128 channels on the
+    card's SMs, so the wrapper cuts time into chunks; a decode step takes
+    one."""
+    _need_gpu()
+    index, q = torch.cuda.current_device(), "mamba_scan_heads_resources"
+    assert K11.scan_parts(1, 1, 64, 8, 1, 5120, index, q) == 1
+    assert 1 < K11.scan_parts(1, 1, 64, 1, 1024, 5120, index, q) \
+        <= K11.MAX_PARTS
+
+
+@pytest.mark.cuda
+def test_mamba_scan_heads_refuses_what_it_cannot_take():
+    _need_gpu()
+    rng = np.random.default_rng(11)
+    ins = list(_head_inputs(rng, 2, 5, 4, 16, 16, torch.float32,
+                            torch.float32))
+    for parts in (0, 6, K11.MAX_PARTS + 1):   # past S = 5, past the limit
+        with pytest.raises(RuntimeError):
+            K11.launch_scan_heads(*ins, parts)
+    bad = _head_inputs(rng, 2, 5, 4, 16, 8, torch.float32, torch.float32)
+    with pytest.raises(ValueError):           # N 8: not instantiated
+        K11.mamba_scan_heads(*bad)
+    with pytest.raises(TypeError):            # dt must be fp32
+        K11.mamba_scan_heads(ins[0].bfloat16(), *ins[1:])
+    with pytest.raises(ValueError):           # not contiguous
+        K11.mamba_scan_heads(ins[0], ins[1], ins[2].transpose(0, 1),
+                             *ins[3:])

@@ -318,8 +318,6 @@ def test_engine_rejects_later_slices(setup):
         ContinuousEngine(model.cfg, model, spec_steps=2, **kw)
     with pytest.raises(NotImplementedError):
         ContinuousEngine(model.cfg, model, spill=True, **kw)
-    with pytest.raises(NotImplementedError):
-        ContinuousEngine(model.cfg.replace(family="hybrid"), model, **kw)
     with pytest.raises(ValueError):
         ContinuousEngine(model.cfg, model, attn_impl="pallas", **kw)
 

@@ -24,7 +24,8 @@ from the reference (``from_jax_params``), fp32:
 * chunked prefill with speculation; ``step_token_budget`` defers
   admission; ``REPRO_SPEC_STEPS`` is the default depth;
 * rejections: no MTP head, a sampled request, a depth past the unshared
-  layers, a negative depth, the hybrid family (not ported).
+  layers, a negative depth, the hybrid family (a partial accept cannot
+  roll its recurrent state back: ``ValueError``, as the reference).
 
 ``AgentSession`` turns with speculation come with the session slice
 (ROADMAP).
@@ -237,7 +238,7 @@ def test_spec_rejections():
                          model, spec_steps=4, device="cpu", **_KW)
     with pytest.raises(ValueError, match=">= 0"):
         ContinuousEngine(cfg, model, spec_steps=-1, device="cpu", **_KW)
-    with pytest.raises(NotImplementedError, match="hybrid"):
+    with pytest.raises(ValueError, match="hybrid"):
         ContinuousEngine(cfg.replace(family="hybrid"), model, spec_steps=2,
                          device="cpu", **_KW)
     eng = ContinuousEngine(cfg, model, spec_steps=2, device="cpu", **_KW)
