@@ -194,10 +194,27 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            the short mix and with DSA on the long one, each with
            whole-prompt and 64-token chunked prefill: the ContinuousEngine
            (prefix cache off, slots reused) against the static oracle on
-           the plain route (K11's plain head-shared scan), as above;
+           the plain route (K11's plain head-shared scan), as above; then
+           the serving layers around the engine (``[frontend.parity]``):
+           Yi-6B at full width with 2 layers in fp32 through
+           ``AsyncFrontend`` on a 40-block pool with the host spill tier
+           off and on (the 200-token system prompt is demoted between
+           waves and then restored) and through ``DisaggServer``
+           (``pd_threshold`` 200: the long prompts prefill on their tier
+           and migrate), each against the oracle as above, spill on equal
+           to off;
   serve    Yi-6B at full width and depth (32 layers, dsa=None) in bf16 on a
            2 GiB pool: 8 requests of 32..1024 prompt tokens, half sharing a
-           system prefix, prefill_chunk 256; then Yi-6B with DSA (32
+           system prefix, prefill_chunk 256; then (``[frontend]``) the same
+           mix on the same model through ``AsyncFrontend`` (TTFT / TPOT p50
+           beside the engine-direct run's), again with a weight push
+           mid-run (version stamps), with ``crash@12`` (one restart, zero
+           lost, every failure typed), with the host spill tier on a pool
+           of two of the longest requests (demotions, restores, restore
+           GB/s) and through ``DisaggServer`` (``pd_threshold`` 256;
+           migrations, migrated blocks, migrate ms), healthy and with two
+           ``xfer`` faults (fallbacks equal to them); any restart or
+           fallback not injected fails the run; then Yi-6B with DSA (32
            layers; K5 and K6 in every layer) on 8 requests of 32..6144
            prompt tokens (four past top-k) with a 2.1 GiB pool; then
            Yi-6B + DSA(block) on the same mix (the view a whole number of
@@ -2035,6 +2052,22 @@ def parity_mtp(cfg, device="cuda", block_size=16, chunk=64, n=3) -> dict:
 # serve at full width and depth in bf16
 # ---------------------------------------------------------------------------
 
+def _mix_prompts(V, prompt_lens, shared):
+    """The serve mix: (system prompt, prompts), the prompts at even places
+    that are longer than the system prompt starting with it."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 2)
+    sys_p = rng.integers(3, V, size=shared)
+    prompts = []
+    for i, n in enumerate(prompt_lens):
+        if i % 2 == 0 and n > shared:     # half share the system prefix
+            p = np.concatenate([sys_p, rng.integers(3, V, size=n - shared)])
+        else:
+            p = rng.integers(3, V, size=n)
+        prompts.append(p.astype(np.int32))
+    return sys_p.astype(np.int32), prompts
+
+
 def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
           chunk=256, max_new=32, shared=200, spec_steps=0,
           model=None) -> dict:
@@ -2067,16 +2100,8 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
                            tracer=Tracer(enabled=block_sel), device=device)
     pool_gib = sum(x.numel() * x.element_size() for lv in eng.pool.values()
                    for x in lv.values()) / 2 ** 30
-    rng = np.random.default_rng(SEED + 2)
     V = cfg.vocab_size
-    sys_p = rng.integers(3, V, size=shared)
-    prompts = []
-    for i, n in enumerate(prompt_lens):
-        if i % 2 == 0 and n > shared:     # half share the system prefix
-            p = np.concatenate([sys_p, rng.integers(3, V, size=n - shared)])
-        else:
-            p = rng.integers(3, V, size=n)
-        prompts.append(p.astype(np.int32))
+    sys_p, prompts = _mix_prompts(V, prompt_lens, shared)
     # warm-up, not measured: the system prompt alone, as earlier traffic
     # would have left it in the radix cache (also warms cuBLAS/allocator)
     eng.serve([Request(prompt=sys_p.astype(np.int32), max_new=4)])
@@ -2239,6 +2264,407 @@ def profile_decode(cfg, device="cuda", steps=8, block_size=16,
 
 
 # ---------------------------------------------------------------------------
+# serving around the engine: the front-end, the spill tier and disaggregation
+# ---------------------------------------------------------------------------
+
+T_RESULT = 300.0     # seconds a request may take before it counts as lost
+
+
+def _results(fe, handles) -> list:
+    """Each handle's terminal outcome: the finished Request, or the typed
+    error its ``result`` raised.  A request that does not end within
+    ``T_RESULT`` is lost, and fails the run."""
+    out = []
+    for h in handles:
+        try:
+            out.append(fe.result(h, timeout=T_RESULT))
+        except TimeoutError as e:
+            raise AssertionError(f"frontend: request {h} lost: {e}") \
+                from None
+        except Exception as e:              # noqa: BLE001 - typed outcome
+            out.append(e)
+    return out
+
+
+def _check_served(what, reqs, max_new, V) -> None:
+    """Every request ended ok with ``max_new`` tokens in the vocabulary."""
+    for r in reqs:
+        if isinstance(r, Exception):
+            raise AssertionError(f"{what}: a request failed: {r!r}")
+        if r.status != "ok" or r.out is None or len(r.out) != max_new \
+                or not ((r.out >= 0) & (r.out < V)).all():
+            raise AssertionError(f"{what}: request {r.rid} ended "
+                                 f"{r.status} with {r.out!r}")
+
+
+def _healthy(what, fe, injected=0) -> None:
+    """A front-end restarted exactly as often as faults were injected."""
+    if fe.crashed is not None or fe.restarts != injected:
+        raise AssertionError(f"{what}: {fe.restarts} restarts with "
+                             f"{injected} injected (crashed="
+                             f"{fe.crashed!r})")
+
+
+def _timed_restores(tier) -> list:
+    """Wrap a spill tier's ``restore`` with CUDA events (this script only):
+    each restore's device milliseconds, host milliseconds of the call (the
+    copies are enqueued, not waited for) and bytes are appended to the
+    returned list."""
+    import torch
+    seen = []
+    restore = tier.restore
+
+    def timed(keyed, blocks):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        restore(keyed, blocks)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        e1.record()
+        e1.synchronize()
+        seen.append((e0.elapsed_time(e1), host_ms,
+                     sum(e.nbytes for _, e in keyed)))
+    tier.restore = timed
+    return seen
+
+
+def _gqa_kernels():
+    from repro_torch.kernels.paged_attention import kernel as KD
+    from repro_torch.kernels.paged_attention import prefill as KP
+    return [KD.paged_decode_gqa, KP.paged_prefill_gqa]
+
+
+def frontend_parity(cfg, device="cuda", block_size=16, chunk=64) -> dict:
+    """fp32 greedy tokens through ``AsyncFrontend``, with the host spill
+    tier on a pool too small to keep the 200-token system prompt between
+    its waves (so it is demoted and then restored), and through
+    ``DisaggServer`` with ``pd_threshold`` below the long prompts, each
+    against the static ServingEngine oracle on the plain route wherever
+    the top-2 margin is >= 1e-3 (spill on and spill off held equal there
+    too).  Waves: two prompts on the system prompt, two unrelated
+    560-token fillers that need the pool, then two more prompts on the
+    system prompt and two unrelated short ones; each wave drains before
+    the next is submitted."""
+    import numpy as np
+    import torch
+    from repro_torch.faults import FaultInjector
+    from repro_torch.models import get_model
+    from repro_torch.serving import (AsyncFrontend, ContinuousEngine,
+                                     DisaggServer, Request, ServingEngine)
+    model = get_model(cfg).init(
+        cfg, torch.Generator(device=device).manual_seed(SEED), device=device,
+        dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 4)
+    V = cfg.vocab_size
+    sys_p = rng.integers(3, V, size=200)
+    waves = [[np.concatenate([sys_p, rng.integers(3, V, size=n)])
+              for n in (7, 30)],
+             [rng.integers(3, V, size=560) for _ in range(2)],
+             [np.concatenate([sys_p, rng.integers(3, V, size=n)])
+              for n in (61, 3)] + [rng.integers(3, V, size=n)
+                                   for n in (3, 90)]]
+    waves = [[(p.astype(np.int32), 6 + i % 4) for i, p in enumerate(w)]
+             for w in waves]
+    flat = [pm for w in waves for pm in w]
+    max_len = 640
+    oracle = ServingEngine(cfg, model, max_batch=1, max_len=max_len,
+                           device=device)
+    oreqs = [Request(prompt=p, max_new=m) for p, m in flat]
+    with plain_route():
+        oracle.serve(oreqs)
+        margins = [_margins_ok(model, p, o.out, device)
+                   for (p, _), o in zip(flat, oreqs)]
+    if not any(margins):
+        raise AssertionError("frontend.parity: no prompt had a top-2 margin")
+    kernels = _gqa_kernels()
+    before = [k.launches for k in kernels]
+    kw = dict(max_batch=2, block_size=block_size, max_len=max_len,
+              prefill_chunk=chunk, device=device)
+
+    def run(fe):
+        outs = []
+        try:
+            for wave in waves:
+                hs = [fe.submit(p, max_new=m) for p, m in wave]
+                reqs = _results(fe, hs)
+                for r, (_, m) in zip(reqs, wave):
+                    _check_served("frontend.parity", [r], m, V)
+                    outs.append(r.out)
+        finally:
+            fe.close(timeout=T_RESULT)
+        return outs
+
+    def held(what, outs):
+        for o, ok, got in zip(oreqs, margins, outs):
+            if ok and not np.array_equal(got, o.out):
+                raise AssertionError(f"frontend.parity: {what} "
+                                     f"{got.tolist()} != oracle "
+                                     f"{o.out.tolist()}")
+
+    res = {}
+    for spill in (False, True):
+        eng = ContinuousEngine(cfg, model, num_blocks=40, spill=spill,
+                               spill_blocks=256, faults=FaultInjector(""),
+                               **kw)
+        fe = AsyncFrontend(eng, max_restarts=0)
+        outs = run(fe)
+        _healthy("frontend.parity", fe)
+        held("spill" if spill else "frontend", outs)
+        reg = fe.registry
+        if spill:
+            res.update(demotions=reg.counter("spill.demotions"),
+                       restores=reg.counter("spill.restores"),
+                       restored_blocks=reg.counter("spill.restored_blocks"))
+            if res["restores"] <= 0 or res["demotions"] <= 0:
+                raise AssertionError(f"frontend.parity: the system prompt "
+                                     f"was not demoted and restored: {res}")
+            for a, b, ok in zip(outs, off, margins):
+                if ok and not np.array_equal(a, b):
+                    raise AssertionError("frontend.parity: spill on != off")
+        else:
+            off = outs
+            res["cached_tokens_spill_off"] = eng.stats["cached_tokens"]
+        del fe, eng
+    srv = DisaggServer(cfg, model, decode_kw=dict(kw, num_blocks=256),
+                       pd_threshold=200, faults=FaultInjector(""),
+                       prefill_faults=FaultInjector(""),
+                       heartbeat_timeout_s=60.0)
+    try:
+        outs = []
+        for wave in waves:
+            hs = [srv.submit(p, max_new=m) for p, m in wave]
+            for h in hs:
+                outs.append(srv.result(h, timeout=T_RESULT).out)
+        st = dict(srv.stats)
+        _healthy("frontend.parity disagg", srv.decode_frontend)
+    finally:
+        srv.close(timeout=T_RESULT)
+    held("disagg", outs)
+    if st["migrations"] <= 0 or st["colocated_fallbacks"] \
+            or st["prefill_respawns"] or st["tier_down_events"]:
+        raise AssertionError(f"frontend.parity: disagg {st}")
+    if device != "cpu" and not _all_launched(kernels, before):
+        raise AssertionError("frontend.parity: K1 or K2 never launched")
+    res.update(compared=sum(margins), skipped=len(margins) - sum(margins),
+               pd_routes=st["pd_routes"], migrations=st["migrations"],
+               migrated_blocks=st["migrated_blocks"],
+               colocated_routes=st["colocated_routes"])
+    _log("frontend.parity", model=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, dtype="float32", **res)
+    del oracle, model
+    return res
+
+
+def frontend_serve(cfg, prompt_lens, model, direct, device="cuda",
+                   block_size=16, num_blocks=2048, chunk=256, max_new=32,
+                   shared=200, crash_at=12, xfer_faults=2) -> dict:
+    """The serve mix through the serving layers around the engine at full
+    width and depth in bf16, on ``model`` (the serve phase's): the
+    front-end (TTFT / TPOT p50 beside the engine-direct run ``direct``);
+    again with a weight push mid-run (the requests admitted before it keep
+    version 0, those submitted after take version 1); with a serve-loop
+    crash injected (``crash@crash_at``: one restart, zero lost, every
+    failure ``EngineRestarted``, those requests served again after); a
+    spill run on a pool of two of the longest requests (the mix, two
+    fillers that need the whole pool, the mix again: demotions, restores,
+    restore GB/s from CUDA events around each restore); a disaggregated
+    run with ``pd_threshold`` 256 (migrations > 0, no fallback) and one with
+    ``xfer@0..{xfer_faults - 1}`` and no retries (one fallback an injected
+    fault).  K1's and K2's launches are counted over each run and
+    summed."""
+    import collections
+    import numpy as np
+    from repro_torch.faults import FaultInjector
+    from repro_torch.serving import (AsyncFrontend, ContinuousEngine,
+                                     DisaggServer, EngineRestarted)
+    V = cfg.vocab_size
+    sys_p, prompts = _mix_prompts(V, prompt_lens, shared)
+    max_len = max(prompt_lens) + max_new + chunk
+    kw = dict(max_batch=8, block_size=block_size, num_blocks=num_blocks,
+              max_len=max_len, prefill_chunk=chunk, device=device)
+    kernels = _gqa_kernels()
+    launches = collections.Counter()
+    res = {}
+
+    def counted(label, fn):
+        for k in kernels:
+            k.launches = 0                     # counts of this run
+        out = fn()
+        got = {k.__name__: k.launches for k in kernels}
+        if device != "cpu" and 0 in got.values():
+            raise AssertionError(f"frontend {label}: a kernel never "
+                                 f"launched: {got}")
+        launches.update(got)
+        return out
+
+    def engine(**extra):
+        return ContinuousEngine(cfg, model, faults=extra.pop(
+            "faults", FaultInjector("")), **dict(kw, **extra))
+
+    # 1-2: the mix, then the mix with a push mid-run
+    fe = AsyncFrontend(engine(), max_restarts=0)
+    try:
+        _check_served("frontend", _results(fe, [fe.submit(sys_p,
+                                                          max_new=4)]),
+                      4, V)                  # the engine-direct warm-up
+        fe.call(lambda: fe.registry.reset_histograms("engine"))
+
+        def mix():
+            t0 = time.perf_counter()
+            reqs = _results(fe, [fe.submit(p, max_new=max_new)
+                                 for p in prompts])
+            _check_served("frontend", reqs, max_new, V)
+            return time.perf_counter() - t0
+        wall = counted("mix", mix)
+        lat = fe.latency_summary()
+        res.update(wall_s=wall, ttft_p50_ms=lat["ttft_ms"]["p50"],
+                   tpot_p50_ms=lat["tpot_ms"]["p50"],
+                   ttft_p50_ms_engine=direct["ttft_p50_ms"],
+                   tpot_p50_ms_engine=direct["tpot_p50_ms"],
+                   wall_s_engine=direct["wall_s"])
+
+        def pushed():
+            hs = [fe.submit(p, max_new=max_new) for p in prompts]
+            t0 = time.perf_counter()
+            while not all(p.done or len(p.tokens) > 0
+                          for p in map(fe.poll, hs)):
+                if time.perf_counter() - t0 > T_RESULT:
+                    raise AssertionError("frontend push: never admitted")
+                time.sleep(0.002)
+            fe.push_weights(model, 1)
+            late = [fe.submit(p, max_new=max_new) for p in prompts[:2]]
+            early, late = _results(fe, hs), _results(fe, late)
+            _check_served("frontend push", early + late, max_new, V)
+            if any(r.out_version != 0 for r in early) or \
+                    any(r.out_version != 1 for r in late):
+                raise AssertionError("frontend push: version stamps "
+                                     f"{[r.out_version for r in early]} "
+                                     f"{[r.out_version for r in late]}")
+        counted("push", pushed)
+        st = fe.stats
+        if st["weight_pushes"] != 1 or fe.version != 1:
+            raise AssertionError(f"frontend push: {dict(st)}")
+        res.update(push_version_refused=fe.engine.prefix.stats[
+            "version_refused"])
+        _healthy("frontend", fe)
+    finally:
+        fe.close(timeout=T_RESULT)
+    del fe
+    _free()
+
+    # 3: a serve-loop crash mid-run
+    faults = FaultInjector(f"crash@{crash_at}")
+    fe = AsyncFrontend(engine(faults=faults), max_restarts=1)
+    try:
+        first = fe.engine
+
+        def crashed():
+            outcomes = _results(fe, [fe.submit(p, max_new=max_new)
+                                     for p in prompts])
+            bad = [o for o in outcomes if isinstance(o, Exception)
+                   and not isinstance(o, EngineRestarted)]
+            if bad:
+                raise AssertionError(f"frontend crash: untyped {bad!r}")
+            again = [p for p, o in zip(prompts, outcomes)
+                     if isinstance(o, EngineRestarted)]
+            _check_served("frontend crash", [o for o in outcomes if not
+                                             isinstance(o, Exception)],
+                          max_new, V)
+            redo = _results(fe, [fe.submit(p, max_new=max_new)
+                                 for p in again])
+            _check_served("frontend crash (served again)", redo, max_new, V)
+            return len(again)
+        restarted = counted("crash", crashed)
+        _healthy("frontend crash", fe, injected=faults.fired.get("crash", 0))
+        if fe.restarts != 1 or restarted < 1 or first.pool:
+            raise AssertionError(f"frontend crash: restarts {fe.restarts}, "
+                                 f"failed {restarted}, old pool released "
+                                 f"{not first.pool}")
+        res.update(restarts=fe.restarts, restarted_requests=restarted,
+                   lost=0)
+        del first
+    finally:
+        fe.close(timeout=T_RESULT)
+    del fe
+    _free()
+
+    # 4: the spill tier on a pool that cannot keep the mix
+    # two of the longest requests fill the pool: the fillers push out all
+    # the mix left cached
+    pool = 2 * -(-(max(prompt_lens) + max_new) // block_size)
+    fe = AsyncFrontend(engine(num_blocks=pool, spill=True), max_restarts=0)
+    try:
+        restores = _timed_restores(fe.engine.spill_tier)
+        frng = np.random.default_rng(SEED + 5)
+        fillers = [frng.integers(3, V, size=max(prompt_lens)).astype(
+            np.int32) for _ in range(2)]
+
+        def spilled():
+            for wave in (prompts, fillers, prompts):
+                reqs = _results(fe, [fe.submit(p, max_new=max_new)
+                                     for p in wave])
+                _check_served("frontend spill", reqs, max_new, V)
+        counted("spill", spilled)
+        reg = fe.registry
+        ms = sum(t for t, _, _ in restores)
+        nbytes = sum(b for _, _, b in restores)
+        res.update(spill_pool_blocks=pool,
+                   spill_demotions=reg.counter("spill.demotions"),
+                   spill_restores=reg.counter("spill.restores"),
+                   spill_restored_blocks=reg.counter("spill.restored_blocks"),
+                   restore_ms=ms, restore_gb_s=nbytes / ms / 1e6 if ms
+                   else 0.0, restore_host_ms=sum(h for _, h, _ in restores),
+                   restored_mib=nbytes / 2 ** 20)
+        if res["spill_restores"] <= 0:
+            raise AssertionError(f"frontend spill: no restore: {res}")
+        _healthy("frontend spill", fe)
+    finally:
+        fe.close(timeout=T_RESULT)
+    del fe
+    _free()
+
+    # 5-6: disaggregated prefill/decode, healthy, then with xfer faults
+    for label, spec in (("disagg", ""),
+                        ("disagg xfer", f"xfer@0..{xfer_faults - 1}")):
+        router = FaultInjector(spec)
+        srv = DisaggServer(cfg, model, decode_kw=dict(kw), pd_threshold=256,
+                           migrate_retries=0, faults=router,
+                           prefill_faults=FaultInjector(""),
+                           heartbeat_timeout_s=60.0)
+        try:
+            def split():
+                reqs = _results(srv, [srv.submit(p, max_new=max_new)
+                                      for p in prompts])
+                _check_served(f"frontend {label}", reqs, max_new, V)
+            counted(label, split)
+            st = dict(srv.stats)
+            mig = srv.registry.summary("disagg.migrate_ms")
+            _healthy(f"frontend {label}", srv.decode_frontend)
+        finally:
+            srv.close(timeout=T_RESULT)
+        injected = router.fired.get("xfer", 0)
+        if st["colocated_fallbacks"] != injected \
+                or st["migrations"] != st["pd_routes"] - injected \
+                or (not spec and st["migrations"] <= 0) \
+                or st["prefill_respawns"] or st["tier_down_events"] \
+                or injected != (xfer_faults if spec else 0):
+            raise AssertionError(f"frontend {label}: {st}, {injected} xfer "
+                                 f"faults injected")
+        tag = "disagg" if not spec else "xfer"
+        res.update({f"{tag}_pd_routes": st["pd_routes"],
+                    f"{tag}_migrations": st["migrations"],
+                    f"{tag}_migrated_blocks": st["migrated_blocks"],
+                    f"{tag}_migrate_ms_p50": mig["p50"],
+                    f"{tag}_fallbacks": st["colocated_fallbacks"],
+                    f"{tag}_injected_faults": injected})
+        del srv
+        _free()
+    _log("frontend", model=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, dtype="bfloat16", requests=len(prompts),
+         **res, **{f"{k}_launches": v for k, v in launches.items()})
+    res["launches"] = launches
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3554,11 +3980,23 @@ def main() -> int:
     for cfg_, long_ in ((zamba2, False), (zamba2_dsa, True)):
         parity(cfg_.replace(num_layers=12), chunks=(None, 64), long=long_)
         _free()
+    # the serving layers around the engine (front-end, spill, disagg) at
+    # Yi-6B width, 2 layers, fp32
+    frontend_parity(yi.replace(num_layers=2))
+    _free()
     stamp("parity")
     # the main paths' launches: every serve and train run below, summed
     launches = collections.Counter()
-    launches.update(serve(yi, prompt_lens)["launches"])
+    yi_serve = serve(yi, prompt_lens)
+    launches.update(yi_serve["launches"])
+    stamp("serve.yi")
+    # the same mix through the front-end, a push, a crash, the spill tier
+    # and the disaggregated server, on the same bf16 model
+    launches.update(frontend_serve(yi, prompt_lens, yi_serve.pop("model"),
+                                   yi_serve)["launches"])
+    del yi_serve
     _free()
+    stamp("frontend")
     launches.update(serve(yi_dsa, dsa_lens, max_new=new_tokens)["launches"])
     _free()
     launches.update(serve(yi_block, dsa_lens,

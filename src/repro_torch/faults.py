@@ -1,13 +1,15 @@
 """Deterministic fault injection for the serving stack (the port's own copy
-of the JAX package's ``repro.faults``, trimmed to the points the port
-wires: the layers that carried the others are not ported yet, and a spec
-that names one of them fails at construction instead of never firing).
+of the JAX package's ``repro.faults``).  It arms every point the port
+wires; the rollout orchestrator's ``worker`` point waits for the port of
+``async_rl``'s orchestrator, and a spec that names it fails at
+construction instead of never firing.
 
 A fault-tolerant engine is only as trustworthy as the failure modes it
 has actually been driven through.  This module provides NAMED injection
-points threaded through the allocator and the scheduler, each firing on
-a schedule that is a pure function of ``(spec, seed)``, so every failure
-scenario replays byte-identically.
+points threaded through the allocator, the scheduler, the async
+front-end, the heartbeat monitor and the disaggregated server, each
+firing on a schedule that is a pure function of ``(spec, seed)``, so every
+failure scenario replays byte-identically.
 
 Injection points wired in the port:
 
@@ -21,9 +23,27 @@ Injection points wired in the port:
   ``prefill``   ``ContinuousEngine._prefill_span``      per-request fault
                 entry                                   (engine isolates)
   ``step``      ``ContinuousEngine.step`` entry         engine-level fault
+                                                        (supervisor
+                                                        restarts)
   ``slow``      ``ContinuousEngine.step`` entry         sleeps ``param``
                                                         seconds (deadline
                                                         pressure)
+  ``crash``     ``AsyncFrontend`` serve loop            serve-thread crash
+                                                        (supervisor
+                                                        restarts)
+  ``beat``      ``HeartbeatMonitor.beat``               beat swallowed (a
+                                                        lapsing server)
+  ``xfer``      ``MigrationChannel.migrate``            KV-block migration
+                                                        attempt fails;
+                                                        ``=x`` stalls the
+                                                        install half x
+                                                        seconds instead
+                                                        (whole-attempt
+                                                        timeout trips)
+  ``route``     ``DisaggServer`` admission router       routing decision
+                                                        hedged: the
+                                                        request goes
+                                                        colocated
   ============  ======================================  =================
 
 Spec grammar (``REPRO_FAULTS``): comma-separated clauses, each
@@ -48,11 +68,11 @@ embedder adding its own sites passes ``points=`` to extend the set.
 
 Example::
 
-    REPRO_FAULTS="alloc@4..7,prefill@2,step@30,slow~0.1=0.02"
+    REPRO_FAULTS="alloc@4..7,prefill@2,step@30,crash@55,slow~0.1=0.02"
 
 injects a four-call alloc storm, one isolated per-request prefill fault,
-one engine-level step exception, and a 10% chance of a 20 ms slow step —
-identically on every run.
+one engine-level step exception (supervisor restart), one serve-loop
+crash, and a 10% chance of a 20 ms slow step — identically on every run.
 """
 from __future__ import annotations
 
@@ -79,7 +99,14 @@ class InjectedFault(RuntimeError):
 
 # Every injection point wired in the port.  _parse validates clause
 # point names against this set so a REPRO_FAULTS typo fails loudly.
-KNOWN_POINTS = frozenset({"alloc", "admit", "prefill", "step", "slow"})
+KNOWN_POINTS = frozenset({
+    "alloc", "admit", "prefill", "step", "slow", "crash", "beat", "xfer",
+    "route",
+})
+# Points of the reference that the port does not wire yet, with the reason
+# a spec naming one is refused.
+_NOT_WIRED = {"worker": "the rollout orchestrator's worker point is not "
+                        "wired until async_rl's orchestrator is ported"}
 
 
 class FaultInjector:
@@ -109,8 +136,9 @@ class FaultInjector:
         if not point:
             raise self._bad(clause, "empty point name")
         if point not in self._points:
+            why = f" ({_NOT_WIRED[point]})" if point in _NOT_WIRED else ""
             raise self._bad(
-                clause, f"unknown point {point!r}; known points: "
+                clause, f"unknown point {point!r}{why}; known points: "
                 f"{', '.join(sorted(self._points))}")
         return point
 

@@ -1,7 +1,9 @@
 """Process-wide environment readers of the port.
 
 A copy of the readers in the JAX package's ``repro.flags`` that the serving
-slice uses, under the same environment variable names.  There is no reader
+layers use (the engine, the front-end, the host spill tier, migration and
+the disaggregated server), under the same environment variable names and
+defaults.  There is no reader
 that chooses a kernel implementation: the tensor's device decides (see
 ``repro_torch.kernels.paged_attention.ops``).
 """
@@ -58,3 +60,68 @@ def default_spec_steps() -> int:
     (``REPRO_SPEC_STEPS``, default 0 = speculation off); an explicit
     ``spec_steps=`` always wins."""
     return int(os.environ.get("REPRO_SPEC_STEPS", "0"))
+
+
+def frontend_wait_s() -> float:
+    """Idle-wait granularity of the ``AsyncFrontend`` serve thread
+    (``REPRO_FRONTEND_WAIT_S``, seconds, default 0.05).  Submissions and
+    pushes notify the thread at once; this only bounds the wake-up latency
+    against a lost notification."""
+    return float(os.environ.get("REPRO_FRONTEND_WAIT_S", "0.05"))
+
+
+def max_restarts_default() -> int:
+    """Bound on ``AsyncFrontend`` supervisor engine restarts
+    (``REPRO_MAX_RESTARTS``, default 3); past it the front-end marks itself
+    crashed and refuses new submissions."""
+    return int(os.environ.get("REPRO_MAX_RESTARTS", "3"))
+
+
+def pd_threshold_default() -> int:
+    """Prompt-length cutoff of the disaggregated router
+    (``REPRO_PD_THRESHOLD``, tokens, default 64): prompts at least this
+    long prefill on the prefill tier and migrate their KV blocks; shorter
+    ones prefill colocated on the decode engine.  An explicit
+    ``DisaggServer(pd_threshold=...)`` always wins."""
+    return int(os.environ.get("REPRO_PD_THRESHOLD", "64"))
+
+
+def migrate_timeout_s() -> float:
+    """Wall-clock budget of one KV-block migration attempt, extract and
+    install together (``REPRO_MIGRATE_TIMEOUT_S``, seconds, default 5.0)."""
+    return float(os.environ.get("REPRO_MIGRATE_TIMEOUT_S", "5.0"))
+
+
+def migrate_retries() -> int:
+    """Retries of a migration beyond its first attempt
+    (``REPRO_MIGRATE_RETRIES``, default 2); then ``MigrationFailed``."""
+    return int(os.environ.get("REPRO_MIGRATE_RETRIES", "2"))
+
+
+def migrate_backoff_s() -> float:
+    """Base backoff between migration retries, doubled each attempt
+    (``REPRO_MIGRATE_BACKOFF_S``, seconds, default 0.01)."""
+    return float(os.environ.get("REPRO_MIGRATE_BACKOFF_S", "0.01"))
+
+
+def tier_restarts_default() -> int:
+    """Bound on prefill-tier respawns by ``DisaggServer``
+    (``REPRO_TIER_RESTARTS``, default 2); past it the tier stays down and
+    the server serves colocated."""
+    return int(os.environ.get("REPRO_TIER_RESTARTS", "2"))
+
+
+def spill_enabled() -> bool:
+    """Process-wide default of the host-RAM KV spill tier
+    (``REPRO_SPILL_ENABLE``): ``1``/``true``/``yes`` attaches a
+    ``HostSpillTier`` to every new prefix-cached ``ContinuousEngine``.  An
+    explicit ``ContinuousEngine(spill=...)`` always wins."""
+    return os.environ.get("REPRO_SPILL_ENABLE",
+                          "0").lower() in ("1", "true", "yes")
+
+
+def spill_blocks() -> int:
+    """Capacity of the host spill tier in blocks (``REPRO_SPILL_BLOCKS``,
+    default 512; ``<= 0`` means unbounded).  An explicit
+    ``ContinuousEngine(spill_blocks=...)`` always wins."""
+    return int(os.environ.get("REPRO_SPILL_BLOCKS", "512"))

@@ -245,6 +245,17 @@ def _split(query: str, args: tuple, rows: int, others: int,
     return max(1, min(MAX_PARTS, slots // tiles)), tiles, per_cta
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one launch to ``wrapper.launches``.  Under a lock: the two serve
+    threads of a disaggregated server launch the same wrappers at once, and
+    ``+= 1`` on an attribute is a read and a write the GIL may split."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise on the cudaError a kernel's C entry point returned."""
     if err != 0:

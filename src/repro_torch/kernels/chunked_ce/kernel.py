@@ -19,7 +19,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODE, check_launch, cuda_entry
+from repro_torch.kernels.build import (DTYPE_CODE, check_launch, count_launch,
+                                      cuda_entry)
 from repro_torch.kernels.chunked_ce.ref import reference
 
 BLOCK_T, BLOCK_V = 128, 128      # the kernel's token and vocab tiles
@@ -71,7 +72,7 @@ def chunked_ce(h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
         sums[1].data_ptr(), Tk, D, V, softcap,
         torch.cuda.current_stream(h.device).cuda_stream)
     check_launch("chunked_ce", err)
-    chunked_ce.launches += 1
+    count_launch(chunked_ce)
     loss, count = sums.sum(1)
     return loss, count
 

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODE, check_launch, cuda_entry
+from repro_torch.kernels.build import (DTYPE_CODE, check_launch, count_launch,
+                                      cuda_entry)
 from repro_torch.kernels.flash_attention.ref import reference
 
 HEAD_DIMS = (64, 128, 256)
@@ -69,7 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out.data_ptr(), B, Sq, Sk, H, KVH, int(causal), window, q_offset,
         softcap, d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", err)
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 

@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODE, check_launch, cuda_entry
+from repro_torch.kernels.build import (DTYPE_CODE, check_launch, count_launch,
+                                      cuda_entry)
 from repro_torch.kernels.lightning_indexer.ref import reference
 
 INDEX_DIMS = (16, 32, 64, 128)
@@ -82,7 +83,7 @@ def lightning_indexer(q_idx: torch.Tensor, w_head: torch.Tensor,
         w_head.data_ptr(), k_idx.data_ptr(), out.data_ptr(), B, S, T, heads,
         head_dim ** -0.5, torch.cuda.current_stream(q_idx.device).cuda_stream)
     check_launch("lightning_indexer", err)
-    lightning_indexer.launches += 1
+    count_launch(lightning_indexer)
     return out
 
 

@@ -47,7 +47,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODE, check_launch, cuda_entry
+from repro_torch.kernels.build import (DTYPE_CODE, check_launch, count_launch,
+                                      cuda_entry)
 from repro_torch.kernels.build import resources as _resources
 from repro_torch.kernels.mamba_scan.ref import (reference, scan_heads,
                                                 scan_model, scan_model_grads)
@@ -157,7 +158,7 @@ def mamba_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
         h0.data_ptr(), y.data_ptr(), hT.data_ptr(), B, S, E,
         torch.cuda.current_stream(dA.device).cuda_stream)
     check_launch("mamba_scan_contract", err)
-    mamba_scan.launches += 1
+    count_launch(mamba_scan)
     return y, hT
 
 
@@ -231,7 +232,7 @@ def mamba_scan_model(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
     parts = scan_parts(DTYPE_CODE[dt.dtype], DTYPE_CODE[h0.dtype], N, B, S,
                        E, index)
     out = _launch(dt, A, x, Bc, Cc, h0, B, S, E, N, index, parts)
-    mamba_scan_model.launches += 1
+    count_launch(mamba_scan_model)
     return out
 
 
@@ -323,7 +324,7 @@ def mamba_scan_heads(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
     parts = scan_parts(DTYPE_CODE[x.dtype], DTYPE_CODE[h0.dtype], N, B, S,
                        H * P, index, "mamba_scan_heads_resources")
     out = _launch_heads(dt, A, x, Bc, Cc, h0, B, S, H, P, N, index, parts)
-    mamba_scan_heads.launches += 1
+    count_launch(mamba_scan_heads)
     return out
 
 

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.kernels.build import DTYPE_CODE as _DTYPE_CODE
 from repro_torch.kernels.build import check_launch as _check_launch
-from repro_torch.kernels.build import cuda_entry
+from repro_torch.kernels.build import count_launch, cuda_entry
 from repro_torch.kernels.build import resources as _resources
 
 NEG_INF = -1e30
@@ -209,7 +209,7 @@ def paged_decode_gqa(q: torch.Tensor, k_pool: torch.Tensor,
                                     block_tables.shape[1], index)
     out = _launch(q, k_pool, v_pool, block_tables, seq_lens, window, softcap,
                   code, B, KVH, G, d, parts, ws_floats, index)
-    paged_decode_gqa.launches += 1
+    count_launch(paged_decode_gqa)
     return out
 
 
@@ -419,7 +419,7 @@ def paged_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
                                             block_tables.shape[1], index)
     out = _launch_mla(q_lat, q_rope, c_pool, kr_pool, block_tables,
                       seq_lens, scale, parts, ws_floats, index)
-    paged_decode_mla.launches += 1
+    count_launch(paged_decode_mla)
     return out
 
 
@@ -555,7 +555,7 @@ def paged_indexer_scores_kernel(q_idx: torch.Tensor, w_head: torch.Tensor,
         out.data_ptr(), B, Hi, mb, Di ** -0.5,
         torch._C._cuda_getCurrentRawStream(q_idx.get_device()))
     _check_launch("paged_indexer_scores", err)
-    paged_indexer_scores_kernel.launches += 1
+    count_launch(paged_indexer_scores_kernel)
     return out
 
 

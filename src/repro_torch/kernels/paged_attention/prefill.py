@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import key_split
+from repro_torch.kernels.build import count_launch, key_split
 from repro_torch.kernels.paged_attention.kernel import (
     NEG_INF, _DTYPE_CODE, _check_launch, check_cuda_args,
     check_cuda_indexer_args, check_cuda_mla_args, cuda_entry,
@@ -123,7 +123,7 @@ def paged_prefill_gqa(q: torch.Tensor, k_pool: torch.Tensor,
         softcap, d ** -0.5, parts, None if ws is None else ws.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _check_launch("paged_prefill_gqa", err)
-    paged_prefill_gqa.launches += 1
+    count_launch(paged_prefill_gqa)
     return out
 
 
@@ -191,7 +191,7 @@ def paged_prefill_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
         None if ws is None else ws.data_ptr(),
         torch.cuda.current_stream(q_lat.device).cuda_stream)
     _check_launch("paged_prefill_mla", err)
-    paged_prefill_mla.launches += 1
+    count_launch(paged_prefill_mla)
     return out
 
 
@@ -242,7 +242,7 @@ def paged_prefill_indexer(q_idx: torch.Tensor, w_head: torch.Tensor,
         out.data_ptr(), B, SH, heads, mb, Di ** -0.5,
         torch.cuda.current_stream(q_idx.device).cuda_stream)
     _check_launch("paged_prefill_indexer", err)
-    paged_prefill_indexer.launches += 1
+    count_launch(paged_prefill_indexer)
     return out
 
 

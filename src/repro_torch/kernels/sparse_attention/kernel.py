@@ -47,8 +47,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import (DTYPE_CODE, check_launch, cuda_entry,
-                                      key_split, resources)
+from repro_torch.kernels.build import (DTYPE_CODE, check_launch,
+                                      count_launch, cuda_entry, key_split,
+                                      resources)
 
 NEG_INF = -1e30
 MAX_BLOCKS = 64                          # nb the kernel takes (csrc)
@@ -194,7 +195,7 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           (S // block_size) * B * KVH, dv, q.device)
     out = _launch(q, k, v, block_idx, q_start, block_size, softcap,
                   empty_mean, parts, ws)
-    block_sparse_attention.launches += 1
+    count_launch(block_sparse_attention)
     return out
 
 

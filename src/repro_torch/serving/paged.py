@@ -26,8 +26,8 @@ here).
 When the free list runs dry ``alloc`` asks an optional ``evictor`` (the
 prefix cache's LRU) to release cached, unreferenced blocks before giving
 up with ``CacheFull``.  The evictor protocol has a second, optional half:
-``demote_hook`` — registered by a host spill tier (a later slice of the
-port), called by the evictor with a victim's token path, block id, and version
+``demote_hook`` — registered by a spill tier (``repro_torch.serving.spill``),
+called by the evictor with a victim's token path, block id, and version
 stamp JUST BEFORE the block is released under allocation pressure, so the
 block's bytes can be gathered to host memory first (eviction becomes
 "demote", not "forget").  The hook is advisory: it must not allocate from

@@ -1,8 +1,8 @@
 """Radix prefix cache: token-block trie over the refcounted paged KV pool.
 
-Port of ``repro.serving.prefix_cache`` (pure host code, copied without the
-spill-tier restore path: the host spill tier is a later slice, and the
-port's engine rejects ``spill=True``).
+Port of ``repro.serving.prefix_cache`` (pure host code, copied; the spill
+tier it restores from moves its bytes with torch copies, see
+``repro_torch.serving.spill``).
 
 GLM-5's serving posture (§3.6) feeds agentic traffic whose prompts are
 massively redundant: thousands of rollouts share one system prompt, and a
@@ -58,9 +58,18 @@ Because ``insert`` walks root-first, every fresh node's ancestors are
 fresh, so ``match``'s stop-at-first-stale walk never misses a reachable
 current-version prefix.
 
-Eviction still calls the allocator's ``demote_hook`` (the evictor
-protocol), so a spill tier can attach without changing this module's
-eviction order.
+Spill tier (``repro_torch.serving.spill.HostSpillTier``, optional): with
+a tier attached, ``evict`` DEMOTES a cold full-block leaf — the
+allocator's ``demote_hook`` copies its rows to pinned host memory, keyed
+by the node's token path — before releasing the block, and ``match``
+consults the tier on a child miss: the longest spilled chain extending the
+matched path is restored (landing blocks allocated, the rows written back
+in place, restamped to the writer version) and grafted back into the tree,
+so the walk continues through it exactly like a warm hit.  Stale spilled
+entries are dropped at lookup, never restored, so the version contract
+above is unchanged.  Partial (tail) leaves are not demoted: a partial
+restore could only ever seed a COW fork, and the tier keys on exact
+full-block paths.
 """
 from __future__ import annotations
 
@@ -108,6 +117,9 @@ class PrefixCache:
              "inserted_blocks", "deduped_blocks", "version_refused",
              "refreshed_blocks", "stale_evictions"])
         kv.evictor = self.evict
+        # host spill tier (repro_torch.serving.spill); set by
+        # HostSpillTier.attach — None means evict-as-forget
+        self.spill = None
 
     # ------------------------------------------------------------- queries
     @property
@@ -153,6 +165,11 @@ class PrefixCache:
         refused: Optional[_Node] = None
         while m + bs <= L:
             child = node.children.get(tuple(int(t) for t in tokens[m:m + bs]))
+            if child is None and self.spill is not None:
+                # spilled-prefix hit: restore the longest spilled chain
+                # extending tokens[:m] into fresh blocks and graft it back
+                # into the tree — the walk continues through it
+                child = self._restore_from_spill(node, tokens, m, L)
             if child is None:
                 break
             if not self._fresh(child):
@@ -163,8 +180,9 @@ class PrefixCache:
                 refused = child
                 break
             node = child
-            # retain as the walk advances: a block promised to the caller
-            # is never reclaimable by a later allocation's eviction
+            # retain as the walk advances: a spill restore later in this
+            # walk allocates blocks, and that allocation's eviction must
+            # never reclaim a block already promised to the caller
             self.kv.retain([node.block])
             blocks.append(node.block)
             m += bs
@@ -199,6 +217,48 @@ class PrefixCache:
             self.stats["misses"] += 1
         self.stats["matched_tokens"] += m
         return m, blocks
+
+    def _restore_from_spill(self, node: _Node, tokens: Sequence[int],
+                            m: int, L: int) -> Optional[_Node]:
+        """Restore the longest spilled chain extending ``tokens[:m]``.
+
+        Collects consecutive full-block spill entries (each keyed by its
+        full token path; ``lookup`` drops stale ones), allocates landing
+        blocks — under pressure that allocation may itself demote colder
+        leaves, which is the tiering policy — writes the host rows back in
+        place, and grafts the re-created nodes under ``node``.  Returns the
+        first grafted node (the walk resumes through it), or None when
+        nothing restorable is spilled or the pool cannot land the chain
+        (an ordinary miss)."""
+        from repro_torch.serving.paged import CacheFull
+        bs = self.block_size
+        keyed: List[tuple] = []
+        mm = m
+        while mm + bs <= L:
+            path = tuple(int(t) for t in tokens[:mm + bs])
+            ent = self.spill.lookup(path)
+            if ent is None:
+                break
+            keyed.append((path, ent))
+            mm += bs
+        if not keyed:
+            return None
+        try:
+            landing = self.kv.alloc(len(keyed))
+        except CacheFull:
+            return None         # the pool cannot land the chain: a miss
+        self.spill.restore(keyed, landing)
+        first: Optional[_Node] = None
+        cur = node
+        for (path, _), block in zip(keyed, landing):
+            key = path[len(path) - bs:]
+            child = _Node(key, block, cur)
+            cur.children[key] = child
+            self._touch(child)
+            if first is None:
+                first = child
+            cur = child
+        return first
 
     # -------------------------------------------------------------- insert
     def insert(self, tokens: Sequence[int], blocks: List[int]) -> None:

@@ -69,10 +69,15 @@ Differences from the reference, all deliberate:
   kept for its key and stays 0 — nothing is traced;
 * logits cross to the host every step and sampling stays on the host with
   the numpy generator, as in the reference, so greedy ties break alike;
-* the host spill tier (``spill=True``) belongs to a later slice and
-  raises ``NotImplementedError``; logprob capture
-  (``capture_logprobs`` / ``true_logprobs``) and ``respawn`` (the RL and
-  front-end layers use them) come with those layers;
+* the host spill tier (``spill=True``, ``serving.spill.HostSpillTier``)
+  demotes evicted blocks into pinned host tensors and restores them in
+  place on a radix hit; it attaches to prefix-cached engines only, as in
+  the reference;
+* ``respawn`` (the front-end's supervised restart) releases the dead
+  engine's pool before the fresh engine allocates its own, so two pools
+  never sit on the card together; the dead engine serves nothing after;
+* logprob capture (``capture_logprobs`` / ``true_logprobs``) comes with
+  the RL layers, which use it;
 * a slot's ``h_last`` stays on the device in the model's dtype (the
   reference moves it to the host as fp32 every round).
 """
@@ -137,6 +142,7 @@ class ContinuousEngine:
                  max_waiting: Optional[int] = None,
                  admit_hol_window: Optional[int] = None,
                  spill: Optional[bool] = None,
+                 spill_blocks: Optional[int] = None,
                  faults: Optional[FaultInjector] = None,
                  device=None):
         if cfg.family not in ("dense", "moe", "hybrid"):
@@ -168,10 +174,6 @@ class ContinuousEngine:
         if step_token_budget is not None and step_token_budget < 1:
             raise ValueError("step_token_budget must be >= 1, got "
                              f"{step_token_budget}")
-        if spill:
-            raise NotImplementedError(
-                "the host-RAM KV spill tier is a later slice of the port "
-                "(serving around the engine), not ported yet")
         if prefill_chunk is not None and (
                 prefill_chunk <= 0 or prefill_chunk % block_size):
             raise ValueError("prefill_chunk must be a positive multiple of "
@@ -185,7 +187,8 @@ class ContinuousEngine:
                                     else attn_impl)
         self.model = get_model(cfg)
         from repro_torch.flags import (admit_steps_window, admit_window,
-                                       max_waiting_default, trace_enabled)
+                                       max_waiting_default, spill_enabled,
+                                       trace_enabled)
         self.registry = registry if registry is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None \
             else Tracer(enabled=trace_enabled())
@@ -212,6 +215,21 @@ class ContinuousEngine:
         self.kv = PagedKVCache(num_blocks, block_size,
                                registry=self.registry, faults=self.faults)
         self.kv.set_version(weight_version)
+        # everything a supervisor needs to rebuild this engine after a
+        # crash (``respawn``), as RESOLVED values so a respawn does not
+        # depend on flags changed since; params and version come from the
+        # live state at respawn time
+        self._spill_on = spill_enabled() if spill is None else bool(spill)
+        self._init_kw = dict(
+            max_batch=max_batch, block_size=block_size,
+            num_blocks=num_blocks, max_len=max_len, seed=seed,
+            prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
+            attn_impl=attn_impl, spec_steps=spec_steps,
+            step_token_budget=step_token_budget,
+            max_waiting=0 if self.max_waiting is None else self.max_waiting,
+            admit_hol_window=self.admit_hol_window,
+            spill=self._spill_on, spill_blocks=spill_blocks,
+            device=self.device)
         self.prefill_chunk = prefill_chunk
         self.hybrid = cfg.family == "hybrid"
         # recurrent state is not reconstructible from KV blocks: no reuse
@@ -223,6 +241,15 @@ class ContinuousEngine:
         self.pool = self.model.init_paged_cache(cfg, num_blocks + 1,
                                                 block_size, first.dtype,
                                                 self.device, **per_slot)
+        # demote-instead-of-forget: needs the radix tree (entries are keyed
+        # by token path) and the pool above (restores write into it), so a
+        # hybrid or cache-off engine gets no tier
+        self.spill_tier = None
+        if self._spill_on and self.prefix is not None:
+            from repro_torch.serving.spill import HostSpillTier
+            self.spill_tier = HostSpillTier(self,
+                                            capacity_blocks=spill_blocks)
+            self.spill_tier.attach(self.prefix)
         self.tables = np.full((max_batch, self.table_width), self.trash,
                               np.int32)
         self.lengths = np.zeros((max_batch,), np.int32)
@@ -417,6 +444,14 @@ class ContinuousEngine:
             "engine.pool_utilization",
             self.kv.used_blocks / self.kv.num_blocks)
 
+    def reset_cache(self) -> None:
+        """Drop every cached prefix block and spilled entry (benchmark
+        hygiene; a weight push does not need this, see ``push_weights``)."""
+        if self.prefix is not None:
+            self.prefix.clear()
+        if self.spill_tier is not None:
+            self.spill_tier.clear()
+
     @property
     def busy(self) -> bool:
         return bool(self.waiting) or self._pending_push is not None \
@@ -425,6 +460,21 @@ class ContinuousEngine:
     @property
     def cached_blocks(self) -> int:
         return self.prefix.cached_blocks if self.prefix is not None else 0
+
+    @property
+    def stale_cached_blocks(self) -> int:
+        """Cached blocks orphaned by a weight push, awaiting lazy LRU
+        reclamation (0 when the prefix cache is off)."""
+        return self.prefix.stale_cached_blocks \
+            if self.prefix is not None else 0
+
+    @property
+    def spilled_blocks(self) -> int:
+        """Blocks resident in the host spill tier (0 when spill is off):
+        ``cached_blocks + spilled_blocks`` is the prefix cache's capacity
+        in effect."""
+        return self.spill_tier.spilled_blocks \
+            if self.spill_tier is not None else 0
 
     # --------------------------------------------------------------- retire
     def _retire(self) -> None:
@@ -567,6 +617,29 @@ class ContinuousEngine:
                     "cancelled", donate=True)
                 return True
         return False
+
+    def respawn(self) -> "ContinuousEngine":
+        """A FRESH engine with this engine's geometry and policy (the
+        supervisor's restart path: pool, block tables and prefix cache are
+        rebuilt; in-flight KV died with the crash), over the same
+        ``nn.Module`` (no copy of the weights).  Its weights are the newest
+        this engine was handed: a push still waiting at the drain barrier
+        wins over the running params.  The registry, tracer and fault
+        injector are SHARED, so counters, traces and the injection schedule
+        run on (a ``crash@3`` clause does not fire again at the new
+        engine's step 3).  This engine's pool and slots are released first:
+        it is dead, and its pool must not sit on the card beside the new
+        one."""
+        params, version = (self._pending_push
+                           if self._pending_push is not None
+                           else (self.params, self.weight_version))
+        self.pool = {}
+        self.slots = [None] * self.max_batch
+        if self.spill_tier is not None:
+            self.spill_tier.clear()
+        return ContinuousEngine(self.cfg, params, weight_version=version,
+                                registry=self.registry, tracer=self.tracer,
+                                faults=self.faults, **self._init_kw)
 
     # ---------------------------------------------------------------- admit
     def _admit(self) -> None:

@@ -78,3 +78,18 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
         train(cfg, TrainConfig(total_steps=1))
     # asked for, the CPU is used
     ContinuousEngine(cfg, model, num_blocks=4, block_size=8, device="cpu")
+
+
+def test_serving_exports_the_reference_names():
+    """``repro_torch.serving`` exports what ``repro.serving`` does, apart
+    from ``bind_dp_router`` (it binds ``async_rl.router``, not ported yet);
+    ``repro_torch.async_rl`` exports the heartbeat monitor."""
+    import repro.serving as ref
+    import repro_torch.async_rl as port_rl
+    import repro_torch.serving as port
+    names = {n for n in vars(ref) if not n.startswith("_")
+             and not isinstance(getattr(ref, n), type(ast))}
+    missing = sorted(names - {"bind_dp_router"} - set(vars(port)))
+    assert not missing, missing
+    assert port_rl.HeartbeatMonitor.__module__ == \
+        "repro_torch.async_rl.heartbeat"

@@ -15,7 +15,7 @@
   ``dsa=None``) and for its variant with 4 routed experts top-2 plus a
   shared expert: latent ``c``/``kr`` pools, COW forks that copy both.
 * Inside the port, ``attn_impl="kernel"`` and ``"ref"`` give identical
-  tokens; the configurations of later slices raise.
+  tokens; the configurations the engine does not serve raise.
 """
 import dataclasses
 
@@ -293,8 +293,9 @@ def test_injected_request_fault_is_isolated(setup, spec):
     assert eng.kv.free_blocks + eng.cached_blocks == eng.kv.num_blocks
 
 
-@pytest.mark.parametrize("spec", ["crash@1", "xfer~0.5", "route"])
+@pytest.mark.parametrize("spec", ["worker@1", "worker~0.5", "worker"])
 def test_fault_points_the_port_does_not_wire_are_refused(spec):
+    # the orchestrator's point; crash, beat, xfer and route are wired
     with pytest.raises(ValueError, match="unknown point"):
         FaultInjector(spec)
 
@@ -316,8 +317,9 @@ def test_engine_rejects_later_slices(setup):
               device="cpu")
     with pytest.raises(ValueError, match="MTP"):  # served, with a head
         ContinuousEngine(model.cfg, model, spec_steps=2, **kw)
-    with pytest.raises(NotImplementedError):
-        ContinuousEngine(model.cfg, model, spill=True, **kw)
+    with pytest.raises(NotImplementedError):   # the static engine's family
+        ContinuousEngine(dataclasses.replace(model.cfg, family="ssm"),
+                         model, **kw)
     with pytest.raises(ValueError):
         ContinuousEngine(model.cfg, model, attn_impl="pallas", **kw)
 
