@@ -153,6 +153,9 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            zamba2 prefill span (B 1, S 256) and decode step (B 8), with
            the time chunks its wrapper picks, device time and host
            microseconds a call;
+           K9's bf16 route (the SIMT body) at the RL loop backend's
+           re-forward (B 1, S 240, Yi-6B's heads), its own line
+           ``flash_attention_bf16``;
            K11's scan kernel's registers, spills, shared memory and CTAs
            an SM, its model
            form at falcon-mamba's serve prefill (B 8, S 1024, bf16), decode
@@ -181,7 +184,9 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            selector depends on them), K8 launched on the first only; then
            GLM-5 + DSA + MTP at 2 layers: spec_steps=3 against
            spec_steps=0, and a run with the drafts pointed at the spec-off
-           tokens (every draft accepts), tokens equal; then falcon-mamba-7b
+           tokens (every draft accepts), tokens equal, their true
+           logprobs (bonus tokens and accepted drafts from the verify
+           span) within 1e-4 relative of spec off's; then falcon-mamba-7b
            at full width with 2 layers in fp32 through the static
            ServingEngine (its family's engine; the ContinuousEngine refuses
            it, as the reference's does), batches of 3 left-padded prompts:
@@ -214,7 +219,25 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            GB/s) and through ``DisaggServer`` (``pd_threshold`` 256;
            migrations, migrated blocks, migrate ms), healthy and with two
            ``xfer`` faults (fallbacks equal to them); any restart or
-           fallback not injected fails the run; then Yi-6B with DSA (32
+           fallback not injected fails the run; then asynchronous agent
+           RL (slice 15): ``[rl.parity]``, Yi-6B width at 2 layers in
+           fp32, one fp32 ``RolloutEngine`` serving one orchestrator
+           worker through the front-end, two GRPO groups of 8 at
+           temperature 1 on prompts of exactly 64 tokens, then one
+           ``AsyncTrainer.train_on`` before any push: the captured
+           behaviour logprobs and the trainer's recomputed ones within
+           1e-3 a token, the mean ratio within 1e-3 of 1, every token
+           kept; ``[rl]``, Yi-6B width at 4 layers: the fp32 trainer
+           (Muon Split, lr 1e-3, a push every 2 steps) for 4 steps of 2
+           groups against two bf16 rollout engines (two workers, groups
+           of 8, tau 4, the copy and reverse tasks on a 216-token system
+           prompt), then one group through the loop backend (a bf16
+           re-forward a token, K9's bf16 route): step and push ms,
+           rollout tokens/s and groups/s, the staleness histogram, kept
+           and ratio a step, prefix-cache hits, peak memory and the
+           launches of K1, K2, K9 fp32 (one a layer a step) and K9 bf16
+           (one a layer a loop token), checked; the first step's ratio
+           within [0.9, 1.1]; then Yi-6B with DSA (32
            layers; K5 and K6 in every layer) on 8 requests of 32..6144
            prompt tokens (four past top-k) with a 2.1 GiB pool; then
            Yi-6B + DSA(block) on the same mix (the view a whole number of
@@ -223,7 +246,13 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            layers + 1 MLA + MoE layer, DSA on) and its MTP layer (~27 GB
            of bf16 weights) on the first request mix, spec_steps=0 and
            then spec_steps=3 (accept length, rounds, TPOT / TTFT / decode
-           tok/s beside spec off); then zamba2-2.7b at full width and depth
+           tok/s beside spec off), and with ``true_logprobs`` at spec 0
+           and 3 (tokens equal, first partings and logprob gaps printed:
+           the MoE router's near-ties part the runs in bf16), then the
+           same widths with every layer dense: the verify span's
+           logprobs (K4) within 2e-2 relative of the decode steps' (K3)
+           up to and including the first token the runs choose
+           differently; then zamba2-2.7b at full width and depth
            (54 layers, ~2.4 B parameters) in bf16, dsa=None on the first
            mix and with DSA on the DSA mix (K11's head-shared launches
            checked: one a layer a decode step and a prefill span); then
@@ -1971,7 +2000,11 @@ def parity_mtp(cfg, device="cuda", block_size=16, chunk=64, n=3) -> dict:
     then a forced-acceptance run: the script points
     ``speculative.mtp_draft`` at the spec-off run's own continuation, so
     every draft accepts, the rounds emit n + 1 tokens (fewer only at a
-    request's budget cap), and the tokens must still be equal."""
+    request's budget cap), and the tokens must still be equal.  Every run
+    captures true logprobs: the spec runs' (bonus tokens and, in the
+    forced run, accepted drafts, from the verify span's logits) within the
+    fp32 tolerance 1e-4, relative where |lp| > 1, of the spec-off run's
+    (the decode steps') wherever the tokens are compared."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as T
@@ -1988,6 +2021,7 @@ def parity_mtp(cfg, device="cuda", block_size=16, chunk=64, n=3) -> dict:
         eng = ContinuousEngine(cfg, model, max_batch=3, block_size=block_size,
                                num_blocks=128, max_len=max_len,
                                prefill_chunk=chunk, spec_steps=spec,
+                               capture_logprobs=True, true_logprobs=True,
                                device=device)
         reqs = [Request(prompt=p, max_new=m)
                 for p, m in zip(prompts, max_new)]
@@ -1999,10 +2033,10 @@ def parity_mtp(cfg, device="cuda", block_size=16, chunk=64, n=3) -> dict:
             eng.serve(reqs)
         finally:
             speculative.mtp_draft = saved
-        return [r.out for r in reqs], eng
+        return [r.out for r in reqs], eng, [r.out_logprobs for r in reqs]
 
-    base, _ = run(0)
-    spec_out, spec_eng = run(n)
+    base, _, base_lp = run(0)
+    spec_out, spec_eng, spec_lp = run(n)
 
     def forced(eng, want, model_, h, tok, pos, depth):
         drafts = torch.zeros((tok.shape[0], depth), dtype=torch.long,
@@ -2013,20 +2047,30 @@ def parity_mtp(cfg, device="cuda", block_size=16, chunk=64, n=3) -> dict:
                 drafts[i, :len(nxt)] = torch.from_numpy(nxt.astype(np.int64))
         return drafts
 
-    forced_out, forced_eng = run(n, forced)
+    forced_out, forced_eng, forced_lp = run(n, forced)
     with plain_route():
         margins = [_margins_ok(model, p, o, device)
                    for p, o in zip(prompts, base)]
-    compared = 0
-    for ok, a, b, c in zip(margins, base, spec_out, forced_out):
+
+    def lp_gap(want, got):          # relative where |lp| > 1
+        return float((np.abs(got - want)
+                      / np.maximum(1.0, np.abs(want))).max())
+    compared, lp_worst = 0, 0.0
+    for ok, a, b, c, la, lb, lc in zip(margins, base, spec_out, forced_out,
+                                       base_lp, spec_lp, forced_lp):
         if not np.array_equal(a, c):
             raise AssertionError(f"parity (MTP forced): {c.tolist()} != "
                                  f"{a.tolist()}")
+        lp_worst = max(lp_worst, lp_gap(la, lc))
         if ok:
             compared += 1
             if not np.array_equal(a, b):
                 raise AssertionError(f"parity (MTP): spec {b.tolist()} != "
                                      f"{a.tolist()}")
+            lp_worst = max(lp_worst, lp_gap(la, lb))
+    if lp_worst > TOL["float32"]:
+        raise AssertionError(f"parity (MTP): true logprobs of the spec "
+                             f"runs {lp_worst} from spec off's")
     fs = forced_eng.stats
     if compared == 0 or fs["accepted_tokens"] != \
             fs["draft_tokens"] + fs["spec_rounds"] \
@@ -2040,7 +2084,8 @@ def parity_mtp(cfg, device="cuda", block_size=16, chunk=64, n=3) -> dict:
                forced_rounds=fs["spec_rounds"],
                forced_accept_length=forced_eng.rolling_accept_length,
                forced_accepted=fs["accepted_tokens"],
-               forced_drafted=fs["draft_tokens"])
+               forced_drafted=fs["draft_tokens"],
+               true_logprob_gap_rel=lp_worst)
     _log("parity", model=cfg.name, layers=cfg.num_layers,
          experts=cfg.num_experts, mtp=n, dtype="float32",
          oracle="spec_steps=0", **res)
@@ -2665,6 +2710,390 @@ def frontend_serve(cfg, prompt_lens, model, direct, device="cuda",
          **res, **{f"{k}_launches": v for k, v in launches.items()})
     res["launches"] = launches
     return res
+
+
+# ---------------------------------------------------------------------------
+# asynchronous agent RL: rollouts through the front-end, the IS trainer
+# ---------------------------------------------------------------------------
+
+def _rl_tasks(V, sys_p, problem, max_new, ratios=(("copy", 0.6),
+                                                  ("reverse", 0.4))):
+    """The RL toy tasks as task services: a shared system prompt, then
+    ``problem`` tokens the answer is made of (copied or reversed), every
+    prompt exactly ``len(sys_p) + problem`` tokens long, rewarded by the
+    generated prefix that matches the answer."""
+    import numpy as np
+    from repro_torch.async_rl import TaskService
+    from repro_torch.data.synthetic import TASKS
+    from repro_torch.rl.rewards import prefix_reward
+
+    def sampler(name):
+        def sample(rng):
+            x, answer = TASKS[name](rng, problem, V)
+            return {"prompt": np.concatenate([sys_p, x]).astype(np.int32),
+                    "answer": answer}
+        return sample
+
+    def reward(prob, gen):
+        return prefix_reward(gen[:len(prob["answer"])], prob["answer"]), False
+
+    return [TaskService(name, sampler(name), reward, max_new=max_new,
+                        ratio=r) for name, r in ratios]
+
+
+def _stop_workers(orch) -> None:
+    """Stop the orchestrator and wait until every worker has returned (a
+    worker mid-group finishes its rollouts first)."""
+    orch.stop()
+    for t in orch._threads:
+        t.join(timeout=T_RESULT)
+        if t.is_alive():
+            raise AssertionError("rl: a rollout worker did not stop")
+
+
+def _await_version(fe, version) -> None:
+    """The front-end's engine applied the push of ``version`` (at its drain
+    barrier)."""
+    t0 = time.perf_counter()
+    while fe.version != version:
+        if time.perf_counter() - t0 > T_RESULT:
+            raise AssertionError(f"rl: engine at version {fe.version}, the "
+                                 f"trainer pushed {version}")
+        time.sleep(0.01)
+
+
+def rl_parity(cfg, device="cuda", group=8, n_groups=2, shared=48,
+              problem=16, max_new=16) -> dict:
+    """fp32, TF32 off: one ``RolloutEngine`` (fp32 snapshot) serving one
+    orchestrator worker through the front-end, two GRPO groups of 8 at
+    temperature 1 on prompts of exactly ``prompt_pad`` tokens, then one
+    ``AsyncTrainer.train_on`` before any push.  The behaviour logprobs the
+    engine captured and the trainer's recomputed ones are the same
+    function of the same weights: every token's gap <= 1e-3, the step's
+    mean ratio within 1e-3 of 1 and every token kept.  A wrong position, a
+    prompt padded with tokens the rollout never saw, a version mixed into
+    a trajectory or a wrong logits row would each break it."""
+    import numpy as np
+    import torch
+    from repro_torch.async_rl import AsyncTrainer, Orchestrator, RolloutEngine
+    from repro_torch.async_rl.trainer import pack_groups
+    from repro_torch.models import transformer as T
+    from repro_torch.models.losses import token_logprobs
+    model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                   device=device, dtype=torch.float32)
+    V, plen = cfg.vocab_size, shared + problem
+    sys_p = np.random.default_rng(SEED + 5).integers(3, V, size=shared)
+    eng = RolloutEngine(cfg, model, engine_dtype=torch.float32, seed=SEED,
+                        device=device)
+    kw = dict(max_batch=8, block_size=16, num_blocks=256, max_len=512)
+    orch = Orchestrator([eng], group_size=group, backend="serving",
+                        serving_kw=kw)
+    for task in _rl_tasks(V, sys_p.astype(np.int32), problem, max_new):
+        orch.register(task)
+    try:
+        orch.start(n_workers=1)
+        if not orch.wait_for_groups(n_groups, timeout_s=T_RESULT):
+            raise AssertionError(f"rl.parity: groups not ready "
+                                 f"{orch.worker_errors}")
+        _stop_workers(orch)
+        if orch.worker_errors:
+            raise AssertionError(f"rl.parity: {orch.worker_errors}")
+        groups = orch.buffer.pop_groups(n_groups, 0)
+        trainer = AsyncTrainer(cfg, model, T.param_axes(model),
+                               engines=[eng], lr=1e-3, push_every=2,
+                               device=device)
+        batch = pack_groups(groups, max_new, plen)
+        if any(len(t.prompt) != plen or t.versions != [0]
+               for g in groups for t in g):
+            raise AssertionError("rl.parity: a prompt or version off")
+        with torch.no_grad():
+            toks = torch.from_numpy(batch["tokens"]).to(device)
+            lp = token_logprobs(T.logits(model, toks)[:, plen - 1:-1],
+                                toks[:, plen:]).cpu().numpy()
+        live = batch["mask"] > 0
+        gap = float(np.abs(lp - batch["lp_rollout"])[live].max())
+        m = trainer.train_on(groups, pad_to=max_new, prompt_pad=plen)
+    finally:
+        orch.stop()
+        if eng._frontend is not None:
+            eng._frontend.close(timeout=T_RESULT)
+    res = dict(groups=len(groups), group_size=group, prompt_pad=plen,
+               max_new=max_new, tokens=int(live.sum()),
+               max_logprob_gap=gap, mean_ratio=m["ratio"], kept=m["kept"],
+               loss=m["loss"], grad_norm=m["grad_norm"])
+    _log("rl.parity", model=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, dtype="float32", **res)
+    if not (gap <= 1e-3 and abs(m["ratio"] - 1.0) <= 1e-3
+            and m["kept"] == 1.0 and math.isfinite(m["loss"])):
+        raise AssertionError(f"rl.parity: {res}")
+    del trainer, eng, model
+    return res
+
+
+def rl_run(cfg, device="cuda", steps=4, groups_a_step=2, group=8,
+           shared=216, problem=16, max_new=16, push_every=2, tau=4,
+           loop_new=8) -> dict:
+    """The asynchronous RL loop at full width: an fp32 trainer (Muon
+    Split, lr 1e-3, a push every ``push_every`` steps and the optimizer
+    reset after it), two bf16 ``RolloutEngine``s serving two orchestrator
+    workers through their front-ends (K1 decode steps, K2 spans; the
+    copy and reverse tasks, 0.6 / 0.4, on a shared 216-token system
+    prompt), ``steps`` steps of ``groups_a_step`` groups popped within
+    ``tau`` of the trainer's version; then one group through the loop
+    backend (``generate``: a bf16 re-forward a token, K9's bf16 route).
+    Hard checks: losses finite, no worker error, every popped group within
+    tau, both engines at the last pushed version once drained, K9's
+    launches those the depth implies (fp32: one a layer a trainer step;
+    bf16: one a layer a loop-backend token), K1 and K2 launched, and the
+    first step's mean ratio within [0.9, 1.1] (bf16 rollouts against the
+    fp32 trainer, before any push)."""
+    import numpy as np
+    import torch
+    from repro_torch.async_rl import AsyncTrainer, Orchestrator, RolloutEngine
+    from repro_torch.kernels.flash_attention import kernel as K9
+    from repro_torch.models import transformer as T
+    K1, K2 = _gqa_kernels()
+    V, plen = cfg.vocab_size, shared + problem
+    sys_p = np.random.default_rng(SEED + 6).integers(3, V, size=shared)
+    torch.cuda.reset_peak_memory_stats()
+    model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                   device=device, dtype=torch.float32)
+    engines = [RolloutEngine(cfg, model, seed=SEED + i, device=device)
+               for i in range(2)]
+    kw = dict(max_batch=8, block_size=16, num_blocks=256, max_len=512)
+    orch = Orchestrator(engines, group_size=group, staleness_tau=tau,
+                        backend="serving", serving_kw=kw)
+    tasks = _rl_tasks(V, sys_p.astype(np.int32), problem, max_new)
+    for task in tasks:
+        orch.register(task)
+    trainer = AsyncTrainer(cfg, model, T.param_axes(model), engines=engines,
+                           lr=1e-3, push_every=push_every, device=device)
+    push_ms = []
+    for e in engines:                         # this script only: timing
+        push = e.push_weights
+
+        def timed(params, version, push=push):
+            t0 = time.perf_counter()
+            push(params, version)
+            push_ms.append((time.perf_counter() - t0) * 1e3)
+        e.push_weights = timed
+    for k in (K1, K2, K9.flash_attention):
+        k.launches = 0                        # counts of the main path
+    hist, step_ms, stale, k9_train = [], [], [], 0
+    try:
+        t0 = time.perf_counter()
+        orch.start(n_workers=2)
+        for _ in range(steps):
+            popped = []
+            while len(popped) < groups_a_step:
+                if not orch.wait_for_groups(groups_a_step - len(popped),
+                                            timeout_s=T_RESULT):
+                    raise AssertionError(f"rl: groups not ready "
+                                         f"{orch.worker_errors}")
+                popped += orch.buffer.pop_groups(
+                    groups_a_step - len(popped), trainer.version)
+            stale += [trainer.version - t.version_min
+                      for g in popped for t in g]
+            before = K9.flash_attention.launches
+            ts = time.perf_counter()
+            hist.append(trainer.train_on(popped, pad_to=max_new,
+                                         prompt_pad=plen))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            k9_train += K9.flash_attention.launches - before
+        loop_wall = time.perf_counter() - t0
+        reg = orch.registry
+        rollout_tokens = reg.counter("rollout.tokens")
+        groups_done = reg.counter("orchestrator.groups")
+        _stop_workers(orch)
+        for e in engines:
+            fe = e.serving_frontend(**kw)
+            fe.flush(timeout=T_RESULT)
+            _await_version(fe, trainer.version)
+        served = {k.__name__: k.launches for k in (K1, K2)}
+        hst = reg.histogram("rollout.staleness")
+        cached = engines[0].serving_engine(**kw).stats["cached_tokens"]
+        # one group through the loop backend: a full bf16 re-forward a token
+        prob = tasks[0].sample_problem(np.random.default_rng(SEED + 7))
+        before = K9.flash_attention.launches
+        tl = time.perf_counter()
+        loop_tokens = 0
+        for _ in range(group):
+            rid = engines[0].gateway.new_rollout("copy")
+            loop_tokens += len(engines[0].generate(rid, prob["prompt"],
+                                                   loop_new))
+            t = engines[0].gateway.finish(rid, "copy", prob["prompt"], 0.0)
+            if t.versions != [trainer.version] * len(t.versions):
+                raise AssertionError(f"rl: loop versions {t.versions}")
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - tl) * 1e3
+        k9_loop = K9.flash_attention.launches - before
+    finally:
+        orch.stop()
+        for e in engines:
+            if e._frontend is not None:
+                e._frontend.close(timeout=T_RESULT)
+    losses = [h["loss"] for h in hist]
+    want_train = cfg.num_layers * steps
+    want_loop = cfg.num_layers * loop_tokens
+    res = dict(
+        steps=steps, groups_a_step=groups_a_step, group_size=group,
+        prompt_pad=plen, max_new=max_new, push_every=push_every,
+        losses=[round(x, 5) for x in losses],
+        ratio=[round(h["ratio"], 5) for h in hist],
+        kept=[round(h["kept"], 5) for h in hist],
+        mean_reward=[round(h["mean_reward"], 4) for h in hist],
+        grad_norm=[round(h["grad_norm"], 4) for h in hist],
+        step_ms=[round(x, 1) for x in step_ms],
+        step_ms_after_first=float(np.mean(step_ms[1:])),
+        push_ms=[round(x, 1) for x in push_ms],
+        rollout_tokens=rollout_tokens, rollout_groups=groups_done,
+        rollout_tok_s=rollout_tokens / loop_wall,
+        rollout_groups_s=groups_done / loop_wall, loop_wall_s=loop_wall,
+        staleness_counts=dict(zip(
+            [f"<={b:g}" for b in hst.boundaries] + ["more"], hst.counts)),
+        popped_staleness_max=max(stale), cached_tokens=cached,
+        worker_errors=len(orch.worker_errors),
+        engine_versions=[e.serving_frontend(**kw).version for e in engines],
+        trainer_version=trainer.version,
+        loop_tokens=loop_tokens, loop_ms=loop_ms,
+        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        k1_launches=served["paged_decode_gqa"],
+        k2_launches=served["paged_prefill_gqa"],
+        k9_fp32_launches=k9_train, k9_bf16_launches=k9_loop)
+    _log("rl", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         trainer="float32", rollouts="bfloat16",
+         **{k: repr(v) if isinstance(v, (list, dict)) else v
+            for k, v in res.items()})
+    bad = []
+    if not all(math.isfinite(x) for x in losses):
+        bad.append("losses not finite")
+    if orch.worker_errors:
+        bad.append(f"worker errors {orch.worker_errors}")
+    if max(stale) > tau:
+        bad.append(f"a popped group {max(stale)} versions stale > {tau}")
+    if res["engine_versions"] != [trainer.version] * 2 \
+            or trainer.version != steps:
+        bad.append("engines not at the last pushed version")
+    if k9_train != want_train or k9_loop != want_loop:
+        bad.append(f"K9 launches fp32 {k9_train} (want {want_train}), bf16 "
+                   f"{k9_loop} (want {want_loop})")
+    if not served["paged_decode_gqa"] or not served["paged_prefill_gqa"]:
+        bad.append(f"K1/K2 never launched {served}")
+    if not 0.9 <= hist[0]["ratio"] <= 1.1:
+        bad.append(f"first step's mean ratio {hist[0]['ratio']}")
+    if bad:
+        raise AssertionError(f"rl: {'; '.join(bad)}")
+    res["launches"] = dict(served, flash_attention=k9_train,
+                           flash_attention_bf16=k9_loop)
+    del trainer, engines, model, orch
+    return res
+
+
+def mtp_logprobs(cfg, model, prompt_lens, device="cuda", block_size=16,
+                 num_blocks=2048, chunk=256, max_new=32, shared=200,
+                 spec=3, gate=True) -> dict:
+    """Logprob capture through speculation (GLM-5 + MTP, bf16): the serve
+    mix greedy with ``true_logprobs`` at ``spec_steps=0`` and ``spec``; the
+    logprobs finite and <= 0.  With ``gate`` the spec run's logprobs (the
+    bonus tokens' from the verify span's logits, K4) are within the bf16
+    tolerance 2e-2 of the spec-off run's (the decode steps', K3),
+    relative to the logprob where it passes 1 (a logprob near -8 is a
+    logit rounded to 8 bits minus a logsumexp), at every position up to
+    and including the first token the two runs choose differently.  Both
+    runs emit their argmax, whose true logprob is the distribution's
+    largest: where the tokens part, the two largest logprobs still agree
+    within the tolerance, so a parting is a near-tie (a span and a decode
+    step sum in other orders), and a wrong logits row would break it.
+    Without ``gate`` the gaps are printed only: with an MoE layer in bf16
+    a router near-tie sends a token to other experts on one path, which
+    moves its logits by more than rounding."""
+    import numpy as np
+    from repro_torch.serving import ContinuousEngine, Request
+    _, prompts = _mix_prompts(cfg.vocab_size, prompt_lens, shared)
+    max_len = max(prompt_lens) + max_new + chunk
+    runs = {}
+    for s in (0, spec):
+        eng = ContinuousEngine(cfg, model, max_batch=8,
+                               block_size=block_size, num_blocks=num_blocks,
+                               max_len=max_len, prefill_chunk=chunk,
+                               spec_steps=s, capture_logprobs=True,
+                               true_logprobs=True, device=device)
+        reqs = [Request(prompt=p, max_new=max_new) for p in prompts]
+        eng.serve(reqs)
+        runs[s] = reqs
+        accept = eng.rolling_accept_length
+        del eng
+    equal, worst, worst_rel, first_part = 0, 0.0, 0.0, []
+    for a, b in zip(runs[0], runs[spec]):
+        if a.out_logprobs is None or b.out_logprobs is None \
+                or len(b.out_logprobs) != max_new:
+            raise AssertionError("serve.mtp logprobs: none captured")
+        same = a.out == b.out
+        n = max_new if same.all() else int(np.argmin(same)) + 1
+        equal += bool(same.all())
+        if not same.all():
+            first_part.append(n - 1)
+        gap = np.abs(a.out_logprobs[:n] - b.out_logprobs[:n])
+        rel = gap / np.maximum(1.0, np.abs(a.out_logprobs[:n]))
+        worst = max(worst, float(gap.max()))
+        worst_rel = max(worst_rel, float(rel.max()))
+    res = dict(spec_steps=spec, requests=len(prompts), tokens_equal=equal,
+               first_parting=repr(first_part), accept_length=accept,
+               max_logprob_gap=worst, max_logprob_gap_rel=worst_rel,
+               mean_logprob=float(np.mean(np.concatenate(
+                   [r.out_logprobs for r in runs[0]]))))
+    dtype = str(next(model.parameters()).dtype).split(".")[1]
+    _log("serve.mtp", what="logprobs", model=cfg.name, layers=cfg.num_layers,
+         experts=cfg.num_experts, first_k_dense=cfg.first_k_dense,
+         dtype=dtype, **res)
+    if not all(np.isfinite(r.out_logprobs).all()
+               and (r.out_logprobs <= 1e-6).all()
+               for r in runs[0] + runs[spec]) \
+            or (gate and worst_rel > TOL[dtype]):
+        raise AssertionError(f"serve.mtp logprobs: {res}")
+    return res
+
+
+def time_k9_loop(cfg, prompt_pad, loop_new, device="cuda", reps=20) -> dict:
+    """K9's bf16 route (the SIMT body) at the loop backend's shape: one
+    sequence of ``prompt_pad + loop_new`` rounded up to 16 (the rollout
+    buffer), the config's heads, causal; held against its plain version in
+    bf16 and timed beside it and SDPA (is_causal, KV heads repeated once
+    before the timed loop); bound by bytes or bf16 flops."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K9
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    B, S = 1, _round_up(prompt_pad + loop_new, 16)
+    H, KVH, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(bf)
+
+    q, k, v = rnd(B, S, H, d), rnd(B, S, KVH, d), rnd(B, S, KVH, d)
+    qs = q.transpose(1, 2).contiguous()
+    ks = k.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+    vs = v.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+    fn = K9.flash_attention
+    out = {"flash_attention_bf16": dict(
+        ms=cuda_ms(lambda: fn(q, k, v), reps),
+        device_ms=graph_ms(lambda: fn(q, k, v), reps),
+        plain_ms=cuda_ms(lambda: K9.reference(q, k, v), reps),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), reps),
+        extra=dict(host_us=host_us(lambda: fn(q, k, v))),
+        max_abs_err=_hold("K9 loop-shape", fn(q, k, v),
+                          K9.reference(q, k, v), bf),
+        max_abs_err_fp32=_hold("K9 loop-shape", fn(*(
+            x.float() for x in (q, k, v))), K9.reference(
+                *(x.float() for x in (q, k, v))), torch.float32),
+        flops=4 * B * H * S * S * d / 2,
+        bytes=2 * (2 * q.numel() + k.numel() + v.numel()),
+        shape=f"B={B} S={S} H={H} KVH={KVH} d={d} causal body=gqa_tile")}
+    _bounds(out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3862,6 +4291,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.models import get_model
 
     _log("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=repr(torch.cuda.get_device_name(0)),
@@ -3943,6 +4373,9 @@ def main() -> int:
     train_shapes = dict(batch=2, seq=2048, dsa_seq=4096)
     timing.update(time_train_kernels(yi_train, yi_dsa_train, **train_shapes))
     _free()
+    # K9's bf16 route at the RL loop backend's re-forward (232 + 8 tokens)
+    timing.update(time_k9_loop(yi, prompt_pad=232, loop_new=8))
+    _free()
     # K8: a 256-token span ending at 6144 over the block serve's view, and
     # the training run's last chunk
     block_view = _round_up(dsa_max_len, yi_block.dsa.block_size)
@@ -3997,6 +4430,13 @@ def main() -> int:
     del yi_serve
     _free()
     stamp("frontend")
+    # asynchronous agent RL: the captured logprobs against the trainer's
+    # (2 layers, fp32), then the loop at Yi-6B's width, depth 32 -> 4
+    rl_parity(yi.replace(num_layers=2))
+    _free()
+    launches.update(rl_run(yi.replace(num_layers=4))["launches"])
+    _free()
+    stamp("rl")
     launches.update(serve(yi_dsa, dsa_lens, max_new=new_tokens)["launches"])
     _free()
     launches.update(serve(yi_block, dsa_lens,
@@ -4017,7 +4457,16 @@ def main() -> int:
          decode_tok_s_spec_off=glm5_off["decode_tok_s"],
          accept_length=glm5_on["accept_length"],
          spec_rounds=glm5_on["spec_rounds"])
+    # the same model, greedy, with true logprobs: spec 3 against spec off
+    # (printed: its MoE layer's router near-ties part the runs in bf16),
+    # then the same widths with every layer dense, held at 2e-2
+    mtp_logprobs(glm5_mtp, glm5_on["model"], prompt_lens, gate=False)
     del glm5_on, glm5_off
+    _free()
+    glm5_dense = glm5_mtp.replace(first_k_dense=glm5_mtp.num_layers)
+    mtp_logprobs(glm5_dense, get_model(glm5_dense).init(
+        glm5_dense, torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda", dtype=torch.bfloat16), prompt_lens)
     _free()
     launches.update(serve(zamba2, prompt_lens, max_new=new_tokens)
                     ["launches"])
@@ -4095,6 +4544,11 @@ def main() -> int:
                 "flash_attention":
                 ("flash_attention",
                  "src/repro/kernels/flash_attention/kernel.py:81"),
+                # K9's bf16 route (the SIMT body): the RL loop backend's
+                # re-forward; its launches are the rl phase's bf16 ones
+                "flash_attention_bf16":
+                ("flash_attention",
+                 "src/repro/kernels/flash_attention/kernel.py:81"),
                 "chunked_ce":
                 ("chunked_ce", "src/repro/kernels/chunked_ce/kernel.py:70"),
                 "mamba_scan":
@@ -4112,7 +4566,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=sources[src],
             replaces=where, launches=launches[name],
-            max_abs_err=max(t["max_abs_err"], worst[name]),
+            max_abs_err=max(t["max_abs_err"], worst.get(name, 0.0)),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)

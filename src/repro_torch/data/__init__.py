@@ -1,1 +1,3 @@
-"""Synthetic corpora (``synthetic.py``) and the prefetching input pipeline (``pipeline.py``)."""
+"""Synthetic corpora and the RL toy tasks (``synthetic.py``), the needle
+long-context tasks (``needle.py``) and the prefetching input pipeline
+(``pipeline.py``)."""

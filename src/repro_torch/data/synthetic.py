@@ -1,6 +1,9 @@
-"""Deterministic synthetic LM corpus (port of ``repro.data.synthetic``'s
-``make_markov`` / ``markov_stream`` / ``lm_batch``; the RL toy tasks come
-with the RL slice).
+"""Deterministic synthetic corpora (port of ``repro.data.synthetic``):
+the LM corpus (``make_markov`` / ``markov_stream`` / ``lm_batch``) and the
+verifiable toy tasks of the RL environments (``copy_task`` /
+``reverse_task`` / ``sort_task``, binary outcome rewards, GLM-5 §3.2),
+the reference's draws in the same order.  Needle-retrieval long-context
+tasks live in ``repro_torch.data.needle``.
 
 ``markov_stream`` draws from an order-1 Markov chain over the vocab with
 ``branching`` successors a state: real sequential structure
@@ -66,3 +69,27 @@ def markov_stream(vocab_size: int, seq_len: int, batch: int, *,
 def lm_batch(stream_it) -> dict:
     arr = next(stream_it)
     return {"tokens": arr[:, :-1], "targets": arr[:, 1:]}
+
+
+# ---------------------------------------------------------------------------
+# verifiable toy tasks (RL envs)
+# ---------------------------------------------------------------------------
+
+def copy_task(rng: np.random.Generator, n: int, vocab: int
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """prompt = random digits; answer = the same digits."""
+    x = rng.integers(3, vocab, size=n)
+    return x, x.copy()
+
+
+def reverse_task(rng, n, vocab):
+    x = rng.integers(3, vocab, size=n)
+    return x, x[::-1].copy()
+
+
+def sort_task(rng, n, vocab):
+    x = rng.integers(3, vocab, size=n)
+    return x, np.sort(x)
+
+
+TASKS = {"copy": copy_task, "reverse": reverse_task, "sort": sort_task}

@@ -1,13 +1,11 @@
 """Deterministic fault injection for the serving stack (the port's own copy
-of the JAX package's ``repro.faults``).  It arms every point the port
-wires; the rollout orchestrator's ``worker`` point waits for the port of
-``async_rl``'s orchestrator, and a spec that names it fails at
-construction instead of never firing.
+of the JAX package's ``repro.faults``, with the reference's points).
 
 A fault-tolerant engine is only as trustworthy as the failure modes it
 has actually been driven through.  This module provides NAMED injection
 points threaded through the allocator, the scheduler, the async
-front-end, the heartbeat monitor and the disaggregated server, each
+front-end, the heartbeat monitor, the disaggregated server and the
+rollout workers, each
 firing on a schedule that is a pure function of ``(spec, seed)``, so every
 failure scenario replays byte-identically.
 
@@ -31,6 +29,9 @@ Injection points wired in the port:
   ``crash``     ``AsyncFrontend`` serve loop            serve-thread crash
                                                         (supervisor
                                                         restarts)
+  ``worker``    ``Orchestrator._worker``                rollout worker
+                                                        crash (heartbeat
+                                                        deregistration)
   ``beat``      ``HeartbeatMonitor.beat``               beat swallowed (a
                                                         lapsing server)
   ``xfer``      ``MigrationChannel.migrate``            KV-block migration
@@ -100,13 +101,9 @@ class InjectedFault(RuntimeError):
 # Every injection point wired in the port.  _parse validates clause
 # point names against this set so a REPRO_FAULTS typo fails loudly.
 KNOWN_POINTS = frozenset({
-    "alloc", "admit", "prefill", "step", "slow", "crash", "beat", "xfer",
-    "route",
+    "alloc", "admit", "prefill", "step", "slow", "crash", "worker",
+    "beat", "xfer", "route",
 })
-# Points of the reference that the port does not wire yet, with the reason
-# a spec naming one is refused.
-_NOT_WIRED = {"worker": "the rollout orchestrator's worker point is not "
-                        "wired until async_rl's orchestrator is ported"}
 
 
 class FaultInjector:
@@ -136,9 +133,8 @@ class FaultInjector:
         if not point:
             raise self._bad(clause, "empty point name")
         if point not in self._points:
-            why = f" ({_NOT_WIRED[point]})" if point in _NOT_WIRED else ""
             raise self._bad(
-                clause, f"unknown point {point!r}{why}; known points: "
+                clause, f"unknown point {point!r}; known points: "
                 f"{', '.join(sorted(self._points))}")
         return point
 

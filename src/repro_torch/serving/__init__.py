@@ -1,4 +1,5 @@
-from repro_torch.serving.disagg import DisaggServer  # noqa: F401
+from repro_torch.serving.disagg import (DisaggServer,  # noqa: F401
+                                        bind_dp_router)
 from repro_torch.serving.engine import (Request, ServingEngine,  # noqa: F401
                                         sample_token)
 from repro_torch.serving.errors import (DeadlineExceeded,  # noqa: F401

@@ -2,10 +2,9 @@
 
 Port of ``repro.serving.disagg``.  Both tiers serve from ONE ``nn.Module``
 (one copy of the weights on the card) with a pool each; each tier's
-serve thread launches its own kernels.  ``bind_dp_router`` (the
-reference's hook into ``async_rl.router.DPRouter``) comes with the port of
-that router, with the RL layers; ``health_callbacks`` carry the same
-signal meanwhile.
+serve thread launches its own kernels.  ``bind_dp_router`` wires the
+tiers' health signal (``health_callbacks``) into
+``repro_torch.async_rl.router.DPRouter``'s hash ring.
 
 Two live ``ContinuousEngine``s behind one front door: a PREFILL tier
 that fills paged KV blocks and a DECODE tier that streams tokens, glued
@@ -524,3 +523,19 @@ class DisaggServer:
                 self.callback_errors.append(
                     f"health_callback({tier}, {healthy}): {e!r}")
 
+
+def bind_dp_router(server: DisaggServer, router, tier_ranks: Dict[str, int]
+                   ) -> None:
+    """Wire the disagg health signal into a ``DPRouter`` hash ring: a
+    tier going down drops its DP rank from the ring (its keyspace
+    reroutes to healthy ranks), fail-back restores it.  ``tier_ranks``
+    maps tier name (``"prefill"``/``"decode"``) -> rank index."""
+    def cb(tier: str, healthy: bool) -> None:
+        rank = tier_ranks.get(tier)
+        if rank is None:
+            return
+        if healthy:
+            router.restore_rank(rank)
+        else:
+            router.drop_rank(rank)
+    server.health_callbacks.append(cb)

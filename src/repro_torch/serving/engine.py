@@ -31,9 +31,8 @@ class Request:
     # completion deadline, seconds relative to t_submit (None = none)
     deadline_s: Optional[float] = None
     out: Optional[np.ndarray] = None
-    # per-token behavior logprobs of ``out``: the reference fills them
-    # under capture_logprobs=True; None here until logprob capture is
-    # ported with the RL layers
+    # per-token behavior logprobs of ``out`` (filled by ContinuousEngine
+    # when capture_logprobs=True: the TITO contract for RL rollouts)
     out_logprobs: Optional[np.ndarray] = None
     # weight version the whole generation ran under
     out_version: Optional[int] = None

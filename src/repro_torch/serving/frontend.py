@@ -37,8 +37,9 @@ autograd (both are per thread in PyTorch); every kernel launches from it,
 on its current stream.  A CUDA error (a failed launch, or an error of the
 CUDA runtime) is not restarted: it may poison the context for good, and a
 respawn on a poisoned context would only fail again, so the front-end
-marks itself crashed at once.  ``Request.out_logprobs`` stays None:
-logprob capture comes with the RL layers.
+marks itself crashed at once.  An engine built with
+``capture_logprobs=True`` (the rollout engine's) fills
+``Request.out_logprobs`` on the request ``result()`` returns.
 """
 from __future__ import annotations
 

@@ -62,6 +62,18 @@ orders, so near-ties may differ).  Speculation is greedy-only.
 holds admission back when live slots × the rolling accept length would
 pass the budget.
 
+Logprob capture (the TITO contract of RL rollouts): with
+``capture_logprobs=True`` every emitted token's logprob lands in
+``Request.out_logprobs``, in the sampling convention (log-softmax of
+logits / max(t, 1e-6): greedy tokens carry lp ~= 0), the convention of
+``RolloutEngine.generate``, so engine-backed and loop-backed behaviour
+logprobs compare in the IS ratios; ``true_logprobs=True`` (which needs
+capture) records the model's temperature-1 logprob of every emitted token
+instead.  A speculative round under capture moves the (B, n+1, V) verify
+logits to the host and gives accepted drafts and the bonus token their
+logprobs from them; without capture it moves only their argmax, as the
+reference does.
+
 Differences from the reference, all deliberate:
 
 * the pool is a set of preallocated tensors updated IN PLACE (the
@@ -76,8 +88,6 @@ Differences from the reference, all deliberate:
 * ``respawn`` (the front-end's supervised restart) releases the dead
   engine's pool before the fresh engine allocates its own, so two pools
   never sit on the card together; the dead engine serves nothing after;
-* logprob capture (``capture_logprobs`` / ``true_logprobs``) comes with
-  the RL layers, which use it;
 * a slot's ``h_last`` stays on the device in the model's dtype (the
   reference moves it to the host as fp32 every round).
 """
@@ -108,8 +118,8 @@ from repro_torch.serving.prefix_cache import PrefixCache
 class _Active:
     """One in-flight sequence: its request, blocks, sampling state, and —
     while its prompt is still being chunk-prefilled — the prefill cursor."""
-    __slots__ = ("req", "blocks", "out", "pending", "row", "pos", "version",
-                 "h_last")
+    __slots__ = ("req", "blocks", "out", "lps", "pending", "pending_lp",
+                 "row", "pos", "version", "h_last")
 
     def __init__(self, req: Request, blocks: List[int], row: np.ndarray,
                  pos: int, version: int = 0):
@@ -117,7 +127,9 @@ class _Active:
         self.blocks = blocks
         self.version = version               # weight version at admission
         self.out: List[int] = []
+        self.lps: List[float] = []           # logprobs of ``out`` (capture)
         self.pending: Optional[int] = None   # None: prompt not fully prefilled
+        self.pending_lp = 0.0
         self.row = row                       # full block-table row
         self.pos = pos                       # next prefill position
         # (D,) trunk hidden at the last CACHED position: the next MTP
@@ -133,9 +145,11 @@ class ContinuousEngine:
                  max_len: int = 512, seed: int = 0,
                  prefix_cache: bool = True,
                  prefill_chunk: Optional[int] = None,
+                 capture_logprobs: bool = False,
                  attn_impl: Optional[str] = None,
                  spec_steps: Optional[int] = None,
                  weight_version: int = 0,
+                 true_logprobs: bool = False,
                  step_token_budget: Optional[int] = None,
                  registry: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None,
@@ -171,6 +185,9 @@ class ContinuousEngine:
                     f"spec_steps={spec_steps} exceeds the "
                     f"{cfg.mtp.num_predict} separately-trained MTP layers "
                     f"(share_params=False has no layer to draft beyond)")
+        if true_logprobs and not capture_logprobs:
+            raise ValueError("true_logprobs=True records per-token logprobs"
+                             " and therefore needs capture_logprobs=True")
         if step_token_budget is not None and step_token_budget < 1:
             raise ValueError("step_token_budget must be >= 1, got "
                              f"{step_token_budget}")
@@ -224,13 +241,16 @@ class ContinuousEngine:
             max_batch=max_batch, block_size=block_size,
             num_blocks=num_blocks, max_len=max_len, seed=seed,
             prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
-            attn_impl=attn_impl, spec_steps=spec_steps,
+            capture_logprobs=capture_logprobs, attn_impl=attn_impl,
+            spec_steps=spec_steps, true_logprobs=true_logprobs,
             step_token_budget=step_token_budget,
             max_waiting=0 if self.max_waiting is None else self.max_waiting,
             admit_hol_window=self.admit_hol_window,
             spill=self._spill_on, spill_blocks=spill_blocks,
             device=self.device)
         self.prefill_chunk = prefill_chunk
+        self.capture_logprobs = capture_logprobs
+        self.true_logprobs = true_logprobs
         self.hybrid = cfg.family == "hybrid"
         # recurrent state is not reconstructible from KV blocks: no reuse
         self.prefix = PrefixCache(self.kv) \
@@ -482,6 +502,7 @@ class ContinuousEngine:
             if s is not None and s.pending is not None \
                     and len(s.out) + 1 >= s.req.max_new:
                 s.out.append(s.pending)     # final token needs no decode
+                s.lps.append(s.pending_lp)
                 self._finish(i)
 
     def _finish(self, i: int) -> None:
@@ -490,6 +511,9 @@ class ContinuousEngine:
                                                   self.weight_version)
         s.req.out_version = s.version
         s.req.out = np.asarray(s.out[:s.req.max_new], np.int32)
+        if self.capture_logprobs:
+            s.req.out_logprobs = np.asarray(s.lps[:s.req.max_new],
+                                            np.float32)
         s.req.t_finish = time.perf_counter()
         reg = self.registry
         if s.req.t_submit is not None:
@@ -823,7 +847,7 @@ class ContinuousEngine:
         s.pos = start + real
         if s.pos >= plen:                       # final span: sample token 1
             lg = logits[0, real - 1].float().cpu().numpy()
-            s.pending = sample_token(lg, s.req.temperature, self._rng)
+            s.pending, s.pending_lp = self._sample(lg, s.req.temperature)
             if self.spec_steps:                 # the first draft's input
                 s.h_last = hid[0, real - 1]
             self.tables[slot] = s.row
@@ -893,8 +917,9 @@ class ContinuousEngine:
         for i in active:
             s = self.slots[i]
             s.out.append(s.pending)
+            s.lps.append(s.pending_lp)
             self.lengths[i] += 1            # pending now lives in the cache
-            s.pending = sample_token(lg[i], s.req.temperature, self._rng)
+            s.pending, s.pending_lp = self._sample(lg[i], s.req.temperature)
         self.stats["decode_steps"] += 1
         self.stats["decode_tokens"] += len(active)
 
@@ -954,6 +979,8 @@ class ContinuousEngine:
                 * self._token_bytes
         verify = logits.argmax(-1).cpu().numpy()            # (B, n+1)
         drafts = drafts.cpu().numpy()                       # (B, n)
+        # full-vocab logits cross to the host ONLY for logprob capture
+        lg = logits.float().cpu().numpy() if self.capture_logprobs else None
         for i in active:
             s = self.slots[i]
             L = int(self.lengths[i])
@@ -963,10 +990,19 @@ class ContinuousEngine:
                 matches += 1
             acc = 1 + matches
             s.out.append(s.pending)             # the guaranteed token
-            s.out.extend(int(t) for t in drafts[i, :acc - 1])
+            s.lps.append(s.pending_lp)
+            for j in range(1, acc):             # accepted draft tokens
+                s.out.append(int(drafts[i, j - 1]))
+                s.lps.append(self._sample(lg[i, j - 1],
+                                          s.req.temperature)[1]
+                             if self.capture_logprobs else 0.0)
             self._rollback(i, s, L + acc)
             # the bonus token: the model's own choice after the accept point
-            s.pending = int(verify[i, acc - 1])
+            if self.capture_logprobs:
+                s.pending, s.pending_lp = self._sample(lg[i, acc - 1],
+                                                       s.req.temperature)
+            else:
+                s.pending, s.pending_lp = int(verify[i, acc - 1]), 0.0
             s.h_last = hid[i, acc - 1]
             # the active filter guarantees len(out) + 1 < max_new, so every
             # processed slot drafted at least one token
@@ -992,3 +1028,17 @@ class ContinuousEngine:
         assert new_len <= len(s.blocks) * self.block_size, \
             (new_len, len(s.blocks))
         self.lengths[i] = new_len
+
+    # ----------------------------------------------------------- sampling
+    def _sample(self, row: np.ndarray, temperature: float):
+        """(token, its logprob): 0.0 without capture; with
+        ``true_logprobs`` the model's temperature-1 logprob; else the
+        sampling convention, log-softmax of row / max(t, 1e-6) (greedy
+        tokens carry lp ~= 0), as ``RolloutEngine.generate`` records."""
+        tok = sample_token(row, temperature, self._rng)
+        if not self.capture_logprobs:
+            return tok, 0.0
+        z = row - row.max()
+        if not self.true_logprobs:
+            z = z / max(temperature, 1e-6)
+        return tok, float(z[tok] - np.log(np.exp(z).sum()))

@@ -7,8 +7,8 @@ tests' family configs and weights bridged from JAX
 
 * ``repro_torch.faults``: the grammar with the points the slice wires
   (``crash``, ``beat``, ``xfer``, ``route``), per-point schedules,
-  ``(spec, seed)`` determinism, typed ``check``; ``worker`` stays refused
-  until the orchestrator is ported;
+  ``(spec, seed)`` determinism, typed ``check``, every point of the
+  reference accepted (``worker`` since the orchestrator's port);
 * the scheduler: queued and mid-flight deadlines (mid-flight KV donated),
   cancellation, typed ``EngineOverloaded``, shedding on a pinned-out pool,
   the head-of-line window, alloc storms, isolated per-request faults, and
@@ -28,8 +28,8 @@ tests' family configs and weights bridged from JAX
   holds.
 
 The reference's orchestrator test (the ``worker`` and ``beat`` points in
-``async_rl``'s rollout workers) waits for the port of the orchestrator.
-Every blocking call passes a timeout and every front-end is closed in a
+``async_rl``'s rollout workers) is mirrored in
+``tests/test_torch_async_rl.py``.  Every blocking call passes a timeout and every front-end is closed in a
 ``finally``; serve threads are daemon threads.
 """
 import functools
@@ -108,8 +108,10 @@ def test_injector_grammar_and_schedules():
     assert all(inj.fires("route") for _ in range(3))     # p = 1
     assert not inj.fires("worker")                       # unarmed point
     assert inj.fired["alloc"] == 1 and inj.fired["prefill"] == 3
-    with pytest.raises(ValueError, match="orchestrator"):
-        FaultInjector("worker@0")                        # not wired yet
+    worker = FaultInjector("worker@0")                   # the orchestrator's
+    assert [worker.fires("worker") for _ in range(3)] == [True, False, False]
+    with pytest.raises(ValueError, match="unknown point"):
+        FaultInjector("wrker@0")
 
 
 def test_injector_probabilistic_determinism_and_independence():

@@ -76,20 +76,38 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
     from repro_torch.launch.train import train
     with pytest.raises(RuntimeError):
         train(cfg, TrainConfig(total_steps=1))
+    from repro_torch.async_rl import AsyncTrainer, RolloutEngine
+    with pytest.raises(RuntimeError):
+        RolloutEngine(cfg, model)
+    with pytest.raises(RuntimeError):
+        AsyncTrainer(cfg, model, T.param_axes(model), engines=[])
     # asked for, the CPU is used
     ContinuousEngine(cfg, model, num_blocks=4, block_size=8, device="cpu")
+    RolloutEngine(cfg, model, device="cpu")
+    AsyncTrainer(cfg, model, T.param_axes(model), engines=[], device="cpu")
+
+
+def _exports(mod):
+    return {n for n in vars(mod) if not n.startswith("_")
+            and not isinstance(getattr(mod, n), type(ast))}
 
 
 def test_serving_exports_the_reference_names():
-    """``repro_torch.serving`` exports what ``repro.serving`` does, apart
-    from ``bind_dp_router`` (it binds ``async_rl.router``, not ported yet);
-    ``repro_torch.async_rl`` exports the heartbeat monitor."""
+    """``repro_torch.serving`` exports what ``repro.serving`` does
+    (``bind_dp_router`` included); ``repro_torch.async_rl``, ``rl`` and
+    ``agents`` export what the reference's packages do, each name from the
+    port's module of the reference's name."""
+    import importlib
     import repro.serving as ref
-    import repro_torch.async_rl as port_rl
     import repro_torch.serving as port
-    names = {n for n in vars(ref) if not n.startswith("_")
-             and not isinstance(getattr(ref, n), type(ast))}
-    missing = sorted(names - {"bind_dp_router"} - set(vars(port)))
+    missing = sorted(_exports(ref) - set(vars(port)))
     assert not missing, missing
-    assert port_rl.HeartbeatMonitor.__module__ == \
-        "repro_torch.async_rl.heartbeat"
+    for pkg in ("async_rl", "rl", "agents"):
+        ref_pkg = importlib.import_module(f"repro.{pkg}")
+        port_pkg = importlib.import_module(f"repro_torch.{pkg}")
+        assert _exports(ref_pkg) == _exports(port_pkg), pkg
+        for name in _exports(ref_pkg):
+            obj = getattr(ref_pkg, name)
+            if hasattr(obj, "__module__"):
+                assert getattr(port_pkg, name).__module__ == \
+                    "repro_torch" + obj.__module__[len("repro"):], name

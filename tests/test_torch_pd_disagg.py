@@ -20,14 +20,14 @@ config (Yi smoke, 2 heads of 32, vocab 256) and weights bridged from JAX
   a colocated engine and to JAX's engine (where the top-2 margin is at
   least 1e-4), ``xfer`` faults falling back with zero lost, the ``route``
   hedge, a prefill-tier crash: degraded, respawned, failed back, health
-  callbacks told, zero lost;
+  callbacks told and a ``DPRouter`` bound by ``bind_dp_router`` dropping
+  and restoring the tier's rank, zero lost;
 * the property: refcounts conserved in BOTH pools under random prefill /
   migrate / fault / skew / pin interleavings.
 
-The reference's ``DPRouter`` tests and ``bind_dp_router`` wiring wait for
-the port of ``async_rl.router``; the health callbacks the binding hooks
-into are tested here.  Every blocking call passes a timeout and every
-server is closed in a ``finally``.
+The reference's ``DPRouter`` rank-health tests are mirrored in
+``tests/test_torch_async_infra.py``.  Every blocking call passes a timeout
+and every server is closed in a ``finally``.
 """
 from __future__ import annotations
 
@@ -45,9 +45,11 @@ from _torch_families import assert_tokens_match, family
 from repro.serving import ContinuousEngine as JaxEngine
 from repro.serving import Request as JaxRequest
 from repro.serving import pd_sim as ref_sim
+from repro_torch.async_rl.router import DPRouter
 from repro_torch.faults import FaultInjector
 from repro_torch.serving import (CacheFull, ContinuousEngine, DisaggServer,
-                                 MigrationChannel, MigrationFailed, Request)
+                                 MigrationChannel, MigrationFailed, Request,
+                                 bind_dp_router)
 from repro_torch.serving.disagg import PREFILL
 from repro_torch.serving.pd_sim import ServingConfig, Workload, simulate
 from repro_torch.serving.spill import pool_leaves
@@ -421,6 +423,8 @@ def test_disagg_prefill_crash_degrades_respawns_fails_back():
     srv = _server(respawn_delay_s=0.02, heartbeat_timeout_s=0.5,
                   prefill_faults=FaultInjector("crash@0"),
                   health_callbacks=[lambda t, ok: health.append((t, ok))])
+    router = DPRouter(n_ranks=2)
+    bind_dp_router(srv, router, {PREFILL: 0})
     try:
         first = srv.prefill_frontend.engine
         hs = [srv.submit(p, max_new=4) for p in prompts]
@@ -436,6 +440,10 @@ def test_disagg_prefill_crash_degrades_respawns_fails_back():
         assert srv.channel.src is srv.prefill_frontend.engine
         # the health signal a DP router binds to saw both transitions
         assert (PREFILL, False) in health and (PREFILL, True) in health
+        # the DP hash ring saw the same transitions
+        assert router.stats["dropped_ranks"] >= 1
+        assert router.stats["restored_ranks"] >= 1
+        assert router.healthy_ranks() == [0, 1]
         assert not srv.callback_errors
         # after fail-back the split works again (migration runs)
         mig0 = srv.stats["migrations"]

@@ -295,9 +295,11 @@ def test_injected_request_fault_is_isolated(setup, spec):
 
 @pytest.mark.parametrize("spec", ["worker@1", "worker~0.5", "worker"])
 def test_fault_points_the_port_does_not_wire_are_refused(spec):
-    # the orchestrator's point; crash, beat, xfer and route are wired
+    # the orchestrator's point is wired since its port (every point of the
+    # reference is); a point nothing wires, in the same clause form, is not
+    assert FaultInjector(spec).armed("worker")
     with pytest.raises(ValueError, match="unknown point"):
-        FaultInjector(spec)
+        FaultInjector(spec.replace("worker", "wroker"))
 
 
 def test_alloc_fault_storm_raises_cache_full():
