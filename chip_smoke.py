@@ -42,16 +42,18 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            edge, at one, mid-block and ending at the table's last
            position, S 37 and verify spans of S 4 (the bf16 wrapper splits
            their key range into 4 parts); then K5 (indexer decode
-           scores) and K6 (span scores) at Yi-6B's (Hi 16, Di 64) and
-           GLM-5's (Hi 32, Di 128) indexer shapes (bf16: their tensor-core
-           bodies; fp32: the SIMT tile), block sizes 8, 16 and 32, where
-           the dead blocks (NEG_INF) must also match; then K9 (fp32: its
-           3xTF32 tensor-core tile; bf16: its SIMT body; d 64/128/256
-           each with causal, window, softcap, q_offset and non-causal
-           cases; S*G and Sk ragged), K7 (Hi x Di 16x64, 32x128, 2x16;
-           S and T ragged) and K10 (Tk and V ragged, softcap 0 and 30, a
-           partial mask; its two sums held to
-           1e-5 relative), and the gradients through their autograd
+           scores) and K6 (span scores) at Yi-6B's (Hi 16, Di 64),
+           GLM-5's (Hi 32, Di 128) and zamba2's (Hi 8, Di 64) indexer
+           shapes (bf16: their tensor-core bodies, K5's SIMT tile at 8
+           heads; fp32: the SIMT tile), block sizes 8, 16 and 32, spans
+           with an idle slot, where the dead blocks (NEG_INF) must also
+           match; then K9 (fp32: its 3xTF32 tensor-core tile; bf16: the
+           bf16 tensor-core tile, also at forced parts 1 and 4; d
+           64/128/256 each with causal, window, softcap, q_offset and
+           non-causal cases; S*G and Sk ragged), K7 (Hi x Di 16x64,
+           32x128, 2x16; S and T ragged) and K10 (Tk and V ragged,
+           softcap 0 and 30, a partial mask; its two sums held to 1e-5
+           relative), and the gradients through their autograd
            Functions on the kernel and the plain routes (equal); then K8
            at Yi-6B's shape (H 32 / KVH 4, d 128, 16 blocks of 128),
            GLM-5's MLA shape (H 64, dqk 192, dv 256) and the smoke shape
@@ -76,10 +78,12 @@ Phases, each printing lines of numbers (any failure exits non-zero):
   timing   K3/K4's and K5/K6's registers, spills, shared memory and CTAs
            resident on an SM, as the CUDA runtime reports them (K3's parts
            and CTAs at the decode step; the indexer tensor-core bodies at
-           both indexer shapes: K5's decode form, K6's bf16, K7's bf16
-           and fp32), and those
-           of the tensor-core tiles: the bf16 one K2 and K8 share
-           (csrc/mma_tile.cuh) and K4's bf16 MLA tile (csrc/paged_mla.cu),
+           both indexer shapes: K5's decode form, K6's bf16 (also at
+           zamba2's 8 x 64), K7's bf16 and fp32), and those
+           of the tensor-core tiles: the bf16 one K2, K8 and K9 share
+           (csrc/mma_tile.cuh; K9 at every head dim with the parts its
+           wrapper picks at the RL loop shape) and K4's bf16 MLA tile
+           (csrc/paged_mla.cu),
            with the key-range split the wrapper picks at the serve shapes
            (K4: its chunk and its verify span), and the fp32 3xTF32 tile
            (csrc/tf32_tile.cuh) of K9 at every head dim and of K8 at the
@@ -147,15 +151,17 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            device time of the same calls replayed from a CUDA graph (the
            wrapper's host overhead taken out) and the TFLOP/s that gives;
            K1/K2 at zamba2's shared block (head dim 80, G 1, its 9
-           invocations' pools) and K5/K6 at its 8 x 64 indexer (the SIMT
-           tile), lines tagged ``_zamba2``; K11's head-shared form's
+           invocations' pools) and K5/K6 at its 8 x 64 indexer (K5 the
+           SIMT tile, K6 the tensor-core span body), lines tagged
+           ``_zamba2``; K11's head-shared form's
            registers, spills, shared memory and CTAs an SM (N 64), at a
            zamba2 prefill span (B 1, S 256) and decode step (B 8), with
            the time chunks its wrapper picks, device time and host
            microseconds a call;
-           K9's bf16 route (the SIMT body) at the RL loop backend's
-           re-forward (B 1, S 240, Yi-6B's heads), its own line
-           ``flash_attention_bf16``;
+           K9's bf16 route (the bf16 tensor-core tile, the parts its
+           wrapper picks) at the RL loop backend's re-forward (B 1, S
+           240, Yi-6B's heads), its own line ``flash_attention_bf16``,
+           with SDPA's device time from the same graph replay;
            K11's scan kernel's registers, spills, shared memory and CTAs
            an SM, its model
            form at falcon-mamba's serve prefill (B 8, S 1024, bf16), decode
@@ -1194,13 +1200,27 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
     G = train_cfg.num_heads // train_cfg.num_kv_heads
     for hd in (64, 128, 256):
         regs, spill, smem, ctas, per_cta = build.resources(
-            "flash_attention_resources", hd)
+            "flash_attention_resources", 0, hd)
         _log("resources", kernel="flash_attention", dtype="float32",
              body="tf32_tile (3xTF32)", instance=hd, registers=regs,
              spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
              rows_per_cta=per_cta,
              train_tiles=-(-2048 * G // per_cta) * train_cfg.num_kv_heads * 2
              if hd == train_cfg.head_dim else None, sms=sms)
+    # K9's bf16 tile, with the parts its wrapper picks at the RL loop
+    # backend's re-forward (B 1, 240 tokens of the training config's heads)
+    from repro_torch.kernels.flash_attention import kernel as K9
+    for hd in (64, 128, 256):
+        regs, spill, smem, ctas, per_cta = build.resources(
+            "flash_attention_resources", 1, hd)
+        loop_rows = 240 * G
+        _log("resources", kernel="flash_attention", dtype="bfloat16",
+             body="mma_tile::attention_kernel<DenseKV>", instance=hd,
+             registers=regs, spill_bytes=spill, smem_bytes=smem,
+             ctas_per_sm=ctas, rows_per_cta=per_cta,
+             loop_tiles=-(-loop_rows // per_cta) * train_cfg.num_kv_heads,
+             loop_parts=K9.bf16_parts(hd, loop_rows, train_cfg.num_kv_heads,
+                                      dev), sms=sms)
     tool = shutil.which("cuobjdump") or str(Path(build.nvcc()).parent
                                             / "cuobjdump")
     if not Path(tool).exists():
@@ -1214,6 +1234,7 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
             ("paged_attention", tile, False), ("block_sparse", tile, False),
             ("block_sparse", tf32, True), ("paged_mla", ("mla_span_kernel",),
                                            False),
+            ("flash_attention", tile, False),
             ("paged_indexer", ("indexer_mma", "decode_kernel"), False),
             ("flash_attention", tf32, True),
             ("chunked_ce", ("ce_tf32", "tile_kernel"), True),
@@ -1272,6 +1293,7 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
 # ---------------------------------------------------------------------------
 
 INDEXER_SHAPES = (("yi6b", 16, 64), ("glm5", 32, 128))   # (Hi, Di)
+ZAMBA2_INDEXER = ("zamba2", 8, 64)   # K6's span body at one n-tile of heads
 
 
 def _indexer_pool(gen, nb, bs, Di, dtype, device, layers=1):
@@ -1301,9 +1323,11 @@ def _hold_scores(what, got, want, dtype) -> float:
 
 
 def check_indexer_kernels(device="cuda") -> dict:
-    """K5/K6 vs plain on ragged rows at Yi-6B's (Hi 16, Di 64) and GLM-5's
-    (Hi 32, Di 128) indexer shapes (bf16: their tensor-core bodies; fp32:
-    the SIMT tile), every block size; returns the max error per kernel."""
+    """K5/K6 vs plain on ragged rows at Yi-6B's (Hi 16, Di 64), GLM-5's
+    (Hi 32, Di 128) and zamba2's (Hi 8, Di 64) indexer shapes (bf16: their
+    tensor-core bodies, K5 at 8 heads the SIMT tile; fp32: the SIMT tile),
+    every block size, the spans with an idle slot (a row whose table is all
+    the trash block) and dead blocks; returns the max error per kernel."""
     import numpy as np
     import torch
     from repro_torch.kernels.paged_attention import kernel as K5
@@ -1312,7 +1336,7 @@ def check_indexer_kernels(device="cuda") -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED)
     worst = {"paged_indexer_scores_kernel": 0.0,
              "paged_prefill_indexer": 0.0}
-    for name, Hi, Di in INDEXER_SHAPES:
+    for name, Hi, Di in INDEXER_SHAPES + (ZAMBA2_INDEXER,):
         for bs in (16, 8, 32):
             mb = 20                       # 160-640 positions: 2-5 tiles
             for dtype in (torch.float32, torch.bfloat16):
@@ -1333,11 +1357,12 @@ def check_indexer_kernels(device="cuda") -> dict:
                     dtype)
                 worst["paged_indexer_scores_kernel"] = max(
                     worst["paged_indexer_scores_kernel"], err)
-                # span: start 0, mid-block, at a block edge, deep, last
+                # span: an idle slot, start 0, mid-block, at a block edge,
+                # deep, last
                 S = 37
-                starts = [0, bs + bs // 2, 2 * bs, 100, mb * bs - S]
+                starts = [0, 0, bs + bs // 2, 2 * bs, 100, mb * bs - S]
                 B = len(starts)
-                live = [(s + S - 1) // bs + 1 for s in starts]
+                live = [0] + [(s + S - 1) // bs + 1 for s in starts[1:]]
                 trash = sum(live)
                 kp = _indexer_pool(gen, trash + 1, bs, Di, dtype, device)
                 tables = torch.from_numpy(
@@ -1394,7 +1419,8 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     pool; each held against its plain version (bf16 and fp32) with its
     top-k sets compared; both (their bf16 tensor-core bodies) also with
     their device time from CUDA-graph replay and their wrappers' host
-    microseconds a call (the SIMT tile at other head counts).  No single
+    microseconds a call (the SIMT tile at head counts a form does not
+    take: K5's decode form 16 or 32, K6's span body 8 too).  No single
     PyTorch call computes ReLU between the product and the head sum, so
     there is no library time.  ``tag`` is appended to the result's keys."""
     import numpy as np
@@ -1404,7 +1430,9 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     dtype = torch.bfloat16
     Hi, Di, top_k = cfg.dsa.index_heads, cfg.dsa.index_head_dim, \
         cfg.dsa.top_k
-    mma = Hi in (16, 32)          # the tensor-core bodies' head counts
+    # the tensor-core bodies' head counts: K5's decode form 16 or 32, K6's
+    # span body also 8
+    k5_mma, k6_mma = Hi in (16, 32), Hi in (8, 16, 32)
     L, item = cfg.num_layers, 2
     stride = num_blocks + 1
     rng = np.random.default_rng(SEED)
@@ -1449,8 +1477,8 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
         max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes,
         flops=toks * Hi * (2 * Di + 2), topk_near_ties=near,
         extra=dict(host_us=call_us,
-                   body="indexer_mma::decode_kernel (tensor cores)" if mma
-                   else "indexer_tile (SIMT)",
+                   body="indexer_mma::decode_kernel (tensor cores)"
+                   if k5_mma else "indexer_tile (SIMT)",
                    gb_per_s=nbytes / device_ms / 1e6),
         shape=f"B={B} Hi={Hi} Di={Di} lens={lens.tolist()}")
 
@@ -1491,7 +1519,8 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
         ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
         max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes,
         flops=S * toks * Hi * (2 * Di + 2), topk_near_ties=near,
-        extra=dict(host_us=host, body="indexer_mma (tensor cores)" if mma
+        extra=dict(host_us=host,
+                   body="indexer_mma::span_kernel (tensor cores)" if k6_mma
                    else "indexer_tile (SIMT)"),
         shape=f"B=1 Hi={Hi} Di={Di} S={S} start={start}")
     out = {k + tag: v for k, v in out.items()}
@@ -1531,8 +1560,9 @@ def indexer_resources(cfg, batch, max_len, bs) -> None:
              ctas_per_sm=ctas, positions_per_cta=per_cta,
              decode_ctas=batch * -(-(max_len // bs * bs) // per_cta),
              sms=sms)
-    # K6's bf16 tensor-core body at both indexer shapes
-    for name, heads, dim in INDEXER_SHAPES:
+    # K6's bf16 tensor-core body at the three indexer shapes (zamba2's: one
+    # n-tile of heads)
+    for name, heads, dim in INDEXER_SHAPES + (ZAMBA2_INDEXER,):
         regs, spill, smem, ctas, toks = build.resources(
             "paged_prefill_indexer_resources", heads, dim)
         _log("resources", kernel="paged_prefill_indexer", shape=name,
@@ -3056,11 +3086,13 @@ def mtp_logprobs(cfg, model, prompt_lens, device="cuda", block_size=16,
 
 
 def time_k9_loop(cfg, prompt_pad, loop_new, device="cuda", reps=20) -> dict:
-    """K9's bf16 route (the SIMT body) at the loop backend's shape: one
-    sequence of ``prompt_pad + loop_new`` rounded up to 16 (the rollout
-    buffer), the config's heads, causal; held against its plain version in
-    bf16 and timed beside it and SDPA (is_causal, KV heads repeated once
-    before the timed loop); bound by bytes or bf16 flops."""
+    """K9's bf16 route (the bf16 tensor-core tile, at the parts its wrapper
+    picks) at the loop backend's shape: one sequence of ``prompt_pad +
+    loop_new`` rounded up to 16 (the rollout buffer), the config's heads,
+    causal; held against its plain version in bf16 and timed beside it and
+    SDPA (is_causal, KV heads repeated once before the timed loop; its
+    CUDA-event time and its device time from the same graph replay as the
+    kernel's); bound by bytes or bf16 flops."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K9
@@ -3077,13 +3109,18 @@ def time_k9_loop(cfg, prompt_pad, loop_new, device="cuda", reps=20) -> dict:
     ks = k.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
     vs = v.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
     fn = K9.flash_attention
+    G = H // KVH
+    parts = K9.bf16_parts(d, S * G, B * KVH, q.device)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
     out = {"flash_attention_bf16": dict(
         ms=cuda_ms(lambda: fn(q, k, v), reps),
         device_ms=graph_ms(lambda: fn(q, k, v), reps),
         plain_ms=cuda_ms(lambda: K9.reference(q, k, v), reps),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True), reps),
-        extra=dict(host_us=host_us(lambda: fn(q, k, v))),
+        library_ms=cuda_ms(sdpa, reps),
+        extra=dict(host_us=host_us(lambda: fn(q, k, v)),
+                   library_device_ms=graph_ms(sdpa, reps), parts=parts),
         max_abs_err=_hold("K9 loop-shape", fn(q, k, v),
                           K9.reference(q, k, v), bf),
         max_abs_err_fp32=_hold("K9 loop-shape", fn(*(
@@ -3091,7 +3128,8 @@ def time_k9_loop(cfg, prompt_pad, loop_new, device="cuda", reps=20) -> dict:
                 *(x.float() for x in (q, k, v))), torch.float32),
         flops=4 * B * H * S * S * d / 2,
         bytes=2 * (2 * q.numel() + k.numel() + v.numel()),
-        shape=f"B={B} S={S} H={H} KVH={KVH} d={d} causal body=gqa_tile")}
+        shape=f"B={B} S={S} H={H} KVH={KVH} d={d} causal "
+              f"body=mma_tile::attention_kernel<DenseKV> parts={parts}")}
     _bounds(out)
     return out
 
@@ -3203,10 +3241,11 @@ def check_train_kernels(device="cuda") -> dict:
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        # K9 (fp32: the 3xTF32 tile; bf16: the SIMT body): S*G not a
-        # multiple of the row tile, Sk ragged, d 64/128/256, causal / window
-        # + softcap / q_offset with Sq < Sk / non-causal, each head dim with
-        # each option
+        # K9 (fp32: the 3xTF32 tile; bf16: the bf16 tile, at the wrapper's
+        # parts and at forced parts 1 and 4): S*G not a multiple of the row
+        # tile, Sk ragged, d 64/128/256, causal / window + softcap /
+        # q_offset with Sq < Sk / non-causal, each head dim with each
+        # option
         cases = [(64, 197, 197, 8, 2, dict()),
                  (128, 200, 200, 32, 4, dict(window=64, softcap=50.0)),
                  (256, 131, 131, 8, 4, dict(window=40, softcap=30.0)),
@@ -3220,8 +3259,15 @@ def check_train_kernels(device="cuda") -> dict:
         for d, Sq, Sk, H, KVH, kw in cases:
             q, k, v = rnd(2, Sq, H, d, dtype=dtype), \
                 rnd(2, Sk, KVH, d, dtype=dtype), rnd(2, Sk, KVH, d, dtype=dtype)
+            want = K9.reference(q, k, v, **kw)
             err = _hold(f"K9 d={d} {kw}", K9.flash_attention(q, k, v, **kw),
-                        K9.reference(q, k, v, **kw), dtype)
+                        want, dtype)
+            if dtype == torch.bfloat16:
+                for parts in (1, 4):
+                    err = max(err, _hold(
+                        f"K9 d={d} {kw} parts={parts}",
+                        K9.launch_flash_attention(q, k, v, parts=parts, **kw),
+                        want, dtype))
             worst["flash_attention"] = max(worst["flash_attention"], err)
             _log("kernels", kernel="flash_attention", d=d, Sq=Sq, Sk=Sk, H=H,
                  KVH=KVH, opts=repr(kw), dtype=dn, max_abs_err=err)
@@ -4544,8 +4590,9 @@ def main() -> int:
                 "flash_attention":
                 ("flash_attention",
                  "src/repro/kernels/flash_attention/kernel.py:81"),
-                # K9's bf16 route (the SIMT body): the RL loop backend's
-                # re-forward; its launches are the rl phase's bf16 ones
+                # K9's bf16 route (the bf16 tensor-core tile): the RL loop
+                # backend's re-forward; its launches are the rl phase's
+                # bf16 ones
                 "flash_attention_bf16":
                 ("flash_attention",
                  "src/repro/kernels/flash_attention/kernel.py:81"),

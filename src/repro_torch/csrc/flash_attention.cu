@@ -26,30 +26,40 @@
 // on the tensor cores as three TF32 products (3 x 69 GFLOP at 495
 // TFLOP/s: 0.42 ms).
 //
-// Two bodies, chosen by dtype.  fp32 (the trainer's) runs tf32_tile.cuh's
-// 3xTF32 tensor-core tile: each fp32 operand split into two TF32 values,
-// three products summed in fp32, for fp32-level error (see that header).
-// bf16 runs gqa_tile.cuh's SIMT body, shared with K1 and K2's fp32 route:
-//   * the Pallas grid is (BH, n_q_blocks, n_k_blocks) with the key axis
-//     sequential in VMEM scratch; here one CTA per (query-row tile, KV head,
-//     batch row) loops over key tiles itself, starting at the first key of
-//     its tile's window and stopping at the key of its last query (tiles
-//     wholly above the causal diagonal or before the window are skipped;
-//     the Pallas kernel visits and masks them, with the same result);
-//   * a tile packs the G query heads of one KV head for consecutive
-//     tokens (row r = token r / G, head r % G, as K2 packs a span), so each
-//     staged K/V position serves every query row of the tile, and K/V are
-//     read once per tile, not once per query head;
-//   * 64 key positions of K and V a round are staged in shared memory as
-//     fp32 (above 48 KB: the dynamic-shared-memory attribute, up to 174 KB
-//     at d = 256); all of a round's loads are issued before any is used,
-//     and where registers allow (bf16, d <= 128) the next round's are in
-//     flight during this round's arithmetic;
-//   * the accumulator (64 rows, 32 at d = 256) lives in registers, each
-//     thread owning fixed columns; the online softmax is a warp per row.
-// This file gives both bodies the contiguous layout (DenseKV below).  Not
-// done yet (later work): the bf16 route on the tensor cores, wgmma and TMA,
-// a split over keys for short sequences.
+// Two bodies, chosen by dtype, both on the tensor cores and both walking
+// the keys through DenseKV below (grid y = batch row, z = KV head):
+//   * fp32 (the trainer's) runs tf32_tile.cuh's 3xTF32 tile: each fp32
+//     operand split into two TF32 values, three products summed in fp32,
+//     for fp32-level error (see that header);
+//   * bf16 (the RL loop backend's re-forward: B 1, S 240, 32 / 4 heads x
+//     128) runs mma_tile.cuh's bf16 tile, the one K2 and K8 share:
+//     mma.sync m16n8k16 with fp32 accumulators, K/V bf16 in a cp.async
+//     ring of 64-key rounds, P rounded to bf16 for PV (as the model path's
+//     dense_attention does; the Pallas kernel keeps P in fp32, so this
+//     route is held at the bf16 bound), scores scaled in fp32 and then
+//     soft-capped.  At d 256 the output columns split over two groups of
+//     4 warps.
+// Both tiles pack the G query heads of one KV head for consecutive tokens
+// into 64-row tiles (row r = token r / G, head r % G), so each staged K/V
+// position serves every query row of the tile and K/V are read once per
+// tile, not once per query head; a tile reads from the first key of its
+// window to the key of its last query (every key when not causal).  Each
+// tile's key rounds split over `parts` CTAs (<= 4) where the tiles leave
+// SMs empty (bf16; fp32 takes 1): the wrapper picks parts and allocates the
+// fp32 workspace that mma_tile.cuh's combine kernel folds.  The loop shape
+// has 30 row tiles x 4 KV heads = 120 tiles for 132 SMs, so parts 1: a
+// second CTA an SM (parts 2, as K2's slot rule would pick) measured slower
+// with the combine pass than without.
+//
+// What holds the bf16 route at the loop shape (H100, measured with
+// tile_study.py's flash_bf16 study): ~8 us a call that does not depend on
+// the keys (launch, the prologue, the first round's latency) and ~1.8 us a
+// 64-key round of the longest (diagonal) tile: the tile's mma.sync rate,
+// ~1.2 TFLOP/s an SM (K2's and K8's 0.85-1.2).  The tile built with 3 or
+// 4 K/V buffers instead of 2 moved it by under 3 % (a round is not waiting
+// on its copies), and at 4 the 155 KB a CTA leaves one CTA an SM, 1.4x
+// slower at B 4: the tile keeps 2.
+// Not done yet (later work): wgmma and TMA.
 //
 // Interface: plain C, loaded with ctypes.  The entry point returns the
 // cudaError_t of its launch (0 on success); it launches on the given stream,
@@ -58,7 +68,9 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include "gqa_tile.cuh"
+#include <type_traits>
+
+#include "mma_tile.cuh"
 #include "tf32_tile.cuh"
 
 namespace {
@@ -66,26 +78,16 @@ namespace {
 // K9's layout: q and out (B, Sq, H, D), k and v (B, Sk, KVH, D); packed row
 // r of (b, kv head) is head kvh * G + r % G of token r / G; a tile reads
 // from the first key in its window to its last query's key, or every key
-// when not causal.  It serves both bodies: gqa_tile.cuh's interface
-// (start, q_row, kv_row, range) and, with grid y = batch row and z = KV
-// head, tf32_tile.cuh's (rows, pos0, q_row, out_row, list_keys, key: flat
-// key index = position).
+// when not causal.  The interface of mma_tile.cuh's tile and tf32_tile.cuh's
+// (grid y = batch row, z = KV head: rows, pos0, q_row, out_row, list_keys,
+// key: flat key index = position, causal).
 struct DenseKV {
   static constexpr int kList = 1;        // no shared list
   static constexpr bool kMean = false;   // a row with no key gets 0
   int Sq, Sk, H, KVH, G, causal_, q_offset, window;
-  __device__ int start(int) const { return q_offset; }
   __device__ bool causal() const { return causal_ != 0; }
   __device__ size_t q_row(int b, int kvh, int r) const {
     return ((size_t)b * Sq + r / G) * H + (size_t)kvh * G + r % G;
-  }
-  __device__ size_t kv_row(int b, int kvh, int pos) const {
-    return ((size_t)b * Sk + pos) * KVH + kvh;
-  }
-  __device__ void range(int q_first, int q_last, int window_, int& lo,
-                        int& hi) const {
-    lo = window_ > 0 ? max(q_first - window_ + 1, 0) : 0;
-    hi = causal_ ? min(q_last, Sk - 1) : Sk - 1;
   }
   __device__ int rows(int, int) const { return Sq * G; }
   __device__ int pos0(int, int) const { return q_offset; }
@@ -94,10 +96,11 @@ struct DenseKV {
   }
   __device__ void list_keys(int, int, int q_first, int q_last, int*,
                             int* lo_hi) const {
-    range(q_first, q_last, window, lo_hi[0], lo_hi[1]);
+    lo_hi[0] = window > 0 ? max(q_first - window + 1, 0) : 0;
+    lo_hi[1] = causal_ ? min(q_last, Sk - 1) : Sk - 1;
   }
   __device__ int key(int b, int kvh, int t, const int*, size_t& row) const {
-    row = kv_row(b, kvh, t);
+    row = ((size_t)b * Sk + t) * KVH + kvh;
     return t;
   }
 };
@@ -107,7 +110,8 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
-  int B, Sq, Sk, H, KVH, causal, window, q_offset;
+  void* ws;
+  int B, Sq, Sk, H, KVH, causal, window, q_offset, parts;
   float softcap, scale;
 };
 
@@ -116,45 +120,41 @@ DenseKV dense_layout(const Args& a) {
                  a.window};
 }
 
-// bf16: the SIMT body
-template <int D, int ROWS>
-cudaError_t launch_simt(const Args& a, cudaStream_t stream) {
-  const int G = a.H / a.KVH;
-  return launch_gqa_tiles<__nv_bfloat16, D, ROWS>(
-      a.q, a.k, a.v, a.out, dense_layout(a), a.B, a.KVH, a.Sq * G, G,
-      a.window, a.softcap, a.scale, stream);
-}
-
-// fp32: the 3xTF32 tensor-core tile
+// fp32: the 3xTF32 tensor-core tile (a one-dimensional grid)
 template <int D>
 cudaError_t launch_tf32(const Args& a, cudaStream_t stream) {
-  const int G = a.H / a.KVH;
-  return tf32_tile::launch_attention<D, D>(a.q, a.k, a.v, a.out, nullptr,
-                                           dense_layout(a), a.Sq * G, a.B,
-                                           a.KVH, 1, a.softcap, a.scale,
-                                           stream);
+  return tf32_tile::launch_attention<D, D>(
+      a.q, a.k, a.v, a.out, a.ws, dense_layout(a), a.Sq * (a.H / a.KVH),
+      a.B, a.KVH, a.parts, a.softcap, a.scale, stream);
 }
 
-// SIMT tiles: 64 rows at d <= 128, 32 at d = 256 (register budget of the
-// per-thread accumulator, shared memory of the staged tiles)
+// bf16: the bf16 tensor-core tile (grid y = batch row, z = KV head)
+template <int D>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  if (a.B > 65535 || a.KVH > 65535) return cudaErrorInvalidValue;
+  return mma_tile::launch_attention<D, D, DenseKV>(
+      a.q, a.k, a.v, a.out, a.ws, dense_layout(a), a.Sq * (a.H / a.KVH),
+      a.B, a.KVH, a.parts, a.softcap, a.scale, stream);
+}
+
+// head_dim -> f(D) over the instantiated head dims
+template <typename F>
+cudaError_t by_dim(int d, F f) {
+  switch (d) {
+    case 64: return f(std::integral_constant<int, 64>());
+    case 128: return f(std::integral_constant<int, 128>());
+    case 256: return f(std::integral_constant<int, 256>());
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 cudaError_t dispatch(int dtype, int d, const Args& a, cudaStream_t s) {
-  if (dtype == 0) {
-    switch (d) {
-      case 64: return launch_tf32<64>(a, s);
-      case 128: return launch_tf32<128>(a, s);
-      case 256: return launch_tf32<256>(a, s);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (dtype == 1) {
-    switch (d) {
-      case 64: return launch_simt<64, 64>(a, s);
-      case 128: return launch_simt<128, 64>(a, s);
-      case 256: return launch_simt<256, 32>(a, s);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  return cudaErrorInvalidValue;
+  return by_dim(d, [&](auto D) {
+    constexpr int kD = decltype(D)::value;
+    if (dtype == 0) return launch_tf32<kD>(a, s);
+    if (dtype == 1) return launch_bf16<kD>(a, s);
+    return cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace
@@ -162,29 +162,33 @@ cudaError_t dispatch(int dtype, int d, const Args& a, cudaStream_t s) {
 extern "C" {
 
 // K9.  q/out (B, Sq, H, d); k/v (B, Sk, KVH, d), H a multiple of KVH;
-// dtype: 0 = float32, 1 = bfloat16; causal 0/1; window 0 = none.
+// dtype: 0 = float32, 1 = bfloat16; causal 0/1; window 0 = none; each
+// 64-row tile's keys split over `parts` CTAs (1..4), with an fp32
+// workspace of tiles x parts x 64 x (d + 2) floats where parts > 1.
 int flash_attention(int dtype, int head_dim, const void* q, const void* k,
                     const void* v, void* out, int B, int Sq, int Sk, int H,
                     int KVH, int causal, int window, int q_offset,
-                    float softcap, float scale, void* stream) {
+                    float softcap, float scale, int parts, void* workspace,
+                    void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KVH <= 0 || H % KVH)
     return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, out, B, Sq, Sk, H, KVH, causal, window, q_offset, softcap,
-         scale};
+  Args a{q, k, v, out, workspace, B, Sq, Sk, H, KVH, causal, window,
+         q_offset, parts, softcap, scale};
   return (int)dispatch(dtype, head_dim, a, static_cast<cudaStream_t>(stream));
 }
 
-// Resources of K9's fp32 (3xTF32 tensor-core) tile for `head_dim`
-// (launches nothing): out[5] = registers a thread, spill bytes a thread,
-// shared memory bytes a CTA, CTAs resident on one SM, packed query rows a
-// CTA.
-int flash_attention_resources(int head_dim, int* out) {
-  switch (head_dim) {
-    case 64: return (int)tf32_tile::resources<64, 64, DenseKV>(out);
-    case 128: return (int)tf32_tile::resources<128, 128, DenseKV>(out);
-    case 256: return (int)tf32_tile::resources<256, 256, DenseKV>(out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// Resources of K9's tile for `dtype` (0: the fp32 3xTF32 tile, 1: the bf16
+// tile) and `head_dim` (launches nothing): out[5] = registers a thread,
+// spill bytes a thread, shared memory bytes a CTA, CTAs resident on one SM,
+// packed query rows a CTA.
+int flash_attention_resources(int dtype, int head_dim, int* out) {
+  return (int)by_dim(head_dim, [&](auto D) {
+    constexpr int kD = decltype(D)::value;
+    if (dtype == 0) return tf32_tile::resources<kD, kD, DenseKV>(out);
+    if (dtype == 1)
+      return mma_tile::resources<kD, kD, DenseKV>(out);
+    return cudaErrorInvalidValue;
+  });
 }
 
 }  // extern "C"

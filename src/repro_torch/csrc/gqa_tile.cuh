@@ -1,8 +1,7 @@
-// The SIMT attention tile: K2's fp32 span prefill (csrc/paged_attention.cu,
-// K/V through a block table: the exact parity route; bf16 spans run
-// mma_tile.cuh's tensor-core tile) and K9's bf16 route
-// (csrc/flash_attention.cu, contiguous K/V; its fp32 route runs
-// tf32_tile.cuh).
+// The SIMT attention tile of K2's fp32 span prefill (csrc/paged_attention.cu,
+// K/V through a block table: the exact parity route).  Its only user: bf16
+// spans run mma_tile.cuh's tensor-core tile, as do K8's and K9's bf16
+// routes, and K8's and K9's fp32 routes run tf32_tile.cuh.
 //
 // One CTA of kThreads threads owns ROWS packed query rows of one KV head of
 // one batch row: packed row r is group query (head) r % G of token r / G,
@@ -21,7 +20,7 @@
 //
 // What bounds it: fp32 spans (K2's fp32 route) are bound by the CUDA
 // cores' fp32 rate (67 TFLOP/s), the rate an exact fp32 product (TF32 off)
-// has; K9's bf16 route by the same FMAs (not yet on the tensor cores).
+// has.
 //
 // Where the rows and keys live is the layout policy's (type KV):
 //   start(b)            position of batch row b's token 0
@@ -60,15 +59,16 @@ constexpr size_t smem_floats() {
          + 3 * (size_t)ROWS;             // running max, sum, rescale
 }
 
-template <typename T, int D, int ROWS, typename KV>
+template <int D, int ROWS, typename KV>
 __global__ void __launch_bounds__(kThreads)
-gqa_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ out, KV layout,
-                int SG, int G, int window, float softcap, float scale) {
+gqa_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ out,
+                KV layout, int SG, int G, int window, float softcap,
+                float scale) {
   static_assert(D % 16 == 0 && ROWS % 4 == 0, "tile shape");
   static_assert(D < kThreads || D % kThreads == 0, "column split");
   constexpr int LD = kLdQK<D>;
-  constexpr int VN = Vec<T>::N;
+  constexpr int VN = Vec<float>::N;
   constexpr int CPT = D >= kThreads ? D / kThreads : 1;  // columns per thread
   constexpr int RG = D >= kThreads ? 1 : kThreads / D;   // row groups
   constexpr int RPT = ROWS / RG;                         // rows per thread
@@ -81,7 +81,7 @@ gqa_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
   static_assert(kTokens * VROW % kThreads == 0, "staging split");
   constexpr int NV = kTokens * VROW / kThreads;  // per thread and tensor
   // the next round's K/V wait in registers while this round computes,
-  // where the accumulator leaves room (bf16 at d <= 128)
+  // where the accumulator leaves room
   constexpr bool kPrefetch = NV * 8 + RPT * CPT <= 128;
 
   extern __shared__ float4 smem4[];
@@ -107,7 +107,7 @@ gqa_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < rows * (D / VN); i += kThreads) {
     const int r = i / (D / VN), e = (i % (D / VN)) * VN;
     float tmp[VN];
-    Vec<T>::convert(ld16(q + layout.q_row(b, kvh, r0 + r) * D + e), tmp);
+    Vec<float>::convert(ld16(q + layout.q_row(b, kvh, r0 + r) * D + e), tmp);
 #pragma unroll
     for (int u = 0; u < VN; ++u) Qs[r * LD + e + u] = tmp[u];
   }
@@ -154,8 +154,8 @@ gqa_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = tid + u * kThreads;
       const int t = i / VROW, e = (i % VROW) * VN;
       float kt[VN], vt[VN];
-      Vec<T>::convert(kraw[u], kt);
-      Vec<T>::convert(vraw[u], vt);
+      Vec<float>::convert(kraw[u], kt);
+      Vec<float>::convert(vraw[u], vt);
       float4* kd = reinterpret_cast<float4*>(Ks + t * LD + e);
       float4* vd = reinterpret_cast<float4*>(Vs + t * D + e);
 #pragma unroll
@@ -304,14 +304,14 @@ gqa_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // Launch the tile kernel over (ceil(SG / ROWS), KVH, B) CTAs on `stream`.
-template <typename T, int D, int ROWS, typename KV>
+template <int D, int ROWS, typename KV>
 cudaError_t launch_gqa_tiles(const void* q, const void* k, const void* v,
                              void* out, const KV& layout, int B, int KVH,
                              int SG, int G, int window, float softcap,
                              float scale,
                              cudaStream_t stream) {
   constexpr size_t smem = smem_floats<D, ROWS>() * sizeof(float);
-  auto kern = gqa_tile_kernel<T, D, ROWS, KV>;
+  auto kern = gqa_tile_kernel<D, ROWS, KV>;
   static bool configured = false;  // once per instantiation
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -321,9 +321,9 @@ cudaError_t launch_gqa_tiles(const void* q, const void* k, const void* v,
   }
   dim3 grid((SG + ROWS - 1) / ROWS, KVH, B);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), layout, SG, G, window,
-      softcap, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), layout, SG, G,
+      window, softcap, scale);
   return cudaGetLastError();
 }
 

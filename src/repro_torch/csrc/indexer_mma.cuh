@@ -17,17 +17,22 @@
 // What the body does:
 //   * S^T = K Q^T on mma.sync, the heads as the product's N: 16 keys are
 //     the A operand, a token's Hi heads the B operand in n-tiles of 8
-//     heads (2 at Hi 16, 4 at Hi 32).  A CTA of 4 warps owns a chunk of
-//     kChunk key positions (kRounds rounds of kKeys) and 4 x kTokens
-//     tokens; each warp kTokens of them.  The chunk's keys come through a
-//     2-buffer cp.async ring (16-byte copies), each round's copies in
-//     flight while the last computes; a position past the live ones (a
-//     ragged end, or a dead block) is zero-filled by the copy and never
-//     stored;
+//     heads (1 at Hi 8, 2 at Hi 16, 4 at Hi 32).  A CTA of 4 warps owns a
+//     chunk of kChunk key positions (kRounds rounds of kKeys) and 4 x
+//     kTokens tokens; each warp kTokens of them.  The chunk's keys come
+//     through a 2-buffer cp.async ring (16-byte copies), each round's
+//     copies in flight while the last computes; a position past the live
+//     ones (a ragged end, or a dead block) is zero-filled by the copy and
+//     never stored;
 //   * bf16 (m16n8k16, fp32 accumulate): K by ldmatrix from shared memory;
 //     the warp's tokens' queries as B fragments held in registers (at most
-//     4096 query values a warp: 64 registers), loaded once a CTA.  bf16
-//     products are exact in fp32;
+//     4096 query values a warp: 64 registers), loaded once a CTA (an
+//     ldmatrix .x4 two n-tiles of a k-step, .x2 the one n-tile at Hi 8).
+//     bf16 products are exact in fp32.  A key fragment serves every
+//     n-tile of every token of the warp: at Hi 8 one n-tile a token, so
+//     its reuse is the warp's tokens (4, as at Hi 16: 8 tokens a warp, 2
+//     CTAs an SM by registers and shared memory, measured 16 % slower at
+//     zamba2's serve span);
 //   * fp32 by 3xTF32 (m16n8k8): each fp32 operand is big + small, two TF32
 //     values (tf32_tile.cuh's split), and three products big.big +
 //     big.small + small.big sum in fp32 accumulators (only small.small,
@@ -54,6 +59,11 @@
 // knobs, REPRO_IDX_TOKENS / REPRO_IDX_ROUNDS for bf16 and
 // REPRO_IDX32_TOKENS / REPRO_IDX32_ROUNDS / REPRO_IDX32_KEYS for fp32, so
 // tile_study.py can build and time others.
+//
+// The head counts by form: the span body over paged keys (K6) takes 8,
+// 16 or 32 heads; the span body over dense keys (K7) and the decode form
+// (K5) take 16 or 32 (takes<> and by_shape<> below; their 8-head forms are
+// not instantiated).
 //
 // The decode form (K5, bf16, S = 1).  The span body puts 4 warps x
 // kTokens tokens in a CTA: at one token a row it would leave all but one
@@ -121,6 +131,14 @@ using mma_tile::mma16816;
 using tf32_tile::mma3;
 using tf32_tile::split;
 
+// two 8x8 b16 matrices (lanes 0-15 give the rows' addresses)
+__device__ inline void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(mma_tile::smem_addr(p)));
+}
+
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 2;              // key buffers
@@ -166,14 +184,16 @@ struct Shape {
       kQBytes + (size_t)kStages * kKeys * kLd * sizeof(T)
       + (size_t)kTok * kLdO * 4 + (Keys::kTable ? (size_t)(kChunk + 1) * 4
                                                 : 0);
-  static_assert(HI % 16 == 0 && DI % 16 == 0 && kKeys % 32 == 0,
+  static_assert(HI % 8 == 0 && DI % 16 == 0 && kKeys % 32 == 0,
                 "indexer_mma shape");
 };
 
-// whether the body takes (heads, index_dim); other shapes run the SIMT tile
+// whether a form takes (heads, index_dim): 16 or 32 heads, and 8 where
+// kEight (the span body over paged keys, K6); other shapes run the SIMT tile
+template <bool kEight = false>
 inline bool takes(int heads, int index_dim) {
-  return (heads == 16 || heads == 32) && index_dim % 16 == 0 &&
-         index_dim <= 128;
+  return (heads == 16 || heads == 32 || (kEight && heads == 8)) &&
+         index_dim % 16 == 0 && index_dim <= 128;
 }
 
 template <typename T, int HI, int DI, typename Keys>
@@ -284,18 +304,26 @@ span_kernel(const T* __restrict__ q, const float* __restrict__ w,
 #pragma unroll
         for (int t = 0; t < TW; ++t)
 #pragma unroll
-          for (int n2 = 0; n2 < NT / 2; ++n2)
+          for (int ks = 0; ks < Sh::kKS; ++ks) {
+            const bf16* qt = Qs + (warp * TW + t) * HI * LD + ks * 16
+                             + ((lane / 8) % 2) * 8;
+            if constexpr (NT == 1) {   // 8 heads: one n-tile, .x2
+              uint32_t r[2];
+              ldsm_x2(r, qt + (lane % 8) * LD);
+              qf[t][0][ks][0] = r[0];
+              qf[t][0][ks][1] = r[1];
+            } else {
 #pragma unroll
-            for (int ks = 0; ks < Sh::kKS; ++ks) {
-              uint32_t r[4];
-              ldsm_x4(r, Qs + ((warp * TW + t) * HI + n2 * 16 + lane % 8
-                               + (lane / 16) * 8) * LD
-                             + ks * 16 + ((lane / 8) % 2) * 8);
-              qf[t][2 * n2][ks][0] = r[0];
-              qf[t][2 * n2][ks][1] = r[1];
-              qf[t][2 * n2 + 1][ks][0] = r[2];
-              qf[t][2 * n2 + 1][ks][1] = r[3];
+              for (int n2 = 0; n2 < NT / 2; ++n2) {
+                uint32_t r[4];
+                ldsm_x4(r, qt + (n2 * 16 + lane % 8 + (lane / 16) * 8) * LD);
+                qf[t][2 * n2][ks][0] = r[0];
+                qf[t][2 * n2][ks][1] = r[1];
+                qf[t][2 * n2 + 1][ks][0] = r[2];
+                qf[t][2 * n2 + 1][ks][1] = r[3];
+              }
             }
+          }
       }
     }
     const T* Kst = Ks + (rd % kStages) * KN * LD;
@@ -415,15 +443,14 @@ span_kernel(const T* __restrict__ q, const float* __restrict__ w,
   cp_async_wait<0>();
 }
 
+// once per instantiation (a function-local static: safe when two host
+// threads make the first launch at once)
 template <typename T, int HI, int DI, typename Keys>
 cudaError_t configure() {
-  static bool done = false;  // once per instantiation
-  if (done) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
+  static const cudaError_t e = cudaFuncSetAttribute(
       span_kernel<T, HI, DI, Keys>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Shape<T, HI, DI, Keys>::kSmem);
-  done = e == cudaSuccess;
   return e;
 }
 
@@ -658,8 +685,12 @@ cudaError_t by_dim(int index_dim, F f) {
   }
 }
 
-template <typename F>
+// over the head counts takes<kEight> admits
+template <bool kEight = false, typename F>
 cudaError_t by_shape(int heads, int index_dim, F f) {
+  if constexpr (kEight) {
+    if (heads == 8) return by_dim<8>(index_dim, f);
+  }
   if (heads == 16) return by_dim<16>(index_dim, f);
   if (heads == 32) return by_dim<32>(index_dim, f);
   return cudaErrorInvalidValue;

@@ -1,10 +1,12 @@
 // The bf16 attention tile on Hopper's tensor cores, shared by K2 (span
-// prefill over the paged pools, csrc/paged_attention.cu) and K8 (block-
-// sparse attention over the selected key blocks, csrc/block_sparse.cu).
-// K2's fp32 route keeps gqa_tile.cuh's SIMT body and K8's runs
-// tf32_tile.cuh's 3xTF32 tile, which walks its keys as this tile does and
-// folds its parts with this file's combine kernel: this tile is the bf16
-// one, chosen by dtype in each kernel's dispatch.
+// prefill over the paged pools, csrc/paged_attention.cu), K8 (block-sparse
+// attention over the selected key blocks, csrc/block_sparse.cu) and K9
+// (dense attention over contiguous keys, csrc/flash_attention.cu: the RL
+// loop backend's re-forward).  K2's fp32 route keeps gqa_tile.cuh's SIMT
+// body; K8's and K9's fp32 routes run tf32_tile.cuh's 3xTF32 tile, which
+// walks its keys as this tile does and folds its parts with this file's
+// combine kernel: this tile is the bf16 one, chosen by dtype in each
+// kernel's dispatch.
 //
 // What bounds it on this card: arithmetic.  At the serve shapes (64 packed
 // query rows against ~1000-2000 keys a CTA, d 128) a K/V byte staged in
@@ -61,7 +63,8 @@
 //     where the policy asks for it (K8's empty_mean), the mean of V over
 //     the keys the policy names.  A round that every row of a warp sees
 //     whole (K8's selected blocks before the span, K2's keys before the
-//     diagonal) skips the mask.
+//     diagonal; every round but the last of a non-causal K9 tile) skips
+//     the mask.
 // Not done yet (later work): wgmma (64-row warpgroup tiles read B from
 // shared memory once for 64 rows, where mma.sync's ldmatrix reads it once a
 // 16-row warp).
@@ -70,6 +73,7 @@
 //   kList, kMean        shared ints list_keys may fill; whether the policy
 //                       has the empty-row mean (v_mean, empty_mean)
 //   G, window           query heads a KV head; window (0: none)
+//   causal()            whether a key after a query's position is masked
 //   rows(y, z)          packed query rows of grid row (y, z)
 //   pos0(y, z)          position of packed row 0's token
 //   q_row / out_row(y, z, r)  row of packed row r's query (in units of
@@ -273,6 +277,13 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qp0 = pos0 + (r0 + qr) / G, qp1 = pos0 + (r0 + qr + 8) / G;
   const int q_warp = pos0 + (r0 + rg * 16) / G;  // the warp's first query
   const int window = layout.window;
+  // the last key position rows qr and qr + 8 and the warp's first row
+  // see: their query's when causal (K2, K8: one compare, p <= qpos), else
+  // any key that is there (kNoKey, INT_MAX, marks one that is not)
+  const bool causal = layout.causal();
+  const int last0 = causal ? qp0 : kNoKey - 1;
+  const int last1 = causal ? qp1 : kNoKey - 1;
+  const int last_warp = causal ? q_warp : kNoKey - 1;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[WC / 8][4];
 #pragma unroll
@@ -314,11 +325,13 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // scale, soft-cap, mask (-inf), in log2 units; the online max.  A
     // round that every row of the warp sees whole (no window, every key
-    // there and at or before the warp's first query) takes no mask
+    // there and, when causal, at or before the warp's first query) takes
+    // no mask
     const int slot = (rd - rb) % kSlots;
     const int* kp = Kpos + slot * kKeys;
     float mx[2] = {-INFINITY, -INFINITY};
-    if (window <= 0 && max(Kmax[slot * 2], Kmax[slot * 2 + 1]) <= q_warp) {
+    if (window <= 0 &&
+        max(Kmax[slot * 2], Kmax[slot * 2 + 1]) <= last_warp) {
 #pragma unroll
       for (int n = 0; n < kKeys / 8; ++n) {
 #pragma unroll
@@ -334,7 +347,8 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int p = kp[n * 8 + (lane % 4) * 2 + (e & 1)];
           const int qpos = e < 2 ? qp0 : qp1;
-          const bool ok = p <= qpos && (window <= 0 || qpos - p < window);
+          const bool ok = p <= (e < 2 ? last0 : last1) &&
+                          (window <= 0 || qpos - p < window);
           s[n][e] = ok ? log2_score(s[n][e], scale, softcap) : -INFINITY;
           mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
         }
@@ -539,14 +553,14 @@ combine_kernel(const float* __restrict__ ws, const TV* __restrict__ v,
   }
 }
 
+// Once per instantiation: a function-local static is initialised exactly
+// once even when two host threads make the first launch at once (K9's bf16
+// route is reached from the RL workers' threads and the trainer's).
 template <int DQK, int DV, typename KV>
 cudaError_t configure() {
-  static bool done = false;  // once per instantiation
-  if (done) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
+  static const cudaError_t e = cudaFuncSetAttribute(
       attention_kernel<DQK, DV, KV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile<DQK, DV>::kSmem);
-  done = e == cudaSuccess;
   return e;
 }
 

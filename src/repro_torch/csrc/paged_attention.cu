@@ -57,8 +57,7 @@
 //     over up to 4 CTAs and folded by a combine pass so the 128 tiles of a
 //     serve span fill the card): PagedSpan below is its layout.  fp32 span
 //     prefill (the exact parity runs) runs gqa_tile.cuh's SIMT body (K/V
-//     staged as fp32, scalar FMAs), shared with K9's bf16 route: PagedKV
-//     below is its layout.
+//     staged as fp32, scalar FMAs): PagedKV below is its layout.
 // Not done yet (later work): wgmma and TMA for the span tile.
 //
 // Head dims: 64, 80 (zamba2's shared attention block), 128 and 256; block
@@ -734,6 +733,7 @@ struct PagedSpan {
   const int* tables;
   const int* starts;
   int KVH, SG, G, mb, window;
+  __device__ bool causal() const { return true; }
   __device__ int rows(int, int) const { return SG; }
   __device__ int pos0(int, int z) const { return starts[z]; }
   __device__ size_t q_row(int y, int z, int r) const {
@@ -775,7 +775,7 @@ template <int D, int BS>
 cudaError_t launch_simt(const Args& a, cudaStream_t stream) {
   constexpr int kRowsPrefill = D <= 128 ? 64 : 32;
   const PagedKV<BS> layout{a.tables, a.starts, a.KVH, a.SG, a.mb};
-  return launch_gqa_tiles<float, D, kRowsPrefill>(
+  return launch_gqa_tiles<D, kRowsPrefill>(
       a.q, a.k_pool, a.v_pool, a.out, layout, a.B, a.KVH, a.SG, a.G,
       a.window, a.softcap, a.scale, stream);
 }

@@ -2,9 +2,10 @@
 // fp32 route (csrc/flash_attention.cu, the training path's dense attention)
 // and K8's (csrc/block_sparse.cu, the block selector's attention over the
 // selected key blocks: the DSA training chunks and the fp32 parity runs).
-// K9's bf16 route and fp32 K2 keep gqa_tile.cuh's SIMT body.  Its TF32
-// helpers split and mma1688 (and the cp.async ones it takes from
-// mma_tile.cuh) also serve K10's fp32 logits tile (csrc/chunked_ce.cu).
+// K8's and K9's bf16 routes run mma_tile.cuh; fp32 K2 keeps gqa_tile.cuh's
+// SIMT body.  Its TF32 helpers split and mma1688 (and the cp.async ones it
+// takes from mma_tile.cuh) also serve K10's fp32 logits tile
+// (csrc/chunked_ce.cu).
 //
 // What bounds it on this card: arithmetic.  K9's training shape (Yi-6B: B
 // 2, S 2048, H 32 / KVH 4, d 128, causal) is 6.87e10 flops against 0.2 GB

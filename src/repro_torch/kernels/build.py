@@ -101,11 +101,13 @@ ENTRIES = {
     # -> as K2's
     "block_sparse_resources": ("block_sparse", [_I] * 3 + [_P]),
     # K9: dtype, d, q, k, v, out, B, Sq, Sk, H, KVH, causal, window,
-    # q_offset, softcap, scale, stream
+    # q_offset, softcap, scale, parts, workspace, stream
     "flash_attention": ("flash_attention",
-                        [_I] * 2 + [_P] * 4 + [_I] * 8 + [_F, _F, _P]),
-    # K9's fp32 (3xTF32 tensor-core) tile: d -> as K2's
-    "flash_attention_resources": ("flash_attention", [_I] + [_P]),
+                        [_I] * 2 + [_P] * 4 + [_I] * 8 + [_F, _F, _I, _P,
+                                                          _P]),
+    # K9's tile (dtype 0: the fp32 3xTF32 tile, 1: the bf16 tile), d -> as
+    # K2's
+    "flash_attention_resources": ("flash_attention", [_I] * 2 + [_P]),
     # K10: dtype, h, w, targets, mask, partials, loss, count, Tk, D, V,
     # softcap, stream
     "chunked_ce": ("chunked_ce", [_I] + [_P] * 7 + [_I] * 3 + [_F, _P]),

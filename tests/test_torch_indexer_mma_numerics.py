@@ -1,5 +1,5 @@
 """PyTorch port: the arithmetic of K6's bf16 route, the tensor-core span
-body (``csrc/paged_indexer.cu``, ``span_mma``), written out in plain
+body (``csrc/indexer_mma.cuh``'s ``span_kernel``), written out in plain
 PyTorch on the CPU and held against the JAX package's Pallas
 ``paged_prefill_indexer`` in interpret mode.  The CUDA body itself runs
 only on the card (``test_torch_kernels_cuda.py``, ``chip_smoke.py``); this
@@ -20,8 +20,9 @@ block) reads the trash block and stays finite.
 Held against the Pallas kernel (fp32 throughout, fed the same bf16 values)
 at the bf16 bound, 2e-2 scaled by min(1, max|reference|), the dead blocks
 equal; the top-k sets the selector takes from both agree except at
-near-ties of the k-th score; Hi 16 and 32 (2 and 4 n-tiles), Di 64 and
-128, blocks of 8 and 16.
+near-ties of the k-th score; Hi 8, 16 and 32 (1, 2 and 4 n-tiles: at 8,
+zamba2's 8 x 64, each thread's two heads are the token's whole share of
+its quad), Di 64 and 128, blocks of 8 and 16.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -110,7 +111,7 @@ def _topk_sets(scores, qpos, k):
     return sel.scatter_(1, idx[:, :k], True) & (masked > -torch.inf), masked
 
 
-@pytest.mark.parametrize("Hi,Di", [(16, 64), (32, 128)])
+@pytest.mark.parametrize("Hi,Di", [(16, 64), (32, 128), (8, 64)])
 @pytest.mark.parametrize("bs", [8, 16])
 def test_indexer_mma_arithmetic_matches_pallas(Hi, Di, bs):
     S = 12

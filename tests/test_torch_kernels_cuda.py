@@ -4,13 +4,15 @@ and MLA span prefills (K2, K4), the DSA indexer decode and span (K5, K6)
 and the selective scan (K11: Mamba-1's model and contract forms, Mamba-2's
 head-shared form) against their plain versions on the card.
 
-K2, K4 and K8 run a bf16 body on the tensor cores (``csrc/mma_tile.cuh``;
-K4's MLA form in ``csrc/paged_mla.cu``); K2's and K4's fp32 bodies run on
-the CUDA cores; K8, K9 and K10 run their fp32 routes on the tensor cores
-by 3xTF32 (``csrc/tf32_tile.cuh``, ``csrc/chunked_ce.cu``; K8's forced
-here to every key-range split 1..4 through ``launch_block_sparse``), and
-K9's and K10's bf16 routes on the CUDA cores; K6's bf16 route and both
-of K7's routes at Hi 16 / 32 run the indexer tensor-core body
+K2, K4, K8 and K9 run a bf16 body on the tensor cores
+(``csrc/mma_tile.cuh``; K4's MLA form in ``csrc/paged_mla.cu``; K9's
+forced here to every key-range split 1..4 through
+``launch_flash_attention``); K2's and K4's fp32 bodies run on the CUDA
+cores; K8, K9 and K10 run their fp32 routes on the tensor cores by 3xTF32
+(``csrc/tf32_tile.cuh``, ``csrc/chunked_ce.cu``; K8's forced here to every
+key-range split 1..4 through ``launch_block_sparse``), and K10's bf16
+route on the CUDA cores; K6's bf16 route at Hi 8 / 16 / 32 and both of
+K7's routes at Hi 16 / 32 run the indexer tensor-core body
 (``csrc/indexer_mma.cuh``: bf16 mma.sync, fp32 by 3xTF32), K7 at other
 head counts the SIMT tile; K1 cuts each row's live range into runs of
 blocks, a CTA each, folded by a combine pass (forced here to every count
@@ -19,12 +21,12 @@ time into chunks (forced here to every count the rule can pick through
 ``launch_scan_model``; S 1 runs its one-step kernel; its head-shared form
 the same through ``launch_scan_heads`` at N 16 and 64); K1 and K2 also at
 zamba2's head dim 80 (MHA and GQA, both dtypes, every block size), beside
-K9's bf16 tile, which shares K2's fp32 SIMT tile, at d 64 / 128; K3's bf16
-route runs
-K4's tensor-core tile over a one-token span with each row's key rounds
-split over parts (forced here to every count 1..16 through
-``launch_decode_mla``), its fp32 route the SIMT body; K5's bf16 route at
-Hi 16 / 32 runs the decode form of the indexer tensor-core body, fp32 and
+K9's bf16 tile, which shares K2's bf16 tensor-core tile, at d 64 / 128;
+K3's bf16 route runs K4's tensor-core tile over a one-token span with
+each row's key rounds split over parts (forced here to every count 1..16
+through ``launch_decode_mla``), its fp32 route the SIMT body; K5's bf16
+route at Hi 16 / 32 runs the decode form of the indexer tensor-core
+body, fp32 and
 other head counts the SIMT tile.  Each is
 held over every case its dispatch takes (head dims, block sizes, groups,
 window, softcap, q_offset, ragged rows, skipped ids, both empty-row rules,
@@ -350,10 +352,10 @@ def test_paged_prefill_gqa_matches_plain(dtype, tol, d, bs):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_attention_bf16_tile_beside_d80(d):
-    """K9's bf16 route runs the SIMT tile K2's fp32 route shares, whose
-    column split took d 80: at d 64 / 128 (every thread owns columns) it
-    is held on rows that are not a multiple of the tile's 64, G 1 and 4,
-    with and without q_offset."""
+    """K9's bf16 route runs the tensor-core tile K2's bf16 route shares
+    (``csrc/mma_tile.cuh``; K2 beside it at d 80): at d 64 / 128 it is
+    held on rows that are not a multiple of the tile's 64, G 1 and 4, with
+    and without q_offset."""
     _need_gpu()
     rng = np.random.default_rng(d)
     for Sq, H, KVH, kw in ((77, 4, 4, dict()), (45, 8, 2,
@@ -366,6 +368,71 @@ def test_flash_attention_bf16_tile_beside_d80(d):
         want = K9.reference(q, k, v, **kw)
         torch.cuda.synchronize()
         _hold(got, want, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("kw", [
+    dict(), dict(window=40, softcap=30.0), dict(q_offset=211),
+    dict(q_offset=211, window=48, softcap=20.0), dict(causal=False),
+    dict(causal=False, window=50)])
+def test_flash_attention_bf16_tile_every_split(d, kw):
+    """K9's bf16 route, the tensor-core tile, through
+    ``launch_flash_attention`` at every key-range split 1..4 and through
+    the wrapper (its own parts): every head dim with each option, S*G 360
+    and 90 (not multiples of the 64-row tile), G 4 and 1, Sk ragged (301
+    with q_offset and non-causal, so the last round is part zero-filled),
+    the loop backend's shape (B 1, S 240, 32 / 4 heads); rows that see no
+    key (a window behind q_offset) give 0; bf16 2e-2 scaled by
+    min(1, max|plain|)."""
+    _need_gpu()
+    rng = np.random.default_rng(9)
+    Sk = 301 if "q_offset" in kw or not kw.get("causal", True) else 90
+    for B, Sq, H, KVH in ((2, 90, 8, 2), (2, 90, 4, 4), (1, 240, 32, 4)):
+        Sk_ = 240 if Sq == 240 and Sk == 90 else Sk
+        q = _cuda(rng, B, Sq, H, d, dtype=torch.bfloat16)
+        k, v = (_cuda(rng, B, Sk_, KVH, d, dtype=torch.bfloat16)
+                for _ in range(2))
+        want = K9.reference(q, k, v, **kw)
+        for parts in (1, 2, 3, 4):
+            got = K9.launch_flash_attention(q, k, v, parts=parts, **kw)
+            torch.cuda.synchronize()
+            _hold(got, want, 2e-2)
+        before = K9.flash_attention.launches
+        _hold(K9.flash_attention(q, k, v, **kw), want, 2e-2)
+        assert K9.flash_attention.launches == before + 1
+    # a window that ends before Sk: queries past Sk + window see no key
+    q = _cuda(rng, 1, 70, 8, d, dtype=torch.bfloat16)
+    k, v = (_cuda(rng, 1, 100, 2, d, dtype=torch.bfloat16) for _ in range(2))
+    kw = dict(q_offset=120, window=30)
+    want = K9.reference(q, k, v, **kw)
+    assert (want[:, -40:] == 0).all()
+    for parts in (1, 4):
+        got = K9.launch_flash_attention(q, k, v, parts=parts, **kw)
+        torch.cuda.synchronize()
+        assert (got[:, -40:] == 0).all()
+        _hold(got, want, 2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_parts_rule():
+    """K9's bf16 split leaves one CTA an SM: parts 1 at the RL loop shape
+    (120 tiles of 64 rows), 4 at 32 tiles (d 256, G 2), with a workspace
+    of tiles x parts x 64 x (d + 2) floats."""
+    _need_gpu()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = K9.bf16_parts(128, 240 * 8, 4, dev)
+    assert parts == max(1, min(4, sms // 120))
+    q = torch.empty((1, 240, 32, 128), dtype=torch.bfloat16, device=dev)
+    k = torch.empty((1, 240, 4, 128), dtype=torch.bfloat16, device=dev)
+    assert (K9.split_workspace(q, k, parts) is None) == (parts == 1)
+    parts = K9.bf16_parts(256, 240 * 2, 4, dev)
+    assert parts == max(1, min(4, sms // 32))
+    q = torch.empty((1, 240, 8, 256), dtype=torch.bfloat16, device=dev)
+    k = torch.empty((1, 240, 4, 256), dtype=torch.bfloat16, device=dev)
+    ws = K9.split_workspace(q, k, parts)
+    assert ws.numel() == 32 * parts * 64 * (256 + 2)
 
 
 @pytest.mark.cuda
@@ -464,14 +531,17 @@ def test_block_sparse_tf32_tile_every_split(dqk, dv, B, S, H, KVH, bs, nb,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Hi,Di", [(16, 64), (32, 128)])
+@pytest.mark.parametrize("Hi,Di", [(16, 64), (32, 128), (8, 64), (8, 128),
+                                   (8, 16)])
 @pytest.mark.parametrize("bs", [8, 16])
 @pytest.mark.parametrize("S", [37, 256])
 def test_paged_prefill_indexer_tensor_cores_match_plain(Hi, Di, bs, S):
-    """K6's bf16 route, the tensor-core body, at Yi-6B's and GLM-5's indexer
-    shapes: an idle slot (length 0, every table entry the trash block),
-    spans from 0, mid-block, at a block edge and ending at the table's last
-    position, a view past 4 chunks of keys; dead blocks NEG_INF in both,
+    """K6's bf16 route, the tensor-core body, at Yi-6B's, GLM-5's and
+    zamba2's (8 x 64: one n-tile of heads) indexer shapes and 8 heads at
+    the widest and narrowest index dims: an idle slot (length 0, every
+    table entry the trash block), spans from 0, mid-block, at a block edge
+    and ending at the table's last position, a view past 4 chunks of keys;
+    dead blocks NEG_INF in both,
     the live scores within the bf16 2e-2 scaled by min(1, max|plain|)."""
     _need_gpu()
     rng = np.random.default_rng(Hi + bs + S)

@@ -3,7 +3,7 @@
 
     python3 tile_study.py [--parent DIR] [--only STUDY,...]
 
-The tiles: the bf16 tile of K2 and K8 (``csrc/mma_tile.cuh``), K4's bf16
+The tiles: the bf16 tile of K2, K8 and K9 (``csrc/mma_tile.cuh``), K4's bf16
 MLA tile (``csrc/paged_mla.cu``), the fp32 3xTF32 tile of K9 and K8
 (``csrc/tf32_tile.cuh``), K10's fp32 3xTF32 logits tile
 (``csrc/chunked_ce.cu``), K1's split-KV decode body
@@ -26,8 +26,13 @@ that choice, the tile sizes and the tiles against their yardsticks:
              against the plain version (``chip_smoke.py``'s bf16 bound);
              at the serve shapes also scaled_dot_product_attention on the
              same inputs (the KV gathered and its heads repeated once,
-             before the timed loop);
-  mla        K4 at GLM-5's serve chunk (B 1, S 256 from 768), at the
+             before the timed loop); with ``--parent``, at the serve
+             shapes, this tree's C entry against the parent's at the
+             wrapper's parts, device times from CUDA-graph replay taken
+             alternately (new, old, old, new, ...; four readings each),
+             and the SASS of ``mma_tile``'s attention kernels in both
+             trees' K2 and K8 libraries (instructions, identical or not);
+  mla     K4 at GLM-5's serve chunk (B 1, S 256 from 768), at the
              verify span of a speculative round (B 8 x S 4 at the serve
              lengths) and at a first chunk (S 256 from 0): the tile built
              with 16 and 32 keys a round and 2 and 3 K/V stages
@@ -59,13 +64,24 @@ that choice, the tile sizes and the tiles against their yardsticks:
              round (``-DREPRO_TF32_KEYS``), each with the key range in 1, 2
              and 4 parts, device times from CUDA-graph replay, held at the
              fp32 bound, beside the wrapper (its own parts) and SDPA;
+  flash_bf16 K9's bf16 route (the tensor-core tile) at the RL loop
+             backend's re-forward (B 1, S 240, H 32 / KVH 4, d 128,
+             causal), at S 128 and 512, B 4 and d 256: the tile with the
+             keys in 1, 2 and 4 parts, and the wrapper (its own parts),
+             device times from CUDA-graph replay, held at the bf16 bound,
+             beside SDPA's device time (is_causal, KV heads repeated once
+             before the timed loop) and the wrapper's host microseconds a
+             call (with ``--parent``, taken alternately against the
+             parent's wrapper, four readings each);
   indexer    K6's bf16 route (the tensor-core body) at the DSA serve span
-             (S 256 ending at 6143 of a view of 6432 positions, Hi 16, Di
-             64, blocks of 16): the body built with 1, 2 and 4 tokens a
-             warp (``-DREPRO_IDX_TOKENS``) and chunks of 2, 4 and 8 rounds
-             of 64 keys a CTA (``-DREPRO_IDX_ROUNDS``), device times from
-             CUDA-graph replay, held at the bf16 bound, beside the
-             wrapper's device and host time;
+             (S 256 ending at 6143 of a view of 6432 positions, blocks of
+             16) at Yi-6B's Hi 16 / Di 64: the body built with 1, 2 and 4
+             tokens a warp (``-DREPRO_IDX_TOKENS``) and chunks of 2, 4 and
+             8 rounds of 64 keys a CTA (``-DREPRO_IDX_ROUNDS``); and at
+             zamba2's Hi 8 / Di 64 (one n-tile of heads) with 2, 4 and 8
+             tokens a warp and 2, 4 and 8 rounds;
+             device times from CUDA-graph replay, held at the bf16 bound,
+             beside the wrapper's device and host time;
   lightning  K7 on that body at Hi 16 / Di 64: the DSA training chunk
              (fp32 by 3xTF32, S 256 against 4096 keys) with the body built
              at tokens a warp x rounds a CTA x keys a round
@@ -109,7 +125,9 @@ that choice, the tile sizes and the tiles against their yardsticks:
              was), and its
              K4 and K9 bodies' registers and spills (``nvcc -Xptxas -v``).
 
-``--only`` runs (and builds for) the named studies alone.  It prints the
+``--only`` runs (and builds for) the named studies alone (``--only
+flash_bf16,indexer --parent DIR``: this PR's two redesigns beside the
+parent's bodies, ~4 min).  It prints the
 card's name and power limit first.  It needs a CUDA device
 and exits non-zero without one.
 """
@@ -137,6 +155,70 @@ def report(kernel, tag, tiles, flops, times) -> None:
     print(f"[split] kernel={kernel} case={tag} tiles={tiles} " + " ".join(
         f"{k}_ms={v:.5f} {k}_tflops={flops / v / 1e9:.1f}"
         for k, v in times.items()), flush=True)
+
+
+def alternate(new, old, measure=lambda fn: graph_ms(fn, 50),
+              rounds: int = 4) -> dict:
+    """``measure`` of ``new`` and of ``old`` (by default device milliseconds
+    a call from CUDA-graph replay), taken in the order new, old, old, new,
+    new, old, ... so that neither gains from the card or the host warming:
+    {"new": [...], "old": [...]}, ``rounds`` readings each."""
+    got = {"new": [], "old": []}
+    for i in range(rounds):
+        for name in (("new", "old") if i % 2 == 0 else ("old", "new")):
+            got[name].append(measure(new if name == "new" else old))
+    return got
+
+
+def report_alternate(kernel, tag, parts, got, unit="ms") -> None:
+    print(f"[alternate] kernel={kernel} case={tag} parts={parts} " + " ".join(
+        f"{k}_{unit}={','.join(f'{x:.5f}' for x in v)}"
+        for k, v in got.items()), flush=True)
+
+
+def _sass_functions(so: Path) -> dict:
+    """kernel name -> its SASS instructions (addresses and encodings
+    dropped) in the library ``so``; the anonymous namespace's per-build
+    hash is taken out of each name, so two builds' names match."""
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or str(Path(build.nvcc()).parent
+                                            / "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+",
+                          "", found.group(1))
+            out[name] = []
+        elif name is not None and "/*" in line:
+            ins = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line.split(";")[0])
+            if ins.strip() and not ins.strip().startswith("/*"):
+                out[name].append(ins.strip())
+    return out
+
+
+def sass_against_parent() -> None:
+    """The SASS of ``mma_tile``'s attention kernels in this tree's K2 and
+    K8 libraries against the parent's (``build/parent/``): instructions
+    each and whether they are the same."""
+    from repro_torch.kernels import build
+    for lib in ("paged_attention", "block_sparse"):
+        new = _sass_functions(build.library_path(lib))
+        old = _sass_functions(build.BUILD_DIR / "parent" / f"lib{lib}.so")
+        for name, ins in sorted(new.items()):
+            if "mma_tile" not in name or "attention_kernel" not in name:
+                continue
+            was = old.get(name, [])
+            label = "mma_tile::attention_kernel<{},{}>".format(
+                ",".join(re.findall(r"Li(\d+)E", name)),
+                "SelectedBlocks" if "SelectedBlocks" in name
+                else "PagedSpan")
+            print(f"[sass] library={lib} kernel={label} "
+                  f"instructions={len(ins)} parent_instructions={len(was)} "
+                  f"identical={ins == was}", flush=True)
 
 
 def k2_case(tag, B, KVH, G, d, bs, start, S, parent=None, sdpa=False):
@@ -195,6 +277,18 @@ def k2_case(tag, B, KVH, G, d, bs, start, S, parent=None, sdpa=False):
         torch.cuda.synchronize()
         _hold(f"K2 {tag} parent", out, want, torch.bfloat16)
         times["parent"] = cuda_ms(old, 20)
+        # this tree's entry against the parent's at the wrapper's parts
+        parts, ws = build.key_split("paged_prefill_gqa_resources", (d, bs),
+                                    S * G, KVH * B, d, q.device)
+
+        def entry(f):
+            return lambda: build.check_launch("paged_prefill_gqa", f(
+                1, d, bs, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                tables.data_ptr(), st.data_ptr(), out.data_ptr(), B, KVH,
+                S * G, G, mb, 0, 0.0, d ** -0.5, parts,
+                None if ws is None else ws.data_ptr(), stream()))
+        report_alternate("paged_prefill_gqa", tag, parts,
+                         alternate(entry(fn), entry(parent)))
     if sdpa:
         T = start + S
         kg, vg = (p[tables[0]].reshape(-1, KVH, d)[:T].transpose(0, 1)
@@ -261,6 +355,18 @@ def k8_case(tag, B, H, KVH, d, bs, nb, S, end, T, parent=None, sdpa=False):
         torch.cuda.synchronize()
         _hold(f"K8 {tag} parent", out, want, torch.bfloat16)
         times["parent"] = cuda_ms(old, 20)
+        parts, ws = build.key_split("block_sparse_resources", (1, d, d),
+                                    bs * (H // KVH), (S // bs) * B * KVH, d,
+                                    q.device)
+
+        def entry(f):
+            return lambda: build.check_launch("block_sparse_attention", f(
+                1, d, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                ids.data_ptr(), qs.data_ptr(), out.data_ptr(), B, S, T, H,
+                KVH, bs, nb, 1, 0.0, d ** -0.5, parts,
+                None if ws is None else ws.data_ptr(), stream()))
+        report_alternate("block_sparse_attention", tag, parts,
+                         alternate(entry(fn), entry(parent)))
     if sdpa:
         G = H // KVH
         tok = (ids[0].long()[..., None] * bs
@@ -300,6 +406,8 @@ TF32_VARIANTS = (32, 64)
 CE_VARIANTS = ((64, 3), (64, 2), (32, 3), (32, 2))
 # K6's tensor-core body: (tokens a warp, rounds of 64 keys a CTA)
 IDX_VARIANTS = ((4, 4), (4, 2), (4, 8), (2, 4), (2, 8), (1, 8))
+# ... at 8 heads
+IDX8_VARIANTS = ((4, 4), (4, 2), (4, 8), (8, 4), (8, 2), (2, 4))
 # K7's fp32 route on that body: (tokens a warp, rounds a CTA, keys a round)
 IDX32_VARIANTS = ((2, 8, 64), (2, 4, 64), (1, 8, 64), (1, 16, 64),
                   (4, 8, 32), (4, 16, 32), (2, 16, 32))
@@ -312,12 +420,14 @@ MLAD_VARIANTS = (32, 16)
 # the studies each variant (by its tag's prefix) and each parent library
 # serve, so that ``--only`` builds no more than it runs
 PREFIX_STUDY = {"mla_": "mla", "tf32_": "tf32", "sparse32_": "sparse32",
-                "idx_": "indexer", "li_": "lightning", "li32_": "lightning",
+                "idx_": "indexer", "idx8_": "indexer", "li_": "lightning",
+                "li32_": "lightning",
                 "scan_": "scan", "ce_": "ce", "mlad_": "mla_decode"}
 LIBRARY_STUDIES = {"paged_attention": ("split", "decode"),
                    "block_sparse": ("split", "sparse32"),
                    "paged_mla": ("mla", "mla_decode"),
-                   "flash_attention": ("tf32",), "chunked_ce": ("ce",),
+                   "flash_attention": ("tf32", "flash_bf16"),
+                   "chunked_ce": ("ce",),
                    "paged_indexer": ("indexer", "indexer_decode"),
                    "lightning_indexer": ("lightning",),
                    "mamba_scan": ("scan",)}
@@ -329,6 +439,7 @@ def variant_libraries(run=lambda study: True) -> dict:
     all nvcc processes at once); returns name -> the C entry point
     (``mla_k{keys}_s{stages}``, ``tf32_k{keys}``, ``ce_m{warp_m}_s{stages}``,
     ``sparse32_k{keys}``, ``idx_t{tokens}_r{rounds}``,
+    ``idx8_t{tokens}_r{rounds}`` (K6 at 8 heads),
     ``li_t{tokens}_r{rounds}`` (K7 bf16), ``li32_t{tokens}_r{rounds}_k{keys}``
     (K7 fp32), ``scan_s{steps}``, ``mlad_k{keys}`` (K3))."""
     from repro_torch.kernels import build
@@ -355,6 +466,10 @@ def variant_libraries(run=lambda study: True) -> dict:
             "paged_prefill_indexer", knobs)
         add(f"li_t{tokens}_r{rounds}", "lightning_indexer",
             "lightning_indexer", knobs)
+    for tokens, rounds in IDX8_VARIANTS[1:]:
+        add(f"idx8_t{tokens}_r{rounds}", "paged_indexer",
+            "paged_prefill_indexer", (f"REPRO_IDX_TOKENS={tokens}",
+                                      f"REPRO_IDX_ROUNDS={rounds}"))
     for tokens, rounds, keys in IDX32_VARIANTS[1:]:
         add(f"li32_t{tokens}_r{rounds}_k{keys}", "lightning_indexer",
             "lightning_indexer",
@@ -387,7 +502,8 @@ def parent_libraries(csrc: Path, run=lambda study: True) -> dict:
     arguments of that revision's ``kernels/build.py`` beside ``csrc``) and,
     for K1, K3, K5 and K11, the parent's wrappers (its
     ``kernels/paged_attention/kernel.py`` and
-    ``kernels/mamba_scan/kernel.py``) around its entry points."""
+    ``kernels/mamba_scan/kernel.py``) around its entry points, and K9's
+    (``flash_attention_wrapper``) beside its raw entry."""
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR / "parent"
     libs = {"paged_attention": ["paged_prefill_gqa", "paged_decode_gqa"],
@@ -423,6 +539,10 @@ def parent_libraries(csrc: Path, run=lambda study: True) -> dict:
             entries[name] = _entry(out_dir / f"lib{lib}.so", name,
                                    entries_of[name][1])
     kernels = csrc.parent / "kernels"
+    if "flash_attention" in entries:   # K9's wrapper beside its raw entry
+        entries["flash_attention_wrapper"] = _parent_wrapper(
+            kernels / "flash_attention" / "kernel.py",
+            entries["flash_attention"], "flash_attention")
     for name, path, wrapper in (
             ("paged_decode_gqa", "paged_attention", "paged_decode_gqa"),
             ("paged_decode_mla", "paged_attention", "paged_decode_mla"),
@@ -576,7 +696,7 @@ def k9_case(tag, B, S, H, KVH, d, variants, parent=None, sdpa=False,
             build.check_launch("flash_attention", fn(
                 0, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), B, S, S, H, KVH, 1, window, 0, 0.0,
-                d ** -0.5, stream()))
+                d ** -0.5, *_k9_parts(fn, 1), stream()))
         call()
         torch.cuda.synchronize()
         _hold(f"K9 {tag} {name}", out, want, torch.float32)
@@ -593,6 +713,76 @@ def k9_case(tag, B, S, H, KVH, d, variants, parent=None, sdpa=False,
             qs, ks, vs, is_causal=True), 10)
     report("flash_attention", tag, -(-S * (H // KVH) // 64) * KVH * B,
            flops, times)
+
+
+def _k9_parts(fn, parts, ws=None) -> tuple:
+    """The key-range split arguments of K9's C entry point (parts,
+    workspace) where it takes them: revisions before the bf16 tile's took
+    none (17 arguments)."""
+    if len(fn.argtypes) == 17:
+        if parts != 1:
+            raise ValueError("this K9 entry point takes no key split")
+        return ()
+    return parts, None if ws is None else ws.data_ptr()
+
+
+def k9_bf16_case(tag, B, S, H, KVH, d, parent=None, parent_wrapper=None):
+    """K9's bf16 route at one causal shape (see ``flash_bf16``): the C
+    entry at 1, 2 and 4 parts, the wrapper, SDPA and the parent's entry;
+    the wrapper's host microseconds a call alternately against the parent's
+    wrapper (its own Python around its own entry)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as K9
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    bf = torch.bfloat16
+    q = torch.randn((B, S, H, d), generator=gen, device="cuda").to(bf)
+    k, v = (torch.randn((B, S, KVH, d), generator=gen, device="cuda").to(bf)
+            for _ in range(2))
+    out = torch.empty_like(q)
+    want = K9.reference(q, k, v)
+    tiles = -(-S * (H // KVH) // 64) * KVH * B
+    entries = {"tile": build.cuda_entry("flash_attention")}
+    if parent is not None:
+        entries["parent"] = parent
+    times = {}
+    for name, fn in entries.items():
+        for parts in ((1,) if name == "parent" else (1, 2, 4)):
+            ws = torch.empty(tiles * parts * 64 * (d + 2), device="cuda")
+
+            def call():
+                build.check_launch("flash_attention", fn(
+                    1, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), B, S, S, H, KVH, 1, 0, 0, 0.0,
+                    d ** -0.5, *_k9_parts(fn, parts, ws), stream()))
+            call()
+            torch.cuda.synchronize()
+            _hold(f"K9 bf16 {tag} {name} parts={parts}", out, want, bf)
+            times[f"{name}_p{parts}"] = graph_ms(call, 20)
+
+    def wrapper():
+        return K9.flash_attention(q, k, v)
+    _hold(f"K9 bf16 {tag} wrapper", wrapper(), want, bf)
+    times["wrapper"] = cuda_ms(wrapper, 20)
+    times["wrapper_device"] = graph_ms(wrapper, 20)
+    if parent_wrapper is not None:
+        report_alternate("flash_attention", tag, "wrapper's", alternate(
+            wrapper, lambda: parent_wrapper(q, k, v), host_us), unit="host_us")
+    qs = q.transpose(1, 2).contiguous()
+    ks, vs = (x.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    times["sdpa_device"] = graph_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True), 20)
+    parts = K9.bf16_parts(d, S * (H // KVH), B * KVH, q.device)
+    flops = 4 * B * H * d * S * (S + 1) / 2
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound = max(flops / 989e12, nbytes / 3.35e12) * 1e3
+    print(f"[flash_bf16] kernel=flash_attention case={tag} B={B} S={S} H={H} "
+          f"KVH={KVH} d={d} tiles={tiles} wrapper_parts={parts} "
+          f"bound_ms={bound:.5f} wrapper_host_us={host_us(wrapper):.2f} "
+          + " ".join(f"{k_}_ms={v_:.5f}" for k_, v_ in times.items()),
+          flush=True)
 
 
 SERVE_LENS = (1040, 48, 793, 166, 528, 80, 916, 316)   # chip_smoke's decode
@@ -792,15 +982,15 @@ def k8_fp32_case(variants, parent=None):
                      for k_, v_ in times.items()), flush=True)
 
 
-def k6_case(variants, parent=None):
-    """K6's bf16 route at the DSA serve span (see ``indexer``); each call on
-    another layer of an 8-layer pool, so the keys come from device
-    memory."""
+def k6_case(variants, parent=None, Hi=16, tag="yi6b"):
+    """K6's bf16 route at the DSA serve span (see ``indexer``) at ``Hi``
+    heads of 64; each call on another layer of an 8-layer pool, so the keys
+    come from device memory."""
     import numpy as np
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.paged_attention import prefill as K6
-    Hi, Di, bs, S, start, layers, nbk = 16, 64, 16, 256, 5888, 8, 2048
+    Di, bs, S, start, layers, nbk = 64, 16, 256, 5888, 8, 2048
     mb = 6432 // bs
     rng = np.random.default_rng(SEED + 7)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
@@ -844,7 +1034,8 @@ def k6_case(variants, parent=None):
     times["wrapper"] = cuda_ms(wrapper, 32)
     times["wrapper_device"] = graph_ms(wrapper, 32)
     flops = S * live * bs * Hi * (2 * Di + 2)
-    print(f"[indexer] kernel=paged_prefill_indexer Hi={Hi} Di={Di} S={S} "
+    print(f"[indexer] kernel=paged_prefill_indexer case={tag} Hi={Hi} "
+          f"Di={Di} S={S} "
           f"start={start} bound_ms={flops / 989e12 * 1e3:.5f} "
           f"wrapper_host_us={host_us(wrapper):.2f} " + " ".join(
               f"{k_}_ms={v_:.5f} {k_}_tflops={flops / v_ / 1e9:.1f}"
@@ -1130,7 +1321,8 @@ def main() -> int:
     parser.add_argument("--only", default=None,
                         help="comma-separated studies to run (split, mla, "
                              "tf32, decode, ce, sparse32, indexer, lightning, "
-                             "scan, mla_decode, indexer_decode); all by "
+                             "scan, mla_decode, indexer_decode, flash_bf16); "
+                             "all by "
                              "default")
     args = parser.parse_args()
     only = None if args.only is None else set(args.only.split(","))
@@ -1158,7 +1350,7 @@ def main() -> int:
                           + [(c, 128, 128) for c in (0, 1)]
                           + [(c, 192, 256) for c in (0, 1)]),
                          ("paged_prefill_indexer_resources",
-                          [(hi, di) for hi in (16, 32)
+                          [(hi, di) for hi in (8, 16, 32)
                            for di in (16, 32, 64, 128)]),
                          ("paged_indexer_scores_resources",
                           [(hi, di) for hi in (16, 32)
@@ -1169,7 +1361,7 @@ def main() -> int:
                          ("paged_mla_resources",
                           [(0, 512, 64), (1, 512, 64)]),
                          ("flash_attention_resources",
-                          [(64,), (128,), (256,)]),
+                          [(c, d) for c in (0, 1) for d in (64, 128, 256)]),
                          ("paged_decode_gqa_resources",
                           [(c, d, bs) for c in (0, 1) for d in (64, 128, 256)
                            for bs in (8, 16, 32)]),
@@ -1198,6 +1390,8 @@ def main() -> int:
                 parent=parent.get("block_sparse_attention"), sdpa=True)
         k8_case("one-query-block", 1, 32, 4, 128, 128, 16, 128, 4096, 4224)
         k8_case("batch-2", 2, 32, 4, 128, 128, 16, 256, 4096, 4224)
+        if parent:
+            sass_against_parent()
     # K4: GLM-5's serve chunk, its verify span (spec 3 over the serve
     # lengths), a first chunk
     if run("mla"):
@@ -1240,6 +1434,23 @@ def main() -> int:
         idx = {"idx_t4_r4": build.cuda_entry("paged_prefill_indexer")}
         idx.update({k: v for k, v in studied.items() if k.startswith("idx_")})
         k6_case(idx, parent=parent.get("paged_prefill_indexer"))
+        # zamba2's 8 x 64 (the parent ran it on the SIMT tile)
+        idx8 = {"idx8_t4_r4": build.cuda_entry("paged_prefill_indexer")}
+        idx8.update({k: v for k, v in studied.items()
+                     if k.startswith("idx8_")})
+        k6_case(idx8, parent=parent.get("paged_prefill_indexer"), Hi=8,
+                tag="zamba2")
+    # K9's bf16 route: the RL loop backend's re-forward, shorter and
+    # longer sequences, d 256
+    if run("flash_bf16"):
+        for tag, B, S, H, KVH, d in (("loop", 1, 240, 32, 4, 128),
+                                     ("s128", 1, 128, 32, 4, 128),
+                                     ("s512", 1, 512, 32, 4, 128),
+                                     ("loop-d256", 1, 240, 8, 4, 256),
+                                     ("b4", 4, 240, 32, 4, 128)):
+            k9_bf16_case(tag, B, S, H, KVH, d,
+                         parent=parent.get("flash_attention"),
+                         parent_wrapper=parent.get("flash_attention_wrapper"))
     # K7: the DSA training chunk (fp32, 3xTF32) and the block selector's
     # last serve span of the 6144-token prompt over its 6528-position view
     # (bf16), every tile size of each route
