@@ -17,7 +17,8 @@ head-shared form and its one shared attention block on K1/K2 at head dim
 80, or K5/K6 with DSA, through the ContinuousEngine); and the
 training path (slice 4: the Muon Split trainer on Yi-6B, Yi-6B + DSA and,
 slice 5, Yi-6B + DSA(block) at full width, 8 layers; slice 6,
-falcon-mamba-7b at full width, 8 layers; K9 flash attention, K10 chunked
+falcon-mamba-7b at full width, 8 layers; slice 17, zamba2-2.7b and
+zamba2 + DSA at full width, 12 layers; K9 flash attention, K10 chunked
 cross-entropy, K7 lightning indexer, K8 block-sparse attention, K11).
 Phases, each printing lines of numbers (any failure exits non-zero):
 
@@ -50,8 +51,10 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            match; then K9 (fp32: its 3xTF32 tensor-core tile; bf16: the
            bf16 tensor-core tile, also at forced parts 1 and 4; d
            64/128/256 each with causal, window, softcap, q_offset and
-           non-causal cases; S*G and Sk ragged), K7 (Hi x Di 16x64,
-           32x128, 2x16; S and T ragged) and K10 (Tk and V ragged,
+           non-causal cases, d 80 at zamba2's 32 / 32 heads causal and
+           not and with q_offset; S*G and Sk ragged), K7 (Hi x Di 16x64,
+           32x128, 8x64 (the tensor-core body at one n-tile), 2x16; S and
+           T ragged) and K10 (Tk and V ragged,
            softcap 0 and 30, a partial mask; its two sums held to 1e-5
            relative), and the gradients through their autograd
            Functions on the kernel and the plain routes (equal); then K8
@@ -73,8 +76,12 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            zamba2's width (80 heads of 64, N 64) and a ragged one, S 1 / 77
            / 1024, both dtypes and both state dtypes, at parts 1, the
            wrapper's and 16 (y at the fp32 tolerance, hT stored in the
-           state's dtype); K1 and K2 also at zamba2's shared-block shape
-           (32 heads of 80, G 1) in the first list;
+           state's dtype), and its training route ``mamba2_scan`` (the
+           kernel forward, the chunked plain backward) at S 200, A down
+           to -80, every input's gradient within 1e-4 of its max against
+           autograd through the stepped plain scan; K1 and K2 also at
+           zamba2's shared-block shape (32 heads of 80, G 1) in the first
+           list;
   timing   K3/K4's and K5/K6's registers, spills, shared memory and CTAs
            resident on an SM, as the CUDA runtime reports them (K3's parts
            and CTAs at the decode step; the indexer tensor-core bodies at
@@ -124,7 +131,9 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            K5's and K6's lines (their bf16 tensor-core bodies) also with
            their CUDA-graph device time and their wrappers' host
            microseconds a call;
-           K9, K10 and K7 at the training runs' shapes in fp32 (TF32 is
+           K9, K10 and K7 at the training runs' shapes in fp32 (Yi-6B's,
+           and zamba2's on lines tagged ``_zamba2``: K9 at 32 heads of 80,
+           K10 at D 2560 / V 32000, K7 at 8 x 64; TF32 is
            off; all three run 3xTF32 on the tensor cores, so each is bound
            by its three TF32 products over 494.7 TFLOP/s, the CUDA cores'
            67 TFLOP/s bound logged beside; each with a CUDA-graph device
@@ -172,7 +181,10 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            the recurrence; the expf's special-function-unit bound is
            logged beside the bytes / operations bound); K10 again at the
            falcon-mamba trainer's shape (2 x 2048 tokens, D 4096, V 65024),
-           held as at Yi-6B's;
+           held as at Yi-6B's; K11's head-shared form at zamba2's
+           training shape (B 2, S 2048, fp32: ``mamba_scan_heads
+           (train)``), its plain stepped version and its chunked plain
+           backward's time and memory beside the forward's;
   parity   Yi-6B at full width with 2 layers in fp32: the port's
            ContinuousEngine (mid-flight admission, a shared prefix with a
            radix hit and a COW fork, chunked prefill) gives the same greedy
@@ -284,8 +296,15 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            2 x 2048): losses finite and falling, step ms,
            tokens/s, peak memory, and the launches of K7/K8/K9/K10/K11,
            which must equal the count expected from the depth and the
-           chunks;
-  profile  one training step of each training run (at 4 layers) cut into
+           chunks; then zamba2-2.7b and zamba2 + DSA at full width, depth
+           54 -> 12 (two shared-block invocations, whose gradients sum):
+           train parity (seq 1024 dense, 2560 with DSA, past top-k; the
+           DSA indexer's leaves get no gradient on either route, as the
+           reference drops its loss) and 5 trainer steps (2 x 2048 dense,
+           1 x 4096 with DSA; K9 at d 80 or K7 at 8 x 64, K10, K11's
+           head-shared form a Mamba-2 layer);
+  profile  one training step of each training run (at 4 layers; zamba2 at
+           6, one group, its scan gradients timed apart) cut into
            its layers (forward, loss, backward, Muon; synchronised) and
            one traced with torch.profiler (busy share, top kernels, K7/K8/
            K9/K10/K11 device time, found by kernel name: a kernel the step
@@ -1198,7 +1217,7 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
              train_tiles=-(-2 * 2048 // per_cta)
              * -(-train_cfg.vocab_size // 128), sms=sms)
     G = train_cfg.num_heads // train_cfg.num_kv_heads
-    for hd in (64, 128, 256):
+    for hd in (64, 80, 128, 256):
         regs, spill, smem, ctas, per_cta = build.resources(
             "flash_attention_resources", 0, hd)
         _log("resources", kernel="flash_attention", dtype="float32",
@@ -1210,7 +1229,7 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
     # K9's bf16 tile, with the parts its wrapper picks at the RL loop
     # backend's re-forward (B 1, 240 tokens of the training config's heads)
     from repro_torch.kernels.flash_attention import kernel as K9
-    for hd in (64, 128, 256):
+    for hd in (64, 80, 128, 256):
         regs, spill, smem, ctas, per_cta = build.resources(
             "flash_attention_resources", 1, hd)
         loop_rows = 240 * G
@@ -1571,7 +1590,7 @@ def indexer_resources(cfg, batch, max_len, bs) -> None:
              spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
              tokens_per_cta=toks, sms=sms)
     # K7's routes on the same body over dense keys: bf16, fp32 by 3xTF32
-    for name, heads, dim in INDEXER_SHAPES:
+    for name, heads, dim in INDEXER_SHAPES + (ZAMBA2_INDEXER,):
         for dtype, code in (("bfloat16", 1), ("float32", 0)):
             regs, spill, smem, ctas, toks = build.resources(
                 "lightning_indexer_resources", code, heads, dim)
@@ -3139,13 +3158,15 @@ def time_k9_loop(cfg, prompt_pad, loop_new, device="cuda", reps=20) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_KERNELS = ("lightning_indexer", "flash_attention", "chunked_ce",
-                 "block_sparse_attention", "mamba_scan_model")
+                 "block_sparse_attention", "mamba_scan_model",
+                 "mamba_scan_heads")
 
 
 def train_kernel_wrappers() -> dict:
     """name -> (module, wrapper, plain version) of the training kernels
     (K8 with them: the block selector's DSA chunks; K11's model form: the
-    ssm family's scan, in serving too)."""
+    ssm family's scan, and its head-shared form: the hybrid's, both in
+    serving too)."""
     from repro_torch.kernels.chunked_ce import kernel as K10
     from repro_torch.kernels.flash_attention import kernel as K9
     from repro_torch.kernels.lightning_indexer import kernel as K7
@@ -3157,7 +3178,9 @@ def train_kernel_wrappers() -> dict:
             "block_sparse_attention": (K8, K8.block_sparse_attention,
                                        K8.block_sparse_attention_plain),
             "mamba_scan_model": (K11, K11.mamba_scan_model,
-                                 K11.scan_model)}
+                                 K11.scan_model),
+            "mamba_scan_heads": (K11, K11.mamba_scan_heads,
+                                 K11.scan_heads)}
 
 
 class plain_route:
@@ -3169,9 +3192,7 @@ class plain_route:
     plain versions on the card."""
 
     def __enter__(self):
-        from repro_torch.kernels.mamba_scan import kernel as K11
-        self._saved = dict(train_kernel_wrappers(), mamba_scan_heads=(
-            K11, K11.mamba_scan_heads, K11.scan_heads))
+        self._saved = train_kernel_wrappers()
         for name, (mod, _, plain) in self._saved.items():
             setattr(mod, name, plain)
         return self
@@ -3255,7 +3276,11 @@ def check_train_kernels(device="cuda") -> dict:
                  (64, 150, 150, 8, 8, dict(window=32, softcap=20.0)),
                  (64, 90, 301, 6, 2, dict(q_offset=211, window=48)),
                  (128, 333, 333, 4, 1, dict()),
-                 (256, 70, 333, 4, 4, dict(causal=False, window=50))]
+                 (256, 70, 333, 4, 4, dict(causal=False, window=50)),
+                 # zamba2's shared block: 32 heads of 80, no GQA
+                 (80, 150, 150, 32, 32, dict()),
+                 (80, 120, 120, 32, 32, dict(causal=False)),
+                 (80, 100, 333, 8, 2, dict(q_offset=233, softcap=30.0))]
         for d, Sq, Sk, H, KVH, kw in cases:
             q, k, v = rnd(2, Sq, H, d, dtype=dtype), \
                 rnd(2, Sk, KVH, d, dtype=dtype), rnd(2, Sk, KVH, d, dtype=dtype)
@@ -3272,7 +3297,7 @@ def check_train_kernels(device="cuda") -> dict:
             _log("kernels", kernel="flash_attention", d=d, Sq=Sq, Sk=Sk, H=H,
                  KVH=KVH, opts=repr(kw), dtype=dn, max_abs_err=err)
         # K7: S not a multiple of the 8-query tile, T of the 128-key tile
-        for Hi, Di in ((16, 64), (32, 128), (2, 16)):
+        for Hi, Di in ((16, 64), (32, 128), (8, 64), (2, 16)):
             q, w, k = rnd(2, 150, Hi * Di, dtype=dtype), \
                 torch.softmax(rnd(2, 150, Hi), -1), rnd(2, 333, Di, dtype=dtype)
             err = _hold(f"K7 {Hi}x{Di}",
@@ -3280,7 +3305,8 @@ def check_train_kernels(device="cuda") -> dict:
                         K7.reference(q, w, k, heads=Hi, head_dim=Di), dtype)
             worst["lightning_indexer"] = max(worst["lightning_indexer"], err)
             _log("kernels", kernel="lightning_indexer", heads=Hi,
-                 index_dim=Di, S=150, T=333, dtype=dn, max_abs_err=err)
+                 index_dim=Di, S=150, T=333, dtype=dn, body=K7.body(Hi, Di),
+                 max_abs_err=err)
         # K10: Tk and V not multiples of the 128 tiles, a partial mask
         for softcap in (0.0, 30.0):
             h, w = rnd(1000, 256, dtype=dtype), rnd(256, 1000, dtype=dtype)
@@ -3299,21 +3325,26 @@ def check_train_kernels(device="cuda") -> dict:
     q, k, v = rnd(2, 300, 8, 128), rnd(2, 300, 2, 128), rnd(2, 300, 2, 128)
     _same_grads("flash_attend", lambda a, b, c: flash_attend(
         a, b, c, window=100, softcap=50.0, q_chunk=128), (q, k, v))
-    qi, wi, ki = rnd(2, 150, 16, 64), torch.softmax(rnd(2, 150, 16), -1), \
-        rnd(2, 333, 64)
-    _same_grads("indexer_scores", li_ops.indexer_scores, (qi, wi, ki))
+    q, k, v = rnd(2, 200, 32, 80), rnd(2, 200, 32, 80), rnd(2, 200, 32, 80)
+    _same_grads("flash_attend d=80", lambda a, b, c: flash_attend(
+        a, b, c, q_chunk=128), (q, k, v))
+    for Hi in (16, 8):
+        qi, wi, ki = rnd(2, 150, Hi, 64), \
+            torch.softmax(rnd(2, 150, Hi), -1), rnd(2, 333, 64)
+        _same_grads(f"indexer_scores {Hi}x64", li_ops.indexer_scores,
+                    (qi, wi, ki))
     h, W = rnd(2, 500, 256), rnd(256, 1000)
     t = torch.randint(0, 1000, (2, 500), generator=gen, device=device)
     m = torch.ones((2, 500), device=device)
     _same_grads("chunked_softmax_xent", lambda a, b: chunked_softmax_xent(
         a, b, t, m, chunk=128, softcap=30.0), (h, W))
-    _log("kernels", autograd="flash_attend,indexer_scores,"
-         "chunked_softmax_xent", grads="equal on both routes")
+    _log("kernels", autograd="flash_attend (d 128, 80),indexer_scores "
+         "(16 and 8 heads),chunked_softmax_xent", grads="equal on both routes")
     return worst
 
 
 def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
-                       device="cuda", reps=10) -> dict:
+                       device="cuda", reps=10, tag="") -> dict:
     """Each training kernel at the training runs' shapes in fp32 (TF32 off,
     as the trainer runs): K9 over one dense layer's (B, S, H, d) q and
     (B, S, KVH, d) k/v, causal; K10 over one step's tokens against the
@@ -3325,9 +3356,11 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
     run 3xTF32 on the tensor cores, three TF32 products over 494.7), the
     larger.  Library: one scaled_dot_product_attention(is_causal=True)
     over the same q and the KV heads repeated once before the timed loop
-    (for K9 only: no single PyTorch call computes K7 or K10)."""
+    (for K9 only: no single PyTorch call computes K7 or K10).  The
+    result's keys, and the lines' kernel names, end in ``tag``."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.lightning_indexer import kernel as K7mod
     wrappers = train_kernel_wrappers()
     gen = torch.Generator(device=device).manual_seed(SEED)
     f32 = torch.float32
@@ -3343,7 +3376,7 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
     qs = q.transpose(1, 2).contiguous()
     ks = k.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
     vs = v.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
-    out["flash_attention"] = dict(
+    out["flash_attention" + tag] = dict(
         ms=cuda_ms(lambda: K9(q, k, v), reps),
         device_ms=graph_ms(lambda: K9(q, k, v), reps // 2),
         plain_ms=cuda_ms(lambda: K9p(q, k, v), 2),
@@ -3358,12 +3391,12 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
         torch.cuda.synchronize()
-    _log("timing", kernel="flash_attention", library_kernels=repr(
+    _log("timing", kernel="flash_attention" + tag, library_kernels=repr(
         [e.key[:120] for e in prof.key_averages()
          if e.device_type == torch.autograd.DeviceType.CUDA]))
     del q, k, v, qs, ks, vs
-    out["chunked_ce"] = _k10_train_shape(gen, B * S, dense_cfg.d_model,
-                                         dense_cfg.vocab_size, device)
+    out["chunked_ce" + tag] = _k10_train_shape(
+        gen, B * S, dense_cfg.d_model, dense_cfg.vocab_size, device)
     dsa = dsa_cfg.dsa
     Hi, Di, rows = dsa.index_heads, dsa.index_head_dim, 256
     qi, wi, ki = rnd(1, rows, Hi * Di), torch.softmax(rnd(1, rows, Hi), -1), \
@@ -3378,10 +3411,10 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
     near = _topk_boundary("K7 train-shape", got[0], want[0], qpos,
                           dsa.top_k, TOL["float32"]
                           * min(1.0, want.abs().max().item()))
-    _log("topk", kernel="lightning_indexer", k=dsa.top_k,
+    _log("topk", kernel="lightning_indexer" + tag, k=dsa.top_k,
          near_tie_indices_differing=near)
     del got, want
-    out["lightning_indexer"] = dict(
+    out["lightning_indexer" + tag] = dict(
         ms=cuda_ms(lambda: K7(qi, wi, ki, **kw), 50),
         device_ms=graph_ms(lambda: K7(qi, wi, ki, **kw), 50),
         plain_ms=cuda_ms(lambda: K7p(qi, wi, ki, **kw), 10), library_ms=None,
@@ -3389,7 +3422,7 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
         flops=rows * dsa_seq * Hi * (2 * Di + 2),
         bytes=4 * (qi.numel() + wi.numel() + ki.numel() + rows * dsa_seq),
         shape=f"S={rows} T={dsa_seq} Hi={Hi} Di={Di} "
-              f"body=indexer_mma (3xTF32)")
+              f"body={K7mod.body(Hi, Di)} (fp32)")
     _bounds_fp32(out)
     return out
 
@@ -3468,7 +3501,10 @@ def _train_batch(cfg, batch, seq, device):
 def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
                  idx_tol=1e-4) -> dict:
     """One train step (loss, gradients, clipping, Muon) on the kernel route
-    and one on the plain route, from the same fp32 weights and batch.
+    and one on the plain route, from the same fp32 weights and batch (a
+    leaf the loss never reaches has no gradient: it counts as 0, as the
+    step counts it; the hybrid's DSA indexer leaves must be such, on both
+    routes, since its loss drops the indexer loss).
     Tolerances: the loss within 1e-5 relative; every gradient within 1e-4
     of its leaf's max |plain gradient| (a DSA indexer's within ``idx_tol``:
     with the block selector its only gradient is the mean of
@@ -3503,7 +3539,8 @@ def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
         step = make_train_step(model, train_cfg=tc, lr=lr)
         opt = muon.init(dict(model.named_parameters()), axes)
         _, metrics = step(opt, data)
-        grads = {k: p.grad.detach().clone()
+        grads = {k: torch.zeros_like(p) if p.grad is None
+                 else p.grad.detach().clone()
                  for k, p in model.named_parameters()}
         after = {k: p.detach().clone() for k, p in model.named_parameters()}
         for p in model.parameters():
@@ -3514,6 +3551,12 @@ def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
     with plain_route():
         loss_p, grads_p, after_p = one_step()
     _hold_rel("train parity loss", loss_k, loss_p, 1e-5)
+    if cfg.family == "hybrid" and cfg.dsa is not None:
+        idx = [k for k in grads_p if ".idx." in k]
+        if not idx or any(g[k].any() for g in (grads_k, grads_p)
+                          for k in idx):
+            raise AssertionError(f"train parity {cfg.name}: the indexer "
+                                 f"leaves {idx} must have no gradient")
     g_err = p_err = 0.0
     failures = []
     idx_err = 0.0
@@ -3554,16 +3597,23 @@ def expected_launches(cfg, seq, steps) -> dict:
     """Kernel launches the trainer makes in ``steps`` steps: K10 once a
     step (its backward is plain); for the ssm family K11 once a layer (its
     model form, forward only: the backward recomputes plainly) and no
-    other; K9 once a layer without DSA (forward
+    other; K9 once an attention layer without DSA (forward
     only: the backward recomputes plainly); K7 twice a DSA layer's query
     chunk (the forward, and the checkpoint's recompute in the backward);
     with the block selector K8 twice a chunk too, where the reference's
     rule takes the block branch (chunks of 256 when seq is a multiple of
-    256, else one; the chunk and seq multiples of the DSA block)."""
+    256, else one; the chunk and seq multiples of the DSA block).  The
+    hybrid's attention layers are its shared block's invocations, one a
+    group; its Mamba-2 layers launch K11's head-shared form once each
+    (forward only: the chunked backward is plain)."""
     if cfg.family == "ssm":
         return dict(dict.fromkeys(TRAIN_KERNELS, 0), chunked_ce=steps,
                     mamba_scan_model=cfg.num_layers * steps)
-    dsa_layers = cfg.num_layers if cfg.dsa is not None else 0
+    attn_layers, heads = cfg.num_layers, 0
+    if cfg.family == "hybrid":
+        attn_layers = cfg.num_layers // cfg.hybrid_attn_every
+        heads = cfg.num_layers * steps
+    dsa_layers = attn_layers if cfg.dsa is not None else 0
     q_chunk = min(cfg.q_chunk, 256)
     chunks = -(-seq // q_chunk)
     k8 = 0
@@ -3574,9 +3624,10 @@ def expected_launches(cfg, seq, steps) -> dict:
         if seq >= bs and seq % bs == 0 and step % bs == 0:
             k8 = 2 * dsa_layers * chunks * steps
     return {"chunked_ce": steps,
-            "flash_attention": (cfg.num_layers - dsa_layers) * steps,
+            "flash_attention": (attn_layers - dsa_layers) * steps,
             "lightning_indexer": 2 * dsa_layers * chunks * steps,
-            "block_sparse_attention": k8, "mamba_scan_model": 0}
+            "block_sparse_attention": k8, "mamba_scan_model": 0,
+            "mamba_scan_heads": heads}
 
 
 def train_run(cfg, batch, seq, steps, device="cuda", lr=2e-3) -> dict:
@@ -3634,12 +3685,15 @@ def train_run(cfg, batch, seq, steps, device="cuda", lr=2e-3) -> dict:
 def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
     """Where a training step's time goes: one warm step, then one step cut
     into its layers with a synchronise between them (forward through the
-    layers, the loss (K10), the backward, clipping + Muon), then one step
-    under torch.profiler: the device's busy share of the step and the
-    device time of the top kernels and of K7/K8/K9/K10."""
+    layers, the loss (K10), the backward, clipping + Muon; for the hybrid
+    the backward's head-shared scan gradients, ``ref.scan_heads_grads``,
+    timed apart with a synchronise around each), then one step under
+    torch.profiler: the device's busy share of the step and the device
+    time of the top kernels and of K7/K8/K9/K10/K11."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels.mamba_scan import kernel as K11
     from repro_torch.launch.steps import make_train_step
     from repro_torch.layers.common import unembed_matrix
     from repro_torch.models import get_model
@@ -3672,15 +3726,36 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
         chunk=cfg.loss_chunk, softcap=cfg.final_logit_softcap)
     total = ce_sum / count + aux
     mark()
-    total.backward()
+    scan_grad_s = []
+    grads_fn = K11.scan_heads_grads
+
+    def timed_grads(*a):              # this step only: synchronised apart
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = grads_fn(*a)
+        torch.cuda.synchronize()
+        scan_grad_s.append(time.perf_counter() - t)
+        return out
+    K11.scan_heads_grads = timed_grads
+    try:
+        total.backward()
+    finally:
+        K11.scan_heads_grads = grads_fn
     mark()
-    grads, _ = muon.global_norm_clip({k: p.grad for k, p in params.items()},
-                                     tc.grad_clip)
+    grads, _ = muon.global_norm_clip(
+        {k: torch.zeros_like(p) if p.grad is None else p.grad
+         for k, p in params.items()}, tc.grad_clip)
     opt = muon.update(params, grads, axes, opt, lr=lr, cfg=cfg,
                       weight_decay=tc.weight_decay, split=tc.muon_split)
     mark()
     phases = dict(zip(("forward_ms", "loss_ms", "backward_ms", "muon_ms"),
                       (1e3 * (b - a) for a, b in zip(marks, marks[1:]))))
+    extra = {}
+    if scan_grad_s:
+        extra = dict(scan_grad_ms=1e3 * sum(scan_grad_s),
+                     scan_grad_calls=len(scan_grad_s),
+                     backward_other_ms=phases["backward_ms"]
+                     - 1e3 * sum(scan_grad_s))
     wrappers = train_kernel_wrappers()
     before = {n: w.launches for n, (_, w, _) in wrappers.items()}
     with profile(activities=[ProfilerActivity.CPU,
@@ -3717,7 +3792,9 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
                                             ("combine_kernel",
                                              "SelectedBlocks")]),
                 ("mamba_scan", [("mamba::scan_kernel",),
-                                ("mamba::step_kernel",)]))}
+                                ("mamba::step_kernel",)]),
+                ("mamba_scan_heads", [("mamba::head_scan_kernel",),
+                                      ("mamba::head_step_kernel",)]))}
     # a kernel the step launched must be found by its name in the trace
     for name, n in launched.items():
         key = "mamba_scan" if name == "mamba_scan_model" else name
@@ -3725,7 +3802,7 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
             raise AssertionError(f"train.profile: {name} launched {n} times "
                                  f"but no kernel of the trace matches its "
                                  f"names")
-    res = dict(phases, step_ms=sum(phases.values()),
+    res = dict(phases, **extra, step_ms=sum(phases.values()),
                profiled_step_ms=wall * 1e3,
                device_busy_ms=busy_us / 1e3,
                device_busy_share=busy_us / 1e6 / wall,
@@ -3967,7 +4044,12 @@ def check_head_scan(device="cuda") -> dict:
     bf16, h0 in fp32 and bf16, at parts 1, the wrapper's and 16 (at most
     S).  y is fp32 on both sides: held at the fp32 tolerance x min(1,
     max|plain|); hT is stored in h0's dtype: ``_hold_stored`` there.
-    Returns the max error."""
+    Then the training route, ``mamba2_scan`` (the kernel's forward, the
+    chunked plain backward ``ref.scan_heads_grads``) at zamba2's width,
+    B 1, S 200 (chunks of 64: a ragged last one), fp32, A down to -80, a
+    nonzero h0 and cotangents on y and hT: each input's gradient within
+    1e-4 of its max |gradient| of autograd through the stepped
+    ``ref.scan_heads``; one kernel launch.  Returns the max error."""
     import torch
     from repro_torch.kernels.mamba_scan import kernel as K11
     from repro_torch.kernels.mamba_scan import ref as R11
@@ -3999,6 +4081,32 @@ def check_head_scan(device="cuda") -> dict:
                 _log("kernels", kernel="mamba_scan_heads", B=B, S=S, H=H,
                      P=P, N=N, dtype=dn, h0_dtype=hn, max_abs_err=err,
                      runs=",".join(h for h, _ in runs))
+    f32 = torch.float32
+    ins = _head_scan_inputs(gen, 1, 200, 80, 64, 64, f32, f32, device)
+    g_y = torch.randn((1, 200, 80, 64), generator=gen, device=device)
+    g_hT = torch.randn((1, 80, 64, 64), generator=gen, device=device)
+
+    def grads(scan):
+        xs = [t.detach().requires_grad_() for t in ins]
+        y, hT = scan(*xs)
+        return torch.autograd.grad([y, hT], xs, [g_y, g_hT])
+    before = K11.mamba_scan_heads.launches
+    got = grads(K11.mamba2_scan)
+    launched = K11.mamba_scan_heads.launches - before
+    want = grads(R11.scan_heads)
+    if launched != 1:
+        raise AssertionError(f"mamba2_scan launched K11 {launched} times")
+    rel = {}
+    for name, a, b in zip(("dt", "A", "x", "Bc", "Cc", "h0"), got, want):
+        scale = b.abs().max().item()
+        rel[name] = (a - b).abs().max().item() / max(scale, 1e-30)
+        if not (torch.isfinite(a).all() and rel[name] <= 1e-4):
+            raise AssertionError(f"mamba2_scan gradient of {name}: "
+                                 f"{rel[name]} of its max > 1e-4")
+    _log("kernels", kernel="mamba_scan_heads", autograd="mamba2_scan",
+         B=1, S=200, H=80, P=64, N=64, backward="ref.scan_heads_grads "
+         "(chunked, chunks of 64)", **{f"rel_err_{k}": v
+                                        for k, v in rel.items()})
     return {"mamba_scan_heads": worst}
 
 
@@ -4072,6 +4180,64 @@ def time_head_scan(cfg, chunk, batch, device="cuda") -> dict:
         del ins
     out["mamba_scan_heads"] = out["mamba_scan_heads_prefill"]
     return out
+
+
+def time_head_scan_train(cfg, batch, seq, device="cuda", reps=5) -> dict:
+    """K11's head-shared form at the hybrid trainer's shape (B ``batch``,
+    S ``seq``, zamba2's 80 heads of 64, N 64, fp32 inputs and state, as
+    ``apply_mamba2`` trains): the forward kernel (CUDA events, and its
+    device time from a CUDA-graph replay) beside its plain stepped version,
+    held against it, and the backward ``ref.scan_heads_grads`` with the
+    cotangent the trainer gives (y only: hT reaches no loss), its time and
+    the memory it adds.  Bound of the forward: bytes over 3.35 TB/s or 5
+    fp32 operations an element over 67 TFLOP/s, as ``time_head_scan``."""
+    import torch
+    from repro_torch.kernels.mamba_scan import kernel as K11
+    from repro_torch.kernels.mamba_scan import ref as R11
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    H = cfg.ssm_expand * cfg.d_model // P
+    B, S, f32 = batch, seq, torch.float32
+    ins = _head_scan_inputs(gen, B, S, H, P, N, f32, f32, device)
+    g_y = torch.randn((B, S, H, P), generator=gen, device=device)
+    got, want = K11.mamba_scan_heads(*ins), R11.scan_heads(*ins)
+    err = max(_hold("K11 heads train-shape y", got[0], want[0], f32),
+              _hold("K11 heads train-shape hT", got[1], want[1], f32))
+    del got, want
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    R11.scan_heads_grads(*ins, g_y, None)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    E, elems = H * P, B * S * H * P * N
+    nbytes = 4 * (B * S * H + 2 * B * S * E + 2 * B * S * N + H
+                  + 2 * B * E * N)
+    ops = 5 * elems + 2 * B * S * E
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FLOPS["float32"] * 1e3
+    r = dict(ms=cuda_ms(lambda: K11.mamba_scan_heads(*ins), reps * 4),
+             device_ms=graph_ms(lambda: K11.mamba_scan_heads(*ins), reps),
+             plain_ms=cuda_ms(lambda: R11.scan_heads(*ins), 1, warmup=1),
+             backward_ms=cuda_ms(lambda: R11.scan_heads_grads(
+                 *ins, g_y, None), reps, warmup=1),
+             library_ms=None, max_abs_err=err, bytes=nbytes, flops=ops,
+             bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             parts=K11.scan_parts(0, 0, N, B, S, E,
+                                  torch.cuda.current_device(),
+                                  "mamba_scan_heads_resources"),
+             shape=f"B={B} S={S} H={H} P={P} N={N} fp32")
+    _log("timing", kernel="mamba_scan_heads (train)", shape=repr(r["shape"]),
+         ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+         library_ms=None, bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+         bound_share=r["bound_ms"] / r["device_ms"], parts=r["parts"],
+         backward_ms=r["backward_ms"],
+         backward_over_forward=r["backward_ms"] / r["ms"],
+         backward_extra_gb=peak_gb, backward="ref.scan_heads_grads "
+         "(chunked, plain)", max_abs_err=err, dtype="float32")
+    del ins, g_y
+    return {"mamba_scan_heads_train": r}
 
 
 def _ssm_margins_ok(model, prompt, out, plen, device, min_margin=1e-3):
@@ -4419,6 +4585,18 @@ def main() -> int:
     train_shapes = dict(batch=2, seq=2048, dsa_seq=4096)
     timing.update(time_train_kernels(yi_train, yi_dsa_train, **train_shapes))
     _free()
+    # zamba2's training shapes: K9 at 32 heads of 80, K10 at D 2560 / V
+    # 32000, K7 at 8 x 64; K11's head-shared form and its chunked backward
+    # at the trainer's 2 x 2048.  Training cuts its depth 54 -> 12: two
+    # shared-block invocations, whose gradients sum
+    z_train, z_dsa_train = zamba2.replace(num_layers=12), \
+        zamba2_dsa.replace(num_layers=12)
+    timing.update(time_train_kernels(z_train, z_dsa_train, **train_shapes,
+                                     tag="_zamba2"))
+    _free()
+    timing.update(time_head_scan_train(zamba2, batch=2, seq=2048))
+    _free()
+    stamp("timing.zamba2_train")
     # K9's bf16 route at the RL loop backend's re-forward (232 + 8 tokens)
     timing.update(time_k9_loop(yi, prompt_pad=232, loop_new=8))
     _free()
@@ -4542,6 +4720,21 @@ def main() -> int:
                                   steps=5)["launches"])
         _free()
     stamp("train")
+    # the hybrid: parity at 12 layers (DSA past its top-k 2048), then the
+    # trainer (K9 at d 80 or K7 at 8 x 64, K10, K11 a Mamba-2 layer)
+    for cfg_, seq_ in ((z_train, 1024), (z_dsa_train, 2560)):
+        train_parity(cfg_, batch=1, seq=seq_)
+        _free()
+    stamp("train.zamba2_parity")
+    # at lr 1e-3: at the other runs' 2e-3 the unembedding's first AdamW
+    # steps widen zamba2's logit spread (1.00 -> 1.21 in 5 steps on an
+    # H100) faster than its few repeated tokens pay back, and the loss
+    # climbs after step 1; at 1e-3 it falls
+    for cfg_, batch_, seq_ in ((z_train, 2, 2048), (z_dsa_train, 1, 4096)):
+        launches.update(train_run(cfg_, batch=batch_, seq=seq_, steps=5,
+                                  lr=1e-3)["launches"])
+        _free()
+    stamp("train.zamba2")
     # the training profiles at 4 layers (8 until the hybrid phases came:
     # the cut keeps the whole run near its earlier time; the per-layer
     # parts of a step halve, the loss and the vocabulary's do not)
@@ -4550,6 +4743,9 @@ def main() -> int:
         profile_train_step(cfg_.replace(num_layers=4), batch=batch_,
                            seq=seq_)
         _free()
+    # zamba2 at 6 layers: one group and one shared-block invocation
+    profile_train_step(zamba2.replace(num_layers=6), batch=2, seq=2048)
+    _free()
     stamp("profile.train")
     profile_decode(yi)
     _free()

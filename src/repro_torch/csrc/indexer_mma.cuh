@@ -60,10 +60,11 @@
 // REPRO_IDX32_TOKENS / REPRO_IDX32_ROUNDS / REPRO_IDX32_KEYS for fp32, so
 // tile_study.py can build and time others.
 //
-// The head counts by form: the span body over paged keys (K6) takes 8,
-// 16 or 32 heads; the span body over dense keys (K7) and the decode form
-// (K5) take 16 or 32 (takes<> and by_shape<> below; their 8-head forms are
-// not instantiated).
+// The head counts by form: the span body over paged keys (K6) and over
+// dense keys (K7) takes 8, 16 or 32 heads; the decode form (K5) takes 16 or
+// 32 (takes<> and by_shape<> below: takes<true> admits 8; K5's 8-head form
+// is not instantiated).  K7's fp32 route at 8 heads is the 3xTF32 body at
+// one n-tile (2 tokens a warp, as at 16).
 //
 // The decode form (K5, bf16, S = 1).  The span body puts 4 warps x
 // kTokens tokens in a CTA: at one token a row it would leave all but one
@@ -189,7 +190,7 @@ struct Shape {
 };
 
 // whether a form takes (heads, index_dim): 16 or 32 heads, and 8 where
-// kEight (the span body over paged keys, K6); other shapes run the SIMT tile
+// kEight (the span body: K6 and K7); other shapes run the SIMT tile
 template <bool kEight = false>
 inline bool takes(int heads, int index_dim) {
   return (heads == 16 || heads == 32 || (kEight && heads == 8)) &&

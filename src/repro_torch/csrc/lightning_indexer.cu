@@ -23,10 +23,12 @@
 // is 3.5 GFLOP: 0.0035 ms at the bf16 rate.
 //
 // What the design does: the Pallas grid is (B, nQ, nK) with a 128 x 128
-// score tile on the MXU; here Hi 16 and 32 (Yi-6B's 16 x 64, GLM-5's
-// 32 x 128) run the tensor-core body of indexer_mma.cuh, K6's, with the
-// keys addressed directly (DenseKeys: row b*T + p, none dead, a ragged T
-// zero-filled by the copy and never stored):
+// score tile on the MXU; here Hi 8, 16 and 32 (zamba2 + DSA's 8 x 64,
+// Yi-6B's 16 x 64, GLM-5's 32 x 128) run the tensor-core body of
+// indexer_mma.cuh, K6's, with the keys addressed directly (DenseKeys: row
+// b*T + p, none dead, a ragged T zero-filled by the copy and never
+// stored); at 8 heads a token's heads are one n-tile of the product, so a
+// key fragment serves the warp's tokens and no more:
 //   * bf16 on mma.sync m16n8k16, the body K6 runs;
 //   * fp32 by 3xTF32 on mma.sync m16n8k8 (big.big + big.small +
 //     small.big, fp32-level error: the trainer's parity contract is fp32
@@ -81,8 +83,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_dim(int D, const Args& a, cudaStream_t s) {
-  if (indexer_mma::takes(a.Hi, D))
-    return indexer_mma::by_shape(a.Hi, D, [&](auto hi, auto di) {
+  if (indexer_mma::takes<true>(a.Hi, D))
+    return indexer_mma::by_shape<true>(a.Hi, D, [&](auto hi, auto di) {
       return indexer_mma::launch<T, decltype(hi)::value, decltype(di)::value>(
           a.q, a.w, a.k, a.out, DenseKeys{a.T, a.S}, a.B, a.scale, s);
     });
@@ -120,9 +122,11 @@ int lightning_indexer(int dtype, int index_dim, const void* q, const float* w,
 // thread, shared memory bytes a CTA, CTAs resident on one SM, tokens a CTA.
 int lightning_indexer_resources(int dtype, int heads, int index_dim,
                                 int* out) {
-  if (!indexer_mma::takes(heads, index_dim) || (dtype != 0 && dtype != 1))
+  if (!indexer_mma::takes<true>(heads, index_dim) ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  return (int)indexer_mma::by_shape(heads, index_dim, [&](auto hi, auto di) {
+  return (int)indexer_mma::by_shape<true>(heads, index_dim, [&](auto hi,
+                                                                auto di) {
     constexpr int HI = decltype(hi)::value, DI = decltype(di)::value;
     return dtype == 0
         ? indexer_mma::resources<float, HI, DI, DenseKeys>(out)

@@ -71,8 +71,11 @@
 // keeps more steps' dt and x in registers (255 a thread at 16 steps, 2
 // CTAs an SM), and the prefill ran 0.92 ms at 16 against 0.56 at 4 (an
 // H100 80GB HBM3 at 700 W).  Not done yet
-// (later work): a backward kernel (the backward is plain PyTorch,
-// kernels/mamba_scan/ref.py).
+// (later work): a backward kernel for either form.  The gradients are plain
+// PyTorch (kernels/mamba_scan/ref.py): Mamba-1's the adjoint stepped back
+// a time step at a time (scan_model_grads), the head-shared form's the
+// chunked form differentiated, batched products with no loop over time
+// (scan_heads_grads, through kernel.py's _MambaScanHeads).
 //
 // Interface: plain C, loaded with ctypes.  The entry points return the
 // cudaError_t of their launch (0 on success); they launch on the given

@@ -5,9 +5,10 @@ Ports ``repro.kernels.lightning_indexer.kernel.lightning_indexer``: the
 DSA indexer scores of every query against every key, with score, ReLU and
 the head-weighted sum fused.  The CUDA kernel is in
 ``csrc/lightning_indexer.cu``, built by ``repro_torch.kernels.build``: at
-Hi 16 or 32 K6's tensor-core body (``csrc/indexer_mma.cuh``) over
+Hi 8, 16 or 32 K6's tensor-core body (``csrc/indexer_mma.cuh``) over
 contiguous keys, bf16 on ``mma.sync`` and fp32 by 3xTF32 (fp32-level
-error); at other head counts the SIMT tile.  ``ref.reference`` is the same
+error); at other head counts the SIMT tile (``body`` names the route of a
+shape).  ``ref.reference`` is the same
 function in plain PyTorch.  The kernel takes K6's index head dims and
 width (Di 16/32/64/128, Hi·Di <= 8192).
 
@@ -25,6 +26,15 @@ from repro_torch.kernels.lightning_indexer.ref import reference
 
 INDEX_DIMS = (16, 32, 64, 128)
 INDEX_WIDTH = 8192               # max Hi*Di: a token's fp32 queries, 32 KB
+MMA_HEADS = (8, 16, 32)          # head counts the tensor-core body takes
+
+
+def body(heads: int, head_dim: int) -> str:
+    """The CUDA body a call of ``heads`` x ``head_dim`` runs, in both
+    dtypes: ``indexer_mma`` (the tensor cores) or ``indexer_tile`` (the
+    SIMT tile)."""
+    return "indexer_mma" if heads in MMA_HEADS and head_dim in INDEX_DIMS \
+        else "indexer_tile"
 
 
 def check_cuda_args(q_idx, w_head, k_idx, heads: int, head_dim: int) -> None:
@@ -69,8 +79,9 @@ def lightning_indexer(q_idx: torch.Tensor, w_head: torch.Tensor,
     (B, T, Di) -> scores (B, S, T) fp32.
 
     CPU tensors run ``ref.reference``; CUDA tensors launch the Hopper
-    kernel on the current stream (at Hi 16 / 32 a CTA per chunk of keys
-    and group of tokens of a batch row, on the tensor cores)."""
+    kernel on the current stream (on ``body``'s route: at Hi 8 / 16 / 32
+    a CTA per chunk of keys and group of tokens of a batch row, on the
+    tensor cores)."""
     if q_idx.device.type == "cpu":
         return reference(q_idx, w_head, k_idx, heads=heads,
                          head_dim=head_dim)

@@ -28,11 +28,14 @@ registers):
 
 N (the state size) is one of 1, 2, 4, 8, 16, 32 (the head-shared form: 16,
 32, 64); E, P and S >= 1 are free.
-``mamba1_scan`` is the model's entry point: an autograd Function whose
-forward is ``mamba_scan_model`` and whose backward is the plain recomputing
-gradient ``ref.scan_model_grads`` (the reference differentiates its
-``lax.scan``; no backward kernel yet).  The head-shared form serves the
-hybrid family's inference and has no backward yet.
+``mamba1_scan`` and ``mamba2_scan`` are the models' entry points: autograd
+Functions whose forwards are ``mamba_scan_model`` and ``mamba_scan_heads``
+and whose backwards are plain and recompute from the inputs:
+``ref.scan_model_grads`` (the adjoint stepped back in time) and
+``ref.scan_heads_grads`` (the chunked form differentiated, no loop over
+time).  The reference differentiates its ``lax.scan``s; no backward kernel
+yet.  ``mamba2_scan`` calls ``mamba_scan_heads`` directly where nothing
+needs a gradient (serving).
 
 The wrappers choose by the tensors' device: on the CPU they run the plain
 versions, on a CUDA device they launch the kernel or raise.  There is no
@@ -51,7 +54,8 @@ from repro_torch.kernels.build import (DTYPE_CODE, check_launch, count_launch,
                                       cuda_entry)
 from repro_torch.kernels.build import resources as _resources
 from repro_torch.kernels.mamba_scan.ref import (reference, scan_heads,
-                                                scan_model, scan_model_grads)
+                                                scan_heads_grads, scan_model,
+                                                scan_model_grads)
 
 STATE_SIZES = (1, 2, 4, 8, 16, 32)     # N: the instantiated state sizes
 HEAD_STATE_SIZES = (16, 32, 64)        # N of the head-shared form
@@ -357,3 +361,34 @@ def mamba1_scan(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
     return _MambaScan.apply(dt.contiguous(), A.contiguous(), x.contiguous(),
                             Bc.contiguous(), Cc.contiguous(),
                             h0.contiguous())
+
+
+class _MambaScanHeads(torch.autograd.Function):
+    """K11's head-shared forward; the backward is ``ref.scan_heads_grads``
+    (the chunked form recomputed from the inputs and differentiated).  An
+    output that reaches no loss gives None, and is not differentiated."""
+
+    @staticmethod
+    def forward(ctx, dt, A, x, Bc, Cc, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dt, A, x, Bc, Cc, h0)
+        return mamba_scan_heads(dt, A, x, Bc, Cc, h0)
+
+    @staticmethod
+    def backward(ctx, g_y, g_hT):
+        ins = ctx.saved_tensors
+        grads = scan_heads_grads(*ins, g_y, g_hT)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, ins))
+
+
+def mamba2_scan(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
+                Bc: torch.Tensor, Cc: torch.Tensor, h0: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The head-shared scan of ``apply_mamba2``, differentiable: dt (B, S,
+    H) and A (H,) fp32, x (B, S, H·P), Bc and Cc (B, S, N), h0 (B, H, P, N)
+    -> (y (B, S, H, P) fp32, hT in h0's dtype).  Where grad mode is off or
+    no input requires a gradient it is ``mamba_scan_heads`` itself."""
+    args = tuple(t.contiguous() for t in (dt, A, x, Bc, Cc, h0))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _MambaScanHeads.apply(*args)
+    return mamba_scan_heads(*args)

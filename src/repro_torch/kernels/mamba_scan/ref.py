@@ -24,8 +24,21 @@ in fp32 from h[-1] = h0, in three forms:
 ``scan_model_grads`` is the gradient of ``scan_model``: the adjoint
 recursion ``g_h[t] = dA[t+1] * g_h[t+1] + C[t] * g_y[t]``, with the states
 recomputed ``BWD_CHUNK`` time steps at a time from states kept at the
-chunks' starts.  These run the CPU tests, the model on CPU tensors,
-``chip_smoke.py``'s plain route and the autograd Function's backward.
+chunks' starts.  ``scan_heads_grads`` is the gradient of ``scan_heads``,
+with no loop over time: one dA a head and step lets a chunk of L steps
+unroll into a masked product (the chunked, "dual" form of Mamba-2),
+
+    y = (M ∘ C Bᵀ) · (x·dt) + C · decay · h_start,
+    M[t, s] = exp(sum_{s<r<=t} dt_r·A)  (s <= t),
+
+and the chunks' states pass from chunk to chunk by the same masked
+product over the chunks' total decays; ``torch.autograd.grad`` of that
+form gives the gradient.  Every decay is the exponential of a segment sum
+taken by a cumulative sum over a masked (L, L) tensor (``_segsum``), never
+the difference of two long cumulative sums: dt·A reaches about -100 a
+step at A = -80, so such a difference would lose the short-range decays
+that matter.  These run the CPU tests, the model on CPU tensors,
+``chip_smoke.py``'s plain route and the autograd Functions' backwards.
 """
 from __future__ import annotations
 
@@ -136,3 +149,74 @@ def scan_model_grads(dt, A, x, Bc, Cc, h0, g_y: torch.Tensor,
         g_x[:, t0:t1] = g_dtx * dtc
         g_A += torch.einsum("bken,bke->en", q, dtc)
     return g_dt, g_A, g_x, g_B, g_C, G
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """a (..., L) -> (..., L, L) with [t, s] = sum_{s<r<=t} a[r] for s <= t
+    and -inf above the diagonal (exp gives 0 there): a cumulative sum over
+    (L, L) copies of a, each masked to the steps after s."""
+    L = a.shape[-1]
+    x = a[..., :, None].expand(*a.shape, L)              # [r, s] = a[r]
+    after = torch.ones(L, L, dtype=torch.bool, device=a.device).tril(-1)
+    x = x.masked_fill(~after, 0.0).cumsum(-2)
+    return x.masked_fill(~after.logical_or(
+        torch.eye(L, dtype=torch.bool, device=a.device)), float("-inf"))
+
+
+def scan_heads_chunked(dt, A, x, Bc, Cc, h0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``scan_heads`` by the chunked form, fp32 in and out, differentiable:
+    chunks of ``BWD_CHUNK`` steps (fewer where S is shorter), a ragged last
+    chunk padded with dt = 0 (dA = 1 and x·dt = 0: the state passes
+    through unchanged).  Its tensors are (B, H, S/L, L, L) decays and
+    (B, H, S/L + 1, P, N) states; it loops over nothing."""
+    B, S, H = dt.shape
+    N = Bc.shape[-1]
+    P = x.shape[-1] // H
+    L = min(BWD_CHUNK, S)
+    nc = -(-S // L)
+    pad = nc * L - S
+    X = x.reshape(B, S, H, P) * dt[..., None]             # x·dt
+    a = dt * A                                            # log dA
+    if pad:
+        X = torch.nn.functional.pad(X, (0, 0, 0, 0, 0, pad))
+        a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+        Bc = torch.nn.functional.pad(Bc, (0, 0, 0, pad))
+        Cc = torch.nn.functional.pad(Cc, (0, 0, 0, pad))
+    Xh = X.reshape(B, nc, L, H, P).permute(0, 3, 1, 2, 4)   # (B, H, nc, L, P)
+    ah = a.reshape(B, nc, L, H).permute(0, 3, 1, 2)        # (B, H, nc, L)
+    Bk = Bc.reshape(B, 1, nc, L, N)
+    Ck = Cc.reshape(B, 1, nc, L, N)
+    M = torch.exp(_segsum(ah))                            # (B, H, nc, L, L)
+    # within a chunk: y[t] = sum_{s<=t} M[t, s] (C[t]·B[s]) X[s]
+    y = (M * (Ck @ Bk.transpose(-1, -2))) @ Xh
+    # each chunk's own end state, from 0: sum_s M[L-1, s] X[s] B[s]^T
+    ends = (Xh * M[..., -1, :, None]).transpose(-1, -2) @ Bk
+    # the states at the chunks' starts, and hT: h0 and the end states
+    # folded by the chunks' total decays
+    totals = torch.nn.functional.pad(ah.sum(-1), (1, 0))   # (B, H, nc+1)
+    states = torch.cat([h0[:, :, None], ends], 2)         # (B, H, nc+1, P, N)
+    states = (torch.exp(_segsum(totals)) @ states.reshape(B, H, nc + 1, -1)
+              ).reshape(B, H, nc + 1, P, N)
+    # from the chunk's start state: exp(sum_{r<=t} a[r]) C[t]·h_start
+    y = y + torch.exp(ah.cumsum(-1))[..., None] \
+        * (Ck @ states[:, :, :-1].transpose(-1, -2))
+    y = y.permute(0, 2, 3, 1, 4).reshape(B, nc * L, H, P)[:, :S]
+    return y, states[:, :, -1]
+
+
+def scan_heads_grads(dt, A, x, Bc, Cc, h0, g_y: Optional[torch.Tensor],
+                     g_hT: Optional[torch.Tensor]):
+    """Gradients of ``scan_heads``' (y, hT) against (dt, A, x, Bc, Cc, h0),
+    in fp32: ``torch.autograd.grad`` of ``scan_heads_chunked`` recomputed
+    from the inputs (never from the forward's outputs).  A cotangent that
+    is None (not both) counts as 0; its output is then not
+    differentiated."""
+    ins = [t.detach().float().requires_grad_() for t in
+           (dt, A, x, Bc, Cc, h0)]
+    with torch.enable_grad():
+        y, hT = scan_heads_chunked(*ins)
+        outs = [(o, g.float()) for o, g in ((y, g_y), (hT, g_hT))
+                if g is not None]
+        return torch.autograd.grad([o for o, _ in outs], ins,
+                                   [g for _, g in outs])

@@ -2,9 +2,11 @@
 
 One step: the loss and its gradients (the config's model through the
 registry: ``transformer.loss`` runs its forward through K9 / K7 / K8,
-``ssm_model.loss`` through K11; the cross-entropy through K10; the
-kernels' backwards are plain), global-norm clipping, then the Muon(+Split)
-update, in place on the model's parameters.  ``make_prefill_step`` /
+``ssm_model.loss`` through K11's Mamba-1 form, ``hybrid.loss`` through
+K11's head-shared form and K9 or K7 in its shared block; the
+cross-entropy through K10; the kernels' backwards are plain), global-norm
+clipping, then the Muon(+Split) update, in place on the model's
+parameters.  ``make_prefill_step`` /
 ``make_serve_step`` of the reference are the serving engine's job in the
 port.
 """
@@ -39,8 +41,9 @@ def make_train_step(model: nn.Module, *,
             p.grad = None
         total, metrics = M.loss(model, batch)
         total.backward()
-        # a parameter the loss never reads (the MTP block's indexer: the
-        # head runs dense) has no gradient; JAX gives it zeros
+        # a parameter the loss never reaches (the MTP block's indexer: the
+        # head runs dense; the hybrid's indexer: its loss is dropped) has
+        # no gradient; JAX gives it zeros
         grads, gnorm = muon.global_norm_clip(
             {k: p.grad if p.grad is not None else torch.zeros_like(p)
              for k, p in params.items()}, tc.grad_clip)

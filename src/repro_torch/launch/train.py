@@ -12,8 +12,10 @@ given.  ``train(cfg, tc)`` is the loop itself, for callers with their own
 ``ModelConfig`` (a depth-cut one, say); ``main`` parses the reference's
 flags into it.  The reference's default arch, ``glm-5``, trains with its
 MTP head (0.3 × the MTP losses in the loss, logged as ``mtp``);
-``--arch falcon-mamba-7b`` trains the Mamba-1 LM (the model comes from the
-registry by the config's family).
+``--arch falcon-mamba-7b`` trains the Mamba-1 LM and ``--arch zamba2-2.7b``
+the hybrid (Mamba-2 layers and one shared attention block, DSA on that
+block unless ``--dense-attn``); the model comes from the registry by the
+config's family.
 """
 from __future__ import annotations
 

@@ -6,11 +6,11 @@ Port of ``repro.layers.ssm``.  The reference runs its time scans with
 Mamba-1's through ``kernels.mamba_scan.kernel.mamba1_scan`` (the model
 form: the kernel discretizes dA = exp(dt·A) and dBx = (dt·x)·B itself) in
 prefill, in the S = 1 decode step and in the training forward, with a
-plain recomputing backward; Mamba-2's through ``mamba_scan_heads`` (the
+plain recomputing backward; Mamba-2's through ``mamba2_scan`` (the
 head-shared form: one dt and one scalar A a head, so one exponential a
-head and step) in prefill and decode (inference only: its training is a
-later slice).  Decode carries (conv_state, ssm_state) per layer: O(1) per
-token.
+head and step) in prefill, decode and the training forward, with a plain
+backward by the chunked form.  Decode carries (conv_state, ssm_state) per
+layer: O(1) per token.
 """
 from __future__ import annotations
 
@@ -205,9 +205,7 @@ def apply_mamba2(m: Mamba2, x: torch.Tensor, cfg: ModelConfig, *,
     h0 = state["ssm"] if state is not None else \
         torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
     xs = xs.contiguous()
-    ys, hT = scan_kernel.mamba_scan_heads(dt.contiguous(), A, xs,
-                                          Bc.contiguous(), Cc.contiguous(),
-                                          h0)
+    ys, hT = scan_kernel.mamba2_scan(dt, A, xs, Bc, Cc, h0)
     y = ys + xs.reshape(B, S, H, P).float() * m.D[:, None]
     y = y.reshape(B, S, E).to(x.dtype)
     y = rmsnorm(y * F.silu(z), m.gate_norm, cfg.norm_eps)

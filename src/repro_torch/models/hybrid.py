@@ -28,7 +28,9 @@ Layout differences from the reference:
 * the cache is updated IN PLACE: ``prefill`` and ``decode_step`` return
   the cache object they were given.
 
-``loss`` (training) is a later slice of the port and raises.
+``loss`` trains it as the reference's does: the Mamba-2 scans through
+K11's head-shared form and its chunked plain backward, the shared block
+through K9 (dense) or the DSA training path (K7), K10 for the loss.
 """
 from __future__ import annotations
 
@@ -41,9 +43,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dsa import W_HEAD_SCALE
 from repro_torch.device import resolve_device
 from repro_torch.layers.common import (Embedding, _empty, embed,
-                                       logits_from_hidden, rmsnorm)
+                                       logits_from_hidden, rmsnorm,
+                                       unembed_matrix)
 from repro_torch.layers.ssm import Mamba2, apply_mamba2, mamba2_state
 from repro_torch.models import transformer as tfm
+from repro_torch.models.losses import mean_xent
 from repro_torch.models.transformer import param_axes  # noqa: F401
 
 
@@ -209,10 +213,24 @@ def logits(model: HybridModel, tokens: torch.Tensor, **kw) -> torch.Tensor:
     return logits_from_hidden(model.embed, h, model.cfg)
 
 
-def loss(model: HybridModel, batch: Dict[str, torch.Tensor]):
-    raise NotImplementedError(
-        "training the hybrid family (its loss, a backward for K11's "
-        "head-shared form) is a later slice of the port")
+def loss(model: HybridModel, batch: Dict[str, torch.Tensor]
+         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``loss``: the masked mean token NLL (K10) of
+    ``hidden`` without a cache over ``tokens`` / ``targets`` (B, S) and
+    ``loss_mask`` (default ones); returns (total, {"ce", "loss", "aux"})
+    with ``aux`` 0.  As in the reference, the shared block's DSA indexer
+    loss is dropped, so the indexer's weights get no gradient (the train
+    step gives them zeros, as JAX's gradient is)."""
+    cfg = model.cfg
+    targets = batch["targets"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    h, aux, _ = hidden(model, batch["tokens"])
+    total = mean_xent(h, unembed_matrix(model.embed, cfg), targets, mask,
+                      chunk=cfg.loss_chunk)
+    return total, {"ce": total, "loss": total, "aux": aux}
 
 
 def _ssm_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:

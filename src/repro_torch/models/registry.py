@@ -8,8 +8,7 @@ batch)``, ``logits``, ``init_cache(cfg, batch, max_len, dtype, device)``,
 ``prefill(model, tokens, cache)``, ``decode_step(model, token, cache,
 cache_index)`` and ``param_axes(model)``.  The transformer and the hybrid
 also have the paged cache of the continuous-batching engine (the hybrid's
-``init_paged_cache`` takes the engine's slots as ``batch``); the hybrid's
-``loss`` raises (its training is a later slice).
+``init_paged_cache`` takes the engine's slots as ``batch``).
 """
 from __future__ import annotations
 

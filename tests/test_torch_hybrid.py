@@ -239,5 +239,7 @@ def test_init_and_refusals():
         hybrid.HybridModel(cfg.replace(ssm_version=1), device="meta")
     with pytest.raises(ValueError):
         hybrid.HybridModel(cfg.replace(hybrid_attn_every=3), device="meta")
-    with pytest.raises(NotImplementedError):
-        hybrid.loss(model, {"tokens": toks, "targets": toks})
+    # training is ported: the loss of the reference's form, aux 0
+    total, metrics = hybrid.loss(model, {"tokens": toks, "targets": toks})
+    assert torch.isfinite(total) and total > 0
+    assert set(metrics) == {"ce", "loss", "aux"} and metrics["aux"] == 0

@@ -12,7 +12,7 @@ cores; K8, K9 and K10 run their fp32 routes on the tensor cores by 3xTF32
 (``csrc/tf32_tile.cuh``, ``csrc/chunked_ce.cu``; K8's forced here to every
 key-range split 1..4 through ``launch_block_sparse``), and K10's bf16
 route on the CUDA cores; K6's bf16 route at Hi 8 / 16 / 32 and both of
-K7's routes at Hi 16 / 32 run the indexer tensor-core body
+K7's routes at Hi 8 / 16 / 32 run the indexer tensor-core body
 (``csrc/indexer_mma.cuh``: bf16 mma.sync, fp32 by 3xTF32), K7 at other
 head counts the SIMT tile; K1 cuts each row's live range into runs of
 blocks, a CTA each, folded by a combine pass (forced here to every count
@@ -22,6 +22,8 @@ time into chunks (forced here to every count the rule can pick through
 the same through ``launch_scan_heads`` at N 16 and 64); K1 and K2 also at
 zamba2's head dim 80 (MHA and GQA, both dtypes, every block size), beside
 K9's bf16 tile, which shares K2's bf16 tensor-core tile, at d 64 / 128;
+K9 at d 80 too (zamba2's shared block in training: both tiles, 32 / 32
+heads and G 4, every option; K7 at its 8 x 64 indexer, both dtypes);
 K3's bf16 route runs K4's tensor-core tile over a one-token span with
 each row's key rounds split over parts (forced here to every count 1..16
 through ``launch_decode_mla``), its fp32 route the SIMT body; K5's bf16
@@ -103,19 +105,26 @@ def test_lightning_indexer_matches_plain(dtype, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("Hi,Di", [(16, 64), (32, 128), (16, 16)])
+@pytest.mark.parametrize("Hi,Di", [(16, 64), (32, 128), (16, 16), (8, 64),
+                                   (8, 128)])
 @pytest.mark.parametrize("S,T", [(1, 65), (37, 333), (256, 4100)])
 def test_lightning_indexer_tensor_cores_match_plain(dtype, tol, Hi, Di, S,
                                                     T):
-    """K7 at Hi 16 / 32, both routes on the tensor cores (bf16 mma.sync,
-    fp32 by 3xTF32): S and T ragged against the tokens a CTA and the keys
-    a chunk, one query, two batch rows; every (s, t) finite (K7 writes no
-    NEG_INF) and within tol x min(1, max|plain|)."""
+    """K7 at Hi 8 / 16 / 32, both routes on the tensor cores (bf16
+    mma.sync, fp32 by 3xTF32; at 8 heads one n-tile, zamba2 + DSA's 8 x
+    64): S and T ragged against the tokens a CTA and the keys a chunk, one
+    query, two batch rows; every (s, t) finite (K7 writes no NEG_INF) and
+    within tol x min(1, max|plain|); the resource query answers for the
+    shape."""
     _need_gpu()
     rng = np.random.default_rng(Hi + Di + S)
     q = _cuda(rng, 2, S, Hi * Di, dtype=dtype)
     k = _cuda(rng, 2, T, Di, dtype=dtype)
     w = torch.softmax(_cuda(rng, 2, S, Hi), -1)
+    from repro_torch.kernels import build
+    assert K7.body(Hi, Di) == "indexer_mma"
+    assert build.resources("lightning_indexer_resources",
+                           build.DTYPE_CODE[dtype], Hi, Di)[3] >= 1
     before = K7.lightning_indexer.launches
     got = K7.lightning_indexer(q, w, k, heads=Hi, head_dim=Di)
     want = K7.reference(q, w, k, heads=Hi, head_dim=Di)
@@ -127,12 +136,14 @@ def test_lightning_indexer_tensor_cores_match_plain(dtype, tol, Hi, Di, S,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("Hi,Di", [(2, 16), (8, 64), (4, 128)])
+@pytest.mark.parametrize("Hi,Di", [(2, 16), (4, 64), (4, 128)])
 def test_lightning_indexer_simt_route_at_other_heads(dtype, tol, Hi, Di):
-    """Head counts other than 16 and 32 keep the SIMT tile: the tensor-core
-    body's resource query refuses them, and the kernel matches plain."""
+    """Head counts other than 8, 16 and 32 keep the SIMT tile: the
+    tensor-core body's resource query refuses them, and the kernel matches
+    plain."""
     _need_gpu()
     from repro_torch.kernels import build
+    assert K7.body(Hi, Di) == "indexer_tile"
     with pytest.raises(RuntimeError):
         build.resources("lightning_indexer_resources",
                         build.DTYPE_CODE[dtype], Hi, Di)
@@ -371,7 +382,7 @@ def test_flash_attention_bf16_tile_beside_d80(d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("kw", [
     dict(), dict(window=40, softcap=30.0), dict(q_offset=211),
     dict(q_offset=211, window=48, softcap=20.0), dict(causal=False),
@@ -569,7 +580,7 @@ def test_paged_prefill_indexer_tensor_cores_match_plain(Hi, Di, bs, S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("kw", [
     dict(), dict(window=40, softcap=30.0), dict(q_offset=211),
     dict(q_offset=211, window=48, softcap=20.0), dict(causal=False),
@@ -582,7 +593,8 @@ def test_flash_attention_tf32_tile_matches_plain(d, kw):
     _need_gpu()
     rng = np.random.default_rng(8)
     Sk = 301 if "q_offset" in kw or not kw.get("causal", True) else 90
-    for Sq, H, KVH in ((90, 8, 2), (90, 4, 4)):
+    for Sq, H, KVH in ((90, 8, 2), (90, 4, 4)) + (((70, 32, 32),)
+                                                  if d == 80 else ()):
         q = _cuda(rng, 2, Sq, H, d)
         k, v = (_cuda(rng, 2, Sk, KVH, d) for _ in range(2))
         got = K9.flash_attention(q, k, v, **kw)
@@ -1037,3 +1049,33 @@ def test_mamba_scan_heads_refuses_what_it_cannot_take():
     with pytest.raises(ValueError):           # not contiguous
         K11.mamba_scan_heads(ins[0], ins[1], ins[2].transpose(0, 1),
                              *ins[3:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_flash_attend_d80_grads_match_plain(dtype, tol):
+    """zamba2's shared block in training: ``flash_attend`` at 32 heads of
+    80 (K9's forward on the card, the plain recomputing backward), values
+    and gradients against the same on K9's plain version."""
+    _need_gpu()
+    from repro_torch.layers import attention
+    rng = np.random.default_rng(80)
+    q, k, v = (_cuda(rng, 2, 150, 32, 80, dtype=dtype) for _ in range(3))
+    g = _cuda(rng, 2, 150, 32, 80, dtype=dtype)
+
+    def run():
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = attention.flash_attend(*xs, q_chunk=64)
+        return [out.detach()] + list(torch.autograd.grad(out, xs, g))
+
+    before = K9.flash_attention.launches
+    got = run()
+    assert K9.flash_attention.launches == before + 1
+    wrapper, K9.flash_attention = K9.flash_attention, K9.reference
+    try:
+        want = run()
+    finally:
+        K9.flash_attention = wrapper
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _hold(a, b, tol)
