@@ -73,9 +73,12 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            outputs, stored in its input dtype, may also differ by one ulp
            of their magnitude), and the gradients through its autograd
            Function on both routes; K11's head-shared (Mamba-2) form at
-           zamba2's width (80 heads of 64, N 64) and a ragged one, S 1 / 77
-           / 1024, both dtypes and both state dtypes, at parts 1, the
-           wrapper's and 16 (y at the fp32 tolerance, hT stored in the
+           zamba2's width (80 heads of 64, N 64), at P 64 with N 16 / 32
+           and a ragged one (3 x 40), S 1 / 77 / 130 / 200 / 1024, both
+           dtypes and both state dtypes, through the wrapper (the chunked
+           route on the tensor cores at P 64, S > 1), the chunked route
+           forced at 1 and 3 heads a CTA and the thread-a-channel body at
+           parts 1 and 16 (y at the fp32 tolerance, hT stored in the
            state's dtype), and its training route ``mamba2_scan`` (the
            kernel forward, the chunked plain backward) at S 200, A down
            to -80, every input's gradient within 1e-4 of its max against
@@ -160,13 +163,14 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            device time of the same calls replayed from a CUDA graph (the
            wrapper's host overhead taken out) and the TFLOP/s that gives;
            K1/K2 at zamba2's shared block (head dim 80, G 1, its 9
-           invocations' pools) and K5/K6 at its 8 x 64 indexer (K5 the
-           SIMT tile, K6 the tensor-core span body), lines tagged
-           ``_zamba2``; K11's head-shared form's
-           registers, spills, shared memory and CTAs an SM (N 64), at a
-           zamba2 prefill span (B 1, S 256) and decode step (B 8), with
-           the time chunks its wrapper picks, device time and host
-           microseconds a call;
+           invocations' pools) and K5/K6 at its 8 x 64 indexer (both on
+           their tensor-core bodies at one n-tile of heads), lines tagged
+           ``_zamba2``; K11's head-shared form's kernels' registers,
+           spills, shared memory and CTAs an SM (N 64), at a zamba2
+           prefill span (B 1, S 256: the chunked route, its three
+           kernels' device times, and the parent's thread-a-channel body
+           in turns with it) and decode step (B 8: the one-step kernel,
+           device time and host microseconds a call);
            K9's bf16 route (the bf16 tensor-core tile, the parts its
            wrapper picks) at the RL loop backend's re-forward (B 1, S
            240, Yi-6B's heads), its own line ``flash_attention_bf16``,
@@ -183,7 +187,8 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            falcon-mamba trainer's shape (2 x 2048 tokens, D 4096, V 65024),
            held as at Yi-6B's; K11's head-shared form at zamba2's
            training shape (B 2, S 2048, fp32: ``mamba_scan_heads
-           (train)``), its plain stepped version and its chunked plain
+           (train)``; the chunked route beside the parent's body in the
+           same call), its plain stepped version and its chunked plain
            backward's time and memory beside the forward's;
   parity   Yi-6B at full width with 2 layers in fp32: the port's
            ContinuousEngine (mid-flight admission, a shared prefix with a
@@ -1312,7 +1317,7 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
 # ---------------------------------------------------------------------------
 
 INDEXER_SHAPES = (("yi6b", 16, 64), ("glm5", 32, 128))   # (Hi, Di)
-ZAMBA2_INDEXER = ("zamba2", 8, 64)   # K6's span body at one n-tile of heads
+ZAMBA2_INDEXER = ("zamba2", 8, 64)   # one n-tile of heads (K5, K6, K7)
 
 
 def _indexer_pool(gen, nb, bs, Di, dtype, device, layers=1):
@@ -1344,7 +1349,7 @@ def _hold_scores(what, got, want, dtype) -> float:
 def check_indexer_kernels(device="cuda") -> dict:
     """K5/K6 vs plain on ragged rows at Yi-6B's (Hi 16, Di 64), GLM-5's
     (Hi 32, Di 128) and zamba2's (Hi 8, Di 64) indexer shapes (bf16: their
-    tensor-core bodies, K5 at 8 heads the SIMT tile; fp32: the SIMT tile),
+    tensor-core bodies, at 8 heads one n-tile; fp32: the SIMT tile),
     every block size, the spans with an idle slot (a row whose table is all
     the trash block) and dead blocks; returns the max error per kernel."""
     import numpy as np
@@ -1438,8 +1443,8 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     pool; each held against its plain version (bf16 and fp32) with its
     top-k sets compared; both (their bf16 tensor-core bodies) also with
     their device time from CUDA-graph replay and their wrappers' host
-    microseconds a call (the SIMT tile at head counts a form does not
-    take: K5's decode form 16 or 32, K6's span body 8 too).  No single
+    microseconds a call (the SIMT tile at head counts the bodies do not
+    take: they take 8, 16 or 32).  No single
     PyTorch call computes ReLU between the product and the head sum, so
     there is no library time.  ``tag`` is appended to the result's keys."""
     import numpy as np
@@ -1449,9 +1454,8 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     dtype = torch.bfloat16
     Hi, Di, top_k = cfg.dsa.index_heads, cfg.dsa.index_head_dim, \
         cfg.dsa.top_k
-    # the tensor-core bodies' head counts: K5's decode form 16 or 32, K6's
-    # span body also 8
-    k5_mma, k6_mma = Hi in (16, 32), Hi in (8, 16, 32)
+    # the tensor-core bodies' head counts (K5's decode form, K6's span)
+    k5_mma = k6_mma = Hi in (8, 16, 32)
     L, item = cfg.num_layers, 2
     stride = num_blocks + 1
     rng = np.random.default_rng(SEED)
@@ -1568,8 +1572,9 @@ def indexer_resources(cfg, batch, max_len, bs) -> None:
          dtype="float32", body="indexer_tile (SIMT)", registers=regs,
          spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
          tokens_per_cta=toks, sms=sms)
-    # K5's bf16 decode form at both indexer shapes
-    for name, heads, dim in INDEXER_SHAPES:
+    # K5's bf16 decode form at the three indexer shapes (zamba2's: one
+    # n-tile of heads)
+    for name, heads, dim in INDEXER_SHAPES + (ZAMBA2_INDEXER,):
         regs, spill, smem, ctas, per_cta = build.resources(
             "paged_indexer_scores_resources", heads, dim)
         _log("resources", kernel="paged_indexer_scores_kernel", shape=name,
@@ -2348,7 +2353,8 @@ def profile_decode(cfg, device="cuda", steps=8, block_size=16,
     # phase) overstate when a launch is shorter than the wrapper's host work
     ours = [e for e in kernels if e not in top and any(
         m in e.key for m in ("paged_", "decode_split", "mla_tile",
-                             "indexer_mma", "head_scan", "head_step"))]
+                             "indexer_mma", "head_scan", "head_step",
+                             "mamba_ssd"))]
     for e in top + ours:
         _log("profile.kernel", name=repr(e.key[:60]),
              device_ms_per_step=dev_us(e) / steps / 1e3,
@@ -3498,6 +3504,71 @@ def _train_batch(cfg, batch, seq, device):
     return {"tokens": t[:, :-1], "targets": t[:, 1:]}
 
 
+class _TopkAlign:
+    """DSA's token selection (``core.dsa.select_topk``) in ``train_parity``'s
+    two steps.  The kernel route's step records each call's selection; the
+    plain route's step, replaying that record, keeps its own selection
+    where the two sets agree and takes the recorded one where they differ
+    only at near-ties: indices whose plain score lies within the fp32
+    tolerance x min(1, max|score|) of the row's k-th score, the K5/K6
+    checks' rule (``_topk_boundary``).  The routes' indexer scores differ
+    by K7's 3xTF32 rounding and by whatever the kernels upstream changed
+    (``gap``: the largest difference, relative to the call's max |plain
+    score|), and where that flips a near-tie the routes attend different
+    keys: a discrete difference that no kernel tolerance bounds.  A
+    difference away from the k-th score raises.  ``near`` counts the
+    indices aligned.  With ``on`` False it changes nothing."""
+
+    def __init__(self, on, replay=None):
+        self.on, self.replay, self.calls = on, replay, []
+        self.near, self.gap = 0, 0.0
+
+    def __enter__(self):
+        if self.on:
+            from repro_torch.core import dsa
+            self._orig = dsa.select_topk
+            dsa.select_topk = self._select
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            from repro_torch.core import dsa
+            dsa.select_topk = self._orig
+        return False
+
+    def _select(self, scores, mask, k):
+        import torch
+        sel, valid = self._orig(scores, mask, k)
+        if self.replay is None:
+            self.calls.append((sel, valid, scores))
+            return sel, valid
+        sel_r, valid_r, scores_r = self.replay[len(self.calls)]
+        self.calls.append(None)
+        live = scores.masked_fill(~mask, 0.0)
+        self.gap = max(self.gap, (
+            (scores_r.masked_fill(~mask, 0.0) - live).abs().max()
+            / live.abs().max().clamp_min(1e-30)).item())
+
+        def chosen(idx, ok):
+            out = torch.zeros(scores.shape, dtype=torch.bool,
+                              device=scores.device)
+            return out.scatter_(-1, idx, ok)
+        diff = chosen(sel, valid) ^ chosen(sel_r, valid_r)
+        if not bool(diff.any()):
+            return sel, valid
+        masked = torch.where(mask, scores, float("-inf"))
+        kth = masked.topk(min(k, scores.shape[-1]), dim=-1).values[..., -1:]
+        tol = TOL["float32"] * min(
+            1.0, scores.masked_fill(~mask, 0.0).abs().max().item())
+        far = diff & ((scores - kth).abs() > tol)
+        if bool(far.any()):
+            raise AssertionError(f"train parity: the routes' DSA top-{k} "
+                                 f"sets differ at {int(far.sum())} indices "
+                                 f"away from the k-th score")
+        self.near += int(diff.sum())
+        return sel_r, valid_r
+
+
 def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
                  idx_tol=1e-4) -> dict:
     """One train step (loss, gradients, clipping, Muon) on the kernel route
@@ -3518,7 +3589,9 @@ def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
     bounded by 1 and (1/eps)-Lipschitz, so where the routes' gradients
     differ by dg an element may differ by lr * min(2, |dg| / eps) (a
     gradient within rounding of 0 steps either way); each AdamW element is
-    held to that plus 1e-3 * lr."""
+    held to that plus 1e-3 * lr.  With DSA's token selector the two steps
+    attend the same keys where their top-k sets differ only at near-ties
+    (``_TopkAlign``; the count is logged), and nowhere else."""
     import torch
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch.steps import make_train_step
@@ -3547,9 +3620,16 @@ def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
             p.grad = None
         return float(metrics["loss"]), grads, after
 
-    loss_k, grads_k, after_k = one_step()
-    with plain_route():
+    align = cfg.dsa is not None and cfg.dsa.selector == "token"
+    with _TopkAlign(align) as kernel_topk:
+        loss_k, grads_k, after_k = one_step()
+    with plain_route(), _TopkAlign(align, kernel_topk.calls) as plain_topk:
         loss_p, grads_p, after_p = one_step()
+    if len(plain_topk.calls) != len(kernel_topk.calls):
+        raise AssertionError(f"train parity: {len(plain_topk.calls)} top-k "
+                             f"selections against "
+                             f"{len(kernel_topk.calls)}")
+    del kernel_topk
     _hold_rel("train parity loss", loss_k, loss_p, 1e-5)
     if cfg.family == "hybrid" and cfg.dsa is not None:
         idx = [k for k in grads_p if ".idx." in k]
@@ -3584,7 +3664,8 @@ def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
         raise AssertionError("train parity: " + "; ".join(failures))
     res = dict(loss_kernel=loss_k, loss_plain=loss_p,
                max_rel_grad_err=g_err, max_rel_indexer_grad_err=idx_err,
-               max_param_err=p_err)
+               max_param_err=p_err, near_tie_indices=plain_topk.near,
+               max_rel_score_gap=plain_topk.gap)
     _log("train.parity", model=cfg.name, layers=cfg.num_layers,
          family=cfg.family, dsa=cfg.dsa is not None,
          selector=cfg.dsa.selector if cfg.dsa is not None else None,
@@ -3777,7 +3858,8 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
     # selected blocks and its combine pass, K7 the indexer tensor-core body
     # (or, at other head counts, the SIMT tile) on dense keys, K10 two
     # kernels (its fp32 tile the 3xTF32 one), K11 its scan kernel (both
-    # passes where time is chunked) or its one-step kernel
+    # passes where time is chunked) or its one-step kernel, its head-shared
+    # form at P 64 the chunked route's three kernels (mamba_ssd::)
     ours = {name: sum(dev_us(e) for e in kernels
                       if any(all(k in e.key for k in keys) for keys in alts))
             / 1e3 for name, alts in (
@@ -3794,7 +3876,8 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
                 ("mamba_scan", [("mamba::scan_kernel",),
                                 ("mamba::step_kernel",)]),
                 ("mamba_scan_heads", [("mamba::head_scan_kernel",),
-                                      ("mamba::head_step_kernel",)]))}
+                                      ("mamba::head_step_kernel",),
+                                      ("mamba_ssd::",)]))}
     # a kernel the step launched must be found by its name in the trace
     for name, n in launched.items():
         key = "mamba_scan" if name == "mamba_scan_model" else name
@@ -4039,31 +4122,42 @@ def _head_scan_inputs(gen, B, S, H, P, N, dtype, h0_dtype, device):
 def check_head_scan(device="cuda") -> dict:
     """K11's head-shared (Mamba-2) form against its plain version
     (``ref.scan_heads``, the reference's ``_mamba2_scan`` stepped): at
-    zamba2's width (H 80 heads of P 64, N 64) and a ragged one (3 x 40, N
-    32), S 1 (the decode kernel), 77 and 1024, x / Bc / Cc in fp32 and
-    bf16, h0 in fp32 and bf16, at parts 1, the wrapper's and 16 (at most
-    S).  y is fp32 on both sides: held at the fp32 tolerance x min(1,
-    max|plain|); hT is stored in h0's dtype: ``_hold_stored`` there.
-    Then the training route, ``mamba2_scan`` (the kernel's forward, the
-    chunked plain backward ``ref.scan_heads_grads``) at zamba2's width,
-    B 1, S 200 (chunks of 64: a ragged last one), fp32, A down to -80, a
-    nonzero h0 and cotangents on y and hT: each input's gradient within
-    1e-4 of its max |gradient| of autograd through the stepped
-    ``ref.scan_heads``; one kernel launch.  Returns the max error."""
+    zamba2's width (H 80 heads of P 64, N 64), at P 64 with N 16 and 32,
+    and a ragged one (3 x 40, N 32), S 1 (the decode kernel), 77, 130,
+    200 and 1024, x / Bc / Cc in fp32 and bf16, h0 in fp32 and bf16:
+    through the wrapper (at P 64 and S > 1 the chunked route on the
+    tensor cores), the chunked route forced at 1 and 3 heads a chunk CTA
+    (P 64, S 1 included), and the thread-a-channel body at parts 1 and 16
+    (at most S).  y is fp32 on both sides: held at the fp32 tolerance x
+    min(1, max|plain|); hT is stored in h0's dtype: ``_hold_stored``
+    there.  Then the training route, ``mamba2_scan`` (the kernel's
+    forward, the chunked plain backward ``ref.scan_heads_grads``) at
+    zamba2's width, B 1, S 200 (chunks of 64: a ragged last one), fp32, A
+    down to -80, a nonzero h0 and cotangents on y and hT: each input's
+    gradient within 1e-4 of its max |gradient| of autograd through the
+    stepped ``ref.scan_heads``; one kernel launch.  Returns the max
+    error."""
     import torch
     from repro_torch.kernels.mamba_scan import kernel as K11
     from repro_torch.kernels.mamba_scan import ref as R11
     gen = torch.Generator(device=device).manual_seed(SEED + 13)
     worst = 0.0
     for B, S, H, P, N in ((8, 1, 80, 64, 64), (1, 1024, 80, 64, 64),
-                          (2, 77, 80, 64, 64), (2, 130, 3, 40, 32)):
+                          (2, 77, 80, 64, 64), (2, 200, 6, 64, 16),
+                          (1, 130, 5, 64, 32), (2, 130, 3, 40, 32)):
         for dtype in (torch.float32, torch.bfloat16):
             for h0_dtype in (torch.float32, torch.bfloat16):
                 ins = _head_scan_inputs(gen, B, S, H, P, N, dtype, h0_dtype,
                                         device)
                 want = R11.scan_heads(*ins)
-                runs = [("wrapper", K11.mamba_scan_heads(*ins))]
-                runs += [(f"parts={p}", K11.launch_scan_heads(*ins, p))
+                runs = [(f"wrapper:{K11.body(S, P, N)}",
+                         K11.mamba_scan_heads(*ins))]
+                if P == K11.CHUNKED_HEAD_DIM:
+                    runs += [(f"ssd:heads={h}",
+                              K11.launch_scan_heads_chunked(*ins, h))
+                             for h in (1, 3)]
+                runs += [(f"head_scan:parts={p}",
+                          K11.launch_scan_heads(*ins, p))
                          for p in (1, 16) if p <= S]
                 dn = str(dtype).split(".")[1]
                 hn = str(h0_dtype).split(".")[1]
@@ -4110,22 +4204,113 @@ def check_head_scan(device="cuda") -> dict:
     return {"mamba_scan_heads": worst}
 
 
+def _head_scan_bound(B, S, H, P, N, item, h_item, route) -> dict:
+    """The least time for the head-shared scan on this card at its route's
+    precision, the larger of: bytes (dt, x, Bc, Cc, A, h0 read once, y and
+    hT written once) over 3.35 TB/s; and, for the chunked route (``ssd``),
+    the products its chunks of 64 steps need (a ragged last one counted at
+    its length n): G = Cc Bc^T a chunk and (M o G) X a head and chunk over
+    their n (n + 1) / 2 lower-triangle entries only (M is 0 above the
+    diagonal), the end state (X o m)^T Bc and (e o Cc) h_start^T over all
+    n steps; each at the passes the route issues for it: G one bf16 pass
+    at 989 TFLOP/s where the inputs are bf16, every other product TF32
+    passes at 494.7, two where one operand is bf16 (exact in TF32: x in
+    (M o G) X, Bc in the end state), else three.  For the thread-a-channel
+    body, 5 fp32 operations an element (b, t, e, n) plus x dt over 67
+    TFLOP/s.  The latter, the recurrence's CUDA-core bound, is logged
+    beside the chunked route's as ``bound_ms_cuda_cores``."""
+    E, L = H * P, 64
+    nbytes = 4 * B * S * H + item * (B * S * E + 2 * B * S * N) + 4 * H \
+        + 2 * h_item * B * H * P * N + 4 * B * S * E
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_cores = (5 * B * S * E * N + 2 * B * S * E) / H100_FLOPS["float32"] \
+        * 1e3
+    out = dict(bytes=nbytes, bound_ms_cuda_cores=max(t_bytes, t_cores))
+    if route == "ssd":
+        tri = (S // L) * L * (L + 1) // 2 + (S % L) * (S % L + 1) // 2
+        g_flops = 2 * B * tri * N                    # G, lower triangle
+        diag = 2 * B * H * tri * P                   # (M o G) X
+        ends = 2 * B * H * S * P * N                 # (X o m)^T Bc
+        starts = 2 * B * H * S * P * N               # (e o Cc) h_start^T
+        one_bf16 = 2 if item == 2 else 3             # passes, x / Bc bf16
+        t_g = g_flops / H100_FLOPS["bfloat16"] if item == 2 \
+            else 3 * g_flops / H100_FLOPS["tf32"]
+        tf32 = one_bf16 * (diag + ends) + 3 * starts
+        t_ops = (t_g + tf32 / H100_FLOPS["tf32"]) * 1e3
+        out.update(flops=g_flops + diag + ends + starts,
+                   tf32_passes=tf32)
+    else:
+        t_ops = t_cores
+        out.update(flops=5 * B * S * E * N + 2 * B * S * E)
+    out.update(bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_ms_operations=t_ops)
+    return out
+
+
+def _against_parent(new, old, reps) -> tuple:
+    """Device ms of ``new`` and ``old`` from CUDA-graph replays in turns
+    (new, old, old, new): the means of each."""
+    a = graph_ms(new, reps)
+    b = graph_ms(old, reps)
+    b = (b + graph_ms(old, reps)) / 2
+    a = (a + graph_ms(new, reps)) / 2
+    return a, b
+
+
+def _chunked_breakdown(fn, calls: int = 5) -> dict:
+    """Device microseconds a call of each of the chunked route's three
+    kernels (torch.profiler over ``calls`` calls of ``fn``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "mamba_ssd::" in e.key:
+            us = getattr(e, "self_device_time_total", None) \
+                or getattr(e, "self_cuda_time_total", 0.0)
+            name = e.key.split("mamba_ssd::")[-1].split("<")[0]
+            out[f"{name.replace('_kernel', '')}_us"] = us / max(e.count, 1)
+    return out
+
+
+def _head_scan_resources(dn, code, N, sms) -> None:
+    from repro_torch.kernels import build
+    regs, spill, smem, ctas, per_cta = build.resources(
+        "mamba_scan_heads_resources", code, code, N)
+    _log("resources", kernel="mamba_scan_heads", dtype=dn, N=N,
+         body="mamba::head_scan_kernel (a thread a channel, one dA a "
+         "head; P other than 64, and the parent's body)", registers=regs,
+         spill_bytes=spill, smem_bytes=smem, ctas_per_sm=ctas,
+         channels_per_cta=per_cta, sms=sms)
+    for pass_, name in ((1, "ends_kernel"), (2, "fold_kernel"),
+                        (3, "out_kernel")):
+        regs, spill, smem, ctas, per_cta = build.resources(
+            "mamba_scan_heads_chunked_resources", code, code, N, pass_)
+        _log("resources", kernel="mamba_scan_heads", dtype=dn, N=N,
+             body=f"mamba_ssd::{name} (chunked, tensor cores)",
+             registers=regs, spill_bytes=spill, smem_bytes=smem,
+             ctas_per_sm=ctas, per_cta=per_cta, sms=sms)
+
+
 def time_head_scan(cfg, chunk, batch, device="cuda") -> dict:
-    """K11's head-shared form at zamba2's serve shapes: its scan kernel's
-    registers, spills, shared memory and CTAs an SM (both dtypes, N 64);
-    a prefill span (B 1, S ``chunk``, bf16 x, bf16 state: 40 CTAs of 128
-    channels, time in the wrapper's chunks) and a decode step (B
-    ``batch``, S 1; with its CUDA-graph device time and the wrapper's host
-    microseconds a call), beside the plain version.  Bound: bytes (dt, x,
-    Bc, Cc, A, h0 read once, y and hT written once) over 3.35 TB/s, or
-    operations (5 fp32 flops an element (b, t, e, n): (x·dt)·B, the
-    state's fma and y's fma; and x·dt a channel and step, over 67
-    TFLOP/s), the larger; one exponential a head and step.  No single
-    PyTorch call computes the recurrence, so no library time.  The result's
+    """K11's head-shared form at zamba2's serve shapes: the registers,
+    spills, shared memory and CTAs an SM of its kernels (both dtypes, N
+    64); a prefill span (B 1, S ``chunk``, bf16 x, bf16 state: the chunked
+    route on the tensor cores, 4 chunks x 80 heads) with, in the same
+    call, the parent's thread-a-channel body at the time split its wrapper
+    picked (``launch_scan_heads``), CUDA-graph device times in turns; and
+    a decode step (B ``batch``, S 1, the one-step kernel; with its device
+    time and the wrapper's host microseconds a call), beside the plain
+    version.  Bound: ``_head_scan_bound``.  No single PyTorch call
+    computes the recurrence, so no library time.  The result's
     ``mamba_scan_heads`` is the prefill span's."""
     import torch
-    from repro_torch.kernels import build
-    from repro_torch.kernels.build import DTYPE_CODE
     from repro_torch.kernels.mamba_scan import kernel as K11
     from repro_torch.kernels.mamba_scan import ref as R11
     gen = torch.Generator(device=device).manual_seed(SEED + 14)
@@ -4133,13 +4318,9 @@ def time_head_scan(cfg, chunk, batch, device="cuda") -> dict:
     H = cfg.ssm_expand * cfg.d_model // P
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dn, code in (("bfloat16", 1), ("float32", 0)):
-        regs, spill, smem, ctas, per_cta = build.resources(
-            "mamba_scan_heads_resources", code, code, N)
-        _log("resources", kernel="mamba_scan_heads", dtype=dn, N=N,
-             body="mamba::head_scan_kernel (a thread a channel, one dA a "
-             "head)", registers=regs, spill_bytes=spill, smem_bytes=smem,
-             ctas_per_sm=ctas, channels_per_cta=per_cta, sms=sms)
+        _head_scan_resources(dn, code, N, sms)
     out = {}
+    index = torch.cuda.current_device()
     for name, B, S, reps in (("prefill", 1, chunk, 20),
                              ("decode", batch, 1, 200)):
         dtype = torch.bfloat16
@@ -4150,33 +4331,36 @@ def time_head_scan(cfg, chunk, batch, device="cuda") -> dict:
                   _hold_stored(f"K11 heads {name}-shape hT", got[1], want[1],
                                dtype))
         del got, want
+        route = K11.body(S, P, N)
         ms = cuda_ms(lambda: K11.mamba_scan_heads(*ins), reps)
-        parts = K11.scan_parts(1, 1, N, B, S, H * P,
-                               torch.cuda.current_device(),
+        parts = K11.scan_parts(1, 1, N, B, S, H * P, index,
                                "mamba_scan_heads_resources")
-        extra = dict(parts=parts,
-                     device_ms=graph_ms(lambda: K11.mamba_scan_heads(*ins),
-                                        reps))
-        if S == 1:
+        extra = dict(route=route)
+        if route == "ssd":
+            extra["heads_per_cta"] = K11.chunk_heads(1, 1, N, B, S, H, index)
+            extra["device_ms"], extra["parent_device_ms"] = _against_parent(
+                lambda: K11.mamba_scan_heads(*ins),
+                lambda: K11.launch_scan_heads(*ins, parts), reps)
+            extra["parent_parts"] = parts
+            extra.update(_chunked_breakdown(
+                lambda: K11.mamba_scan_heads(*ins)))
+        else:
+            extra["device_ms"] = graph_ms(lambda: K11.mamba_scan_heads(*ins),
+                                          reps)
             extra["host_us"] = host_us(lambda: K11.mamba_scan_heads(*ins),
                                        100)
         plain_ms = cuda_ms(lambda: R11.scan_heads(*ins), 2, warmup=1)
-        E, elems = H * P, B * S * H * P * N
-        nbytes = 4 * B * S * H + 2 * (B * S * E + 2 * B * S * N) + 4 * H             + 2 * 2 * B * E * N + 4 * B * S * E
-        ops = 5 * elems + 2 * B * S * E
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = ops / H100_FLOPS["float32"] * 1e3
         r = dict(ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
-                 bytes=nbytes, flops=ops, bound_ms=max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                 shape=f"B={B} S={S} H={H} P={P} N={N}", **extra)
+                 shape=f"B={B} S={S} H={H} P={P} N={N}",
+                 **_head_scan_bound(B, S, H, P, N, 2, 2, route), **extra)
         out[f"mamba_scan_heads_{name}"] = r
         _log("timing", kernel=f"mamba_scan_heads ({name})",
              shape=repr(r["shape"]), ms=ms, plain_ms=plain_ms,
              library_ms=None, bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+             bound_ms_cuda_cores=r["bound_ms_cuda_cores"],
              bound_share=r["bound_ms"] / extra["device_ms"],
              max_abs_err=err, dtype="bfloat16",
-             gb_per_s=nbytes / extra["device_ms"] / 1e6, **extra)
+             gb_per_s=r["bytes"] / extra["device_ms"] / 1e6, **extra)
         del ins
     out["mamba_scan_heads"] = out["mamba_scan_heads_prefill"]
     return out
@@ -4185,12 +4369,15 @@ def time_head_scan(cfg, chunk, batch, device="cuda") -> dict:
 def time_head_scan_train(cfg, batch, seq, device="cuda", reps=5) -> dict:
     """K11's head-shared form at the hybrid trainer's shape (B ``batch``,
     S ``seq``, zamba2's 80 heads of 64, N 64, fp32 inputs and state, as
-    ``apply_mamba2`` trains): the forward kernel (CUDA events, and its
-    device time from a CUDA-graph replay) beside its plain stepped version,
-    held against it, and the backward ``ref.scan_heads_grads`` with the
-    cotangent the trainer gives (y only: hT reaches no loss), its time and
-    the memory it adds.  Bound of the forward: bytes over 3.35 TB/s or 5
-    fp32 operations an element over 67 TFLOP/s, as ``time_head_scan``."""
+    ``apply_mamba2`` trains): the forward kernel (the chunked route; CUDA
+    events, and its device time from CUDA-graph replays in turns with the
+    parent's thread-a-channel body at its wrapper's time split, then in
+    turns with the chunked route at one head a chunk CTA against the
+    wrapper's ``chunk_heads``) beside its
+    plain stepped version, held against it, and the backward
+    ``ref.scan_heads_grads`` with the cotangent the trainer gives (y only:
+    hT reaches no loss), its time and the memory it adds.  Bound of the
+    forward: ``_head_scan_bound``."""
     import torch
     from repro_torch.kernels.mamba_scan import kernel as K11
     from repro_torch.kernels.mamba_scan import ref as R11
@@ -4198,44 +4385,61 @@ def time_head_scan_train(cfg, batch, seq, device="cuda", reps=5) -> dict:
     P, N = cfg.ssm_head_dim, cfg.ssm_state
     H = cfg.ssm_expand * cfg.d_model // P
     B, S, f32 = batch, seq, torch.float32
+    index = torch.cuda.current_device()
     ins = _head_scan_inputs(gen, B, S, H, P, N, f32, f32, device)
     g_y = torch.randn((B, S, H, P), generator=gen, device=device)
     got, want = K11.mamba_scan_heads(*ins), R11.scan_heads(*ins)
     err = max(_hold("K11 heads train-shape y", got[0], want[0], f32),
               _hold("K11 heads train-shape hT", got[1], want[1], f32))
-    del got, want
+    parts = K11.scan_parts(0, 0, N, B, S, H * P, index,
+                           "mamba_scan_heads_resources")
+    old = K11.launch_scan_heads(*ins, parts)
+    err_parent = max(_hold("K11 heads train-shape parent y", old[0], want[0],
+                           f32),
+                     _hold("K11 heads train-shape parent hT", old[1],
+                           want[1], f32))
+    del got, want, old
     _free()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     R11.scan_heads_grads(*ins, g_y, None)
     torch.cuda.synchronize()
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-    E, elems = H * P, B * S * H * P * N
-    nbytes = 4 * (B * S * H + 2 * B * S * E + 2 * B * S * N + H
-                  + 2 * B * E * N)
-    ops = 5 * elems + 2 * B * S * E
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_FLOPS["float32"] * 1e3
+    device_ms, parent_ms = _against_parent(
+        lambda: K11.mamba_scan_heads(*ins),
+        lambda: K11.launch_scan_heads(*ins, parts), reps)
+    # the wrapper's heads a chunk CTA against one, in turns
+    rule_ms, heads1_ms = _against_parent(
+        lambda: K11.mamba_scan_heads(*ins),
+        lambda: K11.launch_scan_heads_chunked(*ins, 1), reps)
+    split = _chunked_breakdown(lambda: K11.mamba_scan_heads(*ins))
     r = dict(ms=cuda_ms(lambda: K11.mamba_scan_heads(*ins), reps * 4),
-             device_ms=graph_ms(lambda: K11.mamba_scan_heads(*ins), reps),
+             device_ms=device_ms, parent_device_ms=parent_ms,
+             parent_parts=parts, parent_max_abs_err=err_parent,
+             rule_device_ms=rule_ms, heads1_device_ms=heads1_ms,
              plain_ms=cuda_ms(lambda: R11.scan_heads(*ins), 1, warmup=1),
              backward_ms=cuda_ms(lambda: R11.scan_heads_grads(
                  *ins, g_y, None), reps, warmup=1),
-             library_ms=None, max_abs_err=err, bytes=nbytes, flops=ops,
-             bound_ms=max(t_bytes, t_ops),
-             bound_by="bytes" if t_bytes >= t_ops else "operations",
-             parts=K11.scan_parts(0, 0, N, B, S, E,
-                                  torch.cuda.current_device(),
-                                  "mamba_scan_heads_resources"),
-             shape=f"B={B} S={S} H={H} P={P} N={N} fp32")
+             library_ms=None, max_abs_err=err,
+             route=K11.body(S, P, N),
+             heads_per_cta=K11.chunk_heads(0, 0, N, B, S, H, index),
+             shape=f"B={B} S={S} H={H} P={P} N={N} fp32", **split,
+             **_head_scan_bound(B, S, H, P, N, 4, 4, K11.body(S, P, N)))
     _log("timing", kernel="mamba_scan_heads (train)", shape=repr(r["shape"]),
-         ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+         ms=r["ms"], device_ms=r["device_ms"],
+         parent_device_ms=r["parent_device_ms"],
+         parent_parts=r["parent_parts"], plain_ms=r["plain_ms"],
          library_ms=None, bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-         bound_share=r["bound_ms"] / r["device_ms"], parts=r["parts"],
+         bound_ms_cuda_cores=r["bound_ms_cuda_cores"],
+         bound_share=r["bound_ms"] / r["device_ms"], route=r["route"],
+         heads_per_cta=r["heads_per_cta"],
+         rule_device_ms=r["rule_device_ms"],
+         heads1_device_ms=r["heads1_device_ms"], **split,
          backward_ms=r["backward_ms"],
          backward_over_forward=r["backward_ms"] / r["ms"],
          backward_extra_gb=peak_gb, backward="ref.scan_heads_grads "
-         "(chunked, plain)", max_abs_err=err, dtype="float32")
+         "(chunked, plain)", max_abs_err=err,
+         parent_max_abs_err=err_parent, dtype="float32")
     del ins, g_y
     return {"mamba_scan_heads_train": r}
 

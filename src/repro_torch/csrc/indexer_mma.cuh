@@ -61,10 +61,10 @@
 // tile_study.py can build and time others.
 //
 // The head counts by form: the span body over paged keys (K6) and over
-// dense keys (K7) takes 8, 16 or 32 heads; the decode form (K5) takes 16 or
-// 32 (takes<> and by_shape<> below: takes<true> admits 8; K5's 8-head form
-// is not instantiated).  K7's fp32 route at 8 heads is the 3xTF32 body at
-// one n-tile (2 tokens a warp, as at 16).
+// dense keys (K7) and the decode form (K5) take 8, 16 or 32 heads
+// (takes and by_shape below; at 8 one n-tile of heads, its B fragments
+// by an ldmatrix .x2).  K7's fp32 route at 8 heads is the
+// 3xTF32 body at one n-tile (2 tokens a warp, as at 16).
 //
 // The decode form (K5, bf16, S = 1).  The span body puts 4 warps x
 // kTokens tokens in a CTA: at one token a row it would leave all but one
@@ -189,11 +189,10 @@ struct Shape {
                 "indexer_mma shape");
 };
 
-// whether a form takes (heads, index_dim): 16 or 32 heads, and 8 where
-// kEight (the span body: K6 and K7); other shapes run the SIMT tile
-template <bool kEight = false>
+// whether the bodies take (heads, index_dim): 8, 16 or 32 heads (every
+// form: K5, K6 and K7); other shapes run the SIMT tile
 inline bool takes(int heads, int index_dim) {
-  return (heads == 16 || heads == 32 || (kEight && heads == 8)) &&
+  return (heads == 8 || heads == 16 || heads == 32) &&
          index_dim % 16 == 0 && index_dim <= 128;
 }
 
@@ -506,7 +505,7 @@ struct DecodeShape {
   static constexpr size_t kSmem =
       ((size_t)HI * kLd + (size_t)kChunk * kLd) * 2
       + (size_t)kChunk * 4 + (Keys::kTable ? (size_t)(kChunk + 1) * 4 : 0);
-  static_assert(HI % 16 == 0 && DI % 16 == 0, "indexer_mma decode shape");
+  static_assert(HI % 8 == 0 && DI % 16 == 0, "indexer_mma decode shape");
 };
 
 template <int HI, int DI, typename Keys>
@@ -568,18 +567,28 @@ decode_kernel(const bf16* __restrict__ q, const float* __restrict__ w,
 
   // the token's B fragments
   uint32_t qf[NT][KS][2];
-#pragma unroll
-  for (int n2 = 0; n2 < NT / 2; ++n2)
+  if constexpr (NT == 1) {   // 8 heads: one n-tile, .x2
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      uint32_t r[4];
-      ldsm_x4(r, Qs + (n2 * 16 + lane % 8 + (lane / 16) * 8) * LD + ks * 16
-                     + ((lane / 8) % 2) * 8);
-      qf[2 * n2][ks][0] = r[0];
-      qf[2 * n2][ks][1] = r[1];
-      qf[2 * n2 + 1][ks][0] = r[2];
-      qf[2 * n2 + 1][ks][1] = r[3];
+      uint32_t r[2];
+      ldsm_x2(r, Qs + (lane % 8) * LD + ks * 16 + ((lane / 8) % 2) * 8);
+      qf[0][ks][0] = r[0];
+      qf[0][ks][1] = r[1];
     }
+  } else {
+#pragma unroll
+    for (int n2 = 0; n2 < NT / 2; ++n2)
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t r[4];
+        ldsm_x4(r, Qs + (n2 * 16 + lane % 8 + (lane / 16) * 8) * LD
+                       + ks * 16 + ((lane / 8) % 2) * 8);
+        qf[2 * n2][ks][0] = r[0];
+        qf[2 * n2][ks][1] = r[1];
+        qf[2 * n2 + 1][ks][0] = r[2];
+        qf[2 * n2 + 1][ks][1] = r[3];
+      }
+  }
   // the warp's 32 keys
   const bf16* Kw = Ks + warp * kDecKeys * LD;
   float* Ow = Os + warp * kDecKeys;
@@ -686,12 +695,10 @@ cudaError_t by_dim(int index_dim, F f) {
   }
 }
 
-// over the head counts takes<kEight> admits
-template <bool kEight = false, typename F>
+// over the head counts takes admits
+template <typename F>
 cudaError_t by_shape(int heads, int index_dim, F f) {
-  if constexpr (kEight) {
-    if (heads == 8) return by_dim<8>(index_dim, f);
-  }
+  if (heads == 8) return by_dim<8>(index_dim, f);
   if (heads == 16) return by_dim<16>(index_dim, f);
   if (heads == 32) return by_dim<32>(index_dim, f);
   return cudaErrorInvalidValue;

@@ -83,8 +83,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_dim(int D, const Args& a, cudaStream_t s) {
-  if (indexer_mma::takes<true>(a.Hi, D))
-    return indexer_mma::by_shape<true>(a.Hi, D, [&](auto hi, auto di) {
+  if (indexer_mma::takes(a.Hi, D))
+    return indexer_mma::by_shape(a.Hi, D, [&](auto hi, auto di) {
       return indexer_mma::launch<T, decltype(hi)::value, decltype(di)::value>(
           a.q, a.w, a.k, a.out, DenseKeys{a.T, a.S}, a.B, a.scale, s);
     });
@@ -122,11 +122,10 @@ int lightning_indexer(int dtype, int index_dim, const void* q, const float* w,
 // thread, shared memory bytes a CTA, CTAs resident on one SM, tokens a CTA.
 int lightning_indexer_resources(int dtype, int heads, int index_dim,
                                 int* out) {
-  if (!indexer_mma::takes<true>(heads, index_dim) ||
+  if (!indexer_mma::takes(heads, index_dim) ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  return (int)indexer_mma::by_shape<true>(heads, index_dim, [&](auto hi,
-                                                                auto di) {
+  return (int)indexer_mma::by_shape(heads, index_dim, [&](auto hi, auto di) {
     constexpr int HI = decltype(hi)::value, DI = decltype(di)::value;
     return dtype == 0
         ? indexer_mma::resources<float, HI, DI, DenseKeys>(out)

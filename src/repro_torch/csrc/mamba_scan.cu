@@ -28,7 +28,12 @@
 //     each thread of the head: no shuffle), dBx = (x * dt) * Bc[n], the
 //     reference's order of products; y (B, S, H, P) in float32 and hT in
 //     h0's dtype (the reference's cast, round-to-nearest-even, done in the
-//     kernel);
+//     kernel).  At a head dim of 64 and N 16, 32 or 64 (zamba2's heads)
+//     with more than one step, the wrapper runs it as a chunked scan on the
+//     tensor cores instead (mamba_scan_heads_chunked, ssd_scan.cuh: chunks
+//     of 64 steps as matrix products, a fold over the chunks between); the
+//     thread-a-channel kernels below take every other shape and the
+//     decode step;
 //   * mamba_scan_contract: the Pallas kernel's contract, for the parity
 //     tests: dA and dBx (B, S, E, N), C (B, S, N) and h0 (B, E, N) in one
 //     dtype (float32 or bfloat16), read a step at a time; y and hT in that
@@ -71,7 +76,8 @@
 // keeps more steps' dt and x in registers (255 a thread at 16 steps, 2
 // CTAs an SM), and the prefill ran 0.92 ms at 16 against 0.56 at 4 (an
 // H100 80GB HBM3 at 700 W).  Not done yet
-// (later work): a backward kernel for either form.  The gradients are plain
+// (later work): a backward kernel for either form (the head-shared one on
+// ssd_scan.cuh's chunks).  The gradients are plain
 // PyTorch (kernels/mamba_scan/ref.py): Mamba-1's the adjoint stepped back
 // a time step at a time (scan_model_grads), the head-shared form's the
 // chunked form differentiated, batched products with no loop over time
@@ -89,6 +95,7 @@
 
 #include <type_traits>
 
+#include "ssd_scan.cuh"
 #include "vec.cuh"
 
 #ifndef REPRO_SCAN_STEPS
@@ -742,6 +749,53 @@ extern "C" int mamba_scan_heads_resources(int dtype, int h0_dtype, int N,
       return mamba::resources(
           mamba::head_scan_kernel<decltype(n)::value, decltype(t),
                                   decltype(ht), false>, out);
+    });
+  });
+}
+
+// The head-shared form's chunked route on the tensor cores
+// (ssd_scan.cuh): P 64, N 16, 32 or 64, S >= 1; dtype / h0_dtype and the
+// tensors as mamba_scan_heads.  ws: pass 1's workspace, B x ceil(S / 64) x
+// H x (P x N + 1) floats (the chunks' end states, then their decays);
+// heads: 1 .. 8 heads a pass-1 CTA.
+extern "C" int mamba_scan_heads_chunked(int dtype, int h0_dtype, int N,
+                                        const void* dt, const void* A,
+                                        const void* x, const void* bc,
+                                        const void* cc, const void* h0,
+                                        void* y, void* hT, void* ws, int B,
+                                        int S, int H, int P, int heads,
+                                        void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || H < 1 || H > 65535
+      || P != mamba_ssd::kP || heads < 1 || heads > mamba_ssd::kMaxHeads
+      || ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return mamba::with_head_state_size(N, [&](auto n) {
+    return mamba::with_types(dtype, h0_dtype, [&](auto t, auto ht) {
+      using T = decltype(t);
+      using HT = decltype(ht);
+      return static_cast<int>(mamba_ssd::launch<decltype(n)::value>(
+          static_cast<const float*>(dt), static_cast<const float*>(A),
+          static_cast<const T*>(x), static_cast<const T*>(bc),
+          static_cast<const T*>(cc), static_cast<const HT*>(h0),
+          static_cast<float*>(y), static_cast<HT*>(hT),
+          static_cast<float*>(ws), B, S, H, heads, st));
+    });
+  });
+}
+
+// The chunked route's kernels for (dtype, h0_dtype, N): pass 1 (the
+// chunks' end states), 2 (the fold over the chunks, hT) or 3 (y); out[5]
+// as mamba_scan_model_resources, the last the steps (passes 1 and 3) or
+// states (pass 2) a CTA.
+extern "C" int mamba_scan_heads_chunked_resources(int dtype, int h0_dtype,
+                                                  int N, int pass,
+                                                  int* out) {
+  return mamba::with_head_state_size(N, [&](auto n) {
+    return mamba::with_types(dtype, h0_dtype, [&](auto t, auto ht) {
+      return static_cast<int>(
+          mamba_ssd::resources<decltype(n)::value, decltype(t),
+                               decltype(ht)>(pass, out));
     });
   });
 }

@@ -35,7 +35,7 @@
 //     zamba2's 8 x 64) run the tensor-core bodies of indexer_mma.cuh with
 //     the keys through the block table (PagedKeys below: a chunk's table
 //     entries read once into shared memory): K6 the span body (shared
-//     with K7) at 8, 16 or 32 heads, K5 its decode form at 16 or 32; the
+//     with K7) and K5 its decode form, each at 8, 16 or 32 heads; the
 //     fp32 routes (the exact parity runs) and other head counts run the
 //     SIMT tile of indexer_tile.cuh;
 //   * K6 bf16: S^T = K Q^T on mma.sync m16n8k16, keys as the A operand
@@ -61,10 +61,9 @@
 //     broadcasts), a thread holds its key's Di values in registers as fp32
 //     and reuses them for every query row of the tile; a token's output row
 //     is written by consecutive threads at consecutive positions.
-// The routes by shape: K6 in bf16 with Hi 8, 16 or 32 and K5 in bf16 with
-// Hi 16 or 32 (any Di the kernel takes) run the tensor-core bodies; every
-// other call (fp32, or another head count: K5 at zamba2's 8 heads) runs
-// the SIMT tile.  Not done yet (later work): K5's decode form at 8 heads,
+// The routes by shape: K5 and K6 in bf16 with Hi 8, 16 or 32 (any Di the
+// kernel takes) run the tensor-core bodies; every other call (fp32, or
+// another head count) runs the SIMT tile.  Not done yet (later work):
 // wgmma, TMA.
 //
 // Interface: plain C, loaded with ctypes.  Each entry point returns the
@@ -194,7 +193,7 @@ extern "C" {
 // (nb, bs, Di); tables (B, mb) int32; seq_lens (B,) int32 (the query's
 // position); out (B, mb*bs) float32 in view coordinates.
 // dtype of q and the pool: 0 = float32, 1 = bfloat16.
-// bf16 at 16 or 32 heads runs the tensor-core decode body, every other
+// bf16 at 8, 16 or 32 heads runs the tensor-core decode body, every other
 // call the SIMT tile.
 int paged_indexer_scores(int dtype, int index_dim, int block_size,
                          const void* q, const float* w, const void* k_pool,
@@ -226,14 +225,13 @@ int paged_prefill_indexer(int dtype, int index_dim, int block_size,
   if (heads <= 0 || SH % heads) return (int)cudaErrorInvalidValue;
   Args a{q, w, k_pool, tables, starts, out, B, SH / heads, heads, mb,
          block_size, scale};
-  if (dtype != 1 || !indexer_mma::takes<true>(heads, index_dim))
+  if (dtype != 1 || !indexer_mma::takes(heads, index_dim))
     return run(dtype, index_dim, a, stream);
   if (B <= 0 || a.S <= 0 || mb <= 0 || block_size <= 0)
     return (int)cudaErrorInvalidValue;
   const PagedKeys keys{tables, starts, mb, block_size, a.S};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)indexer_mma::by_shape<true>(heads, index_dim, [&](auto hi,
-                                                                auto di) {
+  return (int)indexer_mma::by_shape(heads, index_dim, [&](auto hi, auto di) {
     return indexer_mma::launch<__nv_bfloat16, decltype(hi)::value,
                                decltype(di)::value>(q, w, k_pool, out, keys,
                                                     B, scale, s);
@@ -253,8 +251,9 @@ int paged_indexer_resources(int dtype, int index_dim, int heads, int* out) {
 }
 
 // Resources of K5's bf16 tensor-core decode body (indexer_mma.cuh) for
-// `heads` and `index_dim` (launches nothing; cudaErrorInvalidValue where K5
-// runs the SIMT tile): out[5] as above, the last the view positions a CTA.
+// `heads` (8, 16 or 32) and `index_dim` (launches nothing;
+// cudaErrorInvalidValue where K5 runs the SIMT tile): out[5] as above, the
+// last the view positions a CTA.
 int paged_indexer_scores_resources(int heads, int index_dim, int* out) {
   if (!indexer_mma::takes(heads, index_dim))
     return (int)cudaErrorInvalidValue;
@@ -269,10 +268,9 @@ int paged_indexer_scores_resources(int heads, int index_dim, int* out) {
 // where K6 runs the SIMT tile): out[5] as above, the last the span tokens a
 // CTA.
 int paged_prefill_indexer_resources(int heads, int index_dim, int* out) {
-  if (!indexer_mma::takes<true>(heads, index_dim))
+  if (!indexer_mma::takes(heads, index_dim))
     return (int)cudaErrorInvalidValue;
-  return (int)indexer_mma::by_shape<true>(heads, index_dim, [&](auto hi,
-                                                                auto di) {
+  return (int)indexer_mma::by_shape(heads, index_dim, [&](auto hi, auto di) {
     return indexer_mma::resources<__nv_bfloat16, decltype(hi)::value,
                                   decltype(di)::value, PagedKeys>(out);
   });

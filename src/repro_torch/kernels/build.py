@@ -125,6 +125,14 @@ ENTRIES = {
     "mamba_scan_heads": ("mamba_scan", [_I] * 3 + [_P] * 9 + [_I] * 5 + [_P]),
     # its scan kernel: dtype, h0 dtype, N -> as the model form's
     "mamba_scan_heads_resources": ("mamba_scan", [_I] * 3 + [_P]),
+    # its chunked route on the tensor cores (P 64): dtype, h0 dtype, N, dt,
+    # A, x, Bc, Cc, h0, y, hT, workspace, B, S, H, P, heads a CTA, stream
+    "mamba_scan_heads_chunked": ("mamba_scan",
+                                 [_I] * 3 + [_P] * 9 + [_I] * 5 + [_P]),
+    # its kernels: dtype, h0 dtype, N, pass (1 the chunks' end states, 2
+    # the fold, 3 y) -> as the model form's, the last the steps (passes 1,
+    # 3) or states (pass 2) a CTA
+    "mamba_scan_heads_chunked_resources": ("mamba_scan", [_I] * 4 + [_P]),
     # K11 contract: dtype, N, dA, dBx, C, h0, y, hT, B, S, E, stream
     "mamba_scan_contract": ("mamba_scan",
                             [_I] * 2 + [_P] * 6 + [_I] * 3 + [_P]),

@@ -24,7 +24,16 @@ registers):
   model's dtype, h0 (B, H, P, N) fp32 or bfloat16; dA = exp2(dt·A·log2 e)
   is one exponential a head and step; y (B, S, H, P) in fp32 and hT in
   h0's dtype (rounded to nearest even in the kernel, the reference's
-  cast).  Time chunks and the S = 1 step as the model form.
+  cast).  At a head dim of 64 (N 16, 32 or 64: zamba2's heads) and S > 1
+  it runs as a chunked scan on the tensor cores (``csrc/ssd_scan.cuh``,
+  ``body`` gives ``ssd``): chunks of 64 steps as matrix products in three
+  launches, the chunks' end states (a CTA a chunk, batch row and
+  ``chunk_heads`` heads), their fold in order into each chunk's start
+  state and hT, then y.
+  Every other shape keeps the thread-a-channel kernel (``head_scan``, time
+  chunks as the model form), and S = 1 its one-step kernel
+  (``head_step``); ``launch_scan_heads`` forces the thread-a-channel body
+  and ``launch_scan_heads_chunked`` the chunked one.
 
 N (the state size) is one of 1, 2, 4, 8, 16, 32 (the head-shared form: 16,
 32, 64); E, P and S >= 1 are free.
@@ -59,6 +68,9 @@ from repro_torch.kernels.mamba_scan.ref import (reference, scan_heads,
 
 STATE_SIZES = (1, 2, 4, 8, 16, 32)     # N: the instantiated state sizes
 HEAD_STATE_SIZES = (16, 32, 64)        # N of the head-shared form
+CHUNKED_HEAD_DIM = 64                  # P of its chunked route
+CHUNK = 64                             # steps a chunk of the chunked route
+MAX_CHUNK_HEADS = 8                    # heads a chunk CTA, at most
 MAX_BATCH = 65535                      # the grid's y dimension
 MAX_PARTS = 16                         # time chunks a call
 MIN_CHUNK = 64                         # time steps a chunk, at least
@@ -306,11 +318,78 @@ def _launch_heads(dt, A, x, Bc, Cc, h0, B, S, H, P, N, index, parts):
 
 def launch_scan_heads(dt, A, x, Bc, Cc, h0, parts: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The head-shared form's C entry point on checked CUDA tensors with
-    time in ``parts`` chunks (1..16, at most S; 1 where S = 1) -> (y, hT).
-    Counts nothing, as ``launch_scan_model``."""
+    """The head-shared form's thread-a-channel body (``head_scan_kernel``;
+    ``head_step_kernel`` where S = 1) on checked CUDA tensors at any shape
+    it takes, with time in ``parts`` chunks (1..16, at most S; 1 where S =
+    1) -> (y, hT): at P 64 the body the chunked route replaced.  Counts
+    nothing, as ``launch_scan_model``."""
     B, S, H, P, N, index = check_cuda_args_heads(dt, A, x, Bc, Cc, h0)
     return _launch_heads(dt, A, x, Bc, Cc, h0, B, S, H, P, N, index, parts)
+
+
+def body(S: int, P: int, N: int) -> str:
+    """The kernel a head-shared call at these shapes launches: ``ssd`` (the
+    chunked scan on the tensor cores: P 64, N 16 / 32 / 64, S > 1),
+    ``head_step`` (S 1) or ``head_scan`` (a thread a channel: every other
+    shape)."""
+    if S == 1:
+        return "head_step"
+    if P == CHUNKED_HEAD_DIM and N in HEAD_STATE_SIZES:
+        return "ssd"
+    return "head_scan"
+
+
+def chunk_heads_rule(head_chunks: int, H: int, slots: int) -> int:
+    """Heads a chunk CTA takes, of ``head_chunks`` (batch rows x chunks x
+    heads) on a card of ``slots`` chunk-CTA slots: the most that divide H,
+    at most ``MAX_CHUNK_HEADS``, and leave four waves of CTAs or more; 1
+    where there are fewer.  A CTA stages a chunk's Bc and Cc and computes
+    Cc Bc^T once for its heads, which pays where CTAs queue; but its heads
+    run in turn, so fewer, longer CTAs leave more of the last wave idle.
+    On an H100 (264 slots), at zamba2's training shape (5120 head-chunks)
+    1, 2, 4, 5 and 8 heads took 0.431, 0.399, 0.383, 0.376 and 0.412 ms
+    (19, 9.7, 4.8, 3.9 and 2.4 waves: ``tile_study.py --only
+    ssd_heads``); at its prefill span (320) 1 head is the fastest."""
+    cap = max(1, min(MAX_CHUNK_HEADS, head_chunks // (4 * slots)))
+    return max(d for d in range(1, cap + 1) if H % d == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_heads(code: int, h0_code: int, N: int, B: int, S: int, H: int,
+                index: int) -> int:
+    """``chunk_heads_rule`` at these shapes, the slots from the occupancy
+    query of the kernel that writes y (pass 3, the larger of the two chunk
+    kernels).  Cached: shapes only, never the data."""
+    *_, per_sm, _ = _resources("mamba_scan_heads_chunked_resources", code,
+                               h0_code, N, 3)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return chunk_heads_rule(B * -(-S // CHUNK) * H, H, per_sm * sms)
+
+
+def _launch_chunked(dt, A, x, Bc, Cc, h0, B, S, H, P, N, index, heads):
+    y = dt.new_empty((B, S, H, P))
+    hT = torch.empty_like(h0)
+    ws = dt.new_empty(B * -(-S // CHUNK) * H * (P * N + 1))
+    err = cuda_entry("mamba_scan_heads_chunked")(
+        DTYPE_CODE[x.dtype], DTYPE_CODE[h0.dtype], N, dt.data_ptr(),
+        A.data_ptr(), x.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+        h0.data_ptr(), y.data_ptr(), hT.data_ptr(), ws.data_ptr(), B, S, H,
+        P, heads, torch._C._cuda_getCurrentRawStream(index))
+    check_launch("mamba_scan_heads_chunked", err)
+    return y, hT
+
+
+def launch_scan_heads_chunked(dt, A, x, Bc, Cc, h0, heads: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The head-shared form's chunked route on checked CUDA tensors (P 64,
+    any S >= 1) with ``heads`` heads a chunk CTA (1..8) -> (y, hT).
+    Counts nothing, as ``launch_scan_heads``."""
+    B, S, H, P, N, index = check_cuda_args_heads(dt, A, x, Bc, Cc, h0)
+    if P != CHUNKED_HEAD_DIM:
+        raise ValueError(f"mamba_scan_heads chunked route: head dim {P}, "
+                         f"want {CHUNKED_HEAD_DIM}")
+    return _launch_chunked(dt, A, x, Bc, Cc, h0, B, S, H, P, N, index,
+                           heads)
 
 
 def mamba_scan_heads(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
@@ -320,14 +399,22 @@ def mamba_scan_heads(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
     (B, H, P, N) in h0.dtype).
 
     CPU tensors run ``ref.scan_heads``; CUDA tensors launch the Hopper
-    kernel on the current stream: a thread a channel, time in
-    ``scan_parts`` chunks (one launch on the count)."""
+    kernels on the current stream, the route ``body`` names: the chunked
+    scan on the tensor cores, ``chunk_heads`` heads a chunk CTA; or a
+    thread a channel, time in ``scan_parts`` chunks (one launch on the
+    count either way)."""
     if dt.device.type == "cpu":
         return scan_heads(dt, A, x, Bc, Cc, h0)
     B, S, H, P, N, index = check_cuda_args_heads(dt, A, x, Bc, Cc, h0)
-    parts = scan_parts(DTYPE_CODE[x.dtype], DTYPE_CODE[h0.dtype], N, B, S,
-                       H * P, index, "mamba_scan_heads_resources")
-    out = _launch_heads(dt, A, x, Bc, Cc, h0, B, S, H, P, N, index, parts)
+    code, h0_code = DTYPE_CODE[x.dtype], DTYPE_CODE[h0.dtype]
+    if body(S, P, N) == "ssd":
+        out = _launch_chunked(dt, A, x, Bc, Cc, h0, B, S, H, P, N, index,
+                              chunk_heads(code, h0_code, N, B, S, H, index))
+    else:
+        parts = scan_parts(code, h0_code, N, B, S, H * P, index,
+                           "mamba_scan_heads_resources")
+        out = _launch_heads(dt, A, x, Bc, Cc, h0, B, S, H, P, N, index,
+                            parts)
     count_launch(mamba_scan_heads)
     return out
 

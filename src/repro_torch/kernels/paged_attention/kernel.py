@@ -8,7 +8,7 @@ ports ``paged_indexer_scores_kernel`` (DSA lightning-indexer scores over the
 ``k_idx`` pool).  The CUDA kernels are in ``csrc/paged_attention.cu`` (K1,
 K2), ``csrc/paged_mla.cu`` (K3, K4) and ``csrc/paged_indexer.cu`` (K5, K6),
 built by ``repro_torch.kernels.build``: K1's bf16 body, K3's bf16 tile and
-K5's bf16 decode body at 16 or 32 indexer heads run on the tensor cores
+K5's bf16 decode body at 8, 16 or 32 indexer heads run on the tensor cores
 (``mma.sync``), the fp32 routes (the exact parity runs) on the CUDA cores.
 ``*_plain`` is the same function in plain PyTorch — the counterpart of
 the reference's XLA twins ``ops._blocked_gqa`` / ``_blocked_mla`` /
@@ -538,7 +538,7 @@ def paged_indexer_scores_kernel(q_idx: torch.Tensor, w_head: torch.Tensor,
     ``seq_lens[b]``'s are NEG_INF.
 
     CPU tensors run ``paged_indexer_scores_plain``; CUDA tensors launch the
-    Hopper kernel on the current stream: bf16 at Hi 16 or 32 the
+    Hopper kernel on the current stream: bf16 at Hi 8, 16 or 32 the
     tensor-core decode body (a CTA per 128 view positions and row, a warp
     32 of them), fp32 and other head counts the SIMT tile (a CTA per 128
     view positions and row)."""

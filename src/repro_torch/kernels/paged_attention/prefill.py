@@ -25,7 +25,7 @@ cp.async ring, each tile's causal key range split over up to 4 CTAs with a
 combine pass when that fills the card better: K2 the tile of
 ``csrc/mma_tile.cuh``, K4 its 16-warp MLA form in ``csrc/paged_mla.cu``);
 fp32 runs the exact SIMT bodies (``csrc/gqa_tile.cuh``, K4's own).  K6 in
-bf16 at 16 or 32 indexer heads runs a tensor-core body of its own
+bf16 at 8, 16 or 32 indexer heads runs a tensor-core body of its own
 (``span_mma``: the keys as mma.sync's A operand, the heads of a token as
 its N, ReLU and the weighted head sum on the accumulator); fp32 and other
 head counts run the SIMT tile it shares with K5 and K7.

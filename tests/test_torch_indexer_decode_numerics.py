@@ -23,8 +23,8 @@ Held against the Pallas kernel (fp32 throughout, fed the same bf16
 values) and the plain K5 at the bf16 bound, 2e-2 scaled by
 min(1, max|reference|), the dead blocks equal; the top-2048 sets the
 selector takes agree except at near-ties of the 2048th score; Yi-6B's
-16 x 64 and GLM-5's 32 x 128 indexer shapes, blocks of 16 and 32, a view
-of 2560 positions.
+16 x 64, GLM-5's 32 x 128 and zamba2 + DSA's 8 x 64 (one n-tile of
+heads) indexer shapes, blocks of 16 and 32, a view of 2560 positions.
 """
 import functools
 
@@ -64,7 +64,7 @@ def _case(Hi, Di, bs):
     return ins, want, plain
 
 
-@pytest.mark.parametrize("Hi,Di", [(16, 64), (32, 128)])
+@pytest.mark.parametrize("Hi,Di", [(16, 64), (32, 128), (8, 64)])
 @pytest.mark.parametrize("bs", [16, 32])
 def test_indexer_decode_arithmetic_matches_pallas(Hi, Di, bs):
     ins, want, plain = _case(Hi, Di, bs)

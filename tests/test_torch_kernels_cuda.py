@@ -19,7 +19,10 @@ blocks, a CTA each, folded by a combine pass (forced here to every count
 1..16 through its C entry point); K11 gives a thread each channel and cuts
 time into chunks (forced here to every count the rule can pick through
 ``launch_scan_model``; S 1 runs its one-step kernel; its head-shared form
-the same through ``launch_scan_heads`` at N 16 and 64); K1 and K2 also at
+the same through ``launch_scan_heads`` at N 16 and 64, and at a head dim
+of 64 its chunked route on the tensor cores through
+``launch_scan_heads_chunked`` at N 16 / 32 / 64 with 1, 3 and 8 heads a
+chunk CTA); K1 and K2 also at
 zamba2's head dim 80 (MHA and GQA, both dtypes, every block size), beside
 K9's bf16 tile, which shares K2's bf16 tensor-core tile, at d 64 / 128;
 K9 at d 80 too (zamba2's shared block in training: both tiles, 32 / 32
@@ -27,7 +30,7 @@ heads and G 4, every option; K7 at its 8 x 64 indexer, both dtypes);
 K3's bf16 route runs K4's tensor-core tile over a one-token span with
 each row's key rounds split over parts (forced here to every count 1..16
 through ``launch_decode_mla``), its fp32 route the SIMT body; K5's bf16
-route at Hi 16 / 32 runs the decode form of the indexer tensor-core
+route at Hi 8 / 16 / 32 runs the decode form of the indexer tensor-core
 body, fp32 and
 other head counts the SIMT tile.  Each is
 held over every case its dispatch takes (head dims, block sizes, groups,
@@ -894,14 +897,15 @@ def _k5_lens(bs, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Hi", [16, 32])
+@pytest.mark.parametrize("Hi", [16, 32, 8])
 @pytest.mark.parametrize("Di", [64, 128])
 @pytest.mark.parametrize("bs", [8, 16, 32])
 @pytest.mark.parametrize("B", [8, 16, 32])
 def test_paged_indexer_scores_tensor_cores_match_plain(Hi, Di, bs, B):
-    """K5's bf16 route, the tensor-core decode body, at Hi 16 / 32 and Di
-    64 / 128: dead blocks NEG_INF in both, the live scores within the bf16
-    2e-2 scaled by min(1, max|plain|); one launch counted."""
+    """K5's bf16 route, the tensor-core decode body, at Hi 16 / 32 / 8 (one
+    n-tile of heads) and Di 64 / 128: dead blocks NEG_INF in both, the
+    live scores within the bf16 2e-2 scaled by min(1, max|plain|); one
+    launch counted."""
     _need_gpu()
     rng = np.random.default_rng(Hi + Di + bs + B)
     lens, mb = _k5_lens(bs, B)
@@ -919,8 +923,8 @@ def test_paged_indexer_scores_tensor_cores_match_plain(Hi, Di, bs, B):
     # take the heads
     (torch.float32, 1e-4, 16, 64), (torch.float32, 1e-4, 32, 128),
     (torch.float32, 1e-4, 8, 64), (torch.float32, 1e-4, 4, 128),
-    (torch.float32, 1e-4, 2, 16), (torch.bfloat16, 2e-2, 8, 64),
-    (torch.bfloat16, 2e-2, 4, 128), (torch.bfloat16, 2e-2, 2, 16)])
+    (torch.float32, 1e-4, 2, 16), (torch.bfloat16, 2e-2, 4, 128),
+    (torch.bfloat16, 2e-2, 2, 16)])
 def test_paged_indexer_scores_simt_routes(dtype, tol, Hi, Di):
     """K5's SIMT tile: every fp32 call, and bf16 at head counts the
     tensor-core body does not take."""
@@ -998,10 +1002,10 @@ def _hold_scan(got, want, tol=1e-5):
     (2, 130, 3, 40, 32),      # E 120: a ragged CTA
     (1, 1, 5, 24, 16)])
 def test_mamba_scan_heads_every_parts(dtype, h0_dtype, B, S, H, P, N):
-    """K11's head-shared form through its C entry point at parts 1, 2 and
-    16 (at most S; S 1 is the one-step kernel) and through the wrapper:
-    y (fp32 on both sides) and hT (in h0's dtype) as ``_hold_scan``
-    holds them."""
+    """K11's head-shared thread-a-channel body through its C entry point at
+    parts 1, 2 and 16 (at most S; S 1 is the one-step kernel) and the
+    wrapper (the chunked route where P is 64 and S > 1): y (fp32 on both
+    sides) and hT (in h0's dtype) as ``_hold_scan`` holds them."""
     _need_gpu()
     rng = np.random.default_rng(B * S + H + N)
     ins = _head_inputs(rng, B, S, H, P, N, dtype, h0_dtype)
@@ -1021,12 +1025,57 @@ def test_mamba_scan_heads_every_parts(dtype, h0_dtype, B, S, H, P, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h0_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,N", [
+    (1, 256, 80, 64),         # zamba2's prefill span: 4 chunks
+    (2, 77, 6, 64),           # a ragged second chunk
+    (1, 130, 5, 32),
+    (2, 200, 3, 16),
+    (1, 1, 4, 64)])           # one step, forced onto the chunked route
+def test_mamba_scan_heads_chunked_matches_plain(dtype, h0_dtype, B, S, H,
+                                                N):
+    """K11's head-shared chunked route (``csrc/ssd_scan.cuh``: P 64) with
+    1, 3 and 8 heads a chunk CTA (a ragged last group where H is not a
+    multiple) and through the wrapper (S > 1): y and hT as ``_hold_scan``
+    holds them; one launch counted."""
+    _need_gpu()
+    rng = np.random.default_rng(B * S + H + N + 7)
+    ins = _head_inputs(rng, B, S, H, 64, N, dtype, h0_dtype)
+    want_y, want_h = K11ref.scan_heads(*ins)
+    for heads in (1, 3, 8):
+        y, hT = K11.launch_scan_heads_chunked(*ins, heads)
+        torch.cuda.synchronize()
+        assert y.shape == (B, S, H, 64) and hT.dtype == h0_dtype
+        _hold_scan(y, want_y)
+        _hold_scan(hT, want_h)
+    if S > 1:
+        assert K11.body(S, 64, N) == "ssd"
+        before = K11.mamba_scan_heads.launches
+        y, hT = K11.mamba_scan_heads(*ins)
+        torch.cuda.synchronize()
+        assert K11.mamba_scan_heads.launches == before + 1
+        _hold_scan(y, want_y)
+        _hold_scan(hT, want_h)
+
+
+@pytest.mark.cuda
 def test_mamba_scan_heads_parts_rule_at_zamba2():
-    """A hybrid prefill span is batch 1: 40 CTAs of 128 channels on the
-    card's SMs, so the wrapper cuts time into chunks; a decode step takes
-    one."""
+    """zamba2's heads (P 64) take the chunked route past one step: a CTA a
+    head at its prefill span (4 chunks x 80 heads: under four waves), more
+    at the training shape (64 chunks x 80 heads), a divisor of 80; the
+    thread-a-channel body's time split still serves the shapes it keeps
+    and the parent's body it is timed against: a decode step one part, a
+    batch-1 span of 1024 (40 CTAs of 128 channels on the card's SMs) cut
+    into chunks."""
     _need_gpu()
     index, q = torch.cuda.current_device(), "mamba_scan_heads_resources"
+    assert K11.body(1, 64, 64) == "head_step"
+    assert K11.body(256, 64, 64) == "ssd"
+    assert K11.body(130, 40, 32) == "head_scan"
+    assert K11.chunk_heads(1, 1, 64, 1, 256, 80, index) == 1
+    heads = K11.chunk_heads(0, 0, 64, 2, 2048, 80, index)
+    assert 1 < heads <= K11.MAX_CHUNK_HEADS and 80 % heads == 0
     assert K11.scan_parts(1, 1, 64, 8, 1, 5120, index, q) == 1
     assert 1 < K11.scan_parts(1, 1, 64, 1, 1024, 5120, index, q) \
         <= K11.MAX_PARTS
@@ -1044,6 +1093,12 @@ def test_mamba_scan_heads_refuses_what_it_cannot_take():
     bad = _head_inputs(rng, 2, 5, 4, 16, 8, torch.float32, torch.float32)
     with pytest.raises(ValueError):           # N 8: not instantiated
         K11.mamba_scan_heads(*bad)
+    with pytest.raises(ValueError):           # P 16: not the chunked route's
+        K11.launch_scan_heads_chunked(*ins, 1)
+    wide = _head_inputs(rng, 2, 5, 4, 64, 16, torch.float32, torch.float32)
+    for heads in (0, K11.MAX_CHUNK_HEADS + 1):
+        with pytest.raises(RuntimeError):
+            K11.launch_scan_heads_chunked(*wide, heads)
     with pytest.raises(TypeError):            # dt must be fp32
         K11.mamba_scan_heads(ins[0].bfloat16(), *ins[1:])
     with pytest.raises(ValueError):           # not contiguous

@@ -109,11 +109,24 @@ that choice, the tile sizes and the tiles against their yardsticks:
              gathered to the 64 heads;
   indexer_decode  K5 (bf16) at the DSA serve phase's decode step (B 8 at
              the DSA mix's lengths + 16, a view of 6432 positions, blocks
-             of 16, 8 layers' tables) at Yi-6B's (16 x 64) and GLM-5's (32
-             x 128) indexer shapes: the C entry point's device time from
+             of 16, 8 layers' tables) at Yi-6B's (16 x 64), GLM-5's (32
+             x 128) and zamba2's (8 x 64) indexer shapes: the C entry
+             point's device time from
              CUDA-graph replay, held at the bf16 bound with the dead blocks
              equal, beside the wrapper's time, device time and host
              microseconds a call;
+  ssd_heads  K11's head-shared chunked route (``csrc/ssd_scan.cuh``) at
+             zamba2's prefill span (B 1, S 256, bf16) and training shape
+             (B 2, S 2048, fp32): every divisor of 80 up to 8 heads a chunk
+             CTA, device times from CUDA-graph replay in turns against the
+             wrapper's choice, each held at the fp32 bound, with each of
+             the three kernels' device microseconds;
+  dsa_flips  zamba2 + DSA at 12 layers, B 1, S 2560 (the train parity's
+             shape), seeds 0-3: each top-k selection of the forward on the
+             kernel route, and with K11's head-shared form on the parent's
+             thread-a-channel body, against the plain route's: differing
+             indices, near-ties (``chip_smoke._TopkAlign``'s rule), the
+             largest score gap;
   parent     with ``--parent DIR``, another revision's
              ``src/repro_torch/csrc`` with its ``src/repro_torch/kernels``
              beside it (for example ``git archive <commit> src/repro_torch``,
@@ -1313,6 +1326,158 @@ def k5_decode_case(tag, Hi, Di, parent=None):
           + " ".join(f"{k}={v:.2f}" for k, v in host.items()), flush=True)
 
 
+def ssd_heads_case(tag, B, S, dtype_name, reps=20):
+    """K11's head-shared chunked route (``csrc/ssd_scan.cuh``) at zamba2's
+    width (80 heads of 64, N 64): at every divisor of 80 up to
+    ``MAX_CHUNK_HEADS`` heads a chunk CTA, device milliseconds from
+    CUDA-graph replay in turns against the wrapper (its ``chunk_heads``),
+    each held at the fp32 bound against the plain version, and each
+    kernel's device microseconds a call (``torch.profiler``)."""
+    import torch
+    from repro_torch.kernels.mamba_scan import kernel as K11
+    from repro_torch.kernels.mamba_scan import ref as R11
+    from chip_smoke import _chunked_breakdown, _head_scan_inputs
+    dtype = getattr(torch, dtype_name)
+    H, P, N = 80, 64, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    ins = _head_scan_inputs(gen, B, S, H, P, N, dtype, dtype, "cuda")
+    want = R11.scan_heads(*ins)
+    code = K11.DTYPE_CODE[dtype]
+    rule = K11.chunk_heads(code, code, N, B, S, H,
+                           torch.cuda.current_device())
+
+    def wrapper():
+        return K11.mamba_scan_heads(*ins)
+    for heads in [h for h in range(1, K11.MAX_CHUNK_HEADS + 1) if H % h == 0]:
+        def forced(heads=heads):
+            return K11.launch_scan_heads_chunked(*ins, heads)
+        got = forced()
+        _hold(f"K11 ssd {tag} heads={heads} y", got[0], want[0],
+              torch.float32)
+        del got
+        times = alternate(forced, wrapper,
+                          measure=lambda fn: graph_ms(fn, reps))
+        split = _chunked_breakdown(forced)
+        print(f"[ssd_heads] case={tag} B={B} S={S} dtype={dtype_name} "
+              f"heads={heads} wrapper_heads={rule} "
+              f"forced_ms={','.join(f'{x:.5f}' for x in times['new'])} "
+              f"wrapper_ms={','.join(f'{x:.5f}' for x in times['old'])} "
+              + " ".join(f"{k}={v:.2f}" for k, v in split.items()),
+              flush=True)
+
+
+class _parent_scan_body:
+    """Inside ``with _parent_scan_body():`` K11's head-shared wrapper runs the
+    parent's thread-a-channel body at the time split its wrapper picked
+    (``launch_scan_heads`` at ``scan_parts``), as the parent's wrapper
+    did; restored on exit."""
+
+    def __enter__(self):
+        from repro_torch.kernels.mamba_scan import kernel as K11
+        self._saved = K11.mamba_scan_heads
+
+        def parent(dt, A, x, Bc, Cc, h0):
+            B, S, H, P, N, index = K11.check_cuda_args_heads(dt, A, x, Bc,
+                                                             Cc, h0)
+            parts = K11.scan_parts(K11.DTYPE_CODE[x.dtype],
+                                   K11.DTYPE_CODE[h0.dtype], N, B, S, H * P,
+                                   index, "mamba_scan_heads_resources")
+            return K11.launch_scan_heads(dt, A, x, Bc, Cc, h0, parts)
+        K11.mamba_scan_heads = parent
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.mamba_scan import kernel as K11
+        K11.mamba_scan_heads = self._saved
+        return False
+
+
+def dsa_flips_case(seed, layers=12, seq=2560, device="cuda"):
+    """zamba2 + DSA's token selections as ``chip_smoke.py``'s train parity
+    makes them (``layers`` layers, B 1, S ``seq``: past top-k 2048), the
+    weights and tokens from ``seed``: the forward of ``hybrid.loss`` on
+    the kernel route, on the kernel route with K11's head-shared form on
+    the parent's thread-a-channel body, and on the plain route
+    (``chip_smoke.plain_route``).  Against the plain route's, each of the
+    first two's top-k selections: the indices that differ, those of them
+    at near-ties (the plain score within the fp32 tolerance x min(1,
+    max|score|) of the k-th plain score: ``chip_smoke._TopkAlign``'s rule)
+    and the others, the farthest differing index's distance from the k-th
+    score over that tolerance, and the largest score difference relative
+    to the call's max |plain score|."""
+    import contextlib
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import dsa
+    from repro_torch.models import get_model
+    from chip_smoke import TOL, _free, plain_route
+    cfg = get_config("zamba2_2p7b").replace(num_layers=layers)
+    M = get_model(cfg)
+    model = M.init(cfg, torch.Generator(device=device).manual_seed(seed),
+                   device=device)
+    toks = np.random.default_rng(seed + 3).integers(0, cfg.vocab_size,
+                                                    (1, seq + 1))
+    t = torch.from_numpy(toks.astype(np.int32)).to(device)
+    batch = {"tokens": t[:, :-1], "targets": t[:, 1:]}
+    select = dsa.select_topk
+
+    def selections(route):
+        calls = []
+
+        def record(scores, mask, k):
+            sel, valid = select(scores, mask, k)
+            calls.append((sel, valid, scores.detach().clone(), mask, k))
+            return sel, valid
+        dsa.select_topk = record
+        try:
+            with route:
+                loss = float(M.loss(model, batch)[0])
+        finally:
+            dsa.select_topk = select
+        return loss, calls
+
+    def chosen(scores, idx, ok):
+        out = torch.zeros(scores.shape, dtype=torch.bool,
+                          device=scores.device)
+        return out.scatter_(-1, idx, ok)
+    loss_p, plain = selections(plain_route())
+    for name, route in (("kernel", contextlib.nullcontext()),
+                        ("parent_body", _parent_scan_body())):
+        loss, calls = selections(route)
+        if len(calls) != len(plain):
+            raise AssertionError(f"dsa_flips: {len(calls)} selections "
+                                 f"against {len(plain)}")
+        per_call, near, gap, reach = [], 0, 0.0, 0.0
+        for (sel, valid, scores, mask, k), (sel_p, valid_p, scores_p, _, _) \
+                in zip(calls, plain):
+            live = scores_p.masked_fill(~mask, 0.0)
+            top = live.abs().max().clamp_min(1e-30)
+            gap = max(gap, ((scores.masked_fill(~mask, 0.0) - live).abs()
+                            .max() / top).item())
+            diff = chosen(scores, sel, valid) ^ chosen(scores_p, sel_p,
+                                                      valid_p)
+            per_call.append(int(diff.sum()))
+            if not per_call[-1]:
+                continue
+            kth = torch.where(mask, scores_p, float("-inf")).topk(
+                min(k, scores_p.shape[-1]), dim=-1).values[..., -1:]
+            tol = TOL["float32"] * min(1.0, top.item())
+            off = (scores_p - kth).abs()
+            reach = max(reach, torch.where(diff, off, 0.0).max().item() / tol)
+            near += int((diff & (off <= tol)).sum())
+        print(f"[dsa_flips] seed={seed} layers={layers} seq={seq} "
+              f"route={name} calls={len(calls)} "
+              f"differing={sum(per_call)} near_ties={near} "
+              f"far={sum(per_call) - near} "
+              f"max_dist_over_tol={reach:.4g} max_rel_score_gap={gap:.4g} "
+              f"loss={loss:.7f} plain_loss={loss_p:.7f} "
+              f"per_call={per_call}", flush=True)
+        del calls
+    del model, plain
+    _free()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path, default=None,
@@ -1321,7 +1486,8 @@ def main() -> int:
     parser.add_argument("--only", default=None,
                         help="comma-separated studies to run (split, mla, "
                              "tf32, decode, ce, sparse32, indexer, lightning, "
-                             "scan, mla_decode, indexer_decode, flash_bf16); "
+                             "scan, mla_decode, indexer_decode, flash_bf16, "
+                             "ssd_heads, dsa_flips); "
                              "all by "
                              "default")
     args = parser.parse_args()
@@ -1481,10 +1647,21 @@ def main() -> int:
         mlad.update({k: v for k, v in studied.items()
                      if k.startswith("mlad")})
         k3_decode_case(mlad, parent=parent.get("paged_decode_mla"))
-    # K5: the DSA serve phase's decode step at Yi-6B's and GLM-5's indexer
-    # shapes
+    # K11's head-shared chunked route: heads a chunk CTA at zamba2's
+    # prefill span and training shape
+    if run("ssd_heads"):
+        ssd_heads_case("span", 1, 256, "bfloat16")
+        ssd_heads_case("train", 2, 2048, "float32", reps=5)
+    # zamba2 + DSA's top-k selections on the kernel route, with the parent's
+    # scan body, against the plain route, at four seeds
+    if run("dsa_flips"):
+        for seed in (0, 1, 2, 3):
+            dsa_flips_case(seed)
+    # K5: the DSA serve phase's decode step at Yi-6B's, GLM-5's and
+    # zamba2's (one n-tile of heads) indexer shapes
     if run("indexer_decode"):
-        for tag, hi, di in (("yi6b", 16, 64), ("glm5", 32, 128)):
+        for tag, hi, di in (("yi6b", 16, 64), ("glm5", 32, 128),
+                            ("zamba2", 8, 64)):
             k5_decode_case(tag, hi, di,
                            parent=parent.get("paged_indexer_scores"))
     return 0
