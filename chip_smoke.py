@@ -19,7 +19,12 @@ training path (slice 4: the Muon Split trainer on Yi-6B, Yi-6B + DSA and,
 slice 5, Yi-6B + DSA(block) at full width, 8 layers; slice 6,
 falcon-mamba-7b at full width, 8 layers; slice 17, zamba2-2.7b and
 zamba2 + DSA at full width, 12 layers; K9 flash attention, K10 chunked
-cross-entropy, K7 lightning indexer, K8 block-sparse attention, K11).
+cross-entropy, K7 lightning indexer, K8 block-sparse attention, K11);
+and the rest of the model registry (slice 19): phi-3-vision (family vlm:
+patch embeddings before the text; K1/K2/K9 at head dim 96), whisper-base
+(family audio, the encoder-decoder: K9 not causal, Sq != Sk) and the
+qwen3-moe, kimi-k2, nemotron-4 and minitron configs (K1/K2 at G 16, 8,
+6 and 3), each without the repo's DSA retrofit, as published.
 Phases, each printing lines of numbers (any failure exits non-zero):
 
   build    compile the hand-written CUDA kernels from ``src/repro_torch/csrc``
@@ -84,7 +89,15 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            to -80, every input's gradient within 1e-4 of its max against
            autograd through the stepped plain scan; K1 and K2 also at
            zamba2's shared-block shape (32 heads of 80, G 1) in the first
-           list;
+           list; slice 19 adds to it K1/K2 at phi-3-vision's 32 heads of 96
+           (G 1) and at d 128 with minitron's G 3, nemotron-4's G 6 and
+           qwen3-moe's G 16, K5/K6/K7 at minitron's 12 x 64 indexer (the
+           SIMT tile), K9 at d 96 (causal, not, q_offset + softcap) and at
+           whisper's shapes (8 x 64, not causal: 448 and 1 queries against
+           1500 frames, the 1500 frames against themselves), its
+           gradients through ``flash_attend`` at d 96 (causal and not) and
+           at whisper's cross shape, and K10 at V 32064 / D 3072, V 51865
+           / D 512 and V 163840 / D 7168, both dtypes;
   timing   K3/K4's and K5/K6's registers, spills, shared memory and CTAs
            resident on an SM, as the CUDA runtime reports them (K3's parts
            and CTAs at the decode step; the indexer tensor-core bodies at
@@ -189,7 +202,13 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            training shape (B 2, S 2048, fp32: ``mamba_scan_heads
            (train)``; the chunked route beside the parent's body in the
            same call), its plain stepped version and its chunked plain
-           backward's time and memory beside the forward's;
+           backward's time and memory beside the forward's; K1/K2 at
+           phi-3-vision's and qwen3-moe's shapes over 8 layers' pools
+           (lines tagged ``_phi3``, ``_qwen3``), K9 and K10 at phi-3's
+           training shape (B 1, 576 patches + 1472 tokens) and at
+           whisper's (K9 over the encoder's 1500 frames, B 8, not
+           causal; K10 over 8 x 448 tokens), tagged ``_phi3`` and
+           ``_whisper``;
   parity   Yi-6B at full width with 2 layers in fp32: the port's
            ContinuousEngine (mid-flight admission, a shared prefix with a
            radix hit and a COW fork, chunked prefill) gives the same greedy
@@ -230,7 +249,16 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            waves and then restored) and through ``DisaggServer``
            (``pd_threshold`` 200: the long prompts prefill on their tier
            and migrate), each against the oracle as above, spill on equal
-           to off;
+           to off; then the rest of the registry in fp32: phi-3-vision at
+           full width, 2 layers, its ``make_prefill_step`` over 576 patch
+           embeddings (logits within 1e-4 of max(1, |plain|) of the plain
+           route's, K9 once a layer) and its engine on text-only requests
+           against the oracle as above; whisper-base whole, 4 rows of 1500
+           frames and 32 prompt tokens: prefill + 16 greedy decode steps
+           equal to the full forward over the tokens chosen, and the
+           tokens equal to the plain route's where the margin holds;
+           qwen3-moe, nemotron-4 and kimi-k2 (at 2 dense layers,
+           first_k_dense=2) at full width, 2 layers, against the oracle;
   serve    Yi-6B at full width and depth (32 layers, dsa=None) in bf16 on a
            2 GiB pool: 8 requests of 32..1024 prompt tokens, half sharing a
            system prefix, prefill_chunk 256; then (``[frontend]``) the same
@@ -285,7 +313,16 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            batch, 32 new tokens: prefill ms (the batch's TTFT), decode step
            ms p50 and decode tok/s, timed by the script around the engine's
            calls (it stamps no times), K11's launches (64 + 32 x 64 = 2112)
-           and K10's (0).  Each path's kernels' launch counters
+           and K10's (0); then phi-3-vision at full width and depth (32
+           layers, bf16) on the first mix (text-only requests) and one
+           ``make_prefill_step`` over 576 patches + 1472 tokens; qwen3-moe,
+           kimi-k2 (1 dense + 1 MoE layer of 384 experts, ~40 GB),
+           nemotron-4 and minitron at full width, depth 2, on the first
+           mix; whisper-base whole through ``launch.steps`` (8 rows of
+           1500 frames, 16 prompt tokens, 64 greedy tokens: encode ms,
+           prefill ms, decode step ms p50, decode tok/s, K9's launches;
+           ``make_prefill_step``'s logits against the prefill's at the
+           bf16 bound).  Each path's kernels' launch counters
            are set to 0 just before and read just after its run;
   train    one Muon step on the kernel route and one on the plain route
            (the three wrappers pointed at their plain versions) from the
@@ -296,8 +333,8 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            gradient and every parameter after the step within the
            tolerances of ``train_parity``; then the trainer
            (``launch.train.train``) for 5 steps of Yi-6B (8 layers, dense,
-           batch 2 x 2048), of Yi-6B + DSA and of Yi-6B + DSA(block) (8
-           layers, batch 1 x 4096) and of falcon-mamba-7b (8 layers, batch
+           batch 2 x 2048), of Yi-6B + DSA and of Yi-6B + DSA(block) (4
+           layers since slice 19, batch 1 x 4096) and of falcon-mamba-7b (8 layers, batch
            2 x 2048): losses finite and falling, step ms,
            tokens/s, peak memory, and the launches of K7/K8/K9/K10/K11,
            which must equal the count expected from the depth and the
@@ -307,9 +344,15 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            DSA indexer's leaves get no gradient on either route, as the
            reference drops its loss) and 5 trainer steps (2 x 2048 dense,
            1 x 4096 with DSA; K9 at d 80 or K7 at 8 x 64, K10, K11's
-           head-shared form a Mamba-2 layer);
-  profile  one training step of each training run (at 4 layers; zamba2 at
-           6, one group, its scan gradients timed apart) cut into
+           head-shared form a Mamba-2 layer); then phi-3-vision at full
+           width (train parity at 2 layers, 576 patches + 1472 tokens; 5
+           steps at 8 layers, B 1) and whisper-base whole (train parity at
+           B 2, 5 steps at B 8 x 448 text tokens over 1500 frames),
+           batches with their embeddings (``train_run_frontend``: the
+           trainer's loop, which its token corpus cannot feed);
+  profile  one training step of each training run (at 2 layers since
+           slice 19; zamba2 at 6, one group, its scan gradients timed
+           apart) cut into
            its layers (forward, loss, backward, Muon; synchronised) and
            one traced with torch.profiler (busy share, top kernels, K7/K8/
            K9/K10/K11 device time, found by kernel name: a kernel the step
@@ -483,7 +526,9 @@ def _tables(rng, B, mb, trash, live_blocks):
 
 def check_kernels(device="cuda") -> dict:
     """K1/K2 vs plain on ragged rows (Yi-6B's, a gemma2-like and zamba2's
-    shared-block shape: 32 heads of 80, G 1); returns the max error per
+    shared-block shape: 32 heads of 80, G 1; phi-3-vision's 32 heads of
+    96, G 1; minitron's G 3, nemotron-4's G 6 and qwen3-moe's G 16 at d
+    128, their KV heads as published); returns the max error per
     kernel."""
     import numpy as np
     import torch
@@ -493,7 +538,10 @@ def check_kernels(device="cuda") -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED)
     worst = {"paged_decode_gqa": 0.0, "paged_prefill_gqa": 0.0}
     shapes = [("yi6b", 4, 8, 128, 0, 0.0), ("gemma2like", 4, 2, 256, 64, 50.0),
-              ("zamba2", 32, 1, 80, 0, 0.0)]
+              ("zamba2", 32, 1, 80, 0, 0.0), ("phi3", 32, 1, 96, 0, 0.0),
+              ("minitron", 8, 3, 128, 0, 0.0),
+              ("nemotron4", 8, 6, 128, 0, 0.0),
+              ("qwen3moe", 4, 16, 128, 0, 0.0)]
     for name, kvh, G, d, window, softcap in shapes:
         for bs in (16, 8):
             mb = 12
@@ -1318,6 +1366,7 @@ def tile_resources(gqa_cfg, block_cfg, span, mla_cfg, batch, spec,
 
 INDEXER_SHAPES = (("yi6b", 16, 64), ("glm5", 32, 128))   # (Hi, Di)
 ZAMBA2_INDEXER = ("zamba2", 8, 64)   # one n-tile of heads (K5, K6, K7)
+MINITRON_INDEXER = ("minitron", 12, 64)   # no tensor-core body: SIMT tile
 
 
 def _indexer_pool(gen, nb, bs, Di, dtype, device, layers=1):
@@ -1348,8 +1397,9 @@ def _hold_scores(what, got, want, dtype) -> float:
 
 def check_indexer_kernels(device="cuda") -> dict:
     """K5/K6 vs plain on ragged rows at Yi-6B's (Hi 16, Di 64), GLM-5's
-    (Hi 32, Di 128) and zamba2's (Hi 8, Di 64) indexer shapes (bf16: their
-    tensor-core bodies, at 8 heads one n-tile; fp32: the SIMT tile),
+    (Hi 32, Di 128), zamba2's (Hi 8, Di 64) and minitron's (Hi 12, Di 64)
+    indexer shapes (bf16: their tensor-core bodies, at 8 heads one n-tile,
+    at 12 the SIMT tile; fp32: the SIMT tile),
     every block size, the spans with an idle slot (a row whose table is all
     the trash block) and dead blocks; returns the max error per kernel."""
     import numpy as np
@@ -1360,7 +1410,8 @@ def check_indexer_kernels(device="cuda") -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED)
     worst = {"paged_indexer_scores_kernel": 0.0,
              "paged_prefill_indexer": 0.0}
-    for name, Hi, Di in INDEXER_SHAPES + (ZAMBA2_INDEXER,):
+    for name, Hi, Di in INDEXER_SHAPES + (ZAMBA2_INDEXER,
+                                          MINITRON_INDEXER):
         for bs in (16, 8, 32):
             mb = 20                       # 160-640 positions: 2-5 tiles
             for dtype in (torch.float32, torch.bfloat16):
@@ -1969,6 +2020,123 @@ def parity(cfg, device="cuda", block_size=16, chunks=(64,),
     return results
 
 
+def _hold_logits(what, got, want) -> float:
+    """fp32 logits of the kernel route within 1e-4 of the plain route's,
+    relative to max(1, max |plain|) (the logits' own scale, not the
+    kernels' unit scale); returns the max abs error."""
+    import torch
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL["float32"] * max(1.0, want.float().abs().max().item())
+    if not torch.isfinite(got).all() or err > tol:
+        raise AssertionError(f"{what}: max abs err {err} > {tol} or "
+                             f"non-finite")
+    return err
+
+
+def parity_prefill_step(cfg, device="cuda", batch=2, text=64) -> dict:
+    """A VLM's ``launch.steps.make_prefill_step`` in fp32 over ``batch``
+    rows of ``frontend_tokens`` patch embeddings and ``text`` tokens: the
+    last position's logits on the kernel route (K9, one launch a layer)
+    against the plain route's."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K9
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import get_model
+    model = get_model(cfg).init(
+        cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+    rng = np.random.default_rng(SEED + 5)
+    b = {"tokens": torch.from_numpy(rng.integers(
+        3, cfg.vocab_size, (batch, text)).astype(np.int32)).to(device),
+         "frontend_embeds": frontend_embeds(cfg, batch, device)}
+    step = make_prefill_step(model)
+    before = K9.flash_attention.launches
+    got = step(b)
+    launched = K9.flash_attention.launches - before
+    with plain_route():
+        want = step(b)
+    if device != "cpu" and launched != cfg.num_layers:
+        raise AssertionError(f"prefill step {cfg.name}: K9 launched "
+                             f"{launched} times, not once a layer")
+    err = _hold_logits(f"prefill step {cfg.name}", got, want)
+    _log("parity", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         family=cfg.family, path="make_prefill_step", batch=batch,
+         frontend_rows=frontend_rows(cfg), text=text, dtype="float32",
+         k9_launches=launched, logits_max_abs_err=err)
+    del model
+    return dict(logits_max_abs_err=err)
+
+
+def _encdec_greedy(model, frames, prompt, new, device):
+    """Greedy decoding through the encoder-decoder's prefill and ``new``
+    decode steps over a contiguous cache: (the steps' logits (B, new + 1,
+    V), the tokens chosen (B, new + 1))."""
+    import torch
+    from repro_torch.models import encdec
+    B, S = prompt.shape
+    cache = encdec.init_cache(model.cfg, B, S + new + 1,
+                              dtype=next(model.parameters()).dtype,
+                              device=device)
+    lg, cache = encdec.prefill(model, prompt, cache, frontend_embeds=frames)
+    logits, toks = [lg], [lg.argmax(-1)]
+    for i in range(new):
+        lg, cache = encdec.decode_step(model, toks[-1], cache, S + i)
+        logits.append(lg)
+        toks.append(lg.argmax(-1))
+    return torch.cat(logits, 1), torch.cat(toks, 1)
+
+
+def parity_encdec(cfg, device="cuda", batch=4, prompt_len=32,
+                  new=16) -> dict:
+    """The encoder-decoder whole, fp32, on ``batch`` rows of frames and a
+    ``prompt_len``-token prompt: prefill + ``new`` greedy decode steps on
+    the kernel route equal to the full forward over the tokens they chose
+    (each step's logits within ``_hold_logits``' bound of the forward's),
+    and the greedy tokens equal to the plain route's wherever the plain
+    route's top-2 margin is >= 1e-3 at every step (rows without one are
+    skipped)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K9
+    from repro_torch.models import encdec
+    model = encdec.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                        device=device)
+    rng = np.random.default_rng(SEED + 6)
+    prompt = torch.from_numpy(rng.integers(
+        3, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(device)
+    frames = frontend_embeds(cfg, batch, device)
+    before = K9.flash_attention.launches
+    lg_k, tok_k = _encdec_greedy(model, frames, prompt, new, device)
+    launched = K9.flash_attention.launches - before
+    want = cfg.encoder_layers + cfg.num_layers * (new + 1)
+    if device != "cpu" and launched != want:
+        raise AssertionError(f"parity {cfg.name}: K9 launched {launched} "
+                             f"times, the steps imply {want}")
+    with torch.no_grad():
+        full = encdec.logits(model, torch.cat([prompt, tok_k[:, :-1]], 1),
+                             frontend_embeds=frames)[:, prompt_len - 1:]
+    err = _hold_logits(f"{cfg.name} decode = forward", lg_k, full)
+    with plain_route():
+        lg_p, tok_p = _encdec_greedy(model, frames, prompt, new, device)
+    top2 = lg_p.float().topk(2, dim=-1).values
+    ok = ((top2[..., 0] - top2[..., 1]) >= 1e-3).all(-1)
+    for b in range(batch):
+        if ok[b] and not torch.equal(tok_k[b], tok_p[b]):
+            raise AssertionError(f"parity {cfg.name}: row {b} tokens "
+                                 f"{tok_k[b].tolist()} != plain "
+                                 f"{tok_p[b].tolist()}")
+    if not ok.any():
+        raise AssertionError(f"parity {cfg.name}: no row had a top-2 margin")
+    res = dict(compared=int(ok.sum()), skipped=int((~ok).sum()),
+               decode_eq_forward_max_abs_err=err, k9_launches=launched)
+    _log("parity", model=cfg.name, layers=cfg.num_layers,
+         encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+         family=cfg.family, frames=cfg.encoder_seq_len, batch=batch,
+         prompt=prompt_len, new_tokens=new, dtype="float32", **res)
+    del model
+    return res
+
+
 def _round_up(n, m):
     return -(-n // m) * m
 
@@ -2290,6 +2458,127 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
     res["launches"] = launches
     res["model"] = model
     del eng
+    return res
+
+
+def serve_prefill_step(cfg, model, device="cuda", batch=1,
+                       text=1472) -> dict:
+    """A VLM's ``launch.steps.make_prefill_step`` on the served bf16 model:
+    ``batch`` rows of ``frontend_tokens`` patches and ``text`` tokens, the
+    last position's logits finite; its ms (CUDA events, after a warm-up)
+    and K9's launches (bf16, one a layer)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K9
+    from repro_torch.launch.steps import make_prefill_step
+    rng = np.random.default_rng(SEED + 7)
+    b = {"tokens": torch.from_numpy(rng.integers(
+        3, cfg.vocab_size, (batch, text)).astype(np.int32)).to(device),
+         "frontend_embeds": frontend_embeds(cfg, batch, device).to(
+             torch.bfloat16)}
+    step = make_prefill_step(model)
+    step(b)                                     # warm-up, not counted
+    K9.flash_attention.launches = 0             # counts of the main path
+    lg = step(b)
+    launched = K9.flash_attention.launches
+    if launched != cfg.num_layers or not torch.isfinite(lg).all() \
+            or lg.shape != (batch, 1, cfg.vocab_size):
+        raise AssertionError(f"prefill step {cfg.name}: K9 launched "
+                             f"{launched} times, logits {tuple(lg.shape)}, "
+                             f"finite {bool(torch.isfinite(lg).all())}")
+    ms = cuda_ms(lambda: step(b), 3, warmup=0)
+    rows = frontend_rows(cfg) + text
+    _log("serve", model=cfg.name, layers=cfg.num_layers, family=cfg.family,
+         path="make_prefill_step", dtype="bfloat16", batch=batch,
+         frontend_rows=frontend_rows(cfg), text=text, prefill_ms=ms,
+         rows_per_s=batch * rows / ms * 1e3, k9_launches=launched)
+    return dict(launches={"flash_attention_bf16": launched}, ms=ms)
+
+
+def serve_encdec(cfg, device="cuda", batch=8, prompt_len=16,
+                 new=64) -> dict:
+    """The encoder-decoder at full size in bf16, through ``launch.steps``:
+    ``batch`` rows of ``encoder_seq_len`` frames and a ``prompt_len``-token
+    prompt; ``prefill`` (encode, then the prompt into the contiguous
+    cache) and ``new`` - 1 greedy ``make_serve_step`` steps, ``new`` tokens
+    a row; one ``make_prefill_step`` call on the same inputs, whose logits
+    are held against the prefill's at the bf16 bound (relative to max(1,
+    |logits|)).  Encode ms (the encoder alone, timed apart), prefill ms,
+    decode step ms p50 and decode tok/s (rows x steps over the steps'
+    time), synchronised around each call; K9's launches (bf16: one an
+    encoder layer, one a decoder layer's cross-attention a prefill and a
+    step), checked."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K9
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import encdec
+    bf16 = torch.bfloat16
+    model = encdec.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                        device=device, dtype=bf16)
+    rng = np.random.default_rng(SEED + 8)
+    prompt = torch.from_numpy(rng.integers(
+        3, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(device)
+    frames = frontend_embeds(cfg, batch, device).to(bf16)
+    serve_step = make_serve_step(model)
+
+    def run(timed):
+        cache = encdec.init_cache(cfg, batch, prompt_len + new, dtype=bf16,
+                                  device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = encdec.prefill(model, prompt, cache,
+                                   frontend_embeds=frames)
+        tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+        pre_ms = 1e3 * (time.perf_counter() - t0)
+        toks, step_ms = [tok], []
+        for i in range(new - 1):
+            t0 = time.perf_counter()
+            lg, cache = serve_step(tok, cache, prompt_len + i)
+            tok = lg.argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            toks.append(tok)
+        return pre_ms, step_ms, torch.cat(toks, 1), lg
+
+    run(False)                                  # warm-up, not counted
+    K9.flash_attention.launches = 0             # counts of the main path
+    pre_ms, step_ms, toks, last = run(True)
+    launched = K9.flash_attention.launches
+    want = cfg.encoder_layers + cfg.num_layers * new
+    if launched != want:
+        raise AssertionError(f"serve {cfg.name}: K9 launched {launched} "
+                             f"times, the steps imply {want}")
+    if not (torch.isfinite(last).all() and ((toks >= 0)
+                                            & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"serve {cfg.name}: non-finite logits or a "
+                             f"token out of range")
+    enc_ms = cuda_ms(lambda: encdec.encode(model, frames), 3)
+    with torch.no_grad():
+        cache = encdec.init_cache(cfg, batch, prompt_len, dtype=bf16,
+                                  device=device)
+        lg_pre, _ = encdec.prefill(model, prompt, cache,
+                                   frontend_embeds=frames)
+        lg_step = make_prefill_step(model)({"tokens": prompt,
+                                            "frontend_embeds": frames})
+    err = (lg_step.float() - lg_pre.float()).abs().max().item()
+    tol = TOL["bfloat16"] * max(1.0, lg_pre.float().abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f"serve {cfg.name}: make_prefill_step's logits "
+                             f"differ from prefill's by {err} > {tol}")
+    p50 = float(np.percentile(step_ms, 50))
+    res = dict(params_m=sum(p.numel() for p in model.parameters()) / 1e6,
+               batch=batch, frames=cfg.encoder_seq_len, prompt=prompt_len,
+               new_tokens=new, encode_ms=enc_ms, prefill_ms=pre_ms,
+               decode_step_ms_p50=p50,
+               decode_tok_s=batch * len(step_ms) / (sum(step_ms) / 1e3),
+               prefill_step_vs_prefill_max_abs_err=err, k9_launches=launched)
+    _log("serve", model=cfg.name, layers=cfg.num_layers,
+         encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+         family=cfg.family, path="launch.steps", dtype="bfloat16", **res)
+    res["launches"] = {"flash_attention_bf16": launched}
+    del model
     return res
 
 
@@ -3286,7 +3575,17 @@ def check_train_kernels(device="cuda") -> dict:
                  # zamba2's shared block: 32 heads of 80, no GQA
                  (80, 150, 150, 32, 32, dict()),
                  (80, 120, 120, 32, 32, dict(causal=False)),
-                 (80, 100, 333, 8, 2, dict(q_offset=233, softcap=30.0))]
+                 (80, 100, 333, 8, 2, dict(q_offset=233, softcap=30.0)),
+                 # phi-3-vision: 32 heads of 96, no GQA
+                 (96, 150, 150, 32, 32, dict()),
+                 (96, 120, 120, 32, 32, dict(causal=False)),
+                 (96, 100, 333, 8, 2, dict(q_offset=233, softcap=30.0)),
+                 # whisper-base: 8 heads of 64 over 1500 frames, not
+                 # causal: the decoder's text and a decode row against
+                 # the frames, the encoder's frames against themselves
+                 (64, 448, 1500, 8, 8, dict(causal=False)),
+                 (64, 1, 1500, 8, 8, dict(causal=False)),
+                 (64, 1500, 1500, 8, 8, dict(causal=False))]
         for d, Sq, Sk, H, KVH, kw in cases:
             q, k, v = rnd(2, Sq, H, d, dtype=dtype), \
                 rnd(2, Sk, KVH, d, dtype=dtype), rnd(2, Sk, KVH, d, dtype=dtype)
@@ -3303,7 +3602,7 @@ def check_train_kernels(device="cuda") -> dict:
             _log("kernels", kernel="flash_attention", d=d, Sq=Sq, Sk=Sk, H=H,
                  KVH=KVH, opts=repr(kw), dtype=dn, max_abs_err=err)
         # K7: S not a multiple of the 8-query tile, T of the 128-key tile
-        for Hi, Di in ((16, 64), (32, 128), (8, 64), (2, 16)):
+        for Hi, Di in ((16, 64), (32, 128), (8, 64), (12, 64), (2, 16)):
             q, w, k = rnd(2, 150, Hi * Di, dtype=dtype), \
                 torch.softmax(rnd(2, 150, Hi), -1), rnd(2, 333, Di, dtype=dtype)
             err = _hold(f"K7 {Hi}x{Di}",
@@ -3327,6 +3626,27 @@ def check_train_kernels(device="cuda") -> dict:
             worst["chunked_ce"] = max(worst["chunked_ce"], err)
             _log("kernels", kernel="chunked_ce", Tk=1000, D=256, V=1000,
                  softcap=softcap, dtype=dn, max_abs_err=err)
+        # K10 at the vocabularies of the rest of the registry, all ragged
+        # against the 128-wide vocab tile: phi-3's V 32064 (D 3072),
+        # whisper's 51865 (D 512), kimi-k2's 163840 (D 7168; 130 tokens,
+        # its (D, V) weight alone is 4.7 GB in fp32); unit-scale logits
+        for Tk, D, V in ((300, 3072, 32064), (300, 512, 51865),
+                         (130, 7168, 163840)):
+            h = rnd(Tk, D, dtype=dtype)
+            w = (rnd(D, V) * D ** -0.5).to(dtype)
+            t = torch.randint(0, V, (Tk,), generator=gen, device=device,
+                              dtype=torch.int32)
+            m = (torch.rand(Tk, generator=gen, device=device) > 0.3).float()
+            got = K10.chunked_ce(h, w, t, m)
+            want = K10.reference(h, w, t, m)
+            err = max(_hold_rel(f"K10 V={V} D={D} {dn}", got[0], want[0],
+                                1e-5),
+                      _hold_rel(f"K10 count V={V} {dn}", got[1], want[1],
+                                1e-5))
+            worst["chunked_ce"] = max(worst["chunked_ce"], err)
+            _log("kernels", kernel="chunked_ce", Tk=Tk, D=D, V=V,
+                 softcap=0.0, dtype=dn, max_abs_err=err)
+            del h, w
     # gradients through the autograd Functions, fp32, kernel vs plain route
     q, k, v = rnd(2, 300, 8, 128), rnd(2, 300, 2, 128), rnd(2, 300, 2, 128)
     _same_grads("flash_attend", lambda a, b, c: flash_attend(
@@ -3334,6 +3654,14 @@ def check_train_kernels(device="cuda") -> dict:
     q, k, v = rnd(2, 200, 32, 80), rnd(2, 200, 32, 80), rnd(2, 200, 32, 80)
     _same_grads("flash_attend d=80", lambda a, b, c: flash_attend(
         a, b, c, q_chunk=128), (q, k, v))
+    q, k, v = rnd(2, 200, 32, 96), rnd(2, 200, 32, 96), rnd(2, 200, 32, 96)
+    for causal in (True, False):
+        _same_grads(f"flash_attend d=96 causal={causal}",
+                    lambda a, b, c: flash_attend(a, b, c, causal=causal,
+                                                 q_chunk=128), (q, k, v))
+    q, k, v = rnd(2, 448, 8, 64), rnd(2, 1500, 8, 64), rnd(2, 1500, 8, 64)
+    _same_grads("flash_attend cross 448x1500", lambda a, b, c: flash_attend(
+        a, b, c, causal=False, q_chunk=128), (q, k, v))
     for Hi in (16, 8):
         qi, wi, ki = rnd(2, 150, Hi, 64), \
             torch.softmax(rnd(2, 150, Hi), -1), rnd(2, 333, 64)
@@ -3344,19 +3672,23 @@ def check_train_kernels(device="cuda") -> dict:
     m = torch.ones((2, 500), device=device)
     _same_grads("chunked_softmax_xent", lambda a, b: chunked_softmax_xent(
         a, b, t, m, chunk=128, softcap=30.0), (h, W))
-    _log("kernels", autograd="flash_attend (d 128, 80),indexer_scores "
-         "(16 and 8 heads),chunked_softmax_xent", grads="equal on both routes")
+    _log("kernels", autograd="flash_attend (d 128, 80, 96 causal and not, "
+         "cross 448 x 1500),indexer_scores (16 and 8 heads),"
+         "chunked_softmax_xent", grads="equal on both routes")
     return worst
 
 
 def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
-                       device="cuda", reps=10, tag="") -> dict:
+                       device="cuda", reps=10, tag="", causal=True,
+                       ce_tokens=None) -> dict:
     """Each training kernel at the training runs' shapes in fp32 (TF32 off,
     as the trainer runs): K9 over one dense layer's (B, S, H, d) q and
-    (B, S, KVH, d) k/v, causal; K10 over one step's tokens against the
-    unembedding; K7 over one 256-query chunk of the DSA run against its
-    keys, with the count of top-k indices the selector would pick
-    differently from its scores and the plain ones (near-ties only).
+    (B, S, KVH, d) k/v, causal (not, with ``causal=False``: an encoder's
+    self-attention); K10 over one step's tokens (``ce_tokens``, default B
+    x S) against the unembedding; K7 (unless ``dsa_cfg`` is None) over one
+    256-query chunk of the DSA run against its keys, with the count of
+    top-k indices the selector would pick differently from its scores and
+    the plain ones (near-ties only).
     Bound: bytes (inputs read once, the output written once) over 3.35 TB/s
     or flops over 67 TFLOP/s (fp32 on the CUDA cores; K9, K10 and K7, which
     run 3xTF32 on the tensor cores, three TF32 products over 494.7), the
@@ -3382,27 +3714,34 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
     qs = q.transpose(1, 2).contiguous()
     ks = k.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
     vs = v.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+    kw9 = dict(causal=causal)
     out["flash_attention" + tag] = dict(
-        ms=cuda_ms(lambda: K9(q, k, v), reps),
-        device_ms=graph_ms(lambda: K9(q, k, v), reps // 2),
-        plain_ms=cuda_ms(lambda: K9p(q, k, v), 2),
+        ms=cuda_ms(lambda: K9(q, k, v, **kw9), reps),
+        device_ms=graph_ms(lambda: K9(q, k, v, **kw9), reps // 2),
+        plain_ms=cuda_ms(lambda: K9p(q, k, v, **kw9), 2),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True), reps),
-        max_abs_err=_hold("K9 train-shape", K9(q, k, v), K9p(q, k, v), f32),
-        flops=4 * B * H * S * S * d / 2, tf32_products=3,
+            qs, ks, vs, is_causal=causal), reps),
+        max_abs_err=_hold("K9 train-shape", K9(q, k, v, **kw9),
+                          K9p(q, k, v, **kw9), f32),
+        flops=4 * B * H * S * S * d / (2 if causal else 1), tf32_products=3,
         bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
-        shape=f"B={B} S={S} H={H} KVH={KVH} d={d} causal")
+        shape=f"B={B} S={S} H={H} KVH={KVH} d={d} "
+              f"{'causal' if causal else 'not causal'}")
     # which kernel the library call runs on these fp32 inputs
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
         torch.cuda.synchronize()
     _log("timing", kernel="flash_attention" + tag, library_kernels=repr(
         [e.key[:120] for e in prof.key_averages()
          if e.device_type == torch.autograd.DeviceType.CUDA]))
     del q, k, v, qs, ks, vs
     out["chunked_ce" + tag] = _k10_train_shape(
-        gen, B * S, dense_cfg.d_model, dense_cfg.vocab_size, device)
+        gen, ce_tokens or B * S, dense_cfg.d_model, dense_cfg.vocab_size,
+        device)
+    if dsa_cfg is None:
+        _bounds_fp32(out)
+        return out
     dsa = dsa_cfg.dsa
     Hi, Di, rows = dsa.index_heads, dsa.index_head_dim, 256
     qi, wi, ki = rnd(1, rows, Hi * Di), torch.softmax(rnd(1, rows, Hi), -1), \
@@ -3495,13 +3834,47 @@ def _bounds_fp32(out: dict) -> None:
              max_abs_err=r["max_abs_err"], dtype="float32")
 
 
+def frontend_rows(cfg) -> int:
+    """Rows of precomputed embeddings a sequence of ``cfg`` takes, by the
+    reference's ``launch/specs.py`` rule: a VLM's ``frontend_tokens``
+    patches, which take that many of the sequence's ``seq`` positions; an
+    encoder-decoder's ``encoder_seq_len`` frames, beside its text; else
+    0."""
+    if cfg.family == "vlm":
+        return cfg.frontend_tokens
+    if cfg.family == "audio":
+        return cfg.encoder_seq_len
+    return 0
+
+
+def frontend_embeds(cfg, batch, device, seed=SEED + 4):
+    """(batch, frontend_rows(cfg), D) embeddings, 0.01 * N(0, 1) from a
+    numpy seed (as ``tests/test_models.py`` makes them), or None."""
+    import numpy as np
+    import torch
+    F = frontend_rows(cfg)
+    if not F:
+        return None
+    rng = np.random.default_rng(seed)
+    x = 0.01 * rng.standard_normal((batch, F, cfg.d_model))
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
 def _train_batch(cfg, batch, seq, device):
+    """``seq`` positions a sequence: a VLM's patches take the first
+    ``frontend_tokens`` of them and its text the rest; an encoder-decoder's
+    ``seq`` text tokens come with its frames."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED + 3)
-    toks = rng.integers(0, cfg.vocab_size, (batch, seq + 1))
+    text = seq - (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    toks = rng.integers(0, cfg.vocab_size, (batch, text + 1))
     t = torch.from_numpy(toks.astype(np.int32)).to(device)
-    return {"tokens": t[:, :-1], "targets": t[:, 1:]}
+    out = {"tokens": t[:, :-1], "targets": t[:, 1:]}
+    fe = frontend_embeds(cfg, batch, device)
+    if fe is not None:
+        out["frontend_embeds"] = fe
+    return out
 
 
 class _TopkAlign:
@@ -3686,10 +4059,16 @@ def expected_launches(cfg, seq, steps) -> dict:
     256, else one; the chunk and seq multiples of the DSA block).  The
     hybrid's attention layers are its shared block's invocations, one a
     group; its Mamba-2 layers launch K11's head-shared form once each
-    (forward only: the chunked backward is plain)."""
+    (forward only: the chunked backward is plain).  The encoder-decoder
+    launches K9 once an encoder layer and twice a decoder layer (its
+    self- and cross-attention)."""
     if cfg.family == "ssm":
         return dict(dict.fromkeys(TRAIN_KERNELS, 0), chunked_ce=steps,
                     mamba_scan_model=cfg.num_layers * steps)
+    if cfg.family == "audio":     # encoder self, decoder self and cross
+        return dict(dict.fromkeys(TRAIN_KERNELS, 0), chunked_ce=steps,
+                    flash_attention=(cfg.encoder_layers
+                                     + 2 * cfg.num_layers) * steps)
     attn_layers, heads = cfg.num_layers, 0
     if cfg.family == "hybrid":
         attn_layers = cfg.num_layers // cfg.hybrid_attn_every
@@ -3761,6 +4140,77 @@ def train_run(cfg, batch, seq, steps, device="cuda", lr=2e-3) -> dict:
     res["launches"] = launches
     return res
 
+
+
+def train_run_frontend(cfg, batch, seq, steps, device="cuda",
+                       lr=2e-3) -> dict:
+    """``train_run`` for the families whose batches carry precomputed
+    embeddings, which the trainer's token corpus does not make (its CLI
+    trains a VLM on text alone and refuses an encoder-decoder): the same
+    loop (``launch.steps.make_train_step``, Muon, the warm-up cosine
+    schedule, the Markov corpus) over ``_train_batch``'s layout, fresh
+    embeddings a step.  Checks and logs what ``train_run`` does;
+    tokens/s counts the text tokens."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import lm_generator
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import muon, schedule
+    wrappers = train_kernel_wrappers()
+    tc = TrainConfig(batch_size=batch, seq_len=seq, learning_rate=lr,
+                     warmup_steps=0, total_steps=steps, seed=SEED)
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    for _, fn, _ in wrappers.values():
+        fn.launches = 0                          # counts of the main path
+    M = get_model(cfg)
+    model = M.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                   device=device)
+    step_fn = make_train_step(model, train_cfg=tc, lr=lr)
+    opt = muon.init(dict(model.named_parameters()), M.param_axes(model))
+    text = seq - (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    data = lm_generator(cfg.vocab_size, text, batch, seed=SEED, steps=steps)
+    losses, step_ms = [], []
+    t_start = time.perf_counter()
+    for i, arrays in enumerate(data):
+        b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+             for k, v in arrays.items()}
+        b["frontend_embeds"] = frontend_embeds(cfg, batch, device,
+                                               seed=SEED + 10 + i)
+        t0 = time.perf_counter()
+        opt, metrics = step_fn(opt, b, lr=schedule.warmup_cosine(
+            i, peak=lr, floor=lr * 0.1, warmup=0, total=steps))
+        losses.append(float(metrics["loss"]))      # syncs
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    wall = time.perf_counter() - t_start
+    launches = {name: fn.launches for name, (_, fn, _) in wrappers.items()}
+    want = expected_launches(cfg, seq, steps)
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"train {cfg.name}: losses {losses} not finite "
+                             f"and falling")
+    if device != "cpu" and launches != want:
+        raise AssertionError(f"train {cfg.name}: launches {launches} != "
+                             f"expected {want}")
+    res = dict(losses=[round(x, 5) for x in losses],
+               step_ms=[round(x, 1) for x in step_ms],
+               steady_tok_per_s=batch * text * (steps - 1)
+               / (sum(step_ms[1:]) / 1e3),
+               max_memory_gb=torch.cuda.max_memory_allocated() / 1e9
+               if device != "cpu" else None,
+               launches_per_step={n: c / steps for n, c in launches.items()},
+               wall_s=wall, frontend_rows=frontend_rows(cfg),
+               text_tokens=text)
+    _log("train", model=cfg.name, layers=cfg.num_layers, family=cfg.family,
+         encoder_layers=cfg.encoder_layers, dsa=cfg.dsa is not None,
+         batch=batch, seq=seq, steps=steps,
+         **{k: repr(v) if isinstance(v, (list, dict)) else v
+            for k, v in res.items()})
+    res["launches"] = launches
+    del model, opt, step_fn
+    return res
 
 
 def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
@@ -4749,6 +5199,19 @@ def main() -> int:
     zamba2_dsa = get_config("zamba2_2p7b")
     zamba2 = zamba2_dsa.replace(dsa=None)
     z_groups = zamba2.num_layers // zamba2.hybrid_attn_every
+    # the rest of the registry (slice 19), each as its published model
+    # runs, without the repo's DSA retrofit: phi-3-vision (family vlm, 32
+    # heads of 96, 576 patch embeddings), qwen3-moe (G 16, qk_norm, 128
+    # experts), kimi-k2 (G 8, a dense first layer, 384 experts + a shared
+    # one), nemotron-4 (G 6, relu2), minitron (G 3, relu2); whisper-base
+    # (family audio: 6 + 6 layers over 1500 frames, no DSA)
+    phi3 = get_config("phi3_vision_4b").replace(dsa=None)
+    qwen3 = get_config("qwen3_moe_235b").replace(dsa=None)
+    kimi = get_config("kimi_k2_1t").replace(dsa=None)
+    nemotron = get_config("nemotron4_15b").replace(dsa=None)
+    minitron = get_config("minitron_4b").replace(dsa=None)
+    whisper = get_config("whisper_base")
+    whisper_text = 448           # Whisper's text context (arXiv:2212.04356)
     chunk, new_tokens = 256, 32
     decode_mb = (max(serve_lens + prompt_lens) + chunk) // 16 + 1
     mla_resources(glm5, len(prompt_lens), decode_mb)
@@ -4823,6 +5286,23 @@ def main() -> int:
     worst["chunked_ce"] = max(worst["chunked_ce"],
                               timing["chunked_ce_falcon"]["max_abs_err"])
     _free()
+    # K1/K2 at phi-3-vision's 32 heads of 96 (G 1) and qwen3-moe's G 16,
+    # over 8 layers' pools; K9/K10 at phi-3's training shape (B 1, 2048
+    # rows: 576 patches + 1472 text tokens) and whisper's (K9 at the
+    # encoder's 1500 frames, not causal, B 8; K10 over 8 x 448 tokens)
+    for cfg_, tag_ in ((phi3, "_phi3"), (qwen3, "_qwen3")):
+        timing.update(time_kernels(cfg_.replace(num_layers=8), serve_lens,
+                                   max(prompt_lens), bs=16, num_blocks=2048,
+                                   chunk=chunk, tag=tag_))
+        _free()
+    timing.update(time_train_kernels(
+        phi3, None, batch=1, seq=2048, dsa_seq=0,
+        ce_tokens=2048 - phi3.frontend_tokens, tag="_phi3"))
+    _free()
+    timing.update(time_train_kernels(
+        whisper, None, batch=8, seq=whisper.encoder_seq_len, dsa_seq=0,
+        causal=False, ce_tokens=8 * whisper_text, tag="_whisper"))
+    _free()
     stamp("timing")
     parity(yi.replace(num_layers=2))
     _free()
@@ -4845,6 +5325,22 @@ def main() -> int:
     # Yi-6B width, 2 layers, fp32
     frontend_parity(yi.replace(num_layers=2))
     _free()
+    # the rest of the registry at full width, fp32: phi-3-vision at 2
+    # layers (its prefill step over 576 patches, then text-only engine
+    # parity), whisper-base whole, qwen3-moe (1 MoE layer of 128 experts a
+    # layer, ~25 GB) and nemotron-4 at 2 layers; kimi-k2 at 2 dense layers
+    # (first_k_dense=2: one of its MoE layers alone is ~68 GB in fp32; its
+    # MoE path is the one GLM-5's parity holds)
+    parity_prefill_step(phi3.replace(num_layers=2))
+    _free()
+    parity(phi3.replace(num_layers=2))
+    _free()
+    parity_encdec(whisper)
+    _free()
+    for cfg_ in (qwen3.replace(num_layers=2), nemotron.replace(num_layers=2),
+                 kimi.replace(num_layers=2, first_k_dense=2)):
+        parity(cfg_)
+        _free()
     stamp("parity")
     # the main paths' launches: every serve and train run below, summed
     launches = collections.Counter()
@@ -4907,6 +5403,24 @@ def main() -> int:
     profile_ssm_decode(falcon, falcon_serve.pop("model"))
     del falcon_serve
     _free()
+    stamp("serve.falcon")
+    # phi-3-vision at full width and depth (32 layers, ~7.6 GB bf16): the
+    # engine on the first mix (text-only requests), then its prefill step
+    # over 576 patches; qwen3-moe, kimi-k2 (1 dense + 1 MoE layer of 384
+    # experts, ~40 GB), nemotron-4 and minitron at full width, depth 2;
+    # whisper-base whole through launch.steps
+    phi3_serve = serve(phi3, prompt_lens, max_new=new_tokens)
+    launches.update(phi3_serve["launches"])
+    launches.update(serve_prefill_step(phi3, phi3_serve.pop("model"))
+                    ["launches"])
+    del phi3_serve
+    _free()
+    for cfg_ in (qwen3, kimi, nemotron, minitron):
+        launches.update(serve(cfg_.replace(num_layers=2), prompt_lens,
+                              max_new=new_tokens)["launches"])
+        _free()
+    launches.update(serve_encdec(whisper)["launches"])
+    _free()
     stamp("serve")
     train_parity(yi.replace(num_layers=2), batch=1, seq=1024)
     _free()
@@ -4917,8 +5431,11 @@ def main() -> int:
     _free()
     train_parity(falcon.replace(num_layers=2), batch=1, seq=1024)
     _free()
-    for cfg_, batch_, seq_ in ((yi_train, 2, 2048), (yi_dsa_train, 1, 4096),
-                               (yi_block.replace(num_layers=8), 1, 4096),
+    # the two DSA trainers at 4 layers (8 until slice 19, whose phases
+    # took the time back: their 5 steps were ~30 and ~23 s of the run)
+    for cfg_, batch_, seq_ in ((yi_train, 2, 2048),
+                               (yi_dsa_train.replace(num_layers=4), 1, 4096),
+                               (yi_block.replace(num_layers=4), 1, 4096),
                                (falcon_train, 2, 2048)):
         launches.update(train_run(cfg_, batch=batch_, seq=seq_,
                                   steps=5)["launches"])
@@ -4939,12 +5456,27 @@ def main() -> int:
                                   lr=1e-3)["launches"])
         _free()
     stamp("train.zamba2")
-    # the training profiles at 4 layers (8 until the hybrid phases came:
-    # the cut keeps the whole run near its earlier time; the per-layer
-    # parts of a step halve, the loss and the vocabulary's do not)
+    # phi-3-vision at full width (parity at 2 layers, the trainer at 8: B 1
+    # x (576 patches + 1472 tokens)) and whisper-base whole (B 8 x 448 text
+    # tokens over 1500 frames; parity at B 2): K9 (d 96; whisper's encoder,
+    # decoder and cross-attention), K10 (V 32064 / 51865)
+    train_parity(phi3.replace(num_layers=2), batch=1, seq=2048)
+    _free()
+    train_parity(whisper, batch=2, seq=whisper_text)
+    _free()
+    for cfg_, batch_, seq_ in ((phi3.replace(num_layers=8), 1, 2048),
+                               (whisper, 8, whisper_text)):
+        launches.update(train_run_frontend(cfg_, batch=batch_, seq=seq_,
+                                           steps=5)["launches"])
+        _free()
+    stamp("train.frontend")
+    # the training profiles at 2 layers (8 until the hybrid phases came,
+    # 4 until slice 19's: each cut keeps the whole run near its earlier
+    # time; the per-layer parts of a step halve, the loss and the
+    # vocabulary's do not)
     for cfg_, batch_, seq_ in ((yi_train, 2, 2048), (yi_dsa_train, 1, 4096),
                                (yi_block, 1, 4096), (falcon_train, 2, 2048)):
-        profile_train_step(cfg_.replace(num_layers=4), batch=batch_,
+        profile_train_step(cfg_.replace(num_layers=2), batch=batch_,
                            seq=seq_)
         _free()
     # zamba2 at 6 layers: one group and one shared-block invocation

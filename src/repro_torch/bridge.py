@@ -3,12 +3,16 @@
 ``from_jax_params`` takes the reference's parameter pytree — nested dicts
 of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)`` of
 ``repro.models.get_model(cfg).init(key, cfg)[0]`` — and returns the port's
-model (``Transformer``, ``SSMModel`` for family ``ssm``, ``HybridModel``
-for family ``hybrid``) holding the same weights.  The reference's ssm and
-hybrid models stack every layer leaf on a leading ``layers`` axis
+model (``Transformer`` for families ``dense``, ``moe`` and ``vlm``,
+``SSMModel`` for ``ssm``, ``HybridModel`` for ``hybrid``, ``EncDecModel``
+for ``audio``) holding the same weights.  The reference's ssm and hybrid
+models stack every layer leaf on a leading ``layers`` axis
 (``stack_init``): layer ``i`` of the port takes index ``i`` of
 ``params["layers"][...]``; the hybrid's ``shared_attn`` block and
-``final_norm`` are read as they are.  Its transformer stacks every
+``final_norm`` are read as they are.  The encoder-decoder stacks its
+``encoder`` and ``decoder`` trees the same way: the port's
+``encoder.i`` / ``decoder.i`` take index ``i`` of them; ``enc_pos``,
+``enc_final_norm`` and ``final_norm`` are read as they are.  Its transformer stacks every
 pattern slot ``slotJ`` on a leading ``n_groups`` axis for its layer scan;
 layer ``first_k_dense + g*P + j`` of the port takes index ``g`` of
 ``slotJ`` (an MoE slot's expert tensors are ``(n_groups, E, in, out)``, so
@@ -27,15 +31,22 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.hybrid import HybridModel
 from repro_torch.models.ssm_model import SSMModel
 from repro_torch.models.transformer import Transformer
 
-_MODEL = {"ssm": SSMModel, "hybrid": HybridModel}
+_MODEL = {"ssm": SSMModel, "hybrid": HybridModel, "audio": EncDecModel}
+_STACKED = ("encoder", "decoder")     # the encoder-decoder's layer stacks
 
 
 def _jax_leaf(params, cfg: ModelConfig, key: str) -> np.ndarray:
     parts = key.split(".")
+    if parts[0] in _STACKED:
+        node = params[parts[0]]
+        for p in parts[2:]:
+            node = node[p]
+        return np.asarray(node)[int(parts[1])]
     if parts[0] != "layers":
         node = params
         for p in parts:

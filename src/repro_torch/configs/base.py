@@ -7,11 +7,14 @@ Mamba-1 LM (``models.ssm_model``: ``ssm_state``, ``ssm_conv``,
 ``ssm_expand``), family ``hybrid`` the zamba2-style model
 (``models.hybrid``: Mamba-2 layers, ``ssm_version=2`` with heads of
 ``ssm_head_dim``, and one shared attention block every
-``hybrid_attn_every`` layers); the other ``family`` values mark parts of
-later slices, and the model constructors reject a config that sets one.
-The reference's expert-parallel switches
-(``moe_impl``, ``capacity_factor``: the mesh slice), encoder /
-frontend fields and its implementation switches (``attn_impl``,
+``hybrid_attn_every`` layers), family ``vlm`` the transformer fed
+``frontend_tokens`` precomputed patch embeddings before its text
+(``frontend='vision_stub'``), family ``audio`` the Whisper-style
+encoder-decoder (``models.encdec``: ``encoder_layers`` bidirectional
+layers over ``encoder_seq_len`` precomputed frame embeddings,
+``frontend='audio_stub'``).  The reference's expert-parallel switches
+(``moe_impl``, ``capacity_factor``: the mesh slice), its unread
+``decoder_max_len`` and its implementation switches (``attn_impl``,
 ``scan_layers``, ``remat``, ...) are left out, so a setting the port
 cannot honour fails when the config is built instead of being ignored.
 ``q_chunk`` and ``loss_chunk`` bound the training path's transient memory
@@ -111,6 +114,14 @@ class ModelConfig:
     # hybrid (zamba2-style): one SHARED attention block applied every
     # ``hybrid_attn_every`` ssm layers.
     hybrid_attn_every: int = 0
+
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq_len: int = 0       # e.g. 1500 mel frames
+
+    # modality frontend stub: 'none' | 'vision_stub' | 'audio_stub'
+    frontend: str = "none"
+    frontend_tokens: int = 0       # patches / frames the caller provides
 
     # memory / compute layout of the training path
     q_chunk: int = 1024            # query rows a chunk (attention, DSA)

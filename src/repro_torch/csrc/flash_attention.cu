@@ -40,10 +40,11 @@
 //     soft-capped.  At d 256 the output columns split over two groups of
 //     4 warps.
 // Head dims 64, 80 (zamba2's shared block: 32 heads of 80, its training
-// forward), 128 and 256.  At d 80 both tiles take the width as it is: the
-// 3xTF32 tile ten n-tiles of 8 output columns a warp (rows of 88 / 84
-// floats in shared memory, still conflict-free), the bf16 tile five k-steps
-// of 16, as K2's body at d 80 does.
+// forward), 96 (phi-3-vision: 32 heads of 96), 128 and 256.  At d 80 and
+// 96 both tiles take the width as it is: the 3xTF32 tile ten / twelve
+// n-tiles of 8 output columns a warp (rows of 88 / 84 and 104 / 100 floats
+// in shared memory), the bf16 tile five / six k-steps of 16, as K2's body
+// does at those widths.
 // Both tiles pack the G query heads of one KV head for consecutive tokens
 // into 64-row tiles (row r = token r / G, head r % G), so each staged K/V
 // position serves every query row of the tile and K/V are read once per
@@ -148,6 +149,7 @@ cudaError_t by_dim(int d, F f) {
   switch (d) {
     case 64: return f(std::integral_constant<int, 64>());
     case 80: return f(std::integral_constant<int, 80>());
+    case 96: return f(std::integral_constant<int, 96>());
     case 128: return f(std::integral_constant<int, 128>());
     case 256: return f(std::integral_constant<int, 256>());
     default: return cudaErrorInvalidValue;

@@ -60,12 +60,18 @@
 //     staged as fp32, scalar FMAs): PagedKV below is its layout.
 // Not done yet (later work): wgmma and TMA for the span tile.
 //
-// Head dims: 64, 80 (zamba2's shared attention block), 128 and 256; block
-// sizes 8, 16 and 32.  At d 80 the bf16 decode body adds a half chunk of
-// 16 dims to its 32-dim chunks (one k-step, one m-tile), the fp32 decode
-// body gives a key a whole warp (20 of 32 lanes live), and the fp32 span
-// tile leaves 48 of 128 threads out of P V; zamba2 is MHA (G 1), so the
-// decode CTA's 8 query rows hold 1 (the tile was built for GQA groups).
+// Head dims: 64, 80 (zamba2's shared attention block), 96 (phi-3-vision),
+// 128 and 256; block sizes 8, 16 and 32.  At d 80 the bf16 decode body adds
+// a half chunk of 16 dims to its 32-dim chunks (one k-step, one m-tile),
+// the fp32 decode body gives a key a whole warp (20 of 32 lanes live), and
+// the fp32 span tile leaves 48 of 128 threads out of P V; zamba2 is MHA
+// (G 1), so the decode CTA's 8 query rows hold 1 (the tile was built for
+// GQA groups).  d 96 is three whole 32-dim chunks in the bf16 decode body
+// (six k-steps, six m-tiles), 24 of 32 lanes a key in the fp32 one, and 96
+// of 128 threads in the fp32 span tile's P V; phi-3 is MHA too.  A group
+// of G query heads takes ceil(G / 8) decode CTAs a KV head (G 3 and 6
+// leave rows of the one idle, G 16 fills two); the span tiles take the
+// packed rows i*G + g as they come, 64 a tile, whatever G cuts them at.
 //
 // Interface: plain C, loaded with ctypes.  Each entry point returns the
 // cudaError_t of its launch (0 on success); it launches on the given stream,
@@ -840,6 +846,7 @@ int run(Op op, int dtype, int d, int bs, const Args& a, int* out,
   switch (d) {
     case 64: return (int)at_dim<64>(op, dtype, bs, a, out, s);
     case 80: return (int)at_dim<80>(op, dtype, bs, a, out, s);
+    case 96: return (int)at_dim<96>(op, dtype, bs, a, out, s);
     case 128: return (int)at_dim<128>(op, dtype, bs, a, out, s);
     case 256: return (int)at_dim<256>(op, dtype, bs, a, out, s);
     default: return (int)cudaErrorInvalidValue;

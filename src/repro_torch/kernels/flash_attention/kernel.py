@@ -27,7 +27,7 @@ from repro_torch.kernels.build import (DTYPE_CODE, MAX_PARTS, check_launch,
                                       count_launch, cuda_entry, resources)
 from repro_torch.kernels.flash_attention.ref import reference
 
-HEAD_DIMS = (64, 80, 128, 256)
+HEAD_DIMS = (64, 80, 96, 128, 256)
 
 
 def check_cuda_args(q, k, v) -> None:

@@ -37,7 +37,7 @@ from repro_torch.kernels.build import count_launch, cuda_entry
 from repro_torch.kernels.build import resources as _resources
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 80, 128, 256)
+HEAD_DIMS = (64, 80, 96, 128, 256)
 MLA_DIMS = ((512, 64),)          # (kv_lora, rope) the MLA kernels take
 INDEX_DIMS = (16, 32, 64, 128)   # indexer head dims the K5/K6 kernels take
 INDEX_WIDTH = 8192               # max Hi*Di: a token's fp32 queries, 32 KB

@@ -15,7 +15,13 @@ MTP head (0.3 × the MTP losses in the loss, logged as ``mtp``);
 ``--arch falcon-mamba-7b`` trains the Mamba-1 LM and ``--arch zamba2-2.7b``
 the hybrid (Mamba-2 layers and one shared attention block, DSA on that
 block unless ``--dense-attn``); the model comes from the registry by the
-config's family.
+config's family.  ``--arch`` takes every id and alias of the registry.
+Like the reference's trainer CLI, it builds no frontend embeddings:
+``phi-3-vision-4.2b`` (family ``vlm``) trains on text alone, and
+``whisper-base`` (family ``audio``), whose loss needs the encoder's frame
+embeddings, stops with an error that says so (callers with frames call
+the train step of ``launch.steps`` with ``frontend_embeds`` in the
+batch).
 """
 from __future__ import annotations
 
@@ -47,6 +53,13 @@ def train(cfg: ModelConfig, tc: TrainConfig, *, device=None,
           log_every: int = 10) -> List[dict]:
     """Train ``cfg`` for ``tc.total_steps`` steps; returns the logged
     metric dicts (one every ``log_every`` steps and the last)."""
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name} (family 'audio') trains on frame embeddings "
+            f"(B, {cfg.encoder_seq_len}, {cfg.d_model}) as "
+            f"batch['frontend_embeds'], which this trainer's token corpus "
+            f"does not make; build the batch and call "
+            f"launch.steps.make_train_step")
     dev = resolve_device(device)
     M = get_model(cfg)
     model = M.init(cfg, torch.Generator(device=dev).manual_seed(tc.seed),

@@ -4,13 +4,18 @@ Port of ``repro.layers.attention``.  ``dense_attention`` is the exact
 reference math (fp32 scores and softmax); the contiguous-cache oracle and
 the ``ref`` paged gather path both run it.  Without a cache (training, and
 full-sequence logits) the GQA layer runs ``flash_attend``: K9
-(``kernels.flash_attention``) forward, and a plain backward that
-recomputes ``dense_attention`` a query chunk at a time — the reference
-runs ``dense_attention`` there, query-chunked under ``jax.checkpoint``.
+(``kernels.flash_attention``) forward, causal or not and with Sk != Sq,
+and a plain backward that recomputes ``dense_attention`` with the same
+mask a query chunk at a time — the reference runs ``dense_attention``
+there, query-chunked under ``jax.checkpoint``.  ``apply_gqa`` is the
+reference's one-layer entry of the encoder-decoder (``models.encdec``):
+self-attention without a cache (K9, causal), with a contiguous cache
+(``dense_attention``), and cross-attention over given K/V (K9, not
+causal).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -68,22 +73,25 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class _FlashAttend(torch.autograd.Function):
-    """K9 forward; the backward recomputes ``dense_attention`` over
-    ``q_chunk`` query rows at a time and differentiates it (the gradient of
-    the function the reference computes with XLA)."""
+    """K9 forward; the backward recomputes ``dense_attention`` with the
+    same mask over ``q_chunk`` query rows at a time and differentiates it
+    (the gradient of the function the reference computes with XLA)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, softcap, q_chunk):
+    def forward(ctx, q, k, v, causal, window, softcap, q_chunk):
         ctx.save_for_backward(q, k, v)
-        ctx.window, ctx.softcap, ctx.q_chunk = window, softcap, q_chunk
-        return flash_ops.attend(q, k, v, causal=True, window=window,
+        ctx.causal, ctx.window = causal, window
+        ctx.softcap, ctx.q_chunk = softcap, q_chunk
+        return flash_ops.attend(q, k, v, causal=causal, window=window,
                                 softcap=softcap)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         B, S = q.shape[:2]
-        pos = torch.arange(S, device=q.device).expand(B, S)
+        T = k.shape[1]
+        qpos = torch.arange(S, device=q.device).expand(B, S)
+        kpos = torch.arange(T, device=q.device).expand(B, T)
         dq = torch.empty_like(q)
         dk = torch.zeros_like(k)
         dv = torch.zeros_like(v)
@@ -93,23 +101,26 @@ class _FlashAttend(torch.autograd.Function):
             hi = min(lo + step, S)
             with torch.enable_grad():
                 qc = q[:, lo:hi].detach().requires_grad_()
-                out = dense_attention(qc, kd, vd, pos[:, lo:hi], pos,
-                                      causal=True, window=ctx.window,
+                out = dense_attention(qc, kd, vd, qpos[:, lo:hi], kpos,
+                                      causal=ctx.causal, window=ctx.window,
                                       softcap=ctx.softcap)
                 gq, gk, gv = torch.autograd.grad(out, (qc, kd, vd),
                                                  g[:, lo:hi])
             dq[:, lo:hi] = gq
             dk += gk
             dv += gv
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 window: int = 0, softcap: float = 0.0,
+                 causal: bool = True, window: int = 0, softcap: float = 0.0,
                  q_chunk: int = 1024) -> torch.Tensor:
-    """Causal self-attention over positions 0..S-1 (no cache): q (B, S, H,
-    dh), k/v (B, S, KVH, dh) -> (B, S, H, dh), differentiable."""
-    return _FlashAttend.apply(q, k, v, window, softcap, q_chunk)
+    """Attention with no cache, differentiable: q (B, Sq, H, dh), k/v (B,
+    Sk, KVH, dh) -> (B, Sq, H, dh), query i at position i and key j at j.
+    ``causal`` masks keys past a query's position (self-attention, Sq =
+    Sk); without it every key is seen (an encoder's self-attention,
+    cross-attention with Sq != Sk)."""
+    return _FlashAttend.apply(q, k, v, causal, window, softcap, q_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -151,3 +162,40 @@ def gqa_qkv(params: GQA, x: torch.Tensor, cfg: ModelConfig,
     q = apply_rope(q, positions, cfg.rope_base)
     k = apply_rope(k, positions, cfg.rope_base)
     return q, k, v
+
+
+def apply_gqa(params: GQA, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor, cache: Optional[dict] = None,
+              cache_index: Optional[int] = None,
+              cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """One global attention layer (the reference's ``apply_gqa``); returns
+    (out, cache).
+
+    ``cross_kv`` (k, v) (B, T, KVH, dh) switches to cross-attention: q is
+    ``x @ wq`` with no RoPE and no q_norm, every key is seen, and the cache
+    is returned as given (K9, not causal).  Otherwise q, k and v come from
+    ``gqa_qkv``: without a cache causal self-attention over positions
+    0..S-1 (K9); with a contiguous cache {"k", "v"} (B, T, KVH, dh) the S
+    new keys are written at ``cache_index`` in place and the queries
+    attend the first ``cache_index + S`` of them (``dense_attention``)."""
+    B, S, _ = x.shape
+    if cross_kv is not None:
+        q = (x @ params.wq).reshape(B, S, cfg.num_heads, cfg.head_dim)
+        k, v = cross_kv
+        out = flash_attend(q, k, v, causal=False, q_chunk=cfg.q_chunk)
+        return out.reshape(B, S, -1) @ params.wo, cache
+    q, k, v = gqa_qkv(params, x, cfg, positions)
+    if cache is None:
+        out = flash_attend(q, k, v, softcap=cfg.attn_logit_softcap,
+                           q_chunk=cfg.q_chunk)
+        return out.reshape(B, S, -1) @ params.wo, None
+    k_cache, v_cache = cache["k"], cache["v"]
+    k_cache[:, cache_index:cache_index + S] = k.to(k_cache.dtype)
+    v_cache[:, cache_index:cache_index + S] = v.to(v_cache.dtype)
+    T = k_cache.shape[1]
+    kv_positions = torch.arange(T, device=x.device).expand(B, T)
+    out = dense_attention(q, k_cache, v_cache, positions, kv_positions,
+                          causal=True, softcap=cfg.attn_logit_softcap,
+                          kv_len=cache_index + S)
+    return out.reshape(B, S, -1) @ params.wo, cache

@@ -1,4 +1,5 @@
-"""Decoder-only transformer: the dense and MoE families of the reference.
+"""Decoder-only transformer: the dense, MoE and VLM families of the
+reference.
 
 Port of ``repro.models.transformer`` for configurations the port serves
 exactly as the reference does: GQA or MLA attention, DSA sparse attention
@@ -7,9 +8,12 @@ token or the block selector), dense MLP (swiglu / relu2 / gelu) or routed
 MoE FFN (the pattern layers, after ``first_k_dense`` dense-MLP layers),
 the ``attention_pattern`` layer groups (local sliding-window / global),
 attention and final logit softcaps, tied (gemma-scaled) embeddings,
-``qk_norm`` and the MTP head (``core.mtp``: one shared non-MoE ``global``
+``qk_norm``, the MTP head (``core.mtp``: one shared non-MoE ``global``
 block; under DSA it has an indexer, and runs dense, ``sparse=False``, as
-in the reference).  A config that needs a part not ported yet — DSA's
+in the reference) and the VLM family's stubbed frontend: ``hidden``,
+``loss`` and ``prefill`` take ``frontend_embeds`` (B, F, D), precomputed
+patch embeddings put before the text's token embeddings, positions
+running over all F + S rows (the loss reads the text rows only).  A config that needs a part not ported yet — DSA's
 randomized top-k, another family — raises ``NotImplementedError`` instead
 of quietly running without it.
 
@@ -69,7 +73,7 @@ from repro_torch.models.losses import chunked_softmax_xent, mean_xent
 
 NORMS = ("attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm",
          "q_a_norm", "kv_a_norm", "h_norm", "e_norm")
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -394,22 +398,28 @@ def _layer_caches(cfg: ModelConfig, cache: dict, block_tables):
 
 
 def hidden(model: Transformer, tokens: torch.Tensor, *,
+           frontend_embeds: Optional[torch.Tensor] = None,
            sparse: Optional[bool] = None, cache: Optional[dict] = None,
            cache_index=None, block_tables: Optional[torch.Tensor] = None,
            paged_impl: str = "kernel"
            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
-    """Returns (final-normed hidden (B, S, D), aux loss, cache).
+    """Returns (final-normed hidden (B, F + S, D), aux loss, cache).
 
-    Positions start at ``cache_index``: with ``block_tables`` the cache is
+    ``frontend_embeds`` (B, F, D), when given, are the first F rows of the
+    sequence, before the S token embeddings (F = 0 without).  Positions
+    start at ``cache_index``: with ``block_tables`` the cache is
     the paged block pool and ``cache_index`` the per-sequence start vector
     (B,); with a contiguous cache ``cache_index`` is the int offset of
     token 0; without a cache they are 0..S-1."""
     cfg = model.cfg
     if sparse is None:
         sparse = cfg.dsa is not None
-    B, S = tokens.shape
+    B = tokens.shape[0]
     dev = tokens.device
     h = embed(model.embed, tokens, cfg)
+    if frontend_embeds is not None:
+        h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
+    S = h.shape[1]
     span = torch.arange(S, dtype=torch.int32, device=dev)
     if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
         positions = cache_index.to(torch.int32)[:, None] + span[None]
@@ -436,7 +446,9 @@ def loss(model: Transformer, batch: Dict[str, torch.Tensor], *,
          sparse: Optional[bool] = None
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's ``loss``: ``batch`` holds ``tokens`` and ``targets``
-    (B, S) and optionally ``loss_mask`` (default ones).  Returns (total,
+    (B, S) and optionally ``loss_mask`` (default ones) and
+    ``frontend_embeds`` (B, F, D), whose rows the cross-entropy skips: it
+    reads the hidden of the S text rows.  Returns (total,
     {"ce", "aux", "loss"} and "mtp" with the head): the masked mean token
     NLL (K10) plus the layers' auxiliary losses, plus 0.3 × the MTP losses
     (``core.mtp.mtp_train_losses``: each step's mean NLL over the masked-in
@@ -447,7 +459,9 @@ def loss(model: Transformer, batch: Dict[str, torch.Tensor], *,
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
-    h, aux, _ = hidden(model, tokens, sparse=sparse)
+    fe = batch.get("frontend_embeds")
+    h, aux, _ = hidden(model, tokens, frontend_embeds=fe, sparse=sparse)
+    h = h[:, 0 if fe is None else fe.shape[1]:]
     W = unembed_matrix(model.embed, cfg)
     ce_sum, count = chunked_softmax_xent(
         h, W, targets, mask, chunk=cfg.loss_chunk,
@@ -538,14 +552,17 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor, cache: dict, *,
+            frontend_embeds: Optional[torch.Tensor] = None,
             block_tables: Optional[torch.Tensor] = None, cache_index=None,
             paged_impl: str = "kernel") -> Tuple[torch.Tensor, dict]:
-    """Fill the cache with the prompt; returns (logits, cache).
+    """Fill the cache with the prompt (after ``frontend_embeds``' F rows,
+    when given); returns (logits, cache).
 
-    Paged mode (``block_tables`` set) returns ALL-position logits (B, S, V)
-    — the caller picks its own last real position per sequence; contiguous
-    mode returns the last position's (B, 1, V)."""
-    h, _, cache = hidden(model, tokens, cache=cache,
+    Paged mode (``block_tables`` set) returns ALL-position logits (B, F +
+    S, V) — the caller picks its own last real position per sequence;
+    contiguous mode returns the last position's (B, 1, V)."""
+    h, _, cache = hidden(model, tokens, frontend_embeds=frontend_embeds,
+                         cache=cache,
                          cache_index=0 if cache_index is None else cache_index,
                          block_tables=block_tables, paged_impl=paged_impl)
     if block_tables is None:

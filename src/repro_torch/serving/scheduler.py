@@ -1,8 +1,10 @@
 """Continuous-batching scheduler over the paged KV cache (GLM-5 §3.6).
 
-Port of ``repro.serving.scheduler.ContinuousEngine`` for the dense and MoE
-families (GQA or MLA attention, with or without DSA) and the hybrid family
-(Mamba-2 layers and one shared attention block).  Iteration-level
+Port of ``repro.serving.scheduler.ContinuousEngine`` for the dense, MoE
+and VLM families (GQA or MLA attention, with or without DSA; a VLM's
+requests are text-only, as in the reference: no patch embeddings reach
+the engine) and the hybrid family (Mamba-2 layers and one shared
+attention block).  Iteration-level
 scheduling: the engine keeps ``max_batch`` decode slots and, every step,
 
   1. retires sequences that produced their ``max_new`` tokens, handing
@@ -159,11 +161,12 @@ class ContinuousEngine:
                  spill_blocks: Optional[int] = None,
                  faults: Optional[FaultInjector] = None,
                  device=None):
-        if cfg.family not in ("dense", "moe", "hybrid"):
+        if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
             raise NotImplementedError(
-                f"ContinuousEngine supports the transformer and hybrid "
-                f"families, got {cfg.family!r} (the static ServingEngine "
-                f"serves the ssm family)")
+                f"ContinuousEngine supports the transformer (dense, moe, "
+                f"vlm: text-only requests) and hybrid families, got "
+                f"{cfg.family!r} (the static ServingEngine serves the ssm "
+                f"family; launch.steps the audio family)")
         if spec_steps is None:
             from repro_torch.flags import default_spec_steps
             spec_steps = default_spec_steps()

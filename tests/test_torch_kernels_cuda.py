@@ -251,12 +251,15 @@ def _k1_inputs(rng, dtype, KVH, G, d, bs, mb, lens):
     (2, 3, 64, 8, 12, [0, 2, 7, 8, 40, 95], 0, 0.0),
     (4, 2, 256, 16, 12, [0, 5, 64, 100, 191], 64, 50.0),
     (2, 12, 128, 32, 6, [0, 31, 32, 150, 191], 40, 30.0),
+    (2, 6, 128, 8, 40, [0, 1, 7, 8, 200, 311], 0, 0.0),
+    (1, 16, 128, 16, 20, [0, 15, 16, 300, 319], 0, 0.0),
 ])
 def test_paged_decode_gqa_split_matches_plain(dtype, tol, case):
     """K1 through its C entry point with the live range cut into every
     count of runs 1..16 (more runs than a row's blocks leaves some empty),
     and through the wrapper (its own count): an idle slot, ragged lengths,
-    G 2 / 3 / 8 / 12 (two row tiles), window and softcap."""
+    G 2 / 3 / 6 / 8 / 12 / 16 (two row tiles at 12 and 16), window and
+    softcap."""
     _need_gpu()
     KVH, G, d, bs, mb, lens, window, softcap = case
     rng = np.random.default_rng(len(lens) + d)
@@ -287,6 +290,28 @@ def test_paged_decode_gqa_head_dim_80(dtype, tol, bs, KVH, G):
     lens = [0, 1, bs - 1, bs, 300, 777, 1039, 2 * bs + 3]
     rng = np.random.default_rng(80 + bs + G)
     q, kp, vp, tables, sl = _k1_inputs(rng, dtype, KVH, G, 80, bs,
+                                       max(lens) // bs + 2, lens)
+    want = K1.paged_decode_gqa_plain(q, kp, vp, tables, sl)
+    for parts in range(1, K1.MAX_DECODE_PARTS + 1):
+        got = K1.launch_decode_gqa(q, kp, vp, tables, sl, 0, 0.0, parts)
+        torch.cuda.synchronize()
+        _hold(got, want, tol)
+    _hold(K1.paged_decode_gqa(q, kp, vp, tables, sl), want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("KVH,G", [(32, 1), (4, 3)])
+def test_paged_decode_gqa_head_dim_96(dtype, tol, bs, KVH, G):
+    """K1 at phi-3-vision's head dim 96 (the bf16 body's three whole
+    32-dim chunks, the fp32 body's 24 live lanes a key): MHA with 32 heads
+    and GQA G 3, an idle slot and ragged lengths, every count of runs
+    1..16 and the wrapper's."""
+    _need_gpu()
+    lens = [0, 1, bs - 1, bs, 300, 777, 1039, 2 * bs + 3]
+    rng = np.random.default_rng(96 + bs + G)
+    q, kp, vp, tables, sl = _k1_inputs(rng, dtype, KVH, G, 96, bs,
                                        max(lens) // bs + 2, lens)
     want = K1.paged_decode_gqa_plain(q, kp, vp, tables, sl)
     for parts in range(1, K1.MAX_DECODE_PARTS + 1):
@@ -348,7 +373,7 @@ def _k2_case(rng, dtype, tol, B, KVH, G, d, bs, S, starts, mb, window=0,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("bs", [8, 16, 32])
 def test_paged_prefill_gqa_matches_plain(dtype, tol, d, bs):
     """K2 at every (head dim, block size) it instantiates, G 1 / 3 / 8 with
@@ -360,6 +385,21 @@ def test_paged_prefill_gqa_matches_plain(dtype, tol, d, bs):
     mb = 16
     for G, S in ((1, 5), (3, 21), (8, 37)):
         _k2_case(rng, dtype, tol, 4, 2, G, d, bs, S,
+                 [0, bs + bs // 2, 2 * bs, mb * bs - S], mb, trash_row=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("bs", [8, 16])
+def test_paged_prefill_gqa_group_sizes_6_and_16(dtype, tol, bs):
+    """K2 at nemotron-4's G 6 and qwen3-moe's G 16 (d 128): packed rows
+    i*G + g cut into 64-row tiles at no token edge (S*G 6 * 21 = 126 and
+    16 * 9 = 144), a trash row, spans mid-block and at the table's end."""
+    _need_gpu()
+    rng = np.random.default_rng(616)
+    mb = 16
+    for KVH, G, S in ((2, 6, 21), (1, 16, 9)):
+        _k2_case(rng, dtype, tol, 4, KVH, G, 128, bs, S,
                  [0, bs + bs // 2, 2 * bs, mb * bs - S], mb, trash_row=True)
 
 
@@ -385,7 +425,7 @@ def test_flash_attention_bf16_tile_beside_d80(d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("kw", [
     dict(), dict(window=40, softcap=30.0), dict(q_offset=211),
     dict(q_offset=211, window=48, softcap=20.0), dict(causal=False),
@@ -583,7 +623,7 @@ def test_paged_prefill_indexer_tensor_cores_match_plain(Hi, Di, bs, S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("kw", [
     dict(), dict(window=40, softcap=30.0), dict(q_offset=211),
     dict(q_offset=211, window=48, softcap=20.0), dict(causal=False),
@@ -1121,6 +1161,44 @@ def test_flash_attend_d80_grads_match_plain(dtype, tol):
     def run():
         xs = [x.detach().requires_grad_() for x in (q, k, v)]
         out = attention.flash_attend(*xs, q_chunk=64)
+        return [out.detach()] + list(torch.autograd.grad(out, xs, g))
+
+    before = K9.flash_attention.launches
+    got = run()
+    assert K9.flash_attention.launches == before + 1
+    wrapper, K9.flash_attention = K9.flash_attention, K9.reference
+    try:
+        want = run()
+    finally:
+        K9.flash_attention = wrapper
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _hold(a, b, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("Sq,Sk,H,d,causal", [
+    (150, 150, 32, 96, True), (150, 150, 32, 96, False),
+    (448, 1500, 8, 64, False), (1, 1500, 8, 64, False)])
+def test_flash_attend_new_shapes_grads_match_plain(dtype, tol, Sq, Sk, H, d,
+                                                   causal):
+    """phi-3-vision's attention in training (32 heads of 96, causal and
+    not) and whisper-base's cross-attention (8 heads of 64, a 448-token
+    text and one decode row against 1500 frames, not causal):
+    ``flash_attend`` (K9's forward on the card, the plain recomputing
+    backward with the same mask), values and gradients against the same
+    on K9's plain version."""
+    _need_gpu()
+    from repro_torch.layers import attention
+    rng = np.random.default_rng(Sq + d)
+    q = _cuda(rng, 2, Sq, H, d, dtype=dtype)
+    k, v = (_cuda(rng, 2, Sk, H, d, dtype=dtype) for _ in range(2))
+    g = _cuda(rng, 2, Sq, H, d, dtype=dtype)
+
+    def run():
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = attention.flash_attend(*xs, causal=causal, q_chunk=64)
         return [out.detach()] + list(torch.autograd.grad(out, xs, g))
 
     before = K9.flash_attention.launches

@@ -217,9 +217,12 @@ def test_models_reject_configs_they_cannot_serve():
         T.init(base.replace(dsa=DSAConfig(selector="blocks")), device="cpu")
     with pytest.raises(ValueError):               # a router with no top-k
         T.init(base.replace(num_experts=4), device="cpu")
+    from repro_torch.models import encdec
     from repro_torch.models import get_model as port_get_model
-    with pytest.raises(NotImplementedError):
-        port_get_model(base.replace(family="audio"))
+    assert port_get_model(base.replace(family="vlm")) is T
+    assert port_get_model(base.replace(family="audio")) is encdec
+    with pytest.raises(NotImplementedError):      # no such family
+        port_get_model(base.replace(family="retnet"))
 
 
 # ---------------------------------------------------------------------------

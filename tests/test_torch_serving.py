@@ -36,6 +36,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serving import (CacheFull, ContinuousEngine, PagedKVCache,
                                  PrefixCache, Request, RequestCancelled,
                                  ServingEngine)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 MARGIN = 1e-4
 

@@ -54,6 +54,7 @@ from repro_torch.core.mtp import speculative_accept_length
 from repro_torch.models import transformer as T
 from repro_torch.serving import ContinuousEngine, Request
 from repro_torch.serving import speculative as tspec
+from _torch_threads import one_torch_thread  # noqa: F401
 
 _KW = dict(max_batch=2, block_size=8, num_blocks=32, max_len=64)
 _MTP = JaxMTPConfig(num_predict=3, share_params=True)

@@ -64,6 +64,7 @@ from repro_torch.data import synthetic
 from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer as T
 from repro_torch.optim import muon, schedule
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CONFIGS = ["yi", "yi_dsa", "gemma2", "glm5", "glm5_mtp", "yi_block"]
 
