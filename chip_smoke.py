@@ -365,6 +365,29 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            then traced with torch.profiler: device busy share, top kernels
            and the port's own kernels' device time a call (Yi-6B with DSA
            at ~2300 live tokens a row, past top-k; zamba2 as published).
+  mesh     the mesh and analysis layer (slice 20) on the host mesh
+           (``launch.mesh.make_host_mesh``: 1 x 1, a process group of one
+           rank over NCCL, started before the serve and train phases,
+           which reuse it): for the served qwen3-moe and kimi-k2 (depth
+           2, bf16), ``launch.steps``' prefill step (256 tokens) and one
+           serve step (8 rows after 64 tokens) with
+           ``moe_impl="expert_parallel"`` against the routed path at a
+           capacity factor that drops nothing (16 / 48: E / k), at bf16
+           2e-2 of the logits' scale; two EP runs bitwise equal; the EP
+           serve step under ``torch.cuda.set_sync_debug_mode("error")``;
+           the dropped assignments a layer and step at the default 1.25
+           and the serve step's ms p50, EP beside routed (``[mesh]
+           model=... capacity_factor=1.25``); ``cfg.remat`` on Yi-6B at 8
+           layers, 2 x 2048, fp32: ``remat="full"`` at ``remat_group`` 1
+           and 2 against ``"none"`` (loss 1e-5 relative, gradients 1e-4
+           of each leaf's max), each one's peak memory, forward +
+           backward ms and ``model_flops`` over it as a share of the fp32
+           peak (``[mesh] ... what=remat``, ``what=remat.summary``); and
+           ``launch.dryrun``'s argument bytes for Yi-6B at 2 layers,
+           ``decode_32k`` at batch 8, beside what the card allocates for
+           the same parameters, token and cache (``[mesh] ...
+           what=dryrun``).  Every [mesh] line carries the card's name and
+           power limit.
 
 Then it prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a GPU, or
@@ -4353,6 +4376,304 @@ def profile_train_step(cfg, batch, seq, device="cuda", lr=2e-3) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the mesh and analysis layer: the expert-parallel MoE path, remat, the dry
+# run against the card
+# ---------------------------------------------------------------------------
+
+_CARD = []
+
+
+def _card() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them, printed
+    beside every time and memory size of the [mesh] lines."""
+    if not _CARD:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        _CARD.append(smi.stdout.strip().splitlines()[0]
+                     if smi.returncode == 0 else "nvidia-smi failed")
+    return _CARD[0]
+
+
+def _hold_scaled(what, got, want, dtype) -> float:
+    """Finite, and max abs error <= TOL[dtype] * max(1, max|want|): the
+    logits' own scale; returns the max abs error."""
+    import torch
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[str(dtype).split(".")[1]] * max(
+        1.0, want.float().abs().max().item())
+    if not torch.isfinite(got).all() or err > tol:
+        raise AssertionError(f"{what}: max abs err {err} > {tol} or "
+                             f"non-finite")
+    return err
+
+
+class _CountDrops:
+    """Inside ``with _CountDrops() as d:`` the EP dispatch records, a call
+    at a time, the assignments it dropped (on the device: nothing is read
+    back until ``dropped`` is asked for)."""
+
+    def __enter__(self):
+        from repro_torch.layers import moe
+        self._orig, self.calls = moe._dispatch_local, []
+
+        def counted(idx, gates, T, e_lo, E_local, capacity):
+            out = self._orig(idx, gates, T, e_lo, E_local, capacity)
+            self.calls.append(((out[2] == E_local * capacity).sum(),
+                               idx.numel()))
+            return out
+        moe._dispatch_local = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import moe
+        moe._dispatch_local = self._orig
+        return False
+
+    def dropped(self):
+        return (sum(int(n) for n, _ in self.calls),
+                sum(a for _, a in self.calls))
+
+
+def mesh_moe(cfg, model, mesh, ample, device="cuda", prefill_len=256,
+             rows=8, prompt_len=64, steps=8) -> dict:
+    """The expert-parallel MoE path (``moe_impl="expert_parallel"``) through
+    ``launch.steps`` on the host mesh, on the served bf16 model: its prefill
+    step (1 x ``prefill_len`` tokens) and one serve step (``rows`` rows
+    after a ``prompt_len`` prompt) held against the routed path's at
+    ``capacity_factor=ample`` (>= E / k: nothing drops) at bf16 2e-2 of the
+    logits' scale; two EP runs of each bitwise equal; the dropped
+    assignments a step at the default 1.25; the EP serve step under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); the serve
+    step's ms p50 for EP and routed (CUDA events around each of ``steps``
+    greedy steps).  Returns the EP prefill's K9 launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K9
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import get_model
+    t_start = time.perf_counter()
+    M = get_model(cfg)
+    routed = cfg.replace(moe_impl="auto")
+    ep_ample = cfg.replace(moe_impl="expert_parallel", capacity_factor=ample)
+    ep = cfg.replace(moe_impl="expert_parallel")
+    rng = np.random.default_rng(SEED + 11)
+    V = cfg.vocab_size
+    prefill = make_prefill_step(model, mesh=mesh)
+    serve_step = make_serve_step(model, mesh=mesh)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        3, V, (1, prefill_len)).astype(np.int32)).to(device)}
+    model.cfg = routed
+    want = prefill(batch)
+    model.cfg = ep_ample
+    K9.flash_attention.launches = 0              # counts of the main path
+    got = prefill(batch)
+    k9 = K9.flash_attention.launches
+    if device != "cpu" and k9 != cfg.num_layers:
+        raise AssertionError(f"mesh {cfg.name}: the EP prefill step launched "
+                             f"K9 {k9} times, not once a layer")
+    prefill_err = _hold_scaled(f"mesh {cfg.name} EP prefill vs routed", got,
+                               want, torch.bfloat16)
+    if not torch.equal(prefill(batch), got):
+        raise AssertionError(f"mesh {cfg.name}: two EP prefill steps differ")
+    # the serve step from one filled cache, copied for each run
+    prompts = torch.from_numpy(rng.integers(
+        3, V, (rows, prompt_len)).astype(np.int32)).to(device)
+    cache0 = M.init_cache(cfg, rows, prompt_len + steps + 1,
+                          dtype=torch.bfloat16, device=device)
+    model.cfg = routed
+    lg, cache0 = M.prefill(model, prompts, cache0)
+    token0 = lg.argmax(-1).to(torch.int32)
+
+    def fresh():
+        return {k: {n: t.clone() for n, t in c.items()}
+                for k, c in cache0.items()}
+
+    def step(cfg_, cache, token, at):
+        model.cfg = cfg_
+        return serve_step(token, cache, at)
+
+    want, _ = step(routed, fresh(), token0, prompt_len)
+    got, _ = step(ep_ample, fresh(), token0, prompt_len)
+    serve_err = _hold_scaled(f"mesh {cfg.name} EP serve step vs routed", got,
+                             want, torch.bfloat16)
+    first, _ = step(ep, fresh(), token0, prompt_len)
+    again, _ = step(ep, fresh(), token0, prompt_len)
+    if not torch.equal(first, again):
+        raise AssertionError(f"mesh {cfg.name}: two EP serve steps differ")
+    cache = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")      # a host sync raises
+    try:
+        step(ep, cache, token0, prompt_len)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    timed = {}
+    for name, cfg_ in (("ep", ep), ("routed", routed)):
+        cache, token, ms = fresh(), token0, []
+        with _CountDrops() as drops:
+            for i in range(steps):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                lg, cache = step(cfg_, cache, token, prompt_len + i)
+                t1.record()
+                token = lg.argmax(-1).to(torch.int32)
+                torch.cuda.synchronize()
+                ms.append(t0.elapsed_time(t1))
+        timed[name] = (float(np.median(ms[1:])), drops.dropped())
+        if not torch.isfinite(lg).all() or lg.shape != (rows, 1, V):
+            raise AssertionError(f"mesh {cfg.name} {name}: logits "
+                                 f"{tuple(lg.shape)} not finite")
+    model.cfg = cfg
+    dropped, assigned = timed["ep"][1]
+    res = dict(prefill_max_abs_err=prefill_err, serve_max_abs_err=serve_err,
+               ample_capacity_factor=ample, bitwise_equal=True,
+               sync_free=True, ep_step_ms_p50=timed["ep"][0],
+               routed_step_ms_p50=timed["routed"][0],
+               dropped_a_layer_step=dropped / (steps * (cfg.num_layers
+                                                    - cfg.first_k_dense)),
+               assignments_a_layer_step=assigned / (steps * (cfg.num_layers
+                                                      - cfg.first_k_dense)),
+               k9_bf16_launches=k9,
+               seconds=time.perf_counter() - t_start)
+    _log("mesh", model=cfg.name, layers=cfg.num_layers,
+         experts=cfg.num_experts, top_k=cfg.experts_per_token,
+         dtype="bfloat16", prefill_tokens=prefill_len, rows=rows,
+         capacity_factor=ep.capacity_factor, card=repr(_card()), **res)
+    res["launches"] = {"flash_attention_bf16": k9}
+    return res
+
+
+def mesh_remat(cfg, batch, seq, device="cuda", reps=3) -> dict:
+    """``cfg.remat`` on the training forward: the loss and every gradient
+    (fp32, TF32 off) with ``remat="full"`` at ``remat_group`` 1 and 2 held
+    against ``"none"`` (loss 1e-5 relative, gradients 1e-4 of each leaf's
+    max: ``train_parity``'s bounds); each one's peak memory
+    (``max_memory_allocated`` over a forward and backward, the "none"
+    gradients resident in all), its forward + backward ms p50 (CUDA events,
+    ``reps`` runs) and ``model_flops`` over that time as a share of the
+    card's fp32 peak.  K9's and K10's launches of the measured runs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import get_model
+    from repro_torch.roofline import model_flops
+    t_start = time.perf_counter()
+    M = get_model(cfg)
+    model = M.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                   device=device)
+    model.requires_grad_(True)
+    b = _train_batch(cfg, batch, seq, device)
+    wrappers = train_kernel_wrappers()
+
+    def fwd_bwd(cfg_):
+        model.cfg = cfg_
+        for p in model.parameters():
+            p.grad = None
+        total, _ = M.loss(model, b)
+        total.backward()
+        return total.detach()
+
+    base_loss = fwd_bwd(cfg).item()
+    base = {k: p.grad for k, p in model.named_parameters()
+            if p.grad is not None}
+    flops = model_flops(cfg, InputShape("train", seq, batch, "train"))
+    out, launches = {}, {}
+    for remat, group in (("none", 1), ("full", 1), ("full", 2)):
+        c = cfg.replace(remat=remat, remat_group=group)
+        for _, fn, _ in wrappers.values():
+            fn.launches = 0                       # counts of the main path
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = fwd_bwd(c).item()
+        peak = torch.cuda.max_memory_allocated()
+        for name, (_, fn, _) in wrappers.items():
+            launches[name] = launches.get(name, 0) + fn.launches
+        _hold_rel(f"mesh remat {remat} g{group} loss", loss, base_loss, 1e-5)
+        worst = 0.0
+        for k, g0 in base.items():
+            err = (model.get_parameter(k).grad - g0).abs().max().item()
+            scale = g0.abs().max().item()
+            if not err <= 1e-4 * max(scale, 1e-30):
+                raise AssertionError(f"mesh remat {remat} g{group}: grad {k} "
+                                     f"err {err} > 1e-4 x {scale}")
+            worst = max(worst, err / max(scale, 1e-30))
+        ms = []
+        for _ in range(reps):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fwd_bwd(c)
+            t1.record()
+            torch.cuda.synchronize()
+            ms.append(t0.elapsed_time(t1))
+        step_ms = float(np.median(ms))
+        key = "none" if remat == "none" else f"full_g{group}"
+        out[key] = dict(loss=loss, grad_rel_err=worst, peak_gb=peak / 1e9,
+                        step_ms=step_ms,
+                        fp32_peak_share=flops / (step_ms / 1e3)
+                        / H100_FLOPS["float32"])
+        _log("mesh", model=cfg.name, layers=cfg.num_layers, what="remat",
+             remat=remat, remat_group=group, batch=batch, seq=seq,
+             dtype="float32", card=repr(_card()), **out[key])
+    model.cfg = cfg
+    _log("mesh", model=cfg.name, what="remat.summary",
+         peak_saved_gb=out["none"]["peak_gb"] - out["full_g1"]["peak_gb"],
+         slowdown_g1=out["full_g1"]["step_ms"] / out["none"]["step_ms"],
+         slowdown_g2=out["full_g2"]["step_ms"] / out["none"]["step_ms"],
+         model_flops=flops, seconds=time.perf_counter() - t_start,
+         card=repr(_card()))
+    del model, base
+    return dict(out, launches=launches)
+
+
+def mesh_dryrun(cfg, arch, shape_name, layers, batch, device="cuda") -> dict:
+    """``launch.dryrun``'s argument bytes for ``arch`` at ``layers`` layers
+    and ``shape_name`` at batch ``batch`` (the model, token and cache on
+    ``meta``) beside what the card allocates for the same bf16 parameters,
+    token and cache (``torch.cuda.memory_allocated`` before and after):
+    equal to within the allocator's rounding, 512 bytes a tensor."""
+    import torch
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.models import get_model
+    from repro_torch.utils import leaves
+    t_start = time.perf_counter()
+    rec = dryrun.run_one(arch, shape_name, num_layers=layers,
+                         global_batch=batch, save=False, verbose=False)
+    c = cfg.replace(num_layers=layers)
+    M = get_model(c)
+    _free()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = M.init(c, torch.Generator(device=device).manual_seed(SEED),
+                   device=device, dtype=torch.bfloat16)
+    cache = M.init_cache(c, batch, INPUT_SHAPES[shape_name].seq_len,
+                         dtype=torch.bfloat16, device=device)
+    token = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+    card = torch.cuda.memory_allocated() - before
+    n = sum(1 for _ in leaves((model, cache, token)))
+    diff = card - rec["argument_bytes"]
+    if not 0 <= diff <= 512 * n:
+        raise AssertionError(f"mesh dryrun {arch}: the card allocated "
+                             f"{card} B, the dry run counts "
+                             f"{rec['argument_bytes']} B ({n} tensors)")
+    res = dict(dryrun_argument_bytes=rec["argument_bytes"],
+               card_allocated_bytes=card, tensors=n, diff_bytes=diff,
+               dryrun_peak_bytes=rec["peak_memory_bytes"],
+               dryrun_dominant=rec["dominant"],
+               dryrun_memory_s=rec["memory_s"],
+               dryrun_meta_run_s=rec["meta_run_s"],
+               seconds=time.perf_counter() - t_start)
+    _log("mesh", model=c.name, layers=layers, what="dryrun", shape=shape_name,
+         batch=batch, card=repr(_card()), **res)
+    del model, cache
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the ssm family (falcon-mamba-7b): K11, the static engine, the trainer
 # ---------------------------------------------------------------------------
 
@@ -5171,6 +5492,10 @@ def main() -> int:
         build.load(name)
     _log("build", seconds=time.perf_counter() - t0,
          libraries=",".join(p.name for p in libs))
+    # the host mesh (a process group of one rank): the [mesh] phase's steps
+    # run on it, and the trainers reuse it
+    from repro_torch.launch.mesh import destroy_host_mesh, make_host_mesh
+    mesh = make_host_mesh()
 
     worst = check_kernels()
     worst.update(check_mla_kernels())
@@ -5416,9 +5741,18 @@ def main() -> int:
     del phi3_serve
     _free()
     for cfg_ in (qwen3, kimi, nemotron, minitron):
-        launches.update(serve(cfg_.replace(num_layers=2), prompt_lens,
-                              max_new=new_tokens)["launches"])
+        served = serve(cfg_.replace(num_layers=2), prompt_lens,
+                       max_new=new_tokens)
+        launches.update(served["launches"])
+        if cfg_.num_experts:
+            # [mesh]: the expert-parallel path on the served model, held
+            # against the routed one at a capacity that drops nothing
+            launches.update(mesh_moe(
+                cfg_.replace(num_layers=2), served.pop("model"), mesh,
+                ample=cfg_.num_experts / cfg_.experts_per_token)["launches"])
+        del served
         _free()
+    stamp("serve.registry")
     launches.update(serve_encdec(whisper)["launches"])
     _free()
     stamp("serve")
@@ -5470,6 +5804,13 @@ def main() -> int:
                                            steps=5)["launches"])
         _free()
     stamp("train.frontend")
+    # [mesh]: remat on Yi-6B's training path, and the dry run's argument
+    # bytes beside the card's allocation
+    launches.update(mesh_remat(yi_train, batch=2, seq=2048)["launches"])
+    _free()
+    mesh_dryrun(yi_dsa, "yi_6b", "decode_32k", layers=2, batch=8)
+    _free()
+    stamp("mesh")
     # the training profiles at 2 layers (8 until the hybrid phases came,
     # 4 until slice 19's: each cut keeps the whole run near its earlier
     # time; the per-layer parts of a step halve, the loss and the
@@ -5537,6 +5878,7 @@ def main() -> int:
                 # TPU its kernel is K11's
                 "mamba_scan_heads":
                 ("mamba_scan", "src/repro/kernels/mamba_scan/kernel.py:46")}
+    destroy_host_mesh()
     # K11's launches: both entry points (the main path runs the model form)
     launches["mamba_scan"] += launches.pop("mamba_scan_model")
     kernels = []

@@ -12,7 +12,8 @@ it (``serving.frontend``, ``session``, ``spill``, ``migrate``,
 (``launch.train``: loss, Muon Split, checkpoints, data) with the flash
 attention, chunked cross-entropy and lightning-indexer kernels in
 ``kernels/{flash_attention,chunked_ce,lightning_indexer}`` (CUDA C++ under
-``csrc/``).
+``csrc/``), and the mesh and analysis layer on one rank (``launch.mesh``,
+``sharding``, ``roofline``, ``launch.dryrun``).
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU and without that request it raises (see

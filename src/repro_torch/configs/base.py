@@ -12,17 +12,24 @@ Mamba-1 LM (``models.ssm_model``: ``ssm_state``, ``ssm_conv``,
 (``frontend='vision_stub'``), family ``audio`` the Whisper-style
 encoder-decoder (``models.encdec``: ``encoder_layers`` bidirectional
 layers over ``encoder_seq_len`` precomputed frame embeddings,
-``frontend='audio_stub'``).  The reference's expert-parallel switches
-(``moe_impl``, ``capacity_factor``: the mesh slice), its unread
-``decoder_max_len`` and its implementation switches (``attn_impl``,
-``scan_layers``, ``remat``, ...) are left out, so a setting the port
+``frontend='audio_stub'``).  ``moe_impl`` picks the MoE path
+(``layers.moe.apply_moe``: ``auto``, ``dense`` or ``expert_parallel``,
+with ``capacity_factor`` bounding an expert's tokens on the latter);
+``remat`` (``none`` or ``full``) and ``remat_group`` checkpoint the
+transformer's layer groups in training; ``seq_parallel`` is the
+reference's sequence sharding of the residual stream: a step takes a mesh
+of one rank at most, where that sharding and the batch sharding it
+replaces are both identities, so either value is honoured and no layer
+reads it.  The reference's unread ``decoder_max_len`` and its XLA switches
+(``attn_impl``, ``scan_layers``) are left out, so a setting the port
 cannot honour fails when the config is built instead of being ignored.
 ``q_chunk`` and ``loss_chunk`` bound the training path's transient memory
 (attention's backward and DSA chunks; the cross-entropy's backward) and
 change no value.  ``TrainConfig`` is the reference's less ``optimizer``
 and ``min_lr``, which its trainer never reads: the trainer always steps
 Muon (Split unless ``muon_split`` is off) and floors the cosine at a
-tenth of the peak.  The workload dataclasses are not needed yet.
+tenth of the peak.  ``INPUT_SHAPES`` are the reference's four workload
+shapes, which the dry run and the roofline read.
 """
 from __future__ import annotations
 
@@ -96,13 +103,14 @@ class ModelConfig:
     dsa: Optional[DSAConfig] = None
     mtp: Optional[MTPConfig] = None
 
-    # MoE (single device: routed top-k + shared experts)
+    # MoE (routed top-k + shared experts)
     num_experts: int = 0
     experts_per_token: int = 0
     num_shared_experts: int = 0
     moe_d_ff: int = 0
     first_k_dense: int = 0         # leading dense-MLP layers
     router_aux_coef: float = 0.001
+    capacity_factor: float = 1.25  # EP: an expert takes ceil(T k / E x this)
 
     # SSM (mamba1/mamba2)
     ssm_state: int = 0
@@ -123,11 +131,23 @@ class ModelConfig:
     frontend: str = "none"
     frontend_tokens: int = 0       # patches / frames the caller provides
 
+    # implementation switches
+    moe_impl: str = "auto"         # auto | dense | expert_parallel
+    remat: str = "none"            # none | full
+    remat_group: int = 1           # checkpoint every G layer-groups (tape/G)
+    seq_parallel: bool = False     # residual stream sharded over 'model'
+
     # memory / compute layout of the training path
     q_chunk: int = 1024            # query rows a chunk (attention, DSA)
     loss_chunk: int = 512          # tokens a chunk of the CE backward
 
     def __post_init__(self):
+        if self.moe_impl not in ("auto", "dense", "expert_parallel"):
+            raise ValueError(f"moe_impl {self.moe_impl!r}: the reference "
+                             f"has auto, dense and expert_parallel")
+        if self.remat not in ("none", "full"):
+            raise ValueError(f"remat {self.remat!r}: the port checkpoints "
+                             f"'full' layer groups or 'none'")
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
@@ -146,3 +166,20 @@ class TrainConfig:
     weight_decay: float = 0.1
     grad_clip: float = 1.0
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned (seq_len, global_batch) workload shapes."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -8,7 +8,7 @@ plain PyTorch.  As in the reference, the kernel gives one partial sum per
 128-token tile and the wrapper sums them; the order of the sums differs
 from the plain version's (fp32 agreement to ~1e-6 relative).
 
-The wrapper chooses by the tensors' device: on the CPU it runs the plain
+The wrapper chooses by the tensors' device: on the CPU or meta it runs the plain
 version, on a CUDA device it launches the kernel or raises.  There is no
 fallback.  ``chunked_ce.launches`` counts kernel launches (one a call: the
 logits-tile pass and the per-token combine pass it starts together).
@@ -55,10 +55,10 @@ def chunked_ce(h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
     """K10: h (Tk, D), w (D, V), targets (Tk,) int32, mask (Tk,) float32
     -> (loss_sum, count), fp32 scalars.
 
-    CPU tensors run ``ref.reference``; CUDA tensors launch the Hopper
+    CPU and meta tensors run ``ref.reference``; CUDA tensors launch the Hopper
     kernel on the current stream (a CTA per 128-token x 128-vocab logits
     tile, then a combine pass per 128 tokens)."""
-    if h.device.type == "cpu":
+    if h.device.type in ("cpu", "meta"):
         return reference(h, w, targets, mask, softcap=softcap)
     check_cuda_args(h, w, targets, mask)
     Tk, D = h.shape

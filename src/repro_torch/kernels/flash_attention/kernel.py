@@ -15,7 +15,7 @@ combine pass, where the tiles leave SMs empty (``bf16_parts``); fp32 takes
 parts 1 (its training grid fills the card).  ``launch_flash_attention``
 forces a split (tests, ``chip_smoke.py``).
 
-The wrapper chooses by the tensors' device: on the CPU it runs the plain
+The wrapper chooses by the tensors' device: on the CPU or meta it runs the plain
 version, on a CUDA device it launches the kernel or raises.  There is no
 fallback.  ``flash_attention.launches`` counts wrapper calls that launch.
 """
@@ -125,14 +125,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
     """K9: q (B, Sq, H, d), k/v (B, Sk, KVH, d) -> (B, Sq, H, d) in q.dtype.
 
-    CPU tensors run ``ref.reference``; CUDA tensors launch the Hopper kernel
+    CPU and meta tensors run ``ref.reference``; CUDA tensors launch the Hopper kernel
     on the current stream, one CTA per 64-row tile of packed (token, head)
     query rows, KV head and batch row: fp32 runs the 3xTF32 tensor-core
     tile (``csrc/tf32_tile.cuh``; fp32-level error with TF32 off), bf16 the
     bf16 tensor-core tile (``csrc/mma_tile.cuh``), its keys split over the
     parts ``bf16_parts`` picks, with the combine pass where that is more
     than 1 (one launch counted)."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return reference(q, k, v, causal=causal, window=window,
                          softcap=softcap, q_offset=q_offset)
     check_cuda_args(q, k, v)

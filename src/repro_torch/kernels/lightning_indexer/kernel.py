@@ -12,7 +12,7 @@ shape).  ``ref.reference`` is the same
 function in plain PyTorch.  The kernel takes K6's index head dims and
 width (Di 16/32/64/128, Hi·Di <= 8192).
 
-The wrapper chooses by the tensors' device: on the CPU it runs the plain
+The wrapper chooses by the tensors' device: on the CPU or meta it runs the plain
 version, on a CUDA device it launches the kernel or raises.  There is no
 fallback.  ``lightning_indexer.launches`` counts kernel launches.
 """
@@ -78,11 +78,11 @@ def lightning_indexer(q_idx: torch.Tensor, w_head: torch.Tensor,
     """K7: q_idx (B, S, Hi*Di), w_head (B, S, Hi) fp32 (softmaxed), k_idx
     (B, T, Di) -> scores (B, S, T) fp32.
 
-    CPU tensors run ``ref.reference``; CUDA tensors launch the Hopper
+    CPU and meta tensors run ``ref.reference``; CUDA tensors launch the Hopper
     kernel on the current stream (on ``body``'s route: at Hi 8 / 16 / 32
     a CTA per chunk of keys and group of tokens of a batch row, on the
     tensor cores)."""
-    if q_idx.device.type == "cpu":
+    if q_idx.device.type in ("cpu", "meta"):
         return reference(q_idx, w_head, k_idx, heads=heads,
                          head_dim=head_dim)
     check_cuda_args(q_idx, w_head, k_idx, heads, head_dim)

@@ -48,9 +48,19 @@ needs a gradient (serving).
 
 The wrappers choose by the tensors' device: on the CPU they run the plain
 versions, on a CUDA device they launch the kernel or raise.  There is no
-fallback.  ``mamba_scan.launches`` and ``mamba_scan_model.launches`` count
-wrapper calls that launched the kernel (one a call, whatever its passes),
-and so does ``mamba_scan_heads.launches``.
+fallback.  On ``meta`` (the dry run's abstract step) each is one op of the
+``repro_torch`` namespace that has only a meta implementation
+(``k11_scan``, ``k11_scan_model``, ``k11_scan_heads``): the outputs' shapes
+in one dispatch, where the plain versions step through time in Python, so
+an abstract step costs the same at any S, and a counter sees the kernel's
+own traffic (its inputs read once, its outputs written once).  The
+head-shared op's FLOPs are those of the plain version's product
+``y = h·C`` a step (2·B·S·H·P·N, the reference's ``dot`` in its scan's
+body); the other forms do no matrix product.  The backwards stay plain
+on ``meta``, as they run on the card.  ``mamba_scan.launches`` and
+``mamba_scan_model.launches`` count wrapper calls that launched the
+kernel (one a call, whatever its passes), and so does
+``mamba_scan_heads.launches``.
 """
 from __future__ import annotations
 
@@ -58,6 +68,7 @@ import functools
 from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.build import (DTYPE_CODE, check_launch, count_launch,
                                       cuda_entry)
@@ -74,6 +85,41 @@ MAX_CHUNK_HEADS = 8                    # heads a chunk CTA, at most
 MAX_BATCH = 65535                      # the grid's y dimension
 MAX_PARTS = 16                         # time chunks a call
 MIN_CHUNK = 64                         # time steps a chunk, at least
+
+
+def _meta_scan(dA, dBx, C, h0):
+    B, S, E, N = dA.shape
+    return dA.new_empty((B, S, E)), dA.new_empty((B, E, N))
+
+
+def _meta_scan_model(dt, A, x, Bc, Cc, h0):
+    (B, S, E), N = dt.shape, A.shape[-1]
+    return (dt.new_empty((B, S, E), dtype=torch.float32),
+            dt.new_empty((B, E, N), dtype=torch.float32))
+
+
+def _meta_scan_heads(dt, A, x, Bc, Cc, h0):
+    B, S, H = dt.shape
+    return (dt.new_empty((B, S, H, x.shape[-1] // H), dtype=torch.float32),
+            h0.new_empty(h0.shape))
+
+
+_META = torch.library.Library("repro_torch", "FRAGMENT")
+for _name, _args, _fn in (
+        ("k11_scan", "Tensor dA, Tensor dBx, Tensor C, Tensor h0",
+         _meta_scan),
+        ("k11_scan_model", "Tensor dt, Tensor A, Tensor x, Tensor Bc, "
+         "Tensor Cc, Tensor h0", _meta_scan_model),
+        ("k11_scan_heads", "Tensor dt, Tensor A, Tensor x, Tensor Bc, "
+         "Tensor Cc, Tensor h0", _meta_scan_heads)):
+    _META.define(f"{_name}({_args}) -> (Tensor, Tensor)")
+    _META.impl(_name, _fn, "Meta")
+
+
+@register_flop_formula(torch.ops.repro_torch.k11_scan_heads)
+def _scan_heads_flops(dt_shape, A_shape, x_shape, Bc_shape, *_, **__):
+    B, S, H = dt_shape
+    return 2 * B * S * x_shape[-1] * Bc_shape[-1]
 
 
 def _check_common(name, tensors, B, S, E, N) -> None:
@@ -160,11 +206,13 @@ def mamba_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
                h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K11, the Pallas contract: -> (y (B, S, E), hT (B, E, N)) in dA.dtype.
 
-    CPU tensors run ``ref.reference``; CUDA tensors launch the Hopper
-    kernel on the current stream (a CTA per 128 channels of a batch row,
-    the whole of time in one chunk)."""
+    CPU tensors run ``ref.reference`` (meta ones ``k11_scan``); CUDA
+    tensors launch the Hopper kernel on the current stream (a CTA per 128
+    channels of a batch row, the whole of time in one chunk)."""
     if dA.device.type == "cpu":
         return reference(dA, dBx, C, h0)
+    if dA.is_meta:
+        return torch.ops.repro_torch.k11_scan(dA, dBx, C, h0)
     check_cuda_args(dA, dBx, C, h0)
     B, S, E, N = dA.shape
     y = torch.empty((B, S, E), dtype=dA.dtype, device=dA.device)
@@ -239,11 +287,13 @@ def mamba_scan_model(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K11, the model's form: -> (y (B, S, E), hT (B, E, N)) in fp32.
 
-    CPU tensors run ``ref.scan_model``; CUDA tensors launch the Hopper
-    kernel on the current stream: a thread a channel, time in
-    ``scan_parts`` chunks (one launch on the count)."""
+    CPU tensors run ``ref.scan_model`` (meta ones ``k11_scan_model``);
+    CUDA tensors launch the Hopper kernel on the current stream: a thread
+    a channel, time in ``scan_parts`` chunks (one launch on the count)."""
     if dt.device.type == "cpu":
         return scan_model(dt, A, x, Bc, Cc, h0)
+    if dt.is_meta:
+        return torch.ops.repro_torch.k11_scan_model(dt, A, x, Bc, Cc, h0)
     B, S, E, N, index = check_cuda_args_model(dt, A, x, Bc, Cc, h0)
     parts = scan_parts(DTYPE_CODE[dt.dtype], DTYPE_CODE[h0.dtype], N, B, S,
                        E, index)
@@ -398,13 +448,15 @@ def mamba_scan_heads(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
     """K11, the head-shared (Mamba-2) form: -> (y (B, S, H, P) fp32, hT
     (B, H, P, N) in h0.dtype).
 
-    CPU tensors run ``ref.scan_heads``; CUDA tensors launch the Hopper
-    kernels on the current stream, the route ``body`` names: the chunked
-    scan on the tensor cores, ``chunk_heads`` heads a chunk CTA; or a
-    thread a channel, time in ``scan_parts`` chunks (one launch on the
-    count either way)."""
+    CPU tensors run ``ref.scan_heads`` (meta ones ``k11_scan_heads``);
+    CUDA tensors launch the Hopper kernels on the current stream, the
+    route ``body`` names: the chunked scan on the tensor cores,
+    ``chunk_heads`` heads a chunk CTA; or a thread a channel, time in
+    ``scan_parts`` chunks (one launch on the count either way)."""
     if dt.device.type == "cpu":
         return scan_heads(dt, A, x, Bc, Cc, h0)
+    if dt.is_meta:
+        return torch.ops.repro_torch.k11_scan_heads(dt, A, x, Bc, Cc, h0)
     B, S, H, P, N, index = check_cuda_args_heads(dt, A, x, Bc, Cc, h0)
     code, h0_code = DTYPE_CODE[x.dtype], DTYPE_CODE[h0.dtype]
     if body(S, P, N) == "ssd":

@@ -21,7 +21,7 @@ position (its K/V were scattered before the call) and attention covers
 positions ``<= seq_lens[b]``; idle slots point at the trash block with
 length 0 and still get a finite output.
 
-Each wrapper chooses by the tensors' device: on the CPU it runs the plain
+Each wrapper chooses by the tensors' device: on the CPU or meta it runs the plain
 version, on a CUDA device it launches the kernel or raises.  There is no
 fallback.  ``<wrapper>.launches`` counts kernel launches.
 """
@@ -194,11 +194,11 @@ def paged_decode_gqa(q: torch.Tensor, k_pool: torch.Tensor,
     """K1: q (B, KVH, G, d); k/v pools (nb, bs, KVH, d); tables (B, mb)
     int32; seq_lens (B,) int32 -> (B, KVH, G, d) in q.dtype.
 
-    CPU tensors run ``paged_decode_gqa_plain``; CUDA tensors launch the
+    CPU and meta tensors run ``paged_decode_gqa_plain``; CUDA tensors launch the
     Hopper kernel on the current stream: split-KV, a CTA per (kv head,
     batch row, run of blocks), ``decode_parts`` runs, and a combine pass
     where there is more than one (one launch on the count)."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return paged_decode_gqa_plain(q, k_pool, v_pool, block_tables,
                                       seq_lens, window=window,
                                       softcap=softcap)
@@ -401,12 +401,12 @@ def paged_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
     seq_lens (B,) int32 -> out_lat (B, H, lora) fp32 (``probs · c``; the
     caller applies W^UV and W^O).  ``scale`` is (qk_nope + qk_rope)^-1/2.
 
-    CPU tensors run ``paged_decode_mla_plain``; CUDA tensors launch the
+    CPU and meta tensors run ``paged_decode_mla_plain``; CUDA tensors launch the
     Hopper kernel on the current stream: bf16 pools the tensor-core tile,
     a CTA per (64-head tile, batch row, part of the row's key rounds),
     ``mla_decode_parts`` parts, and a combine pass where there is more
     than one (one launch on the count); fp32 pools the SIMT body."""
-    if q_lat.device.type == "cpu":
+    if q_lat.device.type in ("cpu", "meta"):
         return paged_decode_mla_plain(q_lat, q_rope, c_pool, kr_pool,
                                       block_tables, seq_lens, scale=scale)
     check_cuda_mla_args(q_lat, q_rope, c_pool, kr_pool, block_tables,
@@ -537,12 +537,12 @@ def paged_indexer_scores_kernel(q_idx: torch.Tensor, w_head: torch.Tensor,
     view coordinates (index == absolute position); blocks past
     ``seq_lens[b]``'s are NEG_INF.
 
-    CPU tensors run ``paged_indexer_scores_plain``; CUDA tensors launch the
+    CPU and meta tensors run ``paged_indexer_scores_plain``; CUDA tensors launch the
     Hopper kernel on the current stream: bf16 at Hi 8, 16 or 32 the
     tensor-core decode body (a CTA per 128 view positions and row, a warp
     32 of them), fp32 and other head counts the SIMT tile (a CTA per 128
     view positions and row)."""
-    if q_idx.device.type == "cpu":
+    if q_idx.device.type in ("cpu", "meta"):
         return paged_indexer_scores_plain(q_idx, w_head, k_pool,
                                           block_tables, seq_lens)
     B, Hi, Di = q_idx.shape

@@ -30,7 +30,7 @@ bf16 at 8, 16 or 32 indexer heads runs a tensor-core body of its own
 its N, ReLU and the weighted head sum on the accumulator); fp32 and other
 head counts run the SIMT tile it shares with K5 and K7.
 
-Each wrapper runs the plain version on CPU tensors and launches the kernel
+Each wrapper runs the plain version on CPU and meta tensors and launches the kernel
 on CUDA tensors, or raises; ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -102,7 +102,7 @@ def paged_prefill_gqa(q: torch.Tensor, k_pool: torch.Tensor,
     On CUDA tensors bf16 launches the tensor-core tile (and, when its key
     range is split, its combine pass: one launch counted), fp32 the SIMT
     tile."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return paged_prefill_gqa_plain(q, k_pool, v_pool, block_tables,
                                        starts, groups=groups, window=window,
                                        softcap=softcap)
@@ -170,7 +170,7 @@ def paged_prefill_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
     to bf16 as it is staged, P rounded to bf16 for PV; with its key range
     split, its combine pass too: one launch counted), fp32 pools the SIMT
     body."""
-    if q_lat.device.type == "cpu":
+    if q_lat.device.type in ("cpu", "meta"):
         return paged_prefill_mla_plain(q_lat, q_rope, c_pool, kr_pool,
                                        block_tables, starts, heads=heads,
                                        scale=scale)
@@ -226,7 +226,7 @@ def paged_prefill_indexer(q_idx: torch.Tensor, w_head: torch.Tensor,
     (nb, bs, Di); tables (B, mb) int32; starts (B,) int32 -> scores
     (B, S, mb*bs) fp32 in view coordinates; blocks past the span's last
     position are NEG_INF."""
-    if q_idx.device.type == "cpu":
+    if q_idx.device.type in ("cpu", "meta"):
         return paged_prefill_indexer_plain(q_idx, w_head, k_pool,
                                            block_tables, starts, heads=heads)
     check_cuda_indexer_args(q_idx, w_head, k_pool, block_tables, starts,

@@ -30,7 +30,7 @@ NEG_INF is uniform).  The block selector produces such rows (ROADMAP
 queue 3: no diagonal block is ever marked valid), so the model's path
 needs that rule.
 
-The wrapper chooses by the tensors' device: on the CPU it runs the plain
+The wrapper chooses by the tensors' device: on the CPU or meta it runs the plain
 version, on a CUDA device it launches the kernel (``csrc/block_sparse.cu``,
 built by ``repro_torch.kernels.build``) or raises.  There is no fallback.
 Both dtypes run on the tensor cores, with K/V in a cp.async ring and each
@@ -177,12 +177,12 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            empty_mean: bool = False) -> torch.Tensor:
     """K8: -> (B, S, H, dv) in q.dtype.
 
-    CPU tensors run ``block_sparse_attention_plain``; CUDA tensors launch
+    CPU and meta tensors run ``block_sparse_attention_plain``; CUDA tensors launch
     the Hopper kernel on the current stream (one CTA per tile of packed
     (token, head) rows of one query block, KV head and batch row, times the
     key-range parts): bf16 the bf16 tensor-core tile, fp32 the 3xTF32 tile,
     and, when the keys are split, the combine pass (one launch counted)."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return block_sparse_attention_plain(
             q, k, v, block_idx, q_start, block_size=block_size,
             softcap=softcap, empty_mean=empty_mean)

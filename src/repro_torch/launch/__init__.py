@@ -1,1 +1,3 @@
-"""Training entry points: the step (``steps.py``) and the driver (``train.py``)."""
+"""Entry points: the steps (``steps.py``), the trainer (``train.py``), the
+meshes (``mesh.py``), the dry run's abstract inputs (``specs.py``) and the
+dry run (``dryrun.py``)."""

@@ -1,5 +1,4 @@
-"""The train, prefill and serve steps (port of ``repro.launch.steps``,
-on one device, with no mesh).
+"""The train, prefill and serve steps (port of ``repro.launch.steps``).
 
 One step: the loss and its gradients (the config's model through the
 registry: ``transformer.loss`` runs its forward through K9 / K7 / K8,
@@ -13,7 +12,20 @@ encoder-decoder's frames) to its last position's logits, with no cache;
 ``make_serve_step`` one decode step against a filled contiguous cache.
 They are the reference's serve path for the families the paged engine
 does not take (``audio``) and its prefill path with ``frontend_embeds``
-(``vlm``).
+(``vlm``), and what the dry run drives.
+
+``mesh`` is a ``DeviceMesh`` of one rank (``launch.mesh.make_host_mesh``)
+or None.  Every family's entry points take it: it reaches the
+transformer's MoE layers, which pick the expert-parallel path by it
+(``layers.moe.apply_moe``), and, with ``muon_sharded_ns``, Muon's
+Newton–Schulz groups; the reference's activation constraints are
+identities on one rank.  The parameters stay plain tensors on one rank:
+placing them with ``distribute_tensor`` there would send every op, the
+hand-written kernels' included, through DTensor's dispatch for no change
+in value.  A mesh of
+more than one rank raises ``NotImplementedError``: the sharded step (the
+parameters as DTensors with ``sharding.tree_shardings``' placements) is
+not ported, and nothing runs unsharded in its place.
 """
 from __future__ import annotations
 
@@ -28,15 +40,25 @@ from repro_torch.models import get_model
 from repro_torch.optim import muon
 
 
-def make_train_step(model: nn.Module, *,
+def _one_rank(mesh) -> None:
+    """Refuse a mesh of more than one rank."""
+    if mesh is not None and mesh.size() > 1:
+        raise NotImplementedError(
+            f"a step on a mesh of {mesh.size()} ranks: the sharded step is "
+            f"not ported (one rank only)")
+
+
+def make_train_step(model: nn.Module, *, mesh=None,
                     train_cfg: Optional[TrainConfig] = None,
-                    lr: float = 2e-4) -> Callable:
+                    lr: float = 2e-4,
+                    muon_sharded_ns: bool = False) -> Callable:
     """Returns ``train_step(opt_state, batch, lr=lr) -> (opt_state,
     metrics)``; the model's parameters are trained in place (this turns
-    their gradients on)."""
+    their gradients on).  ``muon_sharded_ns`` passes the mesh to Muon."""
     tc = train_cfg or TrainConfig()
     cfg = model.cfg
     M = get_model(cfg)
+    _one_rank(mesh)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     axes = M.param_axes(model)
@@ -45,7 +67,7 @@ def make_train_step(model: nn.Module, *,
                    lr: float = lr) -> Tuple[muon.MuonState, dict]:
         for p in params.values():
             p.grad = None
-        total, metrics = M.loss(model, batch)
+        total, metrics = M.loss(model, batch, mesh=mesh)
         total.backward()
         # a parameter the loss never reaches (the MTP block's indexer: the
         # head runs dense; the hybrid's indexer: its loss is dropped) has
@@ -55,22 +77,24 @@ def make_train_step(model: nn.Module, *,
              for k, p in params.items()}, tc.grad_clip)
         opt_state = muon.update(params, grads, axes, opt_state, lr=lr,
                                 cfg=cfg, weight_decay=tc.weight_decay,
-                                split=tc.muon_split)
+                                split=tc.muon_split,
+                                mesh=mesh if muon_sharded_ns else None)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return opt_state, dict(metrics, grad_norm=gnorm)
 
     return train_step
 
 
-def make_prefill_step(model: nn.Module) -> Callable:
+def make_prefill_step(model: nn.Module, *, mesh=None) -> Callable:
     """Returns ``prefill_step(batch) -> logits (B, 1, V)``: the forward
     over ``batch["tokens"]`` (after ``batch["frontend_embeds"]`` where the
     batch has them) without a cache, the last position's logits."""
     M = get_model(model.cfg)
+    _one_rank(mesh)
 
     @torch.no_grad()
     def prefill_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        kw = {}
+        kw = {"mesh": mesh}
         if "frontend_embeds" in batch:
             kw["frontend_embeds"] = batch["frontend_embeds"]
         h, _, _ = M.hidden(model, batch["tokens"], **kw)
@@ -79,15 +103,16 @@ def make_prefill_step(model: nn.Module) -> Callable:
     return prefill_step
 
 
-def make_serve_step(model: nn.Module) -> Callable:
+def make_serve_step(model: nn.Module, *, mesh=None) -> Callable:
     """Returns ``serve_step(token, cache, cache_index) -> (logits (B, 1,
     V), cache)``: one decode step of ``token`` (B, 1) at position
     ``cache_index`` against a contiguous cache the model's ``prefill``
     filled (updated in place)."""
     M = get_model(model.cfg)
+    _one_rank(mesh)
 
     def serve_step(token: torch.Tensor, cache: dict,
                    cache_index) -> Tuple[torch.Tensor, dict]:
-        return M.decode_step(model, token, cache, cache_index)
+        return M.decode_step(model, token, cache, cache_index, mesh=mesh)
 
     return serve_step

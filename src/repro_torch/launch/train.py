@@ -21,7 +21,12 @@ Like the reference's trainer CLI, it builds no frontend embeddings:
 ``whisper-base`` (family ``audio``), whose loss needs the encoder's frame
 embeddings, stops with an error that says so (callers with frames call
 the train step of ``launch.steps`` with ``frontend_embeds`` in the
-batch).
+batch).  As the reference's, it builds the host mesh (one rank: a process
+group of one rank is started for it and ended after the loop, unless the
+caller has one) and gives it to the train step.  The reference also
+places the parameters by the sharding rules (``tree_shardings``); one
+rank holds each parameter whole under them, so here they stay plain
+tensors (see ``launch.steps``).
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.data.pipeline import Pipeline, lm_generator
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import get_model
 from repro_torch.optim import muon, schedule
@@ -66,8 +72,17 @@ def train(cfg: ModelConfig, tc: TrainConfig, *, device=None,
                    device=dev)
     print(f"arch={cfg.name} params={n_params(model) / 1e6:.1f}M "
           f"family={cfg.family}", flush=True)
-    step_fn = make_train_step(model, train_cfg=tc, lr=tc.learning_rate)
-    opt_state = muon.init(dict(model.named_parameters()), M.param_axes(model))
+    with host_mesh(dev) as mesh:
+        return _loop(cfg, tc, model, mesh, dev, ckpt_dir, ckpt_every,
+                     log_every)
+
+
+def _loop(cfg, tc, model, mesh, dev, ckpt_dir, ckpt_every,
+          log_every) -> List[dict]:
+    axes = get_model(cfg).param_axes(model)
+    step_fn = make_train_step(model, mesh=mesh, train_cfg=tc,
+                              lr=tc.learning_rate)
+    opt_state = muon.init(dict(model.named_parameters()), axes)
     pipe = Pipeline(lm_generator(cfg.vocab_size, tc.seq_len, tc.batch_size,
                                  seed=tc.seed, steps=tc.total_steps),
                     device=dev)

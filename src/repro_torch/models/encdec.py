@@ -9,6 +9,11 @@ self-attention (K9 without a cache, ``dense_attention`` over a contiguous
 cache) + cross-attention (K9, not causal, Sq != Sk, in training, prefill
 and decode) + MLP stack.  The loss runs K10.
 
+``mesh`` (on ``hidden``, ``loss``, ``prefill``, ``decode_step``) is the
+reference's keyword, a mesh of one rank or None; the model has no MoE
+layer, and the reference's activation constraints that read it are
+identities on one rank, so no layer reads it.
+
 Layout differences from the reference:
 
 * parameters live in one ``EncLayer`` / ``DecLayer`` module per layer (the
@@ -128,6 +133,8 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``repro_torch.bridge.from_jax_params``."""
     dev = resolve_device(device)
     model = EncDecModel(cfg, device=dev, dtype=dtype)
+    if dev.type == "meta":       # the abstract init: shapes and dtypes
+        return model
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
@@ -197,7 +204,7 @@ def decoder_hidden(model: EncDecModel, tokens: torch.Tensor,
 
 def hidden(model: EncDecModel, tokens: torch.Tensor, *,
            frontend_embeds: Optional[torch.Tensor] = None,
-           cache: Optional[dict] = None, cache_index=None
+           cache: Optional[dict] = None, cache_index=None, mesh=None
            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Returns (final-normed decoder hidden (B, S, D), aux loss 0, cache).
 
@@ -224,7 +231,7 @@ def logits(model: EncDecModel, tokens: torch.Tensor, **kw) -> torch.Tensor:
     return logits_from_hidden(model.embed, h, model.cfg)
 
 
-def loss(model: EncDecModel, batch: Dict[str, torch.Tensor]
+def loss(model: EncDecModel, batch: Dict[str, torch.Tensor], *, mesh=None
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's ``loss``: ``batch`` holds ``tokens``, ``targets``
     (B, S), ``frontend_embeds`` (B, F, D) and optionally ``loss_mask``;
@@ -233,7 +240,7 @@ def loss(model: EncDecModel, batch: Dict[str, torch.Tensor]
     cfg = model.cfg
     targets = batch["targets"]
     h, aux, _ = hidden(model, batch["tokens"],
-                       frontend_embeds=batch["frontend_embeds"])
+                       frontend_embeds=batch["frontend_embeds"], mesh=mesh)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32,
@@ -259,19 +266,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def prefill(model: EncDecModel, tokens: torch.Tensor, cache: dict, *,
-            frontend_embeds: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+            frontend_embeds: torch.Tensor, mesh=None
+            ) -> Tuple[torch.Tensor, dict]:
     """Encode the frames, fill the self-attention cache with the prompt
     from position 0; returns (the last position's logits (B, 1, V),
     cache)."""
     h, _, cache = hidden(model, tokens, frontend_embeds=frontend_embeds,
-                         cache=cache, cache_index=0)
+                         cache=cache, cache_index=0, mesh=mesh)
     return logits_from_hidden(model.embed, h[:, -1:], model.cfg), cache
 
 
 @torch.no_grad()
 def decode_step(model: EncDecModel, token: torch.Tensor, cache: dict,
-                cache_index: int) -> Tuple[torch.Tensor, dict]:
+                cache_index: int, *, mesh=None) -> Tuple[torch.Tensor, dict]:
     """token (B, 1) at position ``cache_index`` -> (logits (B, 1, V),
     cache)."""
-    h, _, cache = hidden(model, token, cache=cache, cache_index=cache_index)
+    h, _, cache = hidden(model, token, cache=cache, cache_index=cache_index,
+                         mesh=mesh)
     return logits_from_hidden(model.embed, h, model.cfg), cache

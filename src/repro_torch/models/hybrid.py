@@ -11,6 +11,11 @@ already linear-time).  The Mamba-2 scans run K11's head-shared form
 (``layers.ssm.apply_mamba2``); the shared block's paged attention runs
 K1/K2, or K5/K6 with DSA, as the transformer's does.
 
+``mesh`` (on ``hidden``, ``loss``, ``prefill``, ``decode_step``) is the
+reference's keyword, a mesh of one rank or None: it reaches the shared
+block's ``transformer.apply_block`` (no MoE there), and the reference's
+activation constraints that read it are identities on one rank.
+
 Layout differences from the reference:
 
 * parameters live in one ``Layer`` module per Mamba-2 layer (the
@@ -126,6 +131,8 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     with ``repro_torch.bridge.from_jax_params``."""
     dev = resolve_device(device)
     model = HybridModel(cfg, device=dev, dtype=dtype)
+    if dev.type == "meta":       # the abstract init: shapes and dtypes
+        return model
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
 
@@ -164,7 +171,7 @@ def _kv_cache(cfg: ModelConfig, cache: dict, g: int, block_tables):
 def hidden(model: HybridModel, tokens: torch.Tensor, *,
            sparse: Optional[bool] = None, cache: Optional[dict] = None,
            cache_index=None, block_tables: Optional[torch.Tensor] = None,
-           paged_impl: str = "kernel"
+           paged_impl: str = "kernel", mesh=None
            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Returns (final-normed hidden (B, S, D), aux loss 0, cache).
 
@@ -202,7 +209,7 @@ def hidden(model: HybridModel, tokens: torch.Tensor, *,
         h, _ = tfm.apply_block(model.shared_attn, h, cfg, positions,
                                sparse=sparse, layer_cache=layer_cache,
                                cache_index=cache_index, block_tables=tables,
-                               paged_impl=paged_impl)
+                               paged_impl=paged_impl, mesh=mesh)
     h = rmsnorm(h, model.final_norm, cfg.norm_eps)
     return h, h.new_zeros((), dtype=torch.float32), cache
 
@@ -213,7 +220,7 @@ def logits(model: HybridModel, tokens: torch.Tensor, **kw) -> torch.Tensor:
     return logits_from_hidden(model.embed, h, model.cfg)
 
 
-def loss(model: HybridModel, batch: Dict[str, torch.Tensor]
+def loss(model: HybridModel, batch: Dict[str, torch.Tensor], *, mesh=None
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's ``loss``: the masked mean token NLL (K10) of
     ``hidden`` without a cache over ``tokens`` / ``targets`` (B, S) and
@@ -227,7 +234,7 @@ def loss(model: HybridModel, batch: Dict[str, torch.Tensor]
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
-    h, aux, _ = hidden(model, batch["tokens"])
+    h, aux, _ = hidden(model, batch["tokens"], mesh=mesh)
     total = mean_xent(h, unembed_matrix(model.embed, cfg), targets, mask,
                       chunk=cfg.loss_chunk)
     return total, {"ce": total, "loss": total, "aux": aux}
@@ -268,13 +275,15 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 @torch.no_grad()
 def prefill(model: HybridModel, tokens: torch.Tensor, cache: dict, *,
             block_tables: Optional[torch.Tensor] = None, cache_index=None,
-            paged_impl: str = "kernel") -> Tuple[torch.Tensor, dict]:
+            paged_impl: str = "kernel", mesh=None
+            ) -> Tuple[torch.Tensor, dict]:
     """Run the prompt through the states and the KV cache; returns
     (logits, cache): paged mode (``block_tables`` set) all positions'
     (B, S, V), contiguous mode the last position's (B, 1, V)."""
     h, _, cache = hidden(model, tokens, cache=cache,
                          cache_index=0 if cache_index is None else cache_index,
-                         block_tables=block_tables, paged_impl=paged_impl)
+                         block_tables=block_tables, paged_impl=paged_impl,
+                         mesh=mesh)
     if block_tables is None:
         h = h[:, -1:]
     return logits_from_hidden(model.embed, h, model.cfg), cache
@@ -283,9 +292,11 @@ def prefill(model: HybridModel, tokens: torch.Tensor, cache: dict, *,
 @torch.no_grad()
 def decode_step(model: HybridModel, token: torch.Tensor, cache: dict,
                 cache_index, *, block_tables: Optional[torch.Tensor] = None,
-                paged_impl: str = "kernel") -> Tuple[torch.Tensor, dict]:
+                paged_impl: str = "kernel", mesh=None
+                ) -> Tuple[torch.Tensor, dict]:
     """token (B, 1) -> (logits (B, 1, V), cache).  With ``block_tables``
     ``cache_index`` is the per-sequence length vector (B,)."""
     h, _, cache = hidden(model, token, cache=cache, cache_index=cache_index,
-                         block_tables=block_tables, paged_impl=paged_impl)
+                         block_tables=block_tables, paged_impl=paged_impl,
+                         mesh=mesh)
     return logits_from_hidden(model.embed, h, model.cfg), cache

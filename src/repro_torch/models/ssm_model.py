@@ -6,6 +6,11 @@ scan through K11), then a final norm; the loss is the chunked
 cross-entropy alone (K10; no softcap, no auxiliary loss); the "cache" is
 the per-layer recurrent state, length-free.
 
+``mesh`` (on ``hidden``, ``loss``, ``prefill``, ``decode_step``) is the
+reference's keyword, a mesh of one rank or None; the model has no MoE
+layer, and the reference's activation constraints that read it are
+identities on one rank, so no layer reads it.
+
 Layout differences from the reference:
 
 * parameters live in one ``Layer`` module per layer (the reference stacks
@@ -85,6 +90,8 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     weights over with ``repro_torch.bridge.from_jax_params``."""
     dev = resolve_device(device)
     model = SSMModel(cfg, device=dev, dtype=dtype)
+    if dev.type == "meta":       # the abstract init: shapes and dtypes
+        return model
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
@@ -100,7 +107,7 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def hidden(model: SSMModel, tokens: torch.Tensor, *,
-           cache: Optional[dict] = None
+           cache: Optional[dict] = None, mesh=None
            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Returns (final-normed hidden (B, S, D), aux loss 0, cache).  With a
     cache (``init_cache``) each layer starts from its state and writes the
@@ -120,7 +127,7 @@ def hidden(model: SSMModel, tokens: torch.Tensor, *,
     return h, h.new_zeros((), dtype=torch.float32), cache
 
 
-def loss(model: SSMModel, batch: Dict[str, torch.Tensor]
+def loss(model: SSMModel, batch: Dict[str, torch.Tensor], *, mesh=None
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's ``loss``: the masked mean token NLL (K10) over
     ``tokens`` / ``targets`` (B, S) and ``loss_mask`` (default ones);
@@ -131,7 +138,7 @@ def loss(model: SSMModel, batch: Dict[str, torch.Tensor]
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
-    h, aux, _ = hidden(model, batch["tokens"])
+    h, aux, _ = hidden(model, batch["tokens"], mesh=mesh)
     ce_sum, count = chunked_softmax_xent(
         h, unembed_matrix(model.embed, cfg), targets, mask,
         chunk=cfg.loss_chunk)
@@ -156,18 +163,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 @torch.no_grad()
-def prefill(model: SSMModel, tokens: torch.Tensor, cache: dict
-            ) -> Tuple[torch.Tensor, dict]:
+def prefill(model: SSMModel, tokens: torch.Tensor, cache: dict, *,
+            mesh=None) -> Tuple[torch.Tensor, dict]:
     """Run the prompt through the state; returns (last position's logits
     (B, 1, V), cache)."""
-    h, _, cache = hidden(model, tokens, cache=cache)
+    h, _, cache = hidden(model, tokens, cache=cache, mesh=mesh)
     return logits_from_hidden(model.embed, h[:, -1:], model.cfg), cache
 
 
 @torch.no_grad()
 def decode_step(model: SSMModel, token: torch.Tensor, cache: dict,
-                cache_index=None) -> Tuple[torch.Tensor, dict]:
+                cache_index=None, *, mesh=None) -> Tuple[torch.Tensor, dict]:
     """token (B, 1) -> (logits (B, 1, V), cache).  ``cache_index`` is the
     registry's argument: the state carries the position."""
-    h, _, cache = hidden(model, token, cache=cache)
+    h, _, cache = hidden(model, token, cache=cache, mesh=mesh)
     return logits_from_hidden(model.embed, h, model.cfg), cache

@@ -29,7 +29,17 @@ KL), plus 0.3 × the MTP losses when the config has the head.  Without a
 cache a GQA layer attends through K9 (``layers.attention.flash_attend``),
 a DSA layer scores through K7 and, with the block selector, attends
 through K8; ``param_axes`` gives every parameter the logical axes its
-reference ``b.param`` call declares, which Muon reads.
+reference ``b.param`` call declares, which Muon and the sharding rules
+read.  With ``cfg.remat="full"`` the training forward keeps only every
+``remat_group``-th pattern group's input and recomputes the groups in
+the backward (``torch.utils.checkpoint``; one group at a time where
+``remat_group`` does not divide the groups, as the reference): the values
+are the same, the peak memory lower.
+
+``mesh`` (on ``hidden``, ``loss``, ``prefill``, ``decode_step``,
+``verify_step``) is the reference's: it reaches the MoE layers, whose
+``apply_moe`` chooses the expert-parallel path by it; the reference's
+activation constraints are identities on the one rank the port runs.
 
 Layout differences from the reference:
 
@@ -54,6 +64,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dsa as dsa_mod
@@ -187,6 +198,8 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``repro_torch.bridge.from_jax_params``."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev, dtype=dtype)
+    if dev.type == "meta":       # the abstract init: shapes and dtypes
+        return model
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
@@ -360,7 +373,7 @@ def _attend(block: Block, h: torch.Tensor, cfg: ModelConfig,
 def apply_block(block: Block, h: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, *, sparse: bool = False,
                 layer_cache=None, cache_index=None, block_tables=None,
-                paged_impl: str = "kernel"
+                paged_impl: str = "kernel", mesh=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (h, aux loss): the MoE router's load-balance loss plus 0.01 ×
     the indexer KL (the reference's coefficients)."""
@@ -370,7 +383,7 @@ def apply_block(block: Block, h: torch.Tensor, cfg: ModelConfig,
     h = h + a_out
     m_in = rmsnorm(h, block.mlp_norm, cfg.norm_eps)
     if hasattr(block, "moe"):
-        m_out, aux = apply_moe(block.moe, m_in, cfg)
+        m_out, aux = apply_moe(block.moe, m_in, cfg, mesh=mesh)
     else:
         m_out, aux = block.mlp(m_in), 0.0
     # indexer KL coefficient 0.01 (small; it only trains the indexer)
@@ -397,11 +410,19 @@ def _layer_caches(cfg: ModelConfig, cache: dict, block_tables):
             yield c, block_tables + g * stride
 
 
+def _remat_span(cfg: ModelConfig) -> int:
+    """Layers a checkpoint under ``remat="full"``: ``remat_group`` pattern
+    groups, or one where that does not divide the groups."""
+    R = cfg.remat_group if cfg.remat_group >= 1 \
+        and n_groups(cfg) % cfg.remat_group == 0 else 1
+    return R * len(cfg.attention_pattern)
+
+
 def hidden(model: Transformer, tokens: torch.Tensor, *,
            frontend_embeds: Optional[torch.Tensor] = None,
            sparse: Optional[bool] = None, cache: Optional[dict] = None,
            cache_index=None, block_tables: Optional[torch.Tensor] = None,
-           paged_impl: str = "kernel"
+           paged_impl: str = "kernel", mesh=None
            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Returns (final-normed hidden (B, F + S, D), aux loss, cache).
 
@@ -425,14 +446,30 @@ def hidden(model: Transformer, tokens: torch.Tensor, *,
         positions = cache_index.to(torch.int32)[:, None] + span[None]
     else:
         positions = (span + int(cache_index or 0)).expand(B, S)
-    layers = _layer_caches(cfg, cache, block_tables) if cache is not None \
+    caches = _layer_caches(cfg, cache, block_tables) if cache is not None \
         else ((None, None) for _ in model.layers)
+    layers = list(zip(model.layers, caches))
+
+    def run(layers, h, aux):
+        for block, (layer_cache, tables) in layers:
+            h, a = apply_block(block, h, cfg, positions, sparse=sparse,
+                               layer_cache=layer_cache,
+                               cache_index=cache_index, block_tables=tables,
+                               paged_impl=paged_impl, mesh=mesh)
+            aux = aux + a
+        return h, aux
+
     aux = h.new_zeros((), dtype=torch.float32)
-    for block, (layer_cache, tables) in zip(model.layers, layers):
-        h, a = apply_block(block, h, cfg, positions, sparse=sparse,
-                           layer_cache=layer_cache, cache_index=cache_index,
-                           block_tables=tables, paged_impl=paged_impl)
-        aux = aux + a
+    if cache is None and cfg.remat == "full" and torch.is_grad_enabled():
+        # the first_k_dense layers as they are, then a non-reentrant
+        # checkpoint a span of layer groups
+        k, span = cfg.first_k_dense, _remat_span(cfg)
+        h, aux = run(layers[:k], h, aux)
+        for i in range(k, cfg.num_layers, span):
+            h, aux = checkpoint(run, layers[i:i + span], h, aux,
+                                use_reentrant=False)
+    else:
+        h, aux = run(layers, h, aux)
     return rmsnorm(h, model.final_norm, cfg.norm_eps), aux, cache
 
 
@@ -443,7 +480,7 @@ def logits(model: Transformer, tokens: torch.Tensor, **kw) -> torch.Tensor:
 
 
 def loss(model: Transformer, batch: Dict[str, torch.Tensor], *,
-         sparse: Optional[bool] = None
+         sparse: Optional[bool] = None, mesh=None
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's ``loss``: ``batch`` holds ``tokens`` and ``targets``
     (B, S) and optionally ``loss_mask`` (default ones) and
@@ -460,7 +497,8 @@ def loss(model: Transformer, batch: Dict[str, torch.Tensor], *,
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
     fe = batch.get("frontend_embeds")
-    h, aux, _ = hidden(model, tokens, frontend_embeds=fe, sparse=sparse)
+    h, aux, _ = hidden(model, tokens, frontend_embeds=fe, sparse=sparse,
+                       mesh=mesh)
     h = h[:, 0 if fe is None else fe.shape[1]:]
     W = unembed_matrix(model.embed, cfg)
     ce_sum, count = chunked_softmax_xent(
@@ -554,7 +592,8 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 def prefill(model: Transformer, tokens: torch.Tensor, cache: dict, *,
             frontend_embeds: Optional[torch.Tensor] = None,
             block_tables: Optional[torch.Tensor] = None, cache_index=None,
-            paged_impl: str = "kernel") -> Tuple[torch.Tensor, dict]:
+            paged_impl: str = "kernel", mesh=None
+            ) -> Tuple[torch.Tensor, dict]:
     """Fill the cache with the prompt (after ``frontend_embeds``' F rows,
     when given); returns (logits, cache).
 
@@ -564,7 +603,8 @@ def prefill(model: Transformer, tokens: torch.Tensor, cache: dict, *,
     h, _, cache = hidden(model, tokens, frontend_embeds=frontend_embeds,
                          cache=cache,
                          cache_index=0 if cache_index is None else cache_index,
-                         block_tables=block_tables, paged_impl=paged_impl)
+                         block_tables=block_tables, paged_impl=paged_impl,
+                         mesh=mesh)
     if block_tables is None:
         h = h[:, -1:]
     return logits_from_hidden(model.embed, h, model.cfg), cache
@@ -574,7 +614,7 @@ def prefill(model: Transformer, tokens: torch.Tensor, cache: dict, *,
 def verify_step(model: Transformer, tokens: torch.Tensor, cache: dict,
                 seq_lens: torch.Tensor, *, sparse: Optional[bool] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                paged_impl: str = "kernel"
+                paged_impl: str = "kernel", mesh=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Speculative verification: an S-token span at per-row starts
     ``seq_lens`` (B,) (token i of row b at position ``seq_lens[b] + i``),
@@ -585,16 +625,18 @@ def verify_step(model: Transformer, tokens: torch.Tensor, cache: dict,
     positions are rolled back by the caller truncating its lengths."""
     h, _, cache = hidden(model, tokens, sparse=sparse, cache=cache,
                          cache_index=seq_lens, block_tables=block_tables,
-                         paged_impl=paged_impl)
+                         paged_impl=paged_impl, mesh=mesh)
     return logits_from_hidden(model.embed, h, model.cfg), h, cache
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, token: torch.Tensor, cache: dict,
                 cache_index, *, block_tables: Optional[torch.Tensor] = None,
-                paged_impl: str = "kernel") -> Tuple[torch.Tensor, dict]:
+                paged_impl: str = "kernel", mesh=None
+                ) -> Tuple[torch.Tensor, dict]:
     """token (B, 1) -> (logits (B, 1, V), cache).  With ``block_tables``
     ``cache_index`` is the per-sequence length vector (B,)."""
     h, _, cache = hidden(model, token, cache=cache, cache_index=cache_index,
-                         block_tables=block_tables, paged_impl=paged_impl)
+                         block_tables=block_tables, paged_impl=paged_impl,
+                         mesh=mesh)
     return logits_from_hidden(model.embed, h, model.cfg), cache

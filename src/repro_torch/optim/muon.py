@@ -19,9 +19,11 @@ Parameters are dictionaries of tensors by name (``named_parameters``).
 reference returns new arrays); the state's buffers are updated in place
 too.  The reference keeps a zeros tree of second moments for every leaf;
 the port keeps them for the AdamW leaves only (the Muon leaves' are zeros
-there and never read).  The reference's ``_ns_group_constraint`` shards
-the Newton–Schulz groups over a mesh; on one device it is the identity,
-so it is not here.
+there and never read).  ``update(..., mesh=)`` is the reference's
+``muon_sharded_ns``: ``_ns_group_constraint`` shards the Newton–Schulz
+groups over the mesh so that each rank orthogonalizes whole matrices; on
+one rank it is the identity, and a mesh of more than one rank raises
+``NotImplementedError`` (the sharded step is not ported).
 """
 from __future__ import annotations
 
@@ -87,8 +89,18 @@ def _rms_scale(shape) -> float:
     return max(1.0, shape[-2] / shape[-1]) ** 0.5
 
 
+def _ns_group_constraint(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The Newton–Schulz groups (the leading axis of ``x``) over the mesh:
+    the identity off a mesh and on one rank."""
+    if mesh is None or mesh.size() == 1:
+        return x
+    raise NotImplementedError(
+        f"Muon's sharded Newton–Schulz on a mesh of {mesh.size()} ranks is "
+        f"not ported (one rank only)")
+
+
 def _muon_direction(m_buf: torch.Tensor, axes: Axes, cfg: ModelConfig,
-                    split: bool) -> torch.Tensor:
+                    split: bool, mesh=None) -> torch.Tensor:
     """NS-orthogonalize the trailing (m, n) matrix of ``m_buf``; leading
     axes are groups, and Muon Split also splits the head axis found in the
     trailing two dims."""
@@ -97,14 +109,16 @@ def _muon_direction(m_buf: torch.Tensor, axes: Axes, cfg: ModelConfig,
     axes2 = tuple(axes[-2:]) if axes else (None, None)
     grouping = _split_shape(axes2, (m, n), cfg) if split else None
     if grouping is None:
-        o = newton_schulz(m_buf.reshape(-1, m, n)) * _rms_scale((m, n))
+        x = _ns_group_constraint(m_buf.reshape(-1, m, n), mesh)
+        o = newton_schulz(x) * _rms_scale((m, n))
         return o.reshape(shape)
     g, ms, ns, head_first = grouping
     if head_first:
         x = m_buf.reshape(-1, g, ms, ns)
     else:
         x = m_buf.reshape(-1, ms, g, ns).transpose(1, 2)
-    o = newton_schulz(x.reshape(-1, ms, ns)) * _rms_scale((ms, ns))
+    x = _ns_group_constraint(x.reshape(-1, ms, ns), mesh)
+    o = newton_schulz(x) * _rms_scale((ms, ns))
     o = o.reshape(-1, g, ms, ns)
     if not head_first:
         o = o.transpose(1, 2)
@@ -131,9 +145,10 @@ def update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
            axes: Dict[str, Axes], state: MuonState, *, lr: float,
            cfg: ModelConfig, momentum: float = 0.95, beta2: float = 0.95,
            eps: float = 1e-8, weight_decay: float = 0.0,
-           split: bool = True) -> MuonState:
+           split: bool = True, mesh=None) -> MuonState:
     """One optimizer step, in place on ``params`` and the state's buffers;
-    returns the state with ``count`` advanced."""
+    returns the state with ``count`` advanced.  ``mesh`` shards the
+    Newton–Schulz groups (the identity on one rank)."""
     count = state.count + 1
     b1 = 0.9
     for k, p in params.items():
@@ -141,7 +156,7 @@ def update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
         m = state.momentum[k]
         if _is_muon_param(axes[k], tuple(p.shape)):
             m_new = momentum * m.float() + g32
-            d = _muon_direction(m_new, axes[k], cfg, split)
+            d = _muon_direction(m_new, axes[k], cfg, split, mesh)
         else:                                  # AdamW fallback
             v = state.second[k]
             m_new = b1 * m.float() + (1 - b1) * g32
