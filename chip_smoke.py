@@ -288,7 +288,7 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            and ratio a step, prefix-cache hits, peak memory and the
            launches of K1, K2, K9 fp32 (one a layer a step) and K9 bf16
            (one a layer a loop token), checked; the first step's ratio
-           within [0.9, 1.1]; then Yi-6B with DSA (32
+           within [0.9, 1.1]; then Yi-6B with DSA (16
            layers; K5 and K6 in every layer) on 8 requests of 32..6144
            prompt tokens (four past top-k) with a 2.1 GiB pool; then
            Yi-6B + DSA(block) on the same mix (the view a whole number of
@@ -303,8 +303,8 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            same widths with every layer dense: the verify span's
            logprobs (K4) within 2e-2 relative of the decode steps' (K3)
            up to and including the first token the runs choose
-           differently; then zamba2-2.7b at full width and depth
-           (54 layers, ~2.4 B parameters) in bf16, dsa=None on the first
+           differently; then zamba2-2.7b at full width, depth 54 -> 24
+           (4 shared-block invocations) in bf16, dsa=None on the first
            mix and with DSA on the DSA mix (K11's head-shared launches
            checked: one a layer a decode step and a prefill span); then
            falcon-mamba-7b at full width and
@@ -332,10 +332,10 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            its plain version on the other): loss, every
            gradient and every parameter after the step within the
            tolerances of ``train_parity``; then the trainer
-           (``launch.train.train``) for 5 steps of Yi-6B (8 layers, dense,
+           (``launch.train.train``) for 5 steps of Yi-6B (4 layers, dense,
            batch 2 x 2048), of Yi-6B + DSA and of Yi-6B + DSA(block) (4
-           layers since slice 19, batch 1 x 4096) and of falcon-mamba-7b (8 layers, batch
-           2 x 2048): losses finite and falling, step ms,
+           layers, batch 1 x 4096) and of falcon-mamba-7b (4 layers,
+           batch 2 x 2048): losses finite and falling, step ms,
            tokens/s, peak memory, and the launches of K7/K8/K9/K10/K11,
            which must equal the count expected from the depth and the
            chunks; then zamba2-2.7b and zamba2 + DSA at full width, depth
@@ -343,7 +343,8 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            train parity (seq 1024 dense, 2560 with DSA, past top-k; the
            DSA indexer's leaves get no gradient on either route, as the
            reference drops its loss) and 5 trainer steps (2 x 2048 dense,
-           1 x 4096 with DSA; K9 at d 80 or K7 at 8 x 64, K10, K11's
+           1 x 4096 with DSA at 6 layers, one invocation; K9 at d 80 or K7
+           at 8 x 64, K10, K11's
            head-shared form a Mamba-2 layer); then phi-3-vision at full
            width (train parity at 2 layers, 576 patches + 1472 tokens; 5
            steps at 8 layers, B 1) and whisper-base whole (train parity at
@@ -388,6 +389,36 @@ Phases, each printing lines of numbers (any failure exits non-zero):
            the same parameters, token and cache (``[mesh] ...
            what=dryrun``).  Every [mesh] line carries the card's name and
            power limit.
+
+Slice 21 (the rest of DSA, and gemma2-2b) adds, in those phases: K5 and
+K6's top-k sets compared with the randomized top-k's noise added to both
+routes (``[dsa.random] kernel=...``); gemma2's kernels at its shapes
+(``_gemma2`` timing lines: K1/K2 with its local layers' window 4096 and
+softcap 50 over 13 layers' pools on the DSA mix, K5/K6 at 8 x 64, K9 at 1
+x 8192 with the window and softcap, K10 at D 2304 / V 256000 with the
+final softcap 30, K7 at T 8192; a softcapped line logs SDPA without the
+softcap, ``library_ms`` None); gemma2's engine parity (2 layers: one
+local, one global, fp32, with and without DSA, on the long prompts with
+one of 4600 tokens: the margin rule and every emitted token's logprob
+against the plain route's; + DSA again without the final softcap, which
+saturates on random weights, so that the margin rule compares tokens);
+``[dsa.random] model=yi-6b``: Yi-6B + DSA at 2 layers in fp32 with the
+randomized top-k, the engine on the kernel and on the plain route, tokens
+equal under the margin rule, and the tokens the noise moved against the
+deterministic top-k; ``[rl.parity]`` with scripted rewards that differ
+inside each group (nonzero advantages): the step on the kernel and on the
+plain route from the same weights, the parameters moved and within
+``train_parity``'s bound, for Yi-6B and for Yi-6B + DSA at top-k 32
+(deterministic: the same bounds as dense; randomized: gaps recorded, not
+held); gemma2-2b served whole (26 layers, bf16) on the DSA mix, as
+published and with DSA on its 13 global layers, K1/K2/K5/K6 launches
+against ``serve_launches``; gemma2 trained at full width, depth 26 -> 4
+(2 local + 2 global), 1 x 8192, fp32: train parity and 5 trainer steps
+with and without DSA, and the indexer warm-up (``[train.warmup]``:
+``freeze="all_but_indexer"``, 3 steps, every frozen leaf bitwise
+unchanged, every indexer leaf moved, the indexer KL on the trainer's
+first batch falling); a decode profile of gemma2 + DSA at 8 rows of 2304
+tokens.
 
 Then it prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a GPU, or
@@ -793,11 +824,15 @@ def _hold(what, got, want, dtype) -> float:
 
 
 def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
-                 device="cuda", reps=64, tag="") -> dict:
+                 device="cuda", reps=64, tag="", window=0,
+                 softcap=0.0) -> dict:
     """Each kernel over every layer's rows of a full-size layer-major pool
     (as one decode step / prefill chunk of the serve phase reads them), so
     the KV comes from device memory, not the L2 cache.  ``tag`` is appended
-    to the result's keys (another model's shapes)."""
+    to the result's keys (another model's shapes).  ``window`` and
+    ``softcap`` are a local layer's (gemma2's): the bound counts the keys
+    the window leaves, and SDPA, which has no softcap, is then timed
+    without it (``sdpa_without_softcap_ms``), not as the library call."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -827,18 +862,24 @@ def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
                             q.device.index)[0]
     it = iter(range(10 ** 9))
 
+    opt = dict(window=window, softcap=softcap)
+
     def k1():
-        return K1.paged_decode_gqa(q, kp, vp, per_layer[next(it) % L], sl)
+        return K1.paged_decode_gqa(q, kp, vp, per_layer[next(it) % L], sl,
+                                   **opt)
     ms = cuda_ms(k1, reps)
     device_ms = graph_ms(k1, reps)
     call_us = host_us(k1)
     plain_ms = cuda_ms(lambda: K1.paged_decode_gqa_plain(
-        q, kp, vp, per_layer[next(it) % L], sl), max(4, reps // 8))
+        q, kp, vp, per_layer[next(it) % L], sl, **opt), max(4, reps // 8))
     T = int(lens.max()) + 1
     kv_views = [(_gathered(kp, t, T, G), _gathered(vp, t, T, G))
                 for t in per_layer[:8]]
-    mask = (torch.arange(T, device=device)[None, :]
-            <= sl[:, None].long())[:, None, None, :]
+    kv_pos = torch.arange(T, device=device)[None, :]
+    mask = kv_pos <= sl[:, None].long()
+    if window:
+        mask &= kv_pos > sl[:, None].long() - window
+    mask = mask[:, None, None, :]
     qs = q.reshape(B, kvh * G, 1, d)
 
     def sdpa():
@@ -853,25 +894,33 @@ def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
     q32, k32, v32 = q.float(), kp[:stride].float(), vp[:stride].float()
     err = err32 = 0.0
     for qq, kk, vv, dt in ((q, kp, vp, dtype), (q32, k32, v32, torch.float32)):
-        want = K1.paged_decode_gqa_plain(qq, kk, vv, tables, sl)
+        want = K1.paged_decode_gqa_plain(qq, kk, vv, tables, sl, **opt)
         e = max(_hold(f"K1 serve-shape parts={parts}",
-                      K1.paged_decode_gqa(qq, kk, vv, tables, sl), want, dt),
+                      K1.paged_decode_gqa(qq, kk, vv, tables, sl, **opt),
+                      want, dt),
                 _hold("K1 serve-shape parts=1", K1.launch_decode_gqa(
-                    qq, kk, vv, tables, sl, 0, 0.0, 1), want, dt))
+                    qq, kk, vv, tables, sl, window, softcap, 1), want, dt))
         if dt == dtype:
             err = e
         else:
             err32 = e
     del q32, k32, v32
-    toks = int((lens + 1).sum())
+    seen = lens + 1 if not window else np.minimum(lens + 1, window)
+    toks = int(seen.sum())
     nbytes = toks * kvh * d * 2 * item + 2 * q.numel() * item \
         + tables.numel() * 4 + B * 4
     flops = 4 * toks * G * kvh * d
+    lib = dict(library_ms=lib_ms, library_device_ms=lib_dev) if not softcap \
+        else dict(library_ms=None, sdpa_without_softcap_ms=lib_ms,
+                  sdpa_without_softcap_device_ms=lib_dev)
     out["paged_decode_gqa"] = dict(
-        ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+        library_ms=lib["library_ms"],
         max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
-        shape=f"B={B} lens={lens.tolist()}",
-        extra=dict(library_device_ms=lib_dev, host_us=call_us, parts=parts,
+        shape=f"B={B} lens={lens.tolist()} window={window} "
+              f"softcap={softcap}",
+        extra=dict({k: v for k, v in lib.items() if k != "library_ms"},
+                   host_us=call_us, parts=parts,
                    gb_per_s=nbytes / device_ms / 1e6))
 
     # K2: the last prefill chunk of the longest prompt
@@ -882,41 +931,48 @@ def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
     per_layer = [tables + g * stride for g in range(L)]
     st = torch.tensor([start], dtype=torch.int32, device=device)
     q = torch.randn((1, kvh, S * G, d), generator=gen, device=device).to(dtype)
+    opt = dict(groups=G, window=window, softcap=softcap)
     ms = cuda_ms(lambda: K2.paged_prefill_gqa(
-        q, kp, vp, per_layer[next(it) % L], st, groups=G), reps // 4)
+        q, kp, vp, per_layer[next(it) % L], st, **opt), reps // 4)
     device_ms = graph_ms(lambda: K2.paged_prefill_gqa(
-        q, kp, vp, per_layer[next(it) % L], st, groups=G), reps // 4)
+        q, kp, vp, per_layer[next(it) % L], st, **opt), reps // 4)
     plain_ms = cuda_ms(lambda: K2.paged_prefill_gqa_plain(
-        q, kp, vp, per_layer[next(it) % L], st, groups=G), 4)
+        q, kp, vp, per_layer[next(it) % L], st, **opt), 4)
     T = start + S
     kv_views = [(_gathered(kp, t, T, G), _gathered(vp, t, T, G))
                 for t in per_layer[:8]]
     qpos = start + torch.arange(S, device=device)
-    mask = (torch.arange(T, device=device)[None, :] <= qpos[:, None])
+    kv_pos = torch.arange(T, device=device)[None, :]
+    mask = kv_pos <= qpos[:, None]
+    if window:
+        mask &= kv_pos > qpos[:, None] - window
     qs = q.reshape(1, kvh, S, G, d).permute(0, 1, 3, 2, 4) \
         .reshape(1, kvh * G, S, d)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qs, *kv_views[next(it) % 8], attn_mask=mask), reps // 4)
     del kv_views
     err = _hold("K2 serve-shape",
-                K2.paged_prefill_gqa(q, kp, vp, tables, st, groups=G),
-                K2.paged_prefill_gqa_plain(q, kp, vp, tables, st, groups=G),
+                K2.paged_prefill_gqa(q, kp, vp, tables, st, **opt),
+                K2.paged_prefill_gqa_plain(q, kp, vp, tables, st, **opt),
                 dtype)
     q32, k32, v32 = q.float(), kp[:stride].float(), vp[:stride].float()
     err32 = _hold("K2 serve-shape",
-                  K2.paged_prefill_gqa(q32, k32, v32, tables, st, groups=G),
+                  K2.paged_prefill_gqa(q32, k32, v32, tables, st, **opt),
                   K2.paged_prefill_gqa_plain(q32, k32, v32, tables, st,
-                                             groups=G), torch.float32)
-    keys = sum(start + i + 1 for i in range(S))
-    nbytes = T * kvh * d * 2 * item + 2 * q.numel() * item \
+                                             **opt), torch.float32)
+    seen = [start + i + 1 if not window else min(start + i + 1, window)
+            for i in range(S)]
+    keys = sum(seen)
+    T_read = T if not window else min(T, window + S - 1)
+    nbytes = T_read * kvh * d * 2 * item + 2 * q.numel() * item \
         + tables.numel() * 4 + 4
     flops = 4 * keys * G * kvh * d
     # the fp32 body (the exact parity route) at the same shape, layer 0's
     # blocks only: the fp32 pool of every layer would not fit beside
     fp32_ms = cuda_ms(lambda: K2.paged_prefill_gqa(q32, k32, v32, tables, st,
-                                                   groups=G), reps // 4)
+                                                   **opt), reps // 4)
     fp32_dev = graph_ms(lambda: K2.paged_prefill_gqa(q32, k32, v32, tables,
-                                                     st, groups=G), reps // 4)
+                                                     st, **opt), reps // 4)
     b32 = 2 * nbytes - tables.numel() * 4 - 4     # fp32 items, same tables
     t_bytes, t_ops = b32 / H100_BYTES_PER_S * 1e3, \
         flops / H100_FLOPS["float32"] * 1e3
@@ -927,9 +983,11 @@ def time_kernels(cfg, serve_lens, max_prompt, bs, num_blocks, chunk,
          tflops=flops / fp32_dev / 1e9, max_abs_err=err32)
     del q32, k32, v32
     out["paged_prefill_gqa"] = dict(
-        ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+        library_ms=None if softcap else lib_ms,
         max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes, flops=flops,
-        shape=f"B=1 S={S} start={start}")
+        shape=f"B=1 S={S} start={start} window={window} softcap={softcap}",
+        extra=dict(sdpa_without_softcap_ms=lib_ms) if softcap else {})
     del kp, vp
     out = {k + tag: v for k, v in out.items()}
     _bounds(out)
@@ -1481,23 +1539,28 @@ def check_indexer_kernels(device="cuda") -> dict:
     return worst
 
 
-def _topk_boundary(what, got, want, qpos, k, tol) -> int:
+def _topk_boundary(what, got, want, qpos, k, tol, noise=None) -> int:
     """Score rows (R, T) and each row's query position: the top-k sets that
     ``select_topk`` (causal mask, stable sort) chooses from the kernel's
     and from the plain version's scores may differ only at indices whose
     plain score lies within ``tol`` of the k-th plain score (a near-tie
-    the summation order can flip).  Raises on any other difference;
-    returns the count of such near-tie indices."""
+    the summation order can flip).  With ``noise`` (R, T) (the randomized
+    top-k's) both selections add it, and the k-th score is of the plain
+    scores plus it.  Raises on any other difference; returns the count of
+    such near-tie indices."""
     import torch
     from repro_torch.core.dsa import select_topk
     R, T = want.shape
     mask = torch.arange(T, device=want.device)[None, :] <= qpos[:, None]
+    extra = None if noise is None else noise[:, None]
 
     def chosen(scores):
-        idx, valid = select_topk(scores[:, None], mask[:, None], k)
+        idx, valid = select_topk(scores[:, None], mask[:, None], k, extra)
         sel = torch.zeros((R, T), dtype=torch.bool, device=want.device)
         return sel.scatter_(1, idx[:, 0], valid[:, 0])
     diff = chosen(got) ^ chosen(want)
+    if noise is not None:
+        want = want + noise
     masked = torch.where(mask, want, float("-inf"))
     kth = masked.topk(min(k, T), dim=-1).values[:, -1:]
     far = diff & ((want - kth).abs() > tol)
@@ -1515,7 +1578,9 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     lengths) and K6 at one 256-token span whose last position lies past
     2048, each launch on another layer of a full-depth layer-major k_idx
     pool; each held against its plain version (bf16 and fp32) with its
-    top-k sets compared; both (their bf16 tensor-core bodies) also with
+    top-k sets compared, deterministic and randomized (the same
+    ``topk_noise`` draw added to both: ``[dsa.random]`` lines); both
+    (their bf16 tensor-core bodies) also with
     their device time from CUDA-graph replay and their wrappers' host
     microseconds a call (the SIMT tile at head counts the bodies do not
     take: they take 8, 16 or 32).  No single
@@ -1523,6 +1588,7 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     there is no library time.  ``tag`` is appended to the result's keys."""
     import numpy as np
     import torch
+    from repro_torch.core.dsa import topk_noise
     from repro_torch.kernels.paged_attention import kernel as K5
     from repro_torch.kernels.paged_attention import prefill as K6
     dtype = torch.bfloat16
@@ -1560,6 +1626,11 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     err = _hold_scores("K5 serve-shape", got, want, dtype)
     tol = TOL["bfloat16"] * min(1.0, want.abs().max().item())
     near = _topk_boundary("K5 serve-shape", got, want, sl.long(), top_k, tol)
+    # the randomized top-k: both selections add the same noise, the decode
+    # step's (B, 1, T) draw
+    near_random = _topk_boundary(
+        "K5 serve-shape, randomized top-k", got, want, sl.long(), top_k, tol,
+        noise=topk_noise((B, 1, want.shape[-1]), want.device)[:, 0])
     q32, k32 = q.float(), kp[:stride].float()
     err32 = _hold_scores("K5 serve-shape",
                          K5.paged_indexer_scores_kernel(q32, w, k32, tables,
@@ -1573,6 +1644,7 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
         ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
         max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes,
         flops=toks * Hi * (2 * Di + 2), topk_near_ties=near,
+        topk_near_ties_random=near_random,
         extra=dict(host_us=call_us,
                    body="indexer_mma::decode_kernel (tensor cores)"
                    if k5_mma else "indexer_tile (SIMT)",
@@ -1601,6 +1673,9 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     tol = TOL["bfloat16"] * min(1.0, want.abs().max().item())
     qpos = start + torch.arange(S, device=device)
     near = _topk_boundary("K6 serve-shape", got[0], want[0], qpos, top_k, tol)
+    near_random = _topk_boundary(
+        "K6 serve-shape, randomized top-k", got[0], want[0], qpos, top_k,
+        tol, noise=topk_noise((1, S, want.shape[-1]), want.device)[0])
     q32 = q.float()
     err32 = _hold_scores("K6 serve-shape",
                          K6.paged_prefill_indexer(q32, w, k32, tables, st,
@@ -1616,6 +1691,7 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
         ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
         max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes,
         flops=S * toks * Hi * (2 * Di + 2), topk_near_ties=near,
+        topk_near_ties_random=near_random,
         extra=dict(host_us=host,
                    body="indexer_mma::span_kernel (tensor cores)" if k6_mma
                    else "indexer_tile (SIMT)"),
@@ -1624,6 +1700,8 @@ def time_indexer_kernels(cfg, serve_lens, span_start, span_len, bs,
     for name, r in out.items():
         _log("topk", kernel=name, k=top_k,
              near_tie_indices_differing=r["topk_near_ties"])
+        _log("dsa.random", kernel=name, k=top_k,
+             near_tie_indices_differing=r["topk_near_ties_random"])
     _bounds(out)
     return out
 
@@ -1944,18 +2022,19 @@ def _short_prompts(rng, V, block_size):
     return [p.astype(np.int32) for p in prompts], [6, 9, 4, 8, 5, 7]
 
 
-def _long_prompts(rng, V, shared=200):
-    """DSA parity prompts: two short ones and then 2600 and 3000 tokens, all
-    four on a 200-token system prompt that ends mid-block (served two at a
-    time, each long prompt is admitted when a short one has finished and
-    left the prefix in the radix cache: a hit and a COW fork), so top-2048
-    really discards keys; then two unrelated short prompts."""
+def _long_prompts(rng, V, shared=200, lens=(2600, 3000)):
+    """DSA parity prompts: two short ones and then two of ``lens`` tokens
+    (2600 and 3000), all four on a 200-token system prompt that ends
+    mid-block (served two at a time, each long prompt is admitted when a
+    short one has finished and left the prefix in the radix cache: a hit
+    and a COW fork), so top-2048 really discards keys; then two unrelated
+    short prompts."""
     import numpy as np
     sys_p = rng.integers(3, V, size=shared)
     prompts = [np.concatenate([sys_p, rng.integers(3, V, size=n)])
                for n in (7, 30)]
     prompts += [np.concatenate([sys_p, rng.integers(3, V, size=n - shared)])
-                for n in (2600, 3000)]
+                for n in lens]
     prompts += [rng.integers(3, V, size=n) for n in (3, 90)]
     return [p.astype(np.int32) for p in prompts], [6, 9, 8, 5, 4, 7]
 
@@ -1964,11 +2043,27 @@ def _all_launched(kernels, before) -> bool:
     return all(k.launches > n for k, n in zip(kernels, before))
 
 
+def _teacher_logprobs(model, prompt, out, device):
+    """The logprobs of ``out`` after ``prompt`` under teacher forcing (the
+    full-sequence forward without a cache, temperature 1)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import get_model
+    seq = np.concatenate([prompt, out[:-1]]).astype(np.int64)
+    with torch.no_grad():
+        lg = get_model(model.cfg).logits(
+            model, torch.from_numpy(seq)[None].to(device))[0]
+    lp = torch.log_softmax(lg[len(prompt) - 1:].float(), dim=-1)
+    idx = torch.from_numpy(out.astype(np.int64)).to(device)[:, None]
+    return lp.gather(1, idx)[:, 0].cpu().numpy()
+
+
 def parity(cfg, device="cuda", block_size=16, chunks=(64,),
-           long=False) -> list:
+           long=False, long_lens=(2600, 3000), logprobs=False) -> list:
     """fp32 greedy tokens of the port's ContinuousEngine against its
     ServingEngine oracle, on the short prompt mix or (``long``) the DSA mix
-    with prompts past top-k, once for each prefill chunk of ``chunks``
+    with prompts past top-k (two of ``long_lens`` tokens; gemma2's pass
+    its 4096 window), once for each prefill chunk of ``chunks``
     (None: whole-prompt prefill) against one oracle run.  The oracle and
     the margin check run on the plain route: their contiguous DSA scores
     would otherwise reach K7, whose tile body K5/K6 share, so the engine's
@@ -1976,8 +2071,16 @@ def parity(cfg, device="cuda", block_size=16, chunks=(64,),
     Mamba-2 scans against K11's plain head-shared form.  The hybrid
     serves without the prefix cache (its recurrent state cannot be
     re-aliased): there the workload must reuse slots (more requests than
-    slots) instead of hitting the radix tree.  Returns each chunk's
-    result."""
+    slots) instead of hitting the radix tree.  With ``logprobs`` the
+    engine also records the temperature-1 logprob of every token it emits
+    (``true_logprobs``), each held within 1e-4 x max(1, |lp|) of the plain
+    route's teacher-forced logprob of the same token: gemma2's final
+    softcap (30) saturates on random weights at its width (its trainer's
+    first loss is ~40 against ln 256000 = 12.45 on an H100), so no prompt
+    had a top-2 margin of 1e-3 there and the token rule compares none; the
+    logprobs hold every position of the served path to the plain one all
+    the same.
+    Returns each chunk's result."""
     import numpy as np
     import torch
     from repro_torch.models import get_model
@@ -1987,7 +2090,7 @@ def parity(cfg, device="cuda", block_size=16, chunks=(64,),
         dtype=torch.float32)
     rng = np.random.default_rng(SEED + 1)
     if long:
-        prompts, max_new = _long_prompts(rng, cfg.vocab_size)
+        prompts, max_new = _long_prompts(rng, cfg.vocab_size, lens=long_lens)
     else:
         prompts, max_new = _short_prompts(rng, cfg.vocab_size, block_size)
     max_len = max(len(p) for p in prompts) + max(max_new) \
@@ -2000,7 +2103,7 @@ def parity(cfg, device="cuda", block_size=16, chunks=(64,),
         oracle.serve(oreqs)
         margins = [_margins_ok(model, p, o.out, device)
                    for p, o in zip(prompts, oreqs)]
-    if not any(margins):
+    if not any(margins) and not logprobs:
         raise AssertionError("parity: no prompt had a top-2 margin")
     kernels = [k for ks in path_kernels(cfg) for k in ks]
     hybrid = cfg.family == "hybrid"
@@ -2011,7 +2114,8 @@ def parity(cfg, device="cuda", block_size=16, chunks=(64,),
                                block_size=block_size,
                                num_blocks=512 if long else 128,
                                max_len=max_len, prefill_chunk=chunk,
-                               device=device)
+                               capture_logprobs=logprobs,
+                               true_logprobs=logprobs, device=device)
         reqs = [Request(prompt=p, max_new=m)
                 for p, m in zip(prompts, max_new)]
         eng.serve(reqs)
@@ -2019,6 +2123,18 @@ def parity(cfg, device="cuda", block_size=16, chunks=(64,),
             if ok and not np.array_equal(r.out, o.out):
                 raise AssertionError(f"parity: engine {r.out.tolist()} != "
                                      f"oracle {o.out.tolist()}")
+        lp_err = None
+        if logprobs:
+            with plain_route():
+                want = [_teacher_logprobs(model, p, r.out, device)
+                        for p, r in zip(prompts, reqs)]
+            rel = [np.abs(r.out_logprobs - w) / np.maximum(1.0, np.abs(w))
+                   for r, w in zip(reqs, want)]
+            lp_err = max(float(x.max()) for x in rel)
+            if not lp_err <= TOL["float32"]:
+                raise AssertionError(f"parity: the engine's logprobs are "
+                                     f"{lp_err} (relative) from the plain "
+                                     f"route's")
         st = eng.stats
         if (eng.prefix is None) != hybrid or not hybrid and (
                 st["cached_tokens"] <= 0 or st["cow_forks"] <= 0) \
@@ -2032,7 +2148,8 @@ def parity(cfg, device="cuda", block_size=16, chunks=(64,),
         res = dict(compared=sum(margins), skipped=len(margins) - sum(margins),
                    longest_prompt=max(len(p) for p in prompts),
                    cached_tokens=st["cached_tokens"],
-                   cow_forks=st["cow_forks"], chunk_steps=st["chunk_steps"])
+                   cow_forks=st["cow_forks"], chunk_steps=st["chunk_steps"],
+                   max_rel_logprob_err=lp_err)
         _log("parity", model=cfg.name, layers=cfg.num_layers,
              d_model=cfg.d_model, experts=cfg.num_experts,
              dsa=cfg.dsa is not None, prefill_chunk=chunk, dtype="float32",
@@ -2342,6 +2459,25 @@ def parity_mtp(cfg, device="cuda", block_size=16, chunk=64, n=3) -> dict:
 # serve at full width and depth in bf16
 # ---------------------------------------------------------------------------
 
+def serve_launches(cfg, st) -> dict:
+    """The paged kernels' launches that a GQA transformer's serve run
+    implies without speculation, from the engine's ``stats``: a decode step
+    launches K1 once a layer without DSA (gemma2's local layers; every
+    layer without a DSA config) and K5 once a DSA layer (the global ones);
+    each prefill span (the scheduler's ``chunk_steps``: one slot's span)
+    K2 and K6 likewise."""
+    from repro_torch.models.transformer import layer_kind
+    L = cfg.num_layers
+    dsa = sum(layer_kind(cfg, i) == "global" for i in range(L)) \
+        if cfg.dsa is not None else 0
+    out = {"paged_decode_gqa": (L - dsa) * st["decode_steps"],
+           "paged_prefill_gqa": (L - dsa) * st["chunk_steps"]}
+    if dsa:
+        out.update(paged_indexer_scores_kernel=dsa * st["decode_steps"],
+                   paged_prefill_indexer=dsa * st["chunk_steps"])
+    return out
+
+
 def _mix_prompts(V, prompt_lens, shared):
     """The serve mix: (system prompt, prompts), the prompts at even places
     that are longer than the system prompt starting with it."""
@@ -2440,6 +2576,11 @@ def serve(cfg, prompt_lens, device="cuda", block_size=16, num_blocks=2048,
                                  f"spans imply {want}")
         extra = dict(spans=n_spans, k8_spans=whole,
                      k8_launches_per_k8_span=got / max(whole, 1))
+    if "local" in cfg.attention_pattern and not spec_steps:
+        want = serve_launches(cfg, st)
+        if device != "cpu" and launches != want:
+            raise AssertionError(f"serve: launches {launches} != expected "
+                                 f"{want}")
     if cfg.family == "hybrid":    # K11 in every layer of every step and span
         got = launches["mamba_scan_heads"]
         want = cfg.num_layers * (st["decode_steps"] + st["chunk_steps"])
@@ -3130,7 +3271,7 @@ def _await_version(fe, version) -> None:
 
 
 def rl_parity(cfg, device="cuda", group=8, n_groups=2, shared=48,
-              problem=16, max_new=16) -> dict:
+              problem=16, max_new=16, gate=True) -> dict:
     """fp32, TF32 off: one ``RolloutEngine`` (fp32 snapshot) serving one
     orchestrator worker through the front-end, two GRPO groups of 8 at
     temperature 1 on prompts of exactly ``prompt_pad`` tokens, then one
@@ -3139,13 +3280,25 @@ def rl_parity(cfg, device="cuda", group=8, n_groups=2, shared=48,
     function of the same weights: every token's gap <= 1e-3, the step's
     mean ratio within 1e-3 of 1 and every token kept.  A wrong position, a
     prompt padded with tokens the rollout never saw, a version mixed into
-    a trajectory or a wrong logits row would each break it."""
+    a trajectory or a wrong logits row would each break it.  With
+    ``gate=False`` (DSA's randomized top-k: the engine's paged selection
+    and the trainer's draw other noise, GLM-5 §3.2) the gaps and the kept
+    fraction are recorded, not held.
+
+    The rewards on random weights are all 0, so the groups get scripted
+    rewards that differ inside each group (i / group for the i-th): the
+    step runs on nonzero advantages, on the kernel route and on the plain
+    route from the same weights (``_TopkAlign`` aligns DSA's near-tie
+    picks), and the parameters after it must have moved and agree within
+    ``train_parity``'s bound (``_hold_step``, on the clipped gradients
+    each route handed Muon)."""
     import numpy as np
     import torch
     from repro_torch.async_rl import AsyncTrainer, Orchestrator, RolloutEngine
     from repro_torch.async_rl.trainer import pack_groups
     from repro_torch.models import transformer as T
     from repro_torch.models.losses import token_logprobs
+    from repro_torch.optim import muon
     model = T.init(cfg, torch.Generator(device=device).manual_seed(SEED),
                    device=device, dtype=torch.float32)
     V, plen = cfg.vocab_size, shared + problem
@@ -3157,6 +3310,8 @@ def rl_parity(cfg, device="cuda", group=8, n_groups=2, shared=48,
                         serving_kw=kw)
     for task in _rl_tasks(V, sys_p.astype(np.int32), problem, max_new):
         orch.register(task)
+    lr, axes = 1e-3, T.param_axes(model)
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
     try:
         orch.start(n_workers=1)
         if not orch.wait_for_groups(n_groups, timeout_s=T_RESULT):
@@ -3166,9 +3321,10 @@ def rl_parity(cfg, device="cuda", group=8, n_groups=2, shared=48,
         if orch.worker_errors:
             raise AssertionError(f"rl.parity: {orch.worker_errors}")
         groups = orch.buffer.pop_groups(n_groups, 0)
-        trainer = AsyncTrainer(cfg, model, T.param_axes(model),
-                               engines=[eng], lr=1e-3, push_every=2,
-                               device=device)
+        rewards = [t.reward for g in groups for t in g]
+        for g in groups:                      # nonzero advantages
+            for i, t in enumerate(g):
+                t.reward = i / len(g)
         batch = pack_groups(groups, max_new, plen)
         if any(len(t.prompt) != plen or t.versions != [0]
                for g in groups for t in g):
@@ -3178,22 +3334,68 @@ def rl_parity(cfg, device="cuda", group=8, n_groups=2, shared=48,
             lp = token_logprobs(T.logits(model, toks)[:, plen - 1:-1],
                                 toks[:, plen:]).cpu().numpy()
         live = batch["mask"] > 0
-        gap = float(np.abs(lp - batch["lp_rollout"])[live].max())
-        m = trainer.train_on(groups, pad_to=max_new, prompt_pad=plen)
+        gaps = np.abs(lp - batch["lp_rollout"])[live]
+
+        def one_step():
+            """``train_on`` from the start weights with a fresh trainer;
+            returns its metrics, the clipped gradients and the weights."""
+            with torch.no_grad():
+                for k, p in model.named_parameters():
+                    p.copy_(start[k])
+            trainer = AsyncTrainer(cfg, model, axes, engines=[eng], lr=lr,
+                                   push_every=2, device=device)
+            grads, clip = {}, muon.global_norm_clip
+
+            def recording(g, max_norm):
+                g, norm = clip(g, max_norm)
+                grads.update({k: v.detach().clone() for k, v in g.items()})
+                return g, norm
+            muon.global_norm_clip = recording
+            try:
+                m = trainer.train_on(groups, pad_to=max_new, prompt_pad=plen)
+            finally:
+                muon.global_norm_clip = clip
+            return m, grads, {k: p.detach().clone()
+                              for k, p in model.named_parameters()}
+
+        align = cfg.dsa is not None and cfg.dsa.selector == "token"
+        with _TopkAlign(align) as kernel_topk:
+            m, grads_k, after_k = one_step()
+        with plain_route(), _TopkAlign(align, kernel_topk.calls) as plain_k:
+            m_p, grads_p, after_p = one_step()
     finally:
         orch.stop()
         if eng._frontend is not None:
             eng._frontend.close(timeout=T_RESULT)
+    failures = []
+    p_err = _hold_step(after_k, after_p, grads_k, grads_p, axes, lr,
+                       failures)
+    moved = max((after_k[k] - start[k]).abs().max().item() for k in start)
     res = dict(groups=len(groups), group_size=group, prompt_pad=plen,
                max_new=max_new, tokens=int(live.sum()),
-               max_logprob_gap=gap, mean_ratio=m["ratio"], kept=m["kept"],
-               loss=m["loss"], grad_norm=m["grad_norm"])
+               max_logprob_gap=float(gaps.max()),
+               mean_logprob_gap=float(gaps.mean()),
+               tokens_past_1e_3=int((gaps > 1e-3).sum()),
+               mean_ratio=m["ratio"], kept=m["kept"], loss=m["loss"],
+               grad_norm=m["grad_norm"], rollout_rewards=repr(rewards),
+               scripted_rewards=repr([t.reward for t in groups[0]]),
+               loss_plain=m_p["loss"], max_param_moved=moved,
+               max_param_err=p_err, near_tie_indices=plain_k.near)
     _log("rl.parity", model=cfg.name, layers=cfg.num_layers,
-         d_model=cfg.d_model, dtype="float32", **res)
-    if not (gap <= 1e-3 and abs(m["ratio"] - 1.0) <= 1e-3
-            and m["kept"] == 1.0 and math.isfinite(m["loss"])):
+         d_model=cfg.d_model, dtype="float32", dsa=cfg.dsa is not None,
+         top_k=cfg.dsa.top_k if cfg.dsa is not None else None,
+         deterministic_topk=cfg.dsa.deterministic_topk
+         if cfg.dsa is not None else None, gated=gate, **res)
+    if gate and not (res["max_logprob_gap"] <= 1e-3
+                     and abs(m["ratio"] - 1.0) <= 1e-3 and m["kept"] == 1.0):
         raise AssertionError(f"rl.parity: {res}")
-    del trainer, eng, model
+    if not (math.isfinite(m["loss"]) and moved > 0 and m["grad_norm"] > 0):
+        raise AssertionError(f"rl.parity: the step on nonzero advantages "
+                             f"did not move the weights: {res}")
+    if failures:
+        raise AssertionError("rl.parity, kernel vs plain step: "
+                             + "; ".join(failures))
+    del eng, model, start, after_k, after_p, grads_k, grads_p
     return res
 
 
@@ -3703,7 +3905,8 @@ def check_train_kernels(device="cuda") -> dict:
 
 def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
                        device="cuda", reps=10, tag="", causal=True,
-                       ce_tokens=None) -> dict:
+                       ce_tokens=None, window=0, softcap=0.0,
+                       ce_softcap=0.0) -> dict:
     """Each training kernel at the training runs' shapes in fp32 (TF32 off,
     as the trainer runs): K9 over one dense layer's (B, S, H, d) q and
     (B, S, KVH, d) k/v, causal (not, with ``causal=False``: an encoder's
@@ -3718,7 +3921,12 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
     larger.  Library: one scaled_dot_product_attention(is_causal=True)
     over the same q and the KV heads repeated once before the timed loop
     (for K9 only: no single PyTorch call computes K7 or K10).  The
-    result's keys, and the lines' kernel names, end in ``tag``."""
+    result's keys, and the lines' kernel names, end in ``tag``.  K9 takes
+    a local layer's ``window`` and ``softcap`` (gemma2's; the bound counts
+    the keys the window leaves; SDPA takes the window as a boolean mask
+    and has no softcap, so it is then timed without it as
+    ``sdpa_without_softcap_ms``, not as the library call), K10 the final
+    ``ce_softcap``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.lightning_indexer import kernel as K7mod
@@ -3737,23 +3945,36 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
     qs = q.transpose(1, 2).contiguous()
     ks = k.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
     vs = v.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
-    kw9 = dict(causal=causal)
+    kw9 = dict(causal=causal, window=window, softcap=softcap)
+    sdpa_kw = dict(is_causal=causal)
+    if window:
+        pos = torch.arange(S, device=device)
+        sdpa_kw = dict(attn_mask=(pos[None] <= pos[:, None])
+                       & (pos[:, None] - pos[None] < window))
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, **sdpa_kw), reps)
+    # the keys each query sees: all (not causal), causal, or the window's
+    pairs = S * S if not causal else sum(min(i + 1, window or S)
+                                         for i in range(S))
     out["flash_attention" + tag] = dict(
         ms=cuda_ms(lambda: K9(q, k, v, **kw9), reps),
         device_ms=graph_ms(lambda: K9(q, k, v, **kw9), reps // 2),
         plain_ms=cuda_ms(lambda: K9p(q, k, v, **kw9), 2),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=causal), reps),
+        library_ms=None if softcap else sdpa_ms,
         max_abs_err=_hold("K9 train-shape", K9(q, k, v, **kw9),
                           K9p(q, k, v, **kw9), f32),
-        flops=4 * B * H * S * S * d / (2 if causal else 1), tf32_products=3,
+        flops=4 * B * H * pairs * d, tf32_products=3,
         bytes=4 * (2 * q.numel() + k.numel() + v.numel()),
         shape=f"B={B} S={S} H={H} KVH={KVH} d={d} "
-              f"{'causal' if causal else 'not causal'}")
+              f"{'causal' if causal else 'not causal'} window={window} "
+              f"softcap={softcap}")
+    if softcap:
+        _log("timing", kernel="flash_attention" + tag,
+             sdpa_without_softcap_ms=sdpa_ms)
     # which kernel the library call runs on these fp32 inputs
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
         torch.cuda.synchronize()
     _log("timing", kernel="flash_attention" + tag, library_kernels=repr(
         [e.key[:120] for e in prof.key_averages()
@@ -3761,7 +3982,7 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
     del q, k, v, qs, ks, vs
     out["chunked_ce" + tag] = _k10_train_shape(
         gen, ce_tokens or B * S, dense_cfg.d_model, dense_cfg.vocab_size,
-        device)
+        device, softcap=ce_softcap)
     if dsa_cfg is None:
         _bounds_fp32(out)
         return out
@@ -3795,7 +4016,7 @@ def time_train_kernels(dense_cfg, dsa_cfg, batch, seq, dsa_seq,
     return out
 
 
-def _k10_train_shape(gen, Tk, D, V, device="cuda") -> dict:
+def _k10_train_shape(gen, Tk, D, V, device="cuda", softcap=0.0) -> dict:
     """K10 over one training step's Tk tokens against a (D, V) unembedding
     in fp32 (its 3xTF32 tile: bound by three TF32 products), held against
     its plain version (1e-5 of max(1, |plain|)) and timed beside it.
@@ -3810,24 +4031,27 @@ def _k10_train_shape(gen, Tk, D, V, device="cuda") -> dict:
     t = torch.randint(0, V, (Tk,), generator=gen, device=device,
                       dtype=torch.int32)
     m = torch.ones(Tk, device=device)
-    got, want = K10.chunked_ce(h, w, t, m), K10.reference(h, w, t, m)
-    what = f"K10 train-shape Tk={Tk} D={D} V={V}"
+    kw = dict(softcap=softcap)
+    got, want = K10.chunked_ce(h, w, t, m, **kw), \
+        K10.reference(h, w, t, m, **kw)
+    what = f"K10 train-shape Tk={Tk} D={D} V={V} softcap={softcap}"
     err = _hold_rel(what, got[0], want[0], 1e-5)
     product_part = float(want[0]) - float(want[1]) * math.log(V)
     if not abs(product_part) > 100 * 1e-5 * abs(float(want[0])):
         raise AssertionError(f"{what}: the h.W part of the sum, "
                              f"{product_part}, is not far above the "
                              f"tolerance")
-    _log("kernels", kernel="chunked_ce", Tk=Tk, D=D, V=V, dtype="float32",
-         loss_sum=float(want[0]), product_part=product_part, max_abs_err=err)
+    _log("kernels", kernel="chunked_ce", Tk=Tk, D=D, V=V, softcap=softcap,
+         dtype="float32", loss_sum=float(want[0]),
+         product_part=product_part, max_abs_err=err)
     return dict(
-        ms=cuda_ms(lambda: K10.chunked_ce(h, w, t, m), 3),
-        device_ms=graph_ms(lambda: K10.chunked_ce(h, w, t, m), 2),
-        plain_ms=cuda_ms(lambda: K10.reference(h, w, t, m), 2),
+        ms=cuda_ms(lambda: K10.chunked_ce(h, w, t, m, **kw), 3),
+        device_ms=graph_ms(lambda: K10.chunked_ce(h, w, t, m, **kw), 2),
+        plain_ms=cuda_ms(lambda: K10.reference(h, w, t, m, **kw), 2),
         library_ms=None, max_abs_err=err,
         flops=2 * Tk * D * V, tf32_products=3,
         bytes=4 * (h.numel() + w.numel() + 2 * Tk),
-        shape=f"Tk={Tk} D={D} V={V}")
+        shape=f"Tk={Tk} D={D} V={V} softcap={softcap}")
 
 
 def _bounds_fp32(out: dict) -> None:
@@ -3932,9 +4156,11 @@ class _TopkAlign:
             dsa.select_topk = self._orig
         return False
 
-    def _select(self, scores, mask, k):
+    def _select(self, scores, mask, k, noise=None):
         import torch
-        sel, valid = self._orig(scores, mask, k)
+        sel, valid = self._orig(scores, mask, k, noise)
+        if noise is not None:      # the randomized top-k: the same draw
+            scores = scores + noise
         if self.replay is None:
             self.calls.append((sel, valid, scores))
             return sel, valid
@@ -3963,6 +4189,31 @@ class _TopkAlign:
                                  f"away from the k-th score")
         self.near += int(diff.sum())
         return sel_r, valid_r
+
+
+def _hold_step(after_k, after_p, grads_k, grads_p, axes, lr,
+               failures) -> float:
+    """``train_parity``'s bound on the parameters after one optimizer step
+    of each route from the same weights: every Muon parameter within 1e-3
+    x lr of the plain route's; an AdamW element also within lr x min(2,
+    |dg| / 1e-8), dg the routes' gradient gap there (see
+    ``train_parity``).  Appends each breach to ``failures``; returns the
+    largest parameter difference."""
+    import torch
+    from repro_torch.optim import muon
+    p_err = 0.0
+    for k in after_p:
+        diff = (after_k[k] - after_p[k]).abs()
+        allowed = torch.full_like(diff, 1e-3 * lr)
+        if not muon._is_muon_param(axes[k], tuple(diff.shape)):
+            dg = (grads_k[k] - grads_p[k]).abs()
+            allowed += lr * torch.clamp(dg / 1e-8, max=2.0)
+        if bool((diff > allowed).any()):
+            failures.append(f"param {k} after the step: "
+                            f"{int((diff > allowed).sum())} elements past "
+                            f"their bound, max {diff.max().item()}")
+        p_err = max(p_err, diff.max().item())
+    return p_err
 
 
 def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
@@ -4033,13 +4284,11 @@ def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
                           for k in idx):
             raise AssertionError(f"train parity {cfg.name}: the indexer "
                                  f"leaves {idx} must have no gradient")
-    g_err = p_err = 0.0
+    g_err = idx_err = 0.0
     failures = []
-    idx_err = 0.0
     for k in grads_p:
         scale = grads_p[k].abs().max().item()
-        dg = (grads_k[k] - grads_p[k]).abs()
-        e = dg.max().item()
+        e = (grads_k[k] - grads_p[k]).abs().max().item()
         tol = idx_tol if ".idx." in k else 1e-4
         if not e <= tol * scale:
             failures.append(f"grad {k} differs by {e} (max |g| {scale})")
@@ -4047,15 +4296,8 @@ def train_parity(cfg, batch, seq, device="cuda", lr=2e-3,
             idx_err = max(idx_err, e / max(scale, 1e-30))
         else:
             g_err = max(g_err, e / max(scale, 1e-30))
-        diff = (after_k[k] - after_p[k]).abs()
-        allowed = torch.full_like(diff, 1e-3 * lr)
-        if not muon._is_muon_param(axes[k], tuple(diff.shape)):
-            allowed += lr * torch.clamp(dg / 1e-8, max=2.0)
-        if bool((diff > allowed).any()):
-            failures.append(f"param {k} after the step: "
-                            f"{int((diff > allowed).sum())} elements past "
-                            f"their bound, max {diff.max().item()}")
-        p_err = max(p_err, diff.max().item())
+    p_err = _hold_step(after_k, after_p, grads_k, grads_p, axes, lr,
+                       failures)
     if failures:
         raise AssertionError("train parity: " + "; ".join(failures))
     res = dict(loss_kernel=loss_k, loss_plain=loss_p,
@@ -4076,7 +4318,8 @@ def expected_launches(cfg, seq, steps) -> dict:
     model form, forward only: the backward recomputes plainly) and no
     other; K9 once an attention layer without DSA (forward
     only: the backward recomputes plainly); K7 twice a DSA layer's query
-    chunk (the forward, and the checkpoint's recompute in the backward);
+    chunk (the forward, and the checkpoint's recompute in the backward; a
+    DSA layer is a global one: gemma2's local layers keep K9);
     with the block selector K8 twice a chunk too, where the reference's
     rule takes the block branch (chunks of 256 when seq is a multiple of
     256, else one; the chunk and seq multiples of the DSA block).  The
@@ -4092,11 +4335,15 @@ def expected_launches(cfg, seq, steps) -> dict:
         return dict(dict.fromkeys(TRAIN_KERNELS, 0), chunked_ce=steps,
                     flash_attention=(cfg.encoder_layers
                                      + 2 * cfg.num_layers) * steps)
+    from repro_torch.models.transformer import layer_kind
     attn_layers, heads = cfg.num_layers, 0
+    dsa_layers = sum(layer_kind(cfg, i) == "global"
+                     for i in range(cfg.num_layers))
     if cfg.family == "hybrid":
-        attn_layers = cfg.num_layers // cfg.hybrid_attn_every
+        attn_layers = dsa_layers = cfg.num_layers // cfg.hybrid_attn_every
         heads = cfg.num_layers * steps
-    dsa_layers = attn_layers if cfg.dsa is not None else 0
+    if cfg.dsa is None:
+        dsa_layers = 0
     q_chunk = min(cfg.q_chunk, 256)
     chunks = -(-seq // q_chunk)
     k8 = 0
@@ -4111,6 +4358,150 @@ def expected_launches(cfg, seq, steps) -> dict:
             "lightning_indexer": 2 * dsa_layers * chunks * steps,
             "block_sparse_attention": k8, "mamba_scan_model": 0,
             "mamba_scan_heads": heads}
+
+
+def dsa_random(cfg, device="cuda", block_size=16, chunk=64) -> dict:
+    """``[dsa.random]``: DSA's randomized top-k (``deterministic_topk=
+    False``) through the ContinuousEngine in fp32 on the kernel route (K5 /
+    K6 score the pool in place) and on the plain route (``attn_impl=
+    "ref"`` under ``plain_route()``: the gathered view, scored by K7's
+    plain version, and K5's gather oracle), on the DSA parity prompts,
+    with the same scheduling, so both draw the same noise at the same
+    shapes: greedy tokens equal wherever the plain route's top-2 margin is
+    >= 1e-3.  The deterministic top-k's tokens on the kernel route are
+    counted beside them: the tokens the noise moved."""
+    import numpy as np
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.serving import ContinuousEngine, Request
+    det = cfg
+    cfg = cfg.replace(dsa=dataclasses.replace(cfg.dsa,
+                                              deterministic_topk=False))
+    model = get_model(cfg).init(
+        cfg, torch.Generator(device=device).manual_seed(SEED), device=device,
+        dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 1)
+    prompts, max_new = _long_prompts(rng, cfg.vocab_size)
+    max_len = _round_up(max(len(p) for p in prompts) + max(max_new) + chunk,
+                        block_size)
+
+    def run(impl):
+        eng = ContinuousEngine(model.cfg, model, max_batch=2,
+                               block_size=block_size, num_blocks=512,
+                               max_len=max_len, prefill_chunk=chunk,
+                               attn_impl=impl, device=device)
+        reqs = [Request(prompt=p, max_new=m)
+                for p, m in zip(prompts, max_new)]
+        eng.serve(reqs)
+        if any(r.status != "ok" for r in reqs):
+            raise AssertionError(f"dsa.random: a request ended "
+                                 f"{[r.status for r in reqs]}")
+        return [r.out for r in reqs]
+    kernels = [k for ks in path_kernels(cfg) for k in ks]
+    before = [k.launches for k in kernels]
+    kernel = run("kernel")
+    if device != "cpu" and not _all_launched(kernels, before):
+        raise AssertionError(f"dsa.random: one of "
+                             f"{[k.__name__ for k in kernels]} never "
+                             f"launched")
+    with plain_route():
+        plain = run("ref")
+        margins = [_margins_ok(model, p, o, device)
+                   for p, o in zip(prompts, plain)]
+    if not any(margins):
+        raise AssertionError("dsa.random: no prompt had a top-2 margin")
+    for a, b, ok in zip(kernel, plain, margins):
+        if ok and not np.array_equal(a, b):
+            raise AssertionError(f"dsa.random: kernel route {a.tolist()} "
+                                 f"!= plain route {b.tolist()}")
+    model.cfg = det
+    try:
+        fixed = run("kernel")
+    finally:
+        model.cfg = cfg
+    moved = sum(int((a != b).sum()) for a, b in zip(kernel, fixed))
+    res = dict(compared=sum(margins), skipped=len(margins) - sum(margins),
+               longest_prompt=max(len(p) for p in prompts),
+               top_k=cfg.dsa.top_k, tokens=sum(len(a) for a in kernel),
+               tokens_unlike_deterministic=moved)
+    _log("dsa.random", model=cfg.name, layers=cfg.num_layers,
+         prefill_chunk=chunk, dtype="float32", **res)
+    del model
+    return res
+
+
+def train_warmup(cfg, batch, seq, steps=3, device="cuda", lr=2e-3) -> dict:
+    """The DSA indexer's warm-up on the card: ``launch.train.train(...,
+    freeze="all_but_indexer")`` for ``steps`` steps at full width (fp32,
+    TF32 off, lr ``lr`` on the cosine, no warm-up).  Every parameter
+    outside the indexers must be bitwise as it was, every indexer
+    parameter must have moved, and the indexer KL on the trainer's first
+    batch (the loss's ``aux`` / 0.01: the sum over the DSA layers) must be
+    lower after the steps than before; the training kernels' launches
+    against ``expected_launches`` (the base is frozen, not skipped: the
+    forward and its recomputes run as in a full step)."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import lm_generator
+    from repro_torch.launch.train import train
+    from repro_torch.models import get_model
+    M = get_model(cfg)
+    model = M.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                   device=device)
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
+    first = {k: torch.from_numpy(v).to(device) for k, v in next(
+        lm_generator(cfg.vocab_size, seq, batch, seed=SEED)).items()}
+
+    def kl():
+        with torch.no_grad():
+            return float(M.loss(model, first)[1]["aux"]) / 0.01
+    kl_before = kl()
+    wrappers = train_kernel_wrappers()
+    for _, fn, _ in wrappers.values():
+        fn.launches = 0
+    tc = TrainConfig(batch_size=batch, seq_len=seq, learning_rate=lr,
+                     warmup_steps=0, total_steps=steps, seed=SEED)
+    cuda = device != "cpu"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = train(cfg, tc, device=device, log_every=1,
+                 freeze="all_but_indexer", model=model)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, (_, fn, _) in wrappers.items()}
+    kl_after = kl()
+    frozen = moved = 0
+    for k, p in model.named_parameters():
+        if "idx" in k.split("."):
+            moved += int(not torch.equal(p, start[k]))
+        elif not torch.equal(p, start[k]):
+            raise AssertionError(f"warmup: frozen {k} changed")
+        else:
+            frozen += 1
+    n_idx = len(start) - frozen
+    want = expected_launches(cfg, seq, steps)
+    res = dict(kl_before=kl_before, kl_after=kl_after,
+               kl_a_step=repr([round(h["aux"] / 0.01, 6) for h in hist]),
+               losses=repr([round(h["loss"], 5) for h in hist]),
+               frozen_leaves=frozen, indexer_leaves=n_idx,
+               indexer_leaves_moved=moved, wall_s=wall,
+               max_memory_gb=torch.cuda.max_memory_allocated() / 1e9
+               if cuda else None, launches=repr(launches))
+    _log("train.warmup", model=cfg.name, layers=cfg.num_layers, batch=batch,
+         seq=seq, steps=steps, lr=lr, freeze="all_but_indexer", **res)
+    if moved != n_idx or not n_idx:
+        raise AssertionError(f"warmup: {moved} of {n_idx} indexer leaves "
+                             f"moved")
+    if not kl_after < kl_before:
+        raise AssertionError(f"warmup: the indexer KL {kl_before} -> "
+                             f"{kl_after} did not fall")
+    if cuda and launches != want:
+        raise AssertionError(f"warmup: launches {launches} != expected "
+                             f"{want}")
+    del model, start
+    return dict(res, launches=launches)
 
 
 def train_run(cfg, batch, seq, steps, device="cuda", lr=2e-3) -> dict:
@@ -5530,6 +5921,13 @@ def main() -> int:
     # experts), kimi-k2 (G 8, a dense first layer, 384 experts + a shared
     # one), nemotron-4 (G 6, relu2), minitron (G 3, relu2); whisper-base
     # (family audio: 6 + 6 layers over 1500 frames, no DSA)
+    # gemma2-2b (slice 21) at published width and depth: 26 layers
+    # alternating local (window 4096) and global, softcaps 50 / 30, vocab
+    # 256000 tied; as published and with the repo's DSA retrofit on its 13
+    # global layers (8 x 64 indexer, top-k 2048)
+    gemma2_dsa = get_config("gemma2_2b")
+    gemma2 = gemma2_dsa.replace(dsa=None)
+    g_window, g_softcap = gemma2.sliding_window, gemma2.attn_logit_softcap
     phi3 = get_config("phi3_vision_4b").replace(dsa=None)
     qwen3 = get_config("qwen3_moe_235b").replace(dsa=None)
     kimi = get_config("kimi_k2_1t").replace(dsa=None)
@@ -5570,6 +5968,21 @@ def main() -> int:
     _free()
     timing.update(time_head_scan(zamba2, chunk, len(prompt_lens)))
     _free()
+    # gemma2's serve shapes on the DSA mix (its long rows pass the window):
+    # K1/K2 at 4 KV heads x G 2 x d 256 with the local layers' window 4096
+    # and softcap 50 over its 13 local layers' pools; K5/K6 at 8 x 64 over
+    # its 13 global layers'
+    timing.update(time_kernels(gemma2.replace(num_layers=13),
+                               [n + 16 for n in dsa_lens], max(dsa_lens),
+                               bs=16, num_blocks=2048, chunk=chunk,
+                               tag="_gemma2", window=g_window,
+                               softcap=g_softcap))
+    _free()
+    timing.update(time_indexer_kernels(
+        gemma2_dsa.replace(num_layers=13), [n + 16 for n in dsa_lens],
+        span_start, max(dsa_lens) - span_start, bs=16, num_blocks=2048,
+        mb=dsa_max_len // 16, tag="_gemma2"))
+    _free()
     # the training path: Yi-6B at full width, depth cut to 8 layers so that
     # fp32 weights, gradients and Muon state fit beside the activations
     yi_train, yi_dsa_train = yi.replace(num_layers=8), \
@@ -5587,6 +6000,16 @@ def main() -> int:
                                      tag="_zamba2"))
     _free()
     timing.update(time_head_scan_train(zamba2, batch=2, seq=2048))
+    _free()
+    # gemma2's training shapes (1 x 8192: the local layers' window binds):
+    # K9 at 8 / 4 heads of 256 with window 4096 and softcap 50, K10 at D
+    # 2304 / V 256000 with the final softcap 30, K7 at 8 x 64 over T 8192
+    g_train, g_dsa_train = gemma2.replace(num_layers=4), \
+        gemma2_dsa.replace(num_layers=4)
+    timing.update(time_train_kernels(
+        g_train, g_dsa_train, batch=1, seq=8192, dsa_seq=8192,
+        tag="_gemma2", window=g_window, softcap=g_softcap,
+        ce_softcap=gemma2.final_logit_softcap))
     _free()
     stamp("timing.zamba2_train")
     # K9's bf16 route at the RL loop backend's re-forward (232 + 8 tokens)
@@ -5646,6 +6069,21 @@ def main() -> int:
     for cfg_, long_ in ((zamba2, False), (zamba2_dsa, True)):
         parity(cfg_.replace(num_layers=12), chunks=(None, 64), long=long_)
         _free()
+    # gemma2 at 2 layers (one local, one global), fp32, both variants, on
+    # the long prompts with one of 4600 tokens: past the window and top-k
+    for cfg_ in (gemma2, gemma2_dsa):
+        parity(cfg_.replace(num_layers=2), long=True,
+               long_lens=(2600, 4600), logprobs=True)
+        _free()
+    # its final softcap saturates on random weights (no top-2 margin of
+    # 1e-3 above): the same weights without it give the token rule margins
+    parity(gemma2_dsa.replace(num_layers=2, final_logit_softcap=0.0),
+           long=True, long_lens=(2600, 4600))
+    _free()
+    # DSA's randomized top-k: kernel route against plain route (Yi-6B +
+    # DSA, 2 layers, fp32)
+    dsa_random(yi_dsa.replace(num_layers=2))
+    _free()
     # the serving layers around the engine (front-end, spill, disagg) at
     # Yi-6B width, 2 layers, fp32
     frontend_parity(yi.replace(num_layers=2))
@@ -5683,12 +6121,25 @@ def main() -> int:
     # (2 layers, fp32), then the loop at Yi-6B's width, depth 32 -> 4
     rl_parity(yi.replace(num_layers=2))
     _free()
+    # the same on Yi-6B + DSA with top-k cut to 32 (the rows' 48-80 keys
+    # pass it): deterministic top-k held as the dense run; randomized
+    # top-k's gaps recorded (GLM-5 §3.2), not held
+    yi_rl_dsa = yi_dsa.replace(num_layers=2, dsa=dataclasses.replace(
+        yi_dsa.dsa, top_k=32))
+    rl_parity(yi_rl_dsa)
+    _free()
+    rl_parity(yi_rl_dsa.replace(dsa=dataclasses.replace(
+        yi_rl_dsa.dsa, deterministic_topk=False)), gate=False)
+    _free()
     launches.update(rl_run(yi.replace(num_layers=4))["launches"])
     _free()
     stamp("rl")
-    launches.update(serve(yi_dsa, dsa_lens, max_new=new_tokens)["launches"])
+    # Yi-6B + DSA and + DSA(block) at 16 layers, cut for time (~20 s each
+    # at full depth)
+    launches.update(serve(yi_dsa.replace(num_layers=16), dsa_lens,
+                          max_new=new_tokens)["launches"])
     _free()
-    launches.update(serve(yi_block, dsa_lens,
+    launches.update(serve(yi_block.replace(num_layers=16), dsa_lens,
                           max_new=new_tokens)["launches"])
     _free()
     glm5_off = serve(glm5_mtp, prompt_lens)
@@ -5717,11 +6168,13 @@ def main() -> int:
         glm5_dense, torch.Generator(device="cuda").manual_seed(SEED),
         device="cuda", dtype=torch.bfloat16), prompt_lens)
     _free()
-    launches.update(serve(zamba2, prompt_lens, max_new=new_tokens)
-                    ["launches"])
+    # zamba2 at 24 layers, 4 shared-block invocations, cut for time (+
+    # DSA took ~22 s whole)
+    launches.update(serve(zamba2.replace(num_layers=24), prompt_lens,
+                          max_new=new_tokens)["launches"])
     _free()
-    launches.update(serve(zamba2_dsa, dsa_lens, max_new=new_tokens)
-                    ["launches"])
+    launches.update(serve(zamba2_dsa.replace(num_layers=24), dsa_lens,
+                          max_new=new_tokens)["launches"])
     _free()
     falcon_serve = serve_ssm(falcon, prompt_lens, max_new=new_tokens)
     launches.update(falcon_serve["launches"])
@@ -5753,6 +6206,13 @@ def main() -> int:
         del served
         _free()
     stamp("serve.registry")
+    # gemma2-2b whole (26 layers, ~5.2 GB bf16) on the DSA mix, as
+    # published and with DSA on its global layers
+    for cfg_ in (gemma2, gemma2_dsa):
+        launches.update(serve(cfg_, dsa_lens, max_new=new_tokens)
+                        ["launches"])
+        _free()
+    stamp("serve.gemma2")
     launches.update(serve_encdec(whisper)["launches"])
     _free()
     stamp("serve")
@@ -5765,12 +6225,12 @@ def main() -> int:
     _free()
     train_parity(falcon.replace(num_layers=2), batch=1, seq=1024)
     _free()
-    # the two DSA trainers at 4 layers (8 until slice 19, whose phases
-    # took the time back: their 5 steps were ~30 and ~23 s of the run)
-    for cfg_, batch_, seq_ in ((yi_train, 2, 2048),
+    # every trainer here at 4 layers, cut for time (at 8 the four took
+    # ~30, ~23, ~18 and ~22 s)
+    for cfg_, batch_, seq_ in ((yi_train.replace(num_layers=4), 2, 2048),
                                (yi_dsa_train.replace(num_layers=4), 1, 4096),
                                (yi_block.replace(num_layers=4), 1, 4096),
-                               (falcon_train, 2, 2048)):
+                               (falcon_train.replace(num_layers=4), 2, 2048)):
         launches.update(train_run(cfg_, batch=batch_, seq=seq_,
                                   steps=5)["launches"])
         _free()
@@ -5785,7 +6245,10 @@ def main() -> int:
     # steps widen zamba2's logit spread (1.00 -> 1.21 in 5 steps on an
     # H100) faster than its few repeated tokens pay back, and the loss
     # climbs after step 1; at 1e-3 it falls
-    for cfg_, batch_, seq_ in ((z_train, 2, 2048), (z_dsa_train, 1, 4096)):
+    # (+ DSA at 6 layers, one shared-block invocation, cut for time: ~24 s
+    # at 12)
+    for cfg_, batch_, seq_ in ((z_train, 2, 2048),
+                               (z_dsa_train.replace(num_layers=6), 1, 4096)):
         launches.update(train_run(cfg_, batch=batch_, seq=seq_, steps=5,
                                   lr=1e-3)["launches"])
         _free()
@@ -5804,6 +6267,25 @@ def main() -> int:
                                            steps=5)["launches"])
         _free()
     stamp("train.frontend")
+    # gemma2 at full width, depth 26 -> 4 (2 local + 2 global), 1 x 8192,
+    # fp32: parity and the trainer, as published and with DSA; then the
+    # DSA indexer's warm-up (the base frozen), 3 steps
+    # (+ DSA: its indexer leaves at 5e-3 of their max, the CPU tests'
+    # indexer bound: their gradient, the KL's alone, is ~3.6e-7 at most, a
+    # sum of terms that almost cancel; the routes' 3xTF32 rounding in K9
+    # and K7 moved it by 3.5e-4 of that on an H100)
+    train_parity(g_train, batch=1, seq=8192)
+    _free()
+    train_parity(g_dsa_train, batch=1, seq=8192, idx_tol=5e-3)
+    _free()
+    for cfg_ in (g_train, g_dsa_train):
+        launches.update(train_run(cfg_, batch=1, seq=8192, steps=5)
+                        ["launches"])
+        _free()
+    launches.update(train_warmup(g_dsa_train, batch=1, seq=8192, steps=3)
+                    ["launches"])
+    _free()
+    stamp("train.gemma2")
     # [mesh]: remat on Yi-6B's training path, and the dry run's argument
     # bytes beside the card's allocation
     launches.update(mesh_remat(yi_train, batch=2, seq=2048)["launches"])
@@ -5831,6 +6313,8 @@ def main() -> int:
     profile_decode(glm5)
     _free()
     profile_decode(zamba2)
+    _free()
+    profile_decode(gemma2_dsa, prompt_len=2304)        # past top-k
     stamp("profile")
 
     sources = {"block_sparse": "src/repro_torch/csrc/block_sparse.cu",

@@ -36,9 +36,12 @@ def _items(tree, prefix: str = ""):
 
 
 def _host(leaf) -> np.ndarray:
+    """A host copy of the leaf: a CPU tensor's ``numpy()`` would share its
+    storage, which the trainer updates in place while ``save_async``'s
+    thread writes (the reference's arrays are immutable)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf)
 
 
 def _flatten(tree) -> Dict[str, np.ndarray]:

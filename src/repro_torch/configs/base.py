@@ -2,9 +2,9 @@
 
 ``ModelConfig`` keeps the reference's fields that the port reads, with the
 same names and defaults.  ``dsa`` is served with either selector and
-deterministic top-k, ``mtp`` with its shared head; family ``ssm`` is the
-Mamba-1 LM (``models.ssm_model``: ``ssm_state``, ``ssm_conv``,
-``ssm_expand``), family ``hybrid`` the zamba2-style model
+either top-k (deterministic or randomized), ``mtp`` with its shared head;
+family ``ssm`` is the Mamba-1 LM (``models.ssm_model``: ``ssm_state``,
+``ssm_conv``, ``ssm_expand``), family ``hybrid`` the zamba2-style model
 (``models.hybrid``: Mamba-2 layers, ``ssm_version=2`` with heads of
 ``ssm_head_dim``, and one shared attention block every
 ``hybrid_attn_every`` layers), family ``vlm`` the transformer fed
@@ -43,9 +43,9 @@ class DSAConfig:
     """DeepSeek Sparse Attention (GLM-5 §2.1.1): a lightning indexer
     scores every cached token, the top ``top_k`` are attended (``token``)
     or the top ``top_k // block_size`` key blocks of each query block
-    (``block``).  The randomized tie-breaking of the RL-determinism study
-    (``deterministic_topk=False``) is rejected by the model
-    constructors."""
+    (``block``).  ``deterministic_topk=False`` breaks the token
+    selector's ties at random (the RL-determinism study,
+    ``core.dsa.topk_noise``)."""
     index_heads: int = 32
     index_head_dim: int = 128
     top_k: int = 2048

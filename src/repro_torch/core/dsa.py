@@ -1,7 +1,7 @@
 """DSA — DeepSeek Sparse Attention, as adopted by GLM-5 (§2.1.1, §3.2).
 
-Port of ``repro.core.dsa`` with the token selector and deterministic
-top-k, for serving and training.  Three parts:
+Port of ``repro.core.dsa`` with both selectors and both top-k forms
+(deterministic and randomized), for serving and training.  Three parts:
 
 1. **Lightning indexer** — for query token t and key token s,
    ``I[t,s] = Σ_h w_h(x_t) · ReLU(q_h(x_t) · k(x_s)) · Di^-1/2``: the key
@@ -36,9 +36,18 @@ indices carry no gradient, so this term is the only gradient path into the
 indexer (GLM-5 §2.1.1).  The block branch's term is the reference's
 ``-mean(log_softmax)`` of the scores of every selected block's tokens.
 
-Not here (the model constructors reject configs that need it): the
-randomized tie-breaking of the RL-determinism study
-(``deterministic_topk=False``).
+Randomized top-k (``deterministic_topk=False``, the RL-determinism study
+of GLM-5 §3.2: a non-deterministic top-k kernel broke RL) adds uniform
+noise in [0, 1e-6) to the masked token scores before the selection, as
+the reference does, so exact ties break at random.  ``topk_noise`` draws
+it from a generator seeded with the same fixed seed at every call: the
+reference passes a fixed ``jax.random.key(0)`` at every call site, so one
+shape always draws the same noise.  The draws follow the reference's
+shapes: (B, 1, T) a decode step, one (B, S, T) over a paged span (sliced
+for each of its chunks here), and in ``dsa_attention`` one (B, S, T)
+where the reference takes the queries in one block or the same (B,
+q_chunk, T) for every chunk where it scans them.  The block selector
+takes no noise.
 """
 from __future__ import annotations
 
@@ -59,6 +68,8 @@ from repro_torch.layers.common import _empty
 
 W_HEAD_SCALE = 0.02     # the reference's init scale of ``w_head``
 Q_CHUNK = 256           # query rows per gather (see ``_by_query_chunks``)
+TOPK_NOISE_SEED = 0     # every call draws from this seed (the fixed key)
+TOPK_NOISE_MAX = 1e-6   # the noise is uniform in [0, TOPK_NOISE_MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -121,13 +132,27 @@ def indexer_distill_loss(scores: torch.Tensor, attn_probs: torch.Tensor,
 # top-k selection
 # ---------------------------------------------------------------------------
 
-def select_topk(scores: torch.Tensor, mask: torch.Tensor, k: int
+def topk_noise(shape: Tuple[int, ...], device) -> torch.Tensor:
+    """The randomized top-k's noise: fp32 uniform in [0, 1e-6) of
+    ``shape`` on ``device``, from a generator on that device seeded with
+    ``TOPK_NOISE_SEED`` at every call, so a shape always draws the same
+    values (the reference's fixed key).  Every caller looks it up on this
+    module at call time."""
+    gen = torch.Generator(device=device).manual_seed(TOPK_NOISE_SEED)
+    return torch.rand(shape, generator=gen, device=device) * TOPK_NOISE_MAX
+
+
+def select_topk(scores: torch.Tensor, mask: torch.Tensor, k: int,
+                noise: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """scores (B, S, T) + validity mask -> (idx (B, S, k) int64, valid
     (B, S, k)).  A stable descending sort keeps equal scores in index
-    order, so ties break by the lower index as ``jax.lax.top_k`` does."""
+    order, so ties break by the lower index as ``jax.lax.top_k`` does.
+    ``noise`` (B, S, T) (``topk_noise``; None: deterministic) is added to
+    the valid scores first."""
     k = min(k, scores.shape[-1])
-    masked = torch.where(mask, scores, NEG_INF)
+    masked = torch.where(mask, scores if noise is None else scores + noise,
+                         NEG_INF)
     vals, idx = torch.sort(masked, dim=-1, descending=True, stable=True)
     return idx[..., :k], vals[..., :k] > NEG_INF / 2
 
@@ -304,7 +329,10 @@ def dsa_decode_paged(idx: Indexer, q: torch.Tensor, k_pool: torch.Tensor,
     T = scores.shape[1]
     kv_positions = torch.arange(T, device=q.device).expand(B, T)
     mask = attention_mask(q_positions, kv_positions, causal=True)
-    sel, valid = select_topk(scores[:, None], mask, dsa.top_k)  # (B, 1, K)
+    noise = None if dsa.deterministic_topk \
+        else topk_noise((B, 1, T), scores.device)
+    sel, valid = select_topk(scores[:, None], mask, dsa.top_k,
+                             noise)                         # (B, 1, K)
     k_sel = paged_take(k_pool, block_tables, sel[:, 0])[:, None]
     v_sel = paged_take(v_pool, block_tables, sel[:, 0])[:, None]
     # view index == absolute position: the selected indices ARE positions
@@ -333,11 +361,16 @@ def dsa_prefill_paged(idx: Indexer, q: torch.Tensor, k_pool: torch.Tensor,
                                    positions[:, 0], impl=impl)  # (B, S, T)
     T = scores.shape[-1]
     kv_positions = torch.arange(T, device=q.device).expand(B, T)
+    # one draw over the whole span, as the reference's, sliced a chunk at
+    # a time (a fresh draw a chunk would give other values)
+    noise = None if dsa.deterministic_topk \
+        else topk_noise((B, S, T), scores.device)
 
     def chunk(lo: int, hi: int) -> torch.Tensor:
         pos = positions[:, lo:hi]
         mask = attention_mask(pos, kv_positions, causal=True, window=window)
-        sel, valid = select_topk(scores[:, lo:hi], mask, dsa.top_k)
+        sel, valid = select_topk(scores[:, lo:hi], mask, dsa.top_k,
+                                 None if noise is None else noise[:, lo:hi])
         K = sel.shape[-1]
         k_sel = paged_take(k_pool, block_tables, sel.reshape(B, -1))
         v_sel = paged_take(v_pool, block_tables, sel.reshape(B, -1))
@@ -394,11 +427,13 @@ def dsa_attention(idx: Indexer, q: torch.Tensor, k: torch.Tensor,
                                kv_positions, cfg, kv_len, window, softcap,
                                step, with_indexer_loss)
 
-    def chunk(q_c, xq_c, pos):
+    noise_at = _chunk_noise(dsa, B, S, k.shape[1], q_chunk, q.device)
+
+    def chunk(q_c, xq_c, pos, noise):
         scores = indexer_scores(idx, xq_c, k_idx, dsa)
         mask = attention_mask(pos, kv_positions, causal=True, window=window,
                               kv_len=kv_len)
-        sel, valid = select_topk(scores.detach(), mask, dsa.top_k)
+        sel, valid = select_topk(scores.detach(), mask, dsa.top_k, noise)
         if not with_indexer_loss:
             return sparse_token_attention(q_c, k, v, sel, valid, pos,
                                           kv_positions, softcap=softcap)
@@ -414,16 +449,35 @@ def dsa_attention(idx: Indexer, q: torch.Tensor, k: torch.Tensor,
     if not with_indexer_loss:
         return _by_query_chunks(
             lambda lo, hi: chunk(q[:, lo:hi], x_q[:, lo:hi],
-                                 q_positions[:, lo:hi]), S, q_chunk)
+                                 q_positions[:, lo:hi], noise_at(lo, hi)),
+            S, q_chunk)
     step = q_chunk if q_chunk > 0 else S
     outs, kl_sum = [], 0.0
     for lo in range(0, S, step):
         sl = slice(lo, lo + step)
         out, kl = checkpoint(chunk, q[:, sl], x_q[:, sl], q_positions[:, sl],
+                             noise_at(lo, min(lo + step, S)),
                              use_reentrant=False)
         outs.append(out)
         kl_sum = kl_sum + kl
     return torch.cat(outs, dim=1), kl_sum / (B * S)
+
+
+def _chunk_noise(dsa: DSAConfig, B: int, S: int, T: int, q_chunk: int,
+                 device) -> Callable[[int, int], Optional[torch.Tensor]]:
+    """``dsa_attention``'s top-k noise for query rows [lo, hi) (None with
+    the deterministic top-k).  Where S is a multiple of ``q_chunk`` (and
+    larger) the reference scans chunks of ``q_chunk`` rows and draws (B,
+    q_chunk, T) inside the scan: the same values for every chunk.
+    Otherwise it takes the queries in one block and draws (B, S, T) once,
+    which is sliced here for each of this function's chunks."""
+    if dsa.deterministic_topk:
+        return lambda lo, hi: None
+    if 0 < q_chunk < S and S % q_chunk == 0:
+        noise = topk_noise((B, q_chunk, T), device)
+        return lambda lo, hi: noise
+    noise = topk_noise((B, S, T), device)
+    return lambda lo, hi: noise[:, lo:hi]
 
 
 def _dsa_blocks(idx: Indexer, q, k, v, x_q, k_idx, q_positions,

@@ -15,20 +15,26 @@ sums.  The stream is the reference's token for token: the same RNG draws
 in the same order, and ``np.cumsum`` over a dense row adds exact zeros
 between successors, so the cumulative values at the successors are the
 same floats; a draw no cumulative value exceeds gives state 0, as the
-reference's argmax over an all-False row does.
+reference's argmax over an all-False row does.  Building the table walks
+every state in Python (~10 s at V = 256000), so ``make_markov`` keeps
+the last few tables it built, read-only: every stream of one language
+reads the same one.
 """
 from __future__ import annotations
 
+import functools
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
 
+@functools.lru_cache(maxsize=4)
 def make_markov(vocab_size: int, seed: int = 0, branching: int = 8
                 ) -> Tuple[np.ndarray, np.ndarray]:
     """Each state's ``branching`` successors, sorted by id (V, branching)
     int64, and their transition probabilities (V, branching) float32 (the
-    nonzero entries of the reference's dense row, in column order)."""
+    nonzero entries of the reference's dense row, in column order); both
+    read-only (the cached table is shared)."""
     rng = np.random.default_rng(seed)
     succ = np.empty((vocab_size, branching), np.int64)
     prob = np.empty((vocab_size, branching), np.float32)
@@ -38,6 +44,7 @@ def make_markov(vocab_size: int, seed: int = 0, branching: int = 8
         order = np.argsort(nxt)
         succ[s] = nxt[order]
         prob[s] = w[order]
+    succ.flags.writeable = prob.flags.writeable = False
     return succ, prob
 
 

@@ -14,6 +14,16 @@ They are the reference's serve path for the families the paged engine
 does not take (``audio``) and its prefill path with ``frontend_embeds``
 (``vlm``), and what the dry run drives.
 
+``make_train_step(..., freeze="all_but_indexer")`` is the DSA indexer's
+warm-up (GLM-5 §2.1.1: the indexer trains, the base is frozen; the
+reference's ``benchmarks.common.train_lm(freeze=...)``): every parameter
+outside the indexers (a name without an ``idx`` part) takes a zero
+gradient, the clip sees the indexers' norm alone, and the update moves
+the indexers' parameters only, so the others stay bitwise as they were
+(the reference zeroes their gradients and updates every leaf without
+weight decay: the same values).  The top-k carries no gradient, so the
+indexers learn through the 0.01 × KL term alone.
+
 ``mesh`` is a ``DeviceMesh`` of one rank (``launch.mesh.make_host_mesh``)
 or None.  Every family's entry points take it: it reaches the
 transformer's MoE layers, which pick the expert-parallel path by it
@@ -48,19 +58,46 @@ def _one_rank(mesh) -> None:
             f"not ported (one rank only)")
 
 
+FREEZE = (None, "all_but_indexer")
+
+
+def trained_names(model: nn.Module, freeze: Optional[str]) -> list:
+    """Names of the parameters a step with ``freeze`` updates: all of them
+    (None), or the DSA indexers' (``"all_but_indexer"``: every name with
+    an ``idx`` part, the reference's ``is_idx_path``)."""
+    if freeze not in FREEZE:
+        raise ValueError(f"freeze={freeze!r}: one of {FREEZE}")
+    names = [k for k, _ in model.named_parameters()]
+    if freeze is None:
+        return names
+    names = [k for k in names if "idx" in k.split(".")]
+    if not names:
+        raise ValueError(f"freeze={freeze!r}: {model.cfg.name} has no DSA "
+                         f"indexer to train")
+    return names
+
+
 def make_train_step(model: nn.Module, *, mesh=None,
                     train_cfg: Optional[TrainConfig] = None,
                     lr: float = 2e-4,
-                    muon_sharded_ns: bool = False) -> Callable:
+                    muon_sharded_ns: bool = False,
+                    freeze: Optional[str] = None) -> Callable:
     """Returns ``train_step(opt_state, batch, lr=lr) -> (opt_state,
     metrics)``; the model's parameters are trained in place (this turns
-    their gradients on).  ``muon_sharded_ns`` passes the mesh to Muon."""
+    their gradients on: with ``freeze``, those of the trained parameters
+    only).  ``muon_sharded_ns`` passes the mesh to Muon; ``freeze`` is
+    None or ``"all_but_indexer"`` (the indexer warm-up, see the module's
+    docstring)."""
     tc = train_cfg or TrainConfig()
     cfg = model.cfg
     M = get_model(cfg)
     _one_rank(mesh)
-    model.requires_grad_(True)
+    trained = trained_names(model, freeze)
+    model.requires_grad_(freeze is None)
     params = dict(model.named_parameters())
+    for k in trained:
+        params[k].requires_grad_(True)
+    updated = {k: params[k] for k in trained}
     axes = M.param_axes(model)
 
     def train_step(opt_state: muon.MuonState, batch: Dict[str, torch.Tensor],
@@ -70,12 +107,12 @@ def make_train_step(model: nn.Module, *, mesh=None,
         total, metrics = M.loss(model, batch, mesh=mesh)
         total.backward()
         # a parameter the loss never reaches (the MTP block's indexer: the
-        # head runs dense; the hybrid's indexer: its loss is dropped) has
-        # no gradient; JAX gives it zeros
+        # head runs dense; the hybrid's indexer: its loss is dropped), or
+        # a frozen one, has no gradient; JAX gives it zeros
         grads, gnorm = muon.global_norm_clip(
             {k: p.grad if p.grad is not None else torch.zeros_like(p)
              for k, p in params.items()}, tc.grad_clip)
-        opt_state = muon.update(params, grads, axes, opt_state, lr=lr,
+        opt_state = muon.update(updated, grads, axes, opt_state, lr=lr,
                                 cfg=cfg, weight_decay=tc.weight_decay,
                                 split=tc.muon_split,
                                 mesh=mesh if muon_sharded_ns else None)

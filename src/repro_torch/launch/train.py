@@ -56,9 +56,13 @@ def n_params(model: torch.nn.Module) -> int:
 
 def train(cfg: ModelConfig, tc: TrainConfig, *, device=None,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
-          log_every: int = 10) -> List[dict]:
+          log_every: int = 10, freeze: Optional[str] = None,
+          model: Optional[torch.nn.Module] = None) -> List[dict]:
     """Train ``cfg`` for ``tc.total_steps`` steps; returns the logged
-    metric dicts (one every ``log_every`` steps and the last)."""
+    metric dicts (one every ``log_every`` steps and the last).  ``freeze``
+    is ``launch.steps.make_train_step``'s (``"all_but_indexer"``: the DSA
+    indexer's warm-up, the base frozen); ``model`` trains that model (on
+    ``device``) in place of one initialised from ``tc.seed``."""
     if cfg.family == "audio":
         raise ValueError(
             f"{cfg.name} (family 'audio') trains on frame embeddings "
@@ -68,20 +72,22 @@ def train(cfg: ModelConfig, tc: TrainConfig, *, device=None,
             f"launch.steps.make_train_step")
     dev = resolve_device(device)
     M = get_model(cfg)
-    model = M.init(cfg, torch.Generator(device=dev).manual_seed(tc.seed),
-                   device=dev)
+    if model is None:
+        model = M.init(cfg,
+                       torch.Generator(device=dev).manual_seed(tc.seed),
+                       device=dev)
     print(f"arch={cfg.name} params={n_params(model) / 1e6:.1f}M "
           f"family={cfg.family}", flush=True)
     with host_mesh(dev) as mesh:
         return _loop(cfg, tc, model, mesh, dev, ckpt_dir, ckpt_every,
-                     log_every)
+                     log_every, freeze)
 
 
 def _loop(cfg, tc, model, mesh, dev, ckpt_dir, ckpt_every,
-          log_every) -> List[dict]:
+          log_every, freeze) -> List[dict]:
     axes = get_model(cfg).param_axes(model)
     step_fn = make_train_step(model, mesh=mesh, train_cfg=tc,
-                              lr=tc.learning_rate)
+                              lr=tc.learning_rate, freeze=freeze)
     opt_state = muon.init(dict(model.named_parameters()), axes)
     pipe = Pipeline(lm_generator(cfg.vocab_size, tc.seq_len, tc.batch_size,
                                  seed=tc.seed, steps=tc.total_steps),

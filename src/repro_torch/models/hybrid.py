@@ -79,10 +79,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.dsa is not None and cfg.dsa.selector not in ("token", "block"):
         raise ValueError(f"DSA selector {cfg.dsa.selector!r}: the reference "
                          f"has 'token' and 'block'")
-    if cfg.dsa is not None and not cfg.dsa.deterministic_topk:
-        raise NotImplementedError(
-            "DSA with deterministic_topk=False (randomized tie-breaking) is "
-            "not ported")
 
 
 def n_groups(cfg: ModelConfig) -> int:

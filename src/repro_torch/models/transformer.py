@@ -3,19 +3,22 @@ reference.
 
 Port of ``repro.models.transformer`` for configurations the port serves
 exactly as the reference does: GQA or MLA attention, DSA sparse attention
-on the ``global`` layers (the lightning indexer, deterministic top-k, the
-token or the block selector), dense MLP (swiglu / relu2 / gelu) or routed
-MoE FFN (the pattern layers, after ``first_k_dense`` dense-MLP layers),
-the ``attention_pattern`` layer groups (local sliding-window / global),
+on the ``global`` layers (the lightning indexer, deterministic or
+randomized top-k, the token or the block selector), dense MLP (swiglu /
+relu2 / gelu) or routed MoE FFN (the pattern layers, after
+``first_k_dense`` dense-MLP layers), the ``attention_pattern`` layer
+groups (local sliding-window / global),
 attention and final logit softcaps, tied (gemma-scaled) embeddings,
 ``qk_norm``, the MTP head (``core.mtp``: one shared non-MoE ``global``
 block; under DSA it has an indexer, and runs dense, ``sparse=False``, as
 in the reference) and the VLM family's stubbed frontend: ``hidden``,
 ``loss`` and ``prefill`` take ``frontend_embeds`` (B, F, D), precomputed
 patch embeddings put before the text's token embeddings, positions
-running over all F + S rows (the loss reads the text rows only).  A config that needs a part not ported yet — DSA's
-randomized top-k, another family — raises ``NotImplementedError`` instead
-of quietly running without it.
+running over all F + S rows (the loss reads the text rows only).  DSA
+takes either top-k: deterministic or randomized (``deterministic_topk=
+False``, ``core.dsa.topk_noise``).  A config that needs a part not ported
+yet — another family, another attention type — raises
+``NotImplementedError`` instead of quietly running without it.
 
 ``sparse`` (on ``hidden``, ``apply_block``, ``verify_step``, ``loss``;
 default ``cfg.dsa is not None``, the reference's) switches a layer's DSA
@@ -96,10 +99,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.dsa is not None and cfg.dsa.selector not in ("token", "block"):
         raise ValueError(f"DSA selector {cfg.dsa.selector!r}: the reference "
                          f"has 'token' and 'block'")
-    if cfg.dsa is not None and not cfg.dsa.deterministic_topk:
-        raise NotImplementedError(
-            "DSA with deterministic_topk=False (randomized tie-breaking, "
-            "the RL-determinism study) is not ported")
     if cfg.attention_type not in ("gqa", "mla"):
         raise NotImplementedError(
             f"attention_type {cfg.attention_type!r} is not ported")

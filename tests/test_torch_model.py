@@ -195,21 +195,21 @@ def test_models_reject_configs_they_cannot_serve():
     moe = base.replace(family="moe", num_experts=4, experts_per_token=2,
                        moe_d_ff=32, num_shared_experts=1, first_k_dense=1)
     # served now: MLA attention, MoE FFNs, both together, DSA (either
-    # selector, deterministic top-k; the block selector with one block a
-    # query block too) on any of them, and the MTP head (shared or not)
+    # selector, either top-k; the block selector with one block a query
+    # block too) on any of them, and the MTP head (shared or not)
     for cfg in (mla, moe, mla.replace(family="moe", num_experts=4,
                                       experts_per_token=2, moe_d_ff=32),
                 base.replace(dsa=DSAConfig()), mla.replace(dsa=DSAConfig()),
                 moe.replace(dsa=DSAConfig()),
                 base.replace(dsa=DSAConfig(selector="block")),
                 moe.replace(dsa=DSAConfig(selector="block", top_k=128)),
+                mla.replace(dsa=DSAConfig(deterministic_topk=False)),
+                base.replace(dsa=DSAConfig(deterministic_topk=False,
+                                           selector="block")),
                 base.replace(mtp=MTPConfig()),
                 moe.replace(mtp=MTPConfig(share_params=False))):
         T.init(cfg, device="cpu")
-    bad = [mla.replace(dsa=DSAConfig(deterministic_topk=False)),
-           base.replace(dsa=DSAConfig(deterministic_topk=False,
-                                      selector="block")),
-           base.replace(family="hybrid")]
+    bad = [base.replace(family="hybrid")]
     for cfg in bad:
         with pytest.raises(NotImplementedError):
             T.init(cfg, device="cpu")
