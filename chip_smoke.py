@@ -420,6 +420,24 @@ unchanged, every indexer leaf moved, the indexer KL on the trainer's
 first batch falling); a decode profile of gemma2 + DSA at 8 rows of 2304
 tokens.
 
+Slice 22 (the step on more than one rank) adds ``[mesh.placed]``: the
+steps of ``launch.steps`` on placed parameters (``sharding.rules.
+place_params``: DTensors on the 1 x 1 NCCL host mesh; ``place_batch``,
+``launch.specs.place_cache``), the kernels on each rank's local tensors,
+against the same steps on plain tensors from the same weights: two train
+steps (fp32, Muon with ``muon_sharded_ns``) of Yi-6B at 2 layers (1 x
+1024) and of GLM-5 + DSA with the expert-parallel MoE at 4 layers (3
+dense + 1 MoE) and its published vocabulary, its experts cut 256 -> 8
+for memory (1 x 512; DSA's near-tie top-k picks aligned as in
+``train_parity``): each loss within 1e-5 relative, the parameters
+after the last step within ``train_parity``'s bound, each kernel's
+launches equal on both routes and to ``expected_launches``; the prefill
+(1 x 256) and a serve step (8 rows) in bf16 of Yi-6B at 2 layers and
+GLM-5 + DSA, EP, at 4 layers of 256 experts: logits within one bf16 ulp,
+launches equal on both routes and to ``placed_serve_launches``.  Its
+lines carry each step's ms on both routes and the card's name and power
+limit; the kernels' JSON line keeps the earlier phases' launches.
+
 Then it prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a GPU, or
 without the repository beside it, it exits non-zero and prints no result.
@@ -3677,6 +3695,11 @@ def time_k9_loop(cfg, prompt_pad, loop_new, device="cuda", reps=20) -> dict:
 # the training path: K7, K9, K10, the train step and the trainer
 # ---------------------------------------------------------------------------
 
+# a DSA indexer leaf's gradient, relative to its max: the CPU tests'
+# bound and ``train_parity``'s for gemma2 + DSA (a sum of terms that
+# almost cancel)
+IDX_GRAD_TOL = 5e-3
+
 TRAIN_KERNELS = ("lightning_indexer", "flash_attention", "chunked_ce",
                  "block_sparse_attention", "mamba_scan_model",
                  "mamba_scan_heads")
@@ -4358,6 +4381,26 @@ def expected_launches(cfg, seq, steps) -> dict:
             "lightning_indexer": 2 * dsa_layers * chunks * steps,
             "block_sparse_attention": k8, "mamba_scan_model": 0,
             "mamba_scan_heads": heads}
+
+
+def placed_serve_launches(cfg, prefill_len) -> dict:
+    """Kernel launches of ``launch.steps``' prefill step over
+    ``prefill_len`` tokens and one serve step for a transformer: the
+    prefill is the forward without a cache and without a gradient, so K9
+    once a GQA layer without DSA and K7 once a DSA layer's query chunk (no
+    checkpoint recompute); an MLA layer without DSA attends plainly.  The
+    serve step attends its contiguous cache plainly (``dense_attention``,
+    MLA's absorbed form); a GQA layer with DSA scores the cache with K7
+    once."""
+    from repro_torch.models.transformer import layer_kind
+    dsa = [cfg.dsa is not None and layer_kind(cfg, i) == "global"
+           for i in range(cfg.num_layers)]
+    gqa = cfg.attention_type != "mla"
+    chunks = -(-prefill_len // min(cfg.q_chunk, 256))
+    return dict(dict.fromkeys(TRAIN_KERNELS, 0),
+                flash_attention=sum(gqa and not d for d in dsa),
+                lightning_indexer=sum(dsa) * chunks + sum(gqa and d
+                                                          for d in dsa))
 
 
 def dsa_random(cfg, device="cuda", block_size=16, chunk=64) -> dict:
@@ -5062,6 +5105,287 @@ def mesh_dryrun(cfg, arch, shape_name, layers, batch, device="cuda") -> dict:
          batch=batch, card=repr(_card()), **res)
     del model, cache
     return res
+
+
+def _placed_counts(wrappers, fn):
+    """``fn()`` with every kernel wrapper's count set to 0 just before;
+    returns (its result, the counts just after)."""
+    import torch
+    for _, w, _ in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: w.launches for n, (_, w, _) in wrappers.items()}
+
+
+def _whole(x):
+    """A placed tensor's whole value (on one rank: its local tensor)."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def mesh_placed_train(cfg, mesh, batch, seq, steps=2, device="cuda",
+                      lr=2e-3) -> dict:
+    """[mesh.placed], training: ``steps`` train steps (fp32, Muon with
+    ``muon_sharded_ns``) on plain tensors, then the same steps from the
+    same weights on placed ones (``place_params``, ``place_batch`` on the
+    1 x 1 host mesh, whose group runs NCCL): each step's loss within 1e-5
+    relative, the parameters after the last step within
+    ``train_parity``'s bound (1e-3 x lr, plus on an AdamW element lr x
+    min(2, 2 x sum |dg| / 1e-8) over the steps' gradient gaps; on a DSA
+    indexer's Muon leaf, whose gradient each step holds within
+    ``IDX_GRAD_TOL`` of its max, lr x 4 x the summed gaps at the leaf's
+    rms scale), and each
+    kernel's launches equal on both and to ``expected_launches``: every
+    kernel ran on the placed step's local tensors, none was replaced.  DSA's
+    token selections are aligned at near-ties as ``train_parity`` aligns
+    them (``_TopkAlign``: the plain run records, the placed run replays;
+    the card's own run-to-run rounding moves the second step's scores by
+    ulps, and a flipped near-tie changes the indexer's gradient, which
+    Muon scales to a whole step).  The start, the plain route's last parameters, its AdamW gradients and the
+    routes' summed gradient gaps wait on the host (GLM-5's vocabulary
+    makes its AdamW leaves 7.6 GB a step).  Returns the placed run's
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import muon
+    from repro_torch.sharding.rules import (make_rules, place_batch,
+                                            place_params)
+    t_start = time.perf_counter()
+    M = get_model(cfg)
+    model = M.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                   device=device)
+    axes = M.param_axes(model)
+    adamw = [k for k, p in model.named_parameters()
+             if not muon._is_muon_param(axes[k], tuple(p.shape))]
+    # the DSA indexers' Muon leaves: their gradient (the 0.01 x KL's) is
+    # a sum of terms that almost cancel, so the first step's last-ulp
+    # differences move it in the second by up to ~3e-3 of its max (on
+    # the card, plain against plain with Muon's batches changed alone)
+    idx = [k for k, p in model.named_parameters()
+           if ".idx." in k and k not in adamw]
+    gap = {k: 0.0 for k in idx}
+    start = {k: p.detach().to("cpu", copy=True)
+             for k, p in model.named_parameters()}
+    rng = np.random.default_rng(SEED + 17)
+    batches = []
+    for _ in range(steps):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+            batch, seq + 1)).astype(np.int32)).to(device)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    tc = TrainConfig(batch_size=batch, seq_len=seq)
+    wrappers = train_kernel_wrappers()
+    grads_p, dg, clip = [], {}, muon.global_norm_clip
+    placed_steps = []           # the placed route's steps so far
+
+    def recording_clip(g, max_norm):
+        """The plain route's AdamW gradients, on the host; on the placed
+        route, each step's gap from the plain route's, summed."""
+        g, norm = clip(g, max_norm)
+        host = {k: _whole(g[k]).detach().to("cpu", copy=True)
+                for k in adamw + idx}
+        if not placed_run:
+            grads_p.append(host)
+            return g, norm
+        want = grads_p[len(placed_steps)]
+        placed_steps.append(None)
+        for k in adamw:
+            dg[k] = dg.get(k, 0.0) + (host[k] - want[k]).abs()
+        for k in idx:
+            rel = ((host[k] - want[k]).abs().max()
+                   / want[k].abs().max().clamp_min(1e-30)).item()
+            if rel > IDX_GRAD_TOL:
+                raise AssertionError(f"mesh.placed {cfg.name}: {k}'s "
+                                     f"gradient {rel} of its max from the "
+                                     f"plain route's > {IDX_GRAD_TOL}")
+            gap[k] += rel
+        return g, norm
+
+    def run(data):
+        step = make_train_step(model, mesh=mesh, train_cfg=tc, lr=lr,
+                               muon_sharded_ns=True)
+        opt = muon.init(dict(model.named_parameters()), axes)
+        losses, ms = [], []
+        for b in data:
+            t0 = time.perf_counter()
+            opt, metrics = step(opt, b)
+            losses.append(float(metrics["loss"]))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return losses, ms
+
+    muon.global_norm_clip = recording_clip
+    placed_run = False
+    align = cfg.dsa is not None and cfg.dsa.selector == "token"
+    try:
+        with _TopkAlign(align) as plain_topk:
+            (loss_p, ms_p), n_plain = _placed_counts(wrappers,
+                                                     lambda: run(batches))
+        after_p = {k: p.detach().to("cpu", copy=True)
+                   for k, p in model.named_parameters()}
+        placed_run = True
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(start[k])
+        for p in model.parameters():
+            p.grad = None
+        rules = make_rules(mesh)
+        place_params(model, mesh, rules, axes)
+        placed = [place_batch(b, mesh, rules) for b in batches]
+        with _TopkAlign(align, plain_topk.calls) as placed_topk:
+            (loss_d, ms_d), n_placed = _placed_counts(wrappers,
+                                                      lambda: run(placed))
+    finally:
+        muon.global_norm_clip = clip
+    want = expected_launches(cfg, seq, steps)
+    if not n_placed == n_plain == want:
+        raise AssertionError(f"mesh.placed {cfg.name}: launches placed "
+                             f"{n_placed}, plain {n_plain}, expected {want}")
+    loss_err = max(_hold_rel(f"mesh.placed {cfg.name} loss {i}", a, b, 1e-5)
+                   for i, (a, b) in enumerate(zip(loss_d, loss_p)))
+    failures, p_err = [], 0.0
+    for k, p in model.named_parameters():
+        got = _whole(p).detach()
+        diff = (got - after_p[k].to(device)).abs()
+        allowed = torch.full_like(diff, 1e-3 * lr)
+        if k in adamw:
+            allowed += lr * torch.clamp(2 * dg[k].to(device) / 1e-8,
+                                        max=2.0)
+        if k in idx:
+            # a Muon step moves with its momentum's direction: 4 x the
+            # gradient gaps of the steps, relative, at the leaf's rms
+            # scale (1.6 x measured on the card)
+            g_ = muon._grouping(axes[k], p.shape, cfg, True)
+            allowed += lr * 4 * gap[k] * muon._rms_scale(
+                g_[1:3] if g_ else tuple(p.shape[-2:]))
+        if bool((diff > allowed).any()):
+            failures.append(f"{k}: {int((diff > allowed).sum())} elements "
+                            f"past their bound, max {diff.max().item()}")
+        p_err = max(p_err, diff.max().item())
+    if failures:
+        raise AssertionError(f"mesh.placed {cfg.name}: " + "; ".join(
+            failures))
+    res = dict(losses_placed=loss_d, losses_plain=loss_p,
+               max_loss_err=loss_err, max_param_err=p_err,
+               idx_grad_gap=max(gap.values(), default=0.0),
+               topk_near_aligned=placed_topk.near,
+               topk_score_gap=placed_topk.gap,
+               step_ms_placed=[round(x, 1) for x in ms_d],
+               step_ms_plain=[round(x, 1) for x in ms_p],
+               seconds=time.perf_counter() - t_start)
+    _log("mesh.placed", model=cfg.name, layers=cfg.num_layers,
+         what="train", experts=cfg.num_experts, dtype="float32",
+         batch=batch, seq=seq, steps=steps,
+         launches=repr({k: v for k, v in n_placed.items() if v}),
+         card=repr(_card()),
+         **{k: repr(v) if isinstance(v, list) else v
+            for k, v in res.items()})
+    del model, start, after_p, grads_p, dg
+    return {k: v for k, v in n_placed.items() if v}
+
+
+def _hold_ulps(what, got, want, ulps=1) -> tuple:
+    """Finite, and every element of ``got`` within ``ulps`` of ``want``'s
+    own spacing in ``want``'s dtype (eps x 2^(e-1) for |want| in [2^(e-1),
+    2^e): bf16's eps is 2^-7); returns (max abs error, max error in
+    ulps)."""
+    import torch
+    w = want.float()
+    _, e = torch.frexp(w)
+    spacing = torch.ldexp(torch.full_like(w, torch.finfo(want.dtype).eps),
+                          e - 1)
+    spacing = torch.where(w == 0, torch.finfo(want.dtype).tiny, spacing)
+    err = (got.float() - w).abs()
+    n = (err / spacing).max().item()
+    if not torch.isfinite(got).all() or n > ulps:
+        raise AssertionError(f"{what}: {n} ulps > {ulps} or non-finite "
+                             f"(max abs err {err.max().item()})")
+    return err.max().item(), n
+
+
+def mesh_placed_serve(cfg, mesh, device="cuda", prefill_len=256, rows=8,
+                      prompt_len=64) -> dict:
+    """[mesh.placed], serving (bf16): ``launch.steps``' prefill step (1 x
+    ``prefill_len`` tokens) and one serve step (``rows`` rows after a
+    ``prompt_len`` prompt, its cache filled by the model's ``prefill``) on
+    plain tensors, then on the same weights placed (``place_params``,
+    ``place_batch``, ``launch.specs.place_cache``) on the 1 x 1 host mesh:
+    logits within one bf16 ulp of the plain ones (``_hold_ulps``: on one
+    rank every placement replicates, so DTensor runs the plain ops on the
+    whole tensors), and each kernel's launches equal on both routes and to
+    ``placed_serve_launches``.  Returns the placed run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.specs import place_cache
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import get_model
+    from repro_torch.sharding.rules import (make_rules, place_batch,
+                                            place_params)
+    t_start = time.perf_counter()
+    M = get_model(cfg)
+    model = M.init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                   device=device, dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED + 19)
+    V = cfg.vocab_size
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        3, V, (1, prefill_len)).astype(np.int32)).to(device)}
+    prompts = torch.from_numpy(rng.integers(
+        3, V, (rows, prompt_len)).astype(np.int32)).to(device)
+    cache = M.init_cache(cfg, rows, prompt_len + 2, dtype=torch.bfloat16,
+                         device=device)
+    lg, cache = M.prefill(model, prompts, cache, mesh=mesh)
+    token = lg.argmax(-1).to(torch.int32)
+    wrappers = train_kernel_wrappers()
+
+    def fresh():
+        return {k: ({n: t.clone() for n, t in c.items()}
+                    if isinstance(c, dict) else c.clone())
+                for k, c in cache.items()}
+
+    def both(model, batch, token, cache):
+        t0 = time.perf_counter()
+        pre = make_prefill_step(model, mesh=mesh)(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, _ = make_serve_step(model, mesh=mesh)(token, cache, prompt_len)
+        torch.cuda.synchronize()
+        return (_whole(pre), _whole(lg), 1e3 * (t1 - t0),
+                1e3 * (time.perf_counter() - t1))
+
+    (pre_p, lg_p, pre_ms_p, serve_ms_p), n_plain = _placed_counts(
+        wrappers, lambda: both(model, batch, token, fresh()))
+    rules = make_rules(mesh)
+    place_params(model, mesh, rules)
+    placed_batch = place_batch(batch, mesh, rules)
+    placed_token = place_batch({"t": token}, mesh, rules)["t"]
+    placed_cache = place_cache(cfg, fresh(), mesh, rules)
+    (pre_d, lg_d, pre_ms_d, serve_ms_d), n_placed = _placed_counts(
+        wrappers, lambda: both(model, placed_batch, placed_token,
+                               placed_cache))
+    want = placed_serve_launches(cfg, prefill_len)
+    if not n_placed == n_plain == want:
+        raise AssertionError(f"mesh.placed {cfg.name}: launches placed "
+                             f"{n_placed}, plain {n_plain}, expected {want}")
+    pre_err, pre_ulps = _hold_ulps(f"mesh.placed {cfg.name} prefill", pre_d,
+                                   pre_p)
+    lg_err, lg_ulps = _hold_ulps(f"mesh.placed {cfg.name} serve step", lg_d,
+                                 lg_p)
+    res = dict(
+        prefill_max_abs_err=pre_err, prefill_max_ulps=pre_ulps,
+        serve_max_abs_err=lg_err, serve_max_ulps=lg_ulps,
+        bitwise_equal=bool(torch.equal(pre_d, pre_p)
+                           and torch.equal(lg_d, lg_p)),
+        prefill_ms_placed=pre_ms_d, prefill_ms_plain=pre_ms_p,
+        serve_ms_placed=serve_ms_d, serve_ms_plain=serve_ms_p,
+        seconds=time.perf_counter() - t_start)
+    _log("mesh.placed", model=cfg.name, layers=cfg.num_layers,
+         what="serve", experts=cfg.num_experts, moe_impl=cfg.moe_impl,
+         dtype="bfloat16", prefill_tokens=prefill_len, rows=rows,
+         launches=repr({k: v for k, v in n_placed.items() if v}),
+         card=repr(_card()), **res)
+    del model, cache, placed_cache
+    return {k: v for k, v in n_placed.items() if v}
 
 
 # ---------------------------------------------------------------------------
@@ -6293,6 +6617,25 @@ def main() -> int:
     mesh_dryrun(yi_dsa, "yi_6b", "decode_32k", layers=2, batch=8)
     _free()
     stamp("mesh")
+    # [mesh.placed] (slice 22): the steps on placed parameters (DTensors
+    # on the 1 x 1 NCCL host mesh) against the same steps on plain ones,
+    # the kernels on each rank's local tensors.  Yi-6B at 2 layers; GLM-5
+    # + DSA with the expert-parallel MoE at 4 layers (3 dense + 1 MoE) and
+    # its published vocabulary, 256 experts for the serve steps and 8 for
+    # the train steps: fp32 weights, gradients and Muon's state of 256
+    # experts (~116 GB) do not fit the card, nor, with 16, the backward's
+    # recompute of a DSA chunk's gathered values (8 GiB at 64 heads).  Each call checks its own
+    # launches; the kernels line keeps the earlier phases' counts
+    glm5_ep = glm5.replace(moe_impl="expert_parallel")
+    mesh_placed_train(yi.replace(num_layers=2), mesh, batch=1, seq=1024)
+    _free()
+    mesh_placed_train(glm5_ep.replace(num_experts=8), mesh, batch=1,
+                      seq=512)
+    _free()
+    for cfg_ in (yi.replace(num_layers=2), glm5_ep):
+        mesh_placed_serve(cfg_, mesh)
+        _free()
+    stamp("mesh.placed")
     # the training profiles at 2 layers (8 until the hybrid phases came,
     # 4 until slice 19's: each cut keeps the whole run near its earlier
     # time; the per-layer parts of a step halve, the loss and the

@@ -23,6 +23,10 @@ names, and so does the MTP head (``mtp``: ``h_norm``, ``e_norm``,
 as (in, out) and
 compute ``x @ W``, so no weight is transposed.  This module never imports
 JAX: it only reads numpy arrays.
+
+``gdn_from_jax_params`` does the same for one GDN / SimpleGDN layer of the
+reference's ablation (``repro.layers.gdn.build_gdn``'s flat dict of
+leaves; ``layers.gdn.GDN`` keeps its names).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.layers.gdn import GDN
 from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.hybrid import HybridModel
 from repro_torch.models.ssm_model import SSMModel
@@ -89,3 +94,20 @@ def from_jax_params(params_np: dict, cfg: ModelConfig, device=None,
                          f"port's model takes {n_port}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def gdn_from_jax_params(params_np: dict, cfg: ModelConfig,
+                        simple: bool = False, device=None,
+                        dtype=torch.float32) -> GDN:
+    """The reference's GDN (``simple``: SimpleGDN) leaves as the port's
+    layer on ``device``."""
+    layer = GDN(cfg, simple, device=resolve_device(device), dtype=dtype)
+    state = {k: torch.tensor(np.asarray(params_np[k]))
+             for k in layer.state_dict()}
+    n_port = sum(t.numel() for t in state.values())
+    n_ref = _n_elements(params_np)
+    if n_port != n_ref:
+        raise ValueError(f"the reference layer holds {n_ref} weights, the "
+                         f"port's takes {n_port}")
+    layer.load_state_dict(state, strict=True)
+    return layer

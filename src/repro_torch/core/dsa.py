@@ -51,6 +51,8 @@ takes no noise.
 """
 from __future__ import annotations
 
+import math
+from types import SimpleNamespace
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -65,6 +67,9 @@ from repro_torch.kernels.paged_attention.ops import (paged_indexer_prefill,
 from repro_torch.kernels.sparse_attention import kernel as sparse_kernel
 from repro_torch.layers.attention import NEG_INF, attention_mask
 from repro_torch.layers.common import _empty
+from repro_torch.sharding.rules import (batch_placements, batch_shard_index,
+                                        is_placed, local_apply, mesh_axes,
+                                        partial_over, replicated)
 
 W_HEAD_SCALE = 0.02     # the reference's init scale of ``w_head``
 Q_CHUNK = 256           # query rows per gather (see ``_by_query_chunks``)
@@ -392,6 +397,71 @@ def dsa_attention(idx: Indexer, q: torch.Tensor, k: torch.Tensor,
                   cfg: ModelConfig, *, kv_len: Optional[int] = None,
                   window: int = 0, softcap: float = 0.0,
                   q_chunk: int = Q_CHUNK, with_indexer_loss: bool = False):
+    """``_dsa_attention`` (see there), on each rank's local tensors where
+    the inputs are placed (``DTensor``s).
+
+    The region takes the batch over ('pod', 'data'); every rank scores its
+    rows with the whole indexer (its weights gathered; 'index_heads' is
+    not sharded) and selects their top-k, each 'model' rank alike.  The
+    block selector's K8 attends the local heads (q, k and v over 'model'
+    where the query and key/value heads divide); the token selector's KL
+    reads the mean over every head, so there q, k and v are gathered over
+    'model' first.  The randomized top-k's noise is drawn at the whole
+    batch's shape and sliced to the rank's rows, as the reference draws
+    it once for the batch.  The KL is the mean of the ranks' means (equal
+    shards), a ``Partial`` sum over the batch axes.  The top-k reads every
+    key of a row, so a key length the rules shard (``kv_seq`` over 'data'
+    under ``context_parallel_kv``, over 'model' under ``decode_kv_model``)
+    is gathered by the region's redistribution first."""
+    if not is_placed(q, k, v, x_q, k_idx, idx.wq_idx):
+        return _dsa_attention(idx, q, k, v, x_q, k_idx, q_positions,
+                              kv_positions, cfg, kv_len=kv_len,
+                              window=window, softcap=softcap,
+                              q_chunk=q_chunk,
+                              with_indexer_loss=with_indexer_loss)
+    mesh = next(t for t in (q, k, v, x_q, k_idx, idx.wq_idx)
+                if is_placed(t)).device_mesh
+    B = q.shape[0]
+    model = mesh_axes(mesh).get("model", 1)
+    heads = q.shape[2] if cfg.dsa.selector == "block" \
+        and k.shape[2] % model == 0 else 1
+    att = batch_placements(mesh, B, model_dim=2, size=heads)
+    rows = batch_placements(mesh, B)
+    whole = replicated(mesh)
+    batch_axes = [a for a, p in zip(mesh.mesh_dim_names, rows)
+                  if p.is_shard()]
+    summed = partial_over(whole, mesh, batch_axes)
+    n_rows = B // math.prod(mesh_axes(mesh)[a] for a in batch_axes)
+    lo = batch_shard_index(mesh, batch_axes) * n_rows
+    names = list(Indexer.AXES)
+
+    def local(q, k, v, x_q, k_idx, q_positions, kv_positions, *weights):
+        out = _dsa_attention(
+            SimpleNamespace(**dict(zip(names, weights))), q, k, v, x_q,
+            k_idx, q_positions, kv_positions, cfg, kv_len=kv_len,
+            window=window, softcap=softcap, q_chunk=q_chunk,
+            with_indexer_loss=with_indexer_loss,
+            noise_rows=(B, lo, lo + n_rows))
+        if with_indexer_loss:
+            return out[0], out[1] * (n_rows / B)
+        return out
+
+    weights = [getattr(idx, n) for n in names]
+    return local_apply(
+        local, (q, k, v, x_q, k_idx, q_positions, kv_positions, *weights),
+        (att, att, att, rows, rows, rows, rows) + (whole,) * len(weights),
+        (att, summed) if with_indexer_loss else att,
+        grad_placements=(att, att, att, rows, rows, rows, rows)
+        + (summed,) * len(weights), mesh=mesh)
+
+
+def _dsa_attention(idx: Indexer, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, x_q: torch.Tensor, k_idx: torch.Tensor,
+                   q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                   cfg: ModelConfig, *, kv_len: Optional[int] = None,
+                   window: int = 0, softcap: float = 0.0,
+                   q_chunk: int = Q_CHUNK, with_indexer_loss: bool = False,
+                   noise_rows: Optional[Tuple[int, int, int]] = None):
     """End-to-end sparse attention over dense K/V (no cache, the contiguous
     cache of the static oracle, the gathered view of ``impl="ref"``):
     indexer scores -> top-k -> gathered attention, ``q_chunk`` query rows
@@ -427,7 +497,8 @@ def dsa_attention(idx: Indexer, q: torch.Tensor, k: torch.Tensor,
                                kv_positions, cfg, kv_len, window, softcap,
                                step, with_indexer_loss)
 
-    noise_at = _chunk_noise(dsa, B, S, k.shape[1], q_chunk, q.device)
+    noise_at = _chunk_noise(dsa, B, S, k.shape[1], q_chunk, q.device,
+                            noise_rows)
 
     def chunk(q_c, xq_c, pos, noise):
         scores = indexer_scores(idx, xq_c, k_idx, dsa)
@@ -464,19 +535,23 @@ def dsa_attention(idx: Indexer, q: torch.Tensor, k: torch.Tensor,
 
 
 def _chunk_noise(dsa: DSAConfig, B: int, S: int, T: int, q_chunk: int,
-                 device) -> Callable[[int, int], Optional[torch.Tensor]]:
+                 device, rows: Optional[Tuple[int, int, int]] = None
+                 ) -> Callable[[int, int], Optional[torch.Tensor]]:
     """``dsa_attention``'s top-k noise for query rows [lo, hi) (None with
     the deterministic top-k).  Where S is a multiple of ``q_chunk`` (and
     larger) the reference scans chunks of ``q_chunk`` rows and draws (B,
     q_chunk, T) inside the scan: the same values for every chunk.
     Otherwise it takes the queries in one block and draws (B, S, T) once,
-    which is sliced here for each of this function's chunks."""
+    which is sliced here for each of this function's chunks.  ``rows``
+    (the whole batch, first row, end) draws at the whole batch's shape
+    and keeps a shard's rows."""
     if dsa.deterministic_topk:
         return lambda lo, hi: None
+    whole, r0, r1 = rows if rows is not None else (B, 0, B)
     if 0 < q_chunk < S and S % q_chunk == 0:
-        noise = topk_noise((B, q_chunk, T), device)
+        noise = topk_noise((whole, q_chunk, T), device)[r0:r1]
         return lambda lo, hi: noise
-    noise = topk_noise((B, S, T), device)
+    noise = topk_noise((whole, S, T), device)[r0:r1]
     return lambda lo, hi: noise[:, lo:hi]
 
 

@@ -25,6 +25,7 @@ from repro_torch.kernels.paged_attention.ops import (paged_mla_attend,
 from repro_torch.kernels.paged_attention.ref import absorbed_probs_c
 from repro_torch.layers.attention import attention_mask, dense_attention
 from repro_torch.layers.common import _empty, apply_rope, rmsnorm
+from repro_torch.sharding.rules import split_dim
 
 
 class MLA(nn.Module):
@@ -67,7 +68,7 @@ def mla_qkv(params: MLA, x: torch.Tensor, cfg: ModelConfig,
     H = cfg.num_heads
     q_nope, q_rope, c, k_rope = _absorbed_q_and_latents(params, x, cfg,
                                                         positions)
-    kv = (c @ params.wkv_b).reshape(B, S, H, m.qk_nope_dim + m.v_head_dim)
+    kv = split_dim(c @ params.wkv_b, 2, (H, m.qk_nope_dim + m.v_head_dim))
     k_nope, v = kv.split([m.qk_nope_dim, m.v_head_dim], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H,
                                                         m.qk_rope_dim)],
@@ -89,8 +90,8 @@ def _wkv_b_split(params: MLA, cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """W^UK (kv_lora, H, nope) and W^UV (kv_lora, H, dv) views of wkv_b."""
     m = cfg.mla
-    w = params.wkv_b.reshape(m.kv_lora_dim, cfg.num_heads,
-                             m.qk_nope_dim + m.v_head_dim)
+    w = split_dim(params.wkv_b, 1, (cfg.num_heads,
+                                    m.qk_nope_dim + m.v_head_dim))
     return w[..., :m.qk_nope_dim], w[..., m.qk_nope_dim:]
 
 
@@ -103,8 +104,8 @@ def _absorbed_q_and_latents(params: MLA, x: torch.Tensor, cfg: ModelConfig,
     m = cfg.mla
     B, S, _ = x.shape
     qa = rmsnorm(x @ params.wq_a, params.q_a_norm, cfg.norm_eps)
-    q = (qa @ params.wq_b).reshape(B, S, cfg.num_heads,
-                                   m.qk_nope_dim + m.qk_rope_dim)
+    q = split_dim(qa @ params.wq_b, 2, (cfg.num_heads,
+                                        m.qk_nope_dim + m.qk_rope_dim))
     q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_base)
     c_new, kr_new = (x @ params.wkv_a).split([m.kv_lora_dim, m.qk_rope_dim],

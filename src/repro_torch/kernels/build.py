@@ -270,3 +270,15 @@ def check_launch(name: str, err: int) -> None:
     """Raise on the cudaError a kernel's C entry point returned."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise where a ``DTensor`` reaches a kernel's wrapper.  A wrapper
+    hands raw pointers to its kernel, and a ``DTensor``'s pointer is its
+    local shard's: a placed caller runs the wrapper on local shards
+    (``sharding.rules.local_apply``), and no wrapper runs its plain version
+    on one in its place."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name}: a DTensor reached the kernel wrapper; "
+                        f"call it on local shards")

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, check_launch, count_launch,
                                       cuda_entry)
+from repro_torch.kernels.build import refuse_dtensor
 from repro_torch.kernels.chunked_ce.ref import reference
 
 BLOCK_T, BLOCK_V = 128, 128      # the kernel's token and vocab tiles
@@ -58,6 +59,7 @@ def chunked_ce(h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
     CPU and meta tensors run ``ref.reference``; CUDA tensors launch the Hopper
     kernel on the current stream (a CTA per 128-token x 128-vocab logits
     tile, then a combine pass per 128 tokens)."""
+    refuse_dtensor("chunked_ce", h, w, targets, mask)
     if h.device.type in ("cpu", "meta"):
         return reference(h, w, targets, mask, softcap=softcap)
     check_cuda_args(h, w, targets, mask)

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, MAX_PARTS, check_launch,
                                       count_launch, cuda_entry, resources)
+from repro_torch.kernels.build import refuse_dtensor
 from repro_torch.kernels.flash_attention.ref import reference
 
 HEAD_DIMS = (64, 80, 96, 128, 256)
@@ -132,6 +133,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16 tensor-core tile (``csrc/mma_tile.cuh``), its keys split over the
     parts ``bf16_parts`` picks, with the combine pass where that is more
     than 1 (one launch counted)."""
+    refuse_dtensor("flash_attention", q, k, v)
     if q.device.type in ("cpu", "meta"):
         return reference(q, k, v, causal=causal, window=window,
                          softcap=softcap, q_offset=q_offset)

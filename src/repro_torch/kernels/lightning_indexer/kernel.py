@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, check_launch, count_launch,
                                       cuda_entry)
+from repro_torch.kernels.build import refuse_dtensor
 from repro_torch.kernels.lightning_indexer.ref import reference
 
 INDEX_DIMS = (16, 32, 64, 128)
@@ -82,6 +83,7 @@ def lightning_indexer(q_idx: torch.Tensor, w_head: torch.Tensor,
     kernel on the current stream (on ``body``'s route: at Hi 8 / 16 / 32
     a CTA per chunk of keys and group of tokens of a batch row, on the
     tensor cores)."""
+    refuse_dtensor("lightning_indexer", q_idx, w_head, k_idx)
     if q_idx.device.type in ("cpu", "meta"):
         return reference(q_idx, w_head, k_idx, heads=heads,
                          head_dim=head_dim)

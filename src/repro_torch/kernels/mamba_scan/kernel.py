@@ -72,6 +72,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.build import (DTYPE_CODE, check_launch, count_launch,
                                       cuda_entry)
+from repro_torch.kernels.build import refuse_dtensor
 from repro_torch.kernels.build import resources as _resources
 from repro_torch.kernels.mamba_scan.ref import (reference, scan_heads,
                                                 scan_heads_grads, scan_model,
@@ -209,6 +210,7 @@ def mamba_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
     CPU tensors run ``ref.reference`` (meta ones ``k11_scan``); CUDA
     tensors launch the Hopper kernel on the current stream (a CTA per 128
     channels of a batch row, the whole of time in one chunk)."""
+    refuse_dtensor("mamba_scan", dA, dBx, C, h0)
     if dA.device.type == "cpu":
         return reference(dA, dBx, C, h0)
     if dA.is_meta:
@@ -290,6 +292,7 @@ def mamba_scan_model(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
     CPU tensors run ``ref.scan_model`` (meta ones ``k11_scan_model``);
     CUDA tensors launch the Hopper kernel on the current stream: a thread
     a channel, time in ``scan_parts`` chunks (one launch on the count)."""
+    refuse_dtensor("mamba_scan_model", dt, A, x, Bc, Cc, h0)
     if dt.device.type == "cpu":
         return scan_model(dt, A, x, Bc, Cc, h0)
     if dt.is_meta:
@@ -453,6 +456,7 @@ def mamba_scan_heads(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
     route ``body`` names: the chunked scan on the tensor cores,
     ``chunk_heads`` heads a chunk CTA; or a thread a channel, time in
     ``scan_parts`` chunks (one launch on the count either way)."""
+    refuse_dtensor("mamba_scan_heads", dt, A, x, Bc, Cc, h0)
     if dt.device.type == "cpu":
         return scan_heads(dt, A, x, Bc, Cc, h0)
     if dt.is_meta:

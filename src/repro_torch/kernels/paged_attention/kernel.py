@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.kernels.build import DTYPE_CODE as _DTYPE_CODE
 from repro_torch.kernels.build import check_launch as _check_launch
-from repro_torch.kernels.build import count_launch, cuda_entry
+from repro_torch.kernels.build import count_launch, cuda_entry, refuse_dtensor
 from repro_torch.kernels.build import resources as _resources
 
 NEG_INF = -1e30
@@ -198,6 +198,8 @@ def paged_decode_gqa(q: torch.Tensor, k_pool: torch.Tensor,
     Hopper kernel on the current stream: split-KV, a CTA per (kv head,
     batch row, run of blocks), ``decode_parts`` runs, and a combine pass
     where there is more than one (one launch on the count)."""
+    refuse_dtensor("paged_decode_gqa", q, k_pool, v_pool, block_tables,
+                   seq_lens)
     if q.device.type in ("cpu", "meta"):
         return paged_decode_gqa_plain(q, k_pool, v_pool, block_tables,
                                       seq_lens, window=window,
@@ -406,6 +408,8 @@ def paged_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
     a CTA per (64-head tile, batch row, part of the row's key rounds),
     ``mla_decode_parts`` parts, and a combine pass where there is more
     than one (one launch on the count); fp32 pools the SIMT body."""
+    refuse_dtensor("paged_decode_mla", q_lat, q_rope, c_pool, kr_pool,
+                   block_tables, seq_lens)
     if q_lat.device.type in ("cpu", "meta"):
         return paged_decode_mla_plain(q_lat, q_rope, c_pool, kr_pool,
                                       block_tables, seq_lens, scale=scale)
@@ -542,6 +546,8 @@ def paged_indexer_scores_kernel(q_idx: torch.Tensor, w_head: torch.Tensor,
     tensor-core decode body (a CTA per 128 view positions and row, a warp
     32 of them), fp32 and other head counts the SIMT tile (a CTA per 128
     view positions and row)."""
+    refuse_dtensor("paged_indexer_scores_kernel", q_idx, w_head, k_pool,
+                   block_tables, seq_lens)
     if q_idx.device.type in ("cpu", "meta"):
         return paged_indexer_scores_plain(q_idx, w_head, k_pool,
                                           block_tables, seq_lens)

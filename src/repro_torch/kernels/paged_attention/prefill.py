@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import count_launch, key_split
+from repro_torch.kernels.build import count_launch, key_split, refuse_dtensor
 from repro_torch.kernels.paged_attention.kernel import (
     NEG_INF, _DTYPE_CODE, _check_launch, check_cuda_args,
     check_cuda_indexer_args, check_cuda_mla_args, cuda_entry,
@@ -102,6 +102,8 @@ def paged_prefill_gqa(q: torch.Tensor, k_pool: torch.Tensor,
     On CUDA tensors bf16 launches the tensor-core tile (and, when its key
     range is split, its combine pass: one launch counted), fp32 the SIMT
     tile."""
+    refuse_dtensor("paged_prefill_gqa", q, k_pool, v_pool, block_tables,
+                   starts)
     if q.device.type in ("cpu", "meta"):
         return paged_prefill_gqa_plain(q, k_pool, v_pool, block_tables,
                                        starts, groups=groups, window=window,
@@ -170,6 +172,8 @@ def paged_prefill_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
     to bf16 as it is staged, P rounded to bf16 for PV; with its key range
     split, its combine pass too: one launch counted), fp32 pools the SIMT
     body."""
+    refuse_dtensor("paged_prefill_mla", q_lat, q_rope, c_pool, kr_pool,
+                   block_tables, starts)
     if q_lat.device.type in ("cpu", "meta"):
         return paged_prefill_mla_plain(q_lat, q_rope, c_pool, kr_pool,
                                        block_tables, starts, heads=heads,
@@ -226,6 +230,8 @@ def paged_prefill_indexer(q_idx: torch.Tensor, w_head: torch.Tensor,
     (nb, bs, Di); tables (B, mb) int32; starts (B,) int32 -> scores
     (B, S, mb*bs) fp32 in view coordinates; blocks past the span's last
     position are NEG_INF."""
+    refuse_dtensor("paged_prefill_indexer", q_idx, w_head, k_pool,
+                   block_tables, starts)
     if q_idx.device.type in ("cpu", "meta"):
         return paged_prefill_indexer_plain(q_idx, w_head, k_pool,
                                            block_tables, starts, heads=heads)

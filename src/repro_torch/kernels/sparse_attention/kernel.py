@@ -50,6 +50,7 @@ import torch
 from repro_torch.kernels.build import (DTYPE_CODE, check_launch,
                                       count_launch, cuda_entry, key_split,
                                       resources)
+from repro_torch.kernels.build import refuse_dtensor
 
 NEG_INF = -1e30
 MAX_BLOCKS = 64                          # nb the kernel takes (csrc)
@@ -182,6 +183,7 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (token, head) rows of one query block, KV head and batch row, times the
     key-range parts): bf16 the bf16 tensor-core tile, fp32 the 3xTF32 tile,
     and, when the keys are split, the combine pass (one launch counted)."""
+    refuse_dtensor("block_sparse_attention", q, k, v, block_idx, q_start)
     if q.device.type in ("cpu", "meta"):
         return block_sparse_attention_plain(
             q, k, v, block_idx, q_start, block_size=block_size,

@@ -21,15 +21,27 @@ reads the expert counts back to the host, which abstract tensors cannot
 do; the record says so (``moe_impl``).
 
 On the pod meshes (``pod16x16`` (16, 16) and ``pod2x16x16`` (2, 16, 16),
-the reference's) the record holds what placements alone decide: per
-device, the parameters', Muon state's, batch's and cache's bytes under
-the sharding rules (``sharding.resolve_spec`` over the mesh's shape).
-The sharded step on more than one rank is not ported: its terms are
-recorded as ``"step": "not_ported"``, not as a number divided by the
-chip count.
+the reference's) the same step runs sharded: a fake process group of 256
+/ 512 ranks (``launch.mesh.fake_mesh``; this process is rank 0 and a
+collective moves nothing), the model on ``meta`` placed over it
+(``sharding.rules.place_params``), Muon's state, the batch and the cache
+placed by their rules, and the step counted op by op on rank 0's local
+shards: per-device FLOPs and bytes, and every collective — the EP
+layer's sum over 'model', and those DTensor inserts to redistribute —
+with its buffer bytes and group size.  ``collective_s`` divides their
+wire bytes by the port's own link rate (``roofline.analysis.LINK_BW``,
+NVLink 4, each direction; the record names it).  The fake group's mesh
+is a CPU mesh, on which DTensor moves a shard from one tensor dimension
+to another by an all-gather where NCCL would use an all-to-all; the
+record says so (``collective_note``).  The reference's overrides hold:
+``long_500k`` shards the cache length over 'data'
+(``context_parallel_kv``), and ``decode_kv_model`` shards it over 'model'
+on the decode shapes.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b \\
       --shape decode_32k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch glm-5 \\
+      --shape train_4k --mesh pod16x16 --num-layers 4 --muon-sharded-ns
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod-too]
 
 Records go to ``experiments/dryrun_torch/<arch>_<shape>_<mesh>.json``.
@@ -47,16 +59,18 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, canonical, get_config
 from repro_torch.configs.base import INPUT_SHAPES
-from repro_torch.launch.mesh import (destroy_host_mesh, make_host_mesh,
-                                     production_mesh_shape)
+from repro_torch.launch.mesh import (destroy_host_mesh, fake_mesh,
+                                     make_host_mesh, production_mesh_shape)
 from repro_torch.launch.specs import (decode_specs, opt_state_specs,
                                       param_specs, skip_reason,
                                       train_batch_specs)
 from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
                                       make_train_step)
+from repro_torch.optim.muon import MuonState
 from repro_torch.roofline import analyze, model_flops
-from repro_torch.roofline.counting import count
-from repro_torch.sharding.rules import MeshShape, local_shape, make_rules
+from repro_torch.roofline.counting import count, held_bytes
+from repro_torch.sharding.rules import (MeshShape, make_rules, place_params,
+                                        place_tree)
 from repro_torch.utils import tree_bytes
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
@@ -67,76 +81,55 @@ MESHES = {"h100": MeshShape(("data", "model"), (1, 1)),
 
 EP_NOTE = ("expert_parallel: the routed path reads the expert counts back "
            "to the host, which meta tensors cannot")
+CPU_MESH_NOTE = ("counted on a CPU mesh of the fake process group: DTensor "
+                 "moves a shard between tensor dimensions by all-gather "
+                 "there, where NCCL would use all-to-all")
 
 
-def _local_bytes(tree, shardings, mesh) -> int:
-    """Bytes one rank holds of ``tree`` under ``shardings`` (same keys)."""
-    if isinstance(tree, dict):
-        return sum(_local_bytes(v, shardings[k], mesh)
-                   for k, v in tree.items())
-    n = 1
-    for d in local_shape(tree.shape, shardings.placements, mesh):
-        n *= d
-    return n * tree.element_size()
+def _step_counts(cfg, shape, model, axes, p_shard, mesh, rules, step_mesh,
+                 *, placed: bool, muon_sharded_ns: bool = False):
+    """Run the shape's step on ``model`` (on ``meta``) under the counters;
+    ``placed``: place the model, Muon's state, the batch and the cache
+    over ``mesh`` first.  Returns (counts, the bytes the step updates in
+    place)."""
+    if placed:
+        place_params(model, mesh, rules, axes)
 
-
-def _placement_record(cfg, shape, mesh, rules) -> dict:
-    """Per-device bytes that the placements alone decide on ``mesh``."""
-    model, axes, p_shard = param_specs(cfg, mesh, rules)
+    def put(tree, shardings):
+        return place_tree(tree, shardings) if placed else tree
     params = dict(model.named_parameters())
-    per = {"param_bytes": _local_bytes(params, p_shard, mesh)}
     if shape.kind == "train":
         opt, o_shard = opt_state_specs(params, axes, p_shard)
-        per["opt_state_bytes"] = (
-            _local_bytes(opt.momentum, o_shard.momentum, mesh)
-            + _local_bytes(opt.second, o_shard.second, mesh))
-    if shape.kind in ("train", "prefill"):
+        opt = MuonState(put(opt.momentum, o_shard.momentum),
+                        put(opt.second, o_shard.second))
         batch, b_shard = train_batch_specs(cfg, shape, mesh, rules)
-        per["batch_bytes"] = _local_bytes(batch, b_shard, mesh)
-    else:
-        spec, d_shard = decode_specs(cfg, shape, mesh, rules)
-        per["cache_bytes"] = _local_bytes(spec["cache"], d_shard["cache"],
-                                          mesh)
-        per["token_bytes"] = _local_bytes(spec["token"], d_shard["token"],
-                                          mesh)
-    return {"status": "ok", "step": "not_ported",
-            "param_bytes_global": tree_bytes(params), "per_device": per,
-            "note": "the sharded step on more than one rank is not ported; "
-                    "these bytes are what the placements alone decide"}
-
-
-def _counted_record(cfg, shape, arch, shape_name, mesh_name, rules) -> dict:
-    """The step run on ``meta`` under the counters (one rank)."""
-    mesh = MESHES[mesh_name]
-    host = make_host_mesh("cpu")
-    t0 = time.perf_counter()
-    model, axes, p_shard = param_specs(cfg, mesh, rules)
-    params = dict(model.named_parameters())
-    if shape.kind == "train":
-        opt, _ = opt_state_specs(params, axes, p_shard)
-        batch, _ = train_batch_specs(cfg, shape, mesh, rules)
-        step = make_train_step(model, mesh=host)
+        batch = put(batch, b_shard)
+        step = make_train_step(model, mesh=step_mesh,
+                               muon_sharded_ns=muon_sharded_ns)
         inputs = (params, opt.momentum, opt.second, batch)
         _, counts = count(step, opt, batch, arguments=inputs)
-        alias = tree_bytes((params, opt.momentum, opt.second))
-    elif shape.kind == "prefill":
-        batch, _ = train_batch_specs(cfg, shape, mesh, rules)
-        batch = {k: v for k, v in batch.items()
-                 if k not in ("targets", "loss_mask")}
-        inputs = (params, batch)
-        _, counts = count(make_prefill_step(model, mesh=host), batch,
-                          arguments=inputs)
-        alias = 0
-    else:
-        spec, _ = decode_specs(cfg, shape, mesh, rules)
-        inputs = (params, spec["token"], spec["cache"])
-        _, counts = count(make_serve_step(model, mesh=host), spec["token"],
-                          spec["cache"], spec["cache_index"],
-                          arguments=inputs)
-        alias = tree_bytes(spec["cache"])
-    seconds = time.perf_counter() - t0
+        return counts, held_bytes((params, opt.momentum, opt.second))
+    if shape.kind == "prefill":
+        batch, b_shard = train_batch_specs(cfg, shape, mesh, rules)
+        keep = [k for k in batch if k not in ("targets", "loss_mask")]
+        batch = put({k: batch[k] for k in keep},
+                    {k: b_shard[k] for k in keep})
+        _, counts = count(make_prefill_step(model, mesh=step_mesh), batch,
+                          arguments=(params, batch))
+        return counts, 0
+    spec, d_shard = decode_specs(cfg, shape, mesh, rules)
+    token, cache = put(spec["token"], d_shard["token"]), \
+        put(spec["cache"], d_shard["cache"])
+    _, counts = count(make_serve_step(model, mesh=step_mesh), token, cache,
+                      spec["cache_index"], arguments=(params, token, cache))
+    return counts, held_bytes(cache)
+
+
+def _record(counts, alias, seconds, cfg, shape, arch, shape_name,
+            mesh_name, params) -> dict:
     roof = analyze(counts, arch=arch, shape=shape_name, mesh_name=mesh_name,
-                   chips=1, model_flops=model_flops(cfg, shape))
+                   chips=MESHES[mesh_name].size(),
+                   model_flops=model_flops(cfg, shape))
     rec = roof.to_dict()
     rec.update({
         "status": "ok", "step": "counted",
@@ -152,12 +145,46 @@ def _counted_record(cfg, shape, arch, shape_name, mesh_name, rules) -> dict:
     return rec
 
 
+def _pod_record(cfg, shape, arch, shape_name, mesh_name, rules,
+                muon_sharded_ns: bool) -> dict:
+    """The sharded step on a pod mesh, counted on rank 0 of a fake
+    process group (see the module's docstring)."""
+    destroy_host_mesh()
+    with fake_mesh(MESHES[mesh_name]) as mesh:
+        t0 = time.perf_counter()
+        model, axes, p_shard = param_specs(cfg, mesh, rules)
+        global_params = [torch.empty(p.shape, dtype=p.dtype, device="meta")
+                         for p in model.parameters()]
+        counts, alias = _step_counts(cfg, shape, model, axes, p_shard, mesh,
+                                     rules, mesh, placed=True,
+                                     muon_sharded_ns=muon_sharded_ns)
+        seconds = time.perf_counter() - t0
+    rec = _record(counts, alias, seconds, cfg, shape, arch, shape_name,
+                  mesh_name, global_params)
+    rec["collective_note"] = CPU_MESH_NOTE
+    return rec
+
+
+def _counted_record(cfg, shape, arch, shape_name, mesh_name, rules) -> dict:
+    """The step run on ``meta`` under the counters (one rank)."""
+    mesh = MESHES[mesh_name]
+    host = make_host_mesh("cpu")
+    t0 = time.perf_counter()
+    model, axes, p_shard = param_specs(cfg, mesh, rules)
+    counts, alias = _step_counts(cfg, shape, model, axes, p_shard, mesh,
+                                 rules, host, placed=False)
+    return _record(counts, alias, time.perf_counter() - t0, cfg, shape,
+                   arch, shape_name, mesh_name, model)
+
+
 def run_one(arch: str, shape_name: str, *, mesh: str = "h100",
             fsdp: bool = True, selector: str = None, num_layers: int = None,
-            global_batch: int = None, verbose: bool = True,
+            global_batch: int = None, muon_sharded_ns: bool = False,
+            decode_kv_model: bool = False, verbose: bool = True,
             save: bool = True) -> dict:
     """One record; ``num_layers`` / ``global_batch`` cut the depth / batch
-    (listed under ``reduced``)."""
+    (listed under ``reduced``); ``muon_sharded_ns`` and
+    ``decode_kv_model`` are the reference's options (the pod meshes)."""
     arch = canonical(arch)
     cfg = get_config(arch)
     if selector and cfg.dsa is not None:
@@ -190,30 +217,31 @@ def run_one(arch: str, shape_name: str, *, mesh: str = "h100",
         if verbose:
             print(f"[skip] {tag}: {skip}")
         return rec
+    overrides = {}
+    if decode_kv_model and shape.kind == "decode":
+        # the reference's DP-attention adaptation: the cache length over
+        # 'model' (kv-head counts below 16 cannot shard heads)
+        overrides["kv_seq"] = "model"
     rules = make_rules(MESHES[mesh], fsdp=fsdp,
                        context_parallel_kv=(shape.name == "long_500k"
                                             and cfg.family not in
-                                            ("ssm", "hybrid")))
+                                            ("ssm", "hybrid")),
+                       overrides=overrides)
     if mesh == "h100":
         rec = _counted_record(cfg, shape, arch, shape_name, mesh, rules)
     else:
-        rec = _placement_record(cfg, shape, MESHES[mesh], rules)
+        rec = _pod_record(cfg, shape, arch, shape_name, mesh, rules,
+                          muon_sharded_ns)
     rec = dict(base, **rec)
     if save:
         _save(tag, rec)
     if verbose:
-        if rec["step"] == "counted":
-            print(f"[ok] {tag}: dominant={rec['dominant']} "
-                  f"compute={rec['compute_s']:.4f}s "
-                  f"memory={rec['memory_s']:.4f}s "
-                  f"collective={rec['collective_s']:.4f}s "
-                  f"peak={rec['peak_memory_bytes'] / 2**30:.2f}GiB "
-                  f"(meta run {rec['meta_run_s']:.0f}s)", flush=True)
-        else:
-            per = rec["per_device"]
-            print(f"[ok] {tag}: step not ported; per device "
-                  + " ".join(f"{k}={v / 2**30:.2f}GiB"
-                             for k, v in per.items()), flush=True)
+        print(f"[ok] {tag}: dominant={rec['dominant']} "
+              f"compute={rec['compute_s']:.4f}s "
+              f"memory={rec['memory_s']:.4f}s "
+              f"collective={rec['collective_s']:.4f}s "
+              f"peak={rec['peak_memory_bytes'] / 2**30:.2f}GiB "
+              f"(meta run {rec['meta_run_s']:.0f}s)", flush=True)
     return rec
 
 
@@ -237,6 +265,10 @@ def main(argv=None):
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--selector", default=None, choices=[None, "token",
                                                          "block"])
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the depth (listed under 'reduced')")
+    ap.add_argument("--muon-sharded-ns", action="store_true")
+    ap.add_argument("--decode-kv-model", action="store_true")
     args = ap.parse_args(argv)
 
     archs = list(ARCH_IDS) if args.all else [args.arch]
@@ -254,7 +286,10 @@ def main(argv=None):
                     try:
                         run_one(arch, shape, mesh=mesh,
                                 fsdp=not args.no_fsdp,
-                                selector=args.selector)
+                                selector=args.selector,
+                                num_layers=args.num_layers,
+                                muon_sharded_ns=args.muon_sharded_ns,
+                                decode_kv_model=args.decode_kv_model)
                     except Exception as e:  # noqa: BLE001
                         failures.append((arch, shape, mesh, repr(e)))
                         print(f"[FAIL] {arch} {shape} {mesh}: {e}")

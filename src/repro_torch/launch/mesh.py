@@ -11,11 +11,14 @@ block that ends the group after it only if the block started it.
 
 ``make_production_mesh`` builds the reference's pod shapes, (16, 16)
 ``('data', 'model')`` and, multi-pod, (2, 16, 16) ``('pod', 'data',
-'model')``, over the ranks of an initialized process group, and raises
-when there are fewer ranks, as the reference raises when there are fewer
-devices.  ``production_mesh_shape`` is the same shape as a ``MeshShape``
-(names and sizes, no devices), which is all that resolving placements
-reads.
+'model')``, and ``make_mesh`` a mesh of any shape, over the ranks of an
+initialized process group (gloo processes on the CPU, NCCL on the
+cards); both raise when the group's size is not the mesh's, as the
+reference raises when there are fewer devices.  ``fake_mesh`` is such a
+mesh over the fake process group of ``torch.testing``, whose
+collectives move nothing: the dry run's pods.  ``production_mesh_shape``
+is the same shape as a ``MeshShape`` (names and sizes, no devices),
+which is all that resolving placements reads.
 """
 from __future__ import annotations
 
@@ -38,17 +41,41 @@ def production_mesh_shape(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape(("data", "model"), (16, 16))
 
 
-def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: str = "cuda") -> DeviceMesh:
-    shape = production_mesh_shape(multi_pod=multi_pod)
+def make_mesh(shape: MeshShape, device_type: str = "cuda") -> DeviceMesh:
+    """A ``DeviceMesh`` of ``shape``'s names and sizes over the ranks of
+    the initialized process group (whose size must be the mesh's)."""
     n = math.prod(shape.shape)
     have = dist.get_world_size() if dist.is_initialized() else 1
-    if have < n:
+    if have != n:
         raise RuntimeError(
             f"mesh {shape.shape} needs {n} ranks, have {have}: start a "
             f"process group of {n} ranks first")
-    return init_device_mesh(device_type, shape.shape,
-                            mesh_dim_names=shape.axis_names)
+    return init_device_mesh(device_type, tuple(shape.shape),
+                            mesh_dim_names=tuple(shape.axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
+    return make_mesh(production_mesh_shape(multi_pod=multi_pod),
+                     device_type)
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: MeshShape) -> Iterator[DeviceMesh]:
+    """A mesh of ``shape`` over the fake process group of
+    ``torch.testing`` (this process is its rank 0; a collective moves
+    nothing), for a ``with`` block: the dry run places a model on the
+    pod meshes and counts its step on ``meta`` so.  There must be no
+    process group yet; the fake one ends after the block."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a process group is already running")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=shape.size())
+    try:
+        yield make_mesh(shape, "cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(device=None) -> DeviceMesh:

@@ -20,7 +20,7 @@ import torch
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import get_model
 from repro_torch.optim.muon import MuonState, _is_muon_param
-from repro_torch.sharding.rules import (Sharding, resolve_spec,
+from repro_torch.sharding.rules import (Sharding, place_tree, resolve_spec,
                                         tree_shardings)
 from repro_torch.utils import map_tree
 
@@ -117,6 +117,13 @@ def decode_specs(cfg: ModelConfig, shape: InputShape, mesh, rules
                  "cache": tree_shardings(cache, cache_axes(cfg), rules,
                                          mesh)}
     return specs, shardings
+
+
+def place_cache(cfg: ModelConfig, cache: dict, mesh, rules) -> dict:
+    """A decode cache (``init_cache``'s, whole on every rank) placed by its
+    logical axes (``cache_axes``), as ``decode_specs`` resolves them."""
+    return place_tree(cache, tree_shardings(cache, cache_axes(cfg), rules,
+                                            mesh))
 
 
 def param_specs(cfg: ModelConfig, mesh, rules):

@@ -24,18 +24,21 @@ the indexers' parameters only, so the others stay bitwise as they were
 weight decay: the same values).  The top-k carries no gradient, so the
 indexers learn through the 0.01 × KL term alone.
 
-``mesh`` is a ``DeviceMesh`` of one rank (``launch.mesh.make_host_mesh``)
-or None.  Every family's entry points take it: it reaches the
-transformer's MoE layers, which pick the expert-parallel path by it
-(``layers.moe.apply_moe``), and, with ``muon_sharded_ns``, Muon's
-Newton–Schulz groups; the reference's activation constraints are
-identities on one rank.  The parameters stay plain tensors on one rank:
-placing them with ``distribute_tensor`` there would send every op, the
-hand-written kernels' included, through DTensor's dispatch for no change
-in value.  A mesh of
-more than one rank raises ``NotImplementedError``: the sharded step (the
-parameters as DTensors with ``sharding.tree_shardings``' placements) is
-not ported, and nothing runs unsharded in its place.
+``mesh`` is a ``DeviceMesh`` of any shape (``launch.mesh``) or None.
+Every family's entry points take it: it reaches the transformer's MoE
+layers, which pick the expert-parallel path by it
+(``layers.moe.apply_moe``), the reference's activation constraints
+(``sharding.rules.constrain_batch`` and its kin, at the reference's
+sites), and, with ``muon_sharded_ns``, Muon's Newton–Schulz groups.  The
+steps take the model's parameters as they are: plain tensors (one rank:
+``launch.train`` keeps them so on its host mesh), or placed
+(``sharding.rules.place_params``: ``DTensor``s with
+``sharding.tree_shardings``' placements, the reference's
+``jax.device_put``), with the batch and the cache placed alike
+(``place_batch``, ``launch.specs.place_cache``).  Placed, every op runs
+on the ranks' shards; the hand-written kernels run on each rank's local
+tensors (``sharding.rules.local_apply``), so no wrapper sees a
+``DTensor``.
 """
 from __future__ import annotations
 
@@ -48,17 +51,21 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.layers.common import logits_from_hidden
 from repro_torch.models import get_model
 from repro_torch.optim import muon
-
-
-def _one_rank(mesh) -> None:
-    """Refuse a mesh of more than one rank."""
-    if mesh is not None and mesh.size() > 1:
-        raise NotImplementedError(
-            f"a step on a mesh of {mesh.size()} ranks: the sharded step is "
-            f"not ported (one rank only)")
+from repro_torch.sharding.rules import is_placed, placed_region
 
 
 FREEZE = (None, "all_but_indexer")
+
+
+def _grad(p: torch.Tensor) -> torch.Tensor:
+    """``p``'s gradient in ``p``'s placements (a placed gradient may come
+    back a ``Partial`` sum: it is reduced here, as the reference's
+    gradient takes its parameter's sharding), zeros where it has none."""
+    if p.grad is None:
+        return torch.zeros_like(p)
+    if is_placed(p) and p.grad.placements != p.placements:
+        return p.grad.redistribute(p.device_mesh, p.placements)
+    return p.grad
 
 
 def trained_names(model: nn.Module, freeze: Optional[str]) -> list:
@@ -91,7 +98,6 @@ def make_train_step(model: nn.Module, *, mesh=None,
     tc = train_cfg or TrainConfig()
     cfg = model.cfg
     M = get_model(cfg)
-    _one_rank(mesh)
     trained = trained_names(model, freeze)
     model.requires_grad_(freeze is None)
     params = dict(model.named_parameters())
@@ -104,18 +110,18 @@ def make_train_step(model: nn.Module, *, mesh=None,
                    lr: float = lr) -> Tuple[muon.MuonState, dict]:
         for p in params.values():
             p.grad = None
-        total, metrics = M.loss(model, batch, mesh=mesh)
-        total.backward()
-        # a parameter the loss never reaches (the MTP block's indexer: the
-        # head runs dense; the hybrid's indexer: its loss is dropped), or
-        # a frozen one, has no gradient; JAX gives it zeros
-        grads, gnorm = muon.global_norm_clip(
-            {k: p.grad if p.grad is not None else torch.zeros_like(p)
-             for k, p in params.items()}, tc.grad_clip)
-        opt_state = muon.update(updated, grads, axes, opt_state, lr=lr,
-                                cfg=cfg, weight_decay=tc.weight_decay,
-                                split=tc.muon_split,
-                                mesh=mesh if muon_sharded_ns else None)
+        with placed_region(model):
+            total, metrics = M.loss(model, batch, mesh=mesh)
+            total.backward()
+            # a parameter the loss never reaches (the MTP block's indexer:
+            # the head runs dense; the hybrid's indexer: its loss is
+            # dropped), or a frozen one, has no gradient; JAX gives it zeros
+            grads, gnorm = muon.global_norm_clip(
+                {k: _grad(p) for k, p in params.items()}, tc.grad_clip)
+            opt_state = muon.update(updated, grads, axes, opt_state, lr=lr,
+                                    cfg=cfg, weight_decay=tc.weight_decay,
+                                    split=tc.muon_split,
+                                    mesh=mesh if muon_sharded_ns else None)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return opt_state, dict(metrics, grad_norm=gnorm)
 
@@ -127,15 +133,15 @@ def make_prefill_step(model: nn.Module, *, mesh=None) -> Callable:
     over ``batch["tokens"]`` (after ``batch["frontend_embeds"]`` where the
     batch has them) without a cache, the last position's logits."""
     M = get_model(model.cfg)
-    _one_rank(mesh)
 
     @torch.no_grad()
     def prefill_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         kw = {"mesh": mesh}
         if "frontend_embeds" in batch:
             kw["frontend_embeds"] = batch["frontend_embeds"]
-        h, _, _ = M.hidden(model, batch["tokens"], **kw)
-        return logits_from_hidden(model.embed, h[:, -1:], model.cfg)
+        with placed_region(model):
+            h, _, _ = M.hidden(model, batch["tokens"], **kw)
+            return logits_from_hidden(model.embed, h[:, -1:], model.cfg)
 
     return prefill_step
 
@@ -146,10 +152,11 @@ def make_serve_step(model: nn.Module, *, mesh=None) -> Callable:
     ``cache_index`` against a contiguous cache the model's ``prefill``
     filled (updated in place)."""
     M = get_model(model.cfg)
-    _one_rank(mesh)
 
     def serve_step(token: torch.Tensor, cache: dict,
                    cache_index) -> Tuple[torch.Tensor, dict]:
-        return M.decode_step(model, token, cache, cache_index, mesh=mesh)
+        with placed_region(model):
+            return M.decode_step(model, token, cache, cache_index,
+                                 mesh=mesh)
 
     return serve_step

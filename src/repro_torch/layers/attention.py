@@ -23,6 +23,9 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.layers.common import _empty, apply_rope, rmsnorm
+from repro_torch.sharding.rules import (batch_placements, constrain_batch,
+                                        is_placed, local_apply, mesh_axes,
+                                        split_dim)
 
 NEG_INF = -2.0e38
 
@@ -63,13 +66,16 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = v.shape[-1]
     G = H // KVH
     scale = dh ** -0.5
-    qg = q.reshape(B, S, KVH, G, dh)
+    qg = split_dim(q, 2, (KVH, G))
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
     mask = attention_mask(q_positions, kv_positions, causal=causal,
                           window=window, kv_len=kv_len)
+    if is_placed(scores):              # the reference's constraints
+        scores = constrain_batch(scores, scores.device_mesh)
     probs = _scores_to_probs(scores, mask[:, None, None], softcap)
     out = torch.einsum("bkgst,btkv->bskgv", probs.to(v.dtype), v)
-    return out.reshape(B, S, H, dv)
+    out = out.reshape(B, S, H, dv)
+    return constrain_batch(out, out.device_mesh) if is_placed(out) else out
 
 
 class _FlashAttend(torch.autograd.Function):
@@ -119,8 +125,27 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sk, KVH, dh) -> (B, Sq, H, dh), query i at position i and key j at j.
     ``causal`` masks keys past a query's position (self-attention, Sq =
     Sk); without it every key is seen (an encoder's self-attention,
-    cross-attention with Sq != Sk)."""
-    return _FlashAttend.apply(q, k, v, causal, window, softcap, q_chunk)
+    cross-attention with Sq != Sk).
+
+    Placed (``DTensor``) inputs run K9 on each rank's local tensors: the
+    batch over ('pod', 'data') and the heads over 'model' where both the
+    query and the key/value heads divide over it (the reference's
+    ``constrain_batch`` of the output); where they do not, q, k and v are
+    gathered over 'model' first and every 'model' rank attends all heads.
+    K9 reads every key of a row, so a key length the rules shard (the
+    reference's ``kv_seq`` over 'data' under ``context_parallel_kv``) is
+    gathered by that redistribution first.
+    """
+    def attend(q, k, v):
+        return _FlashAttend.apply(q, k, v, causal, window, softcap, q_chunk)
+
+    if not is_placed(q, k, v):
+        return attend(q, k, v)
+    mesh = q.device_mesh
+    model = mesh_axes(mesh).get("model", 1)
+    heads = q.shape[2] if k.shape[2] % model == 0 else 1
+    pl = batch_placements(mesh, q.shape[0], model_dim=2, size=heads)
+    return local_apply(attend, (q, k, v), (pl, pl, pl), pl)
 
 
 # ---------------------------------------------------------------------------
@@ -153,9 +178,9 @@ def gqa_qkv(params: GQA, x: torch.Tensor, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
     H, KVH, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params.wq).reshape(B, S, H, dh)
-    k = (x @ params.wk).reshape(B, S, KVH, dh)
-    v = (x @ params.wv).reshape(B, S, KVH, dh)
+    q = split_dim(x @ params.wq, 2, (H, dh))
+    k = split_dim(x @ params.wk, 2, (KVH, dh))
+    v = split_dim(x @ params.wv, 2, (KVH, dh))
     if cfg.qk_norm:
         q = rmsnorm(q, params.q_norm, cfg.norm_eps)
         k = rmsnorm(k, params.k_norm, cfg.norm_eps)
@@ -181,7 +206,7 @@ def apply_gqa(params: GQA, x: torch.Tensor, cfg: ModelConfig, *,
     attend the first ``cache_index + S`` of them (``dense_attention``)."""
     B, S, _ = x.shape
     if cross_kv is not None:
-        q = (x @ params.wq).reshape(B, S, cfg.num_heads, cfg.head_dim)
+        q = split_dim(x @ params.wq, 2, (cfg.num_heads, cfg.head_dim))
         k, v = cross_kv
         out = flash_attend(q, k, v, causal=False, q_chunk=cfg.q_chunk)
         return out.reshape(B, S, -1) @ params.wo, cache

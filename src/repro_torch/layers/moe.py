@@ -32,11 +32,16 @@ port's combine is a gather instead: each (token, k) assignment reads its
 slot's weighted output (a zero row where it was dropped), and a token's k
 terms are summed in top-k order, fp32, the same order every run.
 
-On one rank (the host mesh, or no mesh with ``expert_parallel``) the
-rank holds every expert, ``E_local = E``; the sum over 'model' is a real
-collective on the mesh's 'model' group and ``aux`` is averaged over the
-batch axes (the reference's ``psum`` / ``pmean``).  A mesh of more than
-one rank raises ``NotImplementedError``: the sharded step is not ported.
+With plain tensors (the host mesh of one rank, or no mesh, with
+``expert_parallel``) the rank holds every expert, ``E_local = E``, and
+the reference's ``psum`` over 'model' and ``pmean`` over the batch axes
+have one term each.  With placed tensors (``DTensor``s, any mesh) rank r of
+'model' holds experts [r·E_local, (r+1)·E_local) and dispatches the
+tokens of its batch shard, its capacity from that shard's token count,
+so which assignments drop depends on the mesh, as in the reference
+(``_placed_ep``).  Where the EP rule does not hold, placed tensors take
+the reference's dense path on each rank's batch shard
+(``_placed_dense``).
 
 Ties in the router: ``jax.lax.top_k`` puts the lower expert index first
 among equal probabilities; ``torch.topk`` promises no order, so the port
@@ -45,16 +50,19 @@ ranks with a stable descending sort, which keeps index order among equals.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Tuple
 
 import torch
-import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.layers.common import _empty
-from repro_torch.sharding.rules import mesh_axes
+from repro_torch.sharding.rules import (batch_placements, is_placed,
+                                        local_apply, mesh_axes, partial_over,
+                                        replicated)
 
 ROUTER_SCALE = 0.02     # the reference's explicit init scale for ``router``
 
@@ -146,18 +154,24 @@ def _routed(params: MoE, x2d: torch.Tensor, gates: torch.Tensor,
     return (sel * gates[..., None].to(sel.dtype)).sum(1)
 
 
-def _moe_dense(params: MoE, x2d: torch.Tensor, cfg: ModelConfig
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Oracle path: run all experts on all tokens (small E only)."""
-    gates, idx, aux = router_topk(params, x2d, cfg)
+def _dense(params, x2d: torch.Tensor, gates: torch.Tensor,
+           idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Every expert on every token, each token's k chosen outputs weighted
+    by their gates and summed in top-k order."""
     T, D = x2d.shape
     outs = _expert_ffn(params.w_gate, params.w_up, params.w_down,
                        x2d.expand(cfg.num_experts, T, D),
                        cfg.mlp_activation)                      # (E, T, D)
     sel = outs.transpose(0, 1).gather(
         1, idx[..., None].expand(T, idx.shape[1], D))           # (T, k, D)
-    y = (sel * gates[..., None].to(sel.dtype)).sum(1)
-    return y.to(x2d.dtype), aux
+    return (sel * gates[..., None].to(sel.dtype)).sum(1)
+
+
+def _moe_dense(params: MoE, x2d: torch.Tensor, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oracle path: run all experts on all tokens (small E only)."""
+    gates, idx, aux = router_topk(params, x2d, cfg)
+    return _dense(params, x2d, gates, idx, cfg).to(x2d.dtype), aux
 
 
 def _dispatch_local(idx: torch.Tensor, gates: torch.Tensor, T: int,
@@ -195,22 +209,24 @@ def _dispatch_local(idx: torch.Tensor, gates: torch.Tensor, T: int,
             gate_buf[:-1].reshape(E_local, capacity), dest)
 
 
-def _moe_ep_shard(params: MoE, x2d: torch.Tensor, cfg: ModelConfig,
-                  e_lo: int, E_local: int
+def _moe_ep_shard(router: torch.Tensor, w_gate: torch.Tensor,
+                  w_up: torch.Tensor, w_down: torch.Tensor,
+                  x2d: torch.Tensor, cfg: ModelConfig, e_lo: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One 'model' rank's part: x2d (T, D) -> (this rank's experts' sum of
-    each token's weighted outputs (T, D) fp32, aux)."""
+    """One 'model' rank's part: x2d (T, D), the rank's experts' weights
+    (E_local, ...) from expert ``e_lo`` on -> (their sum of each token's
+    weighted outputs (T, D) fp32, aux).  The capacity comes from the T
+    tokens the rank dispatches (its batch shard's), as in the reference."""
     T, D = x2d.shape
-    gates, idx, aux = router_topk(params, x2d, cfg)
+    E_local = w_up.shape[0]
+    gates, idx, aux = router_topk(SimpleNamespace(router=router), x2d, cfg)
     capacity = max(1, int(math.ceil(
         T * cfg.experts_per_token / cfg.num_experts * cfg.capacity_factor)))
     tok_idx, slot_gate, dest = _dispatch_local(idx, gates, T, e_lo, E_local,
                                                capacity)
     x_pad = torch.cat([x2d, x2d.new_zeros(1, D)])
     xe = x_pad[tok_idx]                                   # (E_local, C, D)
-    experts = slice(e_lo, e_lo + E_local)
-    ye = _expert_ffn(params.w_gate[experts], params.w_up[experts],
-                     params.w_down[experts], xe, cfg.mlp_activation)
+    ye = _expert_ffn(w_gate, w_up, w_down, xe, cfg.mlp_activation)
     weighted = (ye * slot_gate[..., None].to(ye.dtype)).reshape(-1, D)
     weighted = torch.cat([weighted.float(), x2d.new_zeros(
         1, D, dtype=torch.float32)])          # the trash row: dropped ones
@@ -218,19 +234,100 @@ def _moe_ep_shard(params: MoE, x2d: torch.Tensor, cfg: ModelConfig,
     return weighted[dest.reshape(T, -1)].sum(1), aux
 
 
-def _moe_ep(params: MoE, x2d: torch.Tensor, cfg: ModelConfig,
-            mesh) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The expert-parallel path on one rank: every expert local, the sum
-    over the mesh's 'model' group, ``aux`` averaged over its batch axes."""
-    E = params.w_up.shape[0]
-    y, aux = _moe_ep_shard(params, x2d, cfg, 0, E)
-    if mesh is not None:
-        y = funcol.all_reduce(y, "sum", mesh.get_group("model"))
-        for a in ("pod", "data"):
-            if a in mesh_axes(mesh):
-                g = mesh.get_group(a)
-                aux = funcol.all_reduce(aux, "sum", g) / g.size()
+def _moe_ep(params: MoE, x2d: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel path.  Placed (``DTensor``s): each rank
+    dispatches the tokens of its batch shard to its 'model' shard of the
+    experts (``_placed_ep``).  Plain: every expert is local (the one
+    rank's 'model' shard is all of them), so the reference's sum over
+    'model' and mean over the batch axes have one term each."""
+    if is_placed(x2d, params.w_up):
+        return _placed_ep(params, x2d, cfg, x2d.device_mesh
+                          if is_placed(x2d) else params.w_up.device_mesh)
+    y, aux = _moe_ep_shard(params.router, params.w_gate, params.w_up,
+                           params.w_down, x2d, cfg, 0)
     return y.to(x2d.dtype), aux
+
+
+def _placed_ep(params: MoE, x2d: torch.Tensor, cfg: ModelConfig,
+               mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``shard_map`` body on each rank's local tensors.
+
+    The rank's tokens are its shard over the batch axes, whole over
+    'model' (every 'model' rank routes them all); its experts are its
+    shard over 'model', gathered over 'data' (FSDP shards their rows).
+    Its partial outputs come back ``Partial`` over 'model' and are summed
+    there (the reference's ``psum``); ``aux``, each batch shard's, is
+    their mean (``pmean``).  For the backward every rank's gradient of its
+    tokens and of the router is a part of a sum over 'model' (each rank
+    holds its own experts' terms), so ``aux`` enters the sum as its share
+    1 / ('model' size) on each rank."""
+    names = list(mesh_axes(mesh))
+    T = x2d.shape[0]
+    rows = batch_placements(mesh, T)
+    whole = replicated(mesh)
+    experts = tuple(Shard(0) if a == "model" else Replicate() for a in names)
+    batch_axes = [a for a, p in zip(names, rows) if p.is_shard()]
+    n_batch = math.prod(mesh_axes(mesh)[a] for a in batch_axes)
+    n_model = mesh_axes(mesh).get("model", 1)
+    if cfg.num_experts % n_model:
+        raise ValueError(f"expert parallelism: {cfg.num_experts} experts do "
+                         f"not divide over a 'model' axis of {n_model}")
+    E_local = cfg.num_experts // n_model
+    coord = dict(zip(names, mesh.get_coordinate()))
+    e_lo = coord.get("model", 0) * E_local
+    every = batch_axes + ["model"]
+
+    def local(x, router, w_gate, w_up, w_down):
+        y, aux = _moe_ep_shard(router, w_gate, w_up, w_down, x, cfg, e_lo)
+        return y, aux / (n_batch * n_model)
+
+    y, aux = local_apply(
+        local, (x2d, params.router, params.w_gate, params.w_up,
+                params.w_down),
+        (rows, whole, experts, experts, experts),
+        (partial_over(rows, mesh, ["model"]),
+         partial_over(whole, mesh, every)),
+        grad_placements=(partial_over(rows, mesh, ["model"]),
+                         partial_over(whole, mesh, every))
+        + (partial_over(experts, mesh, batch_axes),) * 3, mesh=mesh)
+    return y.redistribute(mesh, rows).to(x2d.dtype), \
+        aux.redistribute(mesh, whole)
+
+
+def _placed_dense(params: MoE, x2d: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's dense path on placed inputs, where its EP rule
+    does not hold: each rank runs every expert (gathered) on its batch
+    shard, every 'model' rank alike, with fixed shapes (so it runs on
+    ``meta`` too, where the routed path's host read cannot); the
+    load-balance loss reads the whole batch's means of the router's
+    probabilities and choices, summed over the batch axes first, as the
+    reference computes it on a mesh."""
+    mesh = x2d.device_mesh if is_placed(x2d) else params.w_up.device_mesh
+    names = list(mesh_axes(mesh))
+    T, E, k = x2d.shape[0], cfg.num_experts, cfg.experts_per_token
+    rows = batch_placements(mesh, T)
+    whole = replicated(mesh)
+    batch_axes = [a for a, p in zip(names, rows) if p.is_shard()]
+    summed = partial_over(whole, mesh, batch_axes)
+
+    def local(x, router, w_gate, w_up, w_down):
+        p = SimpleNamespace(router=router, w_gate=w_gate, w_up=w_up,
+                            w_down=w_down)
+        gates, idx, _ = router_topk(p, x, cfg)
+        probs = torch.softmax(x.float() @ router.float(), dim=-1)
+        chosen = F.one_hot(idx, E).float().sum((0, 1))
+        return _dense(p, x, gates, idx, cfg).to(x.dtype), probs.sum(0), \
+            chosen
+
+    y, probs, chosen = local_apply(
+        local, (x2d, params.router, params.w_gate, params.w_up,
+                params.w_down), (rows,) + (whole,) * 4,
+        (rows, summed, summed), grad_placements=(rows,) + (summed,) * 4,
+        mesh=mesh)
+    aux = E * ((probs / T) * (chosen / (T * k))).sum()
+    return y, aux
 
 
 def _use_ep(cfg: ModelConfig, tokens: int, mesh=None) -> bool:
@@ -250,13 +347,11 @@ def apply_moe(params: MoE, x: torch.Tensor, cfg: ModelConfig, *,
               mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), aux loss scalar)."""
     B, S, D = x.shape
-    if mesh is not None and mesh.size() > 1:
-        raise NotImplementedError(
-            f"MoE on a mesh of {mesh.size()} ranks: the sharded step is not "
-            f"ported (one rank only)")
     x2d = x.reshape(B * S, D)
     if _use_ep(cfg, B * S, mesh):
-        y2d, aux = _moe_ep(params, x2d, cfg, mesh)
+        y2d, aux = _moe_ep(params, x2d, cfg)
+    elif is_placed(x2d, params.w_up):
+        y2d, aux = _placed_dense(params, x2d, cfg)
     else:
         gates, idx, aux = router_topk(params, x2d, cfg)
         y2d = _routed(params, x2d, gates, idx,

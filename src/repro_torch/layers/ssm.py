@@ -20,10 +20,38 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba_scan import kernel as scan_kernel
 from repro_torch.layers.common import _empty, rmsnorm
+from repro_torch.sharding.rules import (batch_placements, is_placed,
+                                        local_apply, partial_over, split_dim)
+
+
+def _scan(scan, dt, A, xs, Bc, Cc, h0, channels: int):
+    """K11 (``scan``: Mamba-1's or the head-shared form) on each rank's
+    local tensors where its inputs are placed: the batch over ('pod',
+    'data') and the channels (Mamba-1's 'ssm_inner', Mamba-2's heads) over
+    'model' where they divide; B and C are read whole by every 'model'
+    rank, so their gradients are parts of a sum over it."""
+    if not is_placed(dt, A, xs, Bc, Cc, h0):
+        return scan(dt, A, xs, Bc, Cc, h0)
+    mesh = next(t for t in (dt, A, xs, Bc, Cc, h0)
+                if is_placed(t)).device_mesh
+    B = dt.shape[0]
+    chan = batch_placements(mesh, B, model_dim=2, size=channels)
+    state = batch_placements(mesh, B, model_dim=1, size=channels)
+    rows = batch_placements(mesh, B)
+    a = tuple(Shard(0) if p == Shard(2) else Replicate() for p in chan)
+    batch_axes = [n for n, p in zip(mesh.mesh_dim_names, rows)
+                  if p.is_shard()]
+    a_grad = partial_over(a, mesh, batch_axes)
+    bc_grad = partial_over(rows, mesh, ["model"] if chan != rows else [])
+    return local_apply(scan, (dt, A, xs, Bc, Cc, h0),
+                       (chan, a, chan, rows, rows, state), (chan, state),
+                       grad_placements=(chan, a_grad, chan, bc_grad,
+                                        bc_grad, state), mesh=mesh)
 
 
 def dt_rank(cfg: ModelConfig) -> int:
@@ -115,7 +143,7 @@ def apply_mamba1(m: Mamba1, x: torch.Tensor, cfg: ModelConfig, *,
     A = -torch.exp(m.A_log.float())                           # (E, N)
     h0 = state["ssm"] if state is not None else \
         torch.zeros((B, E, N), dtype=torch.float32, device=x.device)
-    ys, hT = scan_kernel.mamba1_scan(dt, A, xs, Bc, Cc, h0)
+    ys, hT = _scan(scan_kernel.mamba1_scan, dt, A, xs, Bc, Cc, h0, E)
     y = ys.to(x.dtype) + xs * m.D
     y = y * F.silu(z)
     out = y @ m.out_proj
@@ -205,8 +233,8 @@ def apply_mamba2(m: Mamba2, x: torch.Tensor, cfg: ModelConfig, *,
     h0 = state["ssm"] if state is not None else \
         torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
     xs = xs.contiguous()
-    ys, hT = scan_kernel.mamba2_scan(dt, A, xs, Bc, Cc, h0)
-    y = ys + xs.reshape(B, S, H, P).float() * m.D[:, None]
+    ys, hT = _scan(scan_kernel.mamba2_scan, dt, A, xs, Bc, Cc, h0, H)
+    y = ys + split_dim(xs, 2, (H, P)).float() * m.D[:, None]
     y = y.reshape(B, S, E).to(x.dtype)
     y = rmsnorm(y * F.silu(z), m.gate_norm, cfg.norm_eps)
     out = y @ m.out_proj

@@ -10,9 +10,11 @@ cache) + cross-attention (K9, not causal, Sq != Sk, in training, prefill
 and decode) + MLP stack.  The loss runs K10.
 
 ``mesh`` (on ``hidden``, ``loss``, ``prefill``, ``decode_step``) is the
-reference's keyword, a mesh of one rank or None; the model has no MoE
-layer, and the reference's activation constraints that read it are
-identities on one rank, so no layer reads it.
+reference's keyword, a mesh or None; the model has no MoE layer, and the
+reference's activation constraints read it (``constrain_batch`` on the
+encoder's and the decoder's input and after each of their layers): they
+redistribute placed activations on a mesh of more than one rank and are
+identities otherwise.
 
 Layout differences from the reference:
 
@@ -47,6 +49,7 @@ from repro_torch.layers.common import (MLP, Embedding, _empty, embed,
                                        unembed_matrix)
 from repro_torch.models.losses import chunked_softmax_xent
 from repro_torch.models.transformer import param_axes  # noqa: F401
+from repro_torch.sharding.rules import constrain_batch, split_dim
 
 ENC_POS_SCALE = 0.02        # the reference's explicit ``scale=`` of enc_pos
 
@@ -150,11 +153,13 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return model
 
 
-def encode(model: EncDecModel, frame_embeds: torch.Tensor) -> torch.Tensor:
+def encode(model: EncDecModel, frame_embeds: torch.Tensor, *,
+           mesh=None) -> torch.Tensor:
     """frame_embeds (B, F, D) -> encoder output (B, F, D)."""
     cfg = model.cfg
     B, F, _ = frame_embeds.shape
-    h = frame_embeds.to(model.enc_pos.dtype) + model.enc_pos[None, :F]
+    h = constrain_batch(frame_embeds.to(model.enc_pos.dtype)
+                        + model.enc_pos[None, :F], mesh)
     positions = torch.arange(F, device=h.device).expand(B, F)
     for lp in model.encoder:
         x = rmsnorm(h, lp.attn_norm, cfg.norm_eps)
@@ -162,7 +167,7 @@ def encode(model: EncDecModel, frame_embeds: torch.Tensor) -> torch.Tensor:
         o = flash_attend(q, k, v, causal=False, q_chunk=cfg.q_chunk)
         h = h + o.reshape(B, F, -1) @ lp.attn.wo
         x = rmsnorm(h, lp.mlp_norm, cfg.norm_eps)
-        h = h + lp.mlp(x)
+        h = constrain_batch(h + lp.mlp(x), mesh)
     return rmsnorm(h, model.enc_final_norm, cfg.norm_eps)
 
 
@@ -170,20 +175,21 @@ def _cross_kv(lp: DecLayer, enc_out: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     B, F, _ = enc_out.shape
     KVH, dh = cfg.num_kv_heads, cfg.head_dim
-    k = (enc_out @ lp.cross.wk).reshape(B, F, KVH, dh)
-    v = (enc_out @ lp.cross.wv).reshape(B, F, KVH, dh)
+    k = split_dim(enc_out @ lp.cross.wk, 2, (KVH, dh))
+    v = split_dim(enc_out @ lp.cross.wv, 2, (KVH, dh))
     return k, v
 
 
 def decoder_hidden(model: EncDecModel, tokens: torch.Tensor,
                    enc_out: torch.Tensor, *, cache: Optional[dict] = None,
-                   cache_index: Optional[int] = None) -> torch.Tensor:
+                   cache_index: Optional[int] = None,
+                   mesh=None) -> torch.Tensor:
     """Final-normed decoder hidden (B, S, D) of ``tokens`` at positions
     ``cache_index`` (default 0) onwards; with a cache, layer i's self K/V
     are written into ``cache["self"]`` index i in place."""
     cfg = model.cfg
     B, S = tokens.shape
-    h = embed(model.embed, tokens, cfg)
+    h = constrain_batch(embed(model.embed, tokens, cfg), mesh)
     start = int(cache_index or 0)
     positions = (torch.arange(S, device=h.device) + start).expand(B, S)
     for i, lp in enumerate(model.decoder):
@@ -198,7 +204,7 @@ def decoder_hidden(model: EncDecModel, tokens: torch.Tensor,
                          cross_kv=_cross_kv(lp, enc_out, cfg))
         h = h + o
         x = rmsnorm(h, lp.mlp_norm, cfg.norm_eps)
-        h = h + lp.mlp(x)
+        h = constrain_batch(h + lp.mlp(x), mesh)
     return rmsnorm(h, model.final_norm, cfg.norm_eps)
 
 
@@ -212,7 +218,7 @@ def hidden(model: EncDecModel, tokens: torch.Tensor, *,
     cache, the encoder output is stored in ``cache["enc_out"]`` in place);
     without them the cache's ``enc_out`` is read."""
     if frontend_embeds is not None:
-        enc_out = encode(model, frontend_embeds)
+        enc_out = encode(model, frontend_embeds, mesh=mesh)
         if cache is not None:
             cache["enc_out"].copy_(enc_out)
     elif cache is not None:
@@ -221,7 +227,7 @@ def hidden(model: EncDecModel, tokens: torch.Tensor, *,
         raise ValueError("the encoder-decoder needs frontend_embeds or a "
                          "cache holding enc_out")
     h = decoder_hidden(model, tokens, enc_out, cache=cache,
-                       cache_index=cache_index)
+                       cache_index=cache_index, mesh=mesh)
     return h, h.new_zeros((), dtype=torch.float32), cache
 
 

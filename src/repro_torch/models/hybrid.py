@@ -12,9 +12,11 @@ already linear-time).  The Mamba-2 scans run K11's head-shared form
 K1/K2, or K5/K6 with DSA, as the transformer's does.
 
 ``mesh`` (on ``hidden``, ``loss``, ``prefill``, ``decode_step``) is the
-reference's keyword, a mesh of one rank or None: it reaches the shared
-block's ``transformer.apply_block`` (no MoE there), and the reference's
-activation constraints that read it are identities on one rank.
+reference's keyword, a mesh or None: it reaches the shared block's
+``transformer.apply_block`` (no MoE there) and the reference's
+activation constraints (``constrain_batch`` after the embedding and
+after each Mamba-2 layer), which redistribute placed activations on a
+mesh of more than one rank and are identities otherwise.
 
 Layout differences from the reference:
 
@@ -54,6 +56,7 @@ from repro_torch.layers.ssm import Mamba2, apply_mamba2, mamba2_state
 from repro_torch.models import transformer as tfm
 from repro_torch.models.losses import mean_xent
 from repro_torch.models.transformer import param_axes  # noqa: F401
+from repro_torch.sharding.rules import constrain_batch
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -187,14 +190,14 @@ def hidden(model: HybridModel, tokens: torch.Tensor, *,
     else:
         positions = (span + int(cache_index or 0)).expand(B, S)
     every = cfg.hybrid_attn_every
-    h = embed(model.embed, tokens, cfg)
+    h = constrain_batch(embed(model.embed, tokens, cfg), mesh)
     for i, layer in enumerate(model.layers):
         st = None if cache is None else \
             {name: leaf[i] for name, leaf in cache["ssm"].items()}
         y, new = apply_mamba2(layer.mamba, rmsnorm(h, layer.norm,
                                                    cfg.norm_eps),
                               cfg, state=st)
-        h = h + y
+        h = constrain_batch(h + y, mesh)
         if st is not None:
             for name, leaf in st.items():
                 leaf.copy_(new[name])

@@ -18,6 +18,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.chunked_ce import ops as ce_ops
+from repro_torch.sharding.rules import (batch_placements, is_placed,
+                                        local_apply, partial_over,
+                                        replicated)
 
 
 class _ChunkedXent(torch.autograd.Function):
@@ -64,8 +67,30 @@ def chunked_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
                          chunk: int = 512, softcap: float = 0.0
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h (B, S, D), unembed (D, V), targets/mask (B, S) -> (sum of masked
-    token NLL, number of masked-in tokens), fp32 scalars."""
-    return _ChunkedXent.apply(h, unembed, targets, mask, chunk, softcap)
+    token NLL, number of masked-in tokens), fp32 scalars.
+
+    Placed (``DTensor``) inputs run K10 on each rank's shard of the batch
+    with the whole unembedding: the rules shard its 'vocab' over 'model'
+    and K10 needs every vocabulary column of a token, so it is gathered
+    over 'model' (and over 'data', where FSDP shards its rows) first.
+    Each rank's sums are a part of the batch's (``Partial`` over the batch
+    axes), as is its unembedding gradient."""
+    def xent(h, unembed, targets, mask):
+        return _ChunkedXent.apply(h, unembed, targets, mask, chunk, softcap)
+
+    if not is_placed(h, unembed, targets, mask):
+        return xent(h, unembed, targets, mask)
+    mesh = next(t for t in (h, unembed, targets, mask)
+                if is_placed(t)).device_mesh
+    rows = batch_placements(mesh, h.shape[0])
+    whole = replicated(mesh)
+    batch_axes = [a for a, p in zip(mesh.mesh_dim_names, rows)
+                  if p.is_shard()]
+    summed = partial_over(whole, mesh, batch_axes)
+    return local_apply(xent, (h, unembed, targets, mask),
+                       (rows, whole, rows, rows), (summed, summed),
+                       grad_placements=(rows, summed, rows, rows),
+                       mesh=mesh)
 
 
 def mean_xent(h, unembed, targets, mask, *, chunk: int = 512,

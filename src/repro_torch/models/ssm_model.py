@@ -7,9 +7,10 @@ cross-entropy alone (K10; no softcap, no auxiliary loss); the "cache" is
 the per-layer recurrent state, length-free.
 
 ``mesh`` (on ``hidden``, ``loss``, ``prefill``, ``decode_step``) is the
-reference's keyword, a mesh of one rank or None; the model has no MoE
-layer, and the reference's activation constraints that read it are
-identities on one rank, so no layer reads it.
+reference's keyword, a mesh or None; the model has no MoE layer, and the
+reference's activation constraints read it (``constrain_batch`` after the
+embedding and after each layer): they redistribute placed activations on
+a mesh of more than one rank and are identities otherwise.
 
 Layout differences from the reference:
 
@@ -36,6 +37,7 @@ from repro_torch.layers.common import (Embedding, _empty, embed,
 from repro_torch.layers.ssm import Mamba1, apply_mamba1, mamba1_state
 from repro_torch.models.losses import chunked_softmax_xent
 from repro_torch.models.transformer import param_axes  # noqa: F401
+from repro_torch.sharding.rules import constrain_batch
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -113,13 +115,13 @@ def hidden(model: SSMModel, tokens: torch.Tensor, *,
     cache (``init_cache``) each layer starts from its state and writes the
     new one into it in place."""
     cfg = model.cfg
-    h = embed(model.embed, tokens, cfg)
+    h = constrain_batch(embed(model.embed, tokens, cfg), mesh)
     for i, layer in enumerate(model.layers):
         st = None if cache is None else \
             {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
         x = rmsnorm(h, layer.norm, cfg.norm_eps)
         y, new = apply_mamba1(layer.mamba, x, cfg, state=st)
-        h = h + y
+        h = constrain_batch(h + y, mesh)
         if cache is not None:
             cache["conv"][i].copy_(new["conv"])
             cache["ssm"][i].copy_(new["ssm"])

@@ -41,8 +41,12 @@ are the same, the peak memory lower.
 
 ``mesh`` (on ``hidden``, ``loss``, ``prefill``, ``decode_step``,
 ``verify_step``) is the reference's: it reaches the MoE layers, whose
-``apply_moe`` chooses the expert-parallel path by it; the reference's
-activation constraints are identities on the one rank the port runs.
+``apply_moe`` chooses the expert-parallel path by it, and the
+reference's activation constraints (``constrain_batch`` after the
+embedding, ``constrain_batch`` or, under ``cfg.seq_parallel``,
+``constrain_batch_seq`` around each block's sub-layers), which
+redistribute placed activations on a mesh of more than one rank and are
+identities otherwise.
 
 Layout differences from the reference:
 
@@ -84,6 +88,7 @@ from repro_torch.layers.common import (MLP, Embedding, _empty, embed,
                                        unembed_matrix)
 from repro_torch.layers.moe import ROUTER_SCALE, MoE, apply_moe
 from repro_torch.models.losses import chunked_softmax_xent, mean_xent
+from repro_torch.sharding.rules import constrain_batch, constrain_batch_seq
 
 NORMS = ("attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm",
          "q_a_norm", "kv_a_norm", "h_norm", "e_norm")
@@ -376,17 +381,19 @@ def apply_block(block: Block, h: torch.Tensor, cfg: ModelConfig,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (h, aux loss): the MoE router's load-balance loss plus 0.01 ×
     the indexer KL (the reference's coefficients)."""
+    cb = constrain_batch_seq if cfg.seq_parallel else constrain_batch
+    h = cb(h, mesh)
     a_in = rmsnorm(h, block.attn_norm, cfg.norm_eps)
     a_out, ind_kl = _attend(block, a_in, cfg, positions, layer_cache,
                             cache_index, block_tables, paged_impl, sparse)
-    h = h + a_out
+    h = h + cb(a_out, mesh)
     m_in = rmsnorm(h, block.mlp_norm, cfg.norm_eps)
     if hasattr(block, "moe"):
         m_out, aux = apply_moe(block.moe, m_in, cfg, mesh=mesh)
     else:
         m_out, aux = block.mlp(m_in), 0.0
     # indexer KL coefficient 0.01 (small; it only trains the indexer)
-    return h + m_out, aux + 0.01 * ind_kl
+    return h + cb(m_out, mesh), aux + 0.01 * ind_kl
 
 
 def _layer_caches(cfg: ModelConfig, cache: dict, block_tables):
@@ -439,6 +446,7 @@ def hidden(model: Transformer, tokens: torch.Tensor, *,
     h = embed(model.embed, tokens, cfg)
     if frontend_embeds is not None:
         h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
+    h = constrain_batch(h, mesh)
     S = h.shape[1]
     span = torch.arange(S, dtype=torch.int32, device=dev)
     if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:

@@ -16,23 +16,41 @@ and indexer head projections) on its own.  Leaf by leaf as the reference:
 
 Parameters are dictionaries of tensors by name (``named_parameters``).
 ``update`` writes the new values into the parameters in place (the
-reference returns new arrays); the state's buffers are updated in place
-too.  The reference keeps a zeros tree of second moments for every leaf;
+reference returns new arrays), and the state's buffers, with the
+reference's arithmetic and no temporary of a leaf's size that it can do
+without (the AdamW branch holds two beside the gradient).  The reference keeps a zeros tree of second moments for every leaf;
 the port keeps them for the AdamW leaves only (the Muon leaves' are zeros
-there and never read).  ``update(..., mesh=)`` is the reference's
-``muon_sharded_ns``: ``_ns_group_constraint`` shards the Newton–Schulz
-groups over the mesh so that each rank orthogonalizes whole matrices; on
-one rank it is the identity, and a mesh of more than one rank raises
-``NotImplementedError`` (the sharded step is not ported).
+there and never read).
+
+``update(..., mesh=)`` is the reference's ``muon_sharded_ns``, the
+zero-redundant Muon of GLM-5 §2.4.1: on placed parameters (``DTensor``s)
+the Newton–Schulz groups are sharded over the mesh so that each rank
+orthogonalizes whole matrices locally, then the directions go back to
+each leaf's placements (``_ns_group_constraint``: the reference's
+candidate axes and divisibility rule).  The reference stacks each layer
+leaf on a leading 'layers' axis, which is part of its group axis; the
+port keeps a leaf a layer, so the Muon leaves that differ only in their
+layer index (same shape, axes and placements) are stacked into one group
+axis first (``_direction_groups``; off a mesh each leaf is a group of
+one, and every leaf takes the one path, ``_stacked_directions``).  Each matrix's direction is the same
+function of its momentum on any mesh; only where it is computed moves.
+With plain parameters, or off a mesh, every rank computes every
+direction (the identity constraint).  Global-norm clipping and the AdamW
+branch act on placed tensors as on plain ones.
 """
 from __future__ import annotations
 
+import math
+import re
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.rules import (is_placed, local_apply, mesh_axes,
+                                        replicated, split_dim)
 
 NS_COEFFS = (3.4445, -4.7750, 2.0315)
 NS_STEPS = 5
@@ -90,39 +108,66 @@ def _rms_scale(shape) -> float:
 
 
 def _ns_group_constraint(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The Newton–Schulz groups (the leading axis of ``x``) over the mesh:
-    the identity off a mesh and on one rank."""
-    if mesh is None or mesh.size() == 1:
+    """Shard the leading Newton–Schulz group axis of a placed ``x`` (G, m,
+    n) over the mesh, each matrix whole on one rank: the first of the
+    reference's candidate axes — ('pod', 'data', 'model'), ('data',
+    'model'), ('data',), ('model',), those the mesh has — whose size is
+    larger than 1 and divides G; where none does, every rank takes every
+    matrix (replicated).  The identity off a mesh and on a plain
+    tensor."""
+    if mesh is None or not is_placed(x):
         return x
-    raise NotImplementedError(
-        f"Muon's sharded Newton–Schulz on a mesh of {mesh.size()} ranks is "
-        f"not ported (one rank only)")
+    sizes = mesh_axes(mesh)
+    g = x.shape[0]
+    for cand in (tuple(a for a in ("pod", "data", "model") if a in sizes),
+                 tuple(a for a in ("data", "model") if a in sizes),
+                 ("data",), ("model",)):
+        n = math.prod(sizes.get(a, 1) for a in cand)
+        if cand and n > 1 and g % n == 0:
+            return x.redistribute(mesh, tuple(
+                Shard(0) if a in cand else Replicate() for a in sizes))
+    return x.redistribute(mesh, replicated(mesh))
 
 
-def _muon_direction(m_buf: torch.Tensor, axes: Axes, cfg: ModelConfig,
-                    split: bool, mesh=None) -> torch.Tensor:
-    """NS-orthogonalize the trailing (m, n) matrix of ``m_buf``; leading
-    axes are groups, and Muon Split also splits the head axis found in the
-    trailing two dims."""
-    shape = m_buf.shape
-    m, n = shape[-2:]
+def _orthogonalize(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``newton_schulz`` of every matrix of ``x`` (G, m, n): on the local
+    matrices of each rank where ``x`` is placed (``_ns_group_constraint``
+    decides which rank takes which), the directions back in ``x``'s
+    placements."""
+    if not is_placed(x):
+        return newton_schulz(x)
+
+    def ns(t):
+        # contiguous: a placed view's strides must match its local shard's
+        return newton_schulz(t).contiguous()
+    if mesh is None:
+        # placed, without muon_sharded_ns: DTensor's ops on x's own
+        # placements, which may leave the result sharded otherwise
+        return ns(x).redistribute(x.device_mesh, x.placements)
+    grouped = _ns_group_constraint(x, mesh)
+    o = local_apply(ns, (grouped,), (grouped.placements,),
+                    grouped.placements, mesh=grouped.device_mesh)
+    return o.redistribute(x.device_mesh, x.placements)
+
+
+def _grouping(axes: Axes, shape, cfg: ModelConfig, split: bool
+              ) -> Optional[Tuple[int, int, int, bool]]:
+    """Muon Split's head grouping of a leaf's trailing (m, n) matrix, or
+    None (no split)."""
     axes2 = tuple(axes[-2:]) if axes else (None, None)
-    grouping = _split_shape(axes2, (m, n), cfg) if split else None
-    if grouping is None:
-        x = _ns_group_constraint(m_buf.reshape(-1, m, n), mesh)
-        o = newton_schulz(x) * _rms_scale((m, n))
-        return o.reshape(shape)
-    g, ms, ns, head_first = grouping
-    if head_first:
-        x = m_buf.reshape(-1, g, ms, ns)
-    else:
-        x = m_buf.reshape(-1, ms, g, ns).transpose(1, 2)
-    x = _ns_group_constraint(x.reshape(-1, ms, ns), mesh)
-    o = newton_schulz(x) * _rms_scale((ms, ns))
-    o = o.reshape(-1, g, ms, ns)
-    if not head_first:
-        o = o.transpose(1, 2)
-    return o.reshape(shape)
+    return _split_shape(axes2, tuple(shape[-2:]), cfg) if split else None
+
+
+def _in_fp32(t: torch.Tensor, f) -> torch.Tensor:
+    """``f`` applied in place to ``t`` in fp32: to ``t`` itself where it is
+    fp32 (no temporary of its size: GLM-5's vocabulary tables are 3.8 GB
+    each), else to an fp32 copy that is written back; returns the fp32
+    tensor."""
+    t32 = t.float()
+    f(t32)
+    if t32 is not t:
+        t.copy_(t32)
+    return t32
 
 
 @dataclass
@@ -140,6 +185,62 @@ def init(params: Dict[str, torch.Tensor],
                 if not _is_muon_param(axes[k], tuple(p.shape))})
 
 
+def _group_form(x: torch.Tensor, axes: Axes, cfg: ModelConfig,
+                split: bool):
+    """A Muon leaf's momentum as its Newton–Schulz groups, (g, m, n): its
+    leading axes ('experts') and, under Muon Split, the head axis found in
+    its trailing two dims; and the function that puts such a tensor back
+    into the leaf's shape."""
+    shape = x.shape
+    m, n = shape[-2:]
+    grouping = _grouping(axes, shape, cfg, split)
+    if grouping is None:
+        return x.reshape(-1, m, n), lambda o: o.reshape(shape)
+    g, ms, ns, head_first = grouping
+    if head_first:
+        return (split_dim(x, -2, (g, ms)).reshape(-1, ms, ns),
+                lambda o: o.reshape(shape))
+    x = split_dim(x, -1, (g, ns)).transpose(-3, -2)       # (..., g, m, ns)
+    return (x.reshape(-1, ms, ns),
+            lambda o: o.reshape(x.shape).transpose(-3, -2).reshape(shape))
+
+
+def _direction_groups(params: Dict[str, torch.Tensor],
+                      axes: Dict[str, Axes], cfg: ModelConfig, split: bool,
+                      mesh) -> List[List[str]]:
+    """The leaves whose directions are computed together: on placed
+    parameters over a mesh, the Muon leaves that differ only in their
+    layer index (same shape, axes and placements), which is the
+    reference's stacked 'layers' group axis; otherwise one leaf each."""
+    if mesh is None or not is_placed(*params.values()):
+        return [[k] for k in params]
+    groups: Dict[tuple, List[str]] = {}
+    for k, p in params.items():
+        key = (k,)
+        if _is_muon_param(axes[k], tuple(p.shape)) and (
+                p.ndim == 2 or _grouping(axes[k], p.shape, cfg,
+                                         split) is None):
+            key = (re.sub(r"\.\d+\.", ".#.", k), tuple(p.shape), axes[k],
+                   getattr(p, "placements", None))
+        groups.setdefault(key, []).append(k)
+    return list(groups.values())
+
+
+def _stacked_directions(m_bufs: List[torch.Tensor], axes: Axes,
+                        cfg: ModelConfig, split: bool, mesh
+                        ) -> List[torch.Tensor]:
+    """The directions of same-shaped leaves at once: each leaf's groups
+    first, the leaves stacked behind them, one (g·L, m, n) batch of
+    matrices for ``_orthogonalize``, then each leaf's part back in its
+    shape."""
+    forms = [_group_form(b, axes, cfg, split) for b in m_bufs]
+    g, ms, ns = forms[0][0].shape
+    x = torch.stack([f for f, _ in forms], dim=1).reshape(-1, ms, ns)
+    o = _orthogonalize(x, mesh) * _rms_scale((ms, ns))
+    o = o.reshape(g, len(m_bufs), ms, ns)
+    return [back(o[:, i]) for i, (_, back) in enumerate(forms)]
+
+
 @torch.no_grad()
 def update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
            axes: Dict[str, Axes], state: MuonState, *, lr: float,
@@ -148,25 +249,35 @@ def update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
            split: bool = True, mesh=None) -> MuonState:
     """One optimizer step, in place on ``params`` and the state's buffers;
     returns the state with ``count`` advanced.  ``mesh`` shards the
-    Newton–Schulz groups (the identity on one rank)."""
+    Newton–Schulz groups of placed parameters (see the module's
+    docstring)."""
     count = state.count + 1
     b1 = 0.9
-    for k, p in params.items():
-        g32 = grads[k].float()
-        m = state.momentum[k]
-        if _is_muon_param(axes[k], tuple(p.shape)):
-            m_new = momentum * m.float() + g32
-            d = _muon_direction(m_new, axes[k], cfg, split, mesh)
-        else:                                  # AdamW fallback
-            v = state.second[k]
-            m_new = b1 * m.float() + (1 - b1) * g32
-            v_new = beta2 * v.float() + (1 - beta2) * g32.square()
-            mhat = m_new / (1 - b1 ** count)
-            vhat = v_new / (1 - beta2 ** count)
-            d = mhat / (vhat.sqrt() + eps)
-            v.copy_(v_new)
-        p.copy_(p.float() * (1 - lr * weight_decay) - lr * d)
-        m.copy_(m_new)
+
+    def write(p, d):
+        """p * (1 - lr wd) - lr d in p's fp32 form, d its scratch."""
+        if is_placed(p):
+            d = d.redistribute(p.device_mesh, p.placements)
+        _in_fp32(p, lambda p32: p32.mul_(1 - lr * weight_decay).sub_(
+            d.mul_(lr)))
+
+    for names in _direction_groups(params, axes, cfg, split, mesh):
+        k = names[0]
+        if _is_muon_param(axes[k], tuple(params[k].shape)):
+            m_new = [_in_fp32(state.momentum[n], lambda m, n=n: m.mul_(
+                momentum).add_(grads[n].float())) for n in names]
+            ds = _stacked_directions(m_new, axes[k], cfg, split, mesh)
+            for n, d in zip(names, ds):
+                write(params[n], d)
+            continue
+        g32 = grads[k].float()                 # AdamW fallback
+        m = _in_fp32(state.momentum[k],
+                     lambda m: m.mul_(b1).add_(g32 * (1 - b1)))
+        v = _in_fp32(state.second[k], lambda v: v.mul_(beta2).add_(
+            g32.square().mul_(1 - beta2)))
+        denom = (v / (1 - beta2 ** count)).sqrt_().add_(eps)
+        write(params[k], (m / (1 - b1 ** count)).div_(denom))
+        del denom                  # before the next leaf's temporaries
     return MuonState(state.momentum, state.second, count)
 
 

@@ -28,6 +28,11 @@ PEAK_FLOPS = 989e12       # bf16 dense FLOP/s, H100 SXM
 HBM_BW = 3.35e12          # bytes/s, HBM3
 LINK_BW = 450e9           # bytes/s, NVLink 4, each direction
 
+CONSTANTS = {"compute_s: PEAK_FLOPS, bf16 dense FLOP/s, H100 SXM": PEAK_FLOPS,
+             "memory_s: HBM_BW, bytes/s, HBM3": HBM_BW,
+             "collective_s: LINK_BW, bytes/s, NVLink 4 each direction":
+             LINK_BW}
+
 # ring-algorithm wire multipliers (bytes moved per device / buffer bytes)
 WIRE_MULT = {
     "all-reduce": 2.0,
@@ -73,6 +78,9 @@ class Roofline:
     temp_bytes: int
     output_bytes: int
     bytes_kind: str = BYTES_KIND
+    # what each term divided by: the card's constants, named
+    constants: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: dict(CONSTANTS))
 
     def to_dict(self):
         return dataclasses.asdict(self)

@@ -19,7 +19,14 @@ compute):
   (parameters, optimizer state, batch, cache) are counted apart, as the
   reference's argument bytes;
 * collectives: the functional collectives' ops (``_c10d_functional``),
-  their buffer bytes and group sizes.
+  their buffer bytes (the larger of an op's input and output: the whole
+  buffer a ring moves (n - 1) / n of) and group sizes.
+
+On placed tensors (``DTensor``s over a mesh, the pod dry run's) the mode
+sees each rank's local ops, so every count is per device, and the
+collectives DTensor inserts to redistribute are counted with the step's
+own; the ops DTensor runs on fake tensors to propagate shapes are not
+counted.  A ``DTensor`` argument counts its local shard's bytes.
 
 A kernel wrapper given ``meta`` tensors runs its plain version's ops, so
 the bytes are those of the unfused eager program, where the reference's
@@ -34,6 +41,8 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
@@ -73,13 +82,38 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _is_fake(args) -> bool:
+    return any(isinstance(t, FakeTensor) for t in tree_leaves(args))
+
+
+class _LocalFlops(FlopCounterMode):
+    """``FlopCounterMode`` without the ops DTensor runs on fake tensors to
+    propagate shapes."""
+
+    def _count_flops(self, func_packet, out, args, kwargs):
+        if _is_fake((args, kwargs, out)):
+            return out
+        return super()._count_flops(func_packet, out, args, kwargs)
+
+
 def _storages(tree) -> Dict[int, int]:
-    """{storage key: bytes} of the tensors of ``tree``."""
+    """{storage key: bytes} of the tensors of ``tree`` (a ``DTensor``'s
+    local shard's)."""
     out = {}
     for t in leaves(tree):
-        st = t.untyped_storage()
+        st = _local(t).untyped_storage()
         out[st._cdata] = st.nbytes()
     return out
+
+
+def held_bytes(tree) -> int:
+    """The bytes one rank holds of ``tree``'s tensors (a ``DTensor``'s
+    local shard's)."""
+    return sum(_nbytes(_local(t)) for t in leaves(tree))
 
 
 def _is_view(func) -> bool:
@@ -123,7 +157,11 @@ class _Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented        # its local ops come back here
         out = func(*args, **kwargs)
+        if _is_fake((args, kwargs, out)):
+            return out
         name = func.overloadpacket.__name__
         bookkeeping = False
         if func.namespace == "_c10d_functional":
@@ -131,8 +169,8 @@ class _Counter(TorchDispatchMode):
                 from torch.distributed.distributed_c10d import \
                     _resolve_process_group
                 group = _resolve_process_group(args[-1]).size()
-                self.collectives.append((COLLECTIVES[name], _nbytes(out),
-                                         group))
+                self.collectives.append((COLLECTIVES[name], max(
+                    _nbytes(args[0]), _nbytes(out)), group))
             else:
                 bookkeeping = True
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
@@ -151,7 +189,7 @@ def count(fn: Callable, *args, arguments: Any = ()) -> Tuple[Any, Counts]:
     arguments.  Returns (fn's result, the counts)."""
     arg_st = _storages(arguments)
     counter = _Counter(arg_st)
-    with FlopCounterMode(display=False) as flops, counter:
+    with _LocalFlops(display=False) as flops, counter:
         out = fn(*args)
     counter._prune()
     counter.peak = max(counter.peak, counter.held)

@@ -16,8 +16,9 @@
   ``analyze_hlo`` FLOPs of the same step compiled on the CPU (ratio 1 to
   1e-6: both count the matrix products);
 * ``dryrun.run_one`` for yi-6b ``decode_32k`` on ``meta`` at full size
-  writes a record with the reference's fields; a pod mesh's record holds
-  the per-device bytes its placements decide, its step ``not_ported``;
+  writes a record with the reference's fields; a multi-pod record (kimi-k2
+  at 2 layers) holds the sharded step counted per device
+  (``test_torch_dryrun_pods.py`` holds the pod records to the placements);
 * K11's forwards on ``meta`` are one op each: the plain versions' output
   shapes, dtypes and FLOPs, the kernel's bytes (inputs read once, outputs
   written once); so the scan archs' ``prefill_32k`` steps are counted
@@ -243,14 +244,13 @@ def test_run_one_records(tmp_path, monkeypatch):
     assert rec["peak_memory_bytes"] > rec["argument_bytes"]
     assert rec["dominant"] == "memory" and rec["collective_s"] == 0.0
     assert 0 < rec["useful_ratio"] <= 1.0
-    # the multi-pod mesh: what the placements decide, per device
-    pod = dryrun.run_one("kimi-k2-1t-a32b", "train_4k", mesh="pod2x16x16",
-                         verbose=False)
-    assert pod["step"] == "not_ported" and pod["chips"] == 512
-    per = pod["per_device"]
-    assert 0 < per["param_bytes"] < pod["param_bytes_global"] / 16
-    assert per["opt_state_bytes"] > per["param_bytes"]
-    assert per["batch_bytes"] == 256 * 4096 * (4 + 4 + 4) // 32
+    # the multi-pod mesh: the sharded step, counted per device
+    pod = dryrun.run_one("kimi-k2-1t-a32b", "decode_32k", mesh="pod2x16x16",
+                         num_layers=2, verbose=False)
+    assert pod["step"] == "counted" and pod["chips"] == 512
+    assert pod["reduced"] == {"num_layers": [61, 2]}
+    assert 0 < pod["argument_bytes"] < pod["param_bytes_global"] / 16
+    assert pod["collective_s"] > 0 and pod["flops_per_device"] > 0
 
 
 def _meta(*shape, dtype=torch.float32):

@@ -126,7 +126,7 @@ def test_ep_matches_reference_ep_and_dense(oracle, arch, on_mesh):
                                rtol=RTOL)
     x2d = xt.reshape(-1, cfg.d_model)
     y_ep, aux_ep = tmoe._moe_ep(module, x2d, cfg.replace(
-        moe_impl="expert_parallel", capacity_factor=AMPLE), mesh)
+        moe_impl="expert_parallel", capacity_factor=AMPLE))
     y_dense, aux_dense = tmoe._moe_dense(module, x2d, cfg)
     np.testing.assert_allclose(y_ep.numpy(), y_dense.numpy(), atol=ATOL,
                                rtol=RTOL)

@@ -13,9 +13,8 @@
   host mesh;
 * ``make_host_mesh``: a 1 x 1 ('data', 'model') mesh over a gloo group of
   one rank, started once and ended by ``destroy_host_mesh``;
-  ``make_production_mesh`` refuses a process with fewer ranks;
-* the step factories, Muon and ``apply_moe`` refuse a mesh of more than
-  one rank (``NotImplementedError``).
+  ``make_production_mesh`` refuses a process with fewer ranks (the step
+  on more than one rank: ``test_torch_sharded_step.py``).
 
 The process group is ended after the file.
 """
@@ -33,8 +32,7 @@ from repro.models import get_model as jax_get_model
 from repro.sharding import rules as jrules
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.launch import mesh as tmesh
-from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
-                                      make_train_step)
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import get_model
 from repro_torch.sharding import rules as trules
 from _torch_threads import one_torch_thread  # noqa: F401
@@ -171,24 +169,6 @@ def test_host_mesh_constraints_are_identities():
         tmesh.make_production_mesh(device_type="cpu")
     tmesh.destroy_host_mesh()
     assert not dist.is_initialized()
-
-
-def test_meshes_of_more_than_one_rank_are_refused():
-    from repro_torch.layers import moe
-    from repro_torch.optim import muon
-    cfg = get_smoke_config("qwen3_moe_235b")
-    model = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
-                                device="cpu")
-    pod = tmesh.production_mesh_shape()
-    assert pod.size() == 256
-    for factory in (make_train_step, make_prefill_step, make_serve_step):
-        with pytest.raises(NotImplementedError):
-            factory(model, mesh=pod)
-    blk = model.layers[0].moe
-    with pytest.raises(NotImplementedError):
-        moe.apply_moe(blk, torch.zeros(1, 4, cfg.d_model), cfg, mesh=pod)
-    with pytest.raises(NotImplementedError):
-        muon._ns_group_constraint(torch.zeros(4, 8, 8), pod)
 
 
 @pytest.mark.parametrize("arch", ["yi_6b", "falcon_mamba_7b", "zamba2_2p7b",
